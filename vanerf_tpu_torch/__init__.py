@@ -1,0 +1,20 @@
+"""vanerf_tpu_torch — the PyTorch + CUDA port of ``vanerf_tpu``.
+
+The serving path (``renderer.render_patch`` / ``render_full_image``) runs
+on one NVIDIA Hopper GPU.  The four TPU kernels on that path are
+hand-written CUDA C++ for ``sm_90a`` under ``csrc/``:
+
+  * A — culled point->mesh query  (``ops/mesh_query.py``)
+  * B — nearest-vertex search      (``ops/knn.py``)
+  * C — z-buffer rasterizer        (``ops/rasterize.py``)
+  * D — small-map bilinear sampler (``ops/interp_mxu.py``)
+
+Each kernel has a plain-PyTorch twin in the same module; a wrapper takes
+the twin only for CPU tensors.  The package imports torch, numpy and the
+standard library — never jax, flax, yaml or ``vanerf_tpu``.
+
+Layouts follow ``vanerf_tpu`` at every public function: channels-last
+(B, H, W, C) maps and (B, N, 3) points.  Compute is float32.
+"""
+
+__version__ = "0.1.0"

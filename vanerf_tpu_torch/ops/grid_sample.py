@@ -1,0 +1,40 @@
+"""Bilinear feature sampling (port of ``vanerf_tpu/ops/grid_sample.py``).
+
+Semantics of the reference ``feat_sample`` (``src/utils.py:136-151``,
+``F.grid_sample`` bilinear, border padding, align_corners=True) on
+channels-last maps, as gather + lerp.  The JAX package runs this op in
+XLA, so the port keeps it plain PyTorch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def grid_sample_2d(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """(H, W, C) map at (N, 2) coords in [-1, 1] (x, y) -> (N, C)."""
+    H, W, C = feat.shape
+    x = ((uv[:, 0] + 1.0) * 0.5 * (W - 1.0)).clamp(0.0, W - 1.0)
+    y = ((uv[:, 1] + 1.0) * 0.5 * (H - 1.0)).clamp(0.0, H - 1.0)
+    x0 = torch.floor(x).clamp(0, W - 1)
+    y0 = torch.floor(y).clamp(0, H - 1)
+    wx = (x - x0)[:, None]
+    wy = (y - y0)[:, None]
+    ix0 = x0.long()
+    iy0 = y0.long()
+    ix1 = (ix0 + 1).clamp(max=W - 1)
+    iy1 = (iy0 + 1).clamp(max=H - 1)
+    flat = feat.reshape(H * W, C)
+    f00 = flat[iy0 * W + ix0]
+    f01 = flat[iy0 * W + ix1]
+    f10 = flat[iy1 * W + ix0]
+    f11 = flat[iy1 * W + ix1]
+    top = f00 * (1 - wx) + f01 * wx
+    bot = f10 * (1 - wx) + f11 * wx
+    return top * (1 - wy) + bot * wy
+
+
+def feat_sample_nhwc(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) maps at (B, N, 2) coords -> (B, N, C)."""
+    return torch.stack([grid_sample_2d(feat[b], uv[b])
+                        for b in range(feat.shape[0])])
