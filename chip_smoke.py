@@ -8,7 +8,7 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU:
 Phases, each printing what it found; any failed check raises and the
 script exits non-zero (there is no CPU fallback):
 
-  1. build (or reuse) the four CUDA kernels from ``vanerf_tpu_torch/csrc``;
+  1. build (or reuse) the five CUDA kernels from ``vanerf_tpu_torch/csrc``;
   2. each kernel against its plain-PyTorch twin on the card, at the shapes
      the serving path gives it (a 64x64-ray patch x 64 samples = 262,144
      points, the 256^2 subdiv=3 two-hand fixture: 2,560 faces, 1,284
@@ -18,7 +18,17 @@ script exits non-zero (there is no CPU fallback):
      64x64 tiles each, 64+64 samples) and one bench-shaped group of 16
      mask-centred 64x64 patches; every kernel's launch counter must move;
   4. one 16x16-ray patch rendered on the card (kernels) and on the CPU
-     (plain twins) with the same weights.
+     (plain twins) with the same weights;
+  5. training at full width with ``VANERF_ONEHOT_SCATTER=1``: 3 faithful
+     GAN steps (``training.make_train_step``) on mask-centred 64x64
+     patches with 64+64 samples, a seeded ``DiscriminatorVis`` and a
+     VGG19 with the flax-default initialisation drawn from seed 19; every
+     loss and parameter must stay finite and the kernels of the training
+     path (A, B, C and the scatter 13) must each launch; prints ms/step
+     (steps 2-3) and the peak device memory;
+  6. one G-loss gradient on a 16x16-ray training patch with the same
+     draws on the card (kernels) and on the CPU (plain twins): the loss
+     and each parameter's gradient norm compared.
 
 A ``details:`` line holds every measured number; the line before the last
 is a JSON object with one entry per kernel; the last line is
@@ -51,7 +61,21 @@ KERNELS = {
                   "vanerf_tpu/ops/rasterize_pallas.py:73"),
     "interp_mxu": ("vanerf_tpu_torch/csrc/interp.cu",
                    "vanerf_tpu/ops/interp_mxu.py:92"),
+    "onehot_scatter": ("vanerf_tpu_torch/csrc/onehot_scatter.cu",
+                       "vanerf_tpu/ops/onehot_gather.py:86"),
 }
+TRAIN_STEPS = 3
+# phase 6: card vs CPU.  The gradients sum in other orders on the two
+# devices (cuDNN against CPU convolutions, atomics in index_add_ and the
+# scatter backward of the plain gathers): the G loss to rtol 1e-4, and
+# each parameter's gradient g to ||g_card - g_cpu|| <= 1e-3 ||g_cpu|| +
+# 1e-6 ||all gradients||.  The second term covers gradients that are tiny
+# next to the whole, where terms that cancel keep their rounding (the
+# LayerNorm biases of the global-context convs, ~1e-5 of the total) and
+# the structurally zero ones (conv biases in front of instance norms).
+CARD_CPU_LOSS_RTOL = 1e-4
+CARD_CPU_GRAD_RTOL = 1e-3
+CARD_CPU_GRAD_ATOL = 1e-6
 
 
 def say(msg: str) -> None:
@@ -109,7 +133,7 @@ def main_path_points(model, batch):
 def phase_kernels(model, batch, dev):
     import torch
     from vanerf_tpu_torch.ops import (interp_mxu, knn, mesh_query,
-                                      rasterize)
+                                      onehot_gather, rasterize)
     results = {}
     pts, mesh, geo_coarse, uv = main_path_points(model, batch)
     verts = batch["verts"][0].contiguous()
@@ -205,6 +229,50 @@ def phase_kernels(model, batch, dev):
     results["interp_mxu"] = dict(
         shape=f"{uv.shape[0]} points on {' and '.join(shapes)} maps",
         max_abs_err=err_d, ms=ms_d, plain_ms=plain_d)
+
+    # --- 13: the take_rows table gradient at the training path's two
+    # tables: the KNN vertex table (rows = vertices, the packed
+    # [this | toh] rows of 2 x (72 + 29 + 1) channels) read at the
+    # nearest-vertex ids, and the packed 32^2 x 4*64 geometry coarse map
+    # read at the texel of each point.  The twin on the card is
+    # index_add_ with float atomics, which sums in another (run-dependent)
+    # order: |kernel - twin| <= 1e-5 x the row's sum of |g|.
+    Hc, Wc = geo_coarse.shape[:2]
+    xc = ((uv[:, 0] + 1.0) * 0.5 * (Wc - 1.0)).clamp(0.0, Wc - 1.0)
+    yc = ((uv[:, 1] + 1.0) * 0.5 * (Hc - 1.0)).clamp(0.0, Hc - 1.0)
+    tex_idx = (torch.floor(yc) * Wc + torch.floor(xc)).to(torch.int32)
+    cases = [("knn table", idx, verts.shape[0], 2 * (72 + 29 + 1)),
+             ("32^2 coarse map", tex_idx, Hc * Wc, 4 * geo_coarse.shape[2])]
+    err_s, ms_s, plain_s, shapes, stats = 0.0, 0.0, 0.0, [], {}
+    for tag, rows, T, C in cases:
+        g = torch.randn(rows.shape[0], C, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(SEED))
+        rows = rows.contiguous()
+        got = onehot_gather.onehot_scatter_cuda(g, rows, T)
+        again = onehot_gather.onehot_scatter_cuda(g, rows, T)
+        want = onehot_gather.onehot_scatter_plain(g, rows, T)
+        bound = onehot_gather.onehot_scatter_plain(g.abs(), rows, T)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"scatter not deterministic ({tag})")
+        e = (got - want).abs()
+        check(bool((e <= 1e-5 * bound + 1e-30).all()),
+              f"scatter err {e.max().item()} ({tag})")
+        err_s = max(err_s, e.max().item())
+        k_ms = cuda_ms(lambda: onehot_gather.onehot_scatter_cuda(g, rows, T),
+                       20)
+        p_ms = cuda_ms(lambda: onehot_gather.onehot_scatter_plain(g, rows, T),
+                       20)
+        ms_s += k_ms
+        plain_s += p_ms
+        stats[tag] = dict(rows=T, channels=C, max_abs_err=e.max().item(),
+                          rel_to_abs_sum=(e / bound.clamp(min=1e-30))
+                          .max().item(), bit_equal_runs=True,
+                          rows_read=int((bound > 0).any(1).sum()),
+                          ms=k_ms, plain_ms=p_ms)
+        shapes.append(f"{T}x{C}")
+    results["onehot_scatter"] = dict(
+        shape=f"{uv.shape[0]} rows into {' and '.join(shapes)} tables",
+        max_abs_err=err_s, ms=ms_s, plain_ms=plain_s, detail=stats)
     return results
 
 
@@ -252,8 +320,9 @@ def phase_main_path(model, batches, dev):
               "full image: rays missed the hands")
     check(max(o["alpha_fine"].max().item() for o in group) > 0.2,
           "patch group: rays missed the hands")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in ("mesh_query", "knn", "rasterize", "interp_mxu"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the serving path")
     samples = PATCH * PATCH * (S_C + S_C + S_F) * 16
     return dict(frame_ms=frame_ms, group_s=group_s,
                 ray_samples_per_s=samples / group_s, launches=launches,
@@ -287,6 +356,112 @@ def phase_card_vs_cpu(model, batch_np, dev):
               f"card vs CPU mismatch in {k}: {errs[k]}")
     check(out_cpu["alpha_fine"].max().item() > 0.2, "16x16 patch missed")
     return errs
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the GAN train step at full width
+# ---------------------------------------------------------------------------
+
+def train_parts(model, dev):
+    """A copy of the generator, a seeded discriminator and the seed-19 VGG,
+    on ``dev``."""
+    import torch
+    from vanerf_tpu_torch.losses import VGGLoss
+    from vanerf_tpu_torch.models import DiscriminatorVis, init_like_flax
+    disc = DiscriminatorVis()
+    init_like_flax(disc, torch.Generator().manual_seed(SEED + 1))
+    vgg = VGGLoss()
+    init_like_flax(vgg.vgg_net, torch.Generator().manual_seed(19))
+    return copy.deepcopy(model).to(dev), disc.to(dev), vgg.to(dev)
+
+
+def phase_train(model, batch, cfg, dev):
+    import torch
+    from vanerf_tpu_torch import ops
+    from vanerf_tpu_torch.training import create_train_state, make_train_step
+    gen_model, disc, vgg = train_parts(model, dev)
+    state = create_train_state(gen_model, disc, cfg)
+    step = make_train_step(gen_model, disc, cfg, vgg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    step_ms, logs = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        logs.append(step(state, batch, gen))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    for i, lg in enumerate(logs):
+        for k, v in lg.items():
+            check(bool(torch.isfinite(v).all()), f"step {i}: {k} = {v}")
+    for net in (gen_model, disc):
+        for name, p in net.named_parameters():
+            check(bool(torch.isfinite(p).all()), f"non-finite {name}")
+    for name in ("mesh_query", "knn", "rasterize", "onehot_scatter"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the training path")
+    check(launches["interp_mxu"] == 0, "kernel D ran under training")
+    return dict(step_ms=step_ms, ms_per_step=sum(step_ms[1:]) /
+                (len(step_ms) - 1), peak_bytes=peak, launches=launches,
+                logs=[{k: v.item() for k, v in lg.items()} for lg in logs])
+
+
+# ---------------------------------------------------------------------------
+# phase 6: one G-loss gradient, card (kernels) against CPU (plain twins)
+# ---------------------------------------------------------------------------
+
+def phase_train_card_vs_cpu(model, batch_np, cfg, dev):
+    import torch
+    from vanerf_tpu_torch.data import to_torch
+    from vanerf_tpu_torch.training import generator_loss, generator_outputs
+    cfg = copy.deepcopy(cfg)
+    m = cfg["models"]["VANeRF"]
+    m["train_out_h"] = m["train_out_w"] = 16
+    P = 16 * 16
+    gen = torch.Generator().manual_seed(SEED + 4)
+    b_cpu = to_torch(batch_np, "cpu")
+    from vanerf_tpu_torch import renderer as tr
+    draws = {"grids": tr.mask_centered_grid(gen, b_cpu["tar_mask"][..., 0],
+                                            16, 16),
+             "u_c": torch.rand(1, P, S_C, generator=gen),
+             "noise_c": torch.randn(1, P * S_C, 1, generator=gen),
+             "u_f": torch.rand(1, P, S_F, generator=gen),
+             "noise_f": torch.randn(1, P * S_F, 1, generator=gen)}
+    res = []
+    for where in (dev, torch.device("cpu")):
+        g_model, disc, vgg = train_parts(model, where)
+        out = generator_outputs(g_model, to_torch(batch_np, where), cfg,
+                                draws=draws)
+        loss, _ = generator_loss(out, disc, vgg, cfg)
+        grads = torch.autograd.grad(loss, list(g_model.parameters()),
+                                    allow_unused=True)
+        names = [n for n, _ in g_model.named_parameters()]
+        res.append((loss.item(), {
+            n: (torch.zeros_like(p) if gr is None else gr).cpu()
+            for n, p, gr in zip(names, g_model.parameters(), grads)}))
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = res
+    total = sum(float(g.double().pow(2).sum()) for g in g_cpu.values()) ** .5
+    rows = []
+    for n, gc in g_cpu.items():
+        nc = float(gc.double().norm())
+        e = float((g_gpu[n].double() - gc.double()).norm())
+        allowed = CARD_CPU_GRAD_RTOL * nc + CARD_CPU_GRAD_ATOL * total
+        rows.append((e / allowed, e / nc if nc > 0 else 0.0, nc / total, n))
+    rows.sort(reverse=True)
+    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    check(loss_err <= CARD_CPU_LOSS_RTOL, f"G loss card {l_gpu} cpu {l_cpu}")
+    check(rows[0][0] <= 1.0, f"gradient of {rows[0][3]}: error "
+          f"{rows[0][0]:.3g} x its bound")
+    rel = max(rows, key=lambda r: r[1])
+    return dict(loss_card=l_gpu, loss_cpu=l_cpu, loss_rel_err=loss_err,
+                worst_of_bound=rows[0][0], worst_grad=rows[0][3],
+                worst_grad_rel_err=rel[1], worst_rel_grad=rel[3],
+                grad_norm=total,
+                top5=[dict(name=r[3], of_bound=r[0], rel_err=r[1],
+                           norm_share=r[2]) for r in rows[:5]])
 
 
 def main() -> int:
@@ -366,17 +541,40 @@ def main() -> int:
     say(f"phase 4 card vs CPU (16x16 rays, 64+64 samples): max abs err "
         f"{errs}")
 
+    # ---- phase 5 ----
+    os.environ["VANERF_ONEHOT_SCATTER"] = "1"
+    train = phase_train(model, batches[0], cfg, dev)
+    say(f"phase 5 training ({TRAIN_STEPS} faithful GAN steps, 64x64 rays, "
+        f"64+64 samples): {train['ms_per_step']:.1f} ms/step (steps 2-"
+        f"{TRAIN_STEPS}; all: {[round(t, 1) for t in train['step_ms']]}); "
+        f"peak {train['peak_bytes'] / 2**30:.2f} GiB; launches "
+        f"{train['launches']}; g_loss "
+        f"{[round(lg['train/g_loss'], 4) for lg in train['logs']]}, d_loss "
+        f"{[round(lg['train/d_loss'], 4) for lg in train['logs']]}")
+
+    # ---- phase 6 ----
+    vs_cpu = phase_train_card_vs_cpu(model, frames[0], cfg, dev)
+    say(f"phase 6 G-loss gradient card vs CPU (16x16 rays, 64+64 samples): "
+        f"loss {vs_cpu['loss_card']:.7g} / {vs_cpu['loss_cpu']:.7g} (rel "
+        f"{vs_cpu['loss_rel_err']:.2e}); gradients within "
+        f"{vs_cpu['worst_of_bound']:.2f} of their bound at worst "
+        f"({vs_cpu['worst_grad']}); largest relative norm error "
+        f"{vs_cpu['worst_grad_rel_err']:.2e} ({vs_cpu['worst_rel_grad']})")
+
+    launches = dict(main["launches"],
+                    onehot_scatter=train["launches"]["onehot_scatter"])
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = kres[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
-                        "launches": main["launches"][name],
+                        "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"]})
     say("details: " + json.dumps({"gpu": smi, "build_s": build_s,
                                   "kernels": kres, "main_path": main,
-                                  "card_vs_cpu": errs}))
+                                  "card_vs_cpu": errs, "train": train,
+                                  "train_card_vs_cpu": vs_cpu}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

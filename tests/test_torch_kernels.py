@@ -22,7 +22,8 @@ import torch_port_helpers as h
 from vanerf_tpu_torch import ops
 from vanerf_tpu_torch import renderer as tr
 from vanerf_tpu_torch.data.synthetic import two_hand_mesh
-from vanerf_tpu_torch.ops import interp_mxu, knn, mesh_query, rasterize
+from vanerf_tpu_torch.ops import (interp_mxu, knn, mesh_query, onehot_gather,
+                                  rasterize)
 
 
 def T(x):
@@ -60,7 +61,8 @@ def test_cpu_tensors_take_the_plain_path():
         sample_per_ray_c=h.S_C, sample_per_ray_f=h.S_F)
     assert torch.isfinite(out["tex_fg_fine"]).all()
     assert ops.launch_counts() == {"mesh_query": 0, "knn": 0,
-                                   "rasterize": 0, "interp_mxu": 0}
+                                   "rasterize": 0, "interp_mxu": 0,
+                                   "onehot_scatter": 0}
 
 
 def test_kernel_library_is_keyed_on_sources():
@@ -70,7 +72,7 @@ def test_kernel_library_is_keyed_on_sources():
     assert path.name.startswith("libvanerf_kernels_")
     srcs = {p.name for p in _cuda._sources()}
     assert {"knn.cu", "rasterize.cu", "mesh_query.cu", "interp.cu",
-            "common.cuh"} <= srcs
+            "onehot_scatter.cu", "common.cuh"} <= srcs
     assert "arch=compute_90a,code=sm_90a" in _cuda.NVCC_FLAGS
 
 
@@ -143,3 +145,32 @@ def test_interp_kernel_matches_plain(cuda):
         got = interp_mxu.interp_cuda(feat, uv)
         want = interp_mxu.interp_plain(feat, uv)
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_onehot_scatter_kernel_matches_plain(cuda):
+    """Kernel 13 against index_add_ (other summation order: rtol 1e-5 of
+    the row's absolute sum), bit-equal across runs, through take_rows'
+    backward, and zeros for rows that no point reads."""
+    rs = np.random.RandomState(5)
+    for n, t, c in ((262144, 1284, 204), (5000, 37, 12), (1, 3, 5)):
+        idx = np.minimum(rs.geometric(0.01, n) - 1, t - 2).astype(np.int32)
+        g = T(rs.randn(n, c).astype(np.float32)).to(cuda)
+        i = T(idx).to(cuda)
+        n0 = onehot_gather.launches
+        got = onehot_gather.onehot_scatter_cuda(g, i, t)
+        again = onehot_gather.onehot_scatter_cuda(g, i, t)
+        torch.cuda.synchronize()
+        assert onehot_gather.launches == n0 + 2
+        assert torch.equal(got, again)
+        want = onehot_gather.onehot_scatter_plain(g, i, t)
+        bound = onehot_gather.onehot_scatter_plain(g.abs(), i, t)
+        assert ((got - want).abs() <= 1e-5 * bound + 1e-30).all()
+        assert torch.equal(got[t - 1], torch.zeros_like(got[t - 1]))
+    table = torch.randn(50, 8, device=cuda, requires_grad=True)
+    i = torch.randint(0, 50, (3000,), device=cuda)
+    w = torch.randn(3000, 8, device=cuda)
+    (onehot_gather.take_rows(table, i) * w).sum().backward()
+    assert torch.allclose(table.grad,
+                          onehot_gather.onehot_scatter_plain(w, i, 50),
+                          rtol=1e-5, atol=1e-5)

@@ -329,3 +329,34 @@ def test_unported_options_raise(monkeypatch):
             _check_env()
         monkeypatch.delenv(env)
     _check_env()
+
+
+def test_query_skips_kernel_d_under_training(port, monkeypatch):
+    """Kernel D has no gradient: a training query, or any query under an
+    autograd graph, samples the small maps with the gather path (as JAX,
+    ``models/vanerf.py:304-324``); only a no-grad eval query takes it."""
+    from vanerf_tpu_torch.models import vanerf as tv
+    batch = h.torch_batch(h.synthetic_batch()[0])
+    calls = []
+    real = tv.interp_sample_nhwc
+    monkeypatch.setattr(tv, "interp_sample_nhwc",
+                        lambda f, xy: calls.append(f.shape) or real(f, xy))
+    rs = np.random.RandomState(20)
+    N = 16
+    pts = T(h.two_hand_points(N, seed=21)[None])
+    cam = {"KRT": batch["src_krt"], "extrin": batch["src_extrin"],
+           "width": h.W, "height": h.H, "znear": batch["znear"],
+           "zfar": batch["zfar"]}
+    fg, ft = port.encode(batch["src_img"])
+    args = (pts, T(rs.randn(1, N, 3).astype(np.float32)), cam, fg, ft,
+            batch["src_img"], batch["src_mask"], batch["verts"],
+            torch.ones(1, 2 * h.NUM_V, 1), torch.ones(1, N, 1),
+            torch.zeros(1, N, 1), batch["kpt3d"], 8)
+    with torch.no_grad():
+        out_eval, _ = port.query(*args)
+    assert len(calls) == 1              # the 16^2 fine geometry map
+    out_train, _ = port.query(*args, training=True)
+    out_graph, _ = port.query(*args)
+    assert len(calls) == 1
+    assert out_train.requires_grad and out_graph.requires_grad
+    close(out_train, out_eval.numpy())

@@ -174,13 +174,31 @@ def test_unported_render_options_raise(monkeypatch):
     grids = T(h.center_grid())
     kw = dict(grids=grids, out_h=4, out_w=4, sample_per_ray_c=4,
               sample_per_ray_f=4)
-    for bad in (dict(training=True), dict(n_views=2),
-                dict(compute_vis_map=True)):
-        with pytest.raises(NotImplementedError):
-            tr.render_patch(model, batch, **kw, **bad)
+    with pytest.raises(NotImplementedError):
+        tr.render_patch(model, batch, **kw, n_views=2)
     for env in ("VANERF_FAR_SKIP", "VANERF_FAR_NET", "VANERF_FAR_TNET",
                 "VANERF_SOA_POINTS"):
         monkeypatch.setenv(env, "0.5")
         with pytest.raises(NotImplementedError):
             tr.render_patch(model, batch, **kw)
         monkeypatch.delenv(env)
+
+
+def test_render_patch_training_builds_a_graph():
+    """training=True renders with gradients (eval keeps no_grad): the
+    output requires grad and a backward reaches the encoder weights."""
+    model = h.port_model()
+    batch = h.torch_batch(h.synthetic_batch()[0])
+    kw = dict(grids=T(h.center_grid()), out_h=4, out_w=4,
+              sample_per_ray_c=4, sample_per_ray_f=4)
+    assert not tr.render_patch(model, batch, **kw)["tex_fg_fine"] \
+        .requires_grad
+    out = tr.render_patch(model, batch, **kw, training=True,
+                          compute_vis_map=True, rand_noise_std=0.01,
+                          generator=torch.Generator().manual_seed(0))
+    assert out["tex_fg_fine"].requires_grad
+    assert out["vis_img"].shape == (1, 4, 4, 1)
+    out["tex_fg_fine"].sum().backward()
+    for w in (model.geo_encoder.conv1.weight,
+              model.tex_encoder.layers[1].weight, model.sigmoid_beta):
+        assert w.grad is not None and w.grad.abs().sum() > 0

@@ -1,13 +1,16 @@
 """vanerf_tpu_torch — the PyTorch + CUDA port of ``vanerf_tpu``.
 
-The serving path (``renderer.render_patch`` / ``render_full_image``) runs
-on one NVIDIA Hopper GPU.  The four TPU kernels on that path are
-hand-written CUDA C++ for ``sm_90a`` under ``csrc/``:
+The serving path (``renderer.render_patch`` / ``render_full_image``) and
+the GAN train step (``training.make_train_step``) run on one NVIDIA Hopper
+GPU.  The TPU kernels on those paths are hand-written CUDA C++ for
+``sm_90a`` under ``csrc/``:
 
   * A — culled point->mesh query  (``ops/mesh_query.py``)
   * B — nearest-vertex search      (``ops/knn.py``)
   * C — z-buffer rasterizer        (``ops/rasterize.py``)
-  * D — small-map bilinear sampler (``ops/interp_mxu.py``)
+  * D — small-map bilinear sampler (``ops/interp_mxu.py``, inference)
+  * 13 — table gradient of the small-table gathers
+    (``ops/onehot_gather.py``, training with ``VANERF_ONEHOT_SCATTER=1``)
 
 Each kernel has a plain-PyTorch twin in the same module; a wrapper takes
 the twin only for CPU tensors.  The package imports torch, numpy and the

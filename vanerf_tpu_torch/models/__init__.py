@@ -4,3 +4,4 @@ from .ibr import IBRRenderingHead  # noqa: F401
 from .mlp import MLP, MLPUNet, MLPUNetFusion, WNLinear  # noqa: F401
 from .spatial import SpatialEncoder  # noqa: F401
 from .vanerf import VANeRF, init_like_flax  # noqa: F401
+from .discriminator import DiscriminatorVis  # noqa: F401

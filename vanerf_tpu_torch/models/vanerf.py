@@ -1,11 +1,14 @@
 """VANeRF generator (port of ``vanerf_tpu/models/vanerf.py``; reference
-``VANeRF``, ``src/model.py:604-1024``), inference path.
+``VANeRF``, ``src/model.py:604-1024``).
 
 Supported: one source view, ``sp_type=rel_z_decay``, ``sp_conv=false``,
-float32.  The fused-MLP, two-resolution and MXU row-gather variants of the
-JAX package are not ported and raise when their environment switches are
-set.  Small encoder maps (``interp_mxu_viable``) are sampled through
-kernel D, as the JAX package does at inference on a TPU.
+float32, eval and training (at one view the training query equals the eval
+query: view dropout needs two views).  The fused-MLP, two-resolution and
+MXU row-gather variants of the JAX package are not ported and raise when
+their environment switches are set.  At inference small encoder maps
+(``interp_mxu_viable``) are sampled through kernel D, as the JAX package
+does on a TPU; kernel D has no gradient, so under training or an autograd
+graph they take the gather path, as in JAX (``models/vanerf.py:304-324``).
 """
 
 from __future__ import annotations
@@ -37,9 +40,10 @@ def _check_env():
             "shortcut of the IBR head")
 
 
-def _psamp(f, xy):
-    """Bilinear sample; small maps go through kernel D."""
-    if interp_mxu_viable(f.shape[1], f.shape[2]):
+def _psamp(f, xy, training: bool):
+    """Bilinear sample; small maps go through kernel D at inference."""
+    if (not training and not torch.is_grad_enabled()
+            and interp_mxu_viable(f.shape[1], f.shape[2])):
         return interp_sample_nhwc(f, xy)
     return feat_sample_nhwc(f, xy)
 
@@ -139,15 +143,16 @@ class VANeRF(nn.Module):
 
     def query(self, pts, view, cam, feat_geo, feat_tex, src_img, fg_mask,
               verts, vert_vis, query_vis, query_sdf, kpt3d, n_samples: int,
-              n_views: int = 1, nn_idx=None, far_mask=None):
-        """(sdf_channel, radiance, rgb) at world points, eval mode.
+              n_views: int = 1, training: bool = False, nn_idx=None,
+              far_mask=None):
+        """(sdf_channel, radiance, rgb) at world points.
 
         pts/view (B, N, 3); cam: 'KRT'/'extrin' (B, 4, 4), 'width',
         'height', 'znear', 'zfar'; feat_geo [(B,h,w,64), (B,H2,W2,8)];
         feat_tex (B, h2, w2, 8); src_img (B, H, W, 3); fg_mask (B, H, W, 1);
         verts (B, V2, 3); vert_vis (B, V2, 1); query_vis/query_sdf
         (B, N, 1); kpt3d (B, K, 3); nn_idx (B, N) nearest-vertex ids;
-        far_mask (B, N, 1) bool or None.
+        far_mask (B, N, 1) bool or None; ``training`` keeps kernel D off.
         Returns out (B, N, 5), valid (B, N, 1).
         """
         if n_views != 1:
@@ -187,16 +192,18 @@ class VANeRF(nn.Module):
         dist_b = torch.minimum(xyz01, 1.0 - xyz01)
         pw = torch.sigmoid(5.0 * (dist_b / 0.1 - 1.0))
         pw = (pw[..., 0] * pw[..., 1] * pw[..., 2]).reshape(B, 1, N, 1)
-        pw = pw * out_mask
+        pw = pw.detach() * out_mask
         pix_weight = pw / (pw.sum(1, keepdim=True) + 1e-6)
 
         if feat_geo[1].shape[1:3] == feat_tex.shape[1:3]:
-            half = _psamp(torch.cat([feat_geo[1], feat_tex], -1), xy)
+            half = _psamp(torch.cat([feat_geo[1], feat_tex], -1), xy,
+                          training)
             ch1 = feat_geo[1].shape[-1]
-            feat_sampled = [_psamp(feat_geo[0], xy), half[..., :ch1]]
+            feat_sampled = [_psamp(feat_geo[0], xy, training),
+                            half[..., :ch1]]
             feat_tex_xy = half[..., ch1:]
         else:
-            feat_sampled = [_psamp(f, xy) for f in feat_geo]
+            feat_sampled = [_psamp(f, xy, training) for f in feat_geo]
             feat_tex_xy = feat_sample_nhwc(feat_tex, xy)
 
         y = self.sp_encoder(v=v, extrin=cam["extrin"], kpt3d=kpt3d)

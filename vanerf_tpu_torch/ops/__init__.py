@@ -4,10 +4,11 @@ Each module that holds a kernel exposes a module-level ``launches``
 counter; :func:`reset_launches` and :func:`launch_counts` read them all.
 """
 
-from . import interp_mxu, knn, mesh_query, rasterize
+from . import interp_mxu, knn, mesh_query, onehot_gather, rasterize
 
 KERNEL_MODULES = {"mesh_query": mesh_query, "knn": knn,
-                  "rasterize": rasterize, "interp_mxu": interp_mxu}
+                  "rasterize": rasterize, "interp_mxu": interp_mxu,
+                  "onehot_scatter": onehot_gather}
 
 
 def reset_launches() -> None:

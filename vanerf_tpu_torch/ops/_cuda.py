@@ -28,12 +28,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signatures of the entry points (all return cudaGetLastError() as int)
 _SIGNATURES = {
     "vt_knn": [_P, _I, _P, _I, _P, _P, _P],
     "vt_raster": [_P, _I, _I, _I, _P, _P, _P],
     "vt_mesh_query": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
     "vt_interp": [_P, _I, _I, _I, _P, _I, _P, _P],
+    "vt_onehot_scatter": [_P, _P, _I, _I, _I, _P, _P, _L, _P, _L, _P],
 }
 
 _lib = None

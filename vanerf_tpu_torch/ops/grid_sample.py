@@ -3,12 +3,26 @@
 Semantics of the reference ``feat_sample`` (``src/utils.py:136-151``,
 ``F.grid_sample`` bilinear, border padding, align_corners=True) on
 channels-last maps, as gather + lerp.  The JAX package runs this op in
-XLA, so the port keeps it plain PyTorch.
+XLA, so the port keeps it plain PyTorch, except that a small map under the
+one-hot scatter policy is read through :func:`take_rows` on its packed
+2x2 corners (``grid_sample.py:56-69``), whose table gradient is kernel 13.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .onehot_gather import onehot_scatter_enabled, take_rows
+
+
+def pack_corners(feat: torch.Tensor) -> torch.Tensor:
+    """(H, W, C) -> (H, W, 4C): packed[y, x] = [f(y,x), f(y,x+1), f(y+1,x),
+    f(y+1,x+1)] with edge replication, so one row gather at (y0, x0)
+    fetches all four bilinear corners."""
+    sx = torch.cat([feat[:, 1:], feat[:, -1:]], 1)
+    sy = torch.cat([feat[1:], feat[-1:]], 0)
+    sxy = torch.cat([sx[1:], sx[-1:]], 0)
+    return torch.cat([feat, sx, sy, sxy], -1)
 
 
 def grid_sample_2d(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
@@ -22,13 +36,18 @@ def grid_sample_2d(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     wy = (y - y0)[:, None]
     ix0 = x0.long()
     iy0 = y0.long()
-    ix1 = (ix0 + 1).clamp(max=W - 1)
-    iy1 = (iy0 + 1).clamp(max=H - 1)
-    flat = feat.reshape(H * W, C)
-    f00 = flat[iy0 * W + ix0]
-    f01 = flat[iy0 * W + ix1]
-    f10 = flat[iy1 * W + ix0]
-    f11 = flat[iy1 * W + ix1]
+    if onehot_scatter_enabled(H * W, uv.shape[0]):
+        g = take_rows(pack_corners(feat).reshape(H * W, 4 * C),
+                      iy0 * W + ix0)
+        f00, f01, f10, f11 = torch.split(g, C, -1)
+    else:
+        ix1 = (ix0 + 1).clamp(max=W - 1)
+        iy1 = (iy0 + 1).clamp(max=H - 1)
+        flat = feat.reshape(H * W, C)
+        f00 = flat[iy0 * W + ix0]
+        f01 = flat[iy0 * W + ix1]
+        f10 = flat[iy1 * W + ix0]
+        f11 = flat[iy1 * W + ix1]
     top = f00 * (1 - wx) + f01 * wx
     bot = f10 * (1 - wx) + f11 * wx
     return top * (1 - wy) + bot * wy

@@ -134,3 +134,35 @@ def vertex_visibility(verts_xy01: torch.Tensor, verts_z01: torch.Tensor,
     vis = torch.zeros(V, device=dev).scatter_reduce(
         0, faces.reshape(-1).long(), face_hit.repeat_interleave(3), "amax")
     return vis[:, None]
+
+
+def render_vis_map(verts: torch.Tensor, faces: torch.Tensor,
+                   vert_vis: torch.Tensor, K: torch.Tensor, Rt: torch.Tensor,
+                   H: int = 256, W: int = 256):
+    """Ground-truth visibility map of the mesh in a target camera
+    (``rasterize.py:155-185``; reference ``render_vis``,
+    ``render_vis.py:181-226``): rasterize (kernel C on CUDA tensors), then
+    interpolate the per-vertex visibility barycentrically on the winning
+    face and binarise at 0.392; background reads 1.
+
+    Args:
+      verts (V, 3) world vertices; faces (F, 3); vert_vis (V, 1) 0/1;
+      K (3, 3) or (4, 4) intrinsics; Rt (3, 4) or (4, 4) extrinsics
+      (x_cam = R x + t).
+    Returns:
+      vis_rgb (3, H, W) in [0, 1], vis_map (1, H, W) in {0, 1}.
+    """
+    cam = verts @ Rt[:3, :3].T + Rt[:3, 3]
+    z = cam[:, 2]
+    u = cam[:, 0] / (z + 1e-8) * K[0, 0] + K[0, 2]
+    v = cam[:, 1] / (z + 1e-8) * K[1, 1] + K[1, 2]
+    pix_to_face, bary, _ = rasterize_zbuffer(torch.stack([u, v], -1), z,
+                                             faces, H, W)
+    vis_tri = vert_vis.reshape(-1)[faces.long()]               # (F, 3)
+    interp = (vis_tri[pix_to_face.clamp(min=0).long()] * bary).sum(-1)
+    bg = pix_to_face < 0
+    one = torch.ones_like(interp)
+    vis_rgb = torch.where(bg, one, interp)
+    vis_bin = torch.where(bg, one, (interp >= 0.392).to(interp.dtype))
+    return (vis_rgb.reshape(1, H, W).expand(3, H, W),
+            vis_bin.reshape(1, H, W))

@@ -1,7 +1,8 @@
-"""Stratified + inverse-CDF importance sampling, eval form (port of
-``vanerf_tpu/ops/sampling.py`` with ``uniform=True``; reference
-``model.py:1222-1232``, ``model.py:1424-1462``).  The jittered training
-draws are not ported."""
+"""Stratified + inverse-CDF importance sampling (port of
+``vanerf_tpu/ops/sampling.py``; reference ``model.py:1222-1232``,
+``model.py:1424-1462``).  Without uniforms both are the deterministic eval
+form (``uniform=True``); the training draws come in as an explicit tensor
+``u`` (the caller draws them, or a test feeds the JAX draws)."""
 
 from __future__ import annotations
 
@@ -9,16 +10,29 @@ import torch
 
 
 def stratified_sample(znear: torch.Tensor, zfar: torch.Tensor,
-                      n_samples: int) -> torch.Tensor:
-    """Evenly spaced depths: (..., 1) bounds -> (..., n_samples)."""
+                      n_samples: int, u: torch.Tensor | None = None
+                      ) -> torch.Tensor:
+    """Depths along each ray: (..., 1) bounds -> (..., n_samples).
+
+    Evenly spaced without ``u``; with uniforms ``u`` (..., n_samples) in
+    [0, 1), each depth is jittered inside its stratum (the midpoints of the
+    evenly spaced depths bound the strata)."""
     z = torch.linspace(0.0, 1.0, n_samples, dtype=znear.dtype,
                        device=znear.device)
-    return znear + (zfar - znear) * z.expand(*znear.shape[:-1], n_samples)
+    z = z.expand(*znear.shape[:-1], n_samples)
+    if u is not None:
+        z_mid = 0.5 * (z[..., 1:] + z[..., :-1])
+        z_lower = torch.cat([z[..., :1], z_mid], -1)
+        z_upper = torch.cat([z_mid, z[..., -1:]], -1)
+        z = z_lower + u * (z_upper - z_lower)
+    return znear + (zfar - znear) * z
 
 
 def importance_sample(contrib: torch.Tensor, z: torch.Tensor,
-                      n_samples: int) -> torch.Tensor:
-    """Inverse-CDF samples of new depths at evenly spaced quantiles.
+                      n_samples: int, u: torch.Tensor | None = None
+                      ) -> torch.Tensor:
+    """Inverse-CDF samples of new depths, at evenly spaced quantiles or at
+    the uniforms ``u`` (B, N, n_samples).
 
     Args:
       contrib: (B, N, D-1) per-bin weights; z: (B, N, D) sorted bin edges.
@@ -31,9 +45,11 @@ def importance_sample(contrib: torch.Tensor, z: torch.Tensor,
     pdf = contrib / contrib.sum(-1, keepdim=True)
     cdf = torch.cumsum(pdf, -1)
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)     # (B,N,D)
-    u = torch.linspace(0.0, 1.0, n_samples, dtype=z.dtype,
-                       device=z.device).expand(*cdf.shape[:-1],
-                                               n_samples).contiguous()
+    if u is None:
+        u = torch.linspace(0.0, 1.0, n_samples, dtype=z.dtype,
+                           device=z.device).expand(*cdf.shape[:-1],
+                                                   n_samples)
+    u = u.contiguous()
     D = cdf.shape[-1]
     # right-searchsorted: prev = last edge with cdf <= u, next = the one
     # after, both clipped to the last edge (model.py:1449-1453)

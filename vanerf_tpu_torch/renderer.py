@@ -1,32 +1,38 @@
-"""Ray-marching renderer, inference path (port of ``vanerf_tpu/renderer.py``;
-reference ``batch_render_pifu_nerf`` ``src/model.py:1102-1422`` and the
+"""Ray-marching renderer (port of ``vanerf_tpu/renderer.py``; reference
+``batch_render_pifu_nerf`` ``src/model.py:1102-1422`` and the
 stride-tiled ``render_pifu_nerf`` ``model.py:1026-1100``).
 
-Per patch: rays through the target camera, AABB clip, uniform stratified
-samples, then per pass the nearest MANO vertex of every sample (kernel B),
-the point->mesh query (kernel A) with the far-field tier, and the network
-query (kernel D for the small encoder map); compositing, importance
-sampling of the fine pass, and a depth sort that merges both passes.  The
-per-frame vertex visibility comes from the z-buffer rasterizer
-(kernel C).  Eval only; the JAX package's approximate serving tiers
-FAR_SKIP / FAR_NET / FAR_TNET, the SoA point layout, the GT visibility
-map and training are not ported and raise when asked for.
+Per patch: rays through the target camera, AABB clip, stratified samples,
+then per pass the nearest MANO vertex of every sample (kernel B), the
+point->mesh query (kernel A) with the far-field tier, and the network
+query (kernel D for the small encoder map at inference); compositing,
+importance sampling of the fine pass, and a depth sort that merges both
+passes.  The per-frame vertex visibility and the target-view GT
+visibility map come from the z-buffer rasterizer (kernel C).  Under
+training the samples are jittered, the radiance takes noise, the render
+builds an autograd graph, and the table gradients of the small-table
+gathers go through kernel 13 when ``VANERF_ONEHOT_SCATTER`` is set.  The
+JAX package's approximate serving tiers FAR_SKIP / FAR_NET / FAR_TNET and
+the SoA point layout are not ported and raise when asked for.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .ops.composite import rgba2out
 from .ops.knn import nearest_vertex_d2
 from .ops.mesh_query import cal_vis_sdf_prepared, prepare_culled_mesh
-from .ops.rasterize import vertex_visibility
+from .ops.rasterize import render_vis_map, vertex_visibility
 from .ops.ray import pixel_grid_rays, ray_bbox_intersection
 from .ops.sampling import importance_sample, stratified_sample
+from .ops.sorting import sort_by_key
 
 # the reference eval_func's normal scale: invalid samples read 0.1/100
 _NML_SCALE = 100.0
@@ -119,9 +125,11 @@ def encode_frame(model, batch: Dict[str, Any], vis_size: int = 256):
     return feat_geo, feat_tex, vert_vis
 
 
-def patch_rays(batch: Dict[str, Any], grids: torch.Tensor, n_samples: int):
+def patch_rays(batch: Dict[str, Any], grids: torch.Tensor, n_samples: int,
+               u: Optional[torch.Tensor] = None):
     """Target-camera rays of a pixel grid, clipped to the mesh bounds, and
-    evenly spaced sample depths (``renderer.py:283-294``).  Returns cam_pos
+    stratified sample depths (``renderer.py:283-294``), jittered by the
+    uniforms ``u`` (B, P, n_samples) when given.  Returns cam_pos
     (B, 1, 3), unit cam_rays (B, P, 3) and depths z (B, P, n_samples)."""
     znear, zfar = batch["znear"], batch["zfar"]
     cam_pos, cam_rays, znear_rays, zfar_rays = pixel_grid_rays(
@@ -132,24 +140,34 @@ def patch_rays(batch: Dict[str, Any], grids: torch.Tensor, n_samples: int):
     m2 = (hit & (z2 < zfar_rays)).to(grids.dtype)
     zfar_rays = m2 * z2 + (1.0 - m2) * zfar_rays
     return cam_pos, cam_rays, stratified_sample(znear_rays, zfar_rays,
-                                                n_samples)
+                                                n_samples, u)
 
 
-def _sort_by_key(key, *payloads):
-    """Stable ascending sort of ``key`` along the last axis, carrying the
-    payloads (``ops/sorting.py::sort_by_key``)."""
-    key_s, perm = torch.sort(key, dim=-1, stable=True)
-    return (key_s,) + tuple(torch.gather(p, -1, perm) for p in payloads)
+def as_float_tensor(x) -> torch.Tensor:
+    """A float32 tensor from a tensor or an array (copied, so read-only
+    numpy buffers are fine)."""
+    if torch.is_tensor(x):
+        return x.float()
+    return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
-def _check_unported(model, training: bool, n_views: int,
-                    compute_vis_map: bool):
-    if training:
-        raise NotImplementedError("the port renders in eval mode only")
+def _draw(draws, key: str, shape, normal: bool, generator, device):
+    """A training draw: ``draws[key]`` when given (tests feed the JAX
+    draws), else uniforms / normals from ``generator`` on its device."""
+    if draws is not None and key in draws:
+        x = as_float_tensor(draws[key])
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"draws[{key!r}]: shape {tuple(x.shape)}, "
+                             f"expected {tuple(shape)}")
+        return x.to(device)
+    gdev = generator.device if generator is not None else torch.device("cpu")
+    fn = torch.randn if normal else torch.rand
+    return fn(tuple(shape), generator=generator, device=gdev).to(device)
+
+
+def _check_unported(model, training: bool, n_views: int):
     if n_views != 1:
         raise NotImplementedError("the port renders one source view")
-    if compute_vis_map:
-        raise NotImplementedError("compute_vis_map is not ported")
     if os.environ.get("VANERF_SOA_POINTS", "0") not in ("", "0"):
         raise NotImplementedError("VANERF_SOA_POINTS is not ported")
     for env, attr in (("VANERF_FAR_SKIP", "far_skip"),
@@ -160,13 +178,23 @@ def _check_unported(model, training: bool, n_views: int,
                                       "tier is not ported")
 
 
-@torch.no_grad()
 def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
                  out_h: int, out_w: int, sample_per_ray_c: int = 64,
                  sample_per_ray_f: int = 64, training: bool = False,
                  n_views: int = 1, compute_vis_map: bool = False,
-                 cached=None):
-    """Render one (out_h x out_w) ray patch, eval mode.
+                 cached=None, uniform: bool = False,
+                 rand_noise_std: float = 0.0,
+                 generator: Optional[torch.Generator] = None,
+                 draws: Optional[Dict[str, torch.Tensor]] = None):
+    """Render one (out_h x out_w) ray patch.
+
+    At eval (``training=False``) the render is deterministic and runs under
+    ``torch.no_grad()``.  With ``training=True`` it builds an autograd
+    graph and draws, unless ``uniform``: stratified jitter ``u_c``
+    (B, P, S_c) and importance uniforms ``u_f`` (B, P, S_f); with
+    ``rand_noise_std`` > 0 also radiance noise ``noise_c`` (B, P*S_c, 1)
+    and ``noise_f`` (B, P*S_f, 1).  Each comes from ``draws[name]`` when
+    given, else from ``generator``.
 
     Args:
       model: :class:`vanerf_tpu_torch.models.VANeRF`.
@@ -178,107 +206,140 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
       grids: (B, P, 2) pixel grid.
       cached: optional (feat_geo, feat_tex, vert_vis) of
         :func:`encode_frame`.
+      compute_vis_map: also rasterize the GT visibility map in the target
+        view ('vis_img_all' (B, 1, H, W), 'vis_img' at the grid).
     Returns:
       dict of channels-last outputs mirroring the JAX package's.
     """
-    _check_unported(model, training, n_views, compute_vis_map)
-    src_img = batch["src_img"]
-    B = batch["tar_k"].shape[0]
-    H, W = src_img.shape[1:3]
-    znear, zfar = batch["znear"], batch["zfar"]
-    faces, verts = batch["faces"], batch["verts"]
-    P = grids.shape[1]
+    _check_unported(model, training, n_views)
+    with contextlib.nullcontext() if training else torch.no_grad():
+        src_img = batch["src_img"]
+        B = batch["tar_k"].shape[0]
+        H, W = src_img.shape[1:3]
+        znear, zfar = batch["znear"], batch["zfar"]
+        faces, verts = batch["faces"], batch["verts"]
+        P = grids.shape[1]
 
-    feat_geo, feat_tex, vert_vis = (encode_frame(model, batch)
-                                    if cached is None else cached)
-    cam_in = {"KRT": batch["src_krt"], "extrin": batch["src_extrin"],
-              "width": W, "height": H, "znear": znear, "zfar": zfar}
-    cam_pos, cam_rays, z = patch_rays(batch, grids, sample_per_ray_c)
-    beta = model.sigmoid_beta
-    mesh_prep = [prepare_culled_mesh(verts[b], faces, vert_vis[b])
-                 for b in range(B)]
+        feat_geo, feat_tex, vert_vis = (encode_frame(model, batch)
+                                        if cached is None else cached)
+        cam_in = {"KRT": batch["src_krt"], "extrin": batch["src_extrin"],
+                  "width": W, "height": H, "znear": znear, "zfar": zfar}
+        dev = grids.device
+        jitter = training and not uniform
+        noise = training and rand_noise_std > 0.0
+        u_c = (_draw(draws, "u_c", (B, P, sample_per_ray_c), False, generator,
+                     dev) if jitter else None)
+        cam_pos, cam_rays, z = patch_rays(batch, grids, sample_per_ray_c, u_c)
+        beta = model.sigmoid_beta
+        mesh_prep = [prepare_culled_mesh(verts[b], faces, vert_vis[b])
+                     for b in range(B)]
 
-    far_tau = resolve_tier("VANERF_FAR_TAU", getattr(model, "far_tau", 0.02),
-                           training)
-    far2 = (far_tau ** 2) if far_tau > 0 else None
+        far_tau = resolve_tier("VANERF_FAR_TAU",
+                               getattr(model, "far_tau", 0.02),
+                               training)
+        far2 = (far_tau ** 2) if far_tau > 0 else None
 
-    def query_at(z_depths, n_samples):
-        pts = (cam_pos[:, :, None] + cam_rays[:, :, None]
-               * z_depths[..., None]).reshape(B, -1, 3)       # (B, P*S, 3)
-        nn_idx, sdf, q_vis, far = [], [], [], []
-        for b in range(B):
-            pb = pts[b].contiguous()
-            i_b, d2_b = nearest_vertex_d2(pb, verts[b].contiguous())
-            s_b, q_b, f_b = cal_vis_sdf_prepared(
-                mesh_prep[b], pb, d2_b, n_samples=n_samples, far2=far2)
-            nn_idx.append(i_b)
-            sdf.append(s_b)
-            q_vis.append(q_b)
-            far.append(f_b)
-        nn_idx = torch.stack(nn_idx)
-        q_sdf = torch.stack(sdf)[..., None]                   # (B, N, 1)
-        q_vis = torch.stack(q_vis)
-        far_mask = (torch.stack(far)[..., None]
-                    if far[0] is not None else None)
-        view = cam_rays[:, :, None, :].expand(B, P, n_samples, 3) \
-            .reshape(B, -1, 3)
-        out, valid = model.query(
-            pts, view, cam_in, feat_geo, feat_tex, src_img,
-            batch["src_mask"], verts, vert_vis, q_vis, q_sdf,
-            batch["kpt3d"], n_samples, nn_idx=nn_idx, far_mask=far_mask)
-        sdf_ch = valid * out[..., 0:1] + (1.0 - valid) * (0.1 / _NML_SCALE)
-        alpha = valid * F.relu(out[..., 1:2])
-        return alpha[..., 0], sdf_ch[..., 0], out[..., 2:], q_sdf[..., 0]
+        def query_at(z_depths, n_samples, noise_key):
+            pts = (cam_pos[:, :, None] + cam_rays[:, :, None]
+                   * z_depths[..., None]).reshape(B, -1, 3)       # (B, P*S, 3)
+            nn_idx, sdf, q_vis, far = [], [], [], []
+            for b in range(B):
+                pb = pts[b].contiguous()
+                i_b, d2_b = nearest_vertex_d2(pb, verts[b].contiguous())
+                s_b, q_b, f_b = cal_vis_sdf_prepared(
+                    mesh_prep[b], pb, d2_b, n_samples=n_samples, far2=far2)
+                nn_idx.append(i_b)
+                sdf.append(s_b)
+                q_vis.append(q_b)
+                far.append(f_b)
+            nn_idx = torch.stack(nn_idx)
+            q_sdf = torch.stack(sdf)[..., None]                   # (B, N, 1)
+            q_vis = torch.stack(q_vis)
+            far_mask = (torch.stack(far)[..., None]
+                        if far[0] is not None else None)
+            view = cam_rays[:, :, None, :].expand(B, P, n_samples, 3) \
+                .reshape(B, -1, 3)
+            out, valid = model.query(
+                pts, view, cam_in, feat_geo, feat_tex, src_img,
+                batch["src_mask"], verts, vert_vis, q_vis, q_sdf,
+                batch["kpt3d"], n_samples, training=training, nn_idx=nn_idx,
+                far_mask=far_mask)
+            sdf_ch = valid * out[..., 0:1] + (1.0 - valid) * (0.1 / _NML_SCALE)
+            rad = out[..., 1:2]
+            if noise:
+                rad = rad + _draw(draws, noise_key, rad.shape, True, generator,
+                                  dev) * rand_noise_std
+            alpha = valid * F.relu(rad)
+            return alpha[..., 0], sdf_ch[..., 0], out[..., 2:], q_sdf[..., 0]
 
-    # ---- coarse pass ----
-    alpha_c, sdf_c, rgb_c, qsdf_c = query_at(z, sample_per_ray_c)
-    shp = (B, P, sample_per_ray_c)
-    color, depth, acc, contrib, _sdf_out = rgba2out(
-        alpha_c.reshape(shp), sdf_c.reshape(shp), rgb_c.reshape(shp + (3,)),
-        z, qsdf_c.reshape(shp), beta)
-    out = {"tex_fg": color.reshape(B, out_h, out_w, 3),
-           "depth": depth.reshape(B, out_h, out_w),
-           "alpha": acc.reshape(B, out_h, out_w)}
+        # ---- coarse pass ----
+        alpha_c, sdf_c, rgb_c, qsdf_c = query_at(z, sample_per_ray_c,
+                                                 "noise_c")
+        shp = (B, P, sample_per_ray_c)
+        color, depth, acc, contrib, _sdf_out = rgba2out(
+            alpha_c.reshape(shp), sdf_c.reshape(shp),
+            rgb_c.reshape(shp + (3,)),
+            z, qsdf_c.reshape(shp), beta)
+        out = {"tex_fg": color.reshape(B, out_h, out_w, 3),
+               "depth": depth.reshape(B, out_h, out_w),
+               "alpha": acc.reshape(B, out_h, out_w)}
 
-    # ---- fine pass: evaluate only the new importance samples, then merge
-    # both passes by a stable depth sort ----
-    z_mid = 0.5 * (z[..., 1:] + z[..., :-1])
-    z_new = importance_sample(contrib[..., 1:-1], z_mid, sample_per_ray_f)
-    alpha_n, sdf_n, rgb_n, qsdf_n = query_at(z_new, sample_per_ray_f)
+        # ---- fine pass: evaluate only the new importance samples, then merge
+        # both passes by a stable depth sort ----
+        z_mid = 0.5 * (z[..., 1:] + z[..., :-1])
+        u_f = (_draw(draws, "u_f", (B, P, sample_per_ray_f), False, generator,
+                     dev) if jitter else None)
+        z_new = importance_sample(contrib[..., 1:-1].detach(), z_mid,
+                                  sample_per_ray_f, u_f)
+        if jitter:
+            # random-u samples come back unordered; sort them per ray, as the
+            # JAX package does for its kernel's depth-coherent tiles
+            (z_new,) = sort_by_key(z_new)
+        alpha_n, sdf_n, rgb_n, qsdf_n = query_at(z_new, sample_per_ray_f,
+                                                 "noise_f")
 
-    def cat_cf(cv, nv):
-        return torch.cat([cv.reshape(B, P, sample_per_ray_c),
-                          nv.reshape(B, P, sample_per_ray_f)], 2)
+        def cat_cf(cv, nv):
+            return torch.cat([cv.reshape(B, P, sample_per_ray_c),
+                              nv.reshape(B, P, sample_per_ray_f)], 2)
 
-    rgb_cat = torch.cat([rgb_c.reshape(B, P, sample_per_ray_c, 3),
-                         rgb_n.reshape(B, P, sample_per_ray_f, 3)], 2)
-    (z_fine, alpha_f, sdf_f, qsdf_f, r_f, g_f, b_f) = _sort_by_key(
-        torch.cat([z, z_new], -1), cat_cf(alpha_c, alpha_n),
-        cat_cf(sdf_c, sdf_n), cat_cf(qsdf_c, qsdf_n), rgb_cat[..., 0],
-        rgb_cat[..., 1], rgb_cat[..., 2])
-    rgb_f = torch.stack([r_f, g_f, b_f], -1)
-    color_f, depth_f, acc_f, _, sdf_out_f = rgba2out(
-        alpha_f, sdf_f, rgb_f, z_fine, qsdf_f, beta)
-    out.update({"tex_fg_fine": color_f.reshape(B, out_h, out_w, 3),
-                "depth_fine": depth_f.reshape(B, out_h, out_w),
-                "alpha_fine": acc_f.reshape(B, out_h, out_w),
-                "sdf": sdf_out_f.reshape(B, out_h, out_w)})
+        rgb_cat = torch.cat([rgb_c.reshape(B, P, sample_per_ray_c, 3),
+                             rgb_n.reshape(B, P, sample_per_ray_f, 3)], 2)
+        (z_fine, alpha_f, sdf_f, qsdf_f, r_f, g_f, b_f) = sort_by_key(
+            torch.cat([z, z_new], -1), cat_cf(alpha_c, alpha_n),
+            cat_cf(sdf_c, sdf_n), cat_cf(qsdf_c, qsdf_n), rgb_cat[..., 0],
+            rgb_cat[..., 1], rgb_cat[..., 2])
+        rgb_f = torch.stack([r_f, g_f, b_f], -1)
+        color_f, depth_f, acc_f, _, sdf_out_f = rgba2out(
+            alpha_f, sdf_f, rgb_f, z_fine, qsdf_f, beta)
+        out.update({"tex_fg_fine": color_f.reshape(B, out_h, out_w, 3),
+                    "depth_fine": depth_f.reshape(B, out_h, out_w),
+                    "alpha_fine": acc_f.reshape(B, out_h, out_w),
+                    "sdf": sdf_out_f.reshape(B, out_h, out_w)})
 
-    # ---- GT / context patches at the grid (model.py:1361-1418) ----
-    index = (grids[..., 0] + grids[..., 1] * W).to(torch.int32)
-    if batch.get("tar_img") is not None:
-        out["tar_img"] = gather_pixels(batch["tar_img"], index, out_h, out_w)
-    if batch.get("tar_mask") is not None:
-        out["tar_alpha"] = gather_pixels(batch["tar_mask"], index, out_h,
-                                         out_w)
-    out["input_mask"] = gather_pixels(batch["src_mask"], index, out_h, out_w)
-    out["img_in"] = gather_pixels(src_img, index, out_h, out_w)
-    for k in ("input_densepose", "tar_densepose"):
-        if batch.get(k) is not None:
-            out[k] = gather_pixels(batch[k], index, out_h, out_w)
-    out["vert_vis"] = vert_vis
-    out["index"] = index
-    return out
+        # ---- GT / context patches at the grid (model.py:1361-1418) ----
+        index = (grids[..., 0] + grids[..., 1] * W).to(torch.int32)
+        if batch.get("tar_img") is not None:
+            out["tar_img"] = gather_pixels(batch["tar_img"], index, out_h,
+                                           out_w)
+        if batch.get("tar_mask") is not None:
+            out["tar_alpha"] = gather_pixels(batch["tar_mask"], index, out_h,
+                                             out_w)
+        if compute_vis_map:
+            vis_map = torch.stack([
+                render_vis_map(verts[b], faces, vert_vis[b], batch["tar_k"][b],
+                               batch["tar_rt"][b], H, W)[1] for b in range(B)])
+            out["vis_img_all"] = vis_map                  # (B, 1, H, W)
+            out["vis_img"] = gather_pixels(vis_map.permute(0, 2, 3, 1), index,
+                                           out_h, out_w)
+        out["input_mask"] = gather_pixels(batch["src_mask"], index, out_h,
+                                          out_w)
+        out["img_in"] = gather_pixels(src_img, index, out_h, out_w)
+        for k in ("input_densepose", "tar_densepose"):
+            if batch.get(k) is not None:
+                out[k] = gather_pixels(batch[k], index, out_h, out_w)
+        out["vert_vis"] = vert_vis
+        out["index"] = index
+        return out
 
 
 @torch.no_grad()

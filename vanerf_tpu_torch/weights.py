@@ -1,5 +1,6 @@
 """flax parameters of ``vanerf_tpu`` -> the port's reference-keyed
-``state_dict``.
+``state_dict``s: the generator, the discriminator and the VGG19 feature
+stack.
 
 Inverts ``tools/convert_reference_ckpt.py::convert_state_dict`` for the
 generator: conv kernels HWIO -> OIHW (transposed convs HW,O,I -> I,O,HW),
@@ -173,4 +174,33 @@ def from_jax_params(params_np: dict) -> dict:
     _tex_vis_fusion(w, p["tex_vis_fusion"], "tex_vis_fusion")
     w.dense(p["ibr_compress_gfeat"], "ibr_compress_gfeat")
     _ibr(w, p["mlp_tex"], "mlp_tex")
+    return w.sd
+
+
+def disc_from_jax_params(params_np: dict) -> dict:
+    """flax ``DiscriminatorVis`` params -> state_dict of the port's
+    :class:`~vanerf_tpu_torch.models.discriminator.DiscriminatorVis`
+    (the inverse of ``tools/convert_reference_ckpt.py::
+    convert_discriminator``)."""
+    p = params_np.get("params", params_np)
+    w = _Writer()
+    for name, key in (("g0", "fconv3.0"), ("g1", "fconv3.2"),
+                      ("v0", "fconv4.0"), ("v1", "fconv4.2"),
+                      ("v2", "fconv4.4"), ("p0", "fconv2.0"),
+                      ("p1", "fconv2.2"), ("p2", "fconv2.4")):
+        w.conv(p[name], key)
+    w.dense(p["gl0"], "linear.0")
+    w.dense(p["gl1"], "linear.2")
+    return w.sd
+
+
+def vgg_from_jax_params(params_np: dict) -> dict:
+    """flax ``losses.Vgg19Features`` params (``conv1_1`` .. ``conv4_1``)
+    -> state_dict of the port's
+    :class:`~vanerf_tpu_torch.losses.Vgg19Features`."""
+    from .losses import VGG_LAYERS, vgg_slice_key
+    p = params_np.get("params", params_np)
+    w = _Writer()
+    for idx, name in VGG_LAYERS.items():
+        w.conv(p[name], vgg_slice_key(idx))
     return w.sd
