@@ -19,9 +19,9 @@ script exits non-zero (there is no CPU fallback):
      mask-centred 64x64 patches; every kernel's launch counter must move;
   4. one 16x16-ray patch rendered on the card (kernels) and on the CPU
      (plain twins) with the same weights;
-  5. training at full width with ``VANERF_ONEHOT_SCATTER=1``: 3 faithful
-     GAN steps (``training.make_train_step``) on mask-centred 64x64
-     patches with 64+64 samples, a seeded ``DiscriminatorVis`` and a
+  5. training at full width: 3 faithful GAN steps
+     (``training.make_train_step``) on mask-centred 64x64 patches with
+     64+64 samples, a seeded ``DiscriminatorVis`` and a
      VGG19 with the flax-default initialisation drawn from seed 19; every
      loss and parameter must stay finite and the kernels of the training
      path (A, B, C and the scatter 13) must each launch; prints ms/step
@@ -230,19 +230,28 @@ def phase_kernels(model, batch, dev):
         shape=f"{uv.shape[0]} points on {' and '.join(shapes)} maps",
         max_abs_err=err_d, ms=ms_d, plain_ms=plain_d)
 
-    # --- 13: the take_rows table gradient at the training path's two
-    # tables: the KNN vertex table (rows = vertices, the packed
-    # [this | toh] rows of 2 x (72 + 29 + 1) channels) read at the
-    # nearest-vertex ids, and the packed 32^2 x 4*64 geometry coarse map
-    # read at the texel of each point.  The twin on the card is
-    # index_add_ with float atomics, which sums in another (run-dependent)
-    # order: |kernel - twin| <= 1e-5 x the row's sum of |g|.
-    Hc, Wc = geo_coarse.shape[:2]
-    xc = ((uv[:, 0] + 1.0) * 0.5 * (Wc - 1.0)).clamp(0.0, Wc - 1.0)
-    yc = ((uv[:, 1] + 1.0) * 0.5 * (Hc - 1.0)).clamp(0.0, Hc - 1.0)
-    tex_idx = (torch.floor(yc) * Wc + torch.floor(xc)).to(torch.int32)
+    # --- 13: the take_rows table gradient at the training path's tables:
+    # the KNN vertex table (rows = vertices, the packed [this | toh] rows
+    # of 2 x (72 + 29 + 1) channels) read at the nearest-vertex ids; the
+    # packed 32^2 x 4*64 geometry coarse map and the packed 64^2 x 4*8
+    # maps read at the texel of each point; the coarse map read at the
+    # 1,284 projected vertices (the fusion's vertex table).  The twin on
+    # the card is index_add_ with float atomics, which sums in another
+    # (run-dependent) order: |kernel - twin| <= 1e-5 x the row's sum of |g|.
+    def texel(uv_, hw):
+        x = ((uv_[:, 0] + 1.0) * 0.5 * (hw - 1.0)).clamp(0.0, hw - 1.0)
+        y = ((uv_[:, 1] + 1.0) * 0.5 * (hw - 1.0)).clamp(0.0, hw - 1.0)
+        return (torch.floor(y) * hw + torch.floor(x)).to(torch.int32)
+
+    Hc = geo_coarse.shape[0]
+    v_uv = torch.stack([2.0 * xy_pix[:, 0] / (W - 1.0) - 1.0,
+                        2.0 * xy_pix[:, 1] / (H - 1.0) - 1.0], -1)
     cases = [("knn table", idx, verts.shape[0], 2 * (72 + 29 + 1)),
-             ("32^2 coarse map", tex_idx, Hc * Wc, 4 * geo_coarse.shape[2])]
+             ("32^2 coarse map", texel(uv, Hc), Hc * Hc,
+              4 * geo_coarse.shape[2]),
+             ("64^2 map", texel(uv, 64), 64 * 64, 4 * 8),
+             ("32^2 coarse map at the vertices", texel(v_uv, Hc), Hc * Hc,
+              4 * geo_coarse.shape[2])]
     err_s, ms_s, plain_s, shapes, stats = 0.0, 0.0, 0.0, [], {}
     for tag, rows, T, C in cases:
         g = torch.randn(rows.shape[0], C, device=dev,
@@ -269,9 +278,9 @@ def phase_kernels(model, batch, dev):
                           .max().item(), bit_equal_runs=True,
                           rows_read=int((bound > 0).any(1).sum()),
                           ms=k_ms, plain_ms=p_ms)
-        shapes.append(f"{T}x{C}")
+        shapes.append(f"{rows.shape[0]} rows into {T}x{C}")
     results["onehot_scatter"] = dict(
-        shape=f"{uv.shape[0]} rows into {' and '.join(shapes)} tables",
+        shape=", ".join(shapes),
         max_abs_err=err_s, ms=ms_s, plain_ms=plain_s, detail=stats)
     return results
 
@@ -542,7 +551,6 @@ def main() -> int:
         f"{errs}")
 
     # ---- phase 5 ----
-    os.environ["VANERF_ONEHOT_SCATTER"] = "1"
     train = phase_train(model, batches[0], cfg, dev)
     say(f"phase 5 training ({TRAIN_STEPS} faithful GAN steps, 64x64 rays, "
         f"64+64 samples): {train['ms_per_step']:.1f} ms/step (steps 2-"

@@ -5,10 +5,10 @@ JAX package, on the CPU, with the same weights and the same random draws.
 On the JAX side everything runs in float32 at the highest matmul precision
 with the far-field tier off (``VANERF_COMPUTE_DTYPE=float32``,
 ``jax.default_matmul_precision("highest")``, ``VANERF_FAR_TAU=0``).  On
-the port side ``VANERF_ONEHOT_SCATTER=1`` with ``VANERF_ONEHOT_BN=16``
-routes the small-table gathers through ``take_rows`` at these sizes, so
-their backward runs the kernel's plain twin (the JAX package takes the
-route only on a TPU; its native gather gives the reference gradient).
+the port side every small-table gather whose gradient is wanted goes
+through ``take_rows``, so its backward runs the kernel's plain twin (the
+JAX package takes its one-hot route only on a TPU; its native gather
+gives the reference gradient).
 
 Tolerances, each with its reason:
   * gathered values: exact (the forward is the same gather);
@@ -66,11 +66,10 @@ def A(x):
 
 @pytest.fixture
 def exact(monkeypatch):
-    """f32 / highest precision / far tier off on the JAX side; the one-hot
-    route on at test sizes on the port side."""
+    """f32 / highest precision / far tier off on the JAX side, whose
+    interpret-mode take_rows scatters in blocks of 16 rows."""
     monkeypatch.setenv("VANERF_COMPUTE_DTYPE", "float32")
     monkeypatch.setenv("VANERF_FAR_TAU", "0")
-    monkeypatch.setenv("VANERF_ONEHOT_SCATTER", "1")
     monkeypatch.setenv("VANERF_ONEHOT_BN", "16")
     with jax.default_matmul_precision("highest"):
         yield
@@ -87,18 +86,20 @@ def _rel(t, j):
 # ---------------------------------------------------------------------------
 
 def test_onehot_policy_matches_jax_thresholds(monkeypatch):
-    monkeypatch.delenv("VANERF_ONEHOT_SCATTER", raising=False)
-    assert not tog.onehot_scatter_enabled(1024, 262144)
-    monkeypatch.setenv("VANERF_ONEHOT_SCATTER", "1")
-    assert tog.onehot_scatter_enabled(1024, 262144)
-    assert tog.onehot_scatter_enabled(2048, 8192)
-    assert not tog.onehot_scatter_enabled(2049, 262144)   # MAX_T 2,048
-    assert not tog.onehot_scatter_enabled(1024, 8191)     # 8 x BN 1,024
-    monkeypatch.setenv("VANERF_ONEHOT_BN", "16")
+    """The port routes a gather through take_rows when the table gradient
+    is wanted and the kernel holds the table, whatever the JAX package's
+    switches say (they bound its MXU one-hot product, not this kernel)."""
+    monkeypatch.setenv("VANERF_ONEHOT_SCATTER", "0")
     monkeypatch.setenv("VANERF_ONEHOT_MAX_T", "64")
-    assert tog.onehot_scatter_enabled(64, 128)
-    assert not tog.onehot_scatter_enabled(65, 128)
-    assert not tog.onehot_scatter_enabled(64, 127)
+    monkeypatch.setenv("VANERF_ONEHOT_BN", "1024")
+    leaf = torch.zeros(3, requires_grad=True)
+    assert tog.take_rows_route(tog.SCATTER_MAX_T, leaf)
+    assert tog.take_rows_route(1, leaf * 2.0)
+    assert not tog.take_rows_route(tog.SCATTER_MAX_T + 1, leaf)
+    assert not tog.take_rows_route(1024, torch.zeros(3))
+    assert not tog.take_rows_route(1024, leaf.double())
+    with torch.no_grad():
+        assert not tog.take_rows_route(1024, leaf)
 
 
 @pytest.mark.parametrize("n", [200, 256])

@@ -10,7 +10,7 @@ GPU.  The TPU kernels on those paths are hand-written CUDA C++ for
   * C — z-buffer rasterizer        (``ops/rasterize.py``)
   * D — small-map bilinear sampler (``ops/interp_mxu.py``, inference)
   * 13 — table gradient of the small-table gathers
-    (``ops/onehot_gather.py``, training with ``VANERF_ONEHOT_SCATTER=1``)
+    (``ops/onehot_gather.py``, training)
 
 Each kernel has a plain-PyTorch twin in the same module; a wrapper takes
 the twin only for CPU tensors.  The package imports torch, numpy and the

@@ -3,16 +3,16 @@
 Semantics of the reference ``feat_sample`` (``src/utils.py:136-151``,
 ``F.grid_sample`` bilinear, border padding, align_corners=True) on
 channels-last maps, as gather + lerp.  The JAX package runs this op in
-XLA, so the port keeps it plain PyTorch, except that a small map under the
-one-hot scatter policy is read through :func:`take_rows` on its packed
-2x2 corners (``grid_sample.py:56-69``), whose table gradient is kernel 13.
+XLA, so the port keeps it plain PyTorch, except that a small map whose
+gradient is wanted is read through :func:`take_rows` on its packed 2x2
+corners (``grid_sample.py:56-69``), whose table gradient is kernel 13.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .onehot_gather import onehot_scatter_enabled, take_rows
+from .onehot_gather import take_rows, take_rows_route
 
 
 def pack_corners(feat: torch.Tensor) -> torch.Tensor:
@@ -36,7 +36,7 @@ def grid_sample_2d(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     wy = (y - y0)[:, None]
     ix0 = x0.long()
     iy0 = y0.long()
-    if onehot_scatter_enabled(H * W, uv.shape[0]):
+    if take_rows_route(H * W, feat):
         g = take_rows(pack_corners(feat).reshape(H * W, 4 * C),
                       iy0 * W + ix0)
         f00, f01, f10, f11 = torch.split(g, C, -1)

@@ -3,7 +3,7 @@
 
 :func:`nearest_vertex_d2` is kernel B (``csrc/knn.cu``) on CUDA tensors
 and its plain-PyTorch twin :func:`nearest_vertex_d2_plain` on CPU tensors.
-Under the one-hot scatter policy the vertex-table gather goes through
+Under a graph the vertex-table gather goes through
 :func:`~.onehot_gather.take_rows`, whose table gradient is kernel 13.
 """
 
@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .onehot_gather import onehot_scatter_enabled, take_rows
+from .onehot_gather import take_rows, take_rows_route
 
 KNN_MAX_VERTS = 4096        # csrc/knn.cu: the vertex table in shared memory
 
@@ -70,10 +70,10 @@ def nearest_vertex_d2(query: torch.Tensor, verts: torch.Tensor):
 def _take_batched(packed_both: torch.Tensor,
                   idx: torch.Tensor) -> torch.Tensor:
     """Batched row gather (B, V, C)[B, N] -> (B, N, C); a loop over the
-    batch through :func:`take_rows` when the one-hot scatter policy fires
+    batch through :func:`take_rows` when its table gradient is wanted
     (``knn.py:117-143``)."""
     B, V, C = packed_both.shape
-    if onehot_scatter_enabled(V, idx.shape[1]):
+    if take_rows_route(V, packed_both):
         return torch.stack([take_rows(packed_both[b], idx[b])
                             for b in range(B)])
     return torch.gather(packed_both, 1,
@@ -85,15 +85,6 @@ def _packed_both(vert_feat, vert_vis, num_v):
     other-hand half is the table rolled by one hand's vertex count."""
     packed = torch.cat([vert_feat, vert_vis.to(vert_feat.dtype)], -1)
     return torch.cat([packed, torch.roll(packed, -num_v, dims=1)], -1)
-
-
-def knn_gather_raw(query: torch.Tensor, verts: torch.Tensor,
-                   vert_feat: torch.Tensor, vert_vis: torch.Tensor,
-                   num_v: int, nn_idx: torch.Tensor) -> torch.Tensor:
-    """The :func:`knn_gather_1` gather without the split and visibility
-    weighting: raw rows (B, N, 2(C+1)) laid out as
-    [feat_this | vis_this | feat_toh | vis_toh]."""
-    return _take_batched(_packed_both(vert_feat, vert_vis, num_v), nn_idx)
 
 
 def knn_gather_1(query: torch.Tensor, verts: torch.Tensor,
@@ -111,7 +102,7 @@ def knn_gather_1(query: torch.Tensor, verts: torch.Tensor,
     Returns:
       feat (B, N, C), feat_toh (B, N, C), vis (B, N, 1), vis_toh (B, N, 1).
     """
-    g2 = knn_gather_raw(query, verts, vert_feat, vert_vis, num_v, nn_idx)
+    g2 = _take_batched(_packed_both(vert_feat, vert_vis, num_v), nn_idx)
     C1 = vert_feat.shape[-1] + 1
     g, g_toh = g2[..., :C1], g2[..., C1:]
     f, v = g[..., :-1], g[..., -1:]

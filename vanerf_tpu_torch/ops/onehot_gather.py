@@ -8,16 +8,17 @@ runs through :func:`onehot_scatter` — the CUDA kernel
 :func:`onehot_scatter_plain` (``index_add_`` with f32 accumulation) on CPU
 tensors.  The gradient goes to the table only.
 
-The policy :func:`onehot_scatter_enabled` reads the JAX package's switches
-(``VANERF_ONEHOT_SCATTER``, ``VANERF_ONEHOT_MAX_T``, ``VANERF_ONEHOT_BN``)
-with the same ceilings.  Where the JAX package also requires a TPU, the
-port takes the route on any device; the device of the tensors picks kernel
-or twin, so the CPU tests run the same code path with the twin.
+A gather takes this route (:func:`take_rows_route`) whenever its table
+gradient is wanted and the table fits the kernel (float32, at most
+``SCATTER_MAX_T`` rows).  Unlike the JAX package, whose MXU one-hot product
+costs in proportion to the table and is therefore gated by
+``VANERF_ONEHOT_SCATTER`` / ``VANERF_ONEHOT_MAX_T`` / ``VANERF_ONEHOT_BN``,
+the CUDA kernel reads ``g`` once whatever the table size and sums in a
+fixed order (no float atomics); the port reads none of those switches.  The device of the tensors picks kernel or
+twin, so the CPU tests run the same code path with the twin.
 """
 
 from __future__ import annotations
-
-import os
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -33,18 +34,13 @@ SCATTER_MAX_T = 8192
 launches = 0
 
 
-def _bn() -> int:
-    return int(os.environ.get("VANERF_ONEHOT_BN", "1024"))
-
-
-def onehot_scatter_enabled(n_rows: int, n_queries: int) -> bool:
-    """Route a gather through :func:`take_rows`: the flag is set, the table
-    is small (``VANERF_ONEHOT_MAX_T``, default 2,048 rows) and the query
-    count large (>= 8 x ``VANERF_ONEHOT_BN``, default 8,192)."""
-    if os.environ.get("VANERF_ONEHOT_SCATTER", "0") in ("", "0"):
-        return False
-    max_t = int(os.environ.get("VANERF_ONEHOT_MAX_T", "2048"))
-    return n_rows <= max_t and n_queries >= 8 * _bn()
+def take_rows_route(n_rows: int, src: torch.Tensor) -> bool:
+    """Whether a gather from an ``n_rows`` table built from ``src`` goes
+    through :func:`take_rows`: a gradient flows to ``src`` and the kernel
+    holds the table (float32, at most ``SCATTER_MAX_T`` rows).  Without a
+    graph :func:`take_rows` would only be the native gather."""
+    return (n_rows <= SCATTER_MAX_T and src.dtype == torch.float32
+            and src.requires_grad and torch.is_grad_enabled())
 
 
 def onehot_scatter_plain(g: torch.Tensor, idx: torch.Tensor,
@@ -108,5 +104,5 @@ class _TakeRows(torch.autograd.Function):
 def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``table[idx]`` for a (T, C) table and (N,) row indices in [0, T),
     whose table gradient runs through :func:`onehot_scatter`.  Callers
-    gate on :func:`onehot_scatter_enabled`."""
+    gate on :func:`take_rows_route`."""
     return _TakeRows.apply(table, idx.to(torch.int32))

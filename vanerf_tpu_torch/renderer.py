@@ -11,7 +11,7 @@ passes.  The per-frame vertex visibility and the target-view GT
 visibility map come from the z-buffer rasterizer (kernel C).  Under
 training the samples are jittered, the radiance takes noise, the render
 builds an autograd graph, and the table gradients of the small-table
-gathers go through kernel 13 when ``VANERF_ONEHOT_SCATTER`` is set.  The
+gathers (at most 8,192 rows) go through kernel 13.  The
 JAX package's approximate serving tiers FAR_SKIP / FAR_NET / FAR_TNET and
 the SoA point layout are not ported and raise when asked for.
 """
