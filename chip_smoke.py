@@ -8,15 +8,29 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU:
 Phases, each printing what it found; any failed check raises and the
 script exits non-zero (there is no CPU fallback):
 
-  1. build (or reuse) the five CUDA kernels from ``vanerf_tpu_torch/csrc``;
+  1. build (or reuse) the eight CUDA kernels from ``vanerf_tpu_torch/csrc``;
   2. each kernel against its plain-PyTorch twin on the card, at the shapes
-     the serving path gives it (a 64x64-ray patch x 64 samples = 262,144
+     the main path gives it (a 64x64-ray patch x 64 samples = 262,144
      points, the 256^2 subdiv=3 two-hand fixture: 2,560 faces, 1,284
-     vertices), with its time beside the twin's;
+     vertices; for the fused kernels the packs and KNN rows that the
+     model's own level-1 / level-2 branches make for those points, the
+     weights packed once as the model packs them for a frame), with
+     its time beside the twin's, beside the least time the card could take
+     (bytes over 3.35 TB/s or operations over 67 TFLOP/s f32, whichever is
+     larger) and, where one PyTorch call computes the same function, that
+     call's time;
   3. the serving path at full model width (``configs/vanerf.json``, seeded
      flax-style initialisation): ``render_full_image`` for 2 frames (16
      64x64 tiles each, 64+64 samples) and one bench-shaped group of 16
-     mask-centred 64x64 patches; every kernel's launch counter must move;
+     mask-centred 64x64 patches; the launch counters of A-D and of the row
+     gather (kernel 10, which every render without a graph takes) must
+     move;
+  3b. the fused-MLP serving configuration on the same frame, in turns with
+     the unfused render (far tier off in all three, as the switch has it):
+     ``VANERF_FUSED_MLP=2`` (kernel 11) and ``VANERF_FUSED_MLP=1``
+     (kernel 12): one full image and the 16-patch
+     group each, every output within rtol 2e-4 / atol 2e-5 of the unfused
+     one, ms/frame beside the unfused ms/frame;
   4. one 16x16-ray patch rendered on the card (kernels) and on the CPU
      (plain twins) with the same weights;
   5. training at full width: 3 faithful GAN steps
@@ -26,12 +40,18 @@ script exits non-zero (there is no CPU fallback):
      loss and parameter must stay finite and the kernels of the training
      path (A, B, C and the scatter 13) must each launch; prints ms/step
      (steps 2-3) and the peak device memory;
+  5b. the same 3 steps from the same weights and draws under
+     ``VANERF_FUSED_TRAIN=2``: kernel 11 must launch in the G render, every
+     loss stays finite, and the first step's G loss lies within 5e-3
+     relative of the unfused first step's;
   6. one G-loss gradient on a 16x16-ray training patch with the same
      draws on the card (kernels) and on the CPU (plain twins): the loss
      and each parameter's gradient norm compared.
 
 A ``details:`` line holds every measured number; the line before the last
-is a JSON object with one entry per kernel; the last line is
+is a JSON object with one entry per kernel (its launches are those of the
+phase that drives it: A-D and 10 phase 3, 13 phase 5, 11 the level-2 run
+of phase 3b, 12 the level-1 run); the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and
 convolutions.
 """
@@ -63,8 +83,35 @@ KERNELS = {
                    "vanerf_tpu/ops/interp_mxu.py:92"),
     "onehot_scatter": ("vanerf_tpu_torch/csrc/onehot_scatter.cu",
                        "vanerf_tpu/ops/onehot_gather.py:86"),
+    "row_gather": ("vanerf_tpu_torch/csrc/row_gather.cu",
+                   "vanerf_tpu/ops/interp_mxu.py:205"),
+    "fused_query_mlp": ("vanerf_tpu_torch/csrc/fused_mlp.cu",
+                        "vanerf_tpu/ops/fused_mlp.py:365"),
+    "fused_geo_mlp": ("vanerf_tpu_torch/csrc/fused_mlp.cu",
+                      "vanerf_tpu/ops/fused_mlp.py:431"),
 }
 TRAIN_STEPS = 3
+# The card's published peaks (H100 SXM): device memory rate and the f32
+# rate outside the tensor cores, which is the type every kernel here uses.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+# Operations per (point, face) / (point, vertex) / (pixel, face) pair, as
+# the kernels' sources do them: kernel A's distance is 15 differences, 6
+# dot products (30), 3 cross terms (9), the closest point's distance (8)
+# and 3 comparisons at the least (a vertex region; the other regions cost
+# more), its signed crossing test 3 differences, 3 dot products (15), 6
+# products and sums, 4 comparisons and the sum; kernel B 3 differences, 5
+# for the squared norm and a comparison; kernel C 4 edge functions of 7,
+# 3 divisions and 5 comparisons.
+MESH_DIST_OPS = 65
+MESH_CROSS_OPS = 29
+KNN_OPS = 9
+RASTER_OPS = 36
+# the fused kernels against their plain versions, and the fused renders
+# against the unfused one (tests/test_renderer_train.py:155)
+FUSED_RTOL, FUSED_ATOL = 2e-4, 2e-5
+FUSED_FINE_SHARE, FUSED_FINE_ABS = 0.01, 0.02
+FUSED_TRAIN_LOSS_RTOL = 5e-3
 # phase 6: card vs CPU.  The gradients sum in other orders on the two
 # devices (cuDNN against CPU convolutions, atomics in index_add_ and the
 # scatter backward of the plain gathers): the G loss to rtol 1e-4, and
@@ -102,6 +149,44 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def least_time(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: each input read once and each
+    output written once at the memory rate, or the operations at the f32
+    rate, whichever is larger."""
+    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_o = n_ops / F32_FLOPS_PER_S * 1e3
+    return dict(bound_ms=max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations",
+                bound_bytes=n_bytes, bound_ops=n_ops)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def of_bound(got, want, rtol: float, atol: float) -> float:
+    """Largest |got - want| as a share of atol + rtol |want|."""
+    return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
+
+
+class env:
+    """Environment switches for the length of a ``with`` block."""
+
+    def __init__(self, **kv):
+        self.kv = kv
+
+    def __enter__(self):
+        self.old = {k: os.environ.get(k) for k in self.kv}
+        os.environ.update(self.kv)
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain twins at main-path shapes
 # ---------------------------------------------------------------------------
@@ -127,15 +212,46 @@ def main_path_points(model, batch):
     xy = vh[:, :2] / vh[:, 2:3]
     uv = torch.stack([2.0 * xy[:, 0] / (W - 1.0) - 1.0,
                       2.0 * xy[:, 1] / (H - 1.0) - 1.0], -1).contiguous()
-    return pts, mesh, feat_geo[0][0].contiguous(), uv
+    return pts, mesh, feat_geo[0][0].contiguous(), uv, grids
+
+
+def fused_main_path_inputs(model, batch, grids):
+    """The arguments the model's level-1 and level-2 branches hand to
+    kernels 12, 11 and 10 on the coarse pass of the main-path patch: the
+    entry points are wrapped for the length of two eval renders and their
+    first call's arguments kept."""
+    from vanerf_tpu_torch import renderer as tr
+    from vanerf_tpu_torch.models import vanerf as mv
+    from vanerf_tpu_torch.ops import knn
+    got, undo = {}, []
+    for mod, name in ((mv, "fused_geo_mlp"), (mv, "fused_query_mlp"),
+                      (knn, "mxu_row_gather")):
+        real = getattr(mod, name)
+
+        def wrapper(*a, _name=name, _real=real, **k):
+            got.setdefault(_name, (a, k))
+            return _real(*a, **k)
+        setattr(mod, name, wrapper)
+        undo.append((mod, name, real))
+    try:
+        for level in ("1", "2"):
+            with env(VANERF_FUSED_MLP=level):
+                tr.render_patch(model, batch, grids=grids, out_h=PATCH,
+                                out_w=PATCH, sample_per_ray_c=S_C,
+                                sample_per_ray_f=S_F)
+    finally:
+        for mod, name, real in undo:
+            setattr(mod, name, real)
+    return got
 
 
 def phase_kernels(model, batch, dev):
     import torch
-    from vanerf_tpu_torch.ops import (interp_mxu, knn, mesh_query,
+    import torch.nn.functional as F
+    from vanerf_tpu_torch.ops import (fused_mlp, interp_mxu, knn, mesh_query,
                                       onehot_gather, rasterize)
     results = {}
-    pts, mesh, geo_coarse, uv = main_path_points(model, batch)
+    pts, mesh, geo_coarse, uv, grids = main_path_points(model, batch)
     verts = batch["verts"][0].contiguous()
     check(pts.shape[0] == PATCH * PATCH * S_C, "main-path point count")
 
@@ -154,7 +270,12 @@ def phase_kernels(model, batch, dev):
         shape=f"{pts.shape[0]} points x {verts.shape[0]} vertices",
         max_abs_err=err_b, index_mismatch=int(diff.sum()),
         ms=cuda_ms(lambda: knn.nearest_vertex_d2(pts, verts), 20),
-        plain_ms=cuda_ms(lambda: knn.nearest_vertex_d2_plain(pts, verts), 3))
+        plain_ms=cuda_ms(lambda: knn.nearest_vertex_d2_plain(pts, verts), 3),
+        # one call each for distances and argmin; cdist may take the
+        # expanded |q|^2 - 2 q.v + |v|^2 form, which is other arithmetic
+        library_ms=cuda_ms(lambda: torch.cdist(pts, verts).min(1), 3),
+        **least_time(nbytes(pts, verts, idx, d2),
+                     KNN_OPS * pts.shape[0] * verts.shape[0]))
 
     # --- A: mesh query, without and with the far tier ---
     far2 = 0.02 ** 2
@@ -187,7 +308,14 @@ def phase_kernels(model, batch, dev):
         ms=cuda_ms(lambda: mesh_query.point_mesh_query_vis_cuda(
             p_c, mesh["table"], d2, far), 5),
         plain_ms=cuda_ms(lambda: mesh_query.point_mesh_query_vis_plain(
-            p_c, mesh["table"], d2, far), 2))
+            p_c, mesh["table"], d2, far), 2),
+        library_ms=None,
+        # far points skip the distance search and keep the crossing test
+        **least_time(
+            nbytes(p_c, mesh["table"], d2, far) + 16 * p_c.shape[0],
+            mesh["table"].shape[0]
+            * ((p_c.shape[0] - n_far) * (MESH_DIST_OPS + MESH_CROSS_OPS)
+               + n_far * MESH_CROSS_OPS)))
 
     # --- C: 256^2 raster of the mesh in the source view ---
     krt = batch["src_krt"][0]
@@ -208,14 +336,19 @@ def phase_kernels(model, batch, dev):
         shape=f"{H}x{W} pixels x {tri.shape[0]} faces",
         max_abs_err=err_c, face_mismatch=int(fd.sum()),
         ms=cuda_ms(lambda: rasterize.raster_cuda(tri, H, W), 20),
-        plain_ms=cuda_ms(lambda: rasterize.raster_plain(tri, H, W), 3))
+        plain_ms=cuda_ms(lambda: rasterize.raster_plain(tri, H, W), 3),
+        library_ms=None,
+        **least_time(nbytes(tri, face, zbuf),
+                     RASTER_OPS * H * W * tri.shape[0]))
 
     # --- D: the 32^2 x 64 geo-coarse map at the patch's points, and a
     # 64^2 x 16 map ---
     g = torch.Generator(device=dev).manual_seed(SEED)
     maps = [geo_coarse,
             torch.randn(64, 64, 16, generator=g, device=dev)]
-    err_d, ms_d, plain_d, shapes = 0.0, 0.0, 0.0, []
+    err_d, ms_d, plain_d, lib_d, shapes = 0.0, 0.0, 0.0, 0.0, []
+    bytes_d = ops_d = 0
+    grid = uv[None, None]                                  # (1, 1, N, 2)
     for fm in maps:
         got = interp_mxu.interp_cuda(fm, uv)
         want = interp_mxu.interp_plain(fm, uv)
@@ -225,10 +358,18 @@ def phase_kernels(model, batch, dev):
         err_d = max(err_d, e)
         ms_d += cuda_ms(lambda: interp_mxu.interp_cuda(fm, uv), 20)
         plain_d += cuda_ms(lambda: interp_mxu.interp_plain(fm, uv), 5)
+        nchw = fm.permute(2, 0, 1)[None].contiguous()
+        lib_d += cuda_ms(lambda: F.grid_sample(
+            nchw, grid, mode="bilinear", padding_mode="border",
+            align_corners=True), 20)
+        bytes_d += nbytes(fm, uv, got)
+        # per point ~20 for the weights, per output 4 products and 3 sums
+        ops_d += uv.shape[0] * (20 + 7 * fm.shape[2])
         shapes.append("x".join(str(s) for s in fm.shape))
     results["interp_mxu"] = dict(
         shape=f"{uv.shape[0]} points on {' and '.join(shapes)} maps",
-        max_abs_err=err_d, ms=ms_d, plain_ms=plain_d)
+        max_abs_err=err_d, ms=ms_d, plain_ms=plain_d, library_ms=lib_d,
+        **least_time(bytes_d, ops_d))
 
     # --- 13: the take_rows table gradient at the training path's tables:
     # the KNN vertex table (rows = vertices, the packed [this | toh] rows
@@ -253,9 +394,11 @@ def phase_kernels(model, batch, dev):
              ("32^2 coarse map at the vertices", texel(v_uv, Hc), Hc * Hc,
               4 * geo_coarse.shape[2])]
     err_s, ms_s, plain_s, shapes, stats = 0.0, 0.0, 0.0, [], {}
+    bytes_s = ops_s = 0
     for tag, rows, T, C in cases:
-        g = torch.randn(rows.shape[0], C, device=dev,
-                        generator=torch.Generator(device=dev).manual_seed(SEED))
+        g = torch.randn(
+            rows.shape[0], C, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(SEED))
         rows = rows.contiguous()
         got = onehot_gather.onehot_scatter_cuda(g, rows, T)
         again = onehot_gather.onehot_scatter_cuda(g, rows, T)
@@ -273,6 +416,8 @@ def phase_kernels(model, batch, dev):
                        20)
         ms_s += k_ms
         plain_s += p_ms
+        bytes_s += nbytes(g, rows, got)
+        ops_s += g.numel()
         stats[tag] = dict(rows=T, channels=C, max_abs_err=e.max().item(),
                           rel_to_abs_sum=(e / bound.clamp(min=1e-30))
                           .max().item(), bit_equal_runs=True,
@@ -281,7 +426,73 @@ def phase_kernels(model, batch, dev):
         shapes.append(f"{rows.shape[0]} rows into {T}x{C}")
     results["onehot_scatter"] = dict(
         shape=", ".join(shapes),
-        max_abs_err=err_s, ms=ms_s, plain_ms=plain_s, detail=stats)
+        max_abs_err=err_s, ms=ms_s, plain_ms=plain_s, detail=stats,
+        library_ms=plain_s,        # the twin is the one call, index_add_
+        **least_time(bytes_s, ops_s))
+
+    # --- 10, 11, 12: the row gather and the fused query kernels on what the
+    # model's own branches hand them for the same patch ---
+    fin = fused_main_path_inputs(model, batch, grids)
+    (table, ridx), _ = fin["mxu_row_gather"]
+    table, ridx = table.contiguous(), ridx.to(torch.int32).contiguous()
+    check(table.shape == (verts.shape[0], 204) and ridx.shape[0]
+          == pts.shape[0], f"row gather shapes {table.shape} {ridx.shape}")
+    got = interp_mxu.row_gather_cuda(table, ridx)
+    want = interp_mxu.row_gather_plain(table, ridx)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "row gather differs from table[idx]")
+    results["row_gather"] = dict(
+        shape=f"{ridx.shape[0]} rows of a {table.shape[0]}x{table.shape[1]} "
+              "table",
+        max_abs_err=(got - want).abs().max().item(),
+        ms=cuda_ms(lambda: interp_mxu.row_gather_cuda(table, ridx), 20),
+        plain_ms=cuda_ms(lambda: interp_mxu.row_gather_plain(table, ridx),
+                         20),
+        library_ms=cuda_ms(lambda: table.index_select(0, ridx), 20),
+        **least_time(nbytes(table, ridx, got), 0))
+
+    def mlp_macs(mats):
+        return sum(m.shape[0] * m.shape[1] for m in mats)
+
+    n_pts, n_kpt = pts.shape[0], batch["kpt3d"].shape[1]
+    pe_ops = 35 * n_kpt        # per point: differences, exp, sincos, octaves
+    for name, cuda_fn, plain_fn, packs in (
+            ("fused_geo_mlp", fused_mlp.fused_geo_mlp_cuda,
+             fused_mlp.fused_geo_mlp_plain, 1),
+            ("fused_query_mlp", fused_mlp.fused_query_mlp_cuda,
+             fused_mlp.fused_query_mlp_plain, 2)):
+        a, k = fin[name]
+        data = [t.contiguous() for t in a[:2 + packs]]
+        wts = a[2 + packs]
+        # the buffers the model packed once for the frame: the kernel's time
+        # below is the launch alone, as every pass after the first pays it
+        k = dict(k)
+        packed = k.pop("packed")
+        check(packed is not None, f"{name}: the model packed no weights")
+        check(data[0].shape == (n_pts, 3), f"{name}: {data[0].shape} points")
+        as_tuple = (lambda x: x if isinstance(x, tuple) else (x,))
+        got = as_tuple(cuda_fn(*data, packed, **k))
+        want = as_tuple(plain_fn(*data, wts, **k))
+        torch.cuda.synchronize()
+        worst = max(of_bound(g_, w_, FUSED_RTOL, FUSED_ATOL)
+                    for g_, w_ in zip(got, want))
+        check(worst <= 1.0, f"{name}: {worst:.3g} x the bound rtol "
+              f"{FUSED_RTOL} atol {FUSED_ATOL}")
+        flat = [w for g_ in wts.values()
+                for w in (g_ if isinstance(g_, (list, tuple)) else [g_])]
+        macs = mlp_macs([w for w in flat if w.shape[0] > 1])
+        results[name] = dict(
+            shape=f"{n_pts} points, {n_kpt} keypoints, packs "
+                  + " ".join(str(t.shape[1]) for t in data[2:])
+                  + f", {macs} multiply-adds a point",
+            max_abs_err=max((g_ - w_).abs().max().item()
+                            for g_, w_ in zip(got, want)),
+            of_bound=worst, macs_per_point=macs,
+            ms=cuda_ms(lambda: cuda_fn(*data, packed, **k), 5),
+            plain_ms=cuda_ms(lambda: plain_fn(*data, wts, **k), 5),
+            library_ms=None,
+            **least_time(nbytes(*data, *flat, *got),
+                         n_pts * (2 * macs + pe_ops)))
     return results
 
 
@@ -329,13 +540,155 @@ def phase_main_path(model, batches, dev):
               "full image: rays missed the hands")
     check(max(o["alpha_fine"].max().item() for o in group) > 0.2,
           "patch group: rays missed the hands")
-    for name in ("mesh_query", "knn", "rasterize", "interp_mxu"):
+    for name in ("mesh_query", "knn", "rasterize", "interp_mxu",
+                 "row_gather"):
         check(launches[name] > 0,
               f"kernel {name} was not launched on the serving path")
     samples = PATCH * PATCH * (S_C + S_C + S_F) * 16
     return dict(frame_ms=frame_ms, group_s=group_s,
                 ray_samples_per_s=samples / group_s, launches=launches,
                 alpha_fine_max=[o["alpha_fine"].max().item() for o in outs])
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the fused-MLP serving configuration against the unfused render
+# ---------------------------------------------------------------------------
+
+FUSED_CONFIGS = {
+    "unfused": dict(VANERF_FUSED_MLP="0"),
+    "level2": dict(VANERF_FUSED_MLP="2"),
+    "level1": dict(VANERF_FUSED_MLP="1"),
+}
+FUSED_KERNELS = {"unfused": ("row_gather",),
+                 "level2": ("row_gather", "fused_query_mlp"),
+                 "level1": ("row_gather", "fused_geo_mlp")}
+FUSED_ROUNDS = 4
+COARSE_KEYS = ("tex_fg", "alpha", "depth")
+
+
+def pinned_fine_depths(model, b):
+    """One mask-centred patch per configuration with the fine pass's
+    depths pinned to the unfused render's: every floating output must lie
+    within rtol 2e-4 / atol 2e-5 of the unfused one, on every element."""
+    import torch
+    from vanerf_tpu_torch import renderer as tr
+    grids = tr.mask_centered_grid(torch.Generator().manual_seed(SEED + 1),
+                                  b["tar_mask"][..., 0], PATCH, PATCH)
+    kw = dict(grids=grids, out_h=PATCH, out_w=PATCH, sample_per_ray_c=S_C,
+              sample_per_ray_f=S_F)
+    real, kept, worst = tr.importance_sample, [], {}
+    try:
+        tr.importance_sample = lambda *a, **k: (kept.append(real(*a, **k))
+                                                or kept[-1])
+        with env(**FUSED_CONFIGS["unfused"]):
+            want = tr.render_patch(model, b, **kw)
+        tr.importance_sample = lambda *a, **k: kept[0]
+        for name in ("level2", "level1"):
+            with env(**FUSED_CONFIGS[name]):
+                got = tr.render_patch(model, b, **kw)
+            worst[name] = {
+                k: of_bound(got[k], v, FUSED_RTOL, FUSED_ATOL)
+                for k, v in want.items()
+                if torch.is_tensor(v) and v.is_floating_point()}
+    finally:
+        tr.importance_sample = real
+    for name, w in worst.items():
+        bad = {k: x for k, x in w.items() if not x <= 1.0}
+        check(not bad, f"{name} with pinned fine depths, share of rtol "
+              f"{FUSED_RTOL} atol {FUSED_ATOL}: {bad}")
+    check(want["alpha_fine"].max().item() > 0.2, "pinned patch missed")
+    return worst
+
+
+def phase_fused_serving(model, b, dev):
+    """One frame and one 16-patch group per configuration and round, the
+    configurations in turns; VANERF_FUSED_MLP is set in all three, so the
+    far tier is off in all three."""
+    import torch
+    from vanerf_tpu_torch import ops
+    from vanerf_tpu_torch import renderer as tr
+    res = {name: dict(frame_ms=[], group_ms=[]) for name in FUSED_CONFIGS}
+    outs = {}
+    for rnd in range(FUSED_ROUNDS):
+        for name, switches in FUSED_CONFIGS.items():
+            with env(**switches):
+                ops.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                frame = tr.render_full_image(model, b, level=3,
+                                             sample_per_ray_c=S_C,
+                                             sample_per_ray_f=S_F)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                gen = torch.Generator().manual_seed(SEED + 1)
+                cached = tr.encode_frame(model, b)
+                group = []
+                for _ in range(16):
+                    grids = tr.mask_centered_grid(gen, b["tar_mask"][..., 0],
+                                                  PATCH, PATCH)
+                    group.append(tr.render_patch(
+                        model, b, grids=grids, out_h=PATCH, out_w=PATCH,
+                        sample_per_ray_c=S_C, sample_per_ray_f=S_F,
+                        cached=cached))
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                counts = ops.launch_counts()
+            res[name]["frame_ms"].append((t1 - t0) * 1e3)
+            res[name]["group_ms"].append((t2 - t1) * 1e3)
+            if rnd == 0:
+                res[name]["launches"] = counts
+                outs[name] = [frame] + group
+                for kern in FUSED_KERNELS[name]:
+                    check(counts[kern] > 0,
+                          f"kernel {kern} was not launched under {switches}")
+                for kern in ("row_gather", "fused_query_mlp",
+                             "fused_geo_mlp"):
+                    check(kern in FUSED_KERNELS[name] or counts[kern] == 0,
+                          f"kernel {kern} ran under {switches}")
+    # The coarse pass holds to the bound on every element.  The fine pass
+    # samples depths by inverse CDF with the reference's guard
+    # `den < 1e-5 -> 1` (ops/sampling.py), a step: a coarse weight that
+    # differs in its last bits can move a fine sample of an empty bin
+    # across it, which shifts that ray's fine colour by up to ~1e-2.  So
+    # the free-running fine outputs may leave the bound on a small share of
+    # pixels (FUSED_FINE_SHARE, never by more than FUSED_FINE_ABS), and
+    # `pinned_fine_depths` below holds the fine pass to the bound on every
+    # element with its depths pinned to the unfused render's.
+    acc_of = {"depth": "alpha", "depth_fine": "alpha_fine",
+              "sdf": "alpha_fine"}
+    for name in ("level2", "level1"):
+        worst, share, abs_err = {}, {}, {}
+        for got, want in zip(outs[name], outs["unfused"]):
+            for k, v in want.items():
+                if not (torch.is_tensor(v) and v.is_floating_point()):
+                    continue
+                check(torch.isfinite(got[k]).all().item(),
+                      f"{name}: non-finite {k}")
+                g_, w_ = got[k], v
+                if k in acc_of:      # normalised by acc: hit rays only
+                    m = want[acc_of[k]] > 1e-2
+                    g_, w_ = g_[m], w_[m]
+                err = (g_ - w_).abs()
+                rel = err / (FUSED_ATOL + FUSED_RTOL * w_.abs())
+                worst[k] = max(worst.get(k, 0.0), rel.max().item())
+                share[k] = max(share.get(k, 0.0),
+                               (rel > 1.0).float().mean().item())
+                abs_err[k] = max(abs_err.get(k, 0.0), err.max().item())
+        res[name].update(of_bound=worst, share_outside=share,
+                         max_abs_err=abs_err)
+        for k in worst:
+            if k in COARSE_KEYS or not k.endswith(("_fine", "sdf")):
+                check(worst[k] <= 1.0, f"{name}: {k} at {worst[k]:.3g} x "
+                      f"rtol {FUSED_RTOL} atol {FUSED_ATOL}")
+            else:
+                check(share[k] <= FUSED_FINE_SHARE
+                      and (k in acc_of or abs_err[k] <= FUSED_FINE_ABS),
+                      f"{name}: {k} outside the bound on {share[k]:.2%} of "
+                      f"its elements, max abs err {abs_err[k]:.3g}")
+    res["pinned"] = pinned_fine_depths(model, b)
+    check(outs["unfused"][0]["alpha_fine"].max().item() > 0.2,
+          "fused phase: rays missed the hands")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -384,7 +737,14 @@ def train_parts(model, dev):
     return copy.deepcopy(model).to(dev), disc.to(dev), vgg.to(dev)
 
 
-def phase_train(model, batch, cfg, dev):
+def phase_train(model, batch, cfg, dev, fused_level: int = 0):
+    """TRAIN_STEPS faithful GAN steps from the seeded weights and draws;
+    with ``fused_level`` under VANERF_FUSED_TRAIN=<level>."""
+    with env(VANERF_FUSED_TRAIN=str(fused_level)):
+        return _phase_train(model, batch, cfg, dev, fused_level)
+
+
+def _phase_train(model, batch, cfg, dev, fused_level):
     import torch
     from vanerf_tpu_torch import ops
     from vanerf_tpu_torch.training import create_train_state, make_train_step
@@ -412,7 +772,20 @@ def phase_train(model, batch, cfg, dev):
     for name in ("mesh_query", "knn", "rasterize", "onehot_scatter"):
         check(launches[name] > 0,
               f"kernel {name} was not launched on the training path")
-    check(launches["interp_mxu"] == 0, "kernel D ran under training")
+    # under VANERF_FUSED_TRAIN the query runs as at eval (as in the JAX
+    # package), so the D render, which builds no graph, samples through D
+    check(fused_level > 0 or launches["interp_mxu"] == 0,
+          "kernel D ran under training")
+    # the G render's KNN rows carry a table gradient (take_rows); the D
+    # render builds no graph and takes kernel 10, once a pass
+    check(launches["row_gather"] == 2 * TRAIN_STEPS,
+          f"kernel 10: {launches['row_gather']} launches in training")
+    fused = {0: None, 1: "fused_geo_mlp", 2: "fused_query_mlp"}[fused_level]
+    for name in ("fused_geo_mlp", "fused_query_mlp"):
+        # two renders a step (G with a graph, D without), two passes each
+        check(launches[name] == (4 * TRAIN_STEPS if name == fused else 0),
+              f"kernel {name}: {launches[name]} launches under "
+              f"VANERF_FUSED_TRAIN={fused_level}")
     return dict(step_ms=step_ms, ms_per_step=sum(step_ms[1:]) /
                 (len(step_ms) - 1), peak_bytes=peak, launches=launches,
                 logs=[{k: v.item() for k, v in lg.items()} for lg in logs])
@@ -533,8 +906,12 @@ def main() -> int:
     with torch.no_grad():
         kres = phase_kernels(model, batches[0], dev)
     for name, r in kres.items():
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.3f} ms")
         say(f"phase 2 {name}: {r['shape']}: max_abs_err {r['max_abs_err']:.3g}"
-            f", kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms")
+            f", kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, library call "
+            f"{lib}")
 
     # ---- phase 3 ----
     with torch.no_grad():
@@ -543,6 +920,27 @@ def main() -> int:
         f"{main['frame_ms'][1]:.1f} ms per frame; 16-patch group "
         f"{main['group_s'] * 1e3:.1f} ms = {main['ray_samples_per_s']:.4g} "
         f"ray-samples/s; launches {main['launches']}")
+
+    # ---- phase 3b ----
+    with torch.no_grad():
+        fused = phase_fused_serving(model, batches[0], dev)
+    for name in ("level2", "level1"):
+        r, u = fused[name], fused["unfused"]
+        say(f"phase 3b {name} {FUSED_CONFIGS[name]}: full image "
+            f"{' / '.join(f'{t:.1f}' for t in r['frame_ms'])} ms per frame "
+            f"(unfused, far tier off, in turns: "
+            f"{' / '.join(f'{t:.1f}' for t in u['frame_ms'])}); 16-patch "
+            f"group {' / '.join(f'{t:.1f}' for t in r['group_ms'])} ms "
+            f"(unfused {' / '.join(f'{t:.1f}' for t in u['group_ms'])}); "
+            f"coarse outputs at most "
+            f"{max(r['of_bound'][k] for k in COARSE_KEYS):.3g}"
+            f" of rtol {FUSED_RTOL} atol {FUSED_ATOL}; fine outputs outside "
+            f"it on at most {max(r['share_outside'].values()):.3%} of their "
+            f"elements (max abs err colour "
+            f"{r['max_abs_err']['tex_fg_fine']:.3g}), and at most "
+            f"{max(fused['pinned'][name].values()):.3g} of it with the fine "
+            f"depths pinned; launches "
+            f"{ {k: r['launches'][k] for k in FUSED_KERNELS[name]} }")
 
     # ---- phase 4 ----
     with torch.no_grad():
@@ -560,6 +958,20 @@ def main() -> int:
         f"{[round(lg['train/g_loss'], 4) for lg in train['logs']]}, d_loss "
         f"{[round(lg['train/d_loss'], 4) for lg in train['logs']]}")
 
+    # ---- phase 5b ----
+    ftrain = phase_train(model, batches[0], cfg, dev, fused_level=2)
+    g0 = train["logs"][0]["train/g_loss"]
+    g1 = ftrain["logs"][0]["train/g_loss"]
+    ftrain["g_loss_rel_err"] = abs(g1 - g0) / abs(g0)
+    check(ftrain["g_loss_rel_err"] <= FUSED_TRAIN_LOSS_RTOL,
+          f"VANERF_FUSED_TRAIN=2 G loss {g1} against unfused {g0}")
+    say(f"phase 5b training under VANERF_FUSED_TRAIN=2: "
+        f"{ftrain['ms_per_step']:.1f} ms/step (steps 2-{TRAIN_STEPS}; all: "
+        f"{[round(t, 1) for t in ftrain['step_ms']]}); peak "
+        f"{ftrain['peak_bytes'] / 2**30:.2f} GiB; first-step g_loss {g1:.6g} "
+        f"against unfused {g0:.6g} (rel {ftrain['g_loss_rel_err']:.2e}); "
+        f"launches {ftrain['launches']}")
+
     # ---- phase 6 ----
     vs_cpu = phase_train_card_vs_cpu(model, frames[0], cfg, dev)
     say(f"phase 6 G-loss gradient card vs CPU (16x16 rays, 64+64 samples): "
@@ -569,19 +981,28 @@ def main() -> int:
         f"({vs_cpu['worst_grad']}); largest relative norm error "
         f"{vs_cpu['worst_grad_rel_err']:.2e} ({vs_cpu['worst_rel_grad']})")
 
-    launches = dict(main["launches"],
-                    onehot_scatter=train["launches"]["onehot_scatter"])
+    launches = dict(
+        main["launches"],
+        onehot_scatter=train["launches"]["onehot_scatter"],
+        fused_query_mlp=fused["level2"]["launches"]["fused_query_mlp"],
+        fused_geo_mlp=fused["level1"]["launches"]["fused_geo_mlp"])
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = kres[name]
+        check(launches[name] > 0, f"kernel {name} was launched by no path")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
     say("details: " + json.dumps({"gpu": smi, "build_s": build_s,
                                   "kernels": kres, "main_path": main,
+                                  "fused_serving": fused,
                                   "card_vs_cpu": errs, "train": train,
+                                  "fused_train": ftrain,
                                   "train_card_vs_cpu": vs_cpu}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -62,7 +62,8 @@ def test_cpu_tensors_take_the_plain_path():
     assert torch.isfinite(out["tex_fg_fine"]).all()
     assert ops.launch_counts() == {"mesh_query": 0, "knn": 0,
                                    "rasterize": 0, "interp_mxu": 0,
-                                   "onehot_scatter": 0}
+                                   "onehot_scatter": 0, "row_gather": 0,
+                                   "fused_query_mlp": 0, "fused_geo_mlp": 0}
 
 
 def test_kernel_library_is_keyed_on_sources():
@@ -72,7 +73,8 @@ def test_kernel_library_is_keyed_on_sources():
     assert path.name.startswith("libvanerf_kernels_")
     srcs = {p.name for p in _cuda._sources()}
     assert {"knn.cu", "rasterize.cu", "mesh_query.cu", "interp.cu",
-            "onehot_scatter.cu", "common.cuh"} <= srcs
+            "onehot_scatter.cu", "row_gather.cu", "fused_mlp.cu",
+            "common.cuh"} <= srcs
     assert "arch=compute_90a,code=sm_90a" in _cuda.NVCC_FLAGS
 
 

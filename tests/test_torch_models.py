@@ -323,7 +323,7 @@ def test_unported_options_raise(monkeypatch):
     with pytest.raises(NotImplementedError):
         tm.VANeRF.from_config(cfg, num_v=h.NUM_V, image_hw=(h.H, h.W))
     from vanerf_tpu_torch.models.vanerf import _check_env
-    for env in ("VANERF_FUSED_MLP", "VANERF_TWO_RES", "VANERF_MXU_ROWS"):
+    for env in ("VANERF_TWO_RES",):
         monkeypatch.setenv(env, "1")
         with pytest.raises(NotImplementedError):
             _check_env()

@@ -126,7 +126,8 @@ def test_make_synthetic_batch_matches_jax():
     from vanerf_tpu_torch.data import make_synthetic_batch
     batch_j, faces_j = h.synthetic_batch()
     batch_t, faces_t, num_v = make_synthetic_batch(batch_size=1, H=h.H,
-                                                   W=h.W, subdiv=2)
+                                                   W=h.W, subdiv=2,
+                                                   device="cpu")
     assert num_v == h.NUM_V
     np.testing.assert_array_equal(faces_t, faces_j)
     assert set(batch_t) == set(batch_j)

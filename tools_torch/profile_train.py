@@ -32,8 +32,9 @@ import statistics
 import sys
 import time
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, REPO)
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(HERE)
+sys.path[:0] = [REPO, HERE]
 
 
 def main() -> int:
@@ -43,8 +44,8 @@ def main() -> int:
     args = ap.parse_args()
 
     import torch
-    from torch.autograd import DeviceType
     import chip_smoke as cs
+    from _profile import summarize, write_table
     from vanerf_tpu_torch.config import default_cfg
     from vanerf_tpu_torch.data import make_synthetic_batch, to_torch
     from vanerf_tpu_torch.models import VANeRF, init_like_flax
@@ -118,31 +119,7 @@ def main() -> int:
             step(state, batch, gen)
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    # device events, less the GPU mirrors of host annotations (such as
-    # Optimizer.step), which span gaps between kernels
-    events = prof.events()
-    host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
-    kern = [e for e in events if e.device_type == DeviceType.CUDA
-            and e.name not in host_names]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
-    busy_us, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy_us += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy_us += cur_e - cur_s
-    span_us = (spans[-1][1] - spans[0][0]) if spans else 0.0
-    by_name = {}
-    for e in kern:
-        d = by_name.setdefault(e.name, [0, 0.0])
-        d[0] += 1
-        d[1] += e.time_range.elapsed_us()
-    table = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-    device_sum_us = sum(v[1] for v in by_name.values())
+    p, table = summarize(prof, 2, prof_wall_ms)
 
     res = {
         "gpu": torch.cuda.get_device_name(0),
@@ -152,20 +129,11 @@ def main() -> int:
         "scatter_launches_per_step": {k: sorted(v)
                                       for k, v in launches.items()},
         "adam_ms": adam,
-        "profile": {
-            "wall_ms_per_step": prof_wall_ms / 2,
-            "device_ops_per_step": len(kern) / 2,
-            "device_busy_ms_per_step": busy_us / 2e3,
-            "device_kernel_sum_ms_per_step": device_sum_us / 2e3,
-            "idle_share_of_span": 1.0 - busy_us / span_us if span_us else None,
-            "top": [{"name": n[:120], "launches_per_step": c / 2,
-                     "ms_per_step": us / 2e3} for n, (c, us) in table[:25]],
-        },
+        "profile": p,
     }
     for arm, v in res["ms_per_step"].items():
         print(f"route {arm}: median {v['median']:.2f} ms/step "
               f"({v['min']:.2f}-{v['max']:.2f}, {len(v['all'])} steps)")
-    p = res["profile"]
     print(f"profile: {p['device_ops_per_step']:.0f} device ops/step, "
           f"device busy {p['device_busy_ms_per_step']:.2f} ms/step of "
           f"{p['wall_ms_per_step']:.2f} ms wall under the profiler, idle "
@@ -178,9 +146,7 @@ def main() -> int:
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            for n, (c, us) in table:
-                f.write(f"{us / 2e3:10.4f} ms/step {c / 2:9.1f} launches/step"
-                        f"  {n}\n")
+            write_table(f, table, 2, "step")
     print(json.dumps(res), flush=True)
     return 0
 

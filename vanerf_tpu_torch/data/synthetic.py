@@ -109,9 +109,21 @@ def _vertex_colors(verts: np.ndarray) -> np.ndarray:
     return np.stack([r, g, b], -1).astype(np.float32) * 0.8 + 0.1
 
 
-def render_view(verts, faces, K, Rt, H, W, device="cpu"):
+def _device(device):
+    """``device``, or the card when the caller names none: there is no quiet
+    step back to the CPU (pass ``device="cpu"`` to ask for it)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the fixture is rasterized on "
+                           "the card unless device='cpu' is asked for")
+    return torch.device("cuda")
+
+
+def render_view(verts, faces, K, Rt, H, W, device=None):
     """Render (img, mask, densepose) with the port's rasterizer on
-    ``device`` (a CUDA device runs kernel C)."""
+    ``device`` (default: the card, which runs kernel C)."""
+    device = _device(device)
     cam = verts @ Rt[:3, :3].T + Rt[:3, 3]
     z = cam[:, 2]
     xy = np.stack([cam[:, 0] / z * K[0, 0] + K[0, 2],
@@ -143,14 +155,14 @@ class SyntheticDataset:
 
     def __init__(self, n_frames: int = 2, n_cams: int = 8,
                  num_input_view: int = 1, H: int = 256, W: int = 256,
-                 subdiv: int = 3, split: str = "train", device="cpu"):
+                 subdiv: int = 3, split: str = "train", device=None):
         self.n_frames = n_frames
         self.n_cams = n_cams
         self.num_input_view = num_input_view
         self.H, self.W = H, W
         self.subdiv = subdiv
         self.split = split
-        self.device = device
+        self.device = _device(device)
         _, faces, _ = two_hand_mesh(0, subdiv)
         self.faces = faces
         self.num_v = len(hand_template(subdiv)[0])
@@ -226,10 +238,11 @@ class SyntheticDataset:
 
 def make_synthetic_batch(batch_size: int = 1, H: int = 64, W: int = 64,
                          subdiv: int = 2, num_input_view: int = 1,
-                         split: str = "train", device="cpu"):
+                         split: str = "train", device=None):
     """Collated batch (numpy, channels-last); source-view tensors are
     flattened to (B*V, ...).  ``device`` is where the fixture is
-    rasterized.  Returns (batch dict, faces, num_v)."""
+    rasterized: the card unless the caller asks for ``"cpu"``.  Returns
+    (batch dict, faces, num_v)."""
     ds = SyntheticDataset(n_frames=max(batch_size, 1), n_cams=6,
                           num_input_view=num_input_view, H=H, W=W,
                           subdiv=subdiv, split=split, device=device)

@@ -3,9 +3,13 @@
 
 Supported: one source view, ``sp_type=rel_z_decay``, ``sp_conv=false``,
 float32, eval and training (at one view the training query equals the eval
-query: view dropout needs two views).  The fused-MLP, two-resolution and
-MXU row-gather variants of the JAX package are not ported and raise when
-their environment switches are set.  At inference small encoder maps
+query: view dropout needs two views).  ``VANERF_FUSED_MLP=1`` runs the
+positional encoding, ``MLPUNetFusion`` and ``gcompress`` as kernel 12, ``=2``
+the whole per-point network behind the gathers as kernel 11
+(``ops/fused_mlp.py``); the KNN rows come through kernel 10 whenever no
+graph is built (``ops/knn.py``; the JAX package's ``VANERF_MXU_ROWS`` is
+not read).  The two-resolution variant of the JAX package is
+not ported and raises when its switch is set.  At inference small encoder maps
 (``interp_mxu_viable``) are sampled through kernel D, as the JAX package
 does on a TPU; kernel D has no gradient, so under training or an autograd
 graph they take the gather path, as in JAX (``models/vanerf.py:304-324``).
@@ -18,16 +22,19 @@ import os
 import torch
 import torch.nn as nn
 
+from ..ops.fused_mlp import (fused_geo_mlp, fused_query_mlp,
+                             pack_geo_weights, pack_query_weights,
+                             prepare_geo_mlp_weights, prepare_query_weights)
 from ..ops.grid_sample import feat_sample_nhwc
 from ..ops.interp_mxu import interp_mxu_viable, interp_sample_nhwc
-from ..ops.knn import knn_gather_1, nearest_vertex_d2
+from ..ops.knn import knn_gather_1, knn_gather_raw, nearest_vertex_d2
 from .blocks import HGFilter, ResBlkEncoder, avg_pool2
 from .fusion import GeoVisFusion, TexVisFusion
 from .ibr import IBRRenderingHead
 from .mlp import MLPUNetFusion
 from .spatial import SpatialEncoder
 
-_UNPORTED_ENV = ("VANERF_FUSED_MLP", "VANERF_TWO_RES", "VANERF_MXU_ROWS")
+_UNPORTED_ENV = ("VANERF_TWO_RES",)
 
 
 def _check_env():
@@ -59,6 +66,7 @@ class VANeRF(nn.Module):
                  far_net: float = 0.0, far_tnet: float = 0.0):
         super().__init__()
         self.sp_args = dict(sp_args)
+        self.gcompress_out = gcompress_out
         self.num_v = num_v
         self.ds_geo, self.ds_tex = ds_geo, ds_tex
         self.far_tau, self.far_skip = far_tau, far_skip
@@ -96,6 +104,7 @@ class VANeRF(nn.Module):
         self.ibr_compress_gfeat = nn.Linear(gcompress_in, gcompress_out)
         self.mlp_tex = IBRRenderingHead(in_channels=ibr_in_channels)
         self.sigmoid_beta = nn.Parameter(torch.full((1,), 0.1))
+        self._fused_cache = {}
 
     @classmethod
     def from_config(cls, cfg: dict, num_v: int = 779, image_hw=(256, 256)):
@@ -144,7 +153,7 @@ class VANeRF(nn.Module):
     def query(self, pts, view, cam, feat_geo, feat_tex, src_img, fg_mask,
               verts, vert_vis, query_vis, query_sdf, kpt3d, n_samples: int,
               n_views: int = 1, training: bool = False, nn_idx=None,
-              far_mask=None):
+              far_mask=None, fused_override=None):
         """(sdf_channel, radiance, rgb) at world points.
 
         pts/view (B, N, 3); cam: 'KRT'/'extrin' (B, 4, 4), 'width',
@@ -153,6 +162,8 @@ class VANeRF(nn.Module):
         verts (B, V2, 3); vert_vis (B, V2, 1); query_vis/query_sdf
         (B, N, 1); kpt3d (B, K, 3); nn_idx (B, N) nearest-vertex ids;
         far_mask (B, N, 1) bool or None; ``training`` keeps kernel D off.
+        ``fused_override`` pins the fused level (0, 1, 2) instead of the
+        ``VANERF_FUSED_MLP`` read; level 2 ignores ``far_mask``.
         Returns out (B, N, 5), valid (B, N, 1).
         """
         if n_views != 1:
@@ -206,8 +217,23 @@ class VANeRF(nn.Module):
             feat_sampled = [_psamp(f, xy, training) for f in feat_geo]
             feat_tex_xy = feat_sample_nhwc(feat_tex, xy)
 
-        y = self.sp_encoder(v=v, extrin=cam["extrin"], kpt3d=kpt3d)
-        y = y.reshape(B, 1, N, -1)
+        # fused query kernels (ops/fused_mlp.py), one source view only:
+        #   1: PE + MLPUNetFusion + gcompress; 2: additionally both
+        #   gate/fuse nets and the V=1 rgb head.
+        fused_level = (fused_override if fused_override is not None
+                       else int(os.environ.get("VANERF_FUSED_MLP", "0") or 0))
+        if training:
+            fused_level = 0
+        if fused_level >= 2 and not (
+                feat_geo[0].shape[-1] == 64 and feat_geo[1].shape[-1] == 8
+                and feat_tex.shape[-1] == 8 and self.gcompress_out == 24
+                and kpt3d.shape[1] == self.sp_args["n_kpt"]):
+            fused_level = 1          # the full kernel assumes shipped dims
+
+        y = None
+        if fused_level == 0:
+            y = self.sp_encoder(v=v, extrin=cam["extrin"], kpt3d=kpt3d)
+            y = y.reshape(B, 1, N, -1)
 
         # project mesh vertices into the source view (model.py:845-853)
         vvh = verts @ krt[:, :3, :3].transpose(-1, -2) + krt[:, None, :3, 3]
@@ -223,8 +249,17 @@ class VANeRF(nn.Module):
         # one shared KNN gather for both fusion branches
         gv = self.geo_vis_fusion.vertex_table(feat_geo, vert_xy)
         tv = self.tex_vis_fusion.vertex_table(feat_tex, src_img, vert_xy)
+        shared = torch.cat([gv, tv], -1)
+        if fused_level >= 2:
+            # raw rows: slicing, visibility weighting and both fusion nets
+            # run inside the kernel
+            g2_raw = knn_gather_raw(v, verts, shared, vert_vis, self.num_v,
+                                    nn_idx)
+            return self._query_fused_full(
+                v, cam, kpt3d, feat_sampled, img_xy, feat_tex_xy, query_sdf,
+                query_vis, out_mask, pix_weight, g2_raw)
         f_s, f_toh_s, vis_th, vis_toh = knn_gather_1(
-            v, verts, torch.cat([gv, tv], -1), vert_vis, self.num_v, nn_idx)
+            v, verts, shared, vert_vis, self.num_v, nn_idx)
         if far_mask is not None:
             # far-field tier: the nearest vertex's visibility stands in
             query_vis = torch.where(far_mask, vis_th, query_vis)
@@ -236,21 +271,97 @@ class VANeRF(nn.Module):
                                     knn=geo_knn)
         fused = [f.reshape(B, 1, N, -1) for f in fused]
 
-        out, valid, _x_view, latent_fused = self.mlp_geo(
-            y, fused, out_mask, pix_weight)
+        if fused_level >= 1:
+            cxyz, kptc_T = self._camera_frame(v, kpt3d, cam["extrin"])
+            wts, packed = self._fused_weights(False, kptc_T)
+            aux = torch.cat([fused[0][:, 0], fused[1][:, 0], out_mask[:, 0],
+                             pix_weight[:, 0]], -1)             # (B, N, 74)
+            sp = self.sp_encoder
+            res = [fused_geo_mlp(cxyz[b], kptc_T[b], aux[b], wts,
+                                 sp_level=sp.sp_level, scale=sp.scale,
+                                 sigma=sp.sigma, packed=packed)
+                   for b in range(B)]
+            out = torch.stack([r[0] for r in res])
+            latent_fused = torch.stack([r[1] for r in res])
+            valid = out_mask.sum(1) > 0                         # (B, N, 1)
+        else:
+            out, valid, _x_view, latent_fused = self.mlp_geo(
+                y, fused, out_mask, pix_weight)
         rgb = self._query_color(vert_xy, verts, vert_vis, query_vis, v,
                                 feat_tex, latent_fused, src_img, img_xy,
-                                feat_tex_xy, tex_knn)
+                                feat_tex_xy, tex_knn,
+                                latent_compressed=fused_level >= 1)
         out = torch.cat([out, rgb], -1)
         return out, valid.to(out.dtype)
 
+    @staticmethod
+    def _camera_frame(v, kpt3d, extrin):
+        """Camera-frame points (B, N, 3) and keypoints (B, 3, K)."""
+        R = extrin[:, :3, :3].transpose(-1, -2)
+        t = extrin[:, None, :3, 3]
+        return ((v @ R + t).float(),
+                (kpt3d @ R + t).float().transpose(1, 2).contiguous())
+
+    def _fused_weights(self, full: bool, kpt_T: torch.Tensor):
+        """The prepared weights of kernel 12 (``full=False``) or 11 and,
+        on the card, their packed buffers.  Where a graph may be built the
+        weights are prepared anew (the gradients reach ``weight_v`` /
+        ``weight_g`` through them) and packed at the launch.  Without one
+        every pass of a frame shares one preparation, kept until a
+        parameter is written to or replaced."""
+        sp_level = self.sp_encoder.sp_level
+        mods = (self.mlp_geo, self.ibr_compress_gfeat) + (
+            (self.geo_vis_fusion, self.tex_vis_fusion) if full else ())
+
+        def prepare():
+            if full:
+                return prepare_query_weights(self, n_parts=1 + 2 * sp_level)
+            return prepare_geo_mlp_weights(self)
+
+        if torch.is_grad_enabled():
+            return prepare(), None
+        K = kpt_T.shape[-1]
+        key = (K,) + tuple((p.data_ptr(), p._version)
+                           for m in mods for p in m.parameters())
+        hit = self._fused_cache.get(full)
+        if hit is None or hit[0] != key:
+            wts = prepare()
+            pack = pack_query_weights if full else pack_geo_weights
+            packed = pack(wts, K, sp_level) if kpt_T.is_cuda else None
+            hit = self._fused_cache[full] = (key, wts, packed)
+        return hit[1], hit[2]
+
+    def _query_fused_full(self, v, cam, kpt3d, feat_sampled, img_xy,
+                          feat_tex_xy, query_sdf, query_vis, out_mask,
+                          pix_weight, g2_raw):
+        """``VANERF_FUSED_MLP=2`` tail of :meth:`query`: one kernel pass
+        runs the GeoVisFusion gates, the geometry MLP stack, gcompress, the
+        TexVisFusion gates and the V=1 rgb head over the raw gather rows
+        (``ops/fused_mlp.py::fused_query_mlp``)."""
+        cxyz, kptc_T = self._camera_frame(v, kpt3d, cam["extrin"])
+        sp = self.sp_encoder
+        wts, packed = self._fused_weights(True, kptc_T)
+        feats = torch.cat([feat_sampled[0], feat_sampled[1], img_xy,
+                           feat_tex_xy, query_sdf, query_vis, out_mask[:, 0],
+                           pix_weight[:, 0]], -1)               # (B, N, 87)
+        out5 = torch.stack([
+            fused_query_mlp(cxyz[b], kptc_T[b], feats[b], g2_raw[b], wts,
+                            sp_level=sp.sp_level, scale=sp.scale,
+                            sigma=sp.sigma, packed=packed)
+            for b in range(v.shape[0])])
+        valid = out_mask.sum(1) > 0                             # (B, N, 1)
+        return out5, valid.to(out5.dtype)
+
     def _query_color(self, vert_xy, vert, vert_vis, query_vis, v, feat_tex,
-                     latent_fused, img, img_xy, feat_xy, tex_knn):
+                     latent_fused, img, img_xy, feat_xy, tex_knn,
+                     latent_compressed: bool = False):
         """IBR colour query (model.py:884-957) at one source view: the
         blend is a softmax over a single view (== 1), so the head reduces
         exactly to the fused feature's rgb (the JAX package's default
-        VANERF_IBR_V1_SHORTCUT)."""
-        latent = self.ibr_compress_gfeat(latent_fused)
+        VANERF_IBR_V1_SHORTCUT).  ``latent_compressed``: kernel 12 has
+        already applied gcompress."""
+        latent = (latent_fused if latent_compressed
+                  else self.ibr_compress_gfeat(latent_fused))
         rgb_feat = self.tex_vis_fusion(vert_xy, feat_tex, feat_xy, vert, v,
                                        vert_vis, query_vis, img_xy, img,
                                        latent, knn=tex_knn)

@@ -1,20 +1,28 @@
 """Geometry and sampling ops of the port (plain PyTorch + the CUDA kernels).
 
-Each module that holds a kernel exposes a module-level ``launches``
-counter; :func:`reset_launches` and :func:`launch_counts` read them all.
+Each kernel's wrapper adds one to a module-level counter where it launches
+the kernel; :func:`reset_launches` and :func:`launch_counts` read them all.
 """
 
-from . import interp_mxu, knn, mesh_query, onehot_gather, rasterize
+from . import (fused_mlp, interp_mxu, knn, mesh_query, onehot_gather,
+               rasterize)
 
-KERNEL_MODULES = {"mesh_query": mesh_query, "knn": knn,
-                  "rasterize": rasterize, "interp_mxu": interp_mxu,
-                  "onehot_scatter": onehot_gather}
+# kernel name -> (module, counter attribute)
+KERNEL_COUNTERS = {"mesh_query": (mesh_query, "launches"),
+                   "knn": (knn, "launches"),
+                   "rasterize": (rasterize, "launches"),
+                   "interp_mxu": (interp_mxu, "launches"),
+                   "onehot_scatter": (onehot_gather, "launches"),
+                   "row_gather": (interp_mxu, "row_gather_launches"),
+                   "fused_query_mlp": (fused_mlp, "query_launches"),
+                   "fused_geo_mlp": (fused_mlp, "geo_launches")}
 
 
 def reset_launches() -> None:
-    for mod in KERNEL_MODULES.values():
-        mod.launches = 0
+    for mod, attr in KERNEL_COUNTERS.values():
+        setattr(mod, attr, 0)
 
 
 def launch_counts() -> dict:
-    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in KERNEL_COUNTERS.items()}

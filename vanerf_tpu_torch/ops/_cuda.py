@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` sources are compiled by ``nvcc`` for ``sm_90a`` into ONE
+All ``csrc/*.cu`` sources are compiled by ``nvcc`` for ``sm_90a`` (one
+``nvcc -c`` per source, all started together, then one link) into ONE
 shared library with a plain C interface, loaded with :mod:`ctypes`.  The
 build runs at first use (never at import time: the CPU tests import every
 module) into ``build/vanerf_tpu_torch/`` at the repository root, keyed on
@@ -23,12 +24,17 @@ import threading
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2] / "build"
              / "vanerf_tpu_torch")
+# -fmad=false: kernels A-D equal their plain versions bit for bit only if
+# every product and sum rounds on its own; the fused MLP kernels, which
+# cannot be bit-equal, call fmaf explicitly instead of taking other flags.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false"]
+              "-O3", "-Xcompiler", "-fPIC", "-fmad=false"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 # C signatures of the entry points (all return cudaGetLastError() as int)
 _SIGNATURES = {
     "vt_knn": [_P, _I, _P, _I, _P, _P, _P],
@@ -36,6 +42,11 @@ _SIGNATURES = {
     "vt_mesh_query": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
     "vt_interp": [_P, _I, _I, _I, _P, _I, _P, _P],
     "vt_onehot_scatter": [_P, _P, _I, _I, _I, _P, _P, _L, _P, _L, _P],
+    "vt_row_gather": [_P, _I, _I, _P, _I, _P, _P],
+    "vt_fused_geo_mlp": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _IP, _P,
+                         _P, _P],
+    "vt_fused_query_mlp": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+                           _IP, _P, _P],
 }
 
 _lib = None
@@ -72,18 +83,36 @@ def build(verbose: bool = False) -> pathlib.Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = ([_nvcc()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
-           + ["-I", str(CSRC), "-o", tmp]
-           + [str(s) for s in _sources() if s.suffix == ".cu"])
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    nvcc = _nvcc()
+    extra = ["-Xptxas", "-v"] if verbose else []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        procs = []
+        for src in _sources():
+            if src.suffix != ".cu":
+                continue
+            obj = os.path.join(work, src.stem + ".o")
+            cmd = ([nvcc] + NVCC_FLAGS + extra
+                   + ["-I", str(CSRC), "-c", str(src), "-o", obj])
+            procs.append((obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], False
+        for _obj, proc in procs:        # every compile runs to its end
+            logs.append(proc.communicate()[0])
+            failed |= proc.returncode != 0
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(logs))
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", tmp] + [obj for obj, _ in procs],
+            capture_output=True, text=True)
+        if link.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
     if verbose:
-        print(proc.stdout + proc.stderr)
+        print("\n".join(logs))
     os.replace(tmp, out)
     return out
 

@@ -1,0 +1,533 @@
+"""The per-point query network in one kernel a pass (port of
+``vanerf_tpu/ops/fused_mlp.py``).
+
+:func:`fused_geo_mlp` is kernel 12 (``csrc/fused_mlp.cu::vt_fused_geo_mlp``):
+the rel_z_decay positional encoding, ``MLPUNetFusion`` at one source view
+(the view pooling reduces to ``mean = w * x``, ``var = w * (x - mean)^2``)
+and the ``gcompress`` latent.  :func:`fused_query_mlp` is kernel 11
+(``vt_fused_query_mlp``): the same body between ``GeoVisFusion``'s two
+gate/fuse scales in front and ``TexVisFusion``'s gate/fuse with the V=1 rgb
+columns behind, reading the raw KNN gather rows of
+:func:`~.knn.knn_gather_raw`.  On CUDA tensors both launch their kernel;
+CPU tensors take the plain versions :func:`fused_geo_mlp_plain` /
+:func:`fused_query_mlp_plain`, which repeat the kernels' arithmetic (the
+same virtual-concat splits in the same order, the bias added last).  All
+float32: the "rounded once per layer" casts of the JAX kernel are the
+identity here.
+
+Gradients (``VANERF_FUSED_TRAIN``): the JAX package has no backward kernel;
+its ``custom_vjp`` runs the Pallas primal and differentiates the plain
+composition from the saved inputs.  :class:`_FusedMLP` does the same: the
+forward runs the kernel and saves only its inputs, the backward re-runs the
+plain version under ``torch.enable_grad()`` and returns its gradients for
+the points, the packs, the gather rows and the prepared weights.  So the
+cotangents come from the fused outputs and the gradients from the plain
+function; both agree to the kernels' tolerance.
+
+:func:`prepare_geo_mlp_weights` / :func:`prepare_query_weights` build the
+kernel-ready weight groups from the port's modules in differentiable torch
+ops, so those gradients reach ``weight_v`` / ``weight_g``.
+:func:`pack_geo_weights` / :func:`pack_query_weights` lay them out as the
+kernels read them; a caller that launches many passes on one set of
+weights (``models/vanerf.py`` at inference) packs once and hands the
+buffers to every pass.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
+
+from . import _cuda
+
+# g2 rows: [geo64 | geo8 | tex img+ft 11 | tex global 18 | vis 1] x
+# {this hand, other hand}
+_G2 = dict(g0=(0, 64), g1=(64, 72), tf=(72, 83), tg=(83, 101),
+           vis=(101, 102))
+_C1 = 102
+AUX_WIDTH = 74
+FEATS_WIDTH = 87
+G2_WIDTH = 2 * _C1
+
+# canonical order of the named weight groups
+_GEO_ORDER = ("w0_parts", "w0_f", "w1", "w2_h", "w2_f", "w3", "w4_m", "w4_v",
+              "w5", "w6", "w7_m", "w7_v")
+_WEIGHT_ORDER = ("gat0_0", "gat0_1", "gfu0_0", "gfu0_1",
+                 "gat1_0", "gat1_1", "gfu1_0", "gfu1_1",
+                 "w0", "w0f", "w1", "w2h", "w2f", "w3", "w4m", "w4v",
+                 "w5", "w6", "w7m", "w7v", "b",
+                 "tat_0", "tat_1", "tfu_0", "tfu_1")
+_TEX_SPLITS = (11, 11, 11, 18, 18, 24, 3)
+
+# csrc/fused_mlp.cu: FM_HMAX and the latent's rows in the wide buffer
+_MAX_WIDTH = 128
+_MAX_LAT = 96
+
+geo_launches = 0
+query_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# weights
+# ---------------------------------------------------------------------------
+
+def _wn(linear):
+    """(in, out) weight and (1, out) bias of a ``WNLinear`` (weight norm
+    ``v * g / (|v| + 1e-12)`` per output unit) or a plain ``nn.Linear``."""
+    if hasattr(linear, "weight_v"):
+        v = linear.weight_v
+        norm = torch.linalg.norm(v, dim=1, keepdim=True) + 1e-12
+        w = v * (linear.weight_g / norm)
+    else:
+        w = linear.weight
+    return w.t(), linear.bias[None]
+
+
+def _pointwise_w(conv) -> torch.Tensor:
+    """(in, out) weight of a 1x1 ``Conv1d(bias=False)``."""
+    return conv.weight[..., 0].t()
+
+
+def prepare_geo_mlp_weights(model) -> dict:
+    """Kernel-ready weights of :func:`fused_geo_mlp` from a
+    :class:`~vanerf_tpu_torch.models.VANeRF`: weight norm applied, every
+    matrix (in, out), the first layers split at their virtual concats."""
+    l1 = [lay.linear for lay in model.mlp_geo.layers1.layers]
+    l2 = [lay.linear for lay in model.mlp_geo.layers2.layers]
+    if len(l1) != 4 or len(l2) != 3:
+        raise ValueError("the fused kernels take 4 + 3 MLP layers")
+    (w0, b0), (w1, b1), (w2, b2), (w3, b3) = (_wn(x) for x in l1)
+    (w4, b4), (w5, b5), (w6, b6) = (_wn(x) for x in l2)
+    w7, b7 = _wn(model.ibr_compress_gfeat)
+    pe_in = w0.shape[0] - 64          # PE width (e.g. 294); fused0 = 64
+    return {
+        "w0_parts": w0[:pe_in], "w0_f": w0[pe_in:],
+        "w1": w1, "w2_h": w2[:-8], "w2_f": w2[-8:], "w3": w3,
+        "w4_m": w4[:64], "w4_v": w4[64:], "w5": w5, "w6": w6,
+        "w7_m": w7[:64], "w7_v": w7[64:],
+        "biases": (b0, b1, b2, b3, b4, b5, b6, b7),
+    }
+
+
+def _row_splits(w: torch.Tensor, splits) -> list:
+    out, o = [], 0
+    for s in splits:
+        out.append(w[o:o + s])
+        o += s
+    return out
+
+
+def prepare_query_weights(model, n_parts: int = 7) -> dict:
+    """Kernel-ready weight groups of :func:`fused_query_mlp`: name -> list
+    of tensors, with the row splits of every first layer and the V=1 rgb
+    column slice of the texture fuse layer."""
+    geo = prepare_geo_mlp_weights(model)
+    out = {}
+    gvf = model.geo_vis_fusion
+    for si, w, at, ated in ((0, 64, gvf.fconv_at, gvf.fconv_ated),
+                            (1, 8, gvf.fconv_at1, gvf.fconv_ated1)):
+        splits = (w, w, w, 4)
+        out[f"gat{si}_0"] = _row_splits(_pointwise_w(at[0]), splits)
+        out[f"gat{si}_1"] = [_pointwise_w(at[2])]
+        out[f"gfu{si}_0"] = _row_splits(_pointwise_w(ated[0]), splits)
+        out[f"gfu{si}_1"] = [_pointwise_w(ated[2])]
+    kk = geo["w0_parts"].shape[0] // n_parts   # keypoint count per part
+    out["w0"] = _row_splits(geo["w0_parts"], (kk,) * n_parts)
+    for name, key in (("w0f", "w0_f"), ("w1", "w1"), ("w2h", "w2_h"),
+                      ("w2f", "w2_f"), ("w3", "w3"), ("w4m", "w4_m"),
+                      ("w4v", "w4_v"), ("w5", "w5"), ("w6", "w6"),
+                      ("w7m", "w7_m"), ("w7v", "w7_v")):
+        out[name] = [geo[key]]
+    out["b"] = list(geo["biases"])
+    tvf = model.tex_vis_fusion
+    out["tat_0"] = _row_splits(_pointwise_w(tvf.fconv_at[0]), _TEX_SPLITS)
+    out["tat_1"] = [_pointwise_w(tvf.fconv_at[2])]
+    out["tfu_0"] = _row_splits(_pointwise_w(tvf.fconv[0]), _TEX_SPLITS)
+    # V=1: only the first 3 output columns (src_rgb) survive the IBR head
+    out["tfu_1"] = [_pointwise_w(tvf.fconv[2])[:, :3]]
+    return out
+
+
+def _geo_of_query(weights: dict) -> dict:
+    """The geometry groups of a query-weights dict, keyed as
+    :func:`prepare_geo_mlp_weights`."""
+    return {"w0_parts": weights["w0"], "w0_f": weights["w0f"][0],
+            "w1": weights["w1"][0], "w2_h": weights["w2h"][0],
+            "w2_f": weights["w2f"][0], "w3": weights["w3"][0],
+            "w4_m": weights["w4m"][0], "w4_v": weights["w4v"][0],
+            "w5": weights["w5"][0], "w6": weights["w6"][0],
+            "w7_m": weights["w7m"][0], "w7_v": weights["w7v"][0],
+            "biases": tuple(weights["b"])}
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _softplus100(x):
+    return F.softplus(x, beta=100.0, threshold=20.0)
+
+
+def _pe_parts(cxyz, kpt_T, sp_level: int, scale: float, sigma: float):
+    """rel_z_decay encoding parts, each (N, K)."""
+    cx, cy, cz = cxyz[:, 0:1], cxyz[:, 1:2], cxyz[:, 2:3]
+    kx, ky, kz = kpt_T[0:1], kpt_T[1:2], kpt_T[2:3]
+    dz = scale * (cz - kz)
+    dxx, dyy, dzz = cx - kx, cy - ky, cz - kz
+    wgt = torch.exp(-(dxx * dxx + dyy * dyy + dzz * dzz)
+                    / (2.0 * sigma * sigma))
+    a = math.pi * dz
+    s, c = torch.sin(a), torch.cos(a)
+    parts = [dz]
+    for _ in range(sp_level):
+        parts.append(s)
+        parts.append(c)
+        s, c = 2.0 * s * c, 1.0 - 2.0 * s * s
+    return [p * wgt for p in parts]
+
+
+def _geo_mlp(parts, w0_list, fused0, fused1, w_v, wts):
+    """MLPUNetFusion (V=1) + gcompress: out2 (N, 2), lat (N, gcompress)."""
+    b = wts["biases"]
+    acc = parts[0] @ w0_list[0]
+    for p, w in zip(parts[1:], w0_list[1:]):
+        acc = acc + p @ w
+    h = _softplus100(acc + fused0 @ wts["w0_f"] + b[0])
+    h = _softplus100(h @ wts["w1"] + b[1])
+    h = _softplus100(h @ wts["w2_h"] + fused1 @ wts["w2_f"] + b[2])
+    x_view = h @ wts["w3"] + b[3]
+    mean = w_v * x_view
+    var = w_v * (x_view - mean) ** 2
+    h = _softplus100(mean @ wts["w4_m"] + var @ wts["w4_v"] + b[4])
+    h = _softplus100(h @ wts["w5"] + b[5])
+    out2 = h @ wts["w6"] + b[6]
+    lat = mean @ wts["w7_m"] + var @ wts["w7_v"] + b[7]
+    return out2, lat
+
+
+def _w0_list(w0_parts, n_parts: int, K: int) -> list:
+    if torch.is_tensor(w0_parts):
+        if w0_parts.shape[0] != n_parts * K:
+            raise ValueError(f"w0_parts has {w0_parts.shape[0]} rows, "
+                             f"expected {n_parts} x {K}")
+        return [w0_parts[i * K:(i + 1) * K] for i in range(n_parts)]
+    return list(w0_parts)
+
+
+def fused_geo_mlp_plain(cxyz, kpt_T, aux, weights: dict, *,
+                        sp_level: int = 3, scale: float = 1.0,
+                        sigma: float = 0.1):
+    """Plain-PyTorch twin of kernel 12; contract of :func:`fused_geo_mlp`."""
+    parts = _pe_parts(cxyz, kpt_T, sp_level, scale, sigma)
+    w0 = _w0_list(weights["w0_parts"], len(parts), kpt_T.shape[1])
+    return _geo_mlp(parts, w0, aux[:, 0:64], aux[:, 64:72], aux[:, 73:74],
+                    weights)
+
+
+def _gate_fuse(parts, at0, at1, fu0, fu1, n_gated: int):
+    """GateMLP + FuseMLP over a virtual-concat parts list: the first
+    ``n_gated`` parts are re-scaled by their gate channel."""
+    acc = parts[0] @ at0[0]
+    for p, w in zip(parts[1:], at0[1:]):
+        acc = acc + p @ w
+    g = torch.sigmoid(torch.relu(acc) @ at1)
+    acc = None
+    for i, p in enumerate(parts):
+        d = (p * g[:, i:i + 1] if i < n_gated else p) @ fu0[i]
+        acc = d if acc is None else acc + d
+    return torch.relu(acc) @ fu1
+
+
+def fused_query_mlp_plain(cxyz, kpt_T, feats, g2, weights: dict, *,
+                          sp_level: int = 3, scale: float = 1.0,
+                          sigma: float = 0.1):
+    """Plain-PyTorch twin of kernel 11; contract of
+    :func:`fused_query_mlp`."""
+    fs0, fs1 = feats[:, 0:64], feats[:, 64:72]
+    img_xy, ft_xy = feats[:, 72:75], feats[:, 75:83]
+    q_sdf, q_vis = feats[:, 83:84], feats[:, 84:85]
+    w_v = feats[:, 86:87]
+    vis_th = g2[:, _G2["vis"][0]:_G2["vis"][1]]
+    vis_toh = g2[:, _C1 + _G2["vis"][0]:_C1 + _G2["vis"][1]]
+
+    def th(k):
+        lo, hi = _G2[k]
+        return g2[:, lo:hi] * vis_th
+
+    def toh(k):
+        lo, hi = _G2[k]
+        return g2[:, _C1 + lo:_C1 + hi] * vis_toh
+
+    ctx4 = torch.cat([q_sdf, q_vis, vis_th, vis_toh], 1)
+    w = weights
+    fused0 = _gate_fuse([fs0, th("g0"), toh("g0"), ctx4], w["gat0_0"],
+                        w["gat0_1"][0], w["gfu0_0"], w["gfu0_1"][0], 3)
+    fused1 = _gate_fuse([fs1, th("g1"), toh("g1"), ctx4], w["gat1_0"],
+                        w["gat1_1"][0], w["gfu1_0"], w["gfu1_1"][0], 3)
+    parts = _pe_parts(cxyz, kpt_T, sp_level, scale, sigma)
+    out2, lat = _geo_mlp(parts, w["w0"], fused0, fused1, w_v,
+                         _geo_of_query(w))
+    qf = torch.cat([img_xy, ft_xy], 1)
+    vis3 = torch.cat([q_vis, vis_th, vis_toh], 1)
+    rgb = _gate_fuse([qf, th("tf"), toh("tf"), th("tg"), toh("tg"), lat,
+                      vis3], w["tat_0"], w["tat_1"][0], w["tfu_0"],
+                     w["tfu_1"][0], 6)
+    return torch.cat([out2, rgb], 1)
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+def _padded_width(m: int) -> int:
+    """csrc/fused_mlp.cu::fm_mp: the packed column count of an m-wide
+    matrix."""
+    return 128 if m > 64 else (64 if m > 32 else (32 if m > 16 else 16))
+
+
+def _pack(mats) -> torch.Tensor:
+    """Row-major matrices, columns zero-padded to the kernel's tile width,
+    back to back in one float32 buffer."""
+    return torch.cat([
+        F.pad(w.float(), (0, _padded_width(w.shape[1]) - w.shape[1]))
+        .reshape(-1) for w in mats])
+
+
+def _cat_rows(x) -> torch.Tensor:
+    return x if torch.is_tensor(x) else torch.cat(list(x), 0)
+
+
+class PackedWeights(NamedTuple):
+    """Kernel-ready buffers of one set of weights: the geometry matrices
+    and biases, the six widths the kernel is told, and for kernel 11 the
+    three gate/fuse nets (else None)."""
+    w: torch.Tensor
+    b: torch.Tensor
+    dims: tuple
+    fw: torch.Tensor = None
+
+
+def pack_geo_weights(wts: dict, K: int, sp_level: int) -> PackedWeights:
+    """The buffers kernel 12 reads, from :func:`prepare_geo_mlp_weights`'s
+    dict for K keypoints, checked against what the kernel takes."""
+    n_parts = 1 + 2 * sp_level
+    w0p = _cat_rows(wts["w0_parts"])
+    if w0p.shape[0] != n_parts * K:
+        raise ValueError(f"fused MLP: {w0p.shape[0]} encoding rows, "
+                         f"expected {n_parts} x {K}")
+    # the kernel makes the encoding a chunk of keypoints at a time:
+    # part-major rows (i * K + j) -> keypoint-major (j * P + i)
+    w0p = w0p.reshape(n_parts, K, -1).transpose(0, 1).reshape(n_parts * K, -1)
+    mats = [torch.cat([w0p, wts["w0_f"]], 0), wts["w1"],
+            torch.cat([wts["w2_h"], wts["w2_f"]], 0), wts["w3"],
+            torch.cat([wts["w4_m"], wts["w4_v"]], 0), wts["w5"], wts["w6"],
+            torch.cat([wts["w7_m"], wts["w7_v"]], 0)]
+    d1, d2, d3, e1, e2, lat = (mats[i].shape[1] for i in (0, 1, 2, 4, 5, 7))
+    rows = [n_parts * K + 64, d1, d2 + 8, d3, 128, e1, e2, 128]
+    cols = [d1, d2, d3, 64, e1, e2, 2, lat]
+    for i, (m, r, c) in enumerate(zip(mats, rows, cols)):
+        if tuple(m.shape) != (r, c):
+            raise ValueError(f"fused MLP layer {i}: weight {tuple(m.shape)}"
+                             f", the kernel takes {(r, c)}")
+    if max(d1, d2, d3, e1, e2) > _MAX_WIDTH or lat > _MAX_LAT:
+        raise ValueError("fused MLP: a layer is wider than the kernel's "
+                         f"{_MAX_WIDTH} (latent {_MAX_LAT})")
+    biases = torch.cat([b.float().reshape(-1) for b in wts["biases"]])
+    if biases.numel() != sum(cols):
+        raise ValueError("fused MLP: bias widths do not match the layers")
+    return PackedWeights(_pack(mats), biases, (d1, d2, d3, e1, e2, lat))
+
+
+def pack_query_weights(weights: dict, K: int, sp_level: int) -> PackedWeights:
+    """The buffers kernel 11 reads, from :func:`prepare_query_weights`'s
+    dict."""
+    geo = pack_geo_weights(_geo_of_query(weights), K, sp_level)
+    if geo.dims[5] != 24:
+        raise ValueError("fused_query_mlp: the latent must be 24 wide")
+    fmats = []
+    for si in (0, 1):
+        fmats += [_cat_rows(weights[f"gat{si}_0"]), weights[f"gat{si}_1"][0],
+                  _cat_rows(weights[f"gfu{si}_0"]), weights[f"gfu{si}_1"][0]]
+    fmats += [_cat_rows(weights["tat_0"]), weights["tat_1"][0],
+              _cat_rows(weights["tfu_0"]), weights["tfu_1"][0]]
+    shapes = [(196, 10), (10, 3), (196, 64), (64, 64), (28, 10), (10, 3),
+              (28, 8), (8, 8), (96, 96), (96, 6), (96, 96), (96, 3)]
+    for i, (m, s) in enumerate(zip(fmats, shapes)):
+        if tuple(m.shape) != s:
+            raise ValueError(f"fused_query_mlp: fusion weight {i} is "
+                             f"{tuple(m.shape)}, the kernel takes {s}")
+    return geo._replace(fw=_pack(fmats))
+
+
+def _check_points(cxyz, kpt_T, packs):
+    N = cxyz.shape[0]
+    _cuda.require(cxyz, "cxyz", torch.float32, (N, 3))
+    _cuda.require(kpt_T, "kpt_T", torch.float32, (3, kpt_T.shape[1]),
+                  cxyz.device)
+    for name, t, width in packs:
+        _cuda.require(t, name, torch.float32, (N, width), cxyz.device)
+    return N, kpt_T.shape[1]
+
+
+def fused_geo_mlp_cuda(cxyz, kpt_T, aux, packed: PackedWeights, *,
+                       sp_level: int = 3, scale: float = 1.0,
+                       sigma: float = 0.1):
+    """Kernel 12; contract of :func:`fused_geo_mlp` on contiguous float32
+    CUDA tensors and the buffers of :func:`pack_geo_weights`."""
+    global geo_launches
+    N, K = _check_points(cxyz, kpt_T, [("aux", aux, AUX_WIDTH)])
+    out = torch.empty(N, 2, dtype=torch.float32, device=cxyz.device)
+    lat = torch.empty(N, packed.dims[5], dtype=torch.float32,
+                      device=cxyz.device)
+    rc = _cuda.lib().vt_fused_geo_mlp(
+        cxyz.data_ptr(), kpt_T.data_ptr(), aux.data_ptr(),
+        packed.w.data_ptr(), packed.b.data_ptr(), N, K, sp_level,
+        float(scale), float(sigma), (ctypes.c_int * 6)(*packed.dims),
+        out.data_ptr(), lat.data_ptr(), _cuda.stream_ptr(cxyz.device))
+    _cuda.check(rc, "vt_fused_geo_mlp")
+    geo_launches += 1
+    return out, lat
+
+
+def fused_query_mlp_cuda(cxyz, kpt_T, feats, g2, packed: PackedWeights, *,
+                         sp_level: int = 3, scale: float = 1.0,
+                         sigma: float = 0.1):
+    """Kernel 11; contract of :func:`fused_query_mlp` on contiguous float32
+    CUDA tensors and the buffers of :func:`pack_query_weights`."""
+    global query_launches
+    N, K = _check_points(cxyz, kpt_T, [("feats", feats, FEATS_WIDTH),
+                                       ("g2", g2, G2_WIDTH)])
+    out = torch.empty(N, 5, dtype=torch.float32, device=cxyz.device)
+    rc = _cuda.lib().vt_fused_query_mlp(
+        cxyz.data_ptr(), kpt_T.data_ptr(), feats.data_ptr(), g2.data_ptr(),
+        packed.w.data_ptr(), packed.b.data_ptr(), packed.fw.data_ptr(), N, K,
+        sp_level, float(scale), float(sigma),
+        (ctypes.c_int * 6)(*packed.dims), out.data_ptr(),
+        _cuda.stream_ptr(cxyz.device))
+    _cuda.check(rc, "vt_fused_query_mlp")
+    query_launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# entry points: kernel forward, plain backward
+# ---------------------------------------------------------------------------
+
+def _flatten(weights: dict, order):
+    """(names, tensors) of a weight dict in canonical order; a group may be
+    one tensor or a list."""
+    names, tensors = [], []
+    for n in order:
+        group = weights[n]
+        for t in ([group] if torch.is_tensor(group) else group):
+            names.append(n)
+            tensors.append(t)
+    return tuple(names), tensors
+
+
+def _unflatten(names, tensors, listed: bool) -> dict:
+    out = {}
+    for n, t in zip(names, tensors):
+        out.setdefault(n, []).append(t)
+    if not listed:
+        out = {n: (v if n == "biases" else v[0]) for n, v in out.items()}
+        out["biases"] = tuple(out["biases"])
+    return out
+
+
+def _run_plain(full: bool, data, weights: dict, kw: dict):
+    """(outputs tuple) of the plain geometry (full=False) or whole-query
+    network on ``data`` = (cxyz, kpt_T, packs...)."""
+    if full:
+        return (fused_query_mlp_plain(*data, weights, **kw),)
+    return tuple(fused_geo_mlp_plain(*data, weights, **kw))
+
+
+class _FusedMLP(torch.autograd.Function):
+    """Forward: the kernel (the plain version on CPU tensors) on detached
+    inputs, saving only those inputs.  Backward: the gradients of the plain
+    version at the saved inputs, driven by the cotangents of the fused
+    outputs."""
+
+    @staticmethod
+    def forward(ctx, full, kw, names, n_data, packed, *tensors):
+        ctx.full, ctx.kw, ctx.names, ctx.n_data = full, kw, names, n_data
+        ctx.save_for_backward(*tensors)
+        data = [t.contiguous() for t in tensors[:n_data]]
+        if data[0].device.type == "cpu":
+            weights = _unflatten(names, tensors[n_data:], listed=full)
+            return _run_plain(full, data, weights, kw)
+        if packed is None:
+            weights = _unflatten(names, tensors[n_data:], listed=full)
+            pack = pack_query_weights if full else pack_geo_weights
+            packed = pack(weights, data[1].shape[1], kw["sp_level"])
+        if full:
+            return (fused_query_mlp_cuda(*data, packed, **kw),)
+        return fused_geo_mlp_cuda(*data, packed, **kw)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *cts):
+        need = ctx.needs_input_grad[5:]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            weights = _unflatten(ctx.names, ins[ctx.n_data:],
+                                 listed=ctx.full)
+            outs = _run_plain(ctx.full, ins[:ctx.n_data], weights, ctx.kw)
+            wanted = [t for t, n in zip(ins, need) if n]
+            grads = iter(torch.autograd.grad(outs, wanted, cts,
+                                             allow_unused=True))
+        return (None,) * 5 + tuple(
+            next(grads) if n else None for n in need)
+
+
+def fused_geo_mlp(cxyz, kpt_T, aux, weights: dict, *, sp_level: int = 3,
+                  scale: float = 1.0, sigma: float = 0.1,
+                  packed: PackedWeights = None):
+    """PE + MLPUNetFusion + gcompress in one pass (V=1).
+
+    Args:
+      cxyz: (N, 3) f32 camera-frame query points.
+      kpt_T: (3, K) f32 camera-frame keypoints.
+      aux: (N, 74) per-point inputs packed as
+        [fused0 (64) | fused1 (8) | out_mask (1) | pix_weight (1)].
+      weights: output of :func:`prepare_geo_mlp_weights`.
+      packed: ``pack_geo_weights(weights, K, sp_level)`` made earlier by
+        the caller; else CUDA tensors are packed at this call.
+    Returns:
+      out (N, 2) (sdf residual, radiance), lat (N, gcompress) (the
+      compressed pooled latent).
+    """
+    kw = dict(sp_level=int(sp_level), scale=float(scale), sigma=float(sigma))
+    names, wt = _flatten(weights, _GEO_ORDER + ("biases",))
+    return _FusedMLP.apply(False, kw, names, 3, packed, cxyz, kpt_T, aux, *wt)
+
+
+def fused_query_mlp(cxyz, kpt_T, feats, g2, weights: dict, *,
+                    sp_level: int = 3, scale: float = 1.0,
+                    sigma: float = 0.1, packed: PackedWeights = None):
+    """The whole per-point query network in one pass (V=1).
+
+    Args:
+      cxyz: (N, 3) f32 camera-frame query points.
+      kpt_T: (3, K) f32 camera-frame keypoints.
+      feats: (N, 87) pack [feat_s0 64 | feat_s1 8 | img_xy 3 | ft_xy 8 |
+        q_sdf | q_vis | out_mask | pix_weight].
+      g2: (N, 204) raw shared-KNN gather rows (:func:`~.knn.knn_gather_raw`).
+      weights: output of :func:`prepare_query_weights`.
+      packed: ``pack_query_weights(weights, K, sp_level)`` made earlier by
+        the caller; else CUDA tensors are packed at this call.
+    Returns:
+      out (N, 5) = [sdf_ch, rad, rgb3].
+    """
+    kw = dict(sp_level=int(sp_level), scale=float(scale), sigma=float(sigma))
+    names, wt = _flatten(weights, _WEIGHT_ORDER)
+    (out,) = _FusedMLP.apply(True, kw, names, 4, packed, cxyz, kpt_T, feats,
+                             g2, *wt)
+    return out

@@ -19,6 +19,7 @@ COL_CHUNK = 256
 MAX_ROWS = 4096
 
 launches = 0
+row_gather_launches = 0
 
 
 def interp_mxu_viable(H: int, W: int) -> bool:
@@ -82,3 +83,40 @@ def interp_sample_nhwc(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     """Batched: (B, H, W, C) x (B, N, 2) -> (B, N, C)."""
     return torch.stack([mxu_grid_sample(feat[b], uv[b])
                         for b in range(feat.shape[0])])
+
+
+# ---------------------------------------------------------------------------
+# exact row gather (the KNN vertex-table lookup)
+# ---------------------------------------------------------------------------
+
+def row_gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain-PyTorch twin of kernel 10: (V, C)[(N,)] -> (N, C)."""
+    return table[idx.long()]
+
+
+def row_gather_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Kernel 10; same contract as :func:`row_gather_plain` for a float32
+    table and int32 indices in [0, V)."""
+    global row_gather_launches
+    V, C = table.shape
+    N = idx.shape[0]
+    _cuda.require(table, "table", torch.float32, (V, C))
+    _cuda.require(idx, "idx", torch.int32, (N,), table.device)
+    out = torch.empty(N, C, dtype=torch.float32, device=table.device)
+    rc = _cuda.lib().vt_row_gather(table.data_ptr(), V, C, idx.data_ptr(), N,
+                                   out.data_ptr(),
+                                   _cuda.stream_ptr(table.device))
+    _cuda.check(rc, "vt_row_gather")
+    row_gather_launches += 1
+    return out
+
+
+def mxu_row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` for a (V, C) float32 table and (N,) row indices in
+    [0, V), bitwise equal to the native gather.  No gradient.  The JAX
+    package's one-hot product holds the table in VMEM and so takes at most
+    4,096 rows; the CUDA kernel copies rows and takes any table."""
+    if table.device.type == "cpu":
+        return row_gather_plain(table, idx)
+    return row_gather_cuda(table.contiguous(),
+                           idx.to(torch.int32).contiguous())

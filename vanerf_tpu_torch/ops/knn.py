@@ -4,7 +4,9 @@
 :func:`nearest_vertex_d2` is kernel B (``csrc/knn.cu``) on CUDA tensors
 and its plain-PyTorch twin :func:`nearest_vertex_d2_plain` on CPU tensors.
 Under a graph the vertex-table gather goes through
-:func:`~.onehot_gather.take_rows`, whose table gradient is kernel 13.
+:func:`~.onehot_gather.take_rows`, whose table gradient is kernel 13;
+without one it goes through kernel 10,
+:func:`~.interp_mxu.mxu_row_gather`.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+from .interp_mxu import mxu_row_gather
 from .onehot_gather import take_rows, take_rows_route
 
 KNN_MAX_VERTS = 4096        # csrc/knn.cu: the vertex table in shared memory
@@ -67,12 +70,19 @@ def nearest_vertex_d2(query: torch.Tensor, verts: torch.Tensor):
     return idx, d2
 
 
-def _take_batched(packed_both: torch.Tensor,
-                  idx: torch.Tensor) -> torch.Tensor:
-    """Batched row gather (B, V, C)[B, N] -> (B, N, C); a loop over the
-    batch through :func:`take_rows` when its table gradient is wanted
-    (``knn.py:117-143``)."""
+def _take_batched(packed_both: torch.Tensor, idx: torch.Tensor
+                  ) -> torch.Tensor:
+    """Batched row gather (B, V, C)[B, N] -> (B, N, C), a loop over the
+    batch (``knn.py:117-143``): without a graph through kernel 10, which
+    has no gradient (the JAX package gates it by ``VANERF_MXU_ROWS``, a
+    cost-model switch of the TPU's one-hot product; the CUDA kernel copies
+    the same rows faster than the native gather, so the port reads no
+    switch); through :func:`take_rows` when the table gradient is wanted
+    and fits kernel 13; else the native gather."""
     B, V, C = packed_both.shape
+    if not (packed_both.requires_grad and torch.is_grad_enabled()):
+        return torch.stack([mxu_row_gather(packed_both[b], idx[b])
+                            for b in range(B)])
     if take_rows_route(V, packed_both):
         return torch.stack([take_rows(packed_both[b], idx[b])
                             for b in range(B)])
@@ -111,3 +121,13 @@ def knn_gather_1(query: torch.Tensor, verts: torch.Tensor,
         f = f * v
         f_toh = f_toh * v_toh
     return f, f_toh, v, v_toh
+
+
+def knn_gather_raw(query: torch.Tensor, verts: torch.Tensor,
+                   vert_feat: torch.Tensor, vert_vis: torch.Tensor,
+                   num_v: int, nn_idx: torch.Tensor):
+    """The :func:`knn_gather_1` gather without the split and the visibility
+    weighting: the raw rows (B, N, 2(C+1)) laid out as
+    [feat_this C | vis_this 1 | feat_toh C | vis_toh 1], which the fused
+    query kernel (``ops/fused_mlp.py``) slices and weights itself."""
+    return _take_batched(_packed_both(vert_feat, vert_vis, num_v), nn_idx)

@@ -11,7 +11,12 @@ passes.  The per-frame vertex visibility and the target-view GT
 visibility map come from the z-buffer rasterizer (kernel C).  Under
 training the samples are jittered, the radiance takes noise, the render
 builds an autograd graph, and the table gradients of the small-table
-gathers (at most 8,192 rows) go through kernel 13.  The
+gathers (at most 8,192 rows) go through kernel 13.
+``VANERF_FUSED_MLP=1/2`` runs the per-point network as kernel 12 / 11 at
+eval (``models/vanerf.py``), and ``VANERF_FUSED_TRAIN=<level>`` runs the
+training render's network forward through the same kernels, with the
+gradients of the plain composition (``ops/fused_mlp.py``); both switch
+the far tier off, which those kernels do not take.  The
 JAX package's approximate serving tiers FAR_SKIP / FAR_NET / FAR_TNET and
 the SoA point layout are not ported and raise when asked for.
 """
@@ -238,6 +243,17 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
                                getattr(model, "far_tau", 0.02),
                                training)
         far2 = (far_tau ** 2) if far_tau > 0 else None
+        # VANERF_FUSED_TRAIN=<level> (training, one view): the network
+        # forward through the fused query kernel, the backward through the
+        # plain composition.  At one view query(training=True) equals
+        # query(training=False), which is what lets the fused level in.
+        fused_train = (int(os.environ.get("VANERF_FUSED_TRAIN", "0") or 0)
+                       if training and n_views == 1 else 0)
+        if fused_train or os.environ.get("VANERF_FUSED_MLP"):
+            # the fused kernels hold the consumers of query_vis and do not
+            # take the far substitution (set at all, as in the JAX package:
+            # VANERF_FUSED_MLP=0 is the exact baseline of the fused levels)
+            far2 = None
 
         def query_at(z_depths, n_samples, noise_key):
             pts = (cam_pos[:, :, None] + cam_rays[:, :, None]
@@ -262,8 +278,10 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
             out, valid = model.query(
                 pts, view, cam_in, feat_geo, feat_tex, src_img,
                 batch["src_mask"], verts, vert_vis, q_vis, q_sdf,
-                batch["kpt3d"], n_samples, training=training, nn_idx=nn_idx,
-                far_mask=far_mask)
+                batch["kpt3d"], n_samples,
+                training=training and not fused_train, nn_idx=nn_idx,
+                far_mask=far_mask,
+                fused_override=fused_train if fused_train else None)
             sdf_ch = valid * out[..., 0:1] + (1.0 - valid) * (0.1 / _NML_SCALE)
             rad = out[..., 1:2]
             if noise:
