@@ -8,7 +8,7 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU:
 Phases, each printing what it found; any failed check raises and the
 script exits non-zero (there is no CPU fallback):
 
-  1. build (or reuse) the eight CUDA kernels from ``vanerf_tpu_torch/csrc``;
+  1. build (or reuse) the twelve CUDA kernels from ``vanerf_tpu_torch/csrc``;
   2. each kernel against its plain-PyTorch twin on the card, at the shapes
      the main path gives it (a 64x64-ray patch x 64 samples = 262,144
      points, the 256^2 subdiv=3 two-hand fixture: 2,560 faces, 1,284
@@ -18,7 +18,10 @@ script exits non-zero (there is no CPU fallback):
      its time beside the twin's, beside the least time the card could take
      (bytes over 3.35 TB/s or operations over 67 TFLOP/s f32, whichever is
      larger) and, where one PyTorch call computes the same function, that
-     call's time;
+     call's time; the exact queries (kernels 5 and 6) in both winding
+     modes, bit-equal in ray mode and to 1e-5 on the winding in solid-angle
+     mode; the coordinate-major kernels 7 and 8 also bit-equal to A and B
+     on the transposed input;
   3. the serving path at full model width (``configs/vanerf.json``, seeded
      flax-style initialisation): ``render_full_image`` for 2 frames (16
      64x64 tiles each, 64+64 samples) and one bench-shaped group of 16
@@ -31,6 +34,14 @@ script exits non-zero (there is no CPU fallback):
      (kernel 12): one full image and the 16-patch
      group each, every output within rtol 2e-4 / atol 2e-5 of the unfused
      one, ms/frame beside the unfused ms/frame;
+  3c. the coordinate-major serving configuration on the same frame:
+     ``VANERF_SOA_POINTS=1`` and ``=2`` in turns with mode 0 (far tier on,
+     the default), every output equal to mode 0's (the compared frames
+     share one encode); kernels 7 and 8 must launch and A and B must not;
+  3d. the exact mesh-query API on the points of one 64x64x64 pass:
+     ``cal_vis_sdf_fast`` under ``VANERF_WINDING=ray`` and ``=solid_angle``
+     (kernel 6) and ``point_mesh_sdf`` (kernel 5) against the renderer's
+     query with the far tier off;
   4. one 16x16-ray patch rendered on the card (kernels) and on the CPU
      (plain twins) with the same weights;
   5. training at full width: 3 faithful GAN steps
@@ -44,6 +55,9 @@ script exits non-zero (there is no CPU fallback):
      ``VANERF_FUSED_TRAIN=2``: kernel 11 must launch in the G render, every
      loss stays finite, and the first step's G loss lies within 5e-3
      relative of the unfused first step's;
+  5c. one faithful GAN step under ``VANERF_SOA_POINTS=1`` from the same
+     weights and draws: kernels 7 and 8 launch in both renders and the G
+     loss lies within 1e-5 relative of phase 5's first step's;
   6. one G-loss gradient on a 16x16-ray training patch with the same
      draws on the card (kernels) and on the CPU (plain twins): the loss
      and each parameter's gradient norm compared.
@@ -51,7 +65,8 @@ script exits non-zero (there is no CPU fallback):
 A ``details:`` line holds every measured number; the line before the last
 is a JSON object with one entry per kernel (its launches are those of the
 phase that drives it: A-D and 10 phase 3, 13 phase 5, 11 the level-2 run
-of phase 3b, 12 the level-1 run); the last line is
+of phase 3b, 12 the level-1 run, 7 and 8 the mode-1 run of phase 3c, 5 and
+6 phase 3d); the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and
 convolutions.
 """
@@ -77,6 +92,14 @@ KERNELS = {
                    "vanerf_tpu/ops/mesh_query_pallas.py:1027"),
     "knn": ("vanerf_tpu_torch/csrc/knn.cu",
             "vanerf_tpu/ops/knn_pallas.py:49"),
+    "mesh_query_brute": ("vanerf_tpu_torch/csrc/mesh_query_brute.cu",
+                         "vanerf_tpu/ops/mesh_query_pallas.py:395"),
+    "mesh_query_vis_brute": ("vanerf_tpu_torch/csrc/mesh_query_brute.cu",
+                             "vanerf_tpu/ops/mesh_query_pallas.py:467"),
+    "mesh_query_T": ("vanerf_tpu_torch/csrc/mesh_query.cu",
+                     "vanerf_tpu/ops/mesh_query_pallas.py:1219"),
+    "knn_T": ("vanerf_tpu_torch/csrc/knn.cu",
+              "vanerf_tpu/ops/knn_pallas.py:325"),
     "rasterize": ("vanerf_tpu_torch/csrc/rasterize.cu",
                   "vanerf_tpu/ops/rasterize_pallas.py:73"),
     "interp_mxu": ("vanerf_tpu_torch/csrc/interp.cu",
@@ -102,9 +125,29 @@ F32_FLOPS_PER_S = 67e12
 # more), its signed crossing test 3 differences, 3 dot products (15), 6
 # products and sums, 4 comparisons and the sum; kernel B 3 differences, 5
 # for the squared norm and a comparison; kernel C 4 edge functions of 7,
-# 3 divisions and 5 comparisons.
+# 3 divisions and 5 comparisons.  Kernels 5 and 6 test the crossing with
+# the unfolded constants: a cross product (9) more.  Their solid angle is 9
+# differences, 3 norms (6 each, the root as one), a cross product (9), 4
+# dot products (20), the denominator (8) and the atan2, its doubling and
+# the sum (3).
 MESH_DIST_OPS = 65
 MESH_CROSS_OPS = 29
+MESH_CROSS_UNFOLDED_OPS = 38
+MESH_SOLID_ANGLE_OPS = 67
+# kernels 5 and 6 in solid-angle mode against their plain versions: sqrtf
+# and atan2f need not round as torch's do and the sum's order differs
+SOLID_WIND_ATOL = 1e-5
+# phase 3d: the exact API against the renderer's query (other barycentrics
+# off a face's interior, tests/test_pallas_kernels.py:91)
+API_SDF_RTOL, API_QVIS_AGREE = 1e-4, 0.97
+# kernel 5's crossing counts against kernel A's: at most this share of the
+# points may differ, each within this margin (barycentric units) of an edge
+GRAZE_SHARE, GRAZE_MARGIN = 1e-4, 1e-4
+SOA_ROUNDS = 3
+# phase 5c: the SoA step's G loss against mode 0's.  The two steps encode
+# the frame for themselves, and the encoders do not repeat to the bit on
+# the card (see phase 3c), so the losses agree to rounding, not to the bit.
+SOA_TRAIN_LOSS_RTOL = 1e-5
 KNN_OPS = 9
 RASTER_OPS = 36
 # the fused kernels against their plain versions, and the fused renders
@@ -191,16 +234,17 @@ class env:
 # phase 2: kernels against their plain twins at main-path shapes
 # ---------------------------------------------------------------------------
 
-def main_path_points(model, batch):
-    """The coarse-pass points of one mask-centred 64x64 patch, plus the
-    per-frame vertex visibility, mesh table and the projected (x, y) the
-    sampler sees."""
+def main_path_points(model, batch, grids=None):
+    """The coarse-pass points of one 64x64 patch (mask-centred unless
+    ``grids`` is given), plus the per-frame vertex visibility, mesh table
+    and the projected (x, y) the sampler sees."""
     import torch
     from vanerf_tpu_torch import renderer as tr
     from vanerf_tpu_torch.ops import mesh_query
-    gen = torch.Generator().manual_seed(SEED)
-    grids = tr.mask_centered_grid(gen, batch["tar_mask"][..., 0], PATCH,
-                                  PATCH)
+    if grids is None:
+        gen = torch.Generator().manual_seed(SEED)
+        grids = tr.mask_centered_grid(gen, batch["tar_mask"][..., 0], PATCH,
+                                      PATCH)
     feat_geo, _feat_tex, vert_vis = tr.encode_frame(model, batch)
     cam_pos, cam_rays, z = tr.patch_rays(batch, grids, S_C)
     pts = (cam_pos[:, :, None] + cam_rays[:, :, None] * z[..., None])
@@ -212,7 +256,24 @@ def main_path_points(model, batch):
     xy = vh[:, :2] / vh[:, 2:3]
     uv = torch.stack([2.0 * xy[:, 0] / (W - 1.0) - 1.0,
                       2.0 * xy[:, 1] / (H - 1.0) - 1.0], -1).contiguous()
-    return pts, mesh, feat_geo[0][0].contiguous(), uv, grids
+    return pts, mesh, feat_geo[0][0].contiguous(), uv, grids, vert_vis[0]
+
+
+def ray_edge_margin(points, table):
+    """How close each point's winding ray comes to an edge of a face it
+    crosses or nearly crosses: the least |barycentric coordinate| of the
+    crossing, in float64, over kernel A's table."""
+    import torch
+    t, p = table.double(), points.double()
+    q = p[:, None, :] - t[None, :, 0:3]
+    det = t[:, 21]
+    u = (q * t[None, :, 12:15]).sum(-1) / det
+    v = (q * t[None, :, 15:18]).sum(-1) / det
+    edge = torch.stack([u, v, 1.0 - u - v], -1)
+    near = (edge > -GRAZE_MARGIN).all(-1)
+    margin = torch.where(near, edge.abs().amin(-1),
+                         torch.full_like(u, float("inf")))
+    return margin.amin(-1)
 
 
 def fused_main_path_inputs(model, batch, grids):
@@ -251,7 +312,8 @@ def phase_kernels(model, batch, dev):
     from vanerf_tpu_torch.ops import (fused_mlp, interp_mxu, knn, mesh_query,
                                       onehot_gather, rasterize)
     results = {}
-    pts, mesh, geo_coarse, uv, grids = main_path_points(model, batch)
+    pts, mesh, geo_coarse, uv, grids, vert_vis = main_path_points(model,
+                                                                  batch)
     verts = batch["verts"][0].contiguous()
     check(pts.shape[0] == PATCH * PATCH * S_C, "main-path point count")
 
@@ -307,6 +369,9 @@ def phase_kernels(model, batch, dev):
         max_abs_err=err_a, detail=stats,
         ms=cuda_ms(lambda: mesh_query.point_mesh_query_vis_cuda(
             p_c, mesh["table"], d2, far), 5),
+        # the same launch with no far flags: what the far tier saves
+        exact_ms=cuda_ms(lambda: mesh_query.point_mesh_query_vis_cuda(
+            p_c, mesh["table"], d2, None), 5),
         plain_ms=cuda_ms(lambda: mesh_query.point_mesh_query_vis_plain(
             p_c, mesh["table"], d2, far), 2),
         library_ms=None,
@@ -316,6 +381,138 @@ def phase_kernels(model, batch, dev):
             mesh["table"].shape[0]
             * ((p_c.shape[0] - n_far) * (MESH_DIST_OPS + MESH_CROSS_OPS)
                + n_far * MESH_CROSS_OPS)))
+
+    # --- 8: nearest vertex on coordinate-major points ---
+    pts_T = pts.t().contiguous()
+    idx8, d28 = knn.nearest_vertex_d2_T(pts_T, verts)
+    idx8_p, d28_p = knn.nearest_vertex_d2_T_plain(pts_T, verts)
+    torch.cuda.synchronize()
+    check(torch.equal(idx8, idx) and torch.equal(d28, d2),
+          "kernel 8 differs from kernel B on the transposed input")
+    check(torch.equal(d28, d28_p), "knn_T d2 differs from its plain version")
+    results["knn_T"] = dict(
+        shape=f"3 x {pts_T.shape[1]} points x {verts.shape[0]} vertices",
+        max_abs_err=(d28 - d28_p).abs().max().item(),
+        index_mismatch=int((idx8 != idx8_p).sum()), equals_kernel_b=True,
+        ms=cuda_ms(lambda: knn.nearest_vertex_d2_T(pts_T, verts), 20),
+        plain_ms=cuda_ms(lambda: knn.nearest_vertex_d2_T_plain(pts_T, verts),
+                         3),
+        library_ms=cuda_ms(lambda: torch.cdist(pts_T.t(), verts).min(1), 3),
+        **least_time(nbytes(pts_T, verts, idx8, d28),
+                     KNN_OPS * pts.shape[0] * verts.shape[0]))
+
+    # --- 7: mesh query on coordinate-major points, the frame's far flags ---
+    p_c_T = (pts_T - mesh["center"][:, None]).contiguous()
+    err_7 = 0.0
+    for tag, f in (("exact", None), ("far", far)):
+        got = mesh_query.point_mesh_query_vis_T_cuda(p_c_T, mesh["table"], d2,
+                                                     f)
+        same = mesh_query.point_mesh_query_vis_cuda(p_c, mesh["table"], d2, f)
+        want = mesh_query.point_mesh_query_vis_T_plain(p_c_T, mesh["table"],
+                                                       d2, f)
+        torch.cuda.synchronize()
+        for name, g_, a_, w_ in zip(("d2", "idx", "wind", "qvis"), got, same,
+                                    want):
+            check(torch.equal(g_, a_), f"kernel 7 {name} differs from kernel "
+                  f"A on the transposed input ({tag})")
+            if name != "idx":
+                err_7 = max(err_7, (g_ - w_).abs().max().item())
+        check(err_7 <= 1e-5 * want[0].abs().max().item() + 1e-12,
+              f"mesh_query_T err {err_7} ({tag})")
+        check(torch.equal(got[2], want[2]), f"mesh_query_T winding ({tag})")
+    results["mesh_query_T"] = dict(
+        shape=f"3 x {p_c_T.shape[1]} points x {mesh['table'].shape[0]} "
+              f"faces, {n_far} far",
+        max_abs_err=err_7, equals_kernel_a=True,
+        ms=cuda_ms(lambda: mesh_query.point_mesh_query_vis_T_cuda(
+            p_c_T, mesh["table"], d2, far), 5),
+        plain_ms=cuda_ms(lambda: mesh_query.point_mesh_query_vis_T_plain(
+            p_c_T, mesh["table"], d2, far), 2),
+        library_ms=None,
+        **least_time(
+            nbytes(p_c_T, mesh["table"], d2, far) + 16 * p_c_T.shape[1],
+            mesh["table"].shape[0]
+            * ((p_c.shape[0] - n_far) * (MESH_DIST_OPS + MESH_CROSS_OPS)
+               + n_far * MESH_CROSS_OPS)))
+
+    # --- 5, 6: the exact queries over every face, both winding modes, on
+    # the uncentred points and mesh the public API hands them ---
+    tri_w = verts[batch["faces"].long()].contiguous()
+    face_vis = vert_vis[..., 0][batch["faces"].long()].contiguous()
+    # the unfolded crossing test against kernel A's folded one, on A's own
+    # (centred) points and corners
+    wind_a = mesh_query.point_mesh_query_vis_cuda(p_c, mesh["table"], d2)[2]
+    wind_5 = mesh_query.point_mesh_query_brute(
+        p_c, mesh["table"][:, :9].reshape(-1, 3, 3), mode="ray")[2]
+    differ = wind_5 != wind_a
+    crossings_differ = int(differ.sum())
+    # v and t round differently with the unfolded constants, so a count may
+    # differ only where the ray grazes an edge of a face to within rounding
+    graze = (ray_edge_margin(p_c[differ], mesh["table"]).max().item()
+             if crossings_differ else 0.0)
+    check(crossings_differ <= GRAZE_SHARE * pts.shape[0]
+          and graze <= GRAZE_MARGIN,
+          f"{crossings_differ} crossing counts of kernel 5 differ from "
+          f"kernel A's, the farthest {graze:.3g} (barycentric units) from "
+          "an edge")
+    n_pairs = pts.shape[0] * tri_w.shape[0]
+    for name, vis in (("mesh_query_brute", False),
+                      ("mesh_query_vis_brute", True)):
+        r = dict(shape=f"{pts.shape[0]} points x {tri_w.shape[0]} faces, "
+                       "ray + solid-angle winding",
+                 max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None,
+                 detail={})
+        b_bytes = b_ops = 0
+        table_b = mesh_query.brute_face_table(tri_w,
+                                              face_vis if vis else None)
+        for mode, w_ops in (("ray", MESH_CROSS_UNFOLDED_OPS),
+                            ("solid_angle", MESH_SOLID_ANGLE_OPS)):
+            if vis:
+                run = lambda: mesh_query.point_mesh_query_vis_brute(
+                    pts, tri_w, face_vis, mode=mode)
+                run_p = lambda: mesh_query.point_mesh_query_vis_brute_plain(
+                    pts, tri_w, face_vis, mode=mode)
+            else:
+                run = lambda: mesh_query.point_mesh_query_brute(
+                    pts, tri_w, mode=mode)
+                run_p = lambda: mesh_query.point_mesh_query_brute_plain(
+                    pts, tri_w, mode=mode)
+            got, want = run(), run_p()
+            torch.cuda.synchronize()
+            check(torch.equal(got[0], want[0]), f"{name} {mode}: d2 differs")
+            check(torch.equal(got[1], want[1]), f"{name} {mode}: idx differs")
+            e_w = (got[2] - want[2]).abs().max().item()
+            check(e_w <= (SOLID_WIND_ATOL if mode == "solid_angle" else 0.0),
+                  f"{name} {mode}: winding err {e_w}")
+            d = dict(max_abs_err_wind=e_w)
+            if vis:
+                check(torch.equal(got[3], want[3]),
+                      f"{name} {mode}: qvis differs")
+            if mode == "ray":
+                d["crossings_differ_from_a"] = crossings_differ
+                d["their_edge_margin"] = graze
+            d["ms"] = cuda_ms(run, 5)
+            d["plain_ms"] = cuda_ms(run_p, 2)
+            d.update(least_time(
+                nbytes(pts, table_b, *[t for t in got if t is not None]),
+                n_pairs * (MESH_DIST_OPS + w_ops)))
+            r["detail"][mode] = d
+            r["max_abs_err"] = max(r["max_abs_err"], e_w)
+            r["ms"] += d["ms"]
+            r["plain_ms"] += d["plain_ms"]
+            b_bytes += d["bound_bytes"]
+            b_ops += d["bound_ops"]
+        # with no winding (kernel 5 only): bit-equal, not timed
+        if not vis:
+            got = mesh_query.point_mesh_query_brute(pts, tri_w,
+                                                    with_winding=False)
+            want = mesh_query.point_mesh_query_brute_plain(
+                pts, tri_w, with_winding=False)
+            torch.cuda.synchronize()
+            check(all(torch.equal(g_, w_) for g_, w_ in zip(got, want)),
+                  f"{name} without winding differs")
+        r.update(least_time(b_bytes, b_ops))
+        results[name] = r
 
     # --- C: 256^2 raster of the mesh in the source view ---
     krt = batch["src_krt"][0]
@@ -692,6 +889,145 @@ def phase_fused_serving(model, b, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: the coordinate-major serving configuration (kernels 7 and 8)
+# ---------------------------------------------------------------------------
+
+SOA_CONFIGS = {"mode0": dict(VANERF_SOA_POINTS="0"),
+               "mode1": dict(VANERF_SOA_POINTS="1"),
+               "mode2": dict(VANERF_SOA_POINTS="2")}
+
+
+def phase_soa_serving(model, b, dev):
+    """One frame per configuration and round, the configurations in turns,
+    the far tier on (the default): every output of mode 1 and mode 2 must
+    EQUAL mode 0's, kernels 7 and 8 must take the place of A and B.
+
+    The frames that are compared share one encode: two encodes of one
+    frame differ in their last bits on the card (the encoders' cuDNN
+    convolutions do not repeat), and through the fine sampler's guard that
+    moves fine colours by ~2e-3 between two identical mode-0 frames.  The
+    timed rounds encode for themselves."""
+    import torch
+    from vanerf_tpu_torch import ops
+    from vanerf_tpu_torch import renderer as tr
+    res = {name: dict(frame_ms=[]) for name in SOA_CONFIGS}
+    outs = {}
+
+    def frame_of(name):
+        with env(**SOA_CONFIGS[name]):
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frame = tr.render_full_image(model, b, level=3,
+                                         sample_per_ray_c=S_C,
+                                         sample_per_ray_f=S_F)
+            torch.cuda.synchronize()
+            return frame, (time.perf_counter() - t0) * 1e3, \
+                ops.launch_counts()
+
+    real, pinned = tr.encode_frame, tr.encode_frame(model, b)
+    try:
+        tr.encode_frame = lambda *a, **k: pinned
+        for name, switches in SOA_CONFIGS.items():
+            outs[name], _ms, counts = frame_of(name)
+            res[name]["launches"] = counts
+            soa = name != "mode0"
+            for kern, on in (("knn_T", soa), ("mesh_query_T", soa),
+                             ("knn", not soa), ("mesh_query", not soa)):
+                check((counts[kern] > 0) == on, f"kernel {kern}: "
+                      f"{counts[kern]} launches under {switches}")
+    finally:
+        tr.encode_frame = real
+    for _ in range(SOA_ROUNDS):
+        for name in SOA_CONFIGS:
+            res[name]["frame_ms"].append(frame_of(name)[1])
+    check(outs["mode0"]["alpha_fine"].max().item() > 0.2,
+          "SoA phase: rays missed the hands")
+    for name in ("mode1", "mode2"):
+        worst = 0.0
+        for k, v in outs["mode0"].items():
+            if torch.is_tensor(v):
+                if v.is_floating_point():
+                    worst = max(worst,
+                                (outs[name][k] - v).abs().max().item())
+                check(torch.equal(outs[name][k], v),
+                      f"{name}: {k} differs from mode 0")
+        res[name]["max_abs_err"] = worst
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: the exact mesh-query API (kernels 5 and 6)
+# ---------------------------------------------------------------------------
+
+def phase_mesh_api(model, b, dev):
+    """``cal_vis_sdf_fast`` under both VANERF_WINDING values,
+    ``point_mesh_sdf`` and ``cal_vis_sdf`` on the points of one 64x64x64
+    pass (the first strided tile of the full image, which crosses both
+    hands) against the renderer's query (kernels B and A, far tier off)."""
+    import torch
+    from vanerf_tpu_torch import ops
+    from vanerf_tpu_torch import renderer as tr
+    from vanerf_tpu_torch.ops import knn, mesh_query
+    pts, mesh, _geo, _uv, _grids, vert_vis = main_path_points(
+        model, b, tr.strided_grid(1, H, W, 3, [[0, 0]], device=dev))
+    verts, faces = b["verts"][0].contiguous(), b["faces"]
+    _idx, ub = knn.nearest_vertex_d2(pts, verts)
+    sdf_r, qvis_r, _far = mesh_query.cal_vis_sdf_prepared(mesh, pts, ub,
+                                                          n_samples=S_C)
+    check(1e-3 < (sdf_r < 0).float().mean().item() < 0.5,
+          "the pass's points should lie inside and outside the hands")
+    ops.reset_launches()
+    res = {}
+
+    p_c = pts - mesh["center"]
+
+    def hold(tag, sdf, qvis=None):
+        # the renderer's sign counts crossings of the centred points: it may
+        # differ only where that ray grazes an edge to within rounding
+        differ = (sdf < 0) != (sdf_r < 0)
+        n_differ = int(differ.sum())
+        graze = (ray_edge_margin(p_c[differ], mesh["table"]).max().item()
+                 if n_differ else 0.0)
+        check(n_differ <= GRAZE_SHARE * pts.shape[0]
+              and graze <= GRAZE_MARGIN,
+              f"{tag}: {n_differ} signs differ from the renderer's query, "
+              f"the farthest {graze:.3g} (barycentric units) from an edge")
+        rel = ((sdf.abs() - sdf_r.abs()).abs() / sdf_r.abs()).max().item()
+        check(rel <= API_SDF_RTOL, f"{tag}: |sdf| off by {rel}")
+        res[tag] = dict(sdf_rel_err=rel, signs_differ=n_differ,
+                        their_edge_margin=graze,
+                        inside_share=(sdf < 0).float().mean().item())
+        if qvis is not None:
+            agree = (qvis == qvis_r).float().mean().item()
+            check(agree >= API_QVIS_AGREE, f"{tag}: visibility agrees on "
+                  f"{agree}")
+            res[tag]["qvis_agree"] = agree
+
+    for winding in ("ray", "solid_angle"):
+        with env(VANERF_WINDING=winding):
+            t_ms = cuda_ms(lambda: mesh_query.cal_vis_sdf_fast(
+                verts, faces, pts, vert_vis), 2, warmup=0)
+            sdf, qvis = mesh_query.cal_vis_sdf_fast(verts, faces, pts,
+                                                    vert_vis)
+        hold(f"cal_vis_sdf_fast[{winding}]", sdf, qvis)
+        res[f"cal_vis_sdf_fast[{winding}]"]["ms"] = t_ms
+    sdf, face_idx = mesh_query.point_mesh_sdf(verts, faces, pts)
+    hold("point_mesh_sdf", sdf)
+    check(0 <= int(face_idx.min()) and int(face_idx.max()) < faces.shape[0],
+          "point_mesh_sdf: face index out of range")
+    sdf_c, qvis_c, cface = mesh_query.cal_vis_sdf(verts, faces, pts, vert_vis)
+    hold("cal_vis_sdf", sdf_c, qvis_c)
+    check(cface.shape == (pts.shape[0], 3), "cal_vis_sdf closest-face shape")
+    torch.cuda.synchronize()
+    res["launches"] = ops.launch_counts()
+    for name in ("mesh_query_brute", "mesh_query_vis_brute"):
+        check(res["launches"][name] > 0,
+              f"kernel {name} was not launched by the exact API")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 4: full chain, card (kernels) against CPU (plain twins)
 # ---------------------------------------------------------------------------
 
@@ -737,14 +1073,17 @@ def train_parts(model, dev):
     return copy.deepcopy(model).to(dev), disc.to(dev), vgg.to(dev)
 
 
-def phase_train(model, batch, cfg, dev, fused_level: int = 0):
-    """TRAIN_STEPS faithful GAN steps from the seeded weights and draws;
-    with ``fused_level`` under VANERF_FUSED_TRAIN=<level>."""
-    with env(VANERF_FUSED_TRAIN=str(fused_level)):
-        return _phase_train(model, batch, cfg, dev, fused_level)
+def phase_train(model, batch, cfg, dev, fused_level: int = 0, soa: int = 0,
+                steps: int = TRAIN_STEPS):
+    """``steps`` faithful GAN steps from the seeded weights and draws; with
+    ``fused_level`` under VANERF_FUSED_TRAIN=<level>, with ``soa`` under
+    VANERF_SOA_POINTS=<mode>."""
+    with env(VANERF_FUSED_TRAIN=str(fused_level),
+             VANERF_SOA_POINTS=str(soa)):
+        return _phase_train(model, batch, cfg, dev, fused_level, soa, steps)
 
 
-def _phase_train(model, batch, cfg, dev, fused_level):
+def _phase_train(model, batch, cfg, dev, fused_level, soa, steps):
     import torch
     from vanerf_tpu_torch import ops
     from vanerf_tpu_torch.training import create_train_state, make_train_step
@@ -756,7 +1095,7 @@ def _phase_train(model, batch, cfg, dev, fused_level):
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
     step_ms, logs = [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         logs.append(step(state, batch, gen))
         torch.cuda.synchronize()
@@ -769,7 +1108,13 @@ def _phase_train(model, batch, cfg, dev, fused_level):
     for net in (gen_model, disc):
         for name, p in net.named_parameters():
             check(bool(torch.isfinite(p).all()), f"non-finite {name}")
-    for name in ("mesh_query", "knn", "rasterize", "onehot_scatter"):
+    # two renders a step, two passes each: A and B, or 7 and 8 under SoA
+    query = (("mesh_query_T", "knn_T") if soa else ("mesh_query", "knn"))
+    for name in ("mesh_query", "knn", "mesh_query_T", "knn_T"):
+        check(launches[name] == (4 * steps if name in query else 0),
+              f"kernel {name}: {launches[name]} launches in training under "
+              f"VANERF_SOA_POINTS={soa}")
+    for name in ("rasterize", "onehot_scatter"):
         check(launches[name] > 0,
               f"kernel {name} was not launched on the training path")
     # under VANERF_FUSED_TRAIN the query runs as at eval (as in the JAX
@@ -778,16 +1123,16 @@ def _phase_train(model, batch, cfg, dev, fused_level):
           "kernel D ran under training")
     # the G render's KNN rows carry a table gradient (take_rows); the D
     # render builds no graph and takes kernel 10, once a pass
-    check(launches["row_gather"] == 2 * TRAIN_STEPS,
+    check(launches["row_gather"] == 2 * steps,
           f"kernel 10: {launches['row_gather']} launches in training")
     fused = {0: None, 1: "fused_geo_mlp", 2: "fused_query_mlp"}[fused_level]
     for name in ("fused_geo_mlp", "fused_query_mlp"):
         # two renders a step (G with a graph, D without), two passes each
-        check(launches[name] == (4 * TRAIN_STEPS if name == fused else 0),
+        check(launches[name] == (4 * steps if name == fused else 0),
               f"kernel {name}: {launches[name]} launches under "
               f"VANERF_FUSED_TRAIN={fused_level}")
     return dict(step_ms=step_ms, ms_per_step=sum(step_ms[1:]) /
-                (len(step_ms) - 1), peak_bytes=peak, launches=launches,
+                max(len(step_ms) - 1, 1), peak_bytes=peak, launches=launches,
                 logs=[{k: v.item() for k, v in lg.items()} for lg in logs])
 
 
@@ -942,6 +1287,35 @@ def main() -> int:
             f"depths pinned; launches "
             f"{ {k: r['launches'][k] for k in FUSED_KERNELS[name]} }")
 
+    # ---- phase 3c ----
+    with torch.no_grad():
+        soa = phase_soa_serving(model, batches[0], dev)
+    say("phase 3c SoA serving, far tier on, in turns: full image "
+        + "; ".join(f"{n} {' / '.join(f'{t:.1f}' for t in r['frame_ms'])}"
+                    for n, r in soa.items())
+        + " ms per frame; mode 1 / mode 2 against mode 0: max abs err "
+        f"{soa['mode1']['max_abs_err']:.3g} / {soa['mode2']['max_abs_err']:.3g}"
+        f" (every output equal); launches mode 0 "
+        f"{ {k: soa['mode0']['launches'][k] for k in ('knn', 'mesh_query')} }"
+        f", mode 1 "
+        f"{ {k: soa['mode1']['launches'][k] for k in ('knn_T', 'mesh_query_T')} }")
+
+    # ---- phase 3d ----
+    with torch.no_grad():
+        api = phase_mesh_api(model, batches[0], dev)
+    say("phase 3d exact mesh API against the renderer's query (far tier "
+        f"off), 262,144 points, {api['point_mesh_sdf']['inside_share']:.4f} "
+        "of them inside: "
+        + "; ".join(f"{k} |sdf| rel err {v['sdf_rel_err']:.2e}"
+                    + (f", visibility agrees on {v['qvis_agree']:.4f}"
+                       if "qvis_agree" in v else "")
+                    + (f", {v['ms']:.2f} ms a call" if "ms" in v else "")
+                    for k, v in api.items() if k != "launches")
+        + f"; signs differing on "
+        f"{max(v['signs_differ'] for k, v in api.items() if k != 'launches')}"
+        f" points at most (grazes of the crossing ray); launches "
+        f"{ {k: api['launches'][k] for k in ('mesh_query_brute', 'mesh_query_vis_brute')} }")
+
     # ---- phase 4 ----
     with torch.no_grad():
         errs = phase_card_vs_cpu(model, frames[0], dev)
@@ -972,6 +1346,18 @@ def main() -> int:
         f"against unfused {g0:.6g} (rel {ftrain['g_loss_rel_err']:.2e}); "
         f"launches {ftrain['launches']}")
 
+    # ---- phase 5c ----
+    strain = phase_train(model, batches[0], cfg, dev, soa=1, steps=1)
+    g2 = strain["logs"][0]["train/g_loss"]
+    strain["g_loss_rel_err"] = abs(g2 - g0) / abs(g0)
+    check(strain["g_loss_rel_err"] <= SOA_TRAIN_LOSS_RTOL,
+          f"VANERF_SOA_POINTS=1 G loss {g2!r} against mode 0's {g0!r}")
+    say(f"phase 5c one GAN step under VANERF_SOA_POINTS=1: g_loss {g2:.9g} "
+        f"against mode 0's first step's {g0:.9g} (rel "
+        f"{strain['g_loss_rel_err']:.2e}); {strain['step_ms'][0]:.1f} "
+        f"ms; launches "
+        f"{ {k: strain['launches'][k] for k in ('knn_T', 'mesh_query_T', 'knn', 'mesh_query')} }")
+
     # ---- phase 6 ----
     vs_cpu = phase_train_card_vs_cpu(model, frames[0], cfg, dev)
     say(f"phase 6 G-loss gradient card vs CPU (16x16 rays, 64+64 samples): "
@@ -983,6 +1369,10 @@ def main() -> int:
 
     launches = dict(
         main["launches"],
+        knn_T=soa["mode1"]["launches"]["knn_T"],
+        mesh_query_T=soa["mode1"]["launches"]["mesh_query_T"],
+        mesh_query_brute=api["launches"]["mesh_query_brute"],
+        mesh_query_vis_brute=api["launches"]["mesh_query_vis_brute"],
         onehot_scatter=train["launches"]["onehot_scatter"],
         fused_query_mlp=fused["level2"]["launches"]["fused_query_mlp"],
         fused_geo_mlp=fused["level1"]["launches"]["fused_geo_mlp"])
@@ -1001,6 +1391,8 @@ def main() -> int:
     say("details: " + json.dumps({"gpu": smi, "build_s": build_s,
                                   "kernels": kres, "main_path": main,
                                   "fused_serving": fused,
+                                  "soa_serving": soa, "mesh_api": api,
+                                  "soa_train": strain,
                                   "card_vs_cpu": errs, "train": train,
                                   "fused_train": ftrain,
                                   "train_card_vs_cpu": vs_cpu}))

@@ -52,15 +52,28 @@ def test_package_imports_no_jax():
     assert int(proc.stdout.split()[0]) >= 18
 
 
-def test_cpu_tensors_take_the_plain_path():
-    """A CPU render runs every kernel's plain twin: no counter moves and
+def test_cpu_tensors_take_the_plain_path(monkeypatch):
+    """A CPU render (pixel-major and coordinate-major) and the exact mesh
+    API on CPU tensors run every kernel's plain twin: no counter moves and
     nothing is built."""
     ops.reset_launches()
-    out = tr.render_patch(h.port_model(), h.torch_batch(
-        h.synthetic_batch()[0]), grids=T(h.center_grid()), out_h=4, out_w=4,
-        sample_per_ray_c=h.S_C, sample_per_ray_f=h.S_F)
-    assert torch.isfinite(out["tex_fg_fine"]).all()
+    batch = h.synthetic_batch()[0]
+    for soa in ("0", "1"):
+        monkeypatch.setenv("VANERF_SOA_POINTS", soa)
+        out = tr.render_patch(h.port_model(), h.torch_batch(batch),
+                              grids=T(h.center_grid()), out_h=4, out_w=4,
+                              sample_per_ray_c=h.S_C, sample_per_ray_f=h.S_F)
+        assert torch.isfinite(out["tex_fg_fine"]).all()
+    verts, faces = T(batch["verts"][0]), T(batch["faces"])
+    pts = T(h.two_hand_points(64, seed=2))
+    sdf, _ = mesh_query.point_mesh_sdf(verts, faces, pts)
+    sdf_f, _ = mesh_query.cal_vis_sdf_fast(verts, faces, pts,
+                                           torch.ones(len(verts), 1))
+    assert torch.isfinite(sdf).all() and torch.isfinite(sdf_f).all()
     assert ops.launch_counts() == {"mesh_query": 0, "knn": 0,
+                                   "mesh_query_brute": 0,
+                                   "mesh_query_vis_brute": 0,
+                                   "mesh_query_T": 0, "knn_T": 0,
                                    "rasterize": 0, "interp_mxu": 0,
                                    "onehot_scatter": 0, "row_gather": 0,
                                    "fused_query_mlp": 0, "fused_geo_mlp": 0}
@@ -74,7 +87,9 @@ def test_kernel_library_is_keyed_on_sources():
     srcs = {p.name for p in _cuda._sources()}
     assert {"knn.cu", "rasterize.cu", "mesh_query.cu", "interp.cu",
             "onehot_scatter.cu", "row_gather.cu", "fused_mlp.cu",
-            "common.cuh"} <= srcs
+            "mesh_query_brute.cu", "common.cuh", "tri_dist.cuh"} <= srcs
+    assert {"vt_mesh_query_brute", "vt_mesh_query_vis_brute",
+            "vt_mesh_query_T", "vt_knn_T"} <= set(_cuda._SIGNATURES)
     assert "arch=compute_90a,code=sm_90a" in _cuda.NVCC_FLAGS
 
 

@@ -177,8 +177,7 @@ def test_unported_render_options_raise(monkeypatch):
               sample_per_ray_f=4)
     with pytest.raises(NotImplementedError):
         tr.render_patch(model, batch, **kw, n_views=2)
-    for env in ("VANERF_FAR_SKIP", "VANERF_FAR_NET", "VANERF_FAR_TNET",
-                "VANERF_SOA_POINTS"):
+    for env in ("VANERF_FAR_SKIP", "VANERF_FAR_NET", "VANERF_FAR_TNET"):
         monkeypatch.setenv(env, "0.5")
         with pytest.raises(NotImplementedError):
             tr.render_patch(model, batch, **kw)
@@ -203,3 +202,163 @@ def test_render_patch_training_builds_a_graph():
     for w in (model.geo_encoder.conv1.weight,
               model.tex_encoder.layers[1].weight, model.sigmoid_beta):
         assert w.grad is not None and w.grad.abs().sum() > 0
+
+
+# ---------------------------------------------------------------------------
+# the coordinate-major render: VANERF_SOA_POINTS=1/2 (kernels 7 and 8)
+# ---------------------------------------------------------------------------
+
+def _render_port(grids, out_h, out_w, **kw):
+    return tr.render_patch(h.port_model(), h.torch_batch(
+        h.synthetic_batch()[0]), grids=T(grids), out_h=out_h, out_w=out_w,
+        sample_per_ray_c=h.S_C, sample_per_ray_f=h.S_F, **kw)
+
+
+def _assert_outputs_equal(got, want):
+    assert set(got) == set(want)
+    for k, v in want.items():
+        if torch.is_tensor(v):
+            assert torch.equal(got[k], v), k
+
+
+@pytest.mark.parametrize("far_tau", ["0", "0.02"])
+@pytest.mark.parametrize("mode", ["1", "2"])
+def test_soa_render_equals_mode0_exactly(mode, far_tau, monkeypatch):
+    """Coordinate-major points change no output bit: o + d*z rounds alike
+    in either layout and kernels 7 / 8 are A / B on the transposed input."""
+    monkeypatch.setenv("VANERF_FAR_TAU", far_tau)
+    grids = _centre_and_corner_grid()
+    want = _render_port(grids, 8, 4)
+    monkeypatch.setenv("VANERF_SOA_POINTS", mode)
+    seen = {"T": 0, "far": []}
+    real_T, real_knn = tr.cal_vis_sdf_prepared_T, tr.nearest_vertex_d2_T
+
+    def spy(mesh, points_T, *a, **kw):
+        assert points_T.shape[0] == 3 and points_T.is_contiguous()
+        assert kw["rays_hw"] == (8, 4)
+        out = real_T(mesh, points_T, *a, **kw)
+        seen["far"].append(out[2])
+        return out
+
+    def spy_knn(q, v):
+        seen["T"] += 1
+        return real_knn(q, v)
+
+    monkeypatch.setattr(tr, "cal_vis_sdf_prepared_T", spy)
+    monkeypatch.setattr(tr, "nearest_vertex_d2_T", spy_knn)
+    monkeypatch.setattr(tr, "cal_vis_sdf_prepared", None)   # not reached
+    monkeypatch.setattr(tr, "nearest_vertex_d2", None)
+    got = _render_port(grids, 8, 4)
+    _assert_outputs_equal(got, want)
+    assert seen["T"] == 2 and len(seen["far"]) == 2
+    assert want["alpha_fine"].max() > 0.2, "rays missed the fixture mesh"
+    if far_tau == "0":
+        assert all(f is None for f in seen["far"])
+    else:
+        for f in seen["far"]:
+            tiles = f.reshape(2, -1)
+            assert not tiles[0].any() and tiles[1].all()
+
+
+@pytest.mark.parametrize("mode", ["1", "2"])
+def test_soa_render_matches_jax(mode, monkeypatch):
+    """The port under VANERF_SOA_POINTS against JAX under the same switch
+    (far tier on), to the tolerance of the mode-0 comparison above."""
+    from vanerf_tpu import renderer as jr
+    monkeypatch.setenv("VANERF_FAR_TAU", "0.02")
+    monkeypatch.setenv("VANERF_SOA_POINTS", mode)
+    g, _ = h.converted_params()
+    batch, _ = h.synthetic_batch()
+    grids = _centre_and_corner_grid()
+    out_j = jr.render_patch(
+        h.jax_model(), g, _jbatch(batch), rng=jax.random.PRNGKey(0),
+        grids=jnp.asarray(grids), out_h=8, out_w=4, sample_per_ray_c=h.S_C,
+        sample_per_ray_f=h.S_F, fine=True, uniform=True, training=False,
+        n_views=1, sdf_chunk=64, compute_vis_map=False)
+    out_t = _render_port(grids, 8, 4)
+    _compare(out_j, out_t)
+    assert out_t["alpha_fine"].max() > 0.2
+
+
+def test_soa_unparsable_value_is_mode_1(monkeypatch):
+    grids = h.center_grid()
+    monkeypatch.setenv("VANERF_SOA_POINTS", "1")
+    want = _render_port(grids, 4, 4)
+    calls = []
+    real = tr.cal_vis_sdf_prepared_T
+    monkeypatch.setattr(tr, "cal_vis_sdf_prepared_T",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    for raw, mode in (("yes", 1), ("0.5", 1), ("2", 2), ("", 0), ("0", 0)):
+        monkeypatch.setenv("VANERF_SOA_POINTS", raw)
+        assert tr.soa_points_mode() == mode
+    monkeypatch.setenv("VANERF_SOA_POINTS", "yes")
+    _assert_outputs_equal(_render_port(grids, 4, 4), want)
+    assert len(calls) == 2
+
+
+def test_soa_switches_the_serving_tiers_off(monkeypatch):
+    """As in the JAX package: under the SoA layout a configured FAR_SKIP /
+    FAR_NET / FAR_TNET tier is off, not an error."""
+    grids = h.center_grid()
+    monkeypatch.setenv("VANERF_SOA_POINTS", "1")
+    want = _render_port(grids, 4, 4)
+    for env in ("VANERF_FAR_SKIP", "VANERF_FAR_NET", "VANERF_FAR_TNET"):
+        monkeypatch.setenv(env, "0.5")
+        _assert_outputs_equal(_render_port(grids, 4, 4), want)
+        monkeypatch.delenv(env)
+    with pytest.raises(NotImplementedError):
+        _render_port(grids, 4, 4, n_views=2)
+
+
+@pytest.mark.parametrize("mode", ["1", "2"])
+def test_soa_with_fused_mlp_equals_mode0(mode, monkeypatch):
+    """SoA composes with VANERF_FUSED_MLP=2 (the far tier off, the fused
+    query's plain version on the CPU): every output equals mode 0's."""
+    monkeypatch.setenv("VANERF_FUSED_MLP", "2")
+    grids = h.center_grid()
+    want = _render_port(grids, 4, 4)
+    monkeypatch.setenv("VANERF_SOA_POINTS", mode)
+    _assert_outputs_equal(_render_port(grids, 4, 4), want)
+
+
+@pytest.mark.parametrize("fused_train", ["0", "2"])
+def test_soa_training_render_equals_mode0(fused_train, monkeypatch):
+    """A training render with fed draws (jitter, importance uniforms,
+    radiance noise): every output and an L1 loss equal mode 0's under
+    VANERF_SOA_POINTS=1 and =2, also under VANERF_FUSED_TRAIN; the weight
+    gradients agree to rounding (two identical CPU runs repeat them no
+    closer: the gathers' backward sums in a thread-dependent order)."""
+    monkeypatch.setenv("VANERF_FUSED_TRAIN", fused_train)
+    rs = np.random.RandomState(11)
+    P = 16
+    draws = {"u_c": rs.rand(1, P, h.S_C).astype(np.float32),
+             "u_f": rs.rand(1, P, h.S_F).astype(np.float32),
+             "noise_c": rs.randn(1, P * h.S_C, 1).astype(np.float32),
+             "noise_f": rs.randn(1, P * h.S_F, 1).astype(np.float32)}
+    res = {}
+    for mode in ("0", "1", "2"):
+        monkeypatch.setenv("VANERF_SOA_POINTS", mode)
+        model = h.port_model()
+        out = tr.render_patch(
+            model, h.torch_batch(h.synthetic_batch()[0]),
+            grids=T(h.center_grid()), out_h=4, out_w=4,
+            sample_per_ray_c=h.S_C, sample_per_ray_f=h.S_F, training=True,
+            compute_vis_map=True, rand_noise_std=0.01, draws=draws)
+        loss = (out["tex_fg_fine"] - out["tar_img"]).abs().mean() \
+            + (out["tex_fg"] - out["tar_img"]).abs().mean()
+        loss.backward()
+        res[mode] = (out, loss.detach(),
+                     model.geo_encoder.conv1.weight.grad.clone(),
+                     model.sigmoid_beta.grad.clone())
+    assert res["0"][0]["tex_fg_fine"].requires_grad
+    assert res["0"][2].abs().sum() > 0
+    for mode in ("1", "2"):
+        _assert_outputs_equal(
+            {k: v.detach() if torch.is_tensor(v) else v
+             for k, v in res[mode][0].items()},
+            {k: v.detach() if torch.is_tensor(v) else v
+             for k, v in res["0"][0].items()})
+        assert torch.equal(res[mode][1], res["0"][1])
+        for a, b in zip(res[mode][2:], res["0"][2:]):
+            torch.testing.assert_close(a, b, rtol=1e-4,
+                                       atol=1e-5 * float(b.abs().max()))

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where the time of one serving patch goes under the fused-MLP switches,
-on one GPU.
+or under the coordinate-major point layout, on one GPU.
 
     python3 tools_torch/profile_serve.py [--rounds 8] [--out FILE]
+    python3 tools_torch/profile_serve.py --soa 0 1 2 [--out FILE]
 
 Holds the setup of ``chip_smoke.py`` phase 3b: ``configs/vanerf.json`` at
 full width, the 256^2 subdiv=3 fixture, one mask-centred 64x64 patch with
@@ -17,6 +18,10 @@ warm-up patch per configuration it measures:
      operations per patch, device busy time (the union of their
      intervals), the idle share of the profiled span, and the device time
      per kernel name.
+
+With ``--soa MODE [MODE ...]`` the configurations are instead the default
+unfused render (far tier ON) under ``VANERF_SOA_POINTS=MODE``, in turns:
+what kernels 7 and 8 and the second point generation cost a patch.
 
 Prints a summary and, as the last line, a JSON object of every number;
 ``--out`` also writes the full per-kernel tables there.
@@ -41,6 +46,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=8)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--soa", type=int, nargs="+", choices=(0, 1, 2),
+                    default=None, metavar="MODE",
+                    help="profile VANERF_SOA_POINTS=MODE (far tier on) "
+                         "instead of the fused-MLP levels")
     args = ap.parse_args()
 
     import torch
@@ -76,8 +85,11 @@ def main() -> int:
                                   batch["tar_mask"][..., 0], cs.PATCH,
                                   cs.PATCH)
 
+    configs = (cs.FUSED_CONFIGS if args.soa is None else
+               {f"soa{m}": dict(VANERF_SOA_POINTS=str(m)) for m in args.soa})
+
     def patch(name: str) -> float:
-        with cs.env(**cs.FUSED_CONFIGS[name]):
+        with cs.env(**configs[name]):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             tr.render_patch(model, batch, grids=grids, out_h=cs.PATCH,
@@ -86,7 +98,7 @@ def main() -> int:
             torch.cuda.synchronize()
             return (time.perf_counter() - t0) * 1e3
 
-    names = list(cs.FUSED_CONFIGS)
+    names = list(configs)
     for name in names:
         patch(name)
     wall = {name: [] for name in names}
@@ -94,7 +106,7 @@ def main() -> int:
         for name in names:
             wall[name].append(patch(name))
 
-    res = {"gpu": gpu, "configs": cs.FUSED_CONFIGS, "patch_ms": {
+    res = {"gpu": gpu, "configs": configs, "patch_ms": {
         n: {"median": statistics.median(v), "min": min(v), "max": max(v),
             "all": v} for n, v in wall.items()}, "profile": {}}
     tables = {}
@@ -110,7 +122,7 @@ def main() -> int:
                                                        unit="patch", top=12)
     for name in names:
         w, p = res["patch_ms"][name], res["profile"][name]
-        print(f"{name} {cs.FUSED_CONFIGS[name]}: median {w['median']:.2f} "
+        print(f"{name} {configs[name]}: median {w['median']:.2f} "
               f"ms/patch ({w['min']:.2f}-{w['max']:.2f}, {len(w['all'])} "
               f"patches); profile: {p['device_ops_per_patch']:.0f} device "
               f"ops/patch, device busy {p['device_busy_ms_per_patch']:.2f} "
@@ -123,7 +135,7 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             for name in names:
-                f.write(f"== {name} {cs.FUSED_CONFIGS[name]}\n")
+                f.write(f"== {name} {configs[name]}\n")
                 write_table(f, tables[name], 2, "patch")
     print(json.dumps(res), flush=True)
     return 0

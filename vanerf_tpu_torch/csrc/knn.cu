@@ -1,7 +1,12 @@
-// Kernel B — exact nearest vertex per query point (index + squared distance).
+// Kernels B and 8 — exact nearest vertex per query point (index + squared
+// distance).
 //
-// Replaces the TPU kernel vanerf_tpu/ops/knn_pallas.py::nearest_vertex_d2_pallas
+// B replaces the TPU kernel vanerf_tpu/ops/knn_pallas.py::nearest_vertex_d2_pallas
 // (body `_kernel`), which sweeps a (256-point x all-vertex) tile in VMEM.
+// 8 replaces nearest_vertex_d2_pallas_T (body `_kernel_T`): the same search
+// on coordinate-major (3, N) queries.  One kernel body, the point loads a
+// template parameter: 8 equals B bit for bit on the transposed input, and a
+// warp's three loads are coalesced instead of strided by 3.
 //
 // Bound on the H100: arithmetic.  Per (point, vertex) pair it does 3 subs,
 // 3 muls, 2 adds and a compare: 262,144 points x 1,284 vertices is ~3.4e8
@@ -22,6 +27,7 @@
 #define KNN_MAX_VERTS 4096  // 48 KB: the dynamic shared memory a block gets
                             // without cudaFuncSetAttribute
 
+template <bool SOA>
 __global__ void knn_kernel(const float* __restrict__ pts, int N,
                            const float* __restrict__ verts, int V,
                            int* __restrict__ idx, float* __restrict__ d2) {
@@ -30,7 +36,9 @@ __global__ void knn_kernel(const float* __restrict__ pts, int N,
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= N) return;
-  const float px = pts[3 * i], py = pts[3 * i + 1], pz = pts[3 * i + 2];
+  const float px = SOA ? pts[i] : pts[3 * i];
+  const float py = SOA ? pts[(size_t)N + i] : pts[3 * i + 1];
+  const float pz = SOA ? pts[2 * (size_t)N + i] : pts[3 * i + 2];
   float best = INFINITY;
   int bi = 0;
   for (int j = 0; j < V; ++j) {
@@ -47,12 +55,24 @@ __global__ void knn_kernel(const float* __restrict__ pts, int N,
   d2[i] = best;
 }
 
-VT_EXPORT int vt_knn(const float* pts, int N, const float* verts, int V,
-                     int* idx, float* d2, void* stream) {
+template <bool SOA>
+static int knn_launch(const float* pts, int N, const float* verts, int V,
+                      int* idx, float* d2, void* stream) {
   if (V <= 0 || V > KNN_MAX_VERTS) return static_cast<int>(cudaErrorInvalidValue);
   if (N <= 0) return 0;
   const size_t smem = sizeof(float) * 3 * static_cast<size_t>(V);
-  knn_kernel<<<vt_blocks(N, KNN_THREADS), KNN_THREADS, smem,
-               vt_stream(stream)>>>(pts, N, verts, V, idx, d2);
+  knn_kernel<SOA><<<vt_blocks(N, KNN_THREADS), KNN_THREADS, smem,
+                    vt_stream(stream)>>>(pts, N, verts, V, idx, d2);
   return static_cast<int>(cudaGetLastError());
+}
+
+VT_EXPORT int vt_knn(const float* pts, int N, const float* verts, int V,
+                     int* idx, float* d2, void* stream) {
+  return knn_launch<false>(pts, N, verts, V, idx, d2, stream);
+}
+
+// Kernel 8: `pts` is (3, N) contiguous.
+VT_EXPORT int vt_knn_T(const float* pts, int N, const float* verts, int V,
+                       int* idx, float* d2, void* stream) {
+  return knn_launch<true>(pts, N, verts, V, idx, d2, stream);
 }

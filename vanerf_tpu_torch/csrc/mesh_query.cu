@@ -1,12 +1,18 @@
-// Kernel A — point -> mesh query: per point, the exact minimum squared
+// Kernels A and 7 — point -> mesh query: per point, the exact minimum squared
 // distance to the mesh, the argmin face, the signed ray-crossing winding
 // number along a fixed direction, and the barycentric vertex visibility of
 // the winning face.
 //
-// Replaces the TPU kernel vanerf_tpu/ops/mesh_query_pallas.py::
+// A replaces the TPU kernel vanerf_tpu/ops/mesh_query_pallas.py::
 // point_mesh_query_vis_culled (body `_kernel_vis_ray_culled`, distance
 // chunk `_distance_chunk_vis_fast`, host prep `prepare_mesh_ray`,
-// `_cull_masks`, `_cull_lists`).
+// `_cull_masks`, `_cull_lists`).  7 replaces point_mesh_query_vis_culled_T
+// (body `_kernel_vis_ray_culled_T`): the same function on coordinate-major
+// (3, N) points.  On the TPU that layout avoids padding a 3-wide minor
+// dimension to 128 lanes; here it turns a thread's three loads of stride 3
+// into three loads that a warp coalesces.  Both are one kernel body with
+// the point loads as a template parameter, so 7 equals A bit for bit on the
+// transposed input; the outputs are packed (N,) arrays in both.
 //
 // Bound on the H100: arithmetic.  Brute force visits every (point, face)
 // pair: 262,144 points x 2,560 faces = 6.7e8 pairs per pass at ~80 flops
@@ -35,60 +41,11 @@
 //     computed once per point after the sweep.
 
 #include "common.cuh"
+#include "tri_dist.cuh"
 
 #define MQ_THREADS 128
 #define MQ_CHUNK 128
 #define MQ_STRIDE 22  // ax ay az bx by bz cx cy cz | va vb vc | pv(3) w2(3) n(3) det
-
-__device__ __forceinline__ float tri_sq_dist(float px, float py, float pz,
-                                             const float* t) {
-  const float ax = t[0], ay = t[1], az = t[2];
-  const float bx = t[3], by = t[4], bz = t[5];
-  const float cx = t[6], cy = t[7], cz = t[8];
-  const float abx = bx - ax, aby = by - ay, abz = bz - az;
-  const float acx = cx - ax, acy = cy - ay, acz = cz - az;
-  const float apx = px - ax, apy = py - ay, apz = pz - az;
-  const float d1 = abx * apx + aby * apy + abz * apz;
-  const float d2 = acx * apx + acy * apy + acz * apz;
-  const float bpx = px - bx, bpy = py - by, bpz = pz - bz;
-  const float d3 = abx * bpx + aby * bpy + abz * bpz;
-  const float d4 = acx * bpx + acy * bpy + acz * bpz;
-  const float cpx = px - cx, cpy = py - cy, cpz = pz - cz;
-  const float d5 = abx * cpx + aby * cpy + abz * cpz;
-  const float d6 = acx * cpx + acy * cpy + acz * cpz;
-  const float va = d3 * d6 - d5 * d4;
-  const float vb = d5 * d2 - d1 * d6;
-  const float vc = d1 * d4 - d3 * d2;
-  float qx, qy, qz;
-  // region precedence of point_triangle_sq_dist's `where` chain: the last
-  // `where` applied (vertex a) wins, so test in reverse order
-  if (d1 <= 0.0f && d2 <= 0.0f) {
-    qx = ax; qy = ay; qz = az;
-  } else if (d3 >= 0.0f && d4 <= d3) {
-    qx = bx; qy = by; qz = bz;
-  } else if (d6 >= 0.0f && d5 <= d6) {
-    qx = cx; qy = cy; qz = cz;
-  } else if (vc <= 0.0f && d1 >= 0.0f && d3 <= 0.0f) {
-    const float tt = d1 / fmaxf(d1 - d3, 1e-20f);
-    qx = ax + tt * abx; qy = ay + tt * aby; qz = az + tt * abz;
-  } else if (vb <= 0.0f && d2 >= 0.0f && d6 <= 0.0f) {
-    const float tt = d2 / fmaxf(d2 - d6, 1e-20f);
-    qx = ax + tt * acx; qy = ay + tt * acy; qz = az + tt * acz;
-  } else if (va <= 0.0f && (d4 - d3) >= 0.0f && (d5 - d6) >= 0.0f) {
-    const float tt = (d4 - d3) / fmaxf((d4 - d3) + (d5 - d6), 1e-20f);
-    qx = bx + tt * (cx - bx); qy = by + tt * (cy - by); qz = bz + tt * (cz - bz);
-  } else {
-    const float denom = va + vb + vc;
-    const float den = denom == 0.0f ? 1.0f : denom;
-    const float v = vb / den;
-    const float w = vc / den;
-    qx = ax + v * abx + w * acx;
-    qy = ay + v * aby + w * acy;
-    qz = az + v * abz + w * acz;
-  }
-  const float dx = px - qx, dy = py - qy, dz = pz - qz;
-  return dx * dx + dy * dy + dz * dz;
-}
 
 __device__ __forceinline__ float crossing(float px, float py, float pz,
                                           const float* t) {
@@ -124,6 +81,7 @@ __device__ __forceinline__ float face_vis(float px, float py, float pz,
   return t[9] * b0 + t[10] * b1 + t[11] * b2;
 }
 
+template <bool SOA>
 __global__ void mesh_query_kernel(const float* __restrict__ pts, int N,
                                   const float* __restrict__ faces, int F,
                                   const float* __restrict__ ub,
@@ -138,9 +96,9 @@ __global__ void mesh_query_kernel(const float* __restrict__ pts, int N,
   float px = 0.0f, py = 0.0f, pz = 0.0f;
   bool is_far = false;
   if (valid) {
-    px = pts[3 * i];
-    py = pts[3 * i + 1];
-    pz = pts[3 * i + 2];
+    px = SOA ? pts[i] : pts[3 * i];
+    py = SOA ? pts[(size_t)N + i] : pts[3 * i + 1];
+    pz = SOA ? pts[2 * (size_t)N + i] : pts[3 * i + 2];
     is_far = far != nullptr && far[i] != 0;
   }
   float best = INFINITY;
@@ -182,8 +140,20 @@ VT_EXPORT int vt_mesh_query(const float* pts, int N, const float* faces,
                             float* d2, int* idx, float* wind, float* qvis,
                             void* stream) {
   if (N <= 0) return 0;
-  mesh_query_kernel<<<vt_blocks(N, MQ_THREADS), MQ_THREADS, 0,
-                      vt_stream(stream)>>>(pts, N, faces, F, ub, far, d2, idx,
-                                           wind, qvis);
+  mesh_query_kernel<false><<<vt_blocks(N, MQ_THREADS), MQ_THREADS, 0,
+                             vt_stream(stream)>>>(pts, N, faces, F, ub, far,
+                                                  d2, idx, wind, qvis);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel 7: `pts` is (3, N) contiguous.
+VT_EXPORT int vt_mesh_query_T(const float* pts, int N, const float* faces,
+                              int F, const float* ub,
+                              const unsigned char* far, float* d2, int* idx,
+                              float* wind, float* qvis, void* stream) {
+  if (N <= 0) return 0;
+  mesh_query_kernel<true><<<vt_blocks(N, MQ_THREADS), MQ_THREADS, 0,
+                            vt_stream(stream)>>>(pts, N, faces, F, ub, far,
+                                                 d2, idx, wind, qvis);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,10 +6,17 @@ the kernel; :func:`reset_launches` and :func:`launch_counts` read them all.
 
 from . import (fused_mlp, interp_mxu, knn, mesh_query, onehot_gather,
                rasterize)
+from .mesh_query import (  # noqa: F401
+    barycentric_of_projection, cal_vis_sdf, point_mesh_sdf, winding_number)
 
 # kernel name -> (module, counter attribute)
 KERNEL_COUNTERS = {"mesh_query": (mesh_query, "launches"),
                    "knn": (knn, "launches"),
+                   "mesh_query_brute": (mesh_query, "brute_launches"),
+                   "mesh_query_vis_brute": (mesh_query,
+                                            "vis_brute_launches"),
+                   "mesh_query_T": (mesh_query, "launches_T"),
+                   "knn_T": (knn, "launches_T"),
                    "rasterize": (rasterize, "launches"),
                    "interp_mxu": (interp_mxu, "launches"),
                    "onehot_scatter": (onehot_gather, "launches"),

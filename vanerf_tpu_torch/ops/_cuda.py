@@ -24,8 +24,8 @@ import threading
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2] / "build"
              / "vanerf_tpu_torch")
-# -fmad=false: kernels A-D equal their plain versions bit for bit only if
-# every product and sum rounds on its own; the fused MLP kernels, which
+# -fmad=false: kernels A-D and 5-8 equal their plain versions bit for bit only
+# if every product and sum rounds on its own; the fused MLP kernels, which
 # cannot be bit-equal, call fmaf explicitly instead of taking other flags.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-fmad=false"]
@@ -38,8 +38,12 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # C signatures of the entry points (all return cudaGetLastError() as int)
 _SIGNATURES = {
     "vt_knn": [_P, _I, _P, _I, _P, _P, _P],
+    "vt_knn_T": [_P, _I, _P, _I, _P, _P, _P],
     "vt_raster": [_P, _I, _I, _I, _P, _P, _P],
     "vt_mesh_query": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+    "vt_mesh_query_T": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+    "vt_mesh_query_brute": [_P, _I, _P, _I, _I, _P, _P, _P, _P],
+    "vt_mesh_query_vis_brute": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _P],
     "vt_interp": [_P, _I, _I, _I, _P, _I, _P, _P],
     "vt_onehot_scatter": [_P, _P, _I, _I, _I, _P, _P, _L, _P, _L, _P],
     "vt_row_gather": [_P, _I, _I, _P, _I, _P, _P],

@@ -2,7 +2,9 @@
 ``vanerf_tpu/ops/knn.py`` + ``ops/knn_pallas.py``).
 
 :func:`nearest_vertex_d2` is kernel B (``csrc/knn.cu``) on CUDA tensors
-and its plain-PyTorch twin :func:`nearest_vertex_d2_plain` on CPU tensors.
+and its plain-PyTorch twin :func:`nearest_vertex_d2_plain` on CPU tensors;
+:func:`nearest_vertex_d2_T` is kernel 8, the same search on coordinate-major
+(3, N) queries, with :func:`nearest_vertex_d2_T_plain`.
 Under a graph the vertex-table gather goes through
 :func:`~.onehot_gather.take_rows`, whose table gradient is kernel 13;
 without one it goes through kernel 10,
@@ -19,8 +21,9 @@ from .onehot_gather import take_rows, take_rows_route
 
 KNN_MAX_VERTS = 4096        # csrc/knn.cu: the vertex table in shared memory
 
-# launches of the CUDA kernel (a plain counter; callers reset it)
+# launches of kernels B and 8 (plain counters; callers reset them)
 launches = 0
+launches_T = 0
 
 
 def nearest_vertex_d2_plain(query: torch.Tensor, verts: torch.Tensor):
@@ -40,6 +43,23 @@ def nearest_vertex_d2_plain(query: torch.Tensor, verts: torch.Tensor):
     return torch.cat(idx), torch.cat(d2)
 
 
+def _launch(entry: str, query: torch.Tensor, N: int, verts: torch.Tensor):
+    """One launch of kernel B (``vt_knn``, query (N, 3)) or kernel 8
+    (``vt_knn_T``, query (3, N)); the caller counts it."""
+    V = verts.shape[0]
+    _cuda.require(verts, "verts", torch.float32, (V, 3), query.device)
+    if not 0 < V <= KNN_MAX_VERTS:
+        raise ValueError(f"nearest vertex: {V} vertices; the kernel holds "
+                         f"at most {KNN_MAX_VERTS} in shared memory")
+    idx = torch.empty(N, dtype=torch.int32, device=query.device)
+    d2 = torch.empty(N, dtype=torch.float32, device=query.device)
+    rc = getattr(_cuda.lib(), entry)(
+        query.data_ptr(), N, verts.data_ptr(), V, idx.data_ptr(),
+        d2.data_ptr(), _cuda.stream_ptr(query.device))
+    _cuda.check(rc, entry)
+    return idx, d2
+
+
 def nearest_vertex_d2(query: torch.Tensor, verts: torch.Tensor):
     """Nearest vertex index + squared distance per query point.
 
@@ -54,20 +74,36 @@ def nearest_vertex_d2(query: torch.Tensor, verts: torch.Tensor):
     if query.device.type == "cpu":
         return nearest_vertex_d2_plain(query, verts)
     global launches
-    N, V = query.shape[0], verts.shape[0]
+    N = query.shape[0]
     _cuda.require(query, "query", torch.float32, (N, 3))
-    _cuda.require(verts, "verts", torch.float32, (V, 3), query.device)
-    if not 0 < V <= KNN_MAX_VERTS:
-        raise ValueError(f"nearest_vertex_d2: {V} vertices; the kernel "
-                         f"holds at most {KNN_MAX_VERTS} in shared memory")
-    idx = torch.empty(N, dtype=torch.int32, device=query.device)
-    d2 = torch.empty(N, dtype=torch.float32, device=query.device)
-    rc = _cuda.lib().vt_knn(query.data_ptr(), N, verts.data_ptr(), V,
-                            idx.data_ptr(), d2.data_ptr(),
-                            _cuda.stream_ptr(query.device))
-    _cuda.check(rc, "vt_knn")
+    out = _launch("vt_knn", query, N, verts)
     launches += 1
-    return idx, d2
+    return out
+
+
+def nearest_vertex_d2_T_plain(query_T: torch.Tensor, verts: torch.Tensor):
+    """Plain-PyTorch version of kernel 8: :func:`nearest_vertex_d2_plain`
+    read through a strided (N, 3) view of the (3, N) queries (no copy)."""
+    return nearest_vertex_d2_plain(query_T.t(), verts)
+
+
+def nearest_vertex_d2_T(query_T: torch.Tensor, verts: torch.Tensor):
+    """Coordinate-major :func:`nearest_vertex_d2`: kernel 8 on CUDA tensors,
+    identical results to kernel B's on the transposed input.
+
+    Args:
+      query_T: (3, N) contiguous; verts: (V, 3) float32, same device.
+    Returns:
+      idx (N,) int32, d2 (N,) float32.
+    """
+    if query_T.device.type == "cpu":
+        return nearest_vertex_d2_T_plain(query_T, verts)
+    global launches_T
+    N = query_T.shape[1]
+    _cuda.require(query_T, "query_T", torch.float32, (3, N))
+    out = _launch("vt_knn_T", query_T, N, verts)
+    launches_T += 1
+    return out
 
 
 def _take_batched(packed_both: torch.Tensor, idx: torch.Tensor

@@ -16,9 +16,15 @@ gathers (at most 8,192 rows) go through kernel 13.
 eval (``models/vanerf.py``), and ``VANERF_FUSED_TRAIN=<level>`` runs the
 training render's network forward through the same kernels, with the
 gradients of the plain composition (``ops/fused_mlp.py``); both switch
-the far tier off, which those kernels do not take.  The
-JAX package's approximate serving tiers FAR_SKIP / FAR_NET / FAR_TNET and
-the SoA point layout are not ported and raise when asked for.
+the far tier off, which those kernels do not take.
+``VANERF_SOA_POINTS=1/2`` generates the points coordinate-major, (3, N):
+the nearest-vertex search is then kernel 8 and the mesh query kernel 7,
+neither ever seeing an (N, 3) copy, and ``VANERF_BLOCK_2D`` may tile the far
+tier by pixel blocks; the network's (N, 3) points are the transpose (mode
+1) or are generated a second time from the rays (mode 2), with results
+equal to mode 0's.  The JAX package's approximate serving tiers FAR_SKIP /
+FAR_NET / FAR_TNET are not ported and raise when asked for, except under
+the SoA layout, which switches them off there too.
 """
 
 from __future__ import annotations
@@ -32,8 +38,9 @@ import torch
 import torch.nn.functional as F
 
 from .ops.composite import rgba2out
-from .ops.knn import nearest_vertex_d2
-from .ops.mesh_query import cal_vis_sdf_prepared, prepare_culled_mesh
+from .ops.knn import nearest_vertex_d2, nearest_vertex_d2_T
+from .ops.mesh_query import (cal_vis_sdf_prepared, cal_vis_sdf_prepared_T,
+                             prepare_culled_mesh)
 from .ops.rasterize import render_vis_map, vertex_visibility
 from .ops.ray import pixel_grid_rays, ray_bbox_intersection
 from .ops.sampling import importance_sample, stratified_sample
@@ -170,11 +177,22 @@ def _draw(draws, key: str, shape, normal: bool, generator, device):
     return fn(tuple(shape), generator=generator, device=gdev).to(device)
 
 
-def _check_unported(model, training: bool, n_views: int):
+def soa_points_mode() -> int:
+    """``VANERF_SOA_POINTS``: 0 = (N, 3) points everywhere; 1 = (3, N)
+    points into the nearest-vertex and mesh-query kernels, the network's
+    (N, 3) points transposed from them; 2 = the network's points generated
+    a second time from (o, d, z) instead.  An unparsable value means 1."""
+    try:
+        return int(os.environ.get("VANERF_SOA_POINTS", "0") or 0)
+    except ValueError:
+        return 1
+
+
+def _check_unported(model, training: bool, n_views: int, soa_points: int):
     if n_views != 1:
         raise NotImplementedError("the port renders one source view")
-    if os.environ.get("VANERF_SOA_POINTS", "0") not in ("", "0"):
-        raise NotImplementedError("VANERF_SOA_POINTS is not ported")
+    if soa_points:
+        return      # the SoA layout switches the serving tiers off
     for env, attr in (("VANERF_FAR_SKIP", "far_skip"),
                       ("VANERF_FAR_NET", "far_net"),
                       ("VANERF_FAR_TNET", "far_tnet")):
@@ -216,7 +234,8 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
     Returns:
       dict of channels-last outputs mirroring the JAX package's.
     """
-    _check_unported(model, training, n_views)
+    soa_points = soa_points_mode()
+    _check_unported(model, training, n_views, soa_points)
     with contextlib.nullcontext() if training else torch.no_grad():
         src_img = batch["src_img"]
         B = batch["tar_k"].shape[0]
@@ -256,14 +275,32 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
             far2 = None
 
         def query_at(z_depths, n_samples, noise_key):
-            pts = (cam_pos[:, :, None] + cam_rays[:, :, None]
-                   * z_depths[..., None]).reshape(B, -1, 3)       # (B, P*S, 3)
+            if soa_points:
+                # each coordinate a packed (B, P*S) row: kernels 8 and 7
+                pts_T = (cam_pos.transpose(1, 2)[:, :, :, None]
+                         + cam_rays.transpose(1, 2)[:, :, :, None]
+                         * z_depths[:, None]).reshape(B, 3, -1)
+            if soa_points != 1:
+                pts = (cam_pos[:, :, None] + cam_rays[:, :, None]
+                       * z_depths[..., None]).reshape(B, -1, 3)   # (B, P*S, 3)
+            else:
+                # the same values: o + d*z rounds alike in either layout
+                pts = pts_T.transpose(1, 2).contiguous()
             nn_idx, sdf, q_vis, far = [], [], [], []
             for b in range(B):
-                pb = pts[b].contiguous()
-                i_b, d2_b = nearest_vertex_d2(pb, verts[b].contiguous())
-                s_b, q_b, f_b = cal_vis_sdf_prepared(
-                    mesh_prep[b], pb, d2_b, n_samples=n_samples, far2=far2)
+                vb = verts[b].contiguous()
+                if soa_points:
+                    pb = pts_T[b].contiguous()
+                    i_b, d2_b = nearest_vertex_d2_T(pb, vb)
+                    s_b, q_b, f_b = cal_vis_sdf_prepared_T(
+                        mesh_prep[b], pb, d2_b, n_samples=n_samples,
+                        rays_hw=(out_h, out_w), far2=far2)
+                else:
+                    pb = pts[b].contiguous()
+                    i_b, d2_b = nearest_vertex_d2(pb, vb)
+                    s_b, q_b, f_b = cal_vis_sdf_prepared(
+                        mesh_prep[b], pb, d2_b, n_samples=n_samples,
+                        far2=far2)
                 nn_idx.append(i_b)
                 sdf.append(s_b)
                 q_vis.append(q_b)
