@@ -8,7 +8,8 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU:
 Phases, each printing what it found; any failed check raises and the
 script exits non-zero (there is no CPU fallback):
 
-  1. build (or reuse) the twelve CUDA kernels from ``vanerf_tpu_torch/csrc``;
+  1. build (or reuse) the fourteen CUDA kernel entry points from
+     ``vanerf_tpu_torch/csrc``;
   2. each kernel against its plain-PyTorch twin on the card, at the shapes
      the main path gives it (a 64x64-ray patch x 64 samples = 262,144
      points, the 256^2 subdiv=3 two-hand fixture: 2,560 faces, 1,284
@@ -21,7 +22,18 @@ script exits non-zero (there is no CPU fallback):
      call's time; the exact queries (kernels 5 and 6) in both winding
      modes, bit-equal in ray mode and to 1e-5 on the winding in solid-angle
      mode; the coordinate-major kernels 7 and 8 also bit-equal to A and B
-     on the transposed input;
+     on the transposed input; kernel 9 (the culled nearest-vertex search)
+     bit-equal to B and 8, its visits those of ``knn_cull_lists``, on the
+     main path's order (where every chunk is visited) and on the same
+     points and vertices in Morton order (where chunks must be skipped);
+     kernels
+     A and 7 are the culled mesh query, in 16-ray x 8-sample tiles and in
+     ``VANERF_BLOCK_2D=4,4,8`` tiles, without and with the far tier:
+     bit-equal to the plain version, to the sweep over every face of the
+     same sorted table in d2, idx and qvis, in the winding on every tile
+     that keeps +d and up to certified grazes on tiles that take -d, and in
+     d2 to the sweep over the table in mesh order; timed in turns with the
+     sweep;
   3. the serving path at full model width (``configs/vanerf.json``, seeded
      flax-style initialisation): ``render_full_image`` for 2 frames (16
      64x64 tiles each, 64+64 samples) and one bench-shaped group of 16
@@ -38,6 +50,18 @@ script exits non-zero (there is no CPU fallback):
      ``VANERF_SOA_POINTS=1`` and ``=2`` in turns with mode 0 (far tier on,
      the default), every output equal to mode 0's (the compared frames
      share one encode); kernels 7 and 8 must launch and A and B must not;
+  3e. the same frame under ``VANERF_KNN_CULL=1``, pixel-major and under
+     ``VANERF_SOA_POINTS=1 VANERF_BLOCK_2D=4,4,8``, in turns with the
+     default frame: every output equal to the same layout's frame without
+     the switch, 32 launches of kernel 9 a frame and none of B (or 8);
+  3f. the serving tiers on the same frame, in turns with the default:
+     ``VANERF_FAR_SKIP=1`` held as 3b holds the fused frames,
+     ``VANERF_FAR_SKIP=0.5``, ``VANERF_FAR_NET=0.5`` and
+     ``VANERF_FAR_TNET=0.5`` finite, one 8x8-ray patch of each equal to the
+     CPU port's to rtol 1e-3 / atol 1e-4 (the fine outputs of a ray whose
+     coarse + fine merge is certified to order two samples of one depth
+     differently on the two devices: to 0.02), PSNR against the default
+     frame;
   3d. the exact mesh-query API on the points of one 64x64x64 pass:
      ``cal_vis_sdf_fast`` under ``VANERF_WINDING=ray`` and ``=solid_angle``
      (kernel 6) and ``point_mesh_sdf`` (kernel 5) against the renderer's
@@ -65,8 +89,9 @@ script exits non-zero (there is no CPU fallback):
 A ``details:`` line holds every measured number; the line before the last
 is a JSON object with one entry per kernel (its launches are those of the
 phase that drives it: A-D and 10 phase 3, 13 phase 5, 11 the level-2 run
-of phase 3b, 12 the level-1 run, 7 and 8 the mode-1 run of phase 3c, 5 and
-6 phase 3d); the last line is
+of phase 3b, 12 the level-1 run, 7 and 8 the mode-1 run of phase 3c, 9 the
+two culled runs of phase 3e, 5 and 6 phase 3d; A and 7 carry the sweep's
+time beside the culled query's as ``brute_ms``); the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and
 convolutions.
 """
@@ -100,6 +125,10 @@ KERNELS = {
                      "vanerf_tpu/ops/mesh_query_pallas.py:1219"),
     "knn_T": ("vanerf_tpu_torch/csrc/knn.cu",
               "vanerf_tpu/ops/knn_pallas.py:325"),
+    "knn_culled": ("vanerf_tpu_torch/csrc/knn.cu",
+                   "vanerf_tpu/ops/knn_pallas.py:245"),
+    "knn_T_culled": ("vanerf_tpu_torch/csrc/knn.cu",
+                     "vanerf_tpu/ops/knn_pallas.py:245"),
     "rasterize": ("vanerf_tpu_torch/csrc/rasterize.cu",
                   "vanerf_tpu/ops/rasterize_pallas.py:73"),
     "interp_mxu": ("vanerf_tpu_torch/csrc/interp.cu",
@@ -144,6 +173,23 @@ API_SDF_RTOL, API_QVIS_AGREE = 1e-4, 0.97
 # points may differ, each within this margin (barycentric units) of an edge
 GRAZE_SHARE, GRAZE_MARGIN = 1e-4, 1e-4
 SOA_ROUNDS = 3
+# phases 3e / 3f: rounds of the culled-search and serving-tier frames
+CULL_ROUNDS = 3
+TIER_ROUNDS = 2
+# phase 3f: a tier's patch on the card against the CPU port's (phase 4's
+# tolerance; 8x8 rays, a quarter of phase 4's patch: the CPU render at full
+# width is what takes the time)
+TIER_CPU_RAYS = 8
+TIER_CPU_RTOL, TIER_CPU_ATOL = 1e-3, 1e-4
+# ... except on rays whose coarse + fine merge orders two samples of (nearly)
+# one depth differently on the two devices: see ``merge_order_flips``.  At
+# most this share of the patch's rays, the depths within this relative
+# margin of each other, their fine outputs within FUSED_FINE_ABS
+TIER_FLIP_SHARE, TIER_FLIP_MARGIN = 0.05, 1e-6
+# kernel 9's visit counts against the plain version's: a (tile, chunk) may
+# differ only where its lower bound lies this close (relative, float64) to
+# the threshold
+KNN_VISIT_MARGIN = 1e-5
 # phase 5c: the SoA step's G loss against mode 0's.  The two steps encode
 # the frame for themselves, and the encoders do not repeat to the bit on
 # the card (see phase 3c), so the losses agree to rounding, not to the bit.
@@ -306,6 +352,143 @@ def fused_main_path_inputs(model, batch, grids):
     return got
 
 
+def knn_visit_margin(pts, verts, visits, visits_plain) -> float:
+    """0.0 when kernel 9 visited what ``knn_cull_lists`` lists.  Else, over
+    the tiles whose counts differ, how close (relative, float64) the nearest
+    chunk's lower bound lies to the visit threshold: a count may differ only
+    where a chunk sits on the threshold to within rounding."""
+    import torch
+    from vanerf_tpu_torch.ops import knn
+    differ = (visits != visits_plain).nonzero()[:, 0]
+    if differ.numel() == 0:
+        return 0.0
+    tiles = knn._edge_tiles(pts, knn.CULL_TILE_P)[differ].double()
+    tmin, tmax = tiles.amin(1), tiles.amax(1)
+    b = knn.vertex_chunk_boxes(verts).double()
+    cmin, cmax, ccen, crad = b[:, 0:3], b[:, 3:6], b[:, 6:9], b[:, 9]
+    far = torch.maximum((ccen[None] - tmin[:, None]).abs(),
+                        (ccen[None] - tmax[:, None]).abs())
+    ub = ((far.pow(2).sum(-1).sqrt() + crad[None]).amin(1)) ** 2
+    gap = torch.clamp_min(torch.maximum(cmin[None] - tmax[:, None],
+                                        tmin[:, None] - cmax[None]), 0.0)
+    lb = gap.pow(2).sum(-1)
+    thr = ub[:, None] * (1.0 + 1e-5) + 1e-12
+    return ((lb - thr).abs() / thr).amin(1).max().item()
+
+
+def culled_query_checks(name, fn, fn_p, q, p_c, mesh, d2, tilings, far2):
+    """The culled kernel A (``q`` = ``p_c``) or 7 (``q`` = its transpose)
+    in every tiling, without and with the far tier."""
+    import torch
+    from vanerf_tpu_torch.ops import mesh_query
+    N = p_c.shape[0]
+    table = mesh["table"]
+    F = table.shape[0]
+    n_chunks = mesh["cbox"].shape[0]
+    table_mesh_order = table[torch.argsort(mesh["order"])].contiguous()
+    sizes = torch.full((n_chunks,), float(mesh_query.CULL_CHUNK),
+                       device=p_c.device)
+    sizes[-1] = F - mesh_query.CULL_CHUNK * (n_chunks - 1)
+    detail, err = {}, 0.0
+    for tiling, tiles in tilings.items():
+        for tag, f2 in (("exact", None), ("far", far2)):
+            got = fn(q, mesh, d2, tiles, f2, visits=True)
+            want = fn_p(q, mesh, d2, tiles, f2, visits=True)
+            torch.cuda.synchronize()
+            for k, g_, w_ in zip(("d2", "idx", "wind", "qvis", "far",
+                                  "visits"), got, want):
+                check((g_ is None and w_ is None) or torch.equal(g_, w_),
+                      f"{name} {tiling} {tag}: {k} differs from the plain "
+                      "version")
+                if k in ("d2", "wind", "qvis"):
+                    err = max(err, (g_ - w_).abs().max().item())
+            d2_c, idx_c, wind_c, qvis_c, far_c, _visits = got
+            # the sweep over every face of the same sorted table
+            sweep = mesh_query.point_mesh_query_vis_cuda(p_c, table, d2,
+                                                         far_c)
+            for k, g_, w_ in zip(("d2", "idx", "wind", "qvis"), got, sweep):
+                if k != "wind":
+                    check(torch.equal(g_, w_), f"{name} {tiling} {tag}: {k} "
+                          "differs from the sweep over the sorted table")
+            tmin, tmax, ub_t, far_t, tile_of = mesh_query.tile_boxes(
+                p_c, d2, tiles, f2)
+            mask, use_neg, _lb = mesh_query.cull_masks(tmin, tmax, ub_t,
+                                                       mesh["cbox"], far_t)
+            differ = wind_c != sweep[2]
+            check(not (differ & ~use_neg[tile_of]).any().item(),
+                  f"{name} {tiling} {tag}: the winding differs from the "
+                  "sweep's on a tile that keeps +d")
+            n_differ = int(differ.sum())
+            graze = (ray_edge_margin(p_c[differ], table).max().item()
+                     if n_differ else 0.0)
+            check(n_differ <= GRAZE_SHARE * N and graze <= GRAZE_MARGIN,
+                  f"{name} {tiling} {tag}: {n_differ} crossing counts along "
+                  f"-d differ from the sweep's, the farthest {graze:.3g} "
+                  "(barycentric units) from an edge")
+            # the sweep over the table in mesh order (the kernel before the
+            # sort): d2 to the bit; the visibility wherever the same face
+            # wins (else an exact tie: the distances are equal)
+            before = mesh_query.point_mesh_query_vis_cuda(
+                p_c, table_mesh_order, d2, far_c)
+            check(torch.equal(d2_c, before[0]), f"{name} {tiling} {tag}: d2 "
+                  "differs from the sweep over the table in mesh order")
+            same_face = mesh["order"][idx_c.long()] == before[1]
+            if far_c is not None:
+                same_face |= far_c              # far points read no face
+            check(torch.equal(qvis_c[same_face], before[3][same_face]),
+                  f"{name} {tiling} {tag}: qvis differs off a tie")
+            # in turns: culled, sweep, sweep, culled
+            t1 = cuda_ms(lambda: fn(q, mesh, d2, tiles, f2), 5)
+            s1 = cuda_ms(lambda: mesh_query.point_mesh_query_vis_cuda(
+                p_c, table, d2, far_c), 5)
+            s2 = cuda_ms(lambda: mesh_query.point_mesh_query_vis_cuda(
+                p_c, table, d2, far_c), 5)
+            t2 = cuda_ms(lambda: fn(q, mesh, d2, tiles, f2), 5)
+            dist_pairs = (((mask & 1).float() @ sizes).sum().item()
+                          * mesh_query.TILE_P)
+            wind_pairs = (((mask >> 1).float() @ sizes).sum().item()
+                          * mesh_query.TILE_P)
+            detail[f"{tiling}_{tag}"] = dict(
+                ms=0.5 * (t1 + t2), sweep_ms=0.5 * (s1 + s2),
+                dist_visit_share=(mask & 1).float().mean().item(),
+                wind_visit_share=(mask >> 1).float().mean().item(),
+                neg_tile_share=use_neg.float().mean().item(),
+                far_tile_share=(far_t.float().mean().item()
+                                if far_t is not None else 0.0),
+                wind_differs_from_sweep=n_differ, their_edge_margin=graze,
+                tied_faces=int((~same_face).sum()),
+                dist_pairs=dist_pairs, wind_pairs=wind_pairs,
+                out=dict(d2=d2_c, idx=idx_c, wind=wind_c, qvis=qvis_c),
+                far=far_c, bytes=nbytes(q, table, mesh["cbox"], d2, *[
+                    t for t in got[:5] if t is not None]))
+    main = detail["1d_far"]
+    out, far = main["out"], main["far"]
+    for d in detail.values():
+        d.pop("out")
+        d.pop("far")
+    tiles = tilings["1d"]
+    n_far = int(far.sum())
+    return dict(
+        shape=f"{N} points x {F} faces in {n_chunks} chunks, 16-ray x "
+              f"8-sample tiles, {main['far_tile_share']:.3f} of them far, "
+              f"{main['dist_visit_share']:.3f} / "
+              f"{main['wind_visit_share']:.3f} of the (tile, chunk) pairs "
+              "visited for the distance / the winding",
+        max_abs_err=err, detail=detail, out=out, far=far,
+        ms=main["ms"], brute_ms=main["sweep_ms"],
+        # the same launch with the far tier off: what the far tier saves
+        exact_ms=detail["1d_exact"]["ms"],
+        plain_ms=cuda_ms(lambda: fn_p(q, mesh, d2, tiles, far2), 2),
+        library_ms=None,
+        # every pair, as the sweep with per-point far flags visits them: far
+        # points skip the distance search and keep the crossing test
+        all_pairs=least_time(main["bytes"], F * (
+            (N - n_far) * (MESH_DIST_OPS + MESH_CROSS_OPS)
+            + n_far * MESH_CROSS_OPS)),
+        **least_time(main["bytes"], main["dist_pairs"] * MESH_DIST_OPS
+                     + main["wind_pairs"] * MESH_CROSS_OPS))
+
+
 def phase_kernels(model, batch, dev):
     import torch
     import torch.nn.functional as F
@@ -339,51 +522,124 @@ def phase_kernels(model, batch, dev):
         **least_time(nbytes(pts, verts, idx, d2),
                      KNN_OPS * pts.shape[0] * verts.shape[0]))
 
-    # --- A: mesh query, without and with the far tier ---
-    far2 = 0.02 ** 2
-    _sdf, _q, far = mesh_query.cal_vis_sdf_prepared(
-        mesh, pts, d2, n_samples=S_C, far2=far2)
-    p_c = (pts - mesh["center"]).contiguous()
-    err_a = 0.0
-    stats = {}
-    for tag, f in (("exact", None), ("far", far)):
-        got = mesh_query.point_mesh_query_vis_cuda(p_c, mesh["table"], d2, f)
-        want = mesh_query.point_mesh_query_vis_plain(p_c, mesh["table"], d2,
-                                                     f)
+    # --- 9: the landmark-culled search, (N, 3) and (3, N): equal to B / 8
+    # bit for bit, the visits those of knn_cull_lists ---
+    pts_T = pts.t().contiguous()
+    n_pairs_knn = pts.shape[0] * verts.shape[0]
+    order_v = mesh_query._morton_order(verts)
+    order_p = mesh_query._morton_order(pts)
+    verts_s = verts[order_v].contiguous()
+    for name, fn, fn_p, q, brute in (
+            ("knn_culled", knn.nearest_vertex_d2_culled,
+             knn.nearest_vertex_d2_culled_plain, pts, knn.nearest_vertex_d2),
+            ("knn_T_culled", knn.nearest_vertex_d2_T_culled,
+             knn.nearest_vertex_d2_T_culled_plain, pts_T,
+             knn.nearest_vertex_d2_T)):
+        i9, d9, v9 = fn(q, verts, visits=True)
+        i9_p, d9_p, v9_p = fn_p(q, verts, visits=True)
+        i_b, d_b = brute(q, verts)
         torch.cuda.synchronize()
-        e = (got[0] - want[0]).abs().max().item()
-        check(e <= 1e-5 * want[0].abs().max().item() + 1e-12,
-              f"mesh d2 err {e} ({tag})")
-        check(torch.equal(got[2] > 0.5, want[2] > 0.5),
-              f"mesh inside/outside differs ({tag})")
-        agree = ((got[3] >= 0.1) == (want[3] >= 0.1)).float().mean().item()
-        check(agree >= 0.97, f"mesh qvis agreement {agree} ({tag})")
-        err_a = max(err_a, e)
-        stats[tag] = dict(max_abs_err_d2=e, qvis_agree=agree,
-                          idx_mismatch=int((got[1] != want[1]).sum()),
-                          wind_mismatch=int((got[2] != want[2]).sum()))
-    n_far = int(far.sum()) if far is not None else 0
-    results["mesh_query"] = dict(
-        shape=f"{p_c.shape[0]} points x {mesh['table'].shape[0]} faces, "
-              f"{n_far} far",
-        max_abs_err=err_a, detail=stats,
-        ms=cuda_ms(lambda: mesh_query.point_mesh_query_vis_cuda(
-            p_c, mesh["table"], d2, far), 5),
-        # the same launch with no far flags: what the far tier saves
-        exact_ms=cuda_ms(lambda: mesh_query.point_mesh_query_vis_cuda(
-            p_c, mesh["table"], d2, None), 5),
-        plain_ms=cuda_ms(lambda: mesh_query.point_mesh_query_vis_plain(
-            p_c, mesh["table"], d2, far), 2),
-        library_ms=None,
-        # far points skip the distance search and keep the crossing test
-        **least_time(
-            nbytes(p_c, mesh["table"], d2, far) + 16 * p_c.shape[0],
-            mesh["table"].shape[0]
-            * ((p_c.shape[0] - n_far) * (MESH_DIST_OPS + MESH_CROSS_OPS)
-               + n_far * MESH_CROSS_OPS)))
+        check(torch.equal(i9, idx) and torch.equal(d9, d2)
+              and torch.equal(i_b, idx) and torch.equal(d_b, d2),
+              f"{name} differs from kernel B")
+        check(torch.equal(i9, i9_p) and torch.equal(d9, d9_p),
+              f"{name} differs from its plain version")
+        visit_margin = knn_visit_margin(pts, verts, v9, v9_p)
+        check(visit_margin <= KNN_VISIT_MARGIN,
+              f"{name}: visit counts differ from knn_cull_lists off the "
+              f"threshold ({visit_margin:.3g})")
+        n_chunks = -(-verts.shape[0] // knn.VERT_CHUNK)
+        share = v9.float().mean().item() / n_chunks
+        t_c1 = cuda_ms(lambda: fn(q, verts), 20)
+        t_b1 = cuda_ms(lambda: brute(q, verts), 20)
+        t_b2 = cuda_ms(lambda: brute(q, verts), 20)
+        t_c2 = cuda_ms(lambda: fn(q, verts), 20)
+        # the same points and vertices, both in Morton order (tiles and
+        # chunks then have compact boxes): here chunks are really skipped
+        p_s = pts[order_p].contiguous()
+        q_s = p_s if q is pts else p_s.t().contiguous()
+        i_s, d_s, v_s = fn(q_s, verts_s, visits=True)
+        i_sp, d_sp, v_sp = fn_p(q_s, verts_s, visits=True)
+        i_sb, d_sb = brute(q_s, verts_s)
+        torch.cuda.synchronize()
+        check(torch.equal(i_s, i_sb) and torch.equal(d_s, d_sb)
+              and torch.equal(i_s, i_sp) and torch.equal(d_s, d_sp),
+              f"{name}, Morton order: differs from kernel B or its plain "
+              "version")
+        d_back = torch.empty_like(d_s)
+        d_back[order_p] = d_s
+        i_back = torch.empty_like(i_s)
+        i_back[order_p] = order_v[i_s.long()].to(i_s.dtype)
+        check(torch.equal(d_back, d2), f"{name}, Morton order: d2 differs "
+              "from kernel B's on the mesh-ordered vertices")
+        moved = i_back != idx      # only between vertices at one distance
+        check(torch.equal(((pts[moved] - verts[i_back[moved].long()]) ** 2)
+                          .sum(-1), d2[moved]),
+              f"{name}, Morton order: another vertex off a tie")
+        margin_s = knn_visit_margin(p_s, verts_s, v_s, v_sp)
+        check(margin_s <= KNN_VISIT_MARGIN,
+              f"{name}, Morton order: visit counts differ from "
+              f"knn_cull_lists off the threshold ({margin_s:.3g})")
+        share_s = v_s.float().mean().item() / n_chunks
+        check(share_s < 1.0, f"{name}, Morton order: no chunk was skipped")
+        t_s = [cuda_ms(lambda f=f: f(q_s, verts_s), 20)
+               for f in (fn, brute, brute, fn)]
+        coherent = dict(visit_share=share_s, ms=0.5 * (t_s[0] + t_s[3]),
+                        brute_ms=0.5 * (t_s[1] + t_s[2]),
+                        tiles_skipping=int((v_s < n_chunks).sum()),
+                        visits_differ_from_plain=int((v_s != v_sp).sum()))
+        # the visited pairs: a tile's 256 points against its chunks' vertices
+        sizes = torch.full((n_chunks,), float(knn.VERT_CHUNK), device=dev)
+        sizes[-1] = verts.shape[0] - knn.VERT_CHUNK * (n_chunks - 1)
+        need, _ = knn.knn_cull_lists(
+            *[f(knn._edge_tiles(pts, knn.CULL_TILE_P), 1)
+              for f in (torch.amin, torch.amax)], verts)
+        visited = (need.float() @ sizes).sum().item() * knn.CULL_TILE_P
+        results[name] = dict(
+            shape=f"{pts.shape[0]} points x {verts.shape[0]} vertices, "
+                  f"{share:.3f} of the (tile, chunk) pairs visited",
+            max_abs_err=(d9 - d9_p).abs().max().item(),
+            equals_kernel_b=True, visit_share=share, coherent=coherent,
+            visits_differ_from_plain=int((v9 != v9_p).sum()),
+            ms=0.5 * (t_c1 + t_c2), brute_ms=0.5 * (t_b1 + t_b2),
+            plain_ms=cuda_ms(lambda: fn_p(q, verts), 3),
+            library_ms=cuda_ms(lambda: torch.cdist(pts, verts).min(1), 3),
+            all_pairs=least_time(nbytes(pts, verts, i9, d9),
+                                 KNN_OPS * n_pairs_knn),
+            **least_time(nbytes(pts, verts, i9, d9), KNN_OPS * visited))
+
+    # --- A and 7: the culled mesh query, in 1-D tiles (16 rays x 8
+    # samples) and in VANERF_BLOCK_2D=4,4,8 tiles, without and with the far
+    # tier, against its plain version, against the sweep over every face
+    # of the same sorted table, and against the sweep over the table in
+    # mesh order ---
+    far2 = 0.02 ** 2
+    p_c = (pts - mesh["center"]).contiguous()
+    p_c_T = p_c.t().contiguous()
+    with env(VANERF_BLOCK_2D="4,4,8"):
+        tilings = {"1d": mesh_query.tile_geometry(p_c.shape[0], S_C),
+                   "2d": mesh_query.tile_geometry(p_c.shape[0], S_C,
+                                                  rays_hw=(PATCH, PATCH))}
+    check(tilings["1d"] == (1, PATCH * PATCH, S_C, 1, 16, 8)
+          and tilings["2d"] == (PATCH, PATCH, S_C, 4, 4, 8),
+          f"tile geometry {tilings}")
+    for name, fn, fn_p, q in (
+            ("mesh_query", mesh_query.point_mesh_query_vis_culled,
+             mesh_query.point_mesh_query_vis_culled_plain, p_c),
+            ("mesh_query_T", mesh_query.point_mesh_query_vis_culled_T,
+             mesh_query.point_mesh_query_vis_culled_T_plain, p_c_T)):
+        results[name] = culled_query_checks(name, fn, fn_p, q, p_c, mesh, d2,
+                                            tilings, far2)
+    for k in ("d2", "idx", "wind", "qvis"):
+        check(torch.equal(results["mesh_query_T"]["out"][k],
+                          results["mesh_query"]["out"][k]),
+              f"kernel 7 {k} differs from kernel A on the transposed input")
+    for name in ("mesh_query", "mesh_query_T"):
+        results[name].pop("out")
+        results[name].pop("far", None)
+    results["mesh_query_T"]["equals_kernel_a"] = True
 
     # --- 8: nearest vertex on coordinate-major points ---
-    pts_T = pts.t().contiguous()
     idx8, d28 = knn.nearest_vertex_d2_T(pts_T, verts)
     idx8_p, d28_p = knn.nearest_vertex_d2_T_plain(pts_T, verts)
     torch.cuda.synchronize()
@@ -400,40 +656,6 @@ def phase_kernels(model, batch, dev):
         library_ms=cuda_ms(lambda: torch.cdist(pts_T.t(), verts).min(1), 3),
         **least_time(nbytes(pts_T, verts, idx8, d28),
                      KNN_OPS * pts.shape[0] * verts.shape[0]))
-
-    # --- 7: mesh query on coordinate-major points, the frame's far flags ---
-    p_c_T = (pts_T - mesh["center"][:, None]).contiguous()
-    err_7 = 0.0
-    for tag, f in (("exact", None), ("far", far)):
-        got = mesh_query.point_mesh_query_vis_T_cuda(p_c_T, mesh["table"], d2,
-                                                     f)
-        same = mesh_query.point_mesh_query_vis_cuda(p_c, mesh["table"], d2, f)
-        want = mesh_query.point_mesh_query_vis_T_plain(p_c_T, mesh["table"],
-                                                       d2, f)
-        torch.cuda.synchronize()
-        for name, g_, a_, w_ in zip(("d2", "idx", "wind", "qvis"), got, same,
-                                    want):
-            check(torch.equal(g_, a_), f"kernel 7 {name} differs from kernel "
-                  f"A on the transposed input ({tag})")
-            if name != "idx":
-                err_7 = max(err_7, (g_ - w_).abs().max().item())
-        check(err_7 <= 1e-5 * want[0].abs().max().item() + 1e-12,
-              f"mesh_query_T err {err_7} ({tag})")
-        check(torch.equal(got[2], want[2]), f"mesh_query_T winding ({tag})")
-    results["mesh_query_T"] = dict(
-        shape=f"3 x {p_c_T.shape[1]} points x {mesh['table'].shape[0]} "
-              f"faces, {n_far} far",
-        max_abs_err=err_7, equals_kernel_a=True,
-        ms=cuda_ms(lambda: mesh_query.point_mesh_query_vis_T_cuda(
-            p_c_T, mesh["table"], d2, far), 5),
-        plain_ms=cuda_ms(lambda: mesh_query.point_mesh_query_vis_T_plain(
-            p_c_T, mesh["table"], d2, far), 2),
-        library_ms=None,
-        **least_time(
-            nbytes(p_c_T, mesh["table"], d2, far) + 16 * p_c_T.shape[1],
-            mesh["table"].shape[0]
-            * ((p_c.shape[0] - n_far) * (MESH_DIST_OPS + MESH_CROSS_OPS)
-               + n_far * MESH_CROSS_OPS)))
 
     # --- 5, 6: the exact queries over every face, both winding modes, on
     # the uncentred points and mesh the public API hands them ---
@@ -763,12 +985,16 @@ FUSED_ROUNDS = 4
 COARSE_KEYS = ("tex_fg", "alpha", "depth")
 
 
-def pinned_fine_depths(model, b):
+def pinned_fine_depths(model, b, reference=None, configs=None):
     """One mask-centred patch per configuration with the fine pass's
-    depths pinned to the unfused render's: every floating output must lie
-    within rtol 2e-4 / atol 2e-5 of the unfused one, on every element."""
+    depths pinned to the reference render's (the unfused one unless given):
+    every floating output must lie within rtol 2e-4 / atol 2e-5 of the
+    reference, on every element."""
     import torch
     from vanerf_tpu_torch import renderer as tr
+    reference = FUSED_CONFIGS["unfused"] if reference is None else reference
+    configs = ({k: FUSED_CONFIGS[k] for k in ("level2", "level1")}
+               if configs is None else configs)
     grids = tr.mask_centered_grid(torch.Generator().manual_seed(SEED + 1),
                                   b["tar_mask"][..., 0], PATCH, PATCH)
     kw = dict(grids=grids, out_h=PATCH, out_w=PATCH, sample_per_ray_c=S_C,
@@ -777,11 +1003,11 @@ def pinned_fine_depths(model, b):
     try:
         tr.importance_sample = lambda *a, **k: (kept.append(real(*a, **k))
                                                 or kept[-1])
-        with env(**FUSED_CONFIGS["unfused"]):
+        with env(**reference):
             want = tr.render_patch(model, b, **kw)
         tr.importance_sample = lambda *a, **k: kept[0]
-        for name in ("level2", "level1"):
-            with env(**FUSED_CONFIGS[name]):
+        for name, switches in configs.items():
+            with env(**switches):
                 got = tr.render_patch(model, b, **kw)
             worst[name] = {
                 k: of_bound(got[k], v, FUSED_RTOL, FUSED_ATOL)
@@ -795,6 +1021,45 @@ def pinned_fine_depths(model, b):
               f"{FUSED_RTOL} atol {FUSED_ATOL}: {bad}")
     check(want["alpha_fine"].max().item() > 0.2, "pinned patch missed")
     return worst
+
+
+def hold_to_fused_bounds(name, outs_got, outs_want):
+    """Frames (or patches) of a configuration against the reference's: the
+    coarse pass within rtol 2e-4 / atol 2e-5 on every element; the
+    free-running fine outputs outside it on at most FUSED_FINE_SHARE of
+    their elements, never by more than FUSED_FINE_ABS (see
+    ``phase_fused_serving``).  Returns (of_bound, share_outside,
+    max_abs_err) per output."""
+    import torch
+    acc_of = {"depth": "alpha", "depth_fine": "alpha_fine",
+              "sdf": "alpha_fine"}
+    worst, share, abs_err = {}, {}, {}
+    for got, want in zip(outs_got, outs_want):
+        for k, v in want.items():
+            if not (torch.is_tensor(v) and v.is_floating_point()):
+                continue
+            check(torch.isfinite(got[k]).all().item(),
+                  f"{name}: non-finite {k}")
+            g_, w_ = got[k], v
+            if k in acc_of:      # normalised by acc: hit rays only
+                m = want[acc_of[k]] > 1e-2
+                g_, w_ = g_[m], w_[m]
+            err = (g_ - w_).abs()
+            rel = err / (FUSED_ATOL + FUSED_RTOL * w_.abs())
+            worst[k] = max(worst.get(k, 0.0), rel.max().item())
+            share[k] = max(share.get(k, 0.0),
+                           (rel > 1.0).float().mean().item())
+            abs_err[k] = max(abs_err.get(k, 0.0), err.max().item())
+    for k in worst:
+        if k in COARSE_KEYS or not k.endswith(("_fine", "sdf")):
+            check(worst[k] <= 1.0, f"{name}: {k} at {worst[k]:.3g} x "
+                  f"rtol {FUSED_RTOL} atol {FUSED_ATOL}")
+        else:
+            check(share[k] <= FUSED_FINE_SHARE
+                  and (k in acc_of or abs_err[k] <= FUSED_FINE_ABS),
+                  f"{name}: {k} outside the bound on {share[k]:.2%} of "
+                  f"its elements, max abs err {abs_err[k]:.3g}")
+    return worst, share, abs_err
 
 
 def phase_fused_serving(model, b, dev):
@@ -851,41 +1116,51 @@ def phase_fused_serving(model, b, dev):
     # pixels (FUSED_FINE_SHARE, never by more than FUSED_FINE_ABS), and
     # `pinned_fine_depths` below holds the fine pass to the bound on every
     # element with its depths pinned to the unfused render's.
-    acc_of = {"depth": "alpha", "depth_fine": "alpha_fine",
-              "sdf": "alpha_fine"}
     for name in ("level2", "level1"):
-        worst, share, abs_err = {}, {}, {}
-        for got, want in zip(outs[name], outs["unfused"]):
-            for k, v in want.items():
-                if not (torch.is_tensor(v) and v.is_floating_point()):
-                    continue
-                check(torch.isfinite(got[k]).all().item(),
-                      f"{name}: non-finite {k}")
-                g_, w_ = got[k], v
-                if k in acc_of:      # normalised by acc: hit rays only
-                    m = want[acc_of[k]] > 1e-2
-                    g_, w_ = g_[m], w_[m]
-                err = (g_ - w_).abs()
-                rel = err / (FUSED_ATOL + FUSED_RTOL * w_.abs())
-                worst[k] = max(worst.get(k, 0.0), rel.max().item())
-                share[k] = max(share.get(k, 0.0),
-                               (rel > 1.0).float().mean().item())
-                abs_err[k] = max(abs_err.get(k, 0.0), err.max().item())
+        worst, share, abs_err = hold_to_fused_bounds(name, outs[name],
+                                                     outs["unfused"])
         res[name].update(of_bound=worst, share_outside=share,
                          max_abs_err=abs_err)
-        for k in worst:
-            if k in COARSE_KEYS or not k.endswith(("_fine", "sdf")):
-                check(worst[k] <= 1.0, f"{name}: {k} at {worst[k]:.3g} x "
-                      f"rtol {FUSED_RTOL} atol {FUSED_ATOL}")
-            else:
-                check(share[k] <= FUSED_FINE_SHARE
-                      and (k in acc_of or abs_err[k] <= FUSED_FINE_ABS),
-                      f"{name}: {k} outside the bound on {share[k]:.2%} of "
-                      f"its elements, max abs err {abs_err[k]:.3g}")
     res["pinned"] = pinned_fine_depths(model, b)
     check(outs["unfused"][0]["alpha_fine"].max().item() > 0.2,
           "fused phase: rays missed the hands")
     return res
+
+
+# ---------------------------------------------------------------------------
+# frames under environment switches (phases 3c, 3e, 3f)
+# ---------------------------------------------------------------------------
+
+def timed_frame(model, b, switches):
+    """One ``render_full_image`` under ``switches``: (frame, ms, launches)."""
+    import torch
+    from vanerf_tpu_torch import ops
+    from vanerf_tpu_torch import renderer as tr
+    with env(**switches):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame = tr.render_full_image(model, b, level=3, sample_per_ray_c=S_C,
+                                     sample_per_ray_f=S_F)
+        torch.cuda.synchronize()
+        return frame, (time.perf_counter() - t0) * 1e3, ops.launch_counts()
+
+
+class shared_encode:
+    """For the length of a ``with`` block every frame takes one encode of
+    ``b``: two encodes of a frame differ in their last bits on the card
+    (phase 3c), so frames that are compared share one."""
+
+    def __init__(self, model, b):
+        from vanerf_tpu_torch import renderer as tr
+        self.tr, self.pinned = tr, tr.encode_frame(model, b)
+
+    def __enter__(self):
+        self.real = self.tr.encode_frame
+        self.tr.encode_frame = lambda *a, **k: self.pinned
+
+    def __exit__(self, *exc):
+        self.tr.encode_frame = self.real
 
 
 # ---------------------------------------------------------------------------
@@ -908,39 +1183,20 @@ def phase_soa_serving(model, b, dev):
     moves fine colours by ~2e-3 between two identical mode-0 frames.  The
     timed rounds encode for themselves."""
     import torch
-    from vanerf_tpu_torch import ops
-    from vanerf_tpu_torch import renderer as tr
     res = {name: dict(frame_ms=[]) for name in SOA_CONFIGS}
     outs = {}
-
-    def frame_of(name):
-        with env(**SOA_CONFIGS[name]):
-            ops.reset_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            frame = tr.render_full_image(model, b, level=3,
-                                         sample_per_ray_c=S_C,
-                                         sample_per_ray_f=S_F)
-            torch.cuda.synchronize()
-            return frame, (time.perf_counter() - t0) * 1e3, \
-                ops.launch_counts()
-
-    real, pinned = tr.encode_frame, tr.encode_frame(model, b)
-    try:
-        tr.encode_frame = lambda *a, **k: pinned
+    with shared_encode(model, b):
         for name, switches in SOA_CONFIGS.items():
-            outs[name], _ms, counts = frame_of(name)
+            outs[name], _ms, counts = timed_frame(model, b, switches)
             res[name]["launches"] = counts
             soa = name != "mode0"
             for kern, on in (("knn_T", soa), ("mesh_query_T", soa),
                              ("knn", not soa), ("mesh_query", not soa)):
                 check((counts[kern] > 0) == on, f"kernel {kern}: "
                       f"{counts[kern]} launches under {switches}")
-    finally:
-        tr.encode_frame = real
     for _ in range(SOA_ROUNDS):
-        for name in SOA_CONFIGS:
-            res[name]["frame_ms"].append(frame_of(name)[1])
+        for name, switches in SOA_CONFIGS.items():
+            res[name]["frame_ms"].append(timed_frame(model, b, switches)[1])
     check(outs["mode0"]["alpha_fine"].max().item() > 0.2,
           "SoA phase: rays missed the hands")
     for name in ("mode1", "mode2"):
@@ -953,6 +1209,205 @@ def phase_soa_serving(model, b, dev):
                 check(torch.equal(outs[name][k], v),
                       f"{name}: {k} differs from mode 0")
         res[name]["max_abs_err"] = worst
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 3e: the culled nearest-vertex search on the serving path (kernel 9)
+# ---------------------------------------------------------------------------
+
+CULL_CONFIGS = {
+    "default": dict(VANERF_KNN_CULL=""),
+    "cull": dict(VANERF_KNN_CULL="1"),
+    "soa2d": dict(VANERF_KNN_CULL="", VANERF_SOA_POINTS="1",
+                  VANERF_BLOCK_2D="4,4,8"),
+    "soa2d_cull": dict(VANERF_KNN_CULL="1", VANERF_SOA_POINTS="1",
+                       VANERF_BLOCK_2D="4,4,8"),
+}
+
+
+def phase_knn_cull_serving(model, b, dev):
+    """The 256^2 frame under VANERF_KNN_CULL=1, pixel-major and under
+    VANERF_SOA_POINTS=1 VANERF_BLOCK_2D=4,4,8, in turns with the default
+    frame: every output equal to the same layout's frame without the
+    switch (the 2-D tiles mark other points far than the 1-D tiles, so the
+    coordinate-major pair has its own reference); 32 launches of kernel 9
+    (or 9 on (3, N)) a frame and none of B (or 8)."""
+    import torch
+    res = {name: dict(frame_ms=[]) for name in CULL_CONFIGS}
+    outs = {}
+    with shared_encode(model, b):
+        for name, switches in CULL_CONFIGS.items():
+            outs[name], _ms, counts = timed_frame(model, b, switches)
+            res[name]["launches"] = counts
+            on = {"default": "knn", "cull": "knn_culled", "soa2d": "knn_T",
+                  "soa2d_cull": "knn_T_culled"}[name]
+            for kern in ("knn", "knn_T", "knn_culled", "knn_T_culled"):
+                check(counts[kern] == (32 if kern == on else 0),
+                      f"kernel {kern}: {counts[kern]} launches under "
+                      f"{switches}")
+    for name, ref in (("cull", "default"), ("soa2d_cull", "soa2d")):
+        for k, v in outs[ref].items():
+            if torch.is_tensor(v):
+                check(torch.equal(outs[name][k], v),
+                      f"{name}: {k} differs from the {ref} frame")
+    res["soa2d"]["max_abs_diff_from_default"] = max(
+        (outs["soa2d"][k] - v).abs().max().item()
+        for k, v in outs["default"].items()
+        if torch.is_tensor(v) and v.is_floating_point())
+    check(outs["default"]["alpha_fine"].max().item() > 0.2,
+          "KNN_CULL phase: rays missed the hands")
+    for _ in range(CULL_ROUNDS):
+        for name in ("default", "cull", "soa2d_cull"):
+            res[name]["frame_ms"].append(
+                timed_frame(model, b, CULL_CONFIGS[name])[1])
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 3f: the serving tiers FAR_SKIP / FAR_NET / FAR_TNET
+# ---------------------------------------------------------------------------
+
+TIER_CONFIGS = {
+    "default": {},
+    "skip1": dict(VANERF_FAR_SKIP="1"),
+    "skip.5": dict(VANERF_FAR_SKIP="0.5"),
+    "net.5": dict(VANERF_FAR_NET="0.5"),
+    "tnet.5": dict(VANERF_FAR_TNET="0.5"),
+}
+
+
+def psnr(a, b) -> float:
+    import math
+    mse = (a - b).pow(2).mean().item()
+    return float("inf") if mse == 0 else -10.0 * math.log10(mse)
+
+
+_CPU_SIDE = []
+
+
+def cpu_side(model, batch_np):
+    """(model, frame, encode) on the CPU, made once: phases 3f and 4 render
+    their CPU patches from them (the encoders at full width take most of a
+    CPU patch's time); each render on the card encodes for itself."""
+    from vanerf_tpu_torch import renderer as tr
+    from vanerf_tpu_torch.data import to_torch
+    if not _CPU_SIDE:
+        model_cpu, b_cpu = copy.deepcopy(model).cpu(), to_torch(batch_np,
+                                                                "cpu")
+        _CPU_SIDE.append((model_cpu, b_cpu, tr.encode_frame(model_cpu,
+                                                            b_cpu)))
+    return _CPU_SIDE[0]
+
+
+def merge_order_flips(z_card, z_cpu):
+    """(rays,) bool: the rays whose merged coarse + fine depths sort into
+    another order on the card than on the CPU.
+
+    The fine depths follow from the coarse network outputs, which round
+    differently on the two devices, so a fine depth may equal a coarse one
+    to the bit on one device and lie an ulp off it on the other.  The stable
+    merge then swaps the two samples.  In the default render both carry the
+    network's value at (nearly) one point and the swap moves nothing; under
+    a tier one of them may be a dropped row, or the two may have inherited
+    from different samples, and the swap hands the interval behind them to
+    the other row.  A flip is certified: the swapped depths must lie within
+    TIER_FLIP_MARGIN (relative) of each other on both devices."""
+    import torch
+    z_card, z_cpu = (z.reshape(-1, z.shape[-1]) for z in (z_card, z_cpu))
+    o_card, o_cpu = (torch.argsort(z, dim=-1, stable=True)
+                     for z in (z_card, z_cpu))
+    differ = o_card != o_cpu
+    for z in (z_card, z_cpu):
+        gap = (torch.gather(z, 1, o_card) - torch.gather(z, 1, o_cpu)).abs()
+        check((gap[differ] <= TIER_FLIP_MARGIN * z.abs().max()).all().item(),
+              "merge order differs between card and CPU at distinct depths")
+    return differ.any(1)
+
+
+def phase_tier_serving(model, b, batch_np, dev):
+    """The 256^2 frame under each serving tier, in turns with the default
+    frame (far tier on in all).  The full budget (VANERF_FAR_SKIP=1) runs
+    every sample through the compaction, so its frame is held as phase 3b
+    holds the fused frames (the compacted rows reach the matrix products
+    in another order and shape than the default render's); the half
+    budgets must be finite, and one 8x8-ray patch of each must equal the CPU
+    port's under the same switch to phase 4's tolerance: the coarse outputs
+    on every ray, the fine outputs on every ray but those that
+    :func:`merge_order_flips` certifies."""
+    import torch
+    from vanerf_tpu_torch import ops
+    from vanerf_tpu_torch import renderer as tr
+    res = {name: dict(frame_ms=[]) for name in TIER_CONFIGS}
+    outs = {}
+    with shared_encode(model, b):
+        for name, switches in TIER_CONFIGS.items():
+            outs[name], _ms, res[name]["launches"] = timed_frame(model, b,
+                                                                 switches)
+    for name, frame in outs.items():
+        for k, v in frame.items():
+            if torch.is_tensor(v) and v.is_floating_point():
+                check(torch.isfinite(v).all().item(),
+                      f"{name}: non-finite {k}")
+        check(frame["alpha_fine"].max().item() > 0.2,
+              f"{name}: rays missed the hands")
+        res[name]["psnr_vs_default"] = psnr(frame["tex_fg_fine"],
+                                            outs["default"]["tex_fg_fine"])
+    # kernels 10 and D run once a pass, on the budget's rows
+    for name in ("skip1", "skip.5", "net.5", "tnet.5"):
+        check(res[name]["launches"]["row_gather"] == 32
+              and res[name]["launches"]["interp_mxu"] == 32,
+              f"{name}: launches {res[name]['launches']}")
+    worst, share, abs_err = hold_to_fused_bounds("VANERF_FAR_SKIP=1",
+                                                 [outs["skip1"]],
+                                                 [outs["default"]])
+    res["skip1"].update(of_bound=worst, share_outside=share,
+                        max_abs_err=abs_err)
+    res["pinned"] = pinned_fine_depths(
+        model, b, reference={}, configs={"skip1": TIER_CONFIGS["skip1"]})
+    # one patch of each half budget, card against CPU
+    gen = torch.Generator().manual_seed(SEED + 5)
+    model_cpu, b_cpu, cached_cpu = cpu_side(model, batch_np)
+    grids = tr.mask_centered_grid(gen, b_cpu["tar_mask"][..., 0],
+                                  TIER_CPU_RAYS, TIER_CPU_RAYS)
+    kw = dict(out_h=TIER_CPU_RAYS, out_w=TIER_CPU_RAYS, sample_per_ray_c=S_C,
+              sample_per_ray_f=S_F)
+    merged, real_sort = [], tr.sort_by_key
+    tr.sort_by_key = lambda key, *vals: (merged.append(key.cpu())
+                                         or real_sort(key, *vals))
+    try:
+        for name in ("skip.5", "net.5", "tnet.5"):
+            del merged[:]
+            with env(**TIER_CONFIGS[name]):
+                ops.reset_launches()
+                got = tr.render_patch(model, b, grids=grids.to(dev), **kw)
+                torch.cuda.synchronize()
+                want = tr.render_patch(model_cpu, b_cpu, grids=grids,
+                                       cached=cached_cpu, **kw)
+            flipped = merge_order_flips(*merged)
+            check(flipped.float().mean().item() <= TIER_FLIP_SHARE,
+                  f"{name}: {int(flipped.sum())} rays merge in another order")
+            errs = {}
+            for k in ("tex_fg", "alpha", "tex_fg_fine", "alpha_fine"):
+                a, c = got[k].cpu(), want[k]
+                err = (a - c).abs()
+                errs[k] = err.max().item()
+                outside = (err > TIER_CPU_ATOL + TIER_CPU_RTOL * c.abs()) \
+                    .reshape(flipped.numel(), -1).any(1)
+                if k.endswith("_fine"):
+                    outside &= ~flipped
+                    check(errs[k] <= FUSED_FINE_ABS,
+                          f"{name}: {k} off by {errs[k]} on a flipped ray")
+                check(not outside.any().item(),
+                      f"{name}: card vs CPU mismatch in {k}: {errs[k]} on rays "
+                      f"{outside.nonzero().flatten().tolist()}")
+            res[name]["card_vs_cpu"] = errs
+            res[name]["flipped_rays"] = int(flipped.sum())
+    finally:
+        tr.sort_by_key = real_sort
+    for _ in range(TIER_ROUNDS):
+        for name, switches in TIER_CONFIGS.items():
+            res[name]["frame_ms"].append(timed_frame(model, b, switches)[1])
     return res
 
 
@@ -1036,16 +1491,15 @@ def phase_card_vs_cpu(model, batch_np, dev):
     from vanerf_tpu_torch import renderer as tr
     from vanerf_tpu_torch.data import to_torch
     gen = torch.Generator().manual_seed(SEED + 2)
-    b_cpu = to_torch(batch_np, "cpu")
+    model_cpu, b_cpu, cached_cpu = cpu_side(model, batch_np)
     grids = tr.mask_centered_grid(gen, b_cpu["tar_mask"][..., 0], 16, 16)
     out_gpu = tr.render_patch(model, to_torch(batch_np, dev),
                               grids=grids.to(dev), out_h=16, out_w=16,
                               sample_per_ray_c=S_C, sample_per_ray_f=S_F)
     torch.cuda.synchronize()
-    model_cpu = copy.deepcopy(model).cpu()
     out_cpu = tr.render_patch(model_cpu, b_cpu, grids=grids, out_h=16,
                               out_w=16, sample_per_ray_c=S_C,
-                              sample_per_ray_f=S_F)
+                              sample_per_ray_f=S_F, cached=cached_cpu)
     errs = {}
     for k in ("tex_fg_fine", "alpha_fine"):
         a, c = out_gpu[k].cpu(), out_cpu[k]
@@ -1217,7 +1671,7 @@ def main() -> int:
     from vanerf_tpu_torch.ops import _cuda
 
     # ---- phase 1: build ----
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     prebuilt = _cuda.library_path().exists()
     lib_path = _cuda.build(verbose=True)
     _cuda.lib()
@@ -1256,7 +1710,28 @@ def main() -> int:
         say(f"phase 2 {name}: {r['shape']}: max_abs_err {r['max_abs_err']:.3g}"
             f", kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, library call "
-            f"{lib}")
+            f"{lib}"
+            + (f"; the sweep over every pair {r['brute_ms']:.3f} ms in turns, "
+               f"bound over every pair {r['all_pairs']['bound_ms']:.4f} ms"
+               if "brute_ms" in r else ""))
+    for name in ("knn_culled", "knn_T_culled"):
+        c = kres[name]["coherent"]
+        say(f"phase 2 {name} [points and vertices in Morton order]: equal to "
+            f"kernel B bit for bit; {c['visit_share']:.3f} of the (tile, "
+            f"chunk) pairs visited, {c['tiles_skipping']} tiles skip a chunk; "
+            f"culled {c['ms']:.3f} ms, kernel B {c['brute_ms']:.3f} ms in "
+            f"turns")
+    for name in ("mesh_query", "mesh_query_T"):
+        for tag, d in kres[name]["detail"].items():
+            say(f"phase 2 {name} [{tag}]: culled {d['ms']:.3f} ms, sweep "
+                f"{d['sweep_ms']:.3f} ms in turns; (tile, chunk) pairs "
+                f"visited {d['dist_visit_share']:.3f} distance / "
+                f"{d['wind_visit_share']:.3f} winding; tiles taking -d "
+                f"{d['neg_tile_share']:.3f}, far {d['far_tile_share']:.3f}; "
+                f"{d['wind_differs_from_sweep']} crossing counts differ from "
+                f"the sweep's (grazes along -d, margin "
+                f"{d['their_edge_margin']:.2g}); {d['tied_faces']} points "
+                "take another face than the mesh-order table's (exact ties)")
 
     # ---- phase 3 ----
     with torch.no_grad():
@@ -1299,6 +1774,41 @@ def main() -> int:
         f"{ {k: soa['mode0']['launches'][k] for k in ('knn', 'mesh_query')} }"
         f", mode 1 "
         f"{ {k: soa['mode1']['launches'][k] for k in ('knn_T', 'mesh_query_T')} }")
+
+    # ---- phase 3e ----
+    with torch.no_grad():
+        cull = phase_knn_cull_serving(model, batches[0], dev)
+    say("phase 3e VANERF_KNN_CULL serving, in turns: full image "
+        + "; ".join(f"{n} {' / '.join(f'{t:.1f}' for t in cull[n]['frame_ms'])}"
+                    for n in ("default", "cull", "soa2d_cull"))
+        + " ms per frame; every output of the culled frames equal to the "
+        "same layout's frame without the switch; the 2-D tiled frame "
+        "against the default frame: max abs diff "
+        f"{cull['soa2d']['max_abs_diff_from_default']:.3g} (other far "
+        f"tiles); launches cull "
+        f"{ {k: cull['cull']['launches'][k] for k in ('knn_culled', 'knn')} }"
+        f", soa2d_cull "
+        f"{ {k: cull['soa2d_cull']['launches'][k] for k in ('knn_T_culled', 'knn_T')} }")
+
+    # ---- phase 3f ----
+    with torch.no_grad():
+        tiers = phase_tier_serving(model, batches[0], frames[0], dev)
+    say("phase 3f serving tiers, in turns: full image "
+        + "; ".join(
+            f"{n} {TIER_CONFIGS[n] or ''} "
+            f"{' / '.join(f'{t:.1f}' for t in tiers[n]['frame_ms'])} ms, "
+            f"PSNR against the default frame "
+            f"{tiers[n]['psnr_vs_default']:.2f} dB" for n in TIER_CONFIGS)
+        + f"; VANERF_FAR_SKIP=1: coarse outputs at most "
+        f"{max(tiers['skip1']['of_bound'][k] for k in COARSE_KEYS):.3g} of "
+        f"rtol {FUSED_RTOL} atol {FUSED_ATOL}, fine outputs outside it on at "
+        f"most {max(tiers['skip1']['share_outside'].values()):.3%} of their "
+        f"elements and at most "
+        f"{max(tiers['pinned']['skip1'].values()):.3g} of it with the fine "
+        f"depths pinned; half budgets card vs CPU (8x8 rays) max abs err "
+        + ", ".join(f"{n} {max(tiers[n]['card_vs_cpu'].values()):.2e}"
+                    f" ({tiers[n]['flipped_rays']} rays with a certified "
+                    "merge flip)" for n in ("skip.5", "net.5", "tnet.5")))
 
     # ---- phase 3d ----
     with torch.no_grad():
@@ -1371,6 +1881,8 @@ def main() -> int:
         main["launches"],
         knn_T=soa["mode1"]["launches"]["knn_T"],
         mesh_query_T=soa["mode1"]["launches"]["mesh_query_T"],
+        knn_culled=cull["cull"]["launches"]["knn_culled"],
+        knn_T_culled=cull["soa2d_cull"]["launches"]["knn_T_culled"],
         mesh_query_brute=api["launches"]["mesh_query_brute"],
         mesh_query_vis_brute=api["launches"]["mesh_query_vis_brute"],
         onehot_scatter=train["launches"]["onehot_scatter"],
@@ -1388,10 +1900,15 @@ def main() -> int:
                         "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
+        if "brute_ms" in r:     # A, 7, 9: the sweep over every pair, in turns
+            kernels[-1]["brute_ms"] = r["brute_ms"]
+    say(f"total: {time.perf_counter() - t_start:.0f} s, the build included")
     say("details: " + json.dumps({"gpu": smi, "build_s": build_s,
                                   "kernels": kres, "main_path": main,
                                   "fused_serving": fused,
-                                  "soa_serving": soa, "mesh_api": api,
+                                  "soa_serving": soa,
+                                  "knn_cull_serving": cull,
+                                  "tier_serving": tiers, "mesh_api": api,
                                   "soa_train": strain,
                                   "card_vs_cpu": errs, "train": train,
                                   "fused_train": ftrain,

@@ -53,13 +53,17 @@ def test_package_imports_no_jax():
 
 
 def test_cpu_tensors_take_the_plain_path(monkeypatch):
-    """A CPU render (pixel-major and coordinate-major) and the exact mesh
-    API on CPU tensors run every kernel's plain twin: no counter moves and
-    nothing is built."""
+    """A CPU render (pixel-major and coordinate-major, with the culled
+    nearest-vertex search of VANERF_KNN_CULL and under a serving tier) and
+    the exact mesh API on CPU tensors run every kernel's plain twin: no
+    counter moves and nothing is built."""
     ops.reset_launches()
     batch = h.synthetic_batch()[0]
-    for soa in ("0", "1"):
+    for soa, cull, tier in (("0", "", ""), ("1", "", ""), ("0", "1", "0.5"),
+                            ("1", "1", "")):
         monkeypatch.setenv("VANERF_SOA_POINTS", soa)
+        monkeypatch.setenv("VANERF_KNN_CULL", cull)
+        monkeypatch.setenv("VANERF_FAR_NET", tier)
         out = tr.render_patch(h.port_model(), h.torch_batch(batch),
                               grids=T(h.center_grid()), out_h=4, out_w=4,
                               sample_per_ray_c=h.S_C, sample_per_ray_f=h.S_F)
@@ -70,10 +74,13 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
     sdf_f, _ = mesh_query.cal_vis_sdf_fast(verts, faces, pts,
                                            torch.ones(len(verts), 1))
     assert torch.isfinite(sdf).all() and torch.isfinite(sdf_f).all()
+    assert mesh_query.unculled_launches == 0
+    assert mesh_query.unculled_launches_T == 0
     assert ops.launch_counts() == {"mesh_query": 0, "knn": 0,
                                    "mesh_query_brute": 0,
                                    "mesh_query_vis_brute": 0,
                                    "mesh_query_T": 0, "knn_T": 0,
+                                   "knn_culled": 0, "knn_T_culled": 0,
                                    "rasterize": 0, "interp_mxu": 0,
                                    "onehot_scatter": 0, "row_gather": 0,
                                    "fused_query_mlp": 0, "fused_geo_mlp": 0}
@@ -89,7 +96,9 @@ def test_kernel_library_is_keyed_on_sources():
             "onehot_scatter.cu", "row_gather.cu", "fused_mlp.cu",
             "mesh_query_brute.cu", "common.cuh", "tri_dist.cuh"} <= srcs
     assert {"vt_mesh_query_brute", "vt_mesh_query_vis_brute",
-            "vt_mesh_query_T", "vt_knn_T"} <= set(_cuda._SIGNATURES)
+            "vt_mesh_query_T", "vt_knn_T", "vt_knn_culled", "vt_knn_T_culled",
+            "vt_mesh_query_culled", "vt_mesh_query_culled_T"} \
+        <= set(_cuda._SIGNATURES)
     assert "arch=compute_90a,code=sm_90a" in _cuda.NVCC_FLAGS
 
 

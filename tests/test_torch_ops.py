@@ -271,7 +271,8 @@ def test_mesh_query_plain_matches_cal_vis_sdf():
                                   jnp.asarray(verts[faces]), chunk=256)
     d2_t, idx_t, wind, _ = t_mq.point_mesh_query_vis_plain(
         T(pts) - mesh["center"], mesh["table"], d2v)
-    tri = verts[faces][idx_t.numpy()]
+    # the table's faces are Morton-sorted: idx counts in that order
+    tri = verts[faces][mesh["order"].numpy()][idx_t.numpy()]
     d_at = t_mq.point_triangle_sq_dist(T(pts), T(tri[:, 0]), T(tri[:, 1]),
                                        T(tri[:, 2]))
     np.testing.assert_allclose(d_at.numpy(), A(d2_j), rtol=1e-4, atol=1e-9)
@@ -281,13 +282,18 @@ def test_mesh_query_plain_matches_cal_vis_sdf():
     np.testing.assert_array_equal(wind.numpy(), np.round(wind.numpy()))
 
 
-def test_mesh_query_far_tier_matches_jax():
+def test_mesh_query_far_tier_matches_jax(monkeypatch):
     """cal_vis_sdf_prepared with far2 on ray-structured points (16-ray x
     8-sample tiles): far tiles take the nearest-vertex bound and qvis 0,
-    with the exact sign, exactly as the JAX rule."""
+    with the exact sign, exactly as the JAX rule.  The JAX side runs its
+    culled Pallas path (interpret mode), which sorts the faces as the port
+    does: its CPU fallback keeps the mesh order, and where the closest
+    point is a vertex the faces around it tie exactly, so the face order
+    decides whose plane the visibility is interpolated on."""
     from vanerf_tpu.ops.knn import nearest_vertex_d2
     from vanerf_tpu.ops.mesh_query import (cal_vis_sdf_prepared,
                                            prepare_culled_mesh)
+    import vanerf_tpu.ops.mesh_query_pallas as mqp
     verts, faces, vis = _mesh_setup(seed=8)
     rs = np.random.RandomState(9)
     P, S = 64, 8
@@ -301,6 +307,11 @@ def test_mesh_query_far_tier_matches_jax():
     pts = pts.astype(np.float32)
     _, ub_j = nearest_vertex_d2(jnp.asarray(pts), jnp.asarray(verts))
     far2 = 0.02 ** 2
+    monkeypatch.setenv("VANERF_MESH_BACKEND", "pallas")
+    orig = mqp.point_mesh_query_vis_culled
+    monkeypatch.setattr(
+        mqp, "point_mesh_query_vis_culled",
+        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
     mesh_j = prepare_culled_mesh(jnp.asarray(verts), jnp.asarray(faces),
                                  jnp.asarray(vis))
     sdf_j, qvis_j, far_j = cal_vis_sdf_prepared(mesh_j, jnp.asarray(pts),

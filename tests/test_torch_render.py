@@ -8,7 +8,13 @@ allows up to 1% of pixels outside that colour tolerance: the port centres
 the mesh before its distance query (as the JAX package does on a TPU) and
 the JAX CPU path does not, so where two faces tie for the closest point
 (a shared edge) rounding can pick the other face, whose plane projection
-interpolates another visibility.
+interpolates another visibility.  The port also Morton-sorts the faces for
+its culled query (as the JAX package does on a TPU, and its CPU path does
+not); among faces that tie exactly (a closest point on a vertex) the first
+in table order wins, so the comparisons with the JAX CPU path feed both
+packages the faces already in that order
+(``torch_port_helpers.morton_sorted``) and keep the tolerance above on
+every pixel.
 """
 
 import numpy as np
@@ -59,7 +65,7 @@ def test_render_patch_matches_jax(far_tau, monkeypatch):
     from vanerf_tpu import renderer as jr
     monkeypatch.setenv("VANERF_FAR_TAU", far_tau)
     g, _ = h.converted_params()
-    batch, _ = h.synthetic_batch()
+    batch = h.morton_sorted(h.synthetic_batch()[0])
     grids = _centre_and_corner_grid()
     out_j = jr.render_patch(
         h.jax_model(), g, _jbatch(batch), rng=jax.random.PRNGKey(0),
@@ -98,7 +104,7 @@ def test_render_patch_matches_jax(far_tau, monkeypatch):
 def test_render_full_image_matches_jax():
     from vanerf_tpu import renderer as jr
     g, _ = h.converted_params()
-    batch, _ = h.synthetic_batch()
+    batch = h.morton_sorted(h.synthetic_batch()[0])
     out_j = jr.render_full_image(h.jax_model(), g, _jbatch(batch), level=3,
                                  sample_per_ray_c=h.S_C,
                                  sample_per_ray_f=h.S_F, sdf_chunk=64)
@@ -169,7 +175,7 @@ def test_mask_centered_grid_centres_on_foreground():
     assert torch.equal(grids, again)
 
 
-def test_unported_render_options_raise(monkeypatch):
+def test_unported_render_options_raise():
     model = h.port_model()
     batch = h.torch_batch(h.synthetic_batch()[0])
     grids = T(h.center_grid())
@@ -177,11 +183,6 @@ def test_unported_render_options_raise(monkeypatch):
               sample_per_ray_f=4)
     with pytest.raises(NotImplementedError):
         tr.render_patch(model, batch, **kw, n_views=2)
-    for env in ("VANERF_FAR_SKIP", "VANERF_FAR_NET", "VANERF_FAR_TNET"):
-        monkeypatch.setenv(env, "0.5")
-        with pytest.raises(NotImplementedError):
-            tr.render_patch(model, batch, **kw)
-        monkeypatch.delenv(env)
 
 
 def test_render_patch_training_builds_a_graph():
@@ -362,3 +363,55 @@ def test_soa_training_render_equals_mode0(fused_train, monkeypatch):
         for a, b in zip(res[mode][2:], res["0"][2:]):
             torch.testing.assert_close(a, b, rtol=1e-4,
                                        atol=1e-5 * float(b.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# VANERF_KNN_CULL: kernel 9 in place of kernel B
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("soa", ["0", "1"])
+def test_knn_cull_render_equals_default_exactly(soa, monkeypatch):
+    """Kernel 9 returns kernel B's index and distance bit for bit, so the
+    render under VANERF_KNN_CULL=1 equals the default render in every
+    output, in both point layouts; two culled searches a patch."""
+    from vanerf_tpu_torch.ops import knn as t_knn
+    monkeypatch.setenv("VANERF_SOA_POINTS", soa)
+    grids = _centre_and_corner_grid()
+    want = _render_port(grids, 8, 4)
+    monkeypatch.setenv("VANERF_KNN_CULL", "1")
+    name = ("nearest_vertex_d2_T_culled" if soa == "1"
+            else "nearest_vertex_d2_culled")
+    calls = []
+    real = getattr(t_knn, name)
+    monkeypatch.setattr(t_knn, name,
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    _assert_outputs_equal(_render_port(grids, 8, 4), want)
+    assert len(calls) == 2
+    assert want["alpha_fine"].max() > 0.2, "rays missed the fixture mesh"
+
+
+def test_full_image_prepares_the_mesh_once(monkeypatch):
+    """``render_full_image`` sorts the faces and builds the chunk boxes once
+    a frame, beside the encode, and every tile reads that mesh; a lone
+    ``render_patch`` prepares its own, with the same result."""
+    batch = h.torch_batch(h.synthetic_batch()[0])
+    model = h.port_model()
+    calls = []
+    real = tr.prepare_culled_mesh
+    monkeypatch.setattr(tr, "prepare_culled_mesh",
+                        lambda *a: calls.append(1) or real(*a))
+    out = tr.render_full_image(model, batch, level=3, sample_per_ray_c=h.S_C,
+                               sample_per_ray_f=h.S_F)
+    assert len(calls) == 1 and out["tex_fg_fine"].shape == (1, h.H, h.W, 3)
+    with torch.no_grad():
+        cached = tr.encode_frame(model, batch)
+    kw = dict(grids=T(h.center_grid()), out_h=4, out_w=4,
+              sample_per_ray_c=h.S_C, sample_per_ray_f=h.S_F)
+    del calls[:]
+    want = tr.render_patch(model, batch, cached=cached, **kw)
+    assert len(calls) == 1
+    ahead = tuple(cached) + (tr.prepare_frame_meshes(batch, cached[2]),)
+    del calls[:]
+    _assert_outputs_equal(tr.render_patch(model, batch, cached=ahead, **kw),
+                          want)
+    assert not calls

@@ -99,3 +99,32 @@ def two_hand_points(n: int, seed: int = 0) -> np.ndarray:
     verts = two_hand_mesh(0, 2)[0]
     lo, hi = verts.min(0) - 0.02, verts.max(0) + 0.02
     return (lo + rs.rand(n, 3) * (hi - lo)).astype(np.float32)
+
+
+def morton_sorted(batch: dict) -> dict:
+    """``batch`` (numpy, batch size 1) with its faces permuted into the
+    Morton order the port's culled query sorts them into.
+
+    Where a sample's closest point is a vertex or lies on an edge, the faces
+    around it tie for the minimum to the last bit, the first in table order
+    wins, and the winner's plane decides the interpolated visibility.  The
+    port Morton-sorts its faces as the JAX package does on a TPU; the JAX
+    CPU path, which the render tests compare with, keeps the order it is
+    given.  Fed this batch, the port's stable sort is the identity, both
+    packages walk one face order, and every tie falls alike: the render
+    comparisons need no allowance for ties.
+    """
+    import torch
+    from vanerf_tpu_torch.ops import mesh_query as mq
+    assert batch["verts"].shape[0] == 1
+    verts = torch.from_numpy(np.asarray(batch["verts"][0], np.float32))
+    faces = torch.from_numpy(np.asarray(batch["faces"]).astype(np.int64))
+    vis = torch.zeros(verts.shape[0], 1)
+    order = mq.prepare_culled_mesh(verts, faces, vis)["order"]
+    out = dict(batch)
+    out["faces"] = np.ascontiguousarray(np.asarray(batch["faces"])
+                                        [order.numpy()])
+    again = mq.prepare_culled_mesh(
+        verts, torch.from_numpy(out["faces"].astype(np.int64)), vis)["order"]
+    assert torch.equal(again, torch.arange(len(again)))
+    return out

@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of one serving patch goes under the fused-MLP switches,
-or under the coordinate-major point layout, on one GPU.
+under the coordinate-major point layout, under the culled nearest-vertex
+search or under a serving tier, on one GPU.
 
     python3 tools_torch/profile_serve.py [--rounds 8] [--out FILE]
     python3 tools_torch/profile_serve.py --soa 0 1 2 [--out FILE]
+    python3 tools_torch/profile_serve.py --knn-cull \
+        --tier VANERF_FAR_NET=0.5 [--out FILE]
 
 Holds the setup of ``chip_smoke.py`` phase 3b: ``configs/vanerf.json`` at
 full width, the 256^2 subdiv=3 fixture, one mask-centred 64x64 patch with
@@ -21,7 +24,13 @@ warm-up patch per configuration it measures:
 
 With ``--soa MODE [MODE ...]`` the configurations are instead the default
 unfused render (far tier ON) under ``VANERF_SOA_POINTS=MODE``, in turns:
-what kernels 7 and 8 and the second point generation cost a patch.
+what kernels 7 and 8 and the second point generation cost a patch.  With
+``--knn-cull`` and / or ``--tier NAME=FRAC [...]`` they are the default
+render (far tier ON, the culled mesh query; the mesh prepared by the patch,
+as a lone ``render_patch`` does), the same with the mesh prepared ahead (as
+``render_full_image`` does once a frame for its tiles), the same under
+``VANERF_KNN_CULL=1`` (kernel 9 in place of B) and under each named serving
+tier (``VANERF_FAR_SKIP`` / ``VANERF_FAR_NET`` / ``VANERF_FAR_TNET``).
 
 Prints a summary and, as the last line, a JSON object of every number;
 ``--out`` also writes the full per-kernel tables there.
@@ -50,6 +59,12 @@ def main() -> int:
                     default=None, metavar="MODE",
                     help="profile VANERF_SOA_POINTS=MODE (far tier on) "
                          "instead of the fused-MLP levels")
+    ap.add_argument("--knn-cull", action="store_true",
+                    help="profile the default render beside "
+                         "VANERF_KNN_CULL=1 (far tier on)")
+    ap.add_argument("--tier", nargs="+", default=None, metavar="NAME=FRAC",
+                    help="profile the default render beside each serving "
+                         "tier, e.g. VANERF_FAR_NET=0.5")
     args = ap.parse_args()
 
     import torch
@@ -85,8 +100,28 @@ def main() -> int:
                                   batch["tar_mask"][..., 0], cs.PATCH,
                                   cs.PATCH)
 
-    configs = (cs.FUSED_CONFIGS if args.soa is None else
-               {f"soa{m}": dict(VANERF_SOA_POINTS=str(m)) for m in args.soa})
+    # configurations that get the frame's prepared meshes with the encode
+    mesh_ahead = "default, mesh prepared ahead"
+    if args.knn_cull or args.tier:
+        configs = {"default": {}, mesh_ahead: {}}
+        if args.knn_cull:
+            configs["knn_cull"] = dict(VANERF_KNN_CULL="1")
+        for spec in args.tier or ():
+            name, _, frac = spec.partition("=")
+            if name not in ("VANERF_FAR_SKIP", "VANERF_FAR_NET",
+                            "VANERF_FAR_TNET") or not frac:
+                ap.error(f"--tier {spec!r}: expected "
+                         "VANERF_FAR_SKIP|NET|TNET=<fraction>")
+            configs[spec] = {name: frac}
+    elif args.soa is not None:
+        configs = {f"soa{m}": dict(VANERF_SOA_POINTS=str(m))
+                   for m in args.soa}
+    else:
+        configs = cs.FUSED_CONFIGS
+
+    with torch.no_grad():
+        cached_ahead = tuple(cached) + (
+            tr.prepare_frame_meshes(batch, cached[2]),)
 
     def patch(name: str) -> float:
         with cs.env(**configs[name]):
@@ -94,7 +129,9 @@ def main() -> int:
             t0 = time.perf_counter()
             tr.render_patch(model, batch, grids=grids, out_h=cs.PATCH,
                             out_w=cs.PATCH, sample_per_ray_c=cs.S_C,
-                            sample_per_ray_f=cs.S_F, cached=cached)
+                            sample_per_ray_f=cs.S_F,
+                            cached=(cached_ahead if name == mesh_ahead
+                                    else cached))
             torch.cuda.synchronize()
             return (time.perf_counter() - t0) * 1e3
 

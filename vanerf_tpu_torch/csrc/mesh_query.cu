@@ -14,15 +14,46 @@
 // the point loads as a template parameter, so 7 equals A bit for bit on the
 // transposed input; the outputs are packed (N,) arrays in both.
 //
-// Bound on the H100: arithmetic.  Brute force visits every (point, face)
-// pair: 262,144 points x 2,560 faces = 6.7e8 pairs per pass at ~80 flops
-// (difference-form Ericson distance) + ~25 flops (crossing test) each, i.e.
-// ~70 GFLOP; the bytes are a few MB.  Design: one thread per point; faces
-// are staged through shared memory in chunks of 128 faces x 22 floats
-// (11 KB: 9 corner coordinates, 3 corner visibilities, 10 folded crossing
-// constants) and read as warp broadcasts.  The TPU kernel's AABB culling
-// changes no result except argmin ties, so this first kernel visits every
-// face; culling is later work.
+// Bound on the H100: arithmetic, ~65 operations a (point, face) pair for the
+// difference-form Ericson distance and ~29 for the crossing test, over the
+// pairs the culling keeps; the bytes are a few MB.
+//
+// Design of the culled query (`mesh_query_culled_kernel`).  The TPU version
+// relayouts the points into blocked order, builds per-tile boxes, masks and
+// compacted chunk lists on the host, and ships the lists through scalar
+// memory.  Here A BLOCK IS A TILE of 128 points of the blocked order (16
+// rays x 8 samples, or the 2-D pixel blocks of VANERF_BLOCK_2D): thread t of
+// block b finds its ray-major point by index arithmetic from the tile
+// geometry, so no relayouted copy of points, bounds or outputs exists and
+// no list goes through device memory.  The block
+//   1. reduces its points' box, the largest and the least bound with warp
+//      shuffles (a ragged last tile repeats its last real point);
+//   2. decides the far tier for the whole tile: every bound above far2
+//      means no distance search at all, so a far block runs the winding
+//      loop only (per-point far flags saved the unculled sweep nothing,
+//      because every warp also held near points);
+//   3. lets its first C threads (C <= 64 chunks of 128 Morton-sorted faces)
+//      each test one chunk box from the (C, 6) table the wrapper made once
+//      per mesh: the distance test `gap^2 <= ub_t (1 + 1e-5) + 1e-12`, and
+//      the conservative separating-axis test of the tile box swept along
+//      +d and along -d (per-axis half spaces, the ray axis, the three axes
+//      d x e_k); ballots publish three 64-bit masks in shared memory, and
+//      the tile takes the ray direction that keeps fewer chunks
+//      (crossings along -d are the `t det < 0` half-line of the same
+//      arithmetic, the sign taking the tile's s = -1);
+//   4. walks the set bits of (distance | winding) in ascending order and
+//      stages only those chunks of 128 x 22 floats, once each; a chunk in
+//      both sets runs both tests from one staging (the TPU kernel has two
+//      loops; the winding sum is a sum of +-1 and does not depend on the
+//      order, so one loop gives the same result).
+// The tolerance keeps the chunk of every face that reaches the minimum, and
+// the order is ascending in the sorted table, so d2, idx and qvis equal the
+// sweep over every face of the same table bit for bit, and the winding
+// equals it on every tile that keeps +d (along -d a ray that grazes an edge
+// may count differently).  The mask expressions are those of
+// ops/mesh_query.py::cull_masks in their written order.
+// `mesh_query_kernel`, the sweep over every face with per-point far flags,
+// stays for comparisons; no render path launches it.
 //
 // Numerics, chosen to match the plain-PyTorch twin in ops/mesh_query.py:
 //   * distance: the difference-form Ericson region method of
@@ -33,9 +64,9 @@
 //   * winding: SIGNED crossings of the ray p + t*d, t > 0, with
 //     d = _RAY_D for every point (a point inside both hands reads 2).  The
 //     sign comes from det = -d.(e1 x e2) (mesh_query_pallas.py:863-868);
-//   * far points (flag set by the caller) skip the distance search: their
-//     d2 is the caller's certified upper bound, qvis is 0, and the winding
-//     stays exact;
+//   * far points (a whole tile in the culled query, flags set by the caller
+//     in the sweep) skip the distance search: their d2 is the caller's
+//     certified upper bound, qvis is 0, and the winding stays exact;
 //   * visibility: barycentrics of the point's projection onto the winning
 //     face's plane (Heidrich, mesh_query.py::barycentric_of_projection),
 //     computed once per point after the sweep.
@@ -57,6 +88,21 @@ __device__ __forceinline__ float crossing(float px, float py, float pz,
   const bool hit = (u * det >= 0.0f) && (v * det >= 0.0f) &&
                    ((u + v - det) * det <= 0.0f) && (w * det > 0.0f);
   return hit ? (det > 0.0f ? -1.0f : 1.0f) : 0.0f;
+}
+
+// The same test along s * d for s = +-1: flipping d negates u, v and det,
+// which leaves every product with det unchanged except t * det and the
+// crossing's sign (mesh_query_pallas.py:836-866).  s = 1 is `crossing`.
+__device__ __forceinline__ float crossing_s(float px, float py, float pz,
+                                            const float* t, float s) {
+  const float qx = px - t[0], qy = py - t[1], qz = pz - t[2];
+  const float u = qx * t[12] + qy * t[13] + qz * t[14];
+  const float v = qx * t[15] + qy * t[16] + qz * t[17];
+  const float w = qx * t[18] + qy * t[19] + qz * t[20];
+  const float det = t[21];
+  const bool hit = (u * det >= 0.0f) && (v * det >= 0.0f) &&
+                   ((u + v - det) * det <= 0.0f) && (s * (w * det) > 0.0f);
+  return hit ? (det > 0.0f ? -s : s) : 0.0f;
 }
 
 __device__ __forceinline__ float face_vis(float px, float py, float pz,
@@ -146,7 +192,7 @@ VT_EXPORT int vt_mesh_query(const float* pts, int N, const float* faces,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Kernel 7: `pts` is (3, N) contiguous.
+// The sweep over every face on (3, N) contiguous `pts`.
 VT_EXPORT int vt_mesh_query_T(const float* pts, int N, const float* faces,
                               int F, const float* ub,
                               const unsigned char* far, float* d2, int* idx,
@@ -156,4 +202,246 @@ VT_EXPORT int vt_mesh_query_T(const float* pts, int N, const float* faces,
                             vt_stream(stream)>>>(pts, N, faces, F, ub, far,
                                                  d2, idx, wind, qvis);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// the culled query
+// ---------------------------------------------------------------------------
+
+#define MQ_WARPS (MQ_THREADS / 32)
+#define MQ_MAX_CHUNKS 64
+
+// How tiles are cut from the ray-major order: (H x W) rays x S samples in
+// blocks of (bh x bw) rays x sb samples; sb == 0 means consecutive points.
+struct TileGeom {
+  int H, W, S, bh, bw, sb;
+};
+
+// The ray-major index of position j of the blocked order
+// (ops/mesh_query.py::_to_blocked2d_ax1).
+__device__ __forceinline__ int tile_point(int j, const TileGeom& g) {
+  if (g.sb == 0) return j;
+  const int s = j % g.sb; j /= g.sb;
+  const int x = j % g.bw; j /= g.bw;
+  const int y = j % g.bh; j /= g.bh;
+  const int n_sk = g.S / g.sb, n_wb = g.W / g.bw;
+  const int sk = j % n_sk; j /= n_sk;
+  const int wb = j % n_wb;
+  const int hb = j / n_wb;
+  return ((hb * g.bh + y) * g.W + wb * g.bw + x) * g.S + sk * g.sb + s;
+}
+
+template <bool SOA>
+__global__ void mesh_query_culled_kernel(
+    const float* __restrict__ pts, int N, const float* __restrict__ faces,
+    int F, const float* __restrict__ cbox, int C,
+    const float* __restrict__ ub, float far2, TileGeom geom,
+    float* __restrict__ d2o, int* __restrict__ idxo,
+    float* __restrict__ windo, float* __restrict__ qviso,
+    unsigned char* __restrict__ faro, int* __restrict__ visits) {
+  __shared__ float sf[MQ_CHUNK * MQ_STRIDE];
+  __shared__ float red[MQ_WARPS][8];
+  __shared__ unsigned ballots[2][3];
+  const int j = blockIdx.x * MQ_THREADS + threadIdx.x;
+  const bool valid = j < N;
+  const int i = tile_point(min(j, N - 1), geom);
+  const float px = SOA ? pts[i] : pts[3 * i];
+  const float py = SOA ? pts[(size_t)N + i] : pts[3 * i + 1];
+  const float pz = SOA ? pts[2 * (size_t)N + i] : pts[3 * i + 2];
+  const float ubi = ub[i];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  // 1. the tile's box, largest and least bound
+  float r[8] = {px, py, pz, px, py, pz, ubi, ubi};
+  for (int o = 16; o > 0; o >>= 1) {
+    for (int k = 0; k < 3; ++k) {
+      r[k] = fminf(r[k], __shfl_xor_sync(0xffffffffu, r[k], o));
+      r[3 + k] = fmaxf(r[3 + k], __shfl_xor_sync(0xffffffffu, r[3 + k], o));
+    }
+    r[6] = fmaxf(r[6], __shfl_xor_sync(0xffffffffu, r[6], o));
+    r[7] = fminf(r[7], __shfl_xor_sync(0xffffffffu, r[7], o));
+  }
+  if (lane == 0)
+    for (int k = 0; k < 8; ++k) red[warp][k] = r[k];
+  __syncthreads();
+  float tmin[3], tmax[3];
+  for (int k = 0; k < 3; ++k) {
+    tmin[k] = red[0][k];
+    tmax[k] = red[0][3 + k];
+  }
+  float ub_t = red[0][6], ub_lo = red[0][7];
+  for (int w = 1; w < MQ_WARPS; ++w) {
+    for (int k = 0; k < 3; ++k) {
+      tmin[k] = fminf(tmin[k], red[w][k]);
+      tmax[k] = fmaxf(tmax[k], red[w][3 + k]);
+    }
+    ub_t = fmaxf(ub_t, red[w][6]);
+    ub_lo = fminf(ub_lo, red[w][7]);
+  }
+  // 2. the far tier, for the whole tile
+  const bool is_far = far2 >= 0.0f && ub_lo > far2;
+
+  // 3. one chunk box a thread: distance need, winding need along +d and -d
+  if (threadIdx.x < MQ_MAX_CHUNKS) {
+    const int c = threadIdx.x;
+    bool nd = false, wp = false, wn = false;
+    if (c < C) {
+      const float* b = cbox + 6 * c;
+      const float d0 = 0.5773502691896258f, d1 = 0.7071067811865476f,
+                  d2 = 0.40824829046386296f;
+      float gap[3], tcen[3], text[3], ccen[3], cext[3];
+      bool half_p = true, half_n = true;
+      for (int k = 0; k < 3; ++k) {
+        gap[k] = fmaxf(fmaxf(b[k] - tmax[k], tmin[k] - b[3 + k]), 0.0f);
+        tcen[k] = 0.5f * (tmin[k] + tmax[k]);
+        text[k] = 0.5f * (tmax[k] - tmin[k]);
+        ccen[k] = 0.5f * (b[k] + b[3 + k]);
+        cext[k] = 0.5f * (b[3 + k] - b[k]);
+        half_p = half_p && b[3 + k] >= tmin[k];
+        half_n = half_n && b[k] <= tmax[k];
+      }
+      const float lb = gap[0] * gap[0] + gap[1] * gap[1] + gap[2] * gap[2];
+      nd = !is_far &&
+           lb <= ub_t * static_cast<float>(1.0 + 1e-5) + 1e-12f;
+      // the three axes d x e_k: (0, d2, -d1), (-d2, 0, d0), (d1, -d0, 0)
+      const float tp0 = tcen[1] * d2 - tcen[2] * d1;
+      const float tp1 = tcen[2] * d0 - tcen[0] * d2;
+      const float tp2 = tcen[0] * d1 - tcen[1] * d0;
+      const float cp0 = ccen[1] * d2 - ccen[2] * d1;
+      const float cp1 = ccen[2] * d0 - ccen[0] * d2;
+      const float cp2 = ccen[0] * d1 - ccen[1] * d0;
+      const float tr0 = text[1] * d2 + text[2] * d1;
+      const float tr1 = text[2] * d0 + text[0] * d2;
+      const float tr2 = text[0] * d1 + text[1] * d0;
+      const float cr0 = cext[1] * d2 + cext[2] * d1;
+      const float cr1 = cext[2] * d0 + cext[0] * d2;
+      const float cr2 = cext[0] * d1 + cext[1] * d0;
+      const bool cross_ok = fabsf(tp0 - cp0) <= tr0 + cr0 + 1e-7f &&
+                            fabsf(tp1 - cp1) <= tr1 + cr1 + 1e-7f &&
+                            fabsf(tp2 - cp2) <= tr2 + cr2 + 1e-7f;
+      const float t_al = tcen[0] * d0 + tcen[1] * d1 + tcen[2] * d2;
+      const float c_al = ccen[0] * d0 + ccen[1] * d1 + ccen[2] * d2;
+      const float t_ex = text[0] * d0 + text[1] * d1 + text[2] * d2;
+      const float c_ex = cext[0] * d0 + cext[1] * d1 + cext[2] * d2;
+      wp = half_p && (c_al + c_ex >= t_al - t_ex) && cross_ok;
+      wn = half_n && (-c_al + c_ex >= -t_al - t_ex) && cross_ok;
+    }
+    const unsigned bd = __ballot_sync(0xffffffffu, nd);
+    const unsigned bp = __ballot_sync(0xffffffffu, wp);
+    const unsigned bn = __ballot_sync(0xffffffffu, wn);
+    if (lane == 0) {
+      ballots[warp][0] = bd;
+      ballots[warp][1] = bp;
+      ballots[warp][2] = bn;
+    }
+  }
+  __syncthreads();
+  typedef unsigned long long u64;
+  const u64 md = (u64)ballots[0][0] | ((u64)ballots[1][0] << 32);
+  const u64 mp = (u64)ballots[0][1] | ((u64)ballots[1][1] << 32);
+  const u64 mn = (u64)ballots[0][2] | ((u64)ballots[1][2] << 32);
+  const bool use_neg = __popcll(mn) < __popcll(mp);
+  const u64 mw = use_neg ? mn : mp;
+  const float s = use_neg ? -1.0f : 1.0f;
+  if (threadIdx.x == 0 && visits != nullptr) {
+    visits[2 * blockIdx.x] = __popcll(md);
+    visits[2 * blockIdx.x + 1] = __popcll(mw);
+  }
+
+  // 4. the visited chunks, ascending
+  float best = INFINITY;
+  int bidx = 0;
+  float wind = 0.0f;
+  u64 todo = md | mw;
+  while (todo != 0ull) {
+    const int c = __ffsll(static_cast<long long>(todo)) - 1;
+    todo &= todo - 1ull;
+    const int f0 = c * MQ_CHUNK;
+    const int nf = min(MQ_CHUNK, F - f0);
+    __syncthreads();
+    for (int k = threadIdx.x; k < MQ_STRIDE * nf; k += MQ_THREADS)
+      sf[k] = faces[MQ_STRIDE * f0 + k];
+    __syncthreads();
+    if (!valid) continue;
+    const bool dist = (md >> c) & 1ull, cross = (mw >> c) & 1ull;
+    if (dist) {
+      for (int jf = 0; jf < nf; ++jf) {
+        const float d = tri_sq_dist(px, py, pz, sf + MQ_STRIDE * jf);
+        if (d < best) {
+          best = d;
+          bidx = f0 + jf;
+        }
+      }
+    }
+    if (cross) {
+      for (int jf = 0; jf < nf; ++jf)
+        wind += crossing_s(px, py, pz, sf + MQ_STRIDE * jf, s);
+    }
+  }
+  if (!valid) return;
+  windo[i] = wind;
+  if (faro != nullptr) faro[i] = is_far ? 1 : 0;
+  if (is_far) {
+    d2o[i] = ubi;
+    idxo[i] = 0;
+    qviso[i] = 0.0f;
+  } else {
+    d2o[i] = best;
+    idxo[i] = bidx;
+    qviso[i] =
+        best < INFINITY ? face_vis(px, py, pz, faces + MQ_STRIDE * bidx) : 0.0f;
+  }
+}
+
+template <bool SOA>
+static int mesh_query_culled_launch(const float* pts, int N,
+                                    const float* faces, int F,
+                                    const float* cbox, int C, const float* ub,
+                                    float far2, const int* geom, float* d2,
+                                    int* idx, float* wind, float* qvis,
+                                    unsigned char* far, int* visits,
+                                    void* stream) {
+  if (C > MQ_MAX_CHUNKS || C != (F + MQ_CHUNK - 1) / MQ_CHUNK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (N <= 0) return 0;
+  const TileGeom g = {geom[0], geom[1], geom[2], geom[3], geom[4], geom[5]};
+  if (g.sb != 0 &&
+      (g.bh <= 0 || g.bw <= 0 || g.sb < 0 || g.H % g.bh || g.W % g.bw ||
+       g.S % g.sb || (long long)g.H * g.W * g.S != N))
+    return static_cast<int>(cudaErrorInvalidValue);
+  mesh_query_culled_kernel<SOA><<<vt_blocks(N, MQ_THREADS), MQ_THREADS, 0,
+                                  vt_stream(stream)>>>(
+      pts, N, faces, F, cbox, C, ub, far2, g, d2, idx, wind, qvis, far,
+      visits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel A, culled: `pts` (N, 3) centred and ray-major; `faces` (F, 22)
+// Morton-sorted; `cbox` (C, 6) chunk boxes; `far2` < 0 switches the far tier
+// off; `geom` six host ints (H, W, S, bh, bw, sb), sb = 0 for consecutive
+// tiles; `far` (N,) and `visits` (T, 2) may be null.
+VT_EXPORT int vt_mesh_query_culled(const float* pts, int N,
+                                   const float* faces, int F,
+                                   const float* cbox, int C, const float* ub,
+                                   float far2, const int* geom, float* d2,
+                                   int* idx, float* wind, float* qvis,
+                                   unsigned char* far, int* visits,
+                                   void* stream) {
+  return mesh_query_culled_launch<false>(pts, N, faces, F, cbox, C, ub, far2,
+                                         geom, d2, idx, wind, qvis, far,
+                                         visits, stream);
+}
+
+// Kernel 7, culled: `pts` is (3, N) contiguous.
+VT_EXPORT int vt_mesh_query_culled_T(const float* pts, int N,
+                                     const float* faces, int F,
+                                     const float* cbox, int C,
+                                     const float* ub, float far2,
+                                     const int* geom, float* d2, int* idx,
+                                     float* wind, float* qvis,
+                                     unsigned char* far, int* visits,
+                                     void* stream) {
+  return mesh_query_culled_launch<true>(pts, N, faces, F, cbox, C, ub, far2,
+                                        geom, d2, idx, wind, qvis, far,
+                                        visits, stream);
 }

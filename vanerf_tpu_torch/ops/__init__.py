@@ -17,6 +17,8 @@ KERNEL_COUNTERS = {"mesh_query": (mesh_query, "launches"),
                                             "vis_brute_launches"),
                    "mesh_query_T": (mesh_query, "launches_T"),
                    "knn_T": (knn, "launches_T"),
+                   "knn_culled": (knn, "culled_launches"),
+                   "knn_T_culled": (knn, "culled_launches_T"),
                    "rasterize": (rasterize, "launches"),
                    "interp_mxu": (interp_mxu, "launches"),
                    "onehot_scatter": (onehot_gather, "launches"),
@@ -28,6 +30,8 @@ KERNEL_COUNTERS = {"mesh_query": (mesh_query, "launches"),
 def reset_launches() -> None:
     for mod, attr in KERNEL_COUNTERS.values():
         setattr(mod, attr, 0)
+    # the sweeps over every face kept beside kernels A and 7 (comparisons)
+    mesh_query.unculled_launches = mesh_query.unculled_launches_T = 0
 
 
 def launch_counts() -> dict:

@@ -7,14 +7,22 @@ device decides, there is no ``VANERF_MESH_BACKEND`` switch.
 
 * The renderer's query, :func:`cal_vis_sdf_prepared` and its
   coordinate-major form :func:`cal_vis_sdf_prepared_T`:
-  :func:`point_mesh_query_vis` is kernel A (``csrc/mesh_query.cu``) and
-  :func:`point_mesh_query_vis_T` kernel 7, the same function on (3, N)
-  points.  Both visit every face (the TPU kernel's AABB culling changes no
-  result except argmin ties), use the difference-form Ericson distance,
-  count SIGNED crossings of the fixed ray ``_RAY_D`` for the winding
-  number, take a certified bound for the far tier, and interpolate the
-  winning face's vertex visibility at the point's projection onto its
-  plane.
+  :func:`point_mesh_query_vis_culled` is kernel A (``csrc/mesh_query.cu``)
+  and :func:`point_mesh_query_vis_culled_T` kernel 7, the same function on
+  (3, N) points.  Both use the difference-form Ericson distance, count
+  SIGNED crossings of a fixed ray for the winding number, take a certified
+  bound for the far tier, and interpolate the winning face's vertex
+  visibility at the point's projection onto its plane.  They cull by branch
+  and bound: the faces are Morton-sorted into chunks of 128 with corner
+  boxes (:func:`prepare_culled_mesh`), the points fall into tiles of 128
+  consecutive points of the blocked order (:func:`tile_geometry`), and a
+  tile visits a chunk for the distance only when the box-to-box gap does not
+  exceed the tile's largest certified bound, and for the winding only when
+  its box swept along the ray can reach the chunk's (:func:`cull_masks`);
+  each tile shoots the ray along ``+_RAY_D`` or ``-_RAY_D``, whichever keeps
+  fewer chunks.  :func:`point_mesh_query_vis` / :func:`point_mesh_query_vis_T`
+  are the same kernels' sweep over every face, kept for comparisons: no
+  render path calls them.
 * The exact API, :func:`point_mesh_query`, :func:`winding_number`,
   :func:`point_mesh_sdf`, :func:`cal_vis_sdf` and :func:`cal_vis_sdf_fast`
   (the reference's ``cal_vis_sdf_batch``): :func:`point_mesh_query_brute`
@@ -25,6 +33,7 @@ device decides, there is no ``VANERF_MESH_BACKEND`` switch.
 
 from __future__ import annotations
 
+import ctypes
 import math
 import os
 
@@ -34,14 +43,21 @@ from . import _cuda
 
 # fixed generic winding-ray direction (mesh_query_pallas.py:57)
 _RAY_D = (0.5773502691896258, 0.7071067811865476, 0.40824829046386296)
-# points per far-tier tile: the TPU kernel's tile (mesh_query_pallas TILE_P)
+# points per tile (mesh_query_pallas TILE_P; csrc/mesh_query.cu MQ_THREADS)
 TILE_P = 128
+# faces per culling chunk (mesh_query_pallas CULL_CHUNK; MQ_CHUNK) and the
+# most chunks a tile's two 64-bit visit masks hold
+CULL_CHUNK = 128
+MAX_CHUNKS = 64
 # floats per face in the kernel's table (csrc/mesh_query.cu MQ_STRIDE)
 FACE_STRIDE = 22
 
-# launches of kernels A, 7, 5 and 6 (plain counters; callers reset them)
+# launches of kernels A and 7 (the culled query), of their sweep over every
+# face, and of kernels 5 and 6 (plain counters; callers reset them)
 launches = 0
 launches_T = 0
+unculled_launches = 0
+unculled_launches_T = 0
 brute_launches = 0
 vis_brute_launches = 0
 
@@ -166,43 +182,65 @@ def barycentric_vis(points: torch.Tensor, rows: torch.Tensor):
 
 
 def point_mesh_query_vis_plain(points: torch.Tensor, table: torch.Tensor,
-                               ub: torch.Tensor, far=None):
-    """Plain-PyTorch twin of kernel A.
+                               ub: torch.Tensor, far=None, cull=None):
+    """Plain-PyTorch twin of kernels A and 7, over every face or, with
+    ``cull``, over the (tile, chunk) pairs the culling keeps.
 
     Args:
       points: (N, 3); table: (F, 22) from :func:`face_table`;
       ub: (N,) certified squared-distance upper bounds;
       far: optional (N,) bool — far points skip the distance search
-        (d2 := ub, qvis := 0) and keep the exact winding.
+        (d2 := ub, qvis := 0) and keep the exact winding;
+      cull: optional (mask (T, C) int32 from :func:`cull_masks`, use_neg
+        (T,) bool, tile_of (N,) long): a masked (point, face) pair never
+        enters the minimum (bit 0) or the crossing count (bit 1), and a
+        tile with ``use_neg`` counts the crossings of the ray along
+        ``-_RAY_D``.  A point whose tile visits no chunk reads d2 = inf,
+        idx = 0, qvis = 0.
     Returns:
       d2 (N,), idx (N,) int32, wind (N,), qvis (N,).
     """
     F = table.shape[0]
+    N = points.shape[0]
     # (chunk, F) temporaries: ~16 MB each on the CPU, ~128 MB on a GPU
     budget = 1 << (22 if points.device.type == "cpu" else 25)
     chunk = max(1, budget // max(F, 1))
     a, b, c = table[:, 0:3], table[:, 3:6], table[:, 6:9]
     pv, w2, nn_, det = (table[:, 12:15], table[:, 15:18], table[:, 18:21],
                         table[:, 21])
+    points = points.float()
+    inf = torch.tensor(float("inf"), device=points.device)
     d2s, idxs, winds = [], [], []
-    for p in torch.split(points.float(), chunk):
-        pp = p[:, None, :]
+    for p0 in range(0, max(N, 1), chunk):
+        pp = points[p0:p0 + chunk, None, :]
         dd = point_triangle_sq_dist(pp, a[None], b[None], c[None])
-        m, i = dd.min(-1)
-        d2s.append(m)
-        idxs.append(i)
         q = pp - a[None]
         u = _dot(q, pv[None])
         v = _dot(q, w2[None])
         t = _dot(q, nn_[None])
         hit = ((u * det >= 0) & (v * det >= 0)
-               & ((u + v - det) * det <= 0) & (t * det > 0))
-        sign = torch.where(det > 0, -1.0, 1.0)
+               & ((u + v - det) * det <= 0))
+        if cull is None:
+            hit = hit & (t * det > 0)
+            sign = torch.where(det > 0, -1.0, 1.0)
+        else:
+            mask, use_neg, tile_of = cull
+            tile = tile_of[p0:p0 + chunk]
+            m = mask[tile].repeat_interleave(CULL_CHUNK, 1)[:, :F]
+            dd = torch.where((m & 1) != 0, dd, inf)
+            s = torch.where(use_neg[tile], -1.0, 1.0)[:, None]
+            hit = hit & (s * (t * det) > 0) & ((m & 2) != 0)
+            sign = torch.where(det > 0, -s, s)
+        m_, i = dd.min(-1)
+        d2s.append(m_)
+        idxs.append(i)
         winds.append(torch.where(hit, sign, 0.0).sum(-1))
     d2 = torch.cat(d2s)
     idx = torch.cat(idxs)
     wind = torch.cat(winds)
-    qvis = barycentric_vis(points.float(), table[idx])
+    qvis = barycentric_vis(points, table[idx])
+    if cull is not None:
+        qvis = torch.where(d2 < inf, qvis, torch.zeros_like(qvis))
     if far is not None:
         d2 = torch.where(far, ub.float(), d2)
         idx = torch.where(far, torch.zeros_like(idx), idx)
@@ -211,8 +249,8 @@ def point_mesh_query_vis_plain(points: torch.Tensor, table: torch.Tensor,
 
 
 def _launch_vis(entry: str, points: torch.Tensor, N: int, table, ub, far):
-    """One launch of kernel A (``vt_mesh_query``, points (N, 3)) or kernel 7
-    (``vt_mesh_query_T``, points (3, N)); the caller counts it."""
+    """One launch of the sweep over every face (``vt_mesh_query``, points
+    (N, 3), or ``vt_mesh_query_T``, points (3, N)); the caller counts it."""
     F = table.shape[0]
     dev = points.device
     _cuda.require(table, "table", torch.float32, (F, FACE_STRIDE), dev)
@@ -236,45 +274,48 @@ def _launch_vis(entry: str, points: torch.Tensor, N: int, table, ub, far):
 
 def point_mesh_query_vis_cuda(points: torch.Tensor, table: torch.Tensor,
                               ub: torch.Tensor, far=None):
-    """Kernel A; same contract as :func:`point_mesh_query_vis_plain`."""
-    global launches
+    """Kernel A's sweep over every face, with per-point far flags; same
+    contract as :func:`point_mesh_query_vis_plain` without ``cull``.  Kept
+    beside the culled query for comparisons; no render path calls it."""
+    global unculled_launches
     N = points.shape[0]
     _cuda.require(points, "points", torch.float32, (N, 3))
     out = _launch_vis("vt_mesh_query", points, N, table, ub, far)
-    launches += 1
+    unculled_launches += 1
     return out
 
 
 def point_mesh_query_vis(points, table, ub, far=None):
-    """Kernel A on CUDA tensors, its plain twin on CPU tensors."""
+    """The sweep over every face: :func:`point_mesh_query_vis_cuda` on CUDA
+    tensors, its plain twin on CPU tensors."""
     if points.device.type == "cpu":
         return point_mesh_query_vis_plain(points, table, ub, far)
     return point_mesh_query_vis_cuda(points, table, ub, far)
 
 
 def point_mesh_query_vis_T_plain(points_T: torch.Tensor, table: torch.Tensor,
-                                 ub: torch.Tensor, far=None):
+                                 ub: torch.Tensor, far=None, cull=None):
     """Plain-PyTorch version of kernel 7: :func:`point_mesh_query_vis_plain`
     read through a strided (N, 3) view of the (3, N) points (no copy), so
     the arithmetic and its results are kernel A's plain version's."""
-    return point_mesh_query_vis_plain(points_T.t(), table, ub, far)
+    return point_mesh_query_vis_plain(points_T.t(), table, ub, far, cull)
 
 
 def point_mesh_query_vis_T_cuda(points_T: torch.Tensor, table: torch.Tensor,
                                 ub: torch.Tensor, far=None):
-    """Kernel 7: kernel A on coordinate-major (3, N) points, results
-    identical to A's on the transposed input."""
-    global launches_T
+    """Kernel 7's sweep over every face: :func:`point_mesh_query_vis_cuda`
+    on coordinate-major (3, N) points, with identical results."""
+    global unculled_launches_T
     N = points_T.shape[1]
     _cuda.require(points_T, "points_T", torch.float32, (3, N))
     out = _launch_vis("vt_mesh_query_T", points_T, N, table, ub, far)
-    launches_T += 1
+    unculled_launches_T += 1
     return out
 
 
 def point_mesh_query_vis_T(points_T, table, ub, far=None):
-    """Kernel 7 on CUDA tensors, its plain version on CPU tensors.
-    points_T (3, N); the rest as :func:`point_mesh_query_vis_plain`."""
+    """:func:`point_mesh_query_vis` on (3, N) points: the sweep kernel on
+    CUDA tensors, its plain version on CPU tensors."""
     if points_T.device.type == "cpu":
         return point_mesh_query_vis_T_plain(points_T, table, ub, far)
     return point_mesh_query_vis_T_cuda(points_T, table, ub, far)
@@ -583,51 +624,295 @@ def _from_blocked2d_ax1(x, H, W, S, bh, bw, sb):
     return x.permute(0, 1, 4, 2, 5, 3, 6).reshape(C, H * W * S)
 
 
-def _far_tiles(ub_b: torch.Tensor, far2: float):
-    """Per-tile far flags (every point's bound above far2) and their
-    per-point broadcast, over TILE_P consecutive points."""
-    far_t = ub_b.reshape(-1, TILE_P).amin(1) > far2
-    return far_t, far_t.repeat_interleave(TILE_P)
-
-
-def _far_points(ub_d2: torch.Tensor, far2, n_samples, rays_hw=None):
-    """The far tier's per-point flags in ray-major order, or None.
-
-    Tiles are TILE_P consecutive points of the blocked order: the 2-D
-    pixel blocks when ``VANERF_BLOCK_2D`` is set and ``rays_hw`` fits
-    (coordinate-major callers only), else the 1-D ray x sample blocks,
-    else the ray-major order itself.  Only the bounds are relayouted, as
-    one (1, N) row: the kernels' result for a point does not depend on its
-    neighbours, so the points keep their order."""
-    N = ub_d2.shape[0]
-    if far2 is None or N % TILE_P != 0:
+def tile_geometry(N: int, n_samples: int | None, rays_hw=None):
+    """How the culled query's tiles of TILE_P points are cut from N
+    ray-major points: (H, W, S, bh, bw, sb), the 2-D pixel blocks x sb
+    depths when ``VANERF_BLOCK_2D`` is set and ``rays_hw`` fits
+    (coordinate-major callers only), else the 1-D blocks of ``bw`` rays x
+    ``sb`` samples written as H = bh = 1, or None: tiles of consecutive
+    points, when the samples or the blocks do not divide
+    (``mesh_query.py:419-428``, ``:481-500``)."""
+    if n_samples is None or N % n_samples:
         return None
-    if n_samples is not None and N % n_samples == 0:
-        S = n_samples
-        if rays_hw is not None and rays_hw[0] * rays_hw[1] * S == N:
-            b2 = blocked2d_order(rays_hw[0], rays_hw[1], S)
-            if b2 is not None:
-                far_b = _far_tiles(_to_blocked2d_ax1(
-                    ub_d2[None], *rays_hw, S, *b2)[0], far2)[1]
-                return _from_blocked2d_ax1(far_b[None], *rays_hw, S, *b2)[0]
-        blocks = blocked_order(N // S, S)
-        if blocks is not None:
-            far_b = _far_tiles(_to_blocked_ax1(
-                ub_d2[None], N // S, S, *blocks)[0], far2)[1]
-            return _from_blocked_ax1(far_b[None], N // S, S, *blocks)[0]
-    return _far_tiles(ub_d2, far2)[1]
+    S = n_samples
+    if rays_hw is not None and rays_hw[0] * rays_hw[1] * S == N:
+        b2 = blocked2d_order(rays_hw[0], rays_hw[1], S)
+        if b2 is not None:
+            return (rays_hw[0], rays_hw[1], S, *b2)
+    blocks = blocked_order(N // S, S)
+    if blocks is not None:
+        return (1, N // S, S, 1, blocks[0], blocks[1])
+    return None
+
+
+def tile_order(N: int, tiles, device=None) -> torch.Tensor:
+    """(N,) long: the ray-major index of the point at each position of the
+    blocked order.  Tile k holds positions [k TILE_P, (k + 1) TILE_P)."""
+    ar = torch.arange(N, device=device)
+    if tiles is None:
+        return ar
+    return _to_blocked2d_ax1(ar[None], *tiles)[0]
+
+
+def tile_boxes(points: torch.Tensor, ub: torch.Tensor, tiles=None,
+               far2: float | None = None):
+    """Per tile of the blocked order: the box of its points, the largest
+    bound and the far flag (every bound above ``far2``; None without
+    ``far2`` or when N is no multiple of TILE_P), plus each point's tile.
+    A ragged last tile is reduced over its real points (the TPU wrapper's
+    edge-replicated padding, ``mesh_query_pallas.py:1058-1060``).
+
+    points (N, 3), ub (N,) -> tmin (T, 3), tmax (T, 3), ub_t (T,),
+    far_t (T,) bool or None, tile_of (N,) long.
+    """
+    N = points.shape[0]
+    dev = points.device
+    T = -(-N // TILE_P)
+    perm = tile_order(N, tiles, dev)
+    pos = torch.arange(T * TILE_P, device=dev)
+    src = perm[pos.clamp(max=N - 1)] if T * TILE_P != N else perm
+    p = points[src].reshape(T, TILE_P, 3)
+    u = ub[src].reshape(T, TILE_P)
+    far_t = None
+    if far2 is not None and N % TILE_P == 0:
+        far_t = u.amin(1) > far2
+    tile_of = torch.empty(N, dtype=torch.long, device=dev)
+    tile_of[perm] = pos[:N] // TILE_P
+    return p.amin(1), p.amax(1), u.amax(1), far_t, tile_of
+
+
+def face_chunk_boxes(tri: torch.Tensor) -> torch.Tensor:
+    """(C, 6) corner boxes [min | max] of the chunks of CULL_CHUNK faces; a
+    short last chunk's box is that of its real faces (the TPU pads with
+    faces at -1e9 instead, ``mesh_query_pallas.py:1017-1020``)."""
+    F = tri.shape[0]
+    C = -(-F // CULL_CHUNK)
+    if C * CULL_CHUNK != F:
+        tri = tri[torch.arange(C * CULL_CHUNK,
+                               device=tri.device).clamp(max=F - 1)]
+    corners = tri.reshape(C, CULL_CHUNK * 3, 3)
+    return torch.cat([corners.amin(1), corners.amax(1)], -1).contiguous()
+
+
+def cull_masks(tmin: torch.Tensor, tmax: torch.Tensor, ub_t: torch.Tensor,
+               cbox: torch.Tensor, far_t=None):
+    """Which face chunks each point tile visits (``_cull_masks_from_boxes``
+    and the far rule of ``_cull_lists``, ``mesh_query_pallas.py:894-977``).
+
+    Distance: chunk kept when the box-to-box gap ``lb`` satisfies ``lb <=
+    ub_t (1 + 1e-5) + 1e-12`` and the tile is not far.  Winding: chunk kept
+    when the tile box swept along the ray can reach the chunk box, by a
+    conservative separating-axis test (per-axis half spaces, the ray axis,
+    the three axes d x e_k); each tile takes ``+_RAY_D`` or ``-_RAY_D``,
+    whichever keeps fewer chunks.  The expressions are written out in the
+    kernel's order, so the kernel's masks equal these.
+
+    Args:
+      tmin, tmax (T, 3), ub_t (T,), far_t (T,) bool or None: from
+        :func:`tile_boxes`; cbox (C, 6): from :func:`face_chunk_boxes`.
+    Returns:
+      mask (T, C) int32 (bit 0 distance, bit 1 winding), use_neg (T,) bool,
+      lb (T, C).
+    """
+    cmin, cmax = cbox[None, :, 0:3], cbox[None, :, 3:6]        # (1, C, 3)
+    tlo, thi = tmin[:, None], tmax[:, None]                    # (T, 1, 3)
+    gap = torch.clamp_min(torch.maximum(cmin - thi, tlo - cmax), 0.0)
+    lb = (gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1]
+          + gap[..., 2] * gap[..., 2])
+    need_d = lb <= ub_t[:, None] * (1.0 + 1e-5) + 1e-12
+    if far_t is not None:
+        need_d = need_d & ~far_t[:, None]
+
+    d0, d1, d2 = torch.tensor(_RAY_D, dtype=torch.float32).tolist()
+    tcen, text = 0.5 * (tlo + thi), 0.5 * (thi - tlo)
+    ccen, cext = 0.5 * (cmin + cmax), 0.5 * (cmax - cmin)
+
+    def along_d(v):
+        return v[..., 0] * d0 + v[..., 1] * d1 + v[..., 2] * d2
+
+    def cross_axes(v, sign):
+        # projections on d x e_k: (0, d2, -d1), (-d2, 0, d0), (d1, -d0, 0);
+        # sign -1 gives the extents, on the axes' absolute values
+        return (v[..., 1] * d2 - sign * (v[..., 2] * d1),
+                v[..., 2] * d0 - sign * (v[..., 0] * d2),
+                v[..., 0] * d1 - sign * (v[..., 1] * d0))
+
+    cross_ok = None
+    for tp, cp, tr, cr in zip(cross_axes(tcen, 1.0), cross_axes(ccen, 1.0),
+                              cross_axes(text, -1.0), cross_axes(cext, -1.0)):
+        ok = (tp - cp).abs() <= tr + cr + 1e-7
+        cross_ok = ok if cross_ok is None else cross_ok & ok
+    t_al, c_al = along_d(tcen), along_d(ccen)
+    t_ex, c_ex = along_d(text), along_d(cext)      # |d| = d: all positive
+    w_pos = ((cmax >= tlo).all(-1) & (c_al + c_ex >= t_al - t_ex)
+             & cross_ok)
+    w_neg = ((cmin <= thi).all(-1) & (-c_al + c_ex >= -t_al - t_ex)
+             & cross_ok)
+    use_neg = w_neg.sum(-1) < w_pos.sum(-1)
+    need_w = torch.where(use_neg[:, None], w_neg, w_pos)
+    mask = need_d.int() | (need_w.int() << 1)
+    return mask, use_neg, lb
+
+
+def _visits(mask: torch.Tensor) -> torch.Tensor:
+    """(T, 2) int32: distance and winding chunks each tile visits."""
+    return torch.stack([(mask & 1).sum(1), (mask >> 1).sum(1)], 1).int()
+
+
+def point_mesh_query_vis_culled_plain(points: torch.Tensor, mesh: dict,
+                                      ub: torch.Tensor, tiles=None,
+                                      far2: float | None = None,
+                                      visits: bool = False):
+    """Plain-PyTorch version of the culled kernel A (same contract as
+    :func:`point_mesh_query_vis_culled`): the tiles' boxes, the masks of
+    :func:`cull_masks`, then :func:`point_mesh_query_vis_plain` over the
+    pairs they keep."""
+    points = points.float()
+    ub = ub.float()
+    tmin, tmax, ub_t, far_t, tile_of = tile_boxes(points, ub, tiles, far2)
+    mask, use_neg, _lb = cull_masks(tmin, tmax, ub_t, mesh["cbox"], far_t)
+    far = far_t[tile_of] if far_t is not None else None
+    out = point_mesh_query_vis_plain(points, mesh["table"], ub, far,
+                                     (mask, use_neg, tile_of)) + (far,)
+    return out + (_visits(mask),) if visits else out
+
+
+def point_mesh_query_vis_culled_T_plain(points_T: torch.Tensor, mesh: dict,
+                                        ub: torch.Tensor, tiles=None,
+                                        far2: float | None = None,
+                                        visits: bool = False):
+    """Plain-PyTorch version of the culled kernel 7: the (3, N) points read
+    through a strided (N, 3) view (no copy)."""
+    return point_mesh_query_vis_culled_plain(points_T.t(), mesh, ub, tiles,
+                                             far2, visits)
+
+
+def _launch_culled(entry: str, points: torch.Tensor, N: int, mesh: dict,
+                   ub: torch.Tensor, tiles, far2, visits: bool):
+    """One launch of the culled kernel A (``vt_mesh_query_culled``, points
+    (N, 3)) or 7 (``vt_mesh_query_culled_T``, points (3, N)); the caller
+    counts it."""
+    table, cbox = mesh["table"], mesh["cbox"]
+    F, C = table.shape[0], cbox.shape[0]
+    dev = points.device
+    _cuda.require(table, "table", torch.float32, (F, FACE_STRIDE), dev)
+    _cuda.require(cbox, "cbox", torch.float32, (C, 6), dev)
+    _cuda.require(ub, "ub", torch.float32, (N,), dev)
+    if C > MAX_CHUNKS:
+        raise ValueError(f"culled mesh query: {F} faces make {C} chunks; a "
+                         f"tile's visit masks hold {MAX_CHUNKS}")
+    with_far = far2 is not None and N % TILE_P == 0
+    geom = (ctypes.c_int * 6)(*(tiles if tiles is not None else (0,) * 6))
+    d2 = torch.empty(N, dtype=torch.float32, device=dev)
+    idx = torch.empty(N, dtype=torch.int32, device=dev)
+    wind = torch.empty(N, dtype=torch.float32, device=dev)
+    qvis = torch.empty(N, dtype=torch.float32, device=dev)
+    far = torch.empty(N, dtype=torch.bool, device=dev) if with_far else None
+    count = (torch.empty(-(-N // TILE_P), 2, dtype=torch.int32, device=dev)
+             if visits else None)
+    rc = getattr(_cuda.lib(), entry)(
+        points.data_ptr(), N, table.data_ptr(), F, cbox.data_ptr(), C,
+        ub.data_ptr(), float(far2) if with_far else -1.0, geom,
+        d2.data_ptr(), idx.data_ptr(), wind.data_ptr(), qvis.data_ptr(),
+        far.data_ptr() if with_far else None,
+        count.data_ptr() if visits else None, _cuda.stream_ptr(dev))
+    _cuda.check(rc, entry)
+    out = (d2, idx, wind, qvis, far)
+    return out + (count,) if visits else out
+
+
+def point_mesh_query_vis_culled(points: torch.Tensor, mesh: dict,
+                                ub: torch.Tensor, tiles=None,
+                                far2: float | None = None,
+                                visits: bool = False):
+    """Kernel A, the culled query, on CUDA tensors; its plain version on
+    CPU tensors.
+
+    Args:
+      points: (N, 3) centred points, ray-major; mesh: from
+        :func:`prepare_culled_mesh`; ub: (N,) certified squared-distance
+        upper bounds (they drive the culling: a bound below the true
+        distance loses faces);
+      tiles: from :func:`tile_geometry`, how tiles of TILE_P points are cut
+        from the ray-major order (None: consecutive points).  A block of
+        the kernel is a tile and finds its points by index arithmetic: no
+        relayouted copy of points or outputs is made;
+      far2: optional squared far threshold: a tile whose every bound
+        exceeds it skips the distance search (d2 := ub, idx := 0,
+        qvis := 0) and keeps its exact winding (off when N is no multiple
+        of TILE_P);
+      visits: also return the (T, 2) int32 numbers of distance and winding
+        chunks each tile visited.
+    Returns:
+      d2 (N,), idx (N,) int32 into the mesh's sorted faces, wind (N,),
+      qvis (N,), far (N,) bool or None[, visits].
+    """
+    if points.device.type == "cpu":
+        return point_mesh_query_vis_culled_plain(points, mesh, ub, tiles,
+                                                 far2, visits)
+    global launches
+    N = points.shape[0]
+    _cuda.require(points, "points", torch.float32, (N, 3))
+    out = _launch_culled("vt_mesh_query_culled", points, N, mesh, ub, tiles,
+                         far2, visits)
+    launches += 1
+    return out
+
+
+def point_mesh_query_vis_culled_T(points_T: torch.Tensor, mesh: dict,
+                                  ub: torch.Tensor, tiles=None,
+                                  far2: float | None = None,
+                                  visits: bool = False):
+    """Kernel 7: :func:`point_mesh_query_vis_culled` on coordinate-major
+    (3, N) points, with identical results."""
+    if points_T.device.type == "cpu":
+        return point_mesh_query_vis_culled_T_plain(points_T, mesh, ub, tiles,
+                                                   far2, visits)
+    global launches_T
+    N = points_T.shape[1]
+    _cuda.require(points_T, "points_T", torch.float32, (3, N))
+    out = _launch_culled("vt_mesh_query_culled_T", points_T, N, mesh, ub,
+                         tiles, far2, visits)
+    launches_T += 1
+    return out
+
+
+def _morton_order(centroids: torch.Tensor) -> torch.Tensor:
+    """Morton (z-curve) sort order of 3-D points, 10 bits an axis
+    (``mesh_query.py:305-321``): spatially coherent chunks have tight
+    boxes.  The codes are built in int64 and masked: not every torch op
+    knows uint32 on the CPU."""
+    lo = centroids.amin(0)
+    hi = centroids.amax(0)
+    q = (centroids - lo) / torch.clamp_min(hi - lo, 1e-9) * 1023.0
+    q = q.clamp(0, 1023).to(torch.int64)
+
+    def spread(x):  # interleave 10 bits with two zero bits
+        x = (x | (x << 16)) & 0x030000FF
+        x = (x | (x << 8)) & 0x0300F00F
+        x = (x | (x << 4)) & 0x030C30C3
+        x = (x | (x << 2)) & 0x09249249
+        return x
+
+    code = spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
+    return torch.argsort(code, stable=True)
 
 
 def prepare_culled_mesh(verts: torch.Tensor, faces: torch.Tensor,
                         vert_vis: torch.Tensor) -> dict:
     """Once-per-mesh preparation for :func:`cal_vis_sdf_prepared`: centre
-    the mesh (coordinates stay O(hand size)) and build the kernel's face
-    table.  verts (V, 3), faces (F, 3), vert_vis (V, 1)."""
+    the mesh (coordinates stay O(hand size)), Morton-sort the faces by
+    centroid so that chunks of CULL_CHUNK faces are compact (the closest
+    face's index is not used downstream), and build the kernel's face table
+    and the chunks' boxes.  verts (V, 3), faces (F, 3), vert_vis (V, 1)."""
     center = 0.5 * (verts.amin(0) + verts.amax(0))
     f = faces.long()
     tri = verts[f] - center                              # (F, 3, 3)
-    face_vis = vert_vis[..., 0][f]                       # (F, 3)
-    return {"table": face_table(tri, face_vis), "center": center}
+    order = _morton_order(tri.mean(1))
+    tri = tri[order]
+    face_vis = vert_vis[..., 0][f[order]]                # (F, 3)
+    return {"table": face_table(tri, face_vis), "center": center,
+            "cbox": face_chunk_boxes(tri.float()), "order": order}
 
 
 def _finish_prepared(d2, wind, qv, dtype):
@@ -637,23 +922,26 @@ def _finish_prepared(d2, wind, qv, dtype):
 def cal_vis_sdf_prepared(mesh: dict, points: torch.Tensor,
                          ub_d2: torch.Tensor, n_samples: int | None = None,
                          far2: float | None = None):
-    """SDF + binarised interpolated visibility (+ far mask) per point.
+    """SDF + binarised interpolated visibility (+ far mask) per point, by
+    the culled query.
 
     Args:
       mesh: from :func:`prepare_culled_mesh`.
       points: (N, 3), ray-major (rays x n_samples, sample fastest).
       ub_d2: (N,) nearest-vertex squared distances (certified bounds).
-      far2: optional squared far-field threshold: tiles of 128 points in
-        the 16-ray x 8-sample blocked order whose every bound exceeds it
-        skip the distance search; |sdf| := sqrt(ub + 1e-6), query_vis := 0,
-        exact sign.
+      n_samples: samples per ray: the tiles are then 16 rays x 8 samples
+        (``VANERF_BLOCK_RAYS`` / ``VANERF_BLOCK_SAMPLES``), compact in all
+        three dimensions, which is what the culling feeds on.
+      far2: optional squared far-field threshold: tiles whose every bound
+        exceeds it skip the distance search; |sdf| := sqrt(ub + 1e-6),
+        query_vis := 0, exact sign.
     Returns:
       sdf (N,), query_vis (N, 1) float 0/1, far (N,) bool or None.
     """
-    far = _far_points(ub_d2, far2, n_samples)
+    tiles = tile_geometry(points.shape[0], n_samples)
     pts = (points.float() - mesh["center"]).contiguous()
-    d2, _idx, wind, qv = point_mesh_query_vis(
-        pts, mesh["table"], ub_d2.float().contiguous(), far)
+    d2, _idx, wind, qv, far = point_mesh_query_vis_culled(
+        pts, mesh, ub_d2.float().contiguous(), tiles, far2)
     return (*_finish_prepared(d2, wind, qv, points.dtype), far)
 
 
@@ -666,13 +954,13 @@ def cal_vis_sdf_prepared_T(mesh: dict, points_T: torch.Tensor,
     (N, 3) copy is made), with identical results.
 
     rays_hw: optional (H, W) shape of the ray grid (rays row-major): with
-    ``VANERF_BLOCK_2D`` set, the far tier's tiles are the 2-D pixel blocks
-    (which points are far depends on the tiling).
+    ``VANERF_BLOCK_2D`` set, the tiles are the 2-D pixel blocks (which
+    points are far depends on the tiling).
     """
-    far = _far_points(ub_d2, far2, n_samples, rays_hw)
+    tiles = tile_geometry(points_T.shape[1], n_samples, rays_hw)
     pts_T = (points_T.float() - mesh["center"][:, None]).contiguous()
-    d2, _idx, wind, qv = point_mesh_query_vis_T(
-        pts_T, mesh["table"], ub_d2.float().contiguous(), far)
+    d2, _idx, wind, qv, far = point_mesh_query_vis_culled_T(
+        pts_T, mesh, ub_d2.float().contiguous(), tiles, far2)
     return (*_finish_prepared(d2, wind, qv, points_T.dtype), far)
 
 

@@ -22,9 +22,19 @@ the nearest-vertex search is then kernel 8 and the mesh query kernel 7,
 neither ever seeing an (N, 3) copy, and ``VANERF_BLOCK_2D`` may tile the far
 tier by pixel blocks; the network's (N, 3) points are the transpose (mode
 1) or are generated a second time from the rays (mode 2), with results
-equal to mode 0's.  The JAX package's approximate serving tiers FAR_SKIP /
-FAR_NET / FAR_TNET are not ported and raise when asked for, except under
-the SoA layout, which switches them off there too.
+equal to mode 0's.  ``VANERF_KNN_CULL`` swaps the nearest-vertex search for
+kernel 9 (``ops/knn.py``), with equal results.
+
+The approximate serving tiers run the per-point network on a budget of the
+samples nearest the surface by the certified nearest-vertex distance, at
+eval only (off in training, under the SoA layout and the fused switches):
+``VANERF_FAR_SKIP=<frac>`` keeps round(frac S) samples of every ray,
+``VANERF_FAR_NET=<frac>`` the round(frac N) nearest of the whole patch
+(both leave the dropped samples on the mesh-prior density, with no
+colour), ``VANERF_FAR_TNET=<frac>`` the same global budget with the dropped
+samples inheriting the nearest evaluated sample's outputs along their ray
+(``VANERF_TNET_IMPL=select|scan``, ``VANERF_TNET_STEPS``); TNET takes
+precedence over NET, NET over SKIP.
 """
 
 from __future__ import annotations
@@ -59,6 +69,95 @@ def resolve_tier(env_name: str, config_val: float, training: bool) -> float:
         except ValueError:
             raise ValueError(f"{env_name}={raw!r} is not a number") from None
     return 0.0 if training else float(config_val or 0.0)
+
+
+def inherit_nearest_evaluated(full: torch.Tensor, ev: torch.Tensor,
+                              z: torch.Tensor, n_samples: int
+                              ) -> torch.Tensor:
+    """FAR_TNET inheritance: samples the network did not evaluate copy the
+    row of the nearest (by ray depth) evaluated sample of their own ray;
+    the earlier sample wins a depth tie.
+
+    Args:
+      full: (B, N, C) scattered network outputs (+ valid flag), zero rows
+        where not evaluated; N = rays * n_samples, sample-contiguous.
+      ev:   (B, N) bool, True where the network ran.
+      z:    (B, N) ray depths.
+    Returns:
+      (B, N, C); rays with no evaluated sample keep their zero rows (the
+      caller's mesh-prior fallback).
+    """
+    B, Ntot, C = full.shape
+    S = n_samples
+    Pn = Ntot // S
+    evr = ev.reshape(B, Pn, S)
+    fullr = full.reshape(B, Pn, S, C)
+    zr = z.reshape(B, Pn, S)
+    ar = torch.arange(S, device=full.device)
+    none = torch.full_like(ar, -1)
+    # last evaluated index at or before i / first at or after i
+    fwdi = torch.cummax(torch.where(evr, ar, none), -1).values
+    rev = torch.where(evr, S - 1 - ar, none).flip(-1)
+    bwdr = torch.cummax(rev, -1).values.flip(-1)
+    bwdi = torch.where(bwdr >= 0, S - 1 - bwdr, none)
+    zf = torch.gather(zr, -1, fwdi.clamp(min=0))
+    zb = torch.gather(zr, -1, bwdi.clamp(min=0))
+    inf = torch.full_like(zr, float("inf"))
+    df = torch.where(fwdi >= 0, (zr - zf).abs(), inf)
+    db = torch.where(bwdi >= 0, (zr - zb).abs(), inf)
+    nb = torch.where(df <= db, fwdi, bwdi)                  # -1: none
+    inh = torch.gather(fullr, 2,
+                       nb.clamp(min=0)[..., None].expand(-1, -1, -1, C))
+    keep = (evr | (nb < 0))[..., None]
+    return torch.where(keep, fullr, inh).reshape(B, Ntot, C)
+
+
+def inherit_nearest_evaluated_select(full: torch.Tensor, ev: torch.Tensor,
+                                     z: torch.Tensor, n_samples: int,
+                                     steps: int = 4) -> torch.Tensor:
+    """:func:`inherit_nearest_evaluated` by ``steps`` rounds of doubling
+    shifted selects, a 1-D flood fill that carries each source's depth so
+    that every cell keeps the nearest source it was reached by.  After
+    round k the fill radius is 2^k - 1: ``steps=4`` inherits exactly for a
+    skipped sample whose nearest evaluated neighbour lies within 15 slots
+    and leaves farther ones on the zero rows; ``2^steps - 1 >= S - 1``
+    reproduces the scan's result."""
+    B, Ntot, C = full.shape
+    S = n_samples
+    Pn = Ntot // S
+    fullr = full.reshape(B, Pn, S, C)
+    evr = ev.reshape(B, Pn, S)
+    zr = z.reshape(B, Pn, S)
+    inf = torch.full_like(zr, float("inf"))
+
+    val = torch.where(evr[..., None], fullr, torch.zeros_like(fullr))
+    src_z = torch.where(evr, zr, torch.zeros_like(zr))
+    best = torch.where(evr, torch.zeros_like(zr), inf)  # |z - source's z|
+
+    def shift(x, d, fill):
+        """Shift along the sample axis by d (d > 0: the value of slot
+        i - d)."""
+        pad = x.new_full(x.shape[:2] + (abs(d),) + x.shape[3:], fill)
+        if d > 0:
+            return torch.cat([pad, x[:, :, :-d]], 2)
+        return torch.cat([x[:, :, -d:], pad], 2)
+
+    d = 1
+    for _ in range(max(1, steps)):
+        if d >= S:
+            break
+        for sd in (d, -d):
+            c_z = shift(src_z, sd, 0.0)
+            c_best = shift(best, sd, float("inf"))
+            c_val = shift(val, sd, 0.0)
+            cand = torch.where(torch.isfinite(c_best), (zr - c_z).abs(), inf)
+            better = cand < best
+            best = torch.where(better, cand, best)
+            src_z = torch.where(better, c_z, src_z)
+            val = torch.where(better[..., None], c_val, val)
+        d *= 2
+    # evaluated rows keep their own outputs; unreached rows are zero
+    return torch.where(evr[..., None], fullr, val).reshape(B, Ntot, C)
 
 
 def mask_centered_grid(generator: Optional[torch.Generator],
@@ -137,6 +236,16 @@ def encode_frame(model, batch: Dict[str, Any], vis_size: int = 256):
     return feat_geo, feat_tex, vert_vis
 
 
+def prepare_frame_meshes(batch: Dict[str, Any], vert_vis: torch.Tensor):
+    """Per-frame work of the culled mesh query, one prepared mesh for each
+    batch element (:func:`prepare_culled_mesh`: the Morton sort of the faces,
+    the face table and the chunk boxes).  ``render_full_image`` makes it
+    once beside the encode and hands it to every tile."""
+    return [prepare_culled_mesh(batch["verts"][b], batch["faces"],
+                                vert_vis[b])
+            for b in range(batch["verts"].shape[0])]
+
+
 def patch_rays(batch: Dict[str, Any], grids: torch.Tensor, n_samples: int,
                u: Optional[torch.Tensor] = None):
     """Target-camera rays of a pixel grid, clipped to the mesh bounds, and
@@ -188,17 +297,23 @@ def soa_points_mode() -> int:
         return 1
 
 
-def _check_unported(model, training: bool, n_views: int, soa_points: int):
-    if n_views != 1:
-        raise NotImplementedError("the port renders one source view")
-    if soa_points:
-        return      # the SoA layout switches the serving tiers off
-    for env, attr in (("VANERF_FAR_SKIP", "far_skip"),
-                      ("VANERF_FAR_NET", "far_net"),
-                      ("VANERF_FAR_TNET", "far_tnet")):
-        if resolve_tier(env, getattr(model, attr, 0.0), training) > 0.0:
-            raise NotImplementedError(f"{env} / inference.{attr} serving "
-                                      "tier is not ported")
+def _network_budget(n_total: int, n_samples: int, frac_skip: float,
+                    frac_net: float, frac_tnet: float):
+    """(kc, ks, inherit) of the serving tiers (``renderer.py:530-543``):
+    kc rows of the whole patch (FAR_TNET, else FAR_NET; rounded up to 128
+    rows, 0 when that is every row), else ks samples a ray (FAR_SKIP)."""
+    inherit = 0.0 < frac_tnet < 1.0
+    kc_frac = frac_tnet if inherit else frac_net
+    kc = 0
+    if 0.0 < kc_frac < 1.0:
+        kc = min(n_total, max(128, (int(round(n_total * kc_frac)) + 127)
+                              // 128 * 128))
+        if kc >= n_total:
+            kc = 0
+    ks = 0
+    if 0.0 < frac_skip <= 1.0 and not kc:
+        ks = min(n_samples, max(1, int(round(n_samples * frac_skip))))
+    return kc, ks, inherit
 
 
 def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
@@ -228,14 +343,16 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
         optional 'tar_img', 'tar_mask', 'input_densepose', 'tar_densepose'.
       grids: (B, P, 2) pixel grid.
       cached: optional (feat_geo, feat_tex, vert_vis) of
-        :func:`encode_frame`.
+        :func:`encode_frame`, and as an optional fourth element the
+        frame's :func:`prepare_frame_meshes`.
       compute_vis_map: also rasterize the GT visibility map in the target
         view ('vis_img_all' (B, 1, H, W), 'vis_img' at the grid).
     Returns:
       dict of channels-last outputs mirroring the JAX package's.
     """
+    if n_views != 1:
+        raise NotImplementedError("the port renders one source view")
     soa_points = soa_points_mode()
-    _check_unported(model, training, n_views, soa_points)
     with contextlib.nullcontext() if training else torch.no_grad():
         src_img = batch["src_img"]
         B = batch["tar_k"].shape[0]
@@ -244,8 +361,8 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
         faces, verts = batch["faces"], batch["verts"]
         P = grids.shape[1]
 
-        feat_geo, feat_tex, vert_vis = (encode_frame(model, batch)
-                                        if cached is None else cached)
+        feat_geo, feat_tex, vert_vis, *frame_meshes = (
+            encode_frame(model, batch) if cached is None else cached)
         cam_in = {"KRT": batch["src_krt"], "extrin": batch["src_extrin"],
                   "width": W, "height": H, "znear": znear, "zfar": zfar}
         dev = grids.device
@@ -255,8 +372,8 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
                      dev) if jitter else None)
         cam_pos, cam_rays, z = patch_rays(batch, grids, sample_per_ray_c, u_c)
         beta = model.sigmoid_beta
-        mesh_prep = [prepare_culled_mesh(verts[b], faces, vert_vis[b])
-                     for b in range(B)]
+        mesh_prep = (frame_meshes[0] if frame_meshes
+                     else prepare_frame_meshes(batch, vert_vis))
 
         far_tau = resolve_tier("VANERF_FAR_TAU",
                                getattr(model, "far_tau", 0.02),
@@ -273,6 +390,47 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
             # take the far substitution (set at all, as in the JAX package:
             # VANERF_FUSED_MLP=0 is the exact baseline of the fused levels)
             far2 = None
+        # the serving tiers: eval only, off under the SoA layout and the
+        # fused switches (FAR_NET / FAR_TNET need one view, which is all
+        # this renderer takes; sp_conv is not ported and raises elsewhere)
+        tiers_on = (not training and not soa_points
+                    and not os.environ.get("VANERF_FUSED_MLP"))
+        far_skip_frac, far_net_frac, far_tnet_frac = (
+            resolve_tier(env, getattr(model, attr, 0.0), training)
+            if tiers_on else 0.0
+            for env, attr in (("VANERF_FAR_SKIP", "far_skip"),
+                              ("VANERF_FAR_NET", "far_net"),
+                              ("VANERF_FAR_TNET", "far_tnet")))
+
+        def query_rows(pts, view, q_vis, q_sdf, nn_idx, far_mask,
+                       n_samples):
+            return model.query(
+                pts, view, cam_in, feat_geo, feat_tex, src_img,
+                batch["src_mask"], verts, vert_vis, q_vis, q_sdf,
+                batch["kpt3d"], n_samples,
+                training=training and not fused_train, nn_idx=nn_idx,
+                far_mask=far_mask,
+                fused_override=fused_train if fused_train else None)
+
+        def query_budget(sel, pts, view, q_vis, q_sdf, nn_idx, far_mask,
+                         n_rows):
+            """The network on the rows ``sel`` (B, K) of the (B, N, .)
+            inputs, packed into one gather; returns [out | valid] (B, K, .)
+            (``renderer.py:550-568``; the nearest-vertex index travels
+            through float32, exact below 2^24)."""
+            parts = [pts, view, q_vis.float(), q_sdf,
+                     nn_idx[..., None].float()]
+            if far_mask is not None:
+                parts.append(far_mask.float())
+            packed = torch.cat(parts, -1)                     # (B, N, 9|10)
+            sub = torch.gather(
+                packed, 1, sel[..., None].expand(-1, -1, packed.shape[-1]))
+            far_k = (sub[..., 9:10] > 0.5) if far_mask is not None else None
+            out_k, valid_k = query_rows(
+                sub[..., :3].contiguous(), sub[..., 3:6].contiguous(),
+                sub[..., 6:7].to(q_vis.dtype), sub[..., 7:8],
+                sub[..., 8].to(torch.int32), far_k, n_rows)
+            return torch.cat([out_k, valid_k], -1)
 
         def query_at(z_depths, n_samples, noise_key):
             if soa_points:
@@ -286,7 +444,7 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
             else:
                 # the same values: o + d*z rounds alike in either layout
                 pts = pts_T.transpose(1, 2).contiguous()
-            nn_idx, sdf, q_vis, far = [], [], [], []
+            nn_idx, nn_d2, sdf, q_vis, far = [], [], [], [], []
             for b in range(B):
                 vb = verts[b].contiguous()
                 if soa_points:
@@ -302,6 +460,7 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
                         mesh_prep[b], pb, d2_b, n_samples=n_samples,
                         far2=far2)
                 nn_idx.append(i_b)
+                nn_d2.append(d2_b)
                 sdf.append(s_b)
                 q_vis.append(q_b)
                 far.append(f_b)
@@ -312,13 +471,55 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
                         if far[0] is not None else None)
             view = cam_rays[:, :, None, :].expand(B, P, n_samples, 3) \
                 .reshape(B, -1, 3)
-            out, valid = model.query(
-                pts, view, cam_in, feat_geo, feat_tex, src_img,
-                batch["src_mask"], verts, vert_vis, q_vis, q_sdf,
-                batch["kpt3d"], n_samples,
-                training=training and not fused_train, nn_idx=nn_idx,
-                far_mask=far_mask,
-                fused_override=fused_train if fused_train else None)
+            Ntot = pts.shape[1]
+            kc, ks, inherit = (
+                _network_budget(Ntot, n_samples, far_skip_frac, far_net_frac,
+                                far_tnet_frac) if tiers_on else (0, 0, False))
+            if kc:
+                # global budget: the network on the kc rows nearest the
+                # surface, scattered back; dropped rows keep the mesh-prior
+                # density and no colour (jnp.argsort is stable, and equal
+                # bounds do occur)
+                sel = torch.argsort(torch.stack(nn_d2), dim=-1,
+                                    stable=True)[:, :kc]        # (B, kc)
+                buf = query_budget(sel, pts, view, q_vis, q_sdf, nn_idx,
+                                   far_mask, kc)
+                co = buf.shape[-1] - 1
+                full = buf.new_zeros(B, Ntot, co + 1).scatter_(
+                    1, sel[..., None].expand(-1, -1, co + 1), buf)
+                if inherit:
+                    ev = torch.zeros(B, Ntot, dtype=torch.bool,
+                                     device=dev).scatter_(
+                        1, sel, torch.ones_like(sel, dtype=torch.bool))
+                    zs = z_depths.reshape(B, -1)
+                    if os.environ.get("VANERF_TNET_IMPL", "select") == "scan":
+                        full = inherit_nearest_evaluated(full, ev, zs,
+                                                         n_samples)
+                    else:
+                        full = inherit_nearest_evaluated_select(
+                            full, ev, zs, n_samples, steps=int(
+                                os.environ.get("VANERF_TNET_STEPS", "4")
+                                or 4))
+                out, valid = full[..., :co], full[..., co:]
+            elif ks:
+                # per-ray budget: the ks samples of each ray nearest the
+                # surface; the query is per sample, so reordering within a
+                # ray preserves each row's value
+                S = n_samples
+                Pn = Ntot // S
+                sel = torch.argsort(torch.stack(nn_d2).reshape(B, Pn, S),
+                                    dim=-1, stable=True)[..., :ks]
+                sel = (sel + (torch.arange(Pn, device=dev) * S)[None, :, None]
+                       ).reshape(B, Pn * ks)
+                buf = query_budget(sel, pts, view, q_vis, q_sdf, nn_idx,
+                                   far_mask, ks)
+                co = buf.shape[-1] - 1
+                full = buf.new_zeros(B, Ntot, co + 1).scatter_(
+                    1, sel[..., None].expand(-1, -1, co + 1), buf)
+                out, valid = full[..., :co], full[..., co:]
+            else:
+                out, valid = query_rows(pts, view, q_vis, q_sdf, nn_idx,
+                                        far_mask, n_samples)
             sdf_ch = valid * out[..., 0:1] + (1.0 - valid) * (0.1 / _NML_SCALE)
             rad = out[..., 1:2]
             if noise:
@@ -410,7 +611,8 @@ def render_full_image(model, batch: Dict[str, Any], *, level: int,
     H, W = batch["src_img"].shape[1:3]
     s = 2 ** (level - 1)
     out_h, out_w = H // s, W // s
-    cached = encode_frame(model, batch)
+    cached = tuple(encode_frame(model, batch))
+    cached += (prepare_frame_meshes(batch, cached[2]),)
     dev = batch["src_img"].device
     tiles = []
     for i in range(s):
