@@ -33,13 +33,31 @@ script exits non-zero (there is no CPU fallback):
      same sorted table in d2, idx and qvis, in the winding on every tile
      that keeps +d and up to certified grazes on tiles that take -d, and in
      d2 to the sweep over the table in mesh order; timed in turns with the
-     sweep;
+     sweep; kernels D and 13 at each main-path shape and at edge cases (D:
+     6 channels on scalar lanes, a slice of a batch, a table or a uv off a
+     16- / 8-byte boundary, points beyond [-1, 1]; 13: no point, one
+     point, both sides of the one-launch limit, every point on one row, 5
+     channels, a gradient off a 16-byte boundary), each bit-equal across
+     two runs, D also to its plain version, each timed as called (CUDA
+     events over 20 calls, as every kernel is) and as the device runs it
+     (calls replayed from a CUDA graph), beside ``F.grid_sample`` /
+     ``index_add_`` in the same run, and the float4 or scalar-lane
+     instantiation it launched (from torch.profiler's kernel names);
   3. the serving path at full model width (``configs/vanerf.json``, seeded
      flax-style initialisation): ``render_full_image`` for 2 frames (16
      64x64 tiles each, 64+64 samples) and one bench-shaped group of 16
      mask-centred 64x64 patches; the launch counters of A-D and of the row
      gather (kernel 10, which every render without a graph takes) must
      move;
+  3a. two ``encode_frame`` calls of one frame equal to the bit (the
+     encoders run under cuDNN's deterministic algorithms); with that pin
+     lifted, forward hooks name the first module whose output differs
+     between two calls, and the encode is timed with and without the pin;
+  3g. the same frame with kernel D (the default) and under
+     ``VANERF_MXU_INTERP=0`` in turns, on one shared encode: 32 launches
+     of D a frame and none under the switch, every output within rtol
+     1e-3 / atol 1e-4 as 3b holds its frames (the hat and the lerp form
+     of one bilinear sample round differently);
   3b. the fused-MLP serving configuration on the same frame, in turns with
      the unfused render (far tier off in all three, as the switch has it):
      ``VANERF_FUSED_MLP=2`` (kernel 11) and ``VANERF_FUSED_MLP=1``
@@ -91,7 +109,10 @@ is a JSON object with one entry per kernel (its launches are those of the
 phase that drives it: A-D and 10 phase 3, 13 phase 5, 11 the level-2 run
 of phase 3b, 12 the level-1 run, 7 and 8 the mode-1 run of phase 3c, 9 the
 two culled runs of phase 3e, 5 and 6 phase 3d; A and 7 carry the sweep's
-time beside the culled query's as ``brute_ms``); the last line is
+time beside the culled query's as ``brute_ms``; D and 13 sum the cases
+they have summed since their port, D's two maps and 13's four tables, and
+carry their graph-replayed times as ``device_ms`` / ``library_device_ms``);
+the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and
 convolutions.
 """
@@ -238,6 +259,34 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of one fn() call: ``reps`` calls captured in one CUDA
+    graph and replayed twice between CUDA events, so the host's dispatch
+    of each call, which at a few microseconds of device work is what
+    ``cuda_ms`` times, is left out."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (2 * reps)
+    del graph
+    return ms
+
+
 def least_time(n_bytes: float, n_ops: float) -> dict:
     """The least time the card could take: each input read once and each
     output written once at the memory rate, or the operations at the f32
@@ -345,7 +394,7 @@ def fused_main_path_inputs(model, batch, grids):
             with env(VANERF_FUSED_MLP=level):
                 tr.render_patch(model, batch, grids=grids, out_h=PATCH,
                                 out_w=PATCH, sample_per_ray_c=S_C,
-                                sample_per_ray_f=S_F)
+                                sample_per_ray_f=S_F, compute_vis_map=False)
     finally:
         for mod, name, real in undo:
             setattr(mod, name, real)
@@ -489,9 +538,220 @@ def culled_query_checks(name, fn, fn_p, q, p_c, mesh, d2, tilings, far2):
                      + main["wind_pairs"] * MESH_CROSS_OPS))
 
 
-def phase_kernels(model, batch, dev):
+def offset_view(x, shift: int):
+    """A contiguous copy of ``x`` whose data starts ``shift`` elements into
+    its storage: a float4 (float2) load of it is misaligned for shift % 4
+    (shift % 2)."""
+    import torch
+    flat = torch.empty(x.numel() + shift, dtype=x.dtype, device=x.device)
+    view = flat[shift:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def interp_cases(geo_coarse, uv, dev):
+    """Kernel D's cases: (tag, summed in the kernels line?, map, points).
+    The main path samples the 32^2 x 64 geometry coarse map at the patch's
+    projected points, one launch a pass (the 128^2 x 8 fine geometry map is
+    too large for D and the 64^2 x 8 texture map is not sampled through
+    it); the kernels line sums it with a 64^2 x 16 map (4,096 pixels, the
+    largest D takes) at the same points, as it has since D was ported.  The
+    other cases: the scalar-lane instantiation (6 channels, a table or a uv
+    that starts off a 16- / 8-byte boundary), a slice of a batch, points
+    beyond [-1, 1] and counts that fill no whole block."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    m64 = torch.randn(64, 64, 16, generator=g, device=dev)
+    batch = torch.randn(2, 32, 32, 64, generator=g, device=dev)
+    wide = (uv * 1.3).contiguous()
+    return [("32^2x64", True, geo_coarse, uv),
+            ("64^2x16, the largest map", True, m64, uv),
+            ("16^2x6, scalar lanes", False,
+             torch.randn(16, 16, 6, generator=g, device=dev), wide[:5001]),
+            ("32^2x64 slice feat[1] of a batch, uv beyond [-1, 1]", False,
+             batch[1], wide[:5001]),
+            ("32^2x64 table off 16 bytes", False, offset_view(geo_coarse, 1),
+             uv[:4999].contiguous()),
+            ("64^2x16, uv off 8 bytes", False, m64,
+             offset_view(wide[:777], 1))]
+
+
+def lanes_launched(fn, kernel: str) -> str:
+    """Which instantiation of the CUDA kernel ``kernel`` fn() launches, as
+    torch.profiler names it: ``kernel<true>`` is the float4 one, the C
+    entry point's choice.  A short session may end before the device's
+    records arrive: up to 5 are tried."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if kernel + "<true>" in e.key:
+                return "float4"
+            if kernel + "<false>" in e.key:
+                return "scalar"
+    return "not seen by the profiler"
+
+
+def interp_case(case):
+    """One case of kernel D against its plain version and F.grid_sample:
+    ``ms`` / ``library_ms`` as called (CUDA events over 20 calls),
+    ``device_ms`` / ``library_device_ms`` replayed from a CUDA graph."""
     import torch
     import torch.nn.functional as F
+    from vanerf_tpu_torch.ops import interp_mxu
+    _tag, _main, fm, u = case
+    got = interp_mxu.interp_cuda(fm, u)
+    again = interp_mxu.interp_cuda(fm, u)
+    want = interp_mxu.interp_plain(fm, u)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item() if got.numel() else 0.0
+    check(torch.equal(got, want), f"sampler differs from its plain version "
+          f"({_tag}): {err}")
+    check(torch.equal(got, again), f"sampler not repeatable ({_tag})")
+    nchw = fm.permute(2, 0, 1)[None].contiguous()
+    grid = u[None, None]
+    Hm, Wm, C = fm.shape
+
+    def library():
+        return F.grid_sample(nchw, grid, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+
+    return dict(
+        shape=f"{u.shape[0]} points on {Hm}x{Wm}x{C}",
+        lanes=lanes_launched(lambda: interp_mxu.interp_cuda(fm, u),
+                             "interp_kernel"),
+        max_abs_err=err, bit_equal_runs=True,
+        ms=cuda_ms(lambda: interp_mxu.interp_cuda(fm, u), 20),
+        device_ms=graph_ms(lambda: interp_mxu.interp_cuda(fm, u)),
+        plain_ms=cuda_ms(lambda: interp_mxu.interp_plain(fm, u), 5),
+        library_ms=cuda_ms(library, 20),
+        library_device_ms=graph_ms(library),
+        # per point ~20 for the weights, per output 4 products and 3 sums
+        **least_time(nbytes(fm, u, got), u.shape[0] * (20 + 7 * C)))
+
+
+def texel(uv_, hw: int):
+    """The flat texel index of each point on an hw x hw map."""
+    import torch
+    x = ((uv_[:, 0] + 1.0) * 0.5 * (hw - 1.0)).clamp(0.0, hw - 1.0)
+    y = ((uv_[:, 1] + 1.0) * 0.5 * (hw - 1.0)).clamp(0.0, hw - 1.0)
+    return (torch.floor(y) * hw + torch.floor(x)).to(torch.int32)
+
+
+def scatter_cases(idx, n_verts, geo_coarse, uv, v_uv, dev):
+    """Kernel 13's cases: (tag, main path?, row ids, rows, channels).  The
+    training path's tables: the KNN vertex table (rows = vertices, the
+    packed [this | toh] rows of 2 x (72 + 29 + 1) channels) read at the
+    nearest-vertex ids; the packed 32^2 x 4*64 geometry coarse map and the
+    packed 64^2 x 4*8 maps read at the texel of each point; the coarse map
+    read at the 1,284 projected vertices (the fusion's vertex table, the
+    one-launch path).  Then the edge cases: no point, one point, both sides
+    of the one-launch limit, every point on one row, scalar channels, a
+    gradient that starts off a 16-byte boundary (``offset``)."""
+    import torch
+    from vanerf_tpu_torch.ops import onehot_gather
+    Hc, lim = geo_coarse.shape[0], onehot_gather.SCATTER_SMALL_N
+    tex64 = texel(uv, 64)
+    empty = torch.zeros(0, dtype=torch.int32, device=dev)
+    return [
+        ("knn table", True, idx, n_verts, 2 * (72 + 29 + 1)),
+        ("32^2 coarse map", True, texel(uv, Hc), Hc * Hc,
+         4 * geo_coarse.shape[2]),
+        ("64^2 map", True, tex64, 64 * 64, 4 * 8),
+        ("32^2 coarse map at the vertices", True, texel(v_uv, Hc), Hc * Hc,
+         4 * geo_coarse.shape[2]),
+        ("no point", False, empty, 3, 5),
+        ("one point", False, tex64[:1] % 3, 3, 5),
+        (f"{lim} points, the one-launch limit", False,
+         tex64[:lim].contiguous(), 64 * 64, 32),
+        (f"{lim + 1} points, above it", False, tex64[:lim + 1].contiguous(),
+         64 * 64, 32),
+        ("every point on one row", False, torch.full_like(tex64, 4321),
+         onehot_gather.SCATTER_MAX_T, 32),
+        ("scalar channels", False, tex64, 64 * 64, 5),
+        ("gradient off 16 bytes, offset", False, tex64, 64 * 64, 32)]
+
+
+def scatter_case(case):
+    """One case of kernel 13 against index_add_ into a zeroed table (its
+    plain version, also the library call): ``ms`` / ``library_ms`` as
+    called (CUDA events over 20 calls), ``device_ms`` /
+    ``library_device_ms`` replayed from a CUDA graph."""
+    import torch
+    from vanerf_tpu_torch.ops import onehot_gather
+    tag, _main, rows, T, C = case
+    g = torch.randn(rows.shape[0], C, device=rows.device,
+                    generator=torch.Generator(device=rows.device)
+                    .manual_seed(SEED))
+    if tag.endswith("offset"):
+        g = offset_view(g, 1)
+    rows = rows.contiguous()
+    got = onehot_gather.onehot_scatter_cuda(g, rows, T)
+    again = onehot_gather.onehot_scatter_cuda(g, rows, T)
+    want = onehot_gather.onehot_scatter_plain(g, rows, T)
+    bound = onehot_gather.onehot_scatter_plain(g.abs(), rows, T)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"scatter not deterministic ({tag})")
+    e = (got - want).abs()
+    check(bool((e <= 1e-5 * bound + 1e-30).all()),
+          f"scatter err {e.max().item()} ({tag})")
+    check(not got[bound.sum(1) == 0].any(), f"scatter: rows without points "
+          f"are not zero ({tag})")
+    n = rows.shape[0]
+    small = n <= onehot_gather.SCATTER_SMALL_N
+    rows_l = rows.long()
+    acc = torch.zeros(T, C, device=rows.device)
+
+    def kernel():
+        return onehot_gather.onehot_scatter_cuda(g, rows, T)
+
+    def plain():
+        return onehot_gather.onehot_scatter_plain(g, rows, T)
+
+    plain_ms = cuda_ms(plain, 20)
+    return dict(
+        shape=f"{n} rows into {T}x{C}",
+        path="one launch" if small else "counting sort",
+        lanes=lanes_launched(kernel, "os_small" if small else "os_sum"),
+        max_abs_err=e.max().item() if e.numel() else 0.0,
+        rel_to_abs_sum=(e / bound.clamp(min=1e-30)).max().item()
+        if e.numel() else 0.0, bit_equal_runs=True,
+        rows_read=int((bound > 0).any(1).sum()),
+        ms=cuda_ms(kernel, 20), device_ms=graph_ms(kernel),
+        plain_ms=plain_ms, library_ms=plain_ms,
+        library_device_ms=graph_ms(plain),
+        # index_add_ alone, into a table allocated ahead and int64 ids made
+        # ahead (it accumulates across the timed calls, which changes
+        # nothing it does)
+        bare_library_device_ms=graph_ms(lambda: acc.index_add_(0, rows_l,
+                                                               g)),
+        **least_time(nbytes(g, rows, got), g.numel()))
+
+
+SUMMED = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms")
+
+
+def kernel_cases(cases, run):
+    """Run every case of a kernel; the kernel's entry sums the times and
+    bounds of the cases marked for the kernels line, and keeps every case
+    under ``cases``."""
+    per = [(c[0], c[1], run(c)) for c in cases]
+    summed = [r for _t, m, r in per if m]
+    tot = least_time(sum(r["bound_bytes"] for r in summed),
+                     sum(r["bound_ops"] for r in summed))
+    return dict(
+        shape=", ".join(r["shape"] for r in summed),
+        max_abs_err=max(r["max_abs_err"] for _t, _m, r in per),
+        **{k: sum(r[k] for r in summed) for k in SUMMED},
+        cases={t: dict(r, summed=m) for t, m, r in per}, **tot)
+
+
+def phase_kernels(model, batch, dev):
+    import torch
     from vanerf_tpu_torch.ops import (fused_mlp, interp_mxu, knn, mesh_query,
                                       onehot_gather, rasterize)
     results = {}
@@ -760,94 +1020,19 @@ def phase_kernels(model, batch, dev):
         **least_time(nbytes(tri, face, zbuf),
                      RASTER_OPS * H * W * tri.shape[0]))
 
-    # --- D: the 32^2 x 64 geo-coarse map at the patch's points, and a
-    # 64^2 x 16 map ---
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    maps = [geo_coarse,
-            torch.randn(64, 64, 16, generator=g, device=dev)]
-    err_d, ms_d, plain_d, lib_d, shapes = 0.0, 0.0, 0.0, 0.0, []
-    bytes_d = ops_d = 0
-    grid = uv[None, None]                                  # (1, 1, N, 2)
-    for fm in maps:
-        got = interp_mxu.interp_cuda(fm, uv)
-        want = interp_mxu.interp_plain(fm, uv)
-        torch.cuda.synchronize()
-        e = (got - want).abs().max().item()
-        check(e <= 1e-6, f"sampler err {e}")
-        err_d = max(err_d, e)
-        ms_d += cuda_ms(lambda: interp_mxu.interp_cuda(fm, uv), 20)
-        plain_d += cuda_ms(lambda: interp_mxu.interp_plain(fm, uv), 5)
-        nchw = fm.permute(2, 0, 1)[None].contiguous()
-        lib_d += cuda_ms(lambda: F.grid_sample(
-            nchw, grid, mode="bilinear", padding_mode="border",
-            align_corners=True), 20)
-        bytes_d += nbytes(fm, uv, got)
-        # per point ~20 for the weights, per output 4 products and 3 sums
-        ops_d += uv.shape[0] * (20 + 7 * fm.shape[2])
-        shapes.append("x".join(str(s) for s in fm.shape))
-    results["interp_mxu"] = dict(
-        shape=f"{uv.shape[0]} points on {' and '.join(shapes)} maps",
-        max_abs_err=err_d, ms=ms_d, plain_ms=plain_d, library_ms=lib_d,
-        **least_time(bytes_d, ops_d))
+    # --- D: the 32^2 x 64 geo-coarse map, then a 64^2 x 16 map at the
+    # patch's points, then the edge cases; every case bit-equal to the
+    # plain version and across two runs ---
+    results["interp_mxu"] = kernel_cases(interp_cases(geo_coarse, uv, dev),
+                                         interp_case)
 
-    # --- 13: the take_rows table gradient at the training path's tables:
-    # the KNN vertex table (rows = vertices, the packed [this | toh] rows
-    # of 2 x (72 + 29 + 1) channels) read at the nearest-vertex ids; the
-    # packed 32^2 x 4*64 geometry coarse map and the packed 64^2 x 4*8
-    # maps read at the texel of each point; the coarse map read at the
-    # 1,284 projected vertices (the fusion's vertex table).  The twin on
-    # the card is index_add_ with float atomics, which sums in another
-    # (run-dependent) order: |kernel - twin| <= 1e-5 x the row's sum of |g|.
-    def texel(uv_, hw):
-        x = ((uv_[:, 0] + 1.0) * 0.5 * (hw - 1.0)).clamp(0.0, hw - 1.0)
-        y = ((uv_[:, 1] + 1.0) * 0.5 * (hw - 1.0)).clamp(0.0, hw - 1.0)
-        return (torch.floor(y) * hw + torch.floor(x)).to(torch.int32)
-
-    Hc = geo_coarse.shape[0]
+    # --- 13: the take_rows table gradient at the training path's four
+    # shapes, then the edge cases ---
     v_uv = torch.stack([2.0 * xy_pix[:, 0] / (W - 1.0) - 1.0,
                         2.0 * xy_pix[:, 1] / (H - 1.0) - 1.0], -1)
-    cases = [("knn table", idx, verts.shape[0], 2 * (72 + 29 + 1)),
-             ("32^2 coarse map", texel(uv, Hc), Hc * Hc,
-              4 * geo_coarse.shape[2]),
-             ("64^2 map", texel(uv, 64), 64 * 64, 4 * 8),
-             ("32^2 coarse map at the vertices", texel(v_uv, Hc), Hc * Hc,
-              4 * geo_coarse.shape[2])]
-    err_s, ms_s, plain_s, shapes, stats = 0.0, 0.0, 0.0, [], {}
-    bytes_s = ops_s = 0
-    for tag, rows, T, C in cases:
-        g = torch.randn(
-            rows.shape[0], C, device=dev,
-            generator=torch.Generator(device=dev).manual_seed(SEED))
-        rows = rows.contiguous()
-        got = onehot_gather.onehot_scatter_cuda(g, rows, T)
-        again = onehot_gather.onehot_scatter_cuda(g, rows, T)
-        want = onehot_gather.onehot_scatter_plain(g, rows, T)
-        bound = onehot_gather.onehot_scatter_plain(g.abs(), rows, T)
-        torch.cuda.synchronize()
-        check(torch.equal(got, again), f"scatter not deterministic ({tag})")
-        e = (got - want).abs()
-        check(bool((e <= 1e-5 * bound + 1e-30).all()),
-              f"scatter err {e.max().item()} ({tag})")
-        err_s = max(err_s, e.max().item())
-        k_ms = cuda_ms(lambda: onehot_gather.onehot_scatter_cuda(g, rows, T),
-                       20)
-        p_ms = cuda_ms(lambda: onehot_gather.onehot_scatter_plain(g, rows, T),
-                       20)
-        ms_s += k_ms
-        plain_s += p_ms
-        bytes_s += nbytes(g, rows, got)
-        ops_s += g.numel()
-        stats[tag] = dict(rows=T, channels=C, max_abs_err=e.max().item(),
-                          rel_to_abs_sum=(e / bound.clamp(min=1e-30))
-                          .max().item(), bit_equal_runs=True,
-                          rows_read=int((bound > 0).any(1).sum()),
-                          ms=k_ms, plain_ms=p_ms)
-        shapes.append(f"{rows.shape[0]} rows into {T}x{C}")
-    results["onehot_scatter"] = dict(
-        shape=", ".join(shapes),
-        max_abs_err=err_s, ms=ms_s, plain_ms=plain_s, detail=stats,
-        library_ms=plain_s,        # the twin is the one call, index_add_
-        **least_time(bytes_s, ops_s))
+    results["onehot_scatter"] = kernel_cases(
+        scatter_cases(idx, verts.shape[0], geo_coarse, uv, v_uv, dev),
+        scatter_case)
 
     # --- 10, 11, 12: the row gather and the fused query kernels on what the
     # model's own branches hand them for the same patch ---
@@ -944,7 +1129,8 @@ def phase_main_path(model, batches, dev):
                                       PATCH)
         group.append(tr.render_patch(
             model, b, grids=grids, out_h=PATCH, out_w=PATCH,
-            sample_per_ray_c=S_C, sample_per_ray_f=S_F, cached=cached))
+            sample_per_ray_c=S_C, sample_per_ray_f=S_F,
+            compute_vis_map=False, cached=cached))
     torch.cuda.synchronize()
     group_s = time.perf_counter() - t0
     launches = ops.launch_counts()
@@ -970,6 +1156,122 @@ def phase_main_path(model, batches, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3a: two encodes of one frame, equal to the bit
+# ---------------------------------------------------------------------------
+
+ENCODE_ROUNDS = 5
+
+
+def phase_encode_repeat(model, b):
+    """Two ``encode_frame`` calls of one frame must be equal to the bit:
+    ``VANeRF.encode`` runs its convolutions under cuDNN's deterministic
+    algorithms.  With that pin lifted (``VANeRF._encode``, the same encode
+    under ``cudnn.flags(deterministic=False)``), forward hooks on every leaf
+    module of the two encoders name the first one whose output differs
+    between two calls; the pin's cost is the encode's time with and without
+    it, in turns (host clock ending in a synchronise, median of
+    ENCODE_ROUNDS)."""
+    import statistics
+    import torch
+    from vanerf_tpu_torch import renderer as tr
+
+    def flat(e):
+        return [e[0][0], e[0][1], e[1], e[2]]
+
+    first, second = flat(tr.encode_frame(model, b)), flat(
+        tr.encode_frame(model, b))
+    torch.cuda.synchronize()
+    differ = [i for i, (x, y) in enumerate(zip(first, second))
+              if not torch.equal(x, y)]
+    check(not differ, f"two encode_frame calls differ in outputs {differ}")
+    cd = torch.backends.cudnn
+
+    def unpinned():
+        with cd.flags(enabled=cd.enabled, benchmark=cd.benchmark,
+                      deterministic=False, allow_tf32=cd.allow_tf32):
+            model._encode(b["src_img"])
+
+    def hooked():
+        seen = []
+        hooks = [m.register_forward_hook(
+            lambda _m, _i, o, n=name: seen.append((n, o)))
+            for name, m in model.named_modules()
+            if name.startswith(("geo_encoder", "tex_encoder"))
+            and not list(m.children())]
+        try:
+            unpinned()
+        finally:
+            for hk in hooks:
+                hk.remove()
+        return seen
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    a, c = hooked(), hooked()
+    torch.cuda.synchronize()
+    first_diff = next(
+        (n for (n, x), (_n, y) in zip(a, c) if torch.is_tensor(x)
+         and not torch.equal(x, y)), None)
+    pinned_ms, free_ms = [], []
+    for _ in range(ENCODE_ROUNDS):
+        free_ms.append(timed(unpinned))
+        pinned_ms.append(timed(lambda: model.encode(b["src_img"])))
+    return dict(equal=True, unpinned_first_differing_module=first_diff,
+                leaf_modules=len(a), pinned_ms=pinned_ms, unpinned_ms=free_ms,
+                pinned_median_ms=statistics.median(pinned_ms),
+                unpinned_median_ms=statistics.median(free_ms))
+
+
+# ---------------------------------------------------------------------------
+# phase 3g: the frame with and without kernel D (VANERF_MXU_INTERP=0)
+# ---------------------------------------------------------------------------
+
+MXU_CONFIGS = {"D": dict(VANERF_MXU_INTERP="1"),
+               "gather": dict(VANERF_MXU_INTERP="0")}
+MXU_ROUNDS = 3
+# the hat form (D) and the lerp form (grid_sample) of one bilinear sample
+# round differently: the frames agree to phase 4's tolerance
+MXU_RTOL, MXU_ATOL = 1e-3, 1e-4
+
+
+def phase_mxu_interp_serving(model, b):
+    """The frame with kernel D (the default) and under
+    ``VANERF_MXU_INTERP=0`` (every map through the gather sampler), on one
+    shared encode, held as phase 3b holds the fused frames at rtol 1e-3 /
+    atol 1e-4, plus one patch with the fine depths pinned; 32 launches of D
+    a frame, none under the switch; ms per frame of both in turns."""
+    res = {name: dict(frame_ms=[]) for name in MXU_CONFIGS}
+    outs = {}
+    with shared_encode(model, b):
+        for name, switches in MXU_CONFIGS.items():
+            outs[name], _ms, counts = timed_frame(model, b, switches)
+            res[name]["launches"] = counts["interp_mxu"]
+    check(res["D"]["launches"] == 32 and res["gather"]["launches"] == 0,
+          f"kernel D launches a frame: {res['D']['launches']} by default, "
+          f"{res['gather']['launches']} under VANERF_MXU_INTERP=0")
+    for _ in range(MXU_ROUNDS):
+        for name, switches in MXU_CONFIGS.items():
+            res[name]["frame_ms"].append(timed_frame(model, b, switches)[1])
+    worst, share, abs_err = hold_to_fused_bounds(
+        "VANERF_MXU_INTERP=0", [outs["gather"]], [outs["D"]], MXU_RTOL,
+        MXU_ATOL)
+    res["gather"].update(of_bound=worst, share_outside=share,
+                         max_abs_err=abs_err)
+    res["pinned"] = pinned_fine_depths(
+        model, b, reference=MXU_CONFIGS["D"],
+        configs={"gather": MXU_CONFIGS["gather"]}, rtol=MXU_RTOL,
+        atol=MXU_ATOL)
+    check(outs["D"]["alpha_fine"].max().item() > 0.2,
+          "sampler phase: rays missed the hands")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 3b: the fused-MLP serving configuration against the unfused render
 # ---------------------------------------------------------------------------
 
@@ -985,11 +1287,12 @@ FUSED_ROUNDS = 4
 COARSE_KEYS = ("tex_fg", "alpha", "depth")
 
 
-def pinned_fine_depths(model, b, reference=None, configs=None):
+def pinned_fine_depths(model, b, reference=None, configs=None,
+                       rtol=FUSED_RTOL, atol=FUSED_ATOL):
     """One mask-centred patch per configuration with the fine pass's
     depths pinned to the reference render's (the unfused one unless given):
-    every floating output must lie within rtol 2e-4 / atol 2e-5 of the
-    reference, on every element."""
+    every floating output must lie within rtol / atol (2e-4 / 2e-5 unless
+    given) of the reference, on every element."""
     import torch
     from vanerf_tpu_torch import renderer as tr
     reference = FUSED_CONFIGS["unfused"] if reference is None else reference
@@ -998,7 +1301,7 @@ def pinned_fine_depths(model, b, reference=None, configs=None):
     grids = tr.mask_centered_grid(torch.Generator().manual_seed(SEED + 1),
                                   b["tar_mask"][..., 0], PATCH, PATCH)
     kw = dict(grids=grids, out_h=PATCH, out_w=PATCH, sample_per_ray_c=S_C,
-              sample_per_ray_f=S_F)
+              sample_per_ray_f=S_F, compute_vis_map=False)
     real, kept, worst = tr.importance_sample, [], {}
     try:
         tr.importance_sample = lambda *a, **k: (kept.append(real(*a, **k))
@@ -1010,7 +1313,7 @@ def pinned_fine_depths(model, b, reference=None, configs=None):
             with env(**switches):
                 got = tr.render_patch(model, b, **kw)
             worst[name] = {
-                k: of_bound(got[k], v, FUSED_RTOL, FUSED_ATOL)
+                k: of_bound(got[k], v, rtol, atol)
                 for k, v in want.items()
                 if torch.is_tensor(v) and v.is_floating_point()}
     finally:
@@ -1018,17 +1321,18 @@ def pinned_fine_depths(model, b, reference=None, configs=None):
     for name, w in worst.items():
         bad = {k: x for k, x in w.items() if not x <= 1.0}
         check(not bad, f"{name} with pinned fine depths, share of rtol "
-              f"{FUSED_RTOL} atol {FUSED_ATOL}: {bad}")
+              f"{rtol} atol {atol}: {bad}")
     check(want["alpha_fine"].max().item() > 0.2, "pinned patch missed")
     return worst
 
 
-def hold_to_fused_bounds(name, outs_got, outs_want):
+def hold_to_fused_bounds(name, outs_got, outs_want, rtol=FUSED_RTOL,
+                         atol=FUSED_ATOL):
     """Frames (or patches) of a configuration against the reference's: the
-    coarse pass within rtol 2e-4 / atol 2e-5 on every element; the
-    free-running fine outputs outside it on at most FUSED_FINE_SHARE of
-    their elements, never by more than FUSED_FINE_ABS (see
-    ``phase_fused_serving``).  Returns (of_bound, share_outside,
+    coarse pass within rtol / atol (2e-4 / 2e-5 unless given) on every
+    element; the free-running fine outputs outside it on at most
+    FUSED_FINE_SHARE of their elements, never by more than FUSED_FINE_ABS
+    (see ``phase_fused_serving``).  Returns (of_bound, share_outside,
     max_abs_err) per output."""
     import torch
     acc_of = {"depth": "alpha", "depth_fine": "alpha_fine",
@@ -1045,7 +1349,7 @@ def hold_to_fused_bounds(name, outs_got, outs_want):
                 m = want[acc_of[k]] > 1e-2
                 g_, w_ = g_[m], w_[m]
             err = (g_ - w_).abs()
-            rel = err / (FUSED_ATOL + FUSED_RTOL * w_.abs())
+            rel = err / (atol + rtol * w_.abs())
             worst[k] = max(worst.get(k, 0.0), rel.max().item())
             share[k] = max(share.get(k, 0.0),
                            (rel > 1.0).float().mean().item())
@@ -1053,7 +1357,7 @@ def hold_to_fused_bounds(name, outs_got, outs_want):
     for k in worst:
         if k in COARSE_KEYS or not k.endswith(("_fine", "sdf")):
             check(worst[k] <= 1.0, f"{name}: {k} at {worst[k]:.3g} x "
-                  f"rtol {FUSED_RTOL} atol {FUSED_ATOL}")
+                  f"rtol {rtol} atol {atol}")
         else:
             check(share[k] <= FUSED_FINE_SHARE
                   and (k in acc_of or abs_err[k] <= FUSED_FINE_ABS),
@@ -1091,7 +1395,7 @@ def phase_fused_serving(model, b, dev):
                     group.append(tr.render_patch(
                         model, b, grids=grids, out_h=PATCH, out_w=PATCH,
                         sample_per_ray_c=S_C, sample_per_ray_f=S_F,
-                        cached=cached))
+                        compute_vis_map=False, cached=cached))
                 torch.cuda.synchronize()
                 t2 = time.perf_counter()
                 counts = ops.launch_counts()
@@ -1371,7 +1675,7 @@ def phase_tier_serving(model, b, batch_np, dev):
     grids = tr.mask_centered_grid(gen, b_cpu["tar_mask"][..., 0],
                                   TIER_CPU_RAYS, TIER_CPU_RAYS)
     kw = dict(out_h=TIER_CPU_RAYS, out_w=TIER_CPU_RAYS, sample_per_ray_c=S_C,
-              sample_per_ray_f=S_F)
+              sample_per_ray_f=S_F, compute_vis_map=False)
     merged, real_sort = [], tr.sort_by_key
     tr.sort_by_key = lambda key, *vals: (merged.append(key.cpu())
                                          or real_sort(key, *vals))
@@ -1495,11 +1799,13 @@ def phase_card_vs_cpu(model, batch_np, dev):
     grids = tr.mask_centered_grid(gen, b_cpu["tar_mask"][..., 0], 16, 16)
     out_gpu = tr.render_patch(model, to_torch(batch_np, dev),
                               grids=grids.to(dev), out_h=16, out_w=16,
-                              sample_per_ray_c=S_C, sample_per_ray_f=S_F)
+                              sample_per_ray_c=S_C, sample_per_ray_f=S_F,
+                              compute_vis_map=False)
     torch.cuda.synchronize()
     out_cpu = tr.render_patch(model_cpu, b_cpu, grids=grids, out_h=16,
                               out_w=16, sample_per_ray_c=S_C,
-                              sample_per_ray_f=S_F, cached=cached_cpu)
+                              sample_per_ray_f=S_F, compute_vis_map=False,
+                              cached=cached_cpu)
     errs = {}
     for k in ("tex_fg_fine", "alpha_fine"):
         a, c = out_gpu[k].cpu(), out_cpu[k]
@@ -1714,6 +2020,24 @@ def main() -> int:
             + (f"; the sweep over every pair {r['brute_ms']:.3f} ms in turns, "
                f"bound over every pair {r['all_pairs']['bound_ms']:.4f} ms"
                if "brute_ms" in r else ""))
+    for name, lib in (("interp_mxu", "F.grid_sample"),
+                      ("onehot_scatter", "index_add_ into a zeroed table")):
+        for tag, c in kres[name]["cases"].items():
+            say(f"phase 2 {name} [{tag}]: {c['shape']}"
+                + (f", {c['path']}" if "path" in c else "")
+                + f", {c['lanes']} lanes"
+                f"{', in the kernels line' if c['summed'] else ''}: kernel "
+                f"{c['ms']:.4f} ms, {lib} {c['library_ms']:.4f} ms called in "
+                f"the same run (device time from a CUDA graph "
+                f"{c['device_ms']:.4f} / {c['library_device_ms']:.4f} ms), "
+                f"bound "
+                f"{c['bound_ms']:.4f} ms by {c['bound_by']}; "
+                f"max_abs_err {c['max_abs_err']:.3g}"
+                + (f" ({c['rel_to_abs_sum']:.2g} of the row's sum of |g|); "
+                   f"index_add_ alone into a table allocated ahead "
+                   f"{c['bare_library_device_ms']:.4f} ms device"
+                   if "rel_to_abs_sum" in c else "")
+                + "; bit-equal across two runs")
     for name in ("knn_culled", "knn_T_culled"):
         c = kres[name]["coherent"]
         say(f"phase 2 {name} [points and vertices in Morton order]: equal to "
@@ -1740,6 +2064,32 @@ def main() -> int:
         f"{main['frame_ms'][1]:.1f} ms per frame; 16-patch group "
         f"{main['group_s'] * 1e3:.1f} ms = {main['ray_samples_per_s']:.4g} "
         f"ray-samples/s; launches {main['launches']}")
+
+    # ---- phase 3a ----
+    with torch.no_grad():
+        enc = phase_encode_repeat(model, batches[0])
+    say(f"phase 3a encode_frame twice: equal to the bit; without the cuDNN "
+        f"pin the first leaf module whose output differs between two calls "
+        f"is {enc['unpinned_first_differing_module']} (of "
+        f"{enc['leaf_modules']}); encode {enc['pinned_median_ms']:.2f} ms "
+        f"pinned against {enc['unpinned_median_ms']:.2f} ms without the pin "
+        f"(median of {ENCODE_ROUNDS} in turns)")
+
+    # ---- phase 3g ----
+    with torch.no_grad():
+        mxu = phase_mxu_interp_serving(model, batches[0])
+    g_ = mxu["gather"]
+    say("phase 3g the frame with kernel D and under VANERF_MXU_INTERP=0, in "
+        f"turns: full image {' / '.join(f'{t:.1f}' for t in mxu['D']['frame_ms'])}"
+        f" ms with D, {' / '.join(f'{t:.1f}' for t in g_['frame_ms'])} ms "
+        f"without; launches of D a frame {mxu['D']['launches']} / "
+        f"{g_['launches']}; coarse outputs at most "
+        f"{max(g_['of_bound'][k] for k in COARSE_KEYS):.3g} of rtol "
+        f"{MXU_RTOL} atol {MXU_ATOL}, fine outputs outside it on at most "
+        f"{max(g_['share_outside'].values()):.3%} of their elements (max "
+        f"abs err colour {g_['max_abs_err']['tex_fg_fine']:.3g}), at most "
+        f"{max(mxu['pinned']['gather'].values()):.3g} of it with the fine "
+        "depths pinned")
 
     # ---- phase 3b ----
     with torch.no_grad():
@@ -1902,10 +2252,15 @@ def main() -> int:
                         "library_ms": r["library_ms"]})
         if "brute_ms" in r:     # A, 7, 9: the sweep over every pair, in turns
             kernels[-1]["brute_ms"] = r["brute_ms"]
+        if "device_ms" in r:    # D, 13: replayed from a CUDA graph
+            kernels[-1].update(device_ms=r["device_ms"],
+                               library_device_ms=r["library_device_ms"])
     say(f"total: {time.perf_counter() - t_start:.0f} s, the build included")
     say("details: " + json.dumps({"gpu": smi, "build_s": build_s,
                                   "kernels": kres, "main_path": main,
                                   "fused_serving": fused,
+                                  "encode_repeat": enc,
+                                  "mxu_interp_serving": mxu,
                                   "soa_serving": soa,
                                   "knn_cull_serving": cull,
                                   "tier_serving": tiers, "mesh_api": api,

@@ -162,37 +162,119 @@ def test_mesh_query_kernel_matches_plain(cuda):
             assert torch.equal(a, b)
 
 
+def _offset_view(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose data starts ``shift`` floats into
+    its storage (so a float4 load of it is misaligned for shift % 4)."""
+    flat = torch.empty(x.numel() + shift, dtype=x.dtype, device=x.device)
+    view = flat[shift:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _launched(fn, kernel: str) -> str:
+    """The instantiation of the CUDA kernel ``kernel`` that fn() launches,
+    as torch.profiler names it (e.g. ``interp_kernel<true>``).  A short
+    session may end before the device's records arrive: up to 5 are
+    tried."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            at = e.key.find(kernel + "<")
+            if at >= 0:
+                return e.key[at:e.key.index(">", at) + 1]
+    return "not seen"
+
+
+# (H, W, C, N, layout): the main path's map (32^2 x 64), the largest map
+# kernel D takes (4,096 pixels), a channel count that is not
+# a multiple of 4 (scalar lanes), a slice feat[1] of a batch (aligned), a
+# table and a uv that start off a 16- / 8-byte boundary (scalar lanes), and
+# N not a multiple of the points of a block
+INTERP_CASES = [(32, 32, 64, 5001, "plain"), (64, 64, 16, 5001, "plain"),
+                (16, 16, 6, 777, "plain"), (32, 32, 64, 3000, "batch1"),
+                (32, 32, 64, 3000, "feat+1"), (64, 64, 16, 999, "uv+1")]
+
+
 @pytest.mark.cuda
-def test_interp_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("H,W,C,N,layout", INTERP_CASES)
+def test_interp_kernel_matches_plain(cuda, H, W, C, N, layout):
+    """Kernel D equals interp_plain bit for bit, in its float4 and its
+    scalar-lane instantiation, with uv beyond [-1, 1] (the border clip)."""
     rs = np.random.RandomState(4)
-    for (H, W, C) in ((32, 32, 64), (64, 64, 16)):
-        feat = T(rs.randn(H, W, C).astype(np.float32)).to(cuda)
-        uv = T(rs.uniform(-1.1, 1.1, (5000, 2)).astype(np.float32)).to(cuda)
-        got = interp_mxu.interp_cuda(feat, uv)
-        want = interp_mxu.interp_plain(feat, uv)
-        assert torch.equal(got, want)
+    feat = T(rs.randn(2, H, W, C).astype(np.float32)).to(cuda)
+    uv = T(rs.uniform(-1.3, 1.3, (N, 2)).astype(np.float32)).to(cuda)
+    f = feat[1] if layout == "batch1" else feat[0]
+    if layout == "feat+1":
+        f = _offset_view(f, 1)
+    if layout == "uv+1":
+        uv = _offset_view(uv, 1)
+    n0 = interp_mxu.launches
+    got = interp_mxu.interp_cuda(f, uv)
+    torch.cuda.synchronize()
+    assert interp_mxu.launches == n0 + 1
+    assert torch.equal(got, interp_mxu.interp_plain(f, uv))
+    assert torch.equal(got, interp_mxu.interp_cuda(f, uv))
+    vec = C % 4 == 0 and layout in ("plain", "batch1")
+    assert (_launched(lambda: interp_mxu.interp_cuda(f, uv), "interp_kernel")
+            == f"interp_kernel<{str(vec).lower()}>")
+
+
+# (N, T, C, rows, layout): both sides of the one-launch threshold
+# (SCATTER_SMALL_N = 4,096), the main path's four shapes, empty and
+# one-point inputs, every point on one row, a scalar channel count, and a
+# gradient that starts off a 16-byte boundary
+SCATTER_CASES = [(0, 3, 5, "spread", "plain"), (1, 3, 5, "spread", "plain"),
+                 (1284, 1024, 256, "spread", "plain"),
+                 (4096, 1024, 32, "spread", "plain"),
+                 (4097, 1024, 32, "spread", "plain"),
+                 (4096, 3, 204, "one", "plain"),
+                 (1284, 8192, 32, "spread", "plain"),
+                 (262144, 1284, 204, "spread", "plain"),
+                 (262144, 1024, 256, "spread", "plain"),
+                 (262144, 4096, 32, "spread", "plain"),
+                 (262144, 8192, 5, "spread", "plain"),
+                 (262144, 8192, 32, "one", "plain"),
+                 (20000, 1024, 32, "spread", "g+1")]
 
 
 @pytest.mark.cuda
-def test_onehot_scatter_kernel_matches_plain(cuda):
-    """Kernel 13 against index_add_ (other summation order: rtol 1e-5 of
-    the row's absolute sum), bit-equal across runs, through take_rows'
-    backward, and zeros for rows that no point reads."""
+@pytest.mark.parametrize("n,t,c,rows,layout", SCATTER_CASES)
+def test_onehot_scatter_kernel_matches_plain(cuda, n, t, c, rows, layout):
+    """Kernel 13 against index_add_ (other summation order: 1e-5 of the
+    row's absolute sum), bit-equal across runs, and zeros for rows that no
+    point reads."""
     rs = np.random.RandomState(5)
-    for n, t, c in ((262144, 1284, 204), (5000, 37, 12), (1, 3, 5)):
+    if rows == "one":
+        idx = np.full(n, t // 2, np.int32)
+    else:
         idx = np.minimum(rs.geometric(0.01, n) - 1, t - 2).astype(np.int32)
-        g = T(rs.randn(n, c).astype(np.float32)).to(cuda)
-        i = T(idx).to(cuda)
-        n0 = onehot_gather.launches
-        got = onehot_gather.onehot_scatter_cuda(g, i, t)
-        again = onehot_gather.onehot_scatter_cuda(g, i, t)
-        torch.cuda.synchronize()
-        assert onehot_gather.launches == n0 + 2
-        assert torch.equal(got, again)
-        want = onehot_gather.onehot_scatter_plain(g, i, t)
-        bound = onehot_gather.onehot_scatter_plain(g.abs(), i, t)
-        assert ((got - want).abs() <= 1e-5 * bound + 1e-30).all()
-        assert torch.equal(got[t - 1], torch.zeros_like(got[t - 1]))
+    g = T(rs.randn(n, c).astype(np.float32)).to(cuda)
+    if layout == "g+1":
+        g = _offset_view(g, 1)
+    i = T(idx).to(cuda)
+    n0 = onehot_gather.launches
+    got = onehot_gather.onehot_scatter_cuda(g, i, t)
+    again = onehot_gather.onehot_scatter_cuda(g, i, t)
+    torch.cuda.synchronize()
+    assert onehot_gather.launches == n0 + 2
+    assert torch.equal(got, again)
+    want = onehot_gather.onehot_scatter_plain(g, i, t)
+    bound = onehot_gather.onehot_scatter_plain(g.abs(), i, t)
+    assert ((got - want).abs() <= 1e-5 * bound + 1e-30).all()
+    empty = bound.sum(1) == 0
+    assert empty.any() and not got[empty].any()
+    vec = c % 4 == 0 and layout == "plain"
+    summed = "os_small" if n <= onehot_gather.SCATTER_SMALL_N else "os_sum"
+    assert (_launched(lambda: onehot_gather.onehot_scatter_cuda(g, i, t),
+                      summed) == f"{summed}<{str(vec).lower()}>")
+
+
+@pytest.mark.cuda
+def test_take_rows_backward_runs_kernel_13(cuda):
     table = torch.randn(50, 8, device=cuda, requires_grad=True)
     i = torch.randint(0, 50, (3000,), device=cuda)
     w = torch.randn(3000, 8, device=cuda)

@@ -1,0 +1,213 @@
+#!/usr/bin/env python3
+"""Kernel A/B of two checkouts of the PyTorch port on one GPU: kernels D
+(``interp_mxu.interp_cuda``) and 13 (``onehot_gather.onehot_scatter_cuda``)
+at the shapes that ``chip_smoke.py``'s kernels line sums.
+
+    python3 tools_torch/kernel_ab.py --base DIR [--rounds 4]
+
+The checkout holding this script builds the inputs once, as
+``chip_smoke.py`` phase 2 does (``configs/vanerf.json`` at full width,
+seeded flax-style initialisation, the 256^2 subdiv=3 two-hand fixture, the
+coarse pass of one mask-centred 64x64 patch): the two maps D samples at the
+patch's projected points, and the row ids of 13's four tables.  One worker
+process per checkout (``DIR`` and this one) builds its own kernels and
+times each case with CUDA events, as called (mean of 20 calls after a
+warm-up, ``eager``) and as the device runs it (20 calls captured in a CUDA
+graph and replayed, ``graph``); the gradients of 13 are drawn in the
+worker from the same seed.  The workers
+are asked in turns, base, this, this, base per round; only one runs at a
+time.  With ``--profile`` each worker then reports the device time of
+every CUDA kernel each case launches (torch.profiler over 5 calls).
+Prints every reading and, as the last line, a JSON object with the
+readings, profiles, and the median, minimum and maximum per checkout and
+case.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+THIS_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+INPUTS = os.path.join(THIS_REPO, "build", "kernel_ab_inputs.pt")
+SEED = 0
+
+
+def make_inputs() -> None:
+    """The cases of D and 13 that chip_smoke.py's kernels line sums, as its
+    phase 2 makes them, saved to INPUTS."""
+    sys.path.insert(0, THIS_REPO)
+    import torch
+    import chip_smoke as cs
+    from vanerf_tpu_torch.config import default_cfg
+    from vanerf_tpu_torch.data import make_synthetic_batch, to_torch
+    from vanerf_tpu_torch.models import VANeRF, init_like_flax
+    from vanerf_tpu_torch.ops import knn
+    dev = torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    batch_np, _faces, num_v = make_synthetic_batch(
+        batch_size=1, H=cs.H, W=cs.W, subdiv=cs.SUBDIV, device=dev)
+    batch = to_torch(batch_np, dev)
+    model = VANeRF.from_config(default_cfg(), num_v=num_v,
+                               image_hw=(cs.H, cs.W))
+    init_like_flax(model, torch.Generator().manual_seed(cs.SEED))
+    model = model.to(dev).eval()
+    with torch.no_grad():
+        pts, _m, geo_coarse, uv, _g, _v = cs.main_path_points(model, batch)
+        verts = batch["verts"][0].contiguous()
+        idx, _d2 = knn.nearest_vertex_d2(pts, verts)
+        krt = batch["src_krt"][0]
+        vh = verts @ krt[:3, :3].T + krt[:3, 3]
+        xy = vh[:, :2] / (vh[:, 2:3] + 1e-8)
+        v_uv = torch.stack([2.0 * xy[:, 0] / (cs.W - 1.0) - 1.0,
+                            2.0 * xy[:, 1] / (cs.H - 1.0) - 1.0], -1)
+        d = [(t, f, u) for t, main, f, u in
+             cs.interp_cases(geo_coarse, uv, dev) if main]
+        s = [(t, r, n, c) for t, main, r, n, c in
+             cs.scatter_cases(idx, verts.shape[0], geo_coarse, uv, v_uv, dev)
+             if main]
+    os.makedirs(os.path.dirname(INPUTS), exist_ok=True)
+    torch.save({"interp": [(t, f.cpu(), u.cpu()) for t, f, u in d],
+                "scatter": [(t, r.cpu(), n, c) for t, r, n, c in s]}, INPUTS)
+
+
+def worker(repo: str) -> None:
+    # the timers of this checkout's chip_smoke.py, whichever port is timed
+    spec = importlib.util.spec_from_file_location(
+        "kernel_ab_timers", os.path.join(THIS_REPO, "chip_smoke.py"))
+    timers = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(timers)
+    sys.path.insert(0, repo)
+    import torch
+    import vanerf_tpu_torch
+    from vanerf_tpu_torch.ops import _cuda, interp_mxu, onehot_gather
+    assert os.path.dirname(os.path.dirname(vanerf_tpu_torch.__file__)) == \
+        os.path.abspath(repo), "imported the port from the wrong checkout"
+    _cuda.build()
+    dev = torch.device("cuda")
+    data = torch.load(INPUTS)
+    d = [(f"D {t}", f.to(dev), u.to(dev)) for t, f, u in data["interp"]]
+    s = []
+    for t, r, n, c in data["scatter"]:
+        r = r.to(dev)
+        g = torch.randn(r.shape[0], c, device=dev,
+                        generator=torch.Generator(device=dev)
+                        .manual_seed(SEED))
+        s.append((f"13 {t}", g, r, n))
+
+    cases = [(t, lambda f=f, u=u: interp_mxu.interp_cuda(f, u))
+             for t, f, u in d]
+    cases += [(t, lambda g=g, r=r, n=n:
+               onehot_gather.onehot_scatter_cuda(g, r, n))
+              for t, g, r, n in s]
+
+    def one():
+        res = {}
+        for tag, fn in cases:
+            res[f"{tag} eager"] = timers.cuda_ms(fn, 20)
+            res[f"{tag} graph"] = timers.graph_ms(fn)
+        return res
+
+    def profile():
+        """Device time of each CUDA kernel a case launches (torch.profiler,
+        5 calls), as {case: {kernel: us per call}}."""
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as prof
+        res = {}
+        for tag, fn in cases:
+            torch.cuda.synchronize()
+            with prof(activities=[ProfilerActivity.CUDA]) as p:
+                for _ in range(5):
+                    fn()
+                torch.cuda.synchronize()
+            res[tag] = {}
+            for e in p.key_averages():
+                t = getattr(e, "device_time_total", None)
+                t = getattr(e, "cuda_time_total", 0) if t is None else t
+                if t > 0:
+                    res[tag][e.key] = t / 5
+        return res
+
+    one()
+    print("ready", flush=True)
+    for line in sys.stdin:
+        cmd = line.strip()
+        if cmd == "go":
+            print(json.dumps(one()), flush=True)
+        elif cmd == "profile":
+            print(json.dumps(profile()), flush=True)
+        else:
+            break
+
+
+def summary(xs):
+    return {"median": statistics.median(xs), "min": min(xs), "max": max(xs),
+            "n": len(xs)}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--base", help="checkout to compare against")
+    ap.add_argument("--rounds", type=int, default=4,
+                    help="rounds of base, this, this, base")
+    ap.add_argument("--profile", action="store_true",
+                    help="also print each case's kernels' device time "
+                         "(torch.profiler) in both checkouts")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        worker(args.worker)
+        return 0
+    make_inputs()
+    repos = {"base": os.path.abspath(args.base), "this": THIS_REPO}
+    procs = {}
+    try:
+        for tag, repo in repos.items():
+            p = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                  "--worker", repo], stdin=subprocess.PIPE,
+                                 stdout=subprocess.PIPE, text=True)
+            procs[tag] = p
+            if p.stdout.readline().strip() != "ready":
+                raise RuntimeError(f"{tag} worker failed to start")
+        readings = {tag: [] for tag in repos}
+        for r in range(args.rounds):
+            for tag in ("base", "this", "this", "base"):
+                p = procs[tag]
+                p.stdin.write("go\n")
+                p.stdin.flush()
+                line = p.stdout.readline()
+                if not line:
+                    raise RuntimeError(f"{tag} worker died")
+                res = json.loads(line)
+                readings[tag].append(res)
+                print(f"round {r} {tag}: " + ", ".join(
+                    f"{k} {v:.4f} ms" for k, v in res.items()), flush=True)
+        profiles = {}
+        if args.profile:
+            for tag, p in procs.items():
+                p.stdin.write("profile\n")
+                p.stdin.flush()
+                profiles[tag] = json.loads(p.stdout.readline())
+                for case, ks in profiles[tag].items():
+                    print(f"profile {tag} {case}: " + ", ".join(
+                        f"{k} {v:.2f} us" for k, v in ks.items()),
+                        flush=True)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.stdin.close()
+                p.wait(timeout=120)
+    out = {"repos": repos, "readings": readings, "profiles": profiles}
+    for tag, rs in readings.items():
+        out[tag] = {k: summary([x[k] for x in rs]) for k in rs[0]}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

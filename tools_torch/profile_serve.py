@@ -129,7 +129,7 @@ def main() -> int:
             t0 = time.perf_counter()
             tr.render_patch(model, batch, grids=grids, out_h=cs.PATCH,
                             out_w=cs.PATCH, sample_per_ray_c=cs.S_C,
-                            sample_per_ray_f=cs.S_F,
+                            sample_per_ray_f=cs.S_F, compute_vis_map=False,
                             cached=(cached_ahead if name == mesh_ahead
                                     else cached))
             torch.cuda.synchronize()

@@ -77,7 +77,7 @@ def worker(repo: str) -> None:
                                           PATCH)
             tr.render_patch(model, b, grids=grids, out_h=PATCH, out_w=PATCH,
                             sample_per_ray_c=S_C, sample_per_ray_f=S_F,
-                            cached=cached)
+                            compute_vis_map=False, cached=cached)
         torch.cuda.synchronize()
         group_ms = (time.perf_counter() - t0) * 1e3
         return {"frame_ms": frame_ms, "group_ms": group_ms}

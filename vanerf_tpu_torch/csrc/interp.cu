@@ -5,36 +5,43 @@
 // (body `_kernel`), which contracts per-tile hat weights against the
 // VMEM-resident table on the MXU because TPU gathers are row-count bound.
 //
-// Bound on the H100: memory.  The 32x32x64 table is 256 KB and stays in
-// L1/L2; per output value the kernel reads 2 coordinates (shared by the C
-// channel threads of a point) and 4 table values, writes 4 bytes, and does
-// ~15 flops — 262,144 x 64 outputs write 67 MB, which at 3.35 TB/s is
-// ~20 us.  Design: one thread per (point, channel), consecutive threads on
-// consecutive channels so table reads and output writes coalesce; table
-// and coordinates are read through the read-only cache (__ldg).
+// Bound on the H100: memory.  The map (32x32x64 f32 = 256 KB at most; it
+// does not fit a block's 227 KB of shared memory) stays in L1/L2; per point
+// the kernel reads one (u, v) pair and writes C values: 262,144 x 64 outputs
+// are 67 MB, ~20 us at 3.35 TB/s.  Design: a group of L lanes per point,
+// each lane owning VEC consecutive channels (VEC = 4: float4 corner loads
+// through the read-only cache and one float4 streaming store; VEC = 1 for a
+// channel count that is not a multiple of 4 or a base address that is not
+// 16-byte aligned).  The block is 2-D, (L, 256 / L): threadIdx.x is the
+// lane and threadIdx.y the point within the block, so no index is divided
+// by a runtime channel count, and all index arithmetic is 32-bit (the
+// entry point refuses N x C >= 2^31).  Each lane computes the point's
+// weights once from one float2 load; a lane owning more than VEC channels
+// (C > 4 L) strides over them.
 //
 // Numerics: the coordinates are clipped exactly as interp_mxu.py:116-119,
 // (u + 1) * 0.5 * (W - 1) then clip to [0, W - 1]; after the clip the hat
 // weight max(0, 1 - |x - j|) of the two bracketing columns is the bilinear
 // weight.  The four corner products are summed in f32 in the fixed order
-// w00 f00 + w01 f01 + w10 f10 + w11 f11.  A corner outside the map (only
-// at x == W - 1 or y == H - 1) has hat weight exactly 0 and reads the
-// clamped edge value instead.
+// w00 f00 + w01 f01 + w10 f10 + w11 f11 (built with -fmad=false, so each
+// product and sum rounds on its own, as in the plain version).  A corner
+// outside the map (only at x == W - 1 or y == H - 1) has hat weight
+// exactly 0 and reads the clamped edge value instead.
 
 #include "common.cuh"
 
-#define IP_THREADS 256
+#include <cstdint>
 
-__global__ void interp_kernel(const float* __restrict__ feat, int H, int W,
-                              int C, const float* __restrict__ uv, int N,
-                              float* __restrict__ out) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (t >= static_cast<long long>(N) * C) return;
-  const int n = static_cast<int>(t / C);
-  const int c = static_cast<int>(t % C);
-  const float u = __ldg(uv + 2 * n);
-  const float v = __ldg(uv + 2 * n + 1);
+#define IP_THREADS 256
+#define IP_MAX_LANES 32
+
+struct Corners {
+  int o00, o01, o10, o11;              // element offsets of the corner rows
+  float w00, w01, w10, w11;
+};
+
+__device__ __forceinline__ Corners ip_corners(float u, float v, int H, int W,
+                                              int C) {
   const float wm1 = static_cast<float>(W - 1);
   const float hm1 = static_cast<float>(H - 1);
   const float x = fminf(fmaxf((u + 1.0f) * 0.5f * wm1, 0.0f), wm1);
@@ -46,19 +53,91 @@ __global__ void interp_kernel(const float* __restrict__ feat, int H, int W,
   const float hy1 = fmaxf(0.0f, 1.0f - fabsf(y - (y0 + 1.0f)));
   const int ix0 = static_cast<int>(x0), iy0 = static_cast<int>(y0);
   const int ix1 = min(ix0 + 1, W - 1), iy1 = min(iy0 + 1, H - 1);
-  const float f00 = __ldg(feat + (static_cast<long long>(iy0) * W + ix0) * C + c);
-  const float f01 = __ldg(feat + (static_cast<long long>(iy0) * W + ix1) * C + c);
-  const float f10 = __ldg(feat + (static_cast<long long>(iy1) * W + ix0) * C + c);
-  const float f11 = __ldg(feat + (static_cast<long long>(iy1) * W + ix1) * C + c);
-  out[t] = (hx0 * hy0) * f00 + (hx1 * hy0) * f01 + (hx0 * hy1) * f10 +
-           (hx1 * hy1) * f11;
+  Corners k;
+  k.o00 = (iy0 * W + ix0) * C;
+  k.o01 = (iy0 * W + ix1) * C;
+  k.o10 = (iy1 * W + ix0) * C;
+  k.o11 = (iy1 * W + ix1) * C;
+  k.w00 = hx0 * hy0;
+  k.w01 = hx1 * hy0;
+  k.w10 = hx0 * hy1;
+  k.w11 = hx1 * hy1;
+  return k;
 }
 
+__device__ __forceinline__ float ip_mix(const Corners& k, float f00,
+                                        float f01, float f10, float f11) {
+  return k.w00 * f00 + k.w01 * f01 + k.w10 * f10 + k.w11 * f11;
+}
+
+template <bool VEC4>
+__global__ void __launch_bounds__(IP_THREADS)
+interp_kernel(const float* __restrict__ feat, int H, int W, int C,
+              const float* __restrict__ uv, int N, float* __restrict__ out) {
+  const int n = blockIdx.x * blockDim.y + threadIdx.y;
+  if (n >= N) return;
+  float u, v;
+  if (VEC4) {
+    const float2 p = __ldg(reinterpret_cast<const float2*>(uv) + n);
+    u = p.x;
+    v = p.y;
+  } else {
+    u = __ldg(uv + 2 * n);
+    v = __ldg(uv + 2 * n + 1);
+  }
+  const Corners k = ip_corners(u, v, H, W, C);
+  if (VEC4) {
+    const int nv = C >> 2;
+    const float4* f00 = reinterpret_cast<const float4*>(feat + k.o00);
+    const float4* f01 = reinterpret_cast<const float4*>(feat + k.o01);
+    const float4* f10 = reinterpret_cast<const float4*>(feat + k.o10);
+    const float4* f11 = reinterpret_cast<const float4*>(feat + k.o11);
+    float4* dst = reinterpret_cast<float4*>(out) + n * nv;
+    for (int c = threadIdx.x; c < nv; c += blockDim.x) {
+      const float4 a = __ldg(f00 + c), b = __ldg(f01 + c);
+      const float4 d = __ldg(f10 + c), e = __ldg(f11 + c);
+      float4 r;
+      r.x = ip_mix(k, a.x, b.x, d.x, e.x);
+      r.y = ip_mix(k, a.y, b.y, d.y, e.y);
+      r.z = ip_mix(k, a.z, b.z, d.z, e.z);
+      r.w = ip_mix(k, a.w, b.w, d.w, e.w);
+      __stcs(dst + c, r);
+    }
+  } else {
+    float* dst = out + n * C;
+    for (int c = threadIdx.x; c < C; c += blockDim.x)
+      __stcs(dst + c, ip_mix(k, __ldg(feat + k.o00 + c),
+                             __ldg(feat + k.o01 + c),
+                             __ldg(feat + k.o10 + c),
+                             __ldg(feat + k.o11 + c)));
+  }
+}
+
+// Takes the float4 instantiation where C % 4 == 0, feat and out are 16-byte
+// and uv 8-byte aligned (a slice of a batch may start anywhere), else the
+// scalar-lane one.
 VT_EXPORT int vt_interp(const float* feat, int H, int W, int C,
                         const float* uv, int N, float* out, void* stream) {
-  const long long total = static_cast<long long>(N) * C;
-  if (total <= 0) return 0;
-  interp_kernel<<<vt_blocks(total, IP_THREADS), IP_THREADS, 0,
-                  vt_stream(stream)>>>(feat, H, W, C, uv, N, out);
+  if (H <= 0 || W <= 0 || C <= 0 || N < 0 ||
+      static_cast<long long>(N) * C >= (1LL << 31) ||
+      static_cast<long long>(H) * W * C >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec4 = C % 4 == 0 && reinterpret_cast<uintptr_t>(feat) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(uv) % 8 == 0;
+  if (N == 0) return 0;
+  // lanes per point: the channel vectors, rounded up to a power of two
+  // (at most IP_MAX_LANES); the rest of the block's threads are points
+  const int nv = vec4 ? C / 4 : C;
+  int lanes = 1;
+  while (lanes < nv && lanes < IP_MAX_LANES) lanes <<= 1;
+  const dim3 block(lanes, IP_THREADS / lanes);
+  const int grid = vt_blocks(N, static_cast<int>(block.y));
+  if (vec4)
+    interp_kernel<true><<<grid, block, 0, vt_stream(stream)>>>(feat, H, W, C,
+                                                               uv, N, out);
+  else
+    interp_kernel<false><<<grid, block, 0, vt_stream(stream)>>>(feat, H, W, C,
+                                                                uv, N, out);
   return static_cast<int>(cudaGetLastError());
 }

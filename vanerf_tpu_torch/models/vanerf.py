@@ -2,8 +2,9 @@
 ``VANeRF``, ``src/model.py:604-1024``).
 
 Supported: one source view, ``sp_type=rel_z_decay``, ``sp_conv=false``,
-float32, eval and training (at one view the training query equals the eval
-query: view dropout needs two views).  ``VANERF_FUSED_MLP=1`` runs the
+float32 (``VANERF_COMPUTE_DTYPE`` or the config's ``compute_dtype``; any
+other type raises), eval and training (at one view the training query
+equals the eval query: view dropout needs two views).  ``VANERF_FUSED_MLP=1`` runs the
 positional encoding, ``MLPUNetFusion`` and ``gcompress`` as kernel 12, ``=2``
 the whole per-point network behind the gathers as kernel 11
 (``ops/fused_mlp.py``); the KNN rows come through kernel 10 whenever no
@@ -11,8 +12,9 @@ graph is built (``ops/knn.py``; the JAX package's ``VANERF_MXU_ROWS`` is
 not read).  The two-resolution variant of the JAX package is
 not ported and raises when its switch is set.  At inference small encoder maps
 (``interp_mxu_viable``) are sampled through kernel D, as the JAX package
-does on a TPU; kernel D has no gradient, so under training or an autograd
-graph they take the gather path, as in JAX (``models/vanerf.py:304-324``).
+does on a TPU (``VANERF_MXU_INTERP=0`` turns it off); kernel D has no
+gradient, so under training or an autograd graph they take the gather
+path, as in JAX (``models/vanerf.py:304-324``).
 """
 
 from __future__ import annotations
@@ -34,13 +36,24 @@ from .ibr import IBRRenderingHead
 from .mlp import MLPUNetFusion
 from .spatial import SpatialEncoder
 
-_UNPORTED_ENV = ("VANERF_TWO_RES",)
+# Switches of the JAX package that the port does not take: each must be
+# unset or hold the value the port is fixed at (the JAX default; the culled
+# query's tile and chunk are 128 and 128, csrc/mesh_query.cu).  Anything
+# else raises.  VANERF_REMAT_QUERY acts in training only and is checked by
+# the renderer; VANERF_PE_CONCAT, VANERF_MXU_TILE_N and VANERF_MXU_CHUNK
+# change only the TPU's layout and have no effect here (README).
+_FIXED_ENV = {"VANERF_TWO_RES": ("", "0"), "VANERF_PE_DIRECT": ("", "0"),
+              "VANERF_CULL_EARLY": ("", "0"), "VANERF_MESH_TILE_P": ("128",),
+              "VANERF_CULL_CHUNK": ("128",)}
 
 
 def _check_env():
-    for name in _UNPORTED_ENV:
-        if os.environ.get(name, "0") not in ("", "0"):
-            raise NotImplementedError(f"{name} is not ported to PyTorch")
+    for name, allowed in _FIXED_ENV.items():
+        val = os.environ.get(name)
+        if val is not None and val not in allowed:
+            raise NotImplementedError(
+                f"{name}={val!r} is not ported to PyTorch (the port takes "
+                f"{' or '.join(repr(a) for a in allowed)} or unset)")
     if os.environ.get("VANERF_IBR_V1_SHORTCUT", "1") == "0":
         raise NotImplementedError(
             "VANERF_IBR_V1_SHORTCUT=0: the port uses the exact one-view "
@@ -48,8 +61,12 @@ def _check_env():
 
 
 def _psamp(f, xy, training: bool):
-    """Bilinear sample; small maps go through kernel D at inference."""
-    if (not training and not torch.is_grad_enabled()
+    """Bilinear sample; small maps go through kernel D at inference unless
+    ``VANERF_MXU_INTERP`` is 0 or empty (``vanerf_tpu/models/vanerf.py``
+    reads it so; its "on the TPU only" for ``1`` reads "on the card" here,
+    and CPU tensors take kernel D's plain version)."""
+    flag = os.environ.get("VANERF_MXU_INTERP", "1")
+    if (flag not in ("", "0") and not training and not torch.is_grad_enabled()
             and interp_mxu_viable(f.shape[1], f.shape[2])):
         return interp_sample_nhwc(f, xy)
     return feat_sample_nhwc(f, xy)
@@ -112,10 +129,13 @@ class VANeRF(nn.Module):
         for unported in ("sp_conv", "disable_fg_mask"):
             if m.get(unported, False):
                 raise NotImplementedError(f"{unported} is not ported")
-        cdt = m.get("compute_dtype", "float32")
+        # the environment overrides the config, as in the JAX package
+        cdt = os.environ.get("VANERF_COMPUTE_DTYPE",
+                             m.get("compute_dtype", "float32"))
         if cdt != "float32":
-            raise NotImplementedError(f"compute_dtype {cdt!r}: the port "
-                                      "computes in float32")
+            raise NotImplementedError(
+                f"compute_dtype {cdt!r}: the port computes in float32 "
+                "(bfloat16 is ROADMAP.md queue 1 item 3)")
         inf = cfg.get("inference", {})
         gc = m["mlp_tex_args"]["gcompress"]
         return cls(
@@ -135,7 +155,19 @@ class VANeRF(nn.Module):
 
     def encode(self, im: torch.Tensor):
         """im (BV, H, W, 3) in [0, 1] -> feat_geo [coarse, fine], feat_tex,
-        channels-last."""
+        channels-last.  On the card the convolutions take cuDNN's
+        deterministic algorithms, so two encodes of one frame are equal to
+        the bit (as the JAX program's are)."""
+        cd = torch.backends.cudnn
+        # flags() sets every switch it takes: the caller's cuDNN and TF32
+        # settings pass through unchanged
+        with cd.flags(enabled=cd.enabled, benchmark=False, deterministic=True,
+                      allow_tf32=cd.allow_tf32):
+            return self._encode(im)
+
+    def _encode(self, im: torch.Tensor):
+        """:meth:`encode` with cuDNN's algorithms as the process's flags
+        leave them."""
         im_g = im
         for _ in range(self.ds_geo):
             im_g = avg_pool2(im_g)

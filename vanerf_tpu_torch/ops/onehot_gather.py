@@ -25,8 +25,9 @@ from torch.autograd.function import once_differentiable
 
 from . import _cuda
 
-# csrc/onehot_scatter.cu: OS_CHUNK, OS_SEG, OS_MAX_T (the C entry point
-# checks the workspace sizes computed from these)
+# csrc/onehot_scatter.cu: OS_SMALL_N, OS_CHUNK, OS_SEG, OS_MAX_T (the C
+# entry point checks the workspace sizes computed from these)
+SCATTER_SMALL_N = 4096
 SCATTER_CHUNK = 2048
 SCATTER_SEG = 128
 SCATTER_MAX_T = 8192
@@ -51,6 +52,24 @@ def onehot_scatter_plain(g: torch.Tensor, idx: torch.Tensor,
     return out.index_add_(0, idx.long(), g.float())
 
 
+def scatter_workspace(n: int, c: int, n_rows: int) -> tuple:
+    """(ints, floats) of kernel 13's workspace for ``n`` points of ``c``
+    channels into ``n_rows`` rows, as ``vt_onehot_scatter`` checks them.
+    Up to ``SCATTER_SMALL_N`` points the kernel is one launch and needs
+    none.  Else: rank and perm (n each), the row histograms of the
+    ``SCATTER_CHUNK``-point blocks (n_rows + 1 each), the rows' first slots
+    (n_rows + 2) and first pieces (n_rows + 1), each piece's row, the rows'
+    fold tickets and one scan ticket; floats: one partial row per piece, at
+    most ceil(n / SCATTER_SEG) + n_rows pieces."""
+    if n <= SCATTER_SMALL_N:
+        return 0, 0
+    chunks = -(-n // SCATTER_CHUNK)
+    pieces = -(-n // SCATTER_SEG) + n_rows
+    ints = (2 * n + (n_rows + 1) * chunks + (n_rows + 2) + (n_rows + 1)
+            + pieces + n_rows + 1)
+    return ints, pieces * c
+
+
 def onehot_scatter_cuda(g: torch.Tensor, idx: torch.Tensor,
                         n_rows: int) -> torch.Tensor:
     """Kernel 13 on CUDA tensors: g (N, C) f32, idx (N,) int32 in
@@ -62,15 +81,16 @@ def onehot_scatter_cuda(g: torch.Tensor, idx: torch.Tensor,
     if not 0 < n_rows <= SCATTER_MAX_T:
         raise ValueError(f"onehot_scatter: {n_rows} rows; the kernel takes "
                          f"1..{SCATTER_MAX_T}")
-    nchunks = -(-N // SCATTER_CHUNK)
-    n_int = 2 * N + (n_rows + 1) * nchunks + 3 * (n_rows + 1)
-    n_float = (-(-N // SCATTER_SEG) + n_rows) * C
+    n_int, n_float = scatter_workspace(N, C, n_rows)
     out = torch.empty(n_rows, C, dtype=torch.float32, device=g.device)
-    iws = torch.empty(n_int, dtype=torch.int32, device=g.device)
-    fws = torch.empty(max(n_float, 1), dtype=torch.float32, device=g.device)
+    iws = fws = None
+    if n_int:
+        iws = torch.empty(n_int, dtype=torch.int32, device=g.device)
+        fws = torch.empty(n_float, dtype=torch.float32, device=g.device)
     rc = _cuda.lib().vt_onehot_scatter(
         g.data_ptr(), idx.data_ptr(), N, C, n_rows, out.data_ptr(),
-        iws.data_ptr(), n_int, fws.data_ptr(), n_float,
+        0 if iws is None else iws.data_ptr(), n_int,
+        0 if fws is None else fws.data_ptr(), n_float,
         _cuda.stream_ptr(g.device))
     _cuda.check(rc, "vt_onehot_scatter")
     launches += 1

@@ -56,9 +56,6 @@ from .ops.ray import pixel_grid_rays, ray_bbox_intersection
 from .ops.sampling import importance_sample, stratified_sample
 from .ops.sorting import sort_by_key
 
-# the reference eval_func's normal scale: invalid samples read 0.1/100
-_NML_SCALE = 100.0
-
 
 def resolve_tier(env_name: str, config_val: float, training: bool) -> float:
     """Serving-tier knob: env var > config value > 0 at training."""
@@ -318,13 +315,16 @@ def _network_budget(n_total: int, n_samples: int, frac_skip: float,
 
 def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
                  out_h: int, out_w: int, sample_per_ray_c: int = 64,
-                 sample_per_ray_f: int = 64, training: bool = False,
-                 n_views: int = 1, compute_vis_map: bool = False,
-                 cached=None, uniform: bool = False,
-                 rand_noise_std: float = 0.0,
-                 generator: Optional[torch.Generator] = None,
+                 sample_per_ray_f: int = 64, fine: bool = True,
+                 uniform: bool = False, rand_noise_std: float = 0.0,
+                 training: bool = False, nml_scale: float = 100.0,
+                 vis_size: int = 256, n_views: int = 1,
+                 sdf_chunk: int = 2048, compute_vis_map: bool = True,
+                 cached=None, generator: Optional[torch.Generator] = None,
                  draws: Optional[Dict[str, torch.Tensor]] = None):
-    """Render one (out_h x out_w) ray patch.
+    """Render one (out_h x out_w) ray patch.  The keywords are the JAX
+    package's (``vanerf_tpu/renderer.py:239-246``), with ``generator`` /
+    ``draws`` for its ``rng``.
 
     At eval (``training=False``) the render is deterministic and runs under
     ``torch.no_grad()``.  With ``training=True`` it builds an autograd
@@ -345,6 +345,14 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
       cached: optional (feat_geo, feat_tex, vert_vis) of
         :func:`encode_frame`, and as an optional fourth element the
         frame's :func:`prepare_frame_meshes`.
+      fine: False skips the fine pass and its outputs ('tex_fg_fine',
+        'depth_fine', 'alpha_fine', 'sdf').
+      nml_scale: the sdf channel of a sample outside every view is
+        0.1 / nml_scale (the reference eval_func's normal scale).
+      vis_size: the raster size of the source-view vertex visibility
+        (when ``cached`` is None).
+      sdf_chunk: accepted and unused: the CUDA mesh query needs no
+        chunking.
       compute_vis_map: also rasterize the GT visibility map in the target
         view ('vis_img_all' (B, 1, H, W), 'vis_img' at the grid).
     Returns:
@@ -352,6 +360,11 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
     """
     if n_views != 1:
         raise NotImplementedError("the port renders one source view")
+    if training and os.environ.get("VANERF_REMAT_QUERY", "0") not in ("",
+                                                                      "0"):
+        raise NotImplementedError(
+            "VANERF_REMAT_QUERY is not ported to PyTorch (ROADMAP.md queue 1 "
+            "item 8)")
     soa_points = soa_points_mode()
     with contextlib.nullcontext() if training else torch.no_grad():
         src_img = batch["src_img"]
@@ -362,7 +375,8 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
         P = grids.shape[1]
 
         feat_geo, feat_tex, vert_vis, *frame_meshes = (
-            encode_frame(model, batch) if cached is None else cached)
+            encode_frame(model, batch, vis_size) if cached is None
+            else cached)
         cam_in = {"KRT": batch["src_krt"], "extrin": batch["src_extrin"],
                   "width": W, "height": H, "znear": znear, "zfar": zfar}
         dev = grids.device
@@ -520,7 +534,7 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
             else:
                 out, valid = query_rows(pts, view, q_vis, q_sdf, nn_idx,
                                         far_mask, n_samples)
-            sdf_ch = valid * out[..., 0:1] + (1.0 - valid) * (0.1 / _NML_SCALE)
+            sdf_ch = valid * out[..., 0:1] + (1.0 - valid) * (0.1 / nml_scale)
             rad = out[..., 1:2]
             if noise:
                 rad = rad + _draw(draws, noise_key, rad.shape, True, generator,
@@ -542,35 +556,36 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
 
         # ---- fine pass: evaluate only the new importance samples, then merge
         # both passes by a stable depth sort ----
-        z_mid = 0.5 * (z[..., 1:] + z[..., :-1])
-        u_f = (_draw(draws, "u_f", (B, P, sample_per_ray_f), False, generator,
-                     dev) if jitter else None)
-        z_new = importance_sample(contrib[..., 1:-1].detach(), z_mid,
-                                  sample_per_ray_f, u_f)
-        if jitter:
-            # random-u samples come back unordered; sort them per ray, as the
-            # JAX package does for its kernel's depth-coherent tiles
-            (z_new,) = sort_by_key(z_new)
-        alpha_n, sdf_n, rgb_n, qsdf_n = query_at(z_new, sample_per_ray_f,
-                                                 "noise_f")
+        if fine:
+            z_mid = 0.5 * (z[..., 1:] + z[..., :-1])
+            u_f = (_draw(draws, "u_f", (B, P, sample_per_ray_f), False,
+                         generator, dev) if jitter else None)
+            z_new = importance_sample(contrib[..., 1:-1].detach(), z_mid,
+                                      sample_per_ray_f, u_f)
+            if jitter:
+                # random-u samples come back unordered; sort them per ray, as
+                # the JAX package does for its kernel's depth-coherent tiles
+                (z_new,) = sort_by_key(z_new)
+            alpha_n, sdf_n, rgb_n, qsdf_n = query_at(z_new, sample_per_ray_f,
+                                                     "noise_f")
 
-        def cat_cf(cv, nv):
-            return torch.cat([cv.reshape(B, P, sample_per_ray_c),
-                              nv.reshape(B, P, sample_per_ray_f)], 2)
+            def cat_cf(cv, nv):
+                return torch.cat([cv.reshape(B, P, sample_per_ray_c),
+                                  nv.reshape(B, P, sample_per_ray_f)], 2)
 
-        rgb_cat = torch.cat([rgb_c.reshape(B, P, sample_per_ray_c, 3),
-                             rgb_n.reshape(B, P, sample_per_ray_f, 3)], 2)
-        (z_fine, alpha_f, sdf_f, qsdf_f, r_f, g_f, b_f) = sort_by_key(
-            torch.cat([z, z_new], -1), cat_cf(alpha_c, alpha_n),
-            cat_cf(sdf_c, sdf_n), cat_cf(qsdf_c, qsdf_n), rgb_cat[..., 0],
-            rgb_cat[..., 1], rgb_cat[..., 2])
-        rgb_f = torch.stack([r_f, g_f, b_f], -1)
-        color_f, depth_f, acc_f, _, sdf_out_f = rgba2out(
-            alpha_f, sdf_f, rgb_f, z_fine, qsdf_f, beta)
-        out.update({"tex_fg_fine": color_f.reshape(B, out_h, out_w, 3),
-                    "depth_fine": depth_f.reshape(B, out_h, out_w),
-                    "alpha_fine": acc_f.reshape(B, out_h, out_w),
-                    "sdf": sdf_out_f.reshape(B, out_h, out_w)})
+            rgb_cat = torch.cat([rgb_c.reshape(B, P, sample_per_ray_c, 3),
+                                 rgb_n.reshape(B, P, sample_per_ray_f, 3)], 2)
+            (z_fine, alpha_f, sdf_f, qsdf_f, r_f, g_f, b_f) = sort_by_key(
+                torch.cat([z, z_new], -1), cat_cf(alpha_c, alpha_n),
+                cat_cf(sdf_c, sdf_n), cat_cf(qsdf_c, qsdf_n), rgb_cat[..., 0],
+                rgb_cat[..., 1], rgb_cat[..., 2])
+            rgb_f = torch.stack([r_f, g_f, b_f], -1)
+            color_f, depth_f, acc_f, _, sdf_out_f = rgba2out(
+                alpha_f, sdf_f, rgb_f, z_fine, qsdf_f, beta)
+            out.update({"tex_fg_fine": color_f.reshape(B, out_h, out_w, 3),
+                        "depth_fine": depth_f.reshape(B, out_h, out_w),
+                        "alpha_fine": acc_f.reshape(B, out_h, out_w),
+                        "sdf": sdf_out_f.reshape(B, out_h, out_w)})
 
         # ---- GT / context patches at the grid (model.py:1361-1418) ----
         index = (grids[..., 0] + grids[..., 1] * W).to(torch.int32)
@@ -601,12 +616,25 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
 @torch.no_grad()
 def render_full_image(model, batch: Dict[str, Any], *, level: int,
                       sample_per_ray_c: int = 64, sample_per_ray_f: int = 64,
-                      n_views: int = 1):
+                      n_views: int = 1, rng=None, sdf_chunk: int = 2048,
+                      compute_vis_map: bool = False, tile_group: int = 1,
+                      mesh=None):
     """Render the full target image by stride^2 interleaved patch passes
     (``render_pifu_nerf``, ``model.py:1026-1100``) on one device: the
     encoders and vertex visibility run once per frame, then one
     :func:`render_patch` per stride offset; tiles are reassembled by an
-    inverse pixel shuffle.  Deterministic."""
+    inverse pixel shuffle.  Deterministic: ``rng`` and ``sdf_chunk`` are
+    accepted and unused.  The keywords are the JAX package's
+    (``vanerf_tpu/renderer.py:831-835``); a ``tile_group`` above 1 (stride
+    offsets folded into one batch) and a device ``mesh`` raise."""
+    if tile_group > 1:
+        raise NotImplementedError(
+            "render_full_image(tile_group > 1) is not ported (ROADMAP.md "
+            "queue 1 item 2)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "render_full_image(mesh=...) is not ported (ROADMAP.md queue 1 "
+            "item 9)")
     B = batch["tar_k"].shape[0]
     H, W = batch["src_img"].shape[1:3]
     s = 2 ** (level - 1)
@@ -622,10 +650,10 @@ def render_full_image(model, batch: Dict[str, Any], *, level: int,
                 model, batch, grids=grids, out_h=out_h, out_w=out_w,
                 sample_per_ray_c=sample_per_ray_c,
                 sample_per_ray_f=sample_per_ray_f, n_views=n_views,
-                cached=cached))
+                compute_vis_map=compute_vis_map, cached=cached))
     merged = {}
     for k, v in tiles[0].items():
-        if k in ("vert_vis", "index"):
+        if k in ("vert_vis", "index", "vis_img_all"):
             merged[k] = v
         elif v.ndim == 4:
             merged[k] = _unshuffle([t[k] for t in tiles], s)
