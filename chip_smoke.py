@@ -33,6 +33,12 @@ script exits non-zero (there is no CPU fallback):
      same sorted table in d2, idx and qvis, in the winding on every tile
      that keeps +d and up to certified grazes on tiles that take -d, and in
      d2 to the sweep over the table in mesh order; timed in turns with the
+     sweep; also in tiles of consecutive points, and under
+     ``VANERF_CULL_EARLY=1`` (equal to their plain version, d2 and the
+     winding to the default walk's, another face only on an exact tie,
+     timed in turns with the default walk); A at every tile x chunk size
+     it is built for (``VANERF_MESH_TILE_P`` 64 / 128 / 256 x
+     ``VANERF_CULL_CHUNK`` 64 / 128), equal to its plain version and the
      sweep; kernels D and 13 at each main-path shape and at edge cases (D:
      6 channels on scalar lanes, a slice of a batch, a table or a uv off a
      16- / 8-byte boundary, points beyond [-1, 1]; 13: no point, one
@@ -111,7 +117,12 @@ of phase 3b, 12 the level-1 run, 7 and 8 the mode-1 run of phase 3c, 9 the
 two culled runs of phase 3e, 5 and 6 phase 3d; A and 7 carry the sweep's
 time beside the culled query's as ``brute_ms``; D and 13 sum the cases
 they have summed since their port, D's two maps and 13's four tables, and
-carry their graph-replayed times as ``device_ms`` / ``library_device_ms``);
+carry their graph-replayed times as ``device_ms`` / ``library_device_ms``;
+A, 7, B and 8 carry ``device_ms`` and ``issue_bound_ms``, their operations
+at 33.5 T op/s, the rate of separately rounded f32 operations; A and 7 also
+``work_issue_bound_ms``, the operations the kernel evaluates at that rate:
+a sphere test for every visited pair, the full distance only for the faces
+a warp keeps, ``ops/mesh_query.py::culled_work``);
 the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and
 convolutions.
@@ -168,6 +179,11 @@ TRAIN_STEPS = 3
 # rate outside the tensor cores, which is the type every kernel here uses.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# The rate at which the card issues separately rounded f32 adds and
+# multiplies: the kernels built with -fmad=false (A-D, 5-9) cannot fuse a
+# product into a sum, so each operation takes an issue slot of its own and
+# the f32 peak, which counts a fused multiply-add as two, halves.
+ISSUE_OPS_PER_S = 33.5e12
 # Operations per (point, face) / (point, vertex) / (pixel, face) pair, as
 # the kernels' sources do them: kernel A's distance is 15 differences, 6
 # dot products (30), 3 cross terms (9), the closest point's distance (8)
@@ -182,6 +198,10 @@ F32_FLOPS_PER_S = 67e12
 # the sum (3).
 MESH_DIST_OPS = 65
 MESH_CROSS_OPS = 29
+# The culled kernel's per-face sphere test before the distance: 3
+# differences, the squared norm (5), the sum and square of the radius and
+# the comparison.
+MESH_SPHERE_OPS = 11
 MESH_CROSS_UNFOLDED_OPS = 38
 MESH_SOLID_ANGLE_OPS = 67
 # kernels 5 and 6 in solid-angle mode against their plain versions: sqrtf
@@ -296,6 +316,12 @@ def least_time(n_bytes: float, n_ops: float) -> dict:
     return dict(bound_ms=max(t_b, t_o),
                 bound_by="bytes" if t_b >= t_o else "operations",
                 bound_bytes=n_bytes, bound_ops=n_ops)
+
+
+def issue_bound_ms(n_ops: float) -> float:
+    """The same operations at the issue rate of separately rounded f32
+    operations (``ISSUE_OPS_PER_S``)."""
+    return n_ops / ISSUE_OPS_PER_S * 1e3
 
 
 def nbytes(*tensors) -> int:
@@ -427,7 +453,8 @@ def knn_visit_margin(pts, verts, visits, visits_plain) -> float:
 
 def culled_query_checks(name, fn, fn_p, q, p_c, mesh, d2, tilings, far2):
     """The culled kernel A (``q`` = ``p_c``) or 7 (``q`` = its transpose)
-    in every tiling, without and with the far tier."""
+    in every tiling, without and with the far tier, by its default walk
+    and under ``VANERF_CULL_EARLY=1``."""
     import torch
     from vanerf_tpu_torch.ops import mesh_query
     N = p_c.shape[0]
@@ -486,10 +513,34 @@ def culled_query_checks(name, fn, fn_p, q, p_c, mesh, d2, tilings, far2):
                 same_face |= far_c              # far points read no face
             check(torch.equal(qvis_c[same_face], before[3][same_face]),
                   f"{name} {tiling} {tag}: qvis differs off a tie")
-            # in turns: culled, sweep, sweep, culled
+            # the early-exit walk: equal to its plain version; d2 and the
+            # winding equal to the default walk's; another face only where
+            # its distance is the same d2 (a tie)
+            with env(VANERF_CULL_EARLY="1"):
+                got_e = fn(q, mesh, d2, tiles, f2, visits=True)
+                want_e = fn_p(q, mesh, d2, tiles, f2, visits=True)
+                torch.cuda.synchronize()
+                for k, g_, w_ in zip(("d2", "idx", "wind", "qvis", "far",
+                                      "visits"), got_e, want_e):
+                    check((g_ is None and w_ is None) or torch.equal(g_, w_),
+                          f"{name} {tiling} {tag} early exit: {k} differs "
+                          "from the plain version")
+                e_ms = [cuda_ms(lambda: fn(q, mesh, d2, tiles, f2), 5)]
+            check(torch.equal(got_e[0], d2_c) and torch.equal(got_e[2], wind_c),
+                  f"{name} {tiling} {tag} early exit: d2 or the winding "
+                  "differs from the default walk's")
+            moved = got_e[1] != idx_c
+            rows = table[got_e[1][moved].long()]
+            at = mesh_query.point_triangle_sq_dist(
+                p_c[moved], rows[:, 0:3], rows[:, 3:6], rows[:, 6:9])
+            check(torch.equal(at, d2_c[moved]), f"{name} {tiling} {tag} early "
+                  "exit: another face off a tie")
+            # in turns: culled, sweep, early, early, sweep, culled
             t1 = cuda_ms(lambda: fn(q, mesh, d2, tiles, f2), 5)
             s1 = cuda_ms(lambda: mesh_query.point_mesh_query_vis_cuda(
                 p_c, table, d2, far_c), 5)
+            with env(VANERF_CULL_EARLY="1"):
+                e_ms.append(cuda_ms(lambda: fn(q, mesh, d2, tiles, f2), 5))
             s2 = cuda_ms(lambda: mesh_query.point_mesh_query_vis_cuda(
                 p_c, table, d2, far_c), 5)
             t2 = cuda_ms(lambda: fn(q, mesh, d2, tiles, f2), 5)
@@ -499,6 +550,8 @@ def culled_query_checks(name, fn, fn_p, q, p_c, mesh, d2, tilings, far2):
                           * mesh_query.TILE_P)
             detail[f"{tiling}_{tag}"] = dict(
                 ms=0.5 * (t1 + t2), sweep_ms=0.5 * (s1 + s2),
+                early_ms=0.5 * sum(e_ms),
+                early_ties=int(moved.sum()),
                 dist_visit_share=(mask & 1).float().mean().item(),
                 wind_visit_share=(mask >> 1).float().mean().item(),
                 neg_tile_share=use_neg.float().mean().item(),
@@ -508,7 +561,8 @@ def culled_query_checks(name, fn, fn_p, q, p_c, mesh, d2, tilings, far2):
                 tied_faces=int((~same_face).sum()),
                 dist_pairs=dist_pairs, wind_pairs=wind_pairs,
                 out=dict(d2=d2_c, idx=idx_c, wind=wind_c, qvis=qvis_c),
-                far=far_c, bytes=nbytes(q, table, mesh["cbox"], d2, *[
+                far=far_c, bytes=nbytes(q, table, mesh["cbox"],
+                                        mesh["sphere"], d2, *[
                     t for t in got[:5] if t is not None]))
     main = detail["1d_far"]
     out, far = main["out"], main["far"]
@@ -517,6 +571,14 @@ def culled_query_checks(name, fn, fn_p, q, p_c, mesh, d2, tilings, far2):
         d.pop("far")
     tiles = tilings["1d"]
     n_far = int(far.sum())
+    ops = main["dist_pairs"] * MESH_DIST_OPS + main["wind_pairs"] * \
+        MESH_CROSS_OPS
+    # what the kernel evaluates: a sphere test for every visited pair, the
+    # full distance only where a warp keeps the face
+    work = mesh_query.culled_work(p_c, mesh, d2, tiles, far2)
+    work_ops = (work["sphere_tests"] * MESH_SPHERE_OPS
+                + work["evaluated"] * MESH_DIST_OPS
+                + work["crossings"] * MESH_CROSS_OPS)
     return dict(
         shape=f"{N} points x {F} faces in {n_chunks} chunks, 16-ray x "
               f"8-sample tiles, {main['far_tile_share']:.3f} of them far, "
@@ -525,6 +587,8 @@ def culled_query_checks(name, fn, fn_p, q, p_c, mesh, d2, tilings, far2):
               "visited for the distance / the winding",
         max_abs_err=err, detail=detail, out=out, far=far,
         ms=main["ms"], brute_ms=main["sweep_ms"],
+        device_ms=graph_ms(lambda: fn(q, mesh, d2, tiles, far2)),
+        early_ms=main["early_ms"],
         # the same launch with the far tier off: what the far tier saves
         exact_ms=detail["1d_exact"]["ms"],
         plain_ms=cuda_ms(lambda: fn_p(q, mesh, d2, tiles, far2), 2),
@@ -534,8 +598,45 @@ def culled_query_checks(name, fn, fn_p, q, p_c, mesh, d2, tilings, far2):
         all_pairs=least_time(main["bytes"], F * (
             (N - n_far) * (MESH_DIST_OPS + MESH_CROSS_OPS)
             + n_far * MESH_CROSS_OPS)),
-        **least_time(main["bytes"], main["dist_pairs"] * MESH_DIST_OPS
-                     + main["wind_pairs"] * MESH_CROSS_OPS))
+        issue_bound_ms=issue_bound_ms(ops),
+        work=work, work_issue_bound_ms=issue_bound_ms(work_ops),
+        **least_time(main["bytes"], ops))
+
+
+def culled_size_checks(p_c, batch, vert_vis, d2, far2):
+    """Kernel A at every tile and chunk size it is built for
+    (``VANERF_MESH_TILE_P`` x ``VANERF_CULL_CHUNK``, 16-ray blocks scaled to
+    the tile), far tier on: equal to its plain version, d2 / idx / qvis to
+    the sweep over the same table; timed as called."""
+    import torch
+    from vanerf_tpu_torch.ops import mesh_query
+    out = {}
+    for tile_p in mesh_query.TILE_SIZES:
+        for chunk in mesh_query.CHUNK_SIZES:
+            with env(VANERF_MESH_TILE_P=str(tile_p),
+                     VANERF_CULL_CHUNK=str(chunk),
+                     VANERF_BLOCK_RAYS=str(tile_p // 8)):
+                mesh = mesh_query.prepare_culled_mesh(
+                    batch["verts"][0], batch["faces"], vert_vis)
+                q = p_c            # every preparation centres alike
+                tiles = mesh_query.tile_geometry(q.shape[0], S_C)
+                got = mesh_query.point_mesh_query_vis_culled(q, mesh, d2,
+                                                             tiles, far2)
+                want = mesh_query.point_mesh_query_vis_culled_plain(
+                    q, mesh, d2, tiles, far2)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"mesh_query tile {tile_p} chunk {chunk}: differs from "
+                      "the plain version")
+                sweep = mesh_query.point_mesh_query_vis_cuda(
+                    q, mesh["table"], d2, got[4])
+                check(all(torch.equal(got[k], sweep[k]) for k in (0, 1, 3)),
+                      f"mesh_query tile {tile_p} chunk {chunk}: differs from "
+                      "the sweep")
+                out[f"tile{tile_p}_chunk{chunk}"] = cuda_ms(
+                    lambda: mesh_query.point_mesh_query_vis_culled(
+                        q, mesh, d2, tiles, far2), 5)
+    return out
 
 
 def offset_view(x, shift: int):
@@ -771,10 +872,15 @@ def phase_kernels(model, batch, dev):
         alt = ((pts[diff] - verts[idx[diff].long()]) ** 2).sum(-1)
         check(torch.allclose(alt, d2_p[diff], rtol=1e-6, atol=0),
               "knn index differs off a tie")
+    check(torch.equal(idx, idx_p) and torch.equal(d2, d2_p),
+          "knn differs from its plain version")
     results["knn"] = dict(
         shape=f"{pts.shape[0]} points x {verts.shape[0]} vertices",
         max_abs_err=err_b, index_mismatch=int(diff.sum()),
         ms=cuda_ms(lambda: knn.nearest_vertex_d2(pts, verts), 20),
+        device_ms=graph_ms(lambda: knn.nearest_vertex_d2(pts, verts)),
+        issue_bound_ms=issue_bound_ms(
+            KNN_OPS * pts.shape[0] * verts.shape[0]),
         plain_ms=cuda_ms(lambda: knn.nearest_vertex_d2_plain(pts, verts), 3),
         # one call each for distances and argmin; cdist may take the
         # expanded |q|^2 - 2 q.v + |v|^2 form, which is other arithmetic
@@ -883,6 +989,7 @@ def phase_kernels(model, batch, dev):
     check(tilings["1d"] == (1, PATCH * PATCH, S_C, 1, 16, 8)
           and tilings["2d"] == (PATCH, PATCH, S_C, 4, 4, 8),
           f"tile geometry {tilings}")
+    tilings["consecutive"] = None
     for name, fn, fn_p, q in (
             ("mesh_query", mesh_query.point_mesh_query_vis_culled,
              mesh_query.point_mesh_query_vis_culled_plain, p_c),
@@ -898,6 +1005,8 @@ def phase_kernels(model, batch, dev):
         results[name].pop("out")
         results[name].pop("far", None)
     results["mesh_query_T"]["equals_kernel_a"] = True
+    results["mesh_query"]["sizes_ms"] = culled_size_checks(
+        p_c, batch, vert_vis, d2, far2)
 
     # --- 8: nearest vertex on coordinate-major points ---
     idx8, d28 = knn.nearest_vertex_d2_T(pts_T, verts)
@@ -911,6 +1020,9 @@ def phase_kernels(model, batch, dev):
         max_abs_err=(d28 - d28_p).abs().max().item(),
         index_mismatch=int((idx8 != idx8_p).sum()), equals_kernel_b=True,
         ms=cuda_ms(lambda: knn.nearest_vertex_d2_T(pts_T, verts), 20),
+        device_ms=graph_ms(lambda: knn.nearest_vertex_d2_T(pts_T, verts)),
+        issue_bound_ms=issue_bound_ms(
+            KNN_OPS * pts.shape[0] * verts.shape[0]),
         plain_ms=cuda_ms(lambda: knn.nearest_vertex_d2_T_plain(pts_T, verts),
                          3),
         library_ms=cuda_ms(lambda: torch.cdist(pts_T.t(), verts).min(1), 3),
@@ -2019,7 +2131,15 @@ def main() -> int:
             f"{lib}"
             + (f"; the sweep over every pair {r['brute_ms']:.3f} ms in turns, "
                f"bound over every pair {r['all_pairs']['bound_ms']:.4f} ms"
-               if "brute_ms" in r else ""))
+               if "brute_ms" in r else "")
+            + (f"; device (CUDA graph) {r['device_ms']:.4f} ms, bound at the "
+               f"issue rate {r['issue_bound_ms']:.4f} ms"
+               if "issue_bound_ms" in r else "")
+            + (f"; the faces it evaluates ({r['work']['evaluated']} of "
+               f"{r['work']['sphere_tests']} (thread, face) pairs past the "
+               f"sphere test) at the issue rate "
+               f"{r['work_issue_bound_ms']:.4f} ms"
+               if "work" in r else ""))
     for name, lib in (("interp_mxu", "F.grid_sample"),
                       ("onehot_scatter", "index_add_ into a zeroed table")):
         for tag, c in kres[name]["cases"].items():
@@ -2055,7 +2175,15 @@ def main() -> int:
                 f"{d['wind_differs_from_sweep']} crossing counts differ from "
                 f"the sweep's (grazes along -d, margin "
                 f"{d['their_edge_margin']:.2g}); {d['tied_faces']} points "
-                "take another face than the mesh-order table's (exact ties)")
+                "take another face than the mesh-order table's (exact ties); "
+                f"VANERF_CULL_EARLY=1 {d['early_ms']:.3f} ms in turns, equal "
+                f"to its plain version, d2 and winding equal to the default "
+                f"walk's, {d['early_ties']} points on another face of equal "
+                "distance")
+    say("phase 2 mesh_query at every tile x chunk size (far tier on): equal "
+        "to the plain version and the sweep; ms "
+        + ", ".join(f"{k} {v:.3f}"
+                    for k, v in kres["mesh_query"]["sizes_ms"].items()))
 
     # ---- phase 3 ----
     with torch.no_grad():
@@ -2252,9 +2380,13 @@ def main() -> int:
                         "library_ms": r["library_ms"]})
         if "brute_ms" in r:     # A, 7, 9: the sweep over every pair, in turns
             kernels[-1]["brute_ms"] = r["brute_ms"]
-        if "device_ms" in r:    # D, 13: replayed from a CUDA graph
-            kernels[-1].update(device_ms=r["device_ms"],
-                               library_device_ms=r["library_device_ms"])
+        # A, 7, B, 8, D, 13: replayed from a CUDA graph; A, 7, B, 8: the
+        # operations at the issue rate of separately rounded f32 operations;
+        # A, 7: the operations the kernel evaluates at that rate
+        for k in ("device_ms", "library_device_ms", "issue_bound_ms",
+                  "work_issue_bound_ms"):
+            if k in r:
+                kernels[-1][k] = r[k]
     say(f"total: {time.perf_counter() - t_start:.0f} s, the build included")
     say("details: " + json.dumps({"gpu": smi, "build_s": build_s,
                                   "kernels": kres, "main_path": main,

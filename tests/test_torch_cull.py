@@ -25,6 +25,8 @@ plain versions on the card; run them there with ``--noconftest``.
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax.numpy as jnp
 
@@ -266,10 +268,11 @@ def test_tile_order_is_the_blocked_relayout(monkeypatch):
 
 
 def _jax_side(verts, faces, vis, pts_c_blocked, ub_blocked, order, far2,
-              transposed=False):
+              transposed=False, lists=False):
     """The JAX masks, lists and culled kernel on blocked, centred points
     over the faces in ``order``; returns (need_d, need_w, use_neg, lb,
-    outputs in blocked order)."""
+    outputs in blocked order)[, the (T, 128) list rows and the (T, 128)
+    sorted-bound rows of ``_cull_lists``]."""
     import vanerf_tpu.ops.mesh_query_pallas as mqp
     from vanerf_tpu.ops.mesh_query import _far_tiles
     tri = verts[faces]
@@ -281,8 +284,8 @@ def _jax_side(verts, faces, vis, pts_c_blocked, ub_blocked, order, far2,
     mask, use_neg, lb = mqp._cull_masks(pts_j, ub_j, prep["tri9"])
     far_t = _far_tiles(ub_j, far2)[0] if far2 is not None else None
     n_chunks = prep["tri9"].shape[1] // mqp.CULL_CHUNK
-    rows = A(mqp._cull_lists(mask, use_neg, lb, n_chunks, far_t)[0]) \
-        .reshape(-1, 128)
+    maskf, lbf, _early = mqp._cull_lists(mask, use_neg, lb, n_chunks, far_t)
+    rows = A(maskf).reshape(-1, 128)
     need_d = np.zeros((rows.shape[0], n_chunks), bool)
     need_w = np.zeros_like(need_d)
     for t, row in enumerate(rows):
@@ -294,8 +297,9 @@ def _jax_side(verts, faces, vis, pts_c_blocked, ub_blocked, order, far2,
     else:
         out = mqp.point_mesh_query_vis_culled(
             pts_j, None, None, ub_j, prep=prep, far_t=far_t, interpret=True)
-    return need_d, need_w, rows[:, 127].astype(bool), A(lb), \
-        [A(o) for o in out]
+    res = (need_d, need_w, rows[:, 127].astype(bool), A(lb),
+           [A(o) for o in out])
+    return res + (rows, A(lbf).reshape(-1, 128)) if lists else res
 
 
 def _assert_reaches_minimum(idx, pts_c, table, d2_ref):
@@ -391,6 +395,321 @@ def test_culled_query_matches_jax(tiling, far2, monkeypatch):
     assert torch.equal(d2, u[0]) and torch.equal(wind, u[2])
 
 
+def _cleared_jax_culled():
+    """The JAX culled kernels read VANERF_CULL_EARLY, TILE_P and CULL_CHUNK
+    when they are traced: drop their compiled versions around a change."""
+    import vanerf_tpu.ops.mesh_query_pallas as mqp
+    mqp.point_mesh_query_vis_culled.clear_cache()
+    mqp.point_mesh_query_vis_culled_T.clear_cache()
+
+
+def _culled_case(tiling, monkeypatch, S=16, H=16, W=32, blocks=None):
+    """The fixture hands, ray-major points, their bounds and tiles."""
+    verts, faces, vis = _hands()
+    pts = _ray_points(H, W, S, 1.6, 0.52, 0.68)
+    N = len(pts)
+    mesh = t_mq.prepare_culled_mesh(T(verts), T(faces).long(), T(vis))
+    _, ub = t_knn.nearest_vertex_d2(T(pts), T(verts))
+    pts_c = T(pts) - mesh["center"]
+    if tiling == "2d":
+        monkeypatch.setenv("VANERF_BLOCK_2D", blocks or "4,4,8")
+        tiles = t_mq.tile_geometry(N, S, rays_hw=(H, W))
+    elif tiling == "1d":
+        if blocks:
+            monkeypatch.setenv("VANERF_BLOCK_RAYS", blocks)
+        tiles = t_mq.tile_geometry(N, S)
+    else:
+        tiles = None
+    fn = (t_mq.point_mesh_query_vis_culled_T if tiling == "2d"
+          else t_mq.point_mesh_query_vis_culled)
+    arg = pts_c.t().contiguous() if tiling == "2d" else pts_c.contiguous()
+    return (verts, faces, vis), mesh, ub, pts_c, tiles, fn, arg
+
+
+@pytest.mark.parametrize("far2", [None, 0.02 ** 2])
+@pytest.mark.parametrize("tiling", ["1d", "2d", "consecutive"])
+def test_culled_query_early_exit_matches_jax(tiling, far2, monkeypatch):
+    """VANERF_CULL_EARLY: the lists of the plain early walk (distance chunks
+    by ascending lower bound, stable) against ``_cull_lists(early=True)``,
+    its outputs against the culled Pallas kernel's early-exit loop in
+    interpret mode (tolerances of test_culled_query_matches_jax), and its
+    d2 and winding equal to the default walk's bit for bit (idx and qvis
+    may differ where two faces tie)."""
+    hands, mesh, ub, pts_c, tiles, fn, arg = _culled_case(tiling,
+                                                          monkeypatch)
+    N = pts_c.shape[0]
+    perm = t_mq.tile_order(N, tiles)
+    default = fn(arg, mesh, ub, tiles, far2, visits=True)
+    monkeypatch.setenv("VANERF_CULL_EARLY", "1")
+    tmin, tmax, ub_t, far_t, _tile_of = t_mq.tile_boxes(pts_c, ub, tiles,
+                                                        far2)
+    mask, _use_neg, lb = t_mq.cull_masks(tmin, tmax, ub_t, mesh["cbox"],
+                                         far_t)
+    order, n_d, lb_sorted = t_mq.early_walk_lists(mask, lb)
+    _cleared_jax_culled()
+    try:
+        need_d, _nw, _neg, _lb, out_j, rows, lbf = _jax_side(
+            *hands, pts_c[perm].numpy(), ub[perm].numpy(),
+            mesh["order"].numpy(), far2, transposed=tiling == "2d",
+            lists=True)
+    finally:
+        _cleared_jax_culled()
+    C = mask.shape[1]
+    np.testing.assert_array_equal(n_d.numpy(), rows[:, 126])
+    for t in range(rows.shape[0]):
+        np.testing.assert_array_equal(order[t, :n_d[t]].numpy(),
+                                      rows[t, :rows[t, 126]])
+    np.testing.assert_array_equal(lb_sorted.numpy(), lbf[:, :C])
+    assert (n_d > 1).any(), "tiles with a walk to order"
+    got = fn(arg, mesh, ub, tiles, far2, visits=True)
+    assert torch.equal(got[0], default[0]) and torch.equal(got[2], default[2])
+    assert torch.equal(got[5], default[5]), "visits count the masks"
+    assert (got[4] is None) == (far2 is None)
+    same = got[1] == default[1]
+    assert same.float().mean() > 0.9
+    assert torch.equal(got[3][same], default[3][same])
+    near = ~got[4] if got[4] is not None else torch.ones_like(same)
+    _assert_reaches_minimum(got[1][near], pts_c[near], mesh["table"],
+                            got[0][near].numpy())
+    d2_j, idx_j, w_j, qv_j = out_j
+    p = perm.numpy()
+    np.testing.assert_allclose(got[0].numpy()[p], d2_j, rtol=1e-4, atol=1e-8)
+    np.testing.assert_array_equal(got[2].numpy()[p], w_j)
+    same_j = got[1].numpy()[p] == idx_j
+    assert same_j.mean() > 0.7
+    np.testing.assert_allclose(got[3].numpy()[p][same_j], qv_j[same_j],
+                               rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("tile_p,chunk,tiling,blocks", [
+    (64, 128, "1d", "8"), (256, 128, "2d", "4,8,8"), (128, 64, "1d", None)])
+def test_culled_query_tile_and_chunk_sizes_match_jax(tile_p, chunk, tiling,
+                                                     blocks, monkeypatch):
+    """VANERF_MESH_TILE_P / VANERF_CULL_CHUNK at values besides 128: the
+    masks, lists and outputs against the JAX package with its TILE_P /
+    CULL_CHUNK set alike (far tier on), and equal to the sweep."""
+    import vanerf_tpu.ops.mesh_query_pallas as mqp
+    monkeypatch.setenv("VANERF_MESH_TILE_P", str(tile_p))
+    monkeypatch.setenv("VANERF_CULL_CHUNK", str(chunk))
+    monkeypatch.setattr(mqp, "TILE_P", tile_p)
+    monkeypatch.setattr(mqp, "CULL_CHUNK", chunk)
+    far2 = 0.02 ** 2
+    hands, mesh, ub, pts_c, tiles, fn, arg = _culled_case(
+        tiling, monkeypatch, blocks=blocks)
+    assert tiles[3] * tiles[4] * tiles[5] == tile_p
+    n_chunks = -(-len(hands[1]) // chunk)
+    assert mesh["chunk"] == chunk and mesh["cbox"].shape[0] == n_chunks
+    N = pts_c.shape[0]
+    perm = t_mq.tile_order(N, tiles)
+    tmin, tmax, ub_t, far_t, tile_of = t_mq.tile_boxes(pts_c, ub, tiles,
+                                                       far2, tile_p)
+    mask, use_neg, lb = t_mq.cull_masks(tmin, tmax, ub_t, mesh["cbox"],
+                                        far_t)
+    _cleared_jax_culled()
+    try:
+        need_d, need_w, neg_j, lb_j, out_j = _jax_side(
+            *hands, pts_c[perm].numpy(), ub[perm].numpy(),
+            mesh["order"].numpy(), far2, transposed=tiling == "2d")
+    finally:
+        _cleared_jax_culled()
+    assert need_d.shape == (N // tile_p, n_chunks)
+    np.testing.assert_array_equal((mask & 1).bool().numpy(), need_d)
+    np.testing.assert_array_equal((mask & 2).bool().numpy(), need_w)
+    np.testing.assert_array_equal(use_neg.numpy(), neg_j)
+    np.testing.assert_array_equal(lb.numpy(), lb_j)
+    assert 0 < far_t.float().mean() < 1, "both tiers"
+    d2, idx, wind, qvis, far, visits = fn(arg, mesh, ub, tiles, far2,
+                                          visits=True)
+    assert visits.shape == (N // tile_p, 2)
+    np.testing.assert_array_equal(visits.numpy()[:, 0], need_d.sum(1))
+    np.testing.assert_array_equal(visits.numpy()[:, 1], need_w.sum(1))
+    assert torch.equal(far, far_t[tile_of])
+    d2_j, idx_j, w_j, qv_j = out_j
+    p = perm.numpy()
+    np.testing.assert_allclose(d2.numpy()[p], d2_j, rtol=1e-4, atol=1e-8)
+    np.testing.assert_array_equal(wind.numpy()[p], w_j)
+    same = idx.numpy()[p] == idx_j
+    assert same.mean() > 0.7
+    np.testing.assert_allclose(qvis.numpy()[p][same], qv_j[same], rtol=1e-3,
+                               atol=1e-4)
+    b = t_mq.point_mesh_query_vis_plain(pts_c, mesh["table"], ub, far)
+    for k in (0, 1, 2, 3):
+        assert torch.equal((d2, idx, wind, qvis)[k], b[k]), k
+
+
+def test_cull_sizes_refuse_other_values(monkeypatch):
+    """The sizes the CUDA body is built for, read at call time; a mesh
+    prepared in other chunks than the switch now names is refused."""
+    assert t_mq.cull_sizes() == (128, 128)
+    verts, faces, vis = _hands()
+    mesh = t_mq.prepare_culled_mesh(T(verts), T(faces).long(), T(vis))
+    for name, bad in (("VANERF_MESH_TILE_P", "100"),
+                      ("VANERF_CULL_CHUNK", "32"),
+                      ("VANERF_CULL_CHUNK", "x")):
+        with monkeypatch.context() as m:
+            m.setenv(name, bad)
+            with pytest.raises(NotImplementedError, match=name):
+                t_mq.cull_sizes()
+    monkeypatch.setenv("VANERF_CULL_CHUNK", "64")
+    with pytest.raises(ValueError, match="prepare it again"):
+        t_mq.point_mesh_query_vis_culled(torch.zeros(128, 3), mesh,
+                                         torch.ones(128))
+    monkeypatch.setenv("VANERF_MESH_TILE_P", "64")
+    with pytest.raises(ValueError, match="VANERF_MESH_TILE_P=64"):
+        t_mq.tile_geometry(64 * 16, 16)               # 16 x 8 blocks
+
+
+# ---------------------------------------------------------------------------
+# the per-face rejection of the culled kernel: its plain mirror never skips
+# a face whose computed distance lies below the point's best
+# ---------------------------------------------------------------------------
+
+_unit = st.floats(-1.0, 1.0, allow_nan=False, width=32)
+_xyz = st.tuples(_unit, _unit, _unit)
+
+
+@settings(max_examples=400, deadline=None, database=None)
+@given(corners=st.tuples(_xyz, _xyz, _xyz), p=_xyz, off=_xyz,
+       kind=st.sampled_from(["random", "collinear", "point", "on_vertex",
+                             "on_edge", "above"]),
+       t=st.floats(0.0, 1.0, width=32),
+       scale=st.sampled_from([1e-4, 1e-2, 1.0, 1e2, 1e4]),
+       offset=st.sampled_from([0.0, 1.0, 30.0]),
+       reach=st.sampled_from([1e-3, 1.0, 10.0]),
+       others=st.integers(0, 2))
+def test_face_sphere_bound_never_exceeds_the_distance(
+        corners, p, off, kind, t, scale, offset, reach, others):
+    """``sphere_skip`` (the kernel's per-face test, the same expressions)
+    against ``point_triangle_sq_dist``: for any best above a face's computed
+    squared distance the face is kept, on random faces and on degenerate
+    ones (zero area, a single point, a point on a vertex or an edge, tiny
+    and huge scales, far from the origin)."""
+    a, b, c = (np.array(v, np.float32) for v in corners)
+    if kind == "collinear":
+        c = a + np.float32(t) * (b - a)
+    elif kind == "point":
+        b = c = a
+    tri = (np.stack([a, b, c]) + np.array(off, np.float32) * offset) * scale
+    tri = tri.astype(np.float32)
+    q = np.array(p, np.float32) * reach * scale + tri.mean(0)
+    if kind == "on_vertex":
+        q = tri[0].copy()
+    elif kind == "on_edge":
+        q = tri[0] + np.float32(t) * (tri[1] - tri[0])
+    elif kind == "above":
+        n = np.cross(tri[1] - tri[0], tri[2] - tri[0])
+        q = tri.mean(0) + np.float32(reach * 1e-3) * n
+    # the mesh's scale R from this face and a few others around it
+    rs = np.random.RandomState(others)
+    extra = (tri[None] + rs.randn(others, 3, 3).astype(np.float32)
+             * scale).astype(np.float32)
+    tris = torch.from_numpy(np.concatenate([tri[None], extra]))
+    sph = t_mq.face_spheres(tris)[0]
+    pt = torch.from_numpy(q.astype(np.float32))
+    tt = torch.from_numpy(tri)
+    d = t_mq.point_triangle_sq_dist(pt, tt[0], tt[1], tt[2])
+    assert torch.isfinite(d)
+    above = torch.nextafter(d, torch.tensor(float("inf")))
+    for best in (above, above * 1.5, d * 4.0 + 1e-30):
+        assert not t_mq.sphere_skip(pt, sph, best), (d, best, sph)
+
+
+def test_face_sphere_skips_far_faces():
+    """The test is not vacuous: a face far from a point with a small best
+    is skipped, the same face near it is kept, and a sliver never is."""
+    tri = torch.tensor([[[0.0, 0.0, 0.0], [0.01, 0.0, 0.0],
+                         [0.0, 0.01, 0.0]],
+                        [[0.0, 0.0, 0.1], [0.01, 0.0, 0.1],
+                         [0.02, 1e-6, 0.1]]])
+    sph = t_mq.face_spheres(tri)
+    assert torch.isfinite(sph[0, 3]) and torch.isinf(sph[1, 3])
+    best = torch.tensor(1e-6)
+    assert t_mq.sphere_skip(torch.tensor([0.5, 0.0, 0.0]), sph[0], best)
+    assert not t_mq.sphere_skip(torch.tensor([0.005, 0.002, 0.0005]),
+                                sph[0], best)
+    assert not t_mq.sphere_skip(torch.tensor([0.5, 0.0, 0.0]), sph[1], best)
+
+
+def _spread_mesh():
+    """Twelve small spheres in a row (3,840 faces in 30 chunks)."""
+    parts, faces, off = [], [], 0
+    for k in range(12):
+        v, f = make_icosphere(subdiv=2, radius=0.02,
+                              center=(0.08 * k, 0.01 * (k % 3), 0.0))
+        parts.append(v)
+        faces.append(f + off)
+        off += len(v)
+    verts = np.concatenate(parts).astype(np.float32)
+    faces = np.concatenate(faces).astype(np.int64)
+    vis = (np.random.RandomState(4).rand(len(verts), 1) > 0.4) \
+        .astype(np.float32)
+    return verts, faces, vis
+
+
+def _warp_walk_evaluations(pts_c, mesh, ub, tiles, far2):
+    """The culled kernel's default walk played face by face: the threads
+    of a tile in the blocked order, 32 to a warp; a warp evaluates a face of
+    its tile's distance chunks when any lane's sphere test keeps it, and
+    each of its lanes then takes the distance when strictly below its
+    best.  Returns the (thread, face) evaluations."""
+    tile_p, chunk = t_mq.cull_sizes()
+    tmin, tmax, ub_t, far_t, _ = t_mq.tile_boxes(pts_c, ub, tiles, far2,
+                                                 tile_p)
+    mask, _, _ = t_mq.cull_masks(tmin, tmax, ub_t, mesh["cbox"], far_t)
+    N = pts_c.shape[0]
+    perm = t_mq.tile_order(N, tiles)
+    p = pts_c[perm[torch.arange(mask.shape[0] * tile_p).clamp(max=N - 1)]]
+    table, sph = mesh["table"], mesh["sphere"]
+    best = torch.full((p.shape[0],), float("inf"))
+    count = 0
+    for f in range(table.shape[0]):
+        on = ((mask[:, f // chunk] & 1) != 0).repeat_interleave(tile_p)
+        keep = on & ~t_mq.sphere_skip(p, sph[f], best)
+        warp = keep.reshape(-1, 32).any(1).repeat_interleave(32)
+        count += int(warp.sum())
+        row = table[f]
+        d = t_mq.point_triangle_sq_dist(p, row[0:3], row[3:6], row[6:9])
+        best = torch.where(warp & (d < best), d, best)
+    return count
+
+
+@pytest.mark.parametrize("case", ["hands_1d_far", "spread_ragged"])
+def test_culled_work_counts_the_warps_evaluations(case, monkeypatch):
+    """``culled_work`` (the count of full distance evaluations behind the
+    culled kernel's operation bound) against the walk played face by face:
+    the same count, below the sphere tests (the test skips faces) and
+    above zero; the sphere tests and crossings are the masks' faces."""
+    if case == "hands_1d_far":
+        verts, faces, vis = _hands()
+        H, W, S = 8, 16, 8
+        pts = _ray_points(H, W, S)
+        tiles, far2 = t_mq.tile_geometry(len(pts), S), 0.02 ** 2
+        assert tiles is not None
+    else:
+        verts, faces, vis = _spread_mesh()
+        cen = np.array([[0.08 * k, 0.0, 0.0] for k in (1, 4, 7, 10)],
+                       np.float32)
+        rs = np.random.RandomState(5)
+        pts = (cen[:, None] + (rs.rand(4, 128, 3) - 0.5) * 0.05) \
+            .reshape(-1, 3)[:500].astype(np.float32)
+        tiles, far2 = None, None
+    mesh = t_mq.prepare_culled_mesh(T(verts), T(faces).long(), T(vis))
+    _, ub = t_knn.nearest_vertex_d2(T(pts), T(verts))
+    pts_c = (T(pts) - mesh["center"]).contiguous()
+    work = t_mq.culled_work(pts_c, mesh, ub, tiles, far2)
+    assert work["evaluated"] == _warp_walk_evaluations(pts_c, mesh, ub,
+                                                       tiles, far2)
+    assert 0 < work["evaluated"] < work["sphere_tests"]
+    tile_p, chunk = t_mq.cull_sizes()
+    tmin, tmax, ub_t, far_t, _ = t_mq.tile_boxes(pts_c, ub, tiles, far2)
+    mask, _, _ = t_mq.cull_masks(tmin, tmax, ub_t, mesh["cbox"], far_t)
+    F = len(faces)
+    sizes = torch.full((mask.shape[1],), chunk)
+    sizes[-1] = F - chunk * (mask.shape[1] - 1)
+    assert work["sphere_tests"] == int(((mask & 1) * sizes).sum()) * tile_p
+    assert work["crossings"] == int(((mask >> 1) * sizes).sum()) * tile_p
+
+
 def test_culled_query_ragged_points_and_short_last_chunk(monkeypatch):
     """N no multiple of 128 (the far tier is then off, as in the JAX
     wrapper) and F no multiple of 128 (the last chunk's box is that of its
@@ -407,10 +726,13 @@ def test_culled_query_ragged_points_and_short_last_chunk(monkeypatch):
     assert mesh["cbox"].shape[0] == 4 and mesh["cbox"].abs().max() < 1.0
     _, ub = t_knn.nearest_vertex_d2(T(pts), T(verts))
     pts_c = (T(pts) - mesh["center"]).contiguous()
+    # blocks of 4 rays x 4 samples do not make a tile of 128 points: the
+    # renderer-facing tile_geometry refuses them, the query takes them
     monkeypatch.setenv("VANERF_BLOCK_RAYS", "4")
     monkeypatch.setenv("VANERF_BLOCK_SAMPLES", "4")
-    blocked = t_mq.tile_geometry(240, 12)
-    assert blocked == (1, 20, 12, 1, 4, 4)
+    with pytest.raises(ValueError, match="VANERF_MESH_TILE_P=128"):
+        t_mq.tile_geometry(240, 12)
+    blocked = (1, 20, 12, 1, 4, 4)
     for tiles in (None, blocked):
         got = t_mq.point_mesh_query_vis_culled(pts_c, mesh, ub, tiles,
                                                far2=1e-4, visits=True)
@@ -428,17 +750,9 @@ def test_culled_query_skips_chunks_on_a_spread_mesh():
     """Twelve small spheres in a row (30 chunks): a tile of points around
     one of them skips a third of the chunks and more, and still equals the
     sweep over every face."""
-    parts, faces, off = [], [], 0
-    for k in range(12):
-        v, f = make_icosphere(subdiv=2, radius=0.02,
-                              center=(0.08 * k, 0.01 * (k % 3), 0.0))
-        parts.append(v)
-        faces.append(f + off)
-        off += len(v)
-    verts = np.concatenate(parts).astype(np.float32)
-    faces = np.concatenate(faces).astype(np.int64)
+    verts, faces, vis = _spread_mesh()
     rs = np.random.RandomState(4)
-    vis = (rs.rand(len(verts), 1) > 0.4).astype(np.float32)
+    rs.rand(len(verts), 1)                    # _spread_mesh's vis draws
     # 16 rays x 8 samples a tile, each tile around one sphere
     cen = np.array([[0.08 * k, 0.0, 0.0] for k in (1, 4, 7, 10)], np.float32)
     pts = (cen[:, None] + (rs.rand(4, 128, 3) - 0.5) * 0.05).reshape(-1, 3) \
@@ -636,3 +950,50 @@ def test_culled_mesh_kernels_match_plain_and_sweep(cuda, tiling, far2,
     assert g[4] is None and w[4] is None
     for a, b in zip(g[:4], w[:4]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("early,tile_p,chunk", [
+    (1, 128, 128), (0, 64, 128), (0, 256, 128), (0, 128, 64), (1, 64, 64),
+    (1, 256, 64)])
+def test_culled_mesh_kernels_at_each_size_and_under_early(
+        cuda, early, tile_p, chunk, monkeypatch):
+    """A and 7 at every instantiated tile and chunk size and under
+    VANERF_CULL_EARLY, on 639 faces (a last chunk of an odd count: its bulk
+    copy reads the table's padding row): equal to the plain version bit for
+    bit; d2 equal to the sweep's and, under the early exit, to the default
+    walk's; idx and qvis to the sweep's off the early exit."""
+    H, W, S = 16, 16, 16
+    verts, faces, vis = _hands()
+    faces = faces[:-1]
+    monkeypatch.setenv("VANERF_MESH_TILE_P", str(tile_p))
+    monkeypatch.setenv("VANERF_CULL_CHUNK", str(chunk))
+    monkeypatch.setenv("VANERF_BLOCK_RAYS", str(tile_p // 8))
+    pts = T(_ray_points(H, W, S)).to(cuda)
+    N = pts.shape[0]
+    mesh = t_mq.prepare_culled_mesh(T(verts).to(cuda),
+                                    T(faces).long().to(cuda),
+                                    T(vis).to(cuda))
+    assert len(faces) % chunk % 2 == 1
+    _, ub = t_knn.nearest_vertex_d2(pts, T(verts).to(cuda))
+    pts_c = (pts - mesh["center"]).contiguous()
+    tiles = t_mq.tile_geometry(N, S)
+    far2 = 0.02 ** 2
+    default = t_mq.point_mesh_query_vis_culled(pts_c, mesh, ub, tiles, far2)
+    monkeypatch.setenv("VANERF_CULL_EARLY", str(early))
+    got = t_mq.point_mesh_query_vis_culled(pts_c, mesh, ub, tiles, far2,
+                                           visits=True)
+    got_T = t_mq.point_mesh_query_vis_culled_T(pts_c.t().contiguous(), mesh,
+                                               ub, tiles, far2, visits=True)
+    torch.cuda.synchronize()
+    want = t_mq.point_mesh_query_vis_culled_plain(pts_c, mesh, ub, tiles,
+                                                  far2, visits=True)
+    for g in (got, got_T):
+        for a, b in zip(g, want):
+            assert torch.equal(a, b)
+    assert got[5].shape == (N // tile_p, 2)
+    sweep = t_mq.point_mesh_query_vis_cuda(pts_c, mesh["table"], ub, got[4])
+    assert torch.equal(got[0], sweep[0]) and torch.equal(got[0], default[0])
+    if not early:
+        assert torch.equal(got[1], sweep[1]) and torch.equal(got[3], sweep[3])
+    assert (got[2] != sweep[2]).float().mean() <= 1e-4     # grazes along -d

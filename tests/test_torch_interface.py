@@ -75,8 +75,8 @@ def test_compute_dtype_reads_env_first(env_dt, cfg_dt):
 
 @pytest.mark.parametrize("name,value", [
     ("VANERF_TWO_RES", "1"), ("VANERF_PE_DIRECT", "1"),
-    ("VANERF_CULL_EARLY", "1"), ("VANERF_MESH_TILE_P", "256"),
-    ("VANERF_CULL_CHUNK", "64")])
+    ("VANERF_MESH_TILE_P", "96"), ("VANERF_MESH_TILE_P", "512"),
+    ("VANERF_CULL_CHUNK", "256")])
 def test_unported_switch_raises(name, value):
     with _env(**{name: value}):
         with pytest.raises(NotImplementedError, match=name):
@@ -86,7 +86,8 @@ def test_unported_switch_raises(name, value):
 @pytest.mark.parametrize("name,value", [
     ("VANERF_TWO_RES", "0"), ("VANERF_PE_DIRECT", ""),
     ("VANERF_CULL_EARLY", "0"), ("VANERF_MESH_TILE_P", "128"),
-    ("VANERF_CULL_CHUNK", "128")])
+    ("VANERF_CULL_CHUNK", "128"), ("VANERF_CULL_EARLY", "1"),
+    ("VANERF_MESH_TILE_P", "256"), ("VANERF_CULL_CHUNK", "64")])
 def test_unported_switch_at_its_default_is_accepted(name, value):
     with _env(**{name: value}):
         tv._check_env()
@@ -168,7 +169,21 @@ def renders():
                        lambda *a: sampled.append("gather") or real(*a))
             mp.setenv("VANERF_MXU_INTERP", "0")
             out_g = tr.render_patch(model, tb, **kw)
-    return dict(jax=out_j, D=out_d, gather=out_g, sampled=sampled)
+        # the culled query's early-exit walk on both sides (the JAX CPU
+        # path's exact query has no walk to reorder; it runs from the
+        # compiled pieces above)
+        with _env(VANERF_CULL_EARLY="1"):
+            out_je = jr.render_patch(
+                h.jax_model(), g,
+                {k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
+                 for k, v in batch.items()},
+                rng=jax.random.PRNGKey(0), grids=jnp.asarray(grids),
+                out_h=8, out_w=4, uniform=True, training=False, n_views=1,
+                **KW)
+            out_je = {k: np.asarray(v) for k, v in out_je.items()}
+            out_e = tr.render_patch(model, tb, **kw)
+    return dict(jax=out_j, D=out_d, gather=out_g, sampled=sampled,
+                jax_early=out_je, early=out_e)
 
 
 def _close(out_t, out_j):
@@ -198,6 +213,19 @@ def test_mxu_interp_off_takes_the_gather_sampler(renders):
     f32 tolerance, and kernel D is never reached."""
     assert renders["sampled"] and set(renders["sampled"]) == {"gather"}
     _close(renders["gather"], renders["jax"])
+
+
+def test_render_patch_under_cull_early_matches_jax(renders):
+    """Eval render_patch under VANERF_CULL_EARLY=1 against JAX under the
+    same switch, at the render tolerance; the early walk changes no
+    distance, so the SDF equals the default render's."""
+    out_t, out_j = renders["early"], renders["jax_early"]
+    assert set(out_t) == set(out_j)
+    _close(out_t, out_j)
+    for k in ("tex_fg", "alpha", "depth"):
+        np.testing.assert_allclose(out_t[k].numpy(), renders["D"][k].numpy(),
+                                   rtol=RTOL, atol=ATOL, err_msg=k)
+    assert out_t["alpha"].max() > 0.2, "rays missed the fixture mesh"
 
 
 def test_render_patch_vis_map_on_by_default(renders):

@@ -129,6 +129,28 @@ def test_knn_kernel_matches_plain(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,v", [(5001, 1284), (777, 1), (3000, 4096),
+                                 (130, 7)])
+def test_knn_kernels_at_edge_shapes(cuda, n, v):
+    """B and 8 (4 points a thread, 512 a block) at N not a multiple of a
+    block's points, at one vertex, at the 4,096-vertex limit (48 KB of
+    shared memory) and at a count no multiple of 4: bit-equal to the plain
+    version, 8 to B; kernel 9 still equals B."""
+    rs = np.random.RandomState(n + v)
+    q = T(rs.randn(n, 3).astype(np.float32) * 0.1).to(cuda)
+    verts = T(rs.randn(v, 3).astype(np.float32) * 0.1).to(cuda)
+    idx, d2 = knn.nearest_vertex_d2(q, verts)
+    idx_T, d2_T = knn.nearest_vertex_d2_T(q.t().contiguous(), verts)
+    idx_9, d2_9 = knn.nearest_vertex_d2_culled(q, verts)
+    torch.cuda.synchronize()
+    idx_p, d2_p = knn.nearest_vertex_d2_plain(q, verts)
+    for i_, d_ in ((idx, d2), (idx_T, d2_T), (idx_9, d2_9)):
+        assert torch.equal(i_, idx_p) and torch.equal(d_, d2_p)
+    with pytest.raises(ValueError, match="4096"):
+        knn.nearest_vertex_d2(q, torch.zeros(4097, 3, device=cuda))
+
+
+@pytest.mark.cuda
 def test_raster_kernel_matches_plain(cuda):
     verts, faces, _ = two_hand_mesh(0, 2)
     xy = T(np.random.RandomState(2).rand(len(verts), 2)

@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
-"""Kernel A/B of two checkouts of the PyTorch port on one GPU: kernels D
-(``interp_mxu.interp_cuda``) and 13 (``onehot_gather.onehot_scatter_cuda``)
-at the shapes that ``chip_smoke.py``'s kernels line sums.
+"""Kernel A/B of two checkouts of the PyTorch port on one GPU: kernels A
+(the culled mesh query, ``mesh_query.point_mesh_query_vis_culled``), B
+(``knn.nearest_vertex_d2``), D (``interp_mxu.interp_cuda``) and 13
+(``onehot_gather.onehot_scatter_cuda``) at the main path's shapes.
 
-    python3 tools_torch/kernel_ab.py --base DIR [--rounds 4]
+    python3 tools_torch/kernel_ab.py --base DIR [--rounds 4] [--kernels A B]
 
 The checkout holding this script builds the inputs once, as
 ``chip_smoke.py`` phase 2 does (``configs/vanerf.json`` at full width,
 seeded flax-style initialisation, the 256^2 subdiv=3 two-hand fixture, the
-coarse pass of one mask-centred 64x64 patch): the two maps D samples at the
-patch's projected points, and the row ids of 13's four tables.  One worker
-process per checkout (``DIR`` and this one) builds its own kernels and
-times each case with CUDA events, as called (mean of 20 calls after a
-warm-up, ``eager``) and as the device runs it (20 calls captured in a CUDA
-graph and replayed, ``graph``); the gradients of 13 are drawn in the
-worker from the same seed.  The workers
+coarse pass of one mask-centred 64x64 patch): the patch's 262,144 points,
+the frame's mesh and vertex visibility and the points' nearest-vertex
+bounds for A (16-ray x 8-sample tiles, far tier on, as a frame calls it)
+and B, the two maps D samples at the patch's projected points, and the row
+ids of 13's four tables (the cases the kernels line sums).  One worker
+process per checkout (``DIR`` and this one) builds its own kernels,
+prepares the mesh with its own ``prepare_culled_mesh`` and times each case
+with CUDA events, as called (mean of 20 calls after a warm-up, ``eager``)
+and as the device runs it (20 calls captured in a CUDA graph and
+replayed, ``graph``); the gradients of 13 are drawn in the worker from the
+same seed.  The workers
 are asked in turns, base, this, this, base per round; only one runs at a
 time.  With ``--profile`` each worker then reports the device time of
 every CUDA kernel each case launches (torch.profiler over 5 calls).
@@ -58,9 +63,10 @@ def make_inputs() -> None:
     init_like_flax(model, torch.Generator().manual_seed(cs.SEED))
     model = model.to(dev).eval()
     with torch.no_grad():
-        pts, _m, geo_coarse, uv, _g, _v = cs.main_path_points(model, batch)
+        pts, _m, geo_coarse, uv, _g, vert_vis = cs.main_path_points(model,
+                                                                    batch)
         verts = batch["verts"][0].contiguous()
-        idx, _d2 = knn.nearest_vertex_d2(pts, verts)
+        idx, d2 = knn.nearest_vertex_d2(pts, verts)
         krt = batch["src_krt"][0]
         vh = verts @ krt[:3, :3].T + krt[:3, 3]
         xy = vh[:, :2] / (vh[:, 2:3] + 1e-8)
@@ -73,10 +79,14 @@ def make_inputs() -> None:
              if main]
     os.makedirs(os.path.dirname(INPUTS), exist_ok=True)
     torch.save({"interp": [(t, f.cpu(), u.cpu()) for t, f, u in d],
-                "scatter": [(t, r.cpu(), n, c) for t, r, n, c in s]}, INPUTS)
+                "scatter": [(t, r.cpu(), n, c) for t, r, n, c in s],
+                "mesh": dict(pts=pts.cpu(), verts=verts.cpu(),
+                             faces=batch["faces"].cpu(),
+                             vert_vis=vert_vis.cpu(), d2=d2.cpu(),
+                             n_samples=cs.S_C, far2=0.02 ** 2)}, INPUTS)
 
 
-def worker(repo: str) -> None:
+def worker(repo: str, kernels) -> None:
     # the timers of this checkout's chip_smoke.py, whichever port is timed
     spec = importlib.util.spec_from_file_location(
         "kernel_ab_timers", os.path.join(THIS_REPO, "chip_smoke.py"))
@@ -85,7 +95,8 @@ def worker(repo: str) -> None:
     sys.path.insert(0, repo)
     import torch
     import vanerf_tpu_torch
-    from vanerf_tpu_torch.ops import _cuda, interp_mxu, onehot_gather
+    from vanerf_tpu_torch.ops import (_cuda, interp_mxu, knn, mesh_query,
+                                      onehot_gather)
     assert os.path.dirname(os.path.dirname(vanerf_tpu_torch.__file__)) == \
         os.path.abspath(repo), "imported the port from the wrong checkout"
     _cuda.build()
@@ -100,11 +111,27 @@ def worker(repo: str) -> None:
                         .manual_seed(SEED))
         s.append((f"13 {t}", g, r, n))
 
-    cases = [(t, lambda f=f, u=u: interp_mxu.interp_cuda(f, u))
-             for t, f, u in d]
-    cases += [(t, lambda g=g, r=r, n=n:
-               onehot_gather.onehot_scatter_cuda(g, r, n))
-              for t, g, r, n in s]
+    m = {k: v.to(dev) if torch.is_tensor(v) else v
+         for k, v in data["mesh"].items()}
+    mesh = mesh_query.prepare_culled_mesh(m["verts"], m["faces"],
+                                          m["vert_vis"])
+    p_c = (m["pts"] - mesh["center"]).contiguous()
+    tiles = mesh_query.tile_geometry(p_c.shape[0], m["n_samples"])
+
+    cases = []
+    if "A" in kernels:
+        cases.append(("A", lambda: mesh_query.point_mesh_query_vis_culled(
+            p_c, mesh, m["d2"], tiles, m["far2"])))
+    if "B" in kernels:
+        cases.append(("B", lambda: knn.nearest_vertex_d2(m["pts"],
+                                                         m["verts"])))
+    if "D" in kernels:
+        cases += [(t, lambda f=f, u=u: interp_mxu.interp_cuda(f, u))
+                  for t, f, u in d]
+    if "13" in kernels:
+        cases += [(t, lambda g=g, r=r, n=n:
+                   onehot_gather.onehot_scatter_cuda(g, r, n))
+                  for t, g, r, n in s]
 
     def one():
         res = {}
@@ -158,10 +185,13 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also print each case's kernels' device time "
                          "(torch.profiler) in both checkouts")
+    ap.add_argument("--kernels", nargs="+", default=["A", "B", "D", "13"],
+                    choices=["A", "B", "D", "13"],
+                    help="the kernels to time (default: all four)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        worker(args.worker)
+        worker(args.worker, args.kernels)
         return 0
     make_inputs()
     repos = {"base": os.path.abspath(args.base), "this": THIS_REPO}
@@ -169,7 +199,8 @@ def main() -> int:
     try:
         for tag, repo in repos.items():
             p = subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                                  "--worker", repo], stdin=subprocess.PIPE,
+                                  "--worker", repo, "--kernels",
+                                  *args.kernels], stdin=subprocess.PIPE,
                                  stdout=subprocess.PIPE, text=True)
             procs[tag] = p
             if p.stdout.readline().strip() != "ready":

@@ -11,49 +11,130 @@
 //
 // Bound on the H100: arithmetic.  Per (point, vertex) pair it does 3 subs,
 // 3 muls, 2 adds and a compare: 262,144 points x 1,284 vertices is ~3.4e8
-// pairs, ~3 GFLOP — the card's fp32 rate makes that a fraction of a
-// millisecond; the bytes (3.1 MB of points in, 2 MB out) are negligible.
-// Design: one thread per point; the whole vertex table (V x 3 f32, 15 KB
-// for the two-hand fixture) is staged once per block into shared memory
-// and read as a broadcast (every thread of a warp reads the same vertex).
+// pairs, ~3 GFLOP; the bytes (3.1 MB of points in, 2 MB out) are
+// negligible.  Under -fmad=false each of those is its own instruction, and
+// the running minimum adds a select for the index, so the issue rate, not
+// the f32 peak, is the ceiling.
+// Design: the whole vertex table (V x 3 f32, 15 KB for the two-hand
+// fixture, 48 KB at KNN_MAX_VERTS, the dynamic shared memory a block gets
+// without cudaFuncSetAttribute) is staged once per block into shared
+// memory in its packed 12-byte layout.  A thread owns KNN_PPT points
+// (consecutive threads, consecutive points: the loads coalesce), and every
+// vertex it reads serves all of them; four vertices arrive in three
+// 16-byte broadcast loads (every lane of a warp reads the same address),
+// and the index of the running minimum is kept per group of 8 vertices
+// (see the loop).
 // The running minimum uses strict `<` in ascending vertex order, so ties
 // go to the lowest index like jnp.argmin / torch.argmin.  The squared
 // distance is dx*dx + dy*dy + dz*dz in that order: it is the exact
 // distance to a mesh vertex, hence a certified upper bound on the
-// point-to-mesh distance (kernel A's far rule relies on that).
+// point-to-mesh distance (kernel A's far rule relies on that), and it
+// equals the plain version's bit for bit.
 
 #include "common.cuh"
 
-#define KNN_THREADS 256
+#define KNN_THREADS 128
+#define KNN_PPT 4       // points a thread
 #define KNN_MAX_VERTS 4096  // 48 KB: the dynamic shared memory a block gets
                             // without cudaFuncSetAttribute
 
 template <bool SOA>
-__global__ void knn_kernel(const float* __restrict__ pts, int N,
-                           const float* __restrict__ verts, int V,
-                           int* __restrict__ idx, float* __restrict__ d2) {
-  extern __shared__ float sv[];
-  for (int k = threadIdx.x; k < 3 * V; k += blockDim.x) sv[k] = verts[k];
+__global__ void __launch_bounds__(KNN_THREADS) knn_kernel(
+    const float* __restrict__ pts, int N, const float* __restrict__ verts,
+    int V, int* __restrict__ idx, float* __restrict__ d2) {
+  extern __shared__ __align__(16) float sv[];
+  for (int k = threadIdx.x; k < 3 * V; k += KNN_THREADS) sv[k] = verts[k];
   __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N) return;
-  const float px = SOA ? pts[i] : pts[3 * i];
-  const float py = SOA ? pts[(size_t)N + i] : pts[3 * i + 1];
-  const float pz = SOA ? pts[2 * (size_t)N + i] : pts[3 * i + 2];
-  float best = INFINITY;
-  int bi = 0;
-  for (int j = 0; j < V; ++j) {
-    const float dx = px - sv[3 * j];
-    const float dy = py - sv[3 * j + 1];
-    const float dz = pz - sv[3 * j + 2];
-    const float d = dx * dx + dy * dy + dz * dz;
-    if (d < best) {
-      best = d;
-      bi = j;
+  const int i0 = blockIdx.x * (KNN_THREADS * KNN_PPT) + threadIdx.x;
+  float px[KNN_PPT], py[KNN_PPT], pz[KNN_PPT], best[KNN_PPT];
+  int bi[KNN_PPT];
+#pragma unroll
+  for (int q = 0; q < KNN_PPT; ++q) {
+    const int i = min(i0 + q * KNN_THREADS, N - 1);
+    px[q] = SOA ? pts[i] : pts[3 * i];
+    py[q] = SOA ? pts[(size_t)N + i] : pts[3 * i + 1];
+    pz[q] = SOA ? pts[2 * (size_t)N + i] : pts[3 * i + 2];
+    best[q] = INFINITY;
+    bi[q] = 0;
+  }
+  // Groups of 8 vertices, 24 floats in six float4 loads (group g starts
+  // 96g bytes into the table, so the loads are aligned).  A point keeps the
+  // smallest distance and the first group that reached it: per group 7
+  // minima, a compare and two selects for 8 pairs, in place of a compare
+  // and two selects a pair.  The minimum of a group replaces the best only
+  // when strictly smaller, so the group is the first holding the overall
+  // minimum; the index inside it is found at the end from the same
+  // expressions (the first of the 8 equal to the minimum), which is what
+  // a strict `<` walk in ascending order picks.
+  const float4* s4 = reinterpret_cast<const float4*>(sv);
+  const int G = V / 8;
+  int bg[KNN_PPT];
+#pragma unroll
+  for (int q = 0; q < KNN_PPT; ++q) bg[q] = -1;
+#pragma unroll 2
+  for (int g = 0; g < G; ++g, s4 += 6) {
+    float vx[8], vy[8], vz[8];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 a = s4[3 * h], b = s4[3 * h + 1], e = s4[3 * h + 2];
+      vx[4 * h] = a.x; vy[4 * h] = a.y; vz[4 * h] = a.z;
+      vx[4 * h + 1] = a.w; vy[4 * h + 1] = b.x; vz[4 * h + 1] = b.y;
+      vx[4 * h + 2] = b.z; vy[4 * h + 2] = b.w; vz[4 * h + 2] = e.x;
+      vx[4 * h + 3] = e.y; vy[4 * h + 3] = e.z; vz[4 * h + 3] = e.w;
+    }
+#pragma unroll
+    for (int q = 0; q < KNN_PPT; ++q) {
+      float d[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const float dx = px[q] - vx[u];
+        const float dy = py[q] - vy[u];
+        const float dz = pz[q] - vz[u];
+        d[u] = dx * dx + dy * dy + dz * dz;
+      }
+      const float m = fminf(fminf(fminf(d[0], d[1]), fminf(d[2], d[3])),
+                            fminf(fminf(d[4], d[5]), fminf(d[6], d[7])));
+      if (m < best[q]) {
+        best[q] = m;
+        bg[q] = g;
+      }
     }
   }
-  idx[i] = bi;
-  d2[i] = best;
+#pragma unroll
+  for (int q = 0; q < KNN_PPT; ++q) {
+    if (bg[q] < 0) continue;
+    const float* t = sv + 24 * bg[q];
+    int u = 0;
+    for (; u < 7; ++u) {
+      const float dx = px[q] - t[3 * u];
+      const float dy = py[q] - t[3 * u + 1];
+      const float dz = pz[q] - t[3 * u + 2];
+      if (dx * dx + dy * dy + dz * dz == best[q]) break;
+    }
+    bi[q] = 8 * bg[q] + u;
+  }
+  for (int j = 8 * G; j < V; ++j) {
+    const float x = sv[3 * j], y = sv[3 * j + 1], z = sv[3 * j + 2];
+#pragma unroll
+    for (int q = 0; q < KNN_PPT; ++q) {
+      const float dx = px[q] - x;
+      const float dy = py[q] - y;
+      const float dz = pz[q] - z;
+      const float d = dx * dx + dy * dy + dz * dz;
+      if (d < best[q]) {
+        best[q] = d;
+        bi[q] = j;
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < KNN_PPT; ++q) {
+    const int i = i0 + q * KNN_THREADS;
+    if (i < N) {
+      idx[i] = bi[q];
+      d2[i] = best[q];
+    }
+  }
 }
 
 template <bool SOA>
@@ -62,7 +143,7 @@ static int knn_launch(const float* pts, int N, const float* verts, int V,
   if (V <= 0 || V > KNN_MAX_VERTS) return static_cast<int>(cudaErrorInvalidValue);
   if (N <= 0) return 0;
   const size_t smem = sizeof(float) * 3 * static_cast<size_t>(V);
-  knn_kernel<SOA><<<vt_blocks(N, KNN_THREADS), KNN_THREADS, smem,
+  knn_kernel<SOA><<<vt_blocks(N, KNN_THREADS * KNN_PPT), KNN_THREADS, smem,
                     vt_stream(stream)>>>(pts, N, verts, V, idx, d2);
   return static_cast<int>(cudaGetLastError());
 }
@@ -275,6 +356,13 @@ static int knn_culled_launch(const float* pts, int N, const float* verts,
   knn_chunk_boxes_kernel<<<C, KNC_CHUNK, 0, vt_stream(stream)>>>(verts, V,
                                                                  boxes);
   const size_t smem = sizeof(float) * 3 * static_cast<size_t>(V);
+  // the table's 48 KB at KNN_MAX_VERTS and the kernel's own shared arrays
+  // exceed the 48 KB a block gets by default; the limit is the current
+  // device's, so it is raised on every launch
+  const cudaError_t raised = cudaFuncSetAttribute(
+      knn_culled_kernel<SOA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(sizeof(float) * 3 * KNN_MAX_VERTS));
+  if (raised != cudaSuccess) return static_cast<int>(raised);
   knn_culled_kernel<SOA><<<vt_blocks(N, KNC_TILE), KNC_TILE, smem,
                            vt_stream(stream)>>>(pts, N, verts, V, boxes, C,
                                                 idx, d2, visits);

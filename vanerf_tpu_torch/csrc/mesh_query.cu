@@ -16,16 +16,20 @@
 //
 // Bound on the H100: arithmetic, ~65 operations a (point, face) pair for the
 // difference-form Ericson distance and ~29 for the crossing test, over the
-// pairs the culling keeps; the bytes are a few MB.
+// pairs the culling keeps; the bytes are a few MB.  Built with -fmad=false,
+// every add and multiply takes its own issue slot, so the reachable rate is
+// half the f32 peak.
 //
 // Design of the culled query (`mesh_query_culled_kernel`).  The TPU version
 // relayouts the points into blocked order, builds per-tile boxes, masks and
 // compacted chunk lists on the host, and ships the lists through scalar
-// memory.  Here A BLOCK IS A TILE of 128 points of the blocked order (16
-// rays x 8 samples, or the 2-D pixel blocks of VANERF_BLOCK_2D): thread t of
+// memory.  Here A BLOCK IS A TILE of TP points of the blocked order (TP =
+// VANERF_MESH_TILE_P, 64 / 128 / 256, a template parameter; 128 = 16 rays
+// x 8 samples, or the 2-D pixel blocks of VANERF_BLOCK_2D): thread t of
 // block b finds its ray-major point by index arithmetic from the tile
 // geometry, so no relayouted copy of points, bounds or outputs exists and
-// no list goes through device memory.  The block
+// no list goes through device memory.  Chunks hold CH = VANERF_CULL_CHUNK
+// faces (64 / 128, a template parameter).  The block
 //   1. reduces its points' box, the largest and the least bound with warp
 //      shuffles (a ragged last tile repeats its last real point);
 //   2. decides the far tier for the whole tile: every bound above far2
@@ -42,10 +46,25 @@
 //      (crossings along -d are the `t det < 0` half-line of the same
 //      arithmetic, the sign taking the tile's s = -1);
 //   4. walks the set bits of (distance | winding) in ascending order and
-//      stages only those chunks of 128 x 22 floats, once each; a chunk in
-//      both sets runs both tests from one staging (the TPU kernel has two
-//      loops; the winding sum is a sum of +-1 and does not depend on the
-//      order, so one loop gives the same result).
+//      stages only those chunks of CH x 22 floats and their CH face
+//      spheres, once each; a chunk in both sets runs both tests from one
+//      staging (the TPU kernel has two loops; the winding sum is a sum of
+//      +-1 and does not depend on the order, so one loop gives the same
+//      result).  Two staging buffers, each filled by 1-D bulk copies (TMA)
+//      that complete on an mbarrier: chunk q+1 arrives while chunk q is
+//      searched, and one block barrier a chunk frees a buffer for chunk
+//      q+2;
+//   5. inside a distance chunk, skips (a warp at a time) every face whose
+//      bounding sphere certifies that it cannot beat a point's best
+//      distance so far (the proof is at `mesh_query_culled_kernel`): most
+//      pairs of a visited chunk then cost 11 operations, not 65.
+// Under VANERF_CULL_EARLY the distance chunks come first, in ascending
+// order of their box lower bound (ranked in shared memory), and the walk
+// stops at the first whose bound exceeds the tile's largest best d2 so far
+// (a block max after each chunk); the winding chunks it did not stage
+// follow in ascending order.  d2 and the winding are the default walk's;
+// on exact ties another face may win (the JAX docstring's argmin-tie
+// freedom).
 // The tolerance keeps the chunk of every face that reaches the minimum, and
 // the order is ascending in the sorted table, so d2, idx and qvis equal the
 // sweep over every face of the same table bit for bit, and the winding
@@ -208,7 +227,6 @@ VT_EXPORT int vt_mesh_query_T(const float* pts, int N, const float* faces,
 // the culled query
 // ---------------------------------------------------------------------------
 
-#define MQ_WARPS (MQ_THREADS / 32)
 #define MQ_MAX_CHUNKS 64
 
 // How tiles are cut from the ray-major order: (H x W) rays x S samples in
@@ -231,25 +249,119 @@ __device__ __forceinline__ int tile_point(int j, const TileGeom& g) {
   return ((hb * g.bh + y) * g.W + wb * g.bw + x) * g.S + sk * g.sb + s;
 }
 
-template <bool SOA>
-__global__ void mesh_query_culled_kernel(
+// One-dimensional bulk copies (TMA) into shared memory, completing on an
+// mbarrier that expects their bytes.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(unsigned long long* b) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(b))
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(unsigned long long* b,
+                                           unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(b)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* b) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(b))
+      : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void bar_wait(unsigned long long* b,
+                                         unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(b)),
+      "r"(parity)
+      : "memory");
+}
+
+// The per-face rejection (ops/mesh_query.py::face_spheres / sphere_skip).
+// Each face has a sphere (c_f, r'_f): c_f its centroid and r'_f its largest
+// corner distance r_f widened to r_f (1 + 1e-4) + 1e-5 R (R the prepared
+// mesh's largest corner norm; a sliver face has r'_f = inf).  A point whose
+// best squared distance so far is `best` skips face f when
+//     |p - c_f|^2 > (r'_f + sqrt(best) (1 + 1e-4))^2.
+// Why a skipped face cannot change d2, idx or qvis: every point of the
+// triangle lies within r_f of c_f, so its true distance is
+// d_f >= |p - c_f| - r_f.  The test's three roundings (the differences,
+// the squares and sums of non-negative terms, the square of t) are each a
+// few units in the last place u of the quantity, so the test implies
+// |p - c_f| > (r'_f + sb)(1 - 8u) and d_f > sb + 1e-4 r_f + 1e-5 R - 8u
+// (r'_f + sb).  The distance the sweep would compute for face f,
+// tri_sq_dist, is that of a computed point q^ which lies on the triangle,
+// or on a line or plane through its feature on the side where the true
+// closest point is the foot of the perpendicular, up to the rounding of
+// its coordinates, a few u R for a face whose area is not below 1e-2 of
+// its longest edge squared (the region tests can misjudge only points
+// within rounding of a region's border, where the two regions' points
+// meet); so sqrt(d^) >= d_f (1 - 4u) - 8u R.  With u = 2^-24 the margins
+// 1e-4 sqrt(best) and 1e-5 R exceed these terms by two orders, hence
+// sqrt(d^) > sqrt(best) and d^ >= best: under strict `<` the face would
+// not have replaced the running minimum.  tests/test_torch_cull.py holds
+// the test's plain mirror against tri_sq_dist's on random and degenerate
+// faces (hypothesis), and chip_smoke.py holds this kernel bit-equal to
+// the sweep over every face, which has no rejection.
+//
+// A warp evaluates a face's distance when any of its lanes keeps it (the
+// 32 points of a warp are neighbours in a tile and mostly agree); a lane
+// that could have skipped it computes a distance that cannot win.
+
+// EARLY (VANERF_CULL_EARLY) is a template parameter: the default walk's
+// instantiation carries none of the early walk's code (with both in one
+// body, selected at run time, the default walk ran ~20% slower on the
+// H100).
+template <bool SOA, int TP, int CH, bool EARLY>
+__global__ void __launch_bounds__(TP) mesh_query_culled_kernel(
     const float* __restrict__ pts, int N, const float* __restrict__ faces,
-    int F, const float* __restrict__ cbox, int C,
-    const float* __restrict__ ub, float far2, TileGeom geom,
-    float* __restrict__ d2o, int* __restrict__ idxo,
-    float* __restrict__ windo, float* __restrict__ qviso,
-    unsigned char* __restrict__ faro, int* __restrict__ visits) {
-  __shared__ float sf[MQ_CHUNK * MQ_STRIDE];
-  __shared__ float red[MQ_WARPS][8];
+    const float4* __restrict__ sph, int F, const float* __restrict__ cbox,
+    int C, const float* __restrict__ ub, float far2, TileGeom geom,
+    float* __restrict__ d2o, int* __restrict__ idxo, float* __restrict__ windo,
+    float* __restrict__ qviso, unsigned char* __restrict__ faro,
+    int* __restrict__ visits) {
+  constexpr int WARPS = TP / 32;
+  // two staging buffers of a chunk's rows and spheres, each filled by one
+  // pair of bulk copies on its own mbarrier while the other is searched
+  __shared__ __align__(128) float sf[2][CH * MQ_STRIDE];
+  __shared__ __align__(16) float4 ssph[2][CH];
+  __shared__ __align__(8) unsigned long long bar[2];
+  __shared__ float red[WARPS][8];
   __shared__ unsigned ballots[2][3];
-  const int j = blockIdx.x * MQ_THREADS + threadIdx.x;
+  __shared__ float slb[MQ_MAX_CHUNKS];
+  __shared__ int sorder[MQ_MAX_CHUNKS];
+  __shared__ float wmax[2][WARPS];
+  const int j = blockIdx.x * TP + threadIdx.x;
   const bool valid = j < N;
+  // a ragged last tile repeats its last real point: the box, the bounds and
+  // the early walk's largest best d2 are those of the real points
   const int i = tile_point(min(j, N - 1), geom);
   const float px = SOA ? pts[i] : pts[3 * i];
   const float py = SOA ? pts[(size_t)N + i] : pts[3 * i + 1];
   const float pz = SOA ? pts[2 * (size_t)N + i] : pts[3 * i + 2];
   const float ubi = ub[i];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    bar_init(&bar[0]);
+    bar_init(&bar[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
 
   // 1. the tile's box, largest and least bound
   float r[8] = {px, py, pz, px, py, pz, ubi, ubi};
@@ -270,7 +382,7 @@ __global__ void mesh_query_culled_kernel(
     tmax[k] = red[0][3 + k];
   }
   float ub_t = red[0][6], ub_lo = red[0][7];
-  for (int w = 1; w < MQ_WARPS; ++w) {
+  for (int w = 1; w < WARPS; ++w) {
     for (int k = 0; k < 3; ++k) {
       tmin[k] = fminf(tmin[k], red[w][k]);
       tmax[k] = fmaxf(tmax[k], red[w][3 + k]);
@@ -303,6 +415,7 @@ __global__ void mesh_query_culled_kernel(
       const float lb = gap[0] * gap[0] + gap[1] * gap[1] + gap[2] * gap[2];
       nd = !is_far &&
            lb <= ub_t * static_cast<float>(1.0 + 1e-5) + 1e-12f;
+      slb[c] = lb;
       // the three axes d x e_k: (0, d2, -d1), (-d2, 0, d0), (d1, -d0, 0)
       const float tp0 = tcen[1] * d2 - tcen[2] * d1;
       const float tp1 = tcen[2] * d0 - tcen[0] * d2;
@@ -343,39 +456,135 @@ __global__ void mesh_query_culled_kernel(
   const bool use_neg = __popcll(mn) < __popcll(mp);
   const u64 mw = use_neg ? mn : mp;
   const float s = use_neg ? -1.0f : 1.0f;
+  const int nd = __popcll(md);
   if (threadIdx.x == 0 && visits != nullptr) {
-    visits[2 * blockIdx.x] = __popcll(md);
+    visits[2 * blockIdx.x] = nd;
     visits[2 * blockIdx.x + 1] = __popcll(mw);
   }
+  // the early walk's order: the distance chunks ranked by (lb, id), the
+  // stable ascending sort of ops/mesh_query.py::early_walk_lists
+  if (EARLY) {
+    const int c = threadIdx.x;
+    if (c < C && ((md >> c) & 1ull)) {
+      const float lc = slb[c];
+      int rank = 0;
+      for (int k = 0; k < C; ++k)
+        rank += ((md >> k) & 1ull) && (slb[k] < lc || (slb[k] == lc && k < c));
+      sorder[rank] = c;
+    }
+    __syncthreads();
+  }
 
-  // 4. the visited chunks, ascending
-  float best = INFINITY;
+  // 4. the walk: chunk q of the walk sits in buffer q & 1, the (q >> 1)-th
+  // fill of that buffer; thread 0 issues fill q + 2 once every thread has
+  // left chunk q (the barrier at the end of a chunk)
+  float best = INFINITY, sb = INFINITY;
   int bidx = 0;
   float wind = 0.0f;
-  u64 todo = md | mw;
-  while (todo != 0ull) {
-    const int c = __ffsll(static_cast<long long>(todo)) - 1;
-    todo &= todo - 1ull;
-    const int f0 = c * MQ_CHUNK;
-    const int nf = min(MQ_CHUNK, F - f0);
-    __syncthreads();
-    for (int k = threadIdx.x; k < MQ_STRIDE * nf; k += MQ_THREADS)
-      sf[k] = faces[MQ_STRIDE * f0 + k];
-    __syncthreads();
-    if (!valid) continue;
-    const bool dist = (md >> c) & 1ull, cross = (mw >> c) & 1ull;
+  auto issue = [&](int q, int c) {
+    const int f0 = c * CH;
+    const int nf = min(CH, F - f0);
+    // an odd count's last row ends 8 bytes before a 16-byte boundary: the
+    // copy takes the padding row behind the table with it
+    const unsigned fb = (static_cast<unsigned>(nf * MQ_STRIDE * 4) + 15u) & ~15u;
+    const unsigned sbytes = static_cast<unsigned>(nf) * 16u;
+    bar_expect(&bar[q & 1], fb + sbytes);
+    bulk_load(sf[q & 1], faces + (size_t)f0 * MQ_STRIDE, fb, &bar[q & 1]);
+    bulk_load(ssph[q & 1], sph + f0, sbytes, &bar[q & 1]);
+  };
+  auto search = [&](int q, int c, bool dist, bool cross) {
+    bar_wait(&bar[q & 1], (q >> 1) & 1);
+    const float* buf = sf[q & 1];
+    const float4* sp = ssph[q & 1];
+    const int f0 = c * CH;
+    const int nf = min(CH, F - f0);
     if (dist) {
       for (int jf = 0; jf < nf; ++jf) {
-        const float d = tri_sq_dist(px, py, pz, sf + MQ_STRIDE * jf);
-        if (d < best) {
-          best = d;
-          bidx = f0 + jf;
+        const float4 sfc = sp[jf];
+        const float dx = px - sfc.x, dy = py - sfc.y, dz = pz - sfc.z;
+        const float e = dx * dx + dy * dy + dz * dz;
+        const float t = sfc.w + sb;
+        if (__any_sync(0xffffffffu, !(e > t * t))) {
+          const float d = tri_sq_dist(px, py, pz, buf + MQ_STRIDE * jf);
+          if (d < best) {
+            best = d;
+            bidx = f0 + jf;
+            sb = sqrtf(best) * 1.0001f;
+          }
         }
       }
     }
     if (cross) {
       for (int jf = 0; jf < nf; ++jf)
-        wind += crossing_s(px, py, pz, sf + MQ_STRIDE * jf, s);
+        wind += crossing_s(px, py, pz, buf + MQ_STRIDE * jf, s);
+    }
+  };
+  // One loop, one search: while `walking` (the early walk) the chunks come
+  // from `sorder` while lb <= the tile's largest best d2 so far (no
+  // tolerance, _kernel_vis_ray_culled's while loop), a chunk that is also
+  // a winding chunk counted from the same staging; then (or by default
+  // from the start) the unsearched chunks of md | mw in ascending order.
+  // Every flag below is the same in all threads of the block.
+  int q = 0, issued = 0, k = 0;
+  bool walking = EARLY && nd > 0;
+  float ub_run = INFINITY;
+  u64 rest = md | mw;  // chunks not searched yet
+  u64 pre = 0ull;      // chunks of `rest` not issued yet (ascending part)
+  auto refill = [&]() {
+    if (walking) {
+      if (issued < nd) {
+        if (threadIdx.x == 0) issue(issued, sorder[issued]);
+        ++issued;
+      }
+    } else if (pre != 0ull) {
+      if (threadIdx.x == 0)
+        issue(issued, __ffsll(static_cast<long long>(pre)) - 1);
+      pre &= pre - 1ull;
+      ++issued;
+    }
+  };
+  if (!walking) pre = rest;
+  refill();
+  refill();
+  while (true) {
+    int c;
+    if (walking) {
+      if (k == nd || !(slb[sorder[k]] <= ub_run)) {
+        // the walk stopped: wait out the fills already issued, then the
+        // winding chunks it did not stage
+        for (; q < issued; ++q) bar_wait(&bar[q & 1], (q >> 1) & 1);
+        __syncthreads();
+        walking = false;
+        rest &= mw;
+        pre = rest;
+        refill();
+        refill();
+        continue;
+      }
+      c = sorder[k];
+    } else {
+      if (rest == 0ull) break;
+      c = __ffsll(static_cast<long long>(rest)) - 1;
+    }
+    rest &= ~(1ull << c);
+    // by default a chunk of md | mw runs the distance and winding tests
+    // from one staging (the winding sum, a sum of +-1, does not depend on
+    // the order in which the chunks come)
+    search(q, c, walking || (!EARLY && ((md >> c) & 1ull)),
+           (mw >> c) & 1ull);
+    if (walking) {
+      float m = best;
+      for (int o = 16; o > 0; o >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      if (lane == 0) wmax[k & 1][warp] = m;
+    }
+    __syncthreads();
+    ++q;
+    refill();
+    if (walking) {
+      ub_run = wmax[k & 1][0];
+      for (int w = 1; w < WARPS; ++w) ub_run = fmaxf(ub_run, wmax[k & 1][w]);
+      ++k;
     }
   }
   if (!valid) return;
@@ -393,15 +602,58 @@ __global__ void mesh_query_culled_kernel(
   }
 }
 
+// The arguments of one launch of the culled kernel.
+struct CulledArgs {
+  const float* pts;
+  int N;
+  const float* faces;
+  const float4* sph;
+  int F;
+  const float* cbox;
+  int C;
+  const float* ub;
+  float far2;
+  TileGeom g;
+  float* d2;
+  int* idx;
+  float* wind;
+  float* qvis;
+  unsigned char* far;
+  int* visits;
+};
+
+template <bool SOA, int TP, int CH, bool EARLY>
+static void culled_launch(const CulledArgs& a, cudaStream_t st) {
+  mesh_query_culled_kernel<SOA, TP, CH, EARLY><<<vt_blocks(a.N, TP), TP, 0,
+                                                  st>>>(
+      a.pts, a.N, a.faces, a.sph, a.F, a.cbox, a.C, a.ub, a.far2, a.g, a.d2,
+      a.idx, a.wind, a.qvis, a.far, a.visits);
+}
+
 template <bool SOA>
 static int mesh_query_culled_launch(const float* pts, int N,
-                                    const float* faces, int F,
-                                    const float* cbox, int C, const float* ub,
-                                    float far2, const int* geom, float* d2,
-                                    int* idx, float* wind, float* qvis,
+                                    const float* faces, const float* sph,
+                                    int F, const float* cbox, int C,
+                                    const float* ub, float far2,
+                                    const int* geom, int tile_p, int chunk,
+                                    int early, float* d2, int* idx,
+                                    float* wind, float* qvis,
                                     unsigned char* far, int* visits,
                                     void* stream) {
-  if (C > MQ_MAX_CHUNKS || C != (F + MQ_CHUNK - 1) / MQ_CHUNK)
+  // the instantiations: tile 64 / 128 / 256 x chunk 64 / 128 x the walk
+  typedef void (*Launch)(const CulledArgs&, cudaStream_t);
+#define MQ_WALKS(TP, CH) \
+  { culled_launch<SOA, TP, CH, false>, culled_launch<SOA, TP, CH, true> }
+  static const Launch launches[3][2][2] = {
+      {MQ_WALKS(64, 64), MQ_WALKS(64, 128)},
+      {MQ_WALKS(128, 64), MQ_WALKS(128, 128)},
+      {MQ_WALKS(256, 64), MQ_WALKS(256, 128)}};
+#undef MQ_WALKS
+  const int ti = tile_p == 64 ? 0 : tile_p == 128 ? 1 : tile_p == 256 ? 2 : -1;
+  const int ci = chunk == 64 ? 0 : chunk == 128 ? 1 : -1;
+  if (ti < 0 || ci < 0 || C > MQ_MAX_CHUNKS ||
+      C != (F + chunk - 1) / chunk ||
+      (reinterpret_cast<size_t>(faces) | reinterpret_cast<size_t>(sph)) & 15)
     return static_cast<int>(cudaErrorInvalidValue);
   if (N <= 0) return 0;
   const TileGeom g = {geom[0], geom[1], geom[2], geom[3], geom[4], geom[5]};
@@ -409,39 +661,47 @@ static int mesh_query_culled_launch(const float* pts, int N,
       (g.bh <= 0 || g.bw <= 0 || g.sb < 0 || g.H % g.bh || g.W % g.bw ||
        g.S % g.sb || (long long)g.H * g.W * g.S != N))
     return static_cast<int>(cudaErrorInvalidValue);
-  mesh_query_culled_kernel<SOA><<<vt_blocks(N, MQ_THREADS), MQ_THREADS, 0,
-                                  vt_stream(stream)>>>(
-      pts, N, faces, F, cbox, C, ub, far2, g, d2, idx, wind, qvis, far,
-      visits);
+  const CulledArgs a = {pts, N, faces, reinterpret_cast<const float4*>(sph),
+                        F, cbox, C, ub, far2, g, d2, idx, wind, qvis, far,
+                        visits};
+  launches[ti][ci][early != 0](a, vt_stream(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
 // Kernel A, culled: `pts` (N, 3) centred and ray-major; `faces` (F, 22)
-// Morton-sorted; `cbox` (C, 6) chunk boxes; `far2` < 0 switches the far tier
-// off; `geom` six host ints (H, W, S, bh, bw, sb), sb = 0 for consecutive
-// tiles; `far` (N,) and `visits` (T, 2) may be null.
+// Morton-sorted, 16-byte aligned, with a padding row behind it when the last
+// chunk holds an odd number of faces; `sph` (F, 4) face spheres, 16-byte
+// aligned; `cbox` (C, 6) chunk boxes of `chunk` (64 or 128) faces; `far2` < 0
+// switches the far tier off; `geom` six host ints (H, W, S, bh, bw, sb), sb
+// = 0 for consecutive tiles; `tile_p` points a tile (64, 128 or 256);
+// `early` != 0 walks the distance chunks by ascending lower bound and stops
+// early; `far` (N,) and `visits` (T, 2) may be null.
 VT_EXPORT int vt_mesh_query_culled(const float* pts, int N,
-                                   const float* faces, int F,
-                                   const float* cbox, int C, const float* ub,
-                                   float far2, const int* geom, float* d2,
-                                   int* idx, float* wind, float* qvis,
+                                   const float* faces, const float* sph,
+                                   int F, const float* cbox, int C,
+                                   const float* ub, float far2,
+                                   const int* geom, int tile_p, int chunk,
+                                   int early, float* d2, int* idx,
+                                   float* wind, float* qvis,
                                    unsigned char* far, int* visits,
                                    void* stream) {
-  return mesh_query_culled_launch<false>(pts, N, faces, F, cbox, C, ub, far2,
-                                         geom, d2, idx, wind, qvis, far,
-                                         visits, stream);
+  return mesh_query_culled_launch<false>(pts, N, faces, sph, F, cbox, C, ub,
+                                         far2, geom, tile_p, chunk, early, d2,
+                                         idx, wind, qvis, far, visits,
+                                         stream);
 }
 
 // Kernel 7, culled: `pts` is (3, N) contiguous.
 VT_EXPORT int vt_mesh_query_culled_T(const float* pts, int N,
-                                     const float* faces, int F,
-                                     const float* cbox, int C,
+                                     const float* faces, const float* sph,
+                                     int F, const float* cbox, int C,
                                      const float* ub, float far2,
-                                     const int* geom, float* d2, int* idx,
+                                     const int* geom, int tile_p, int chunk,
+                                     int early, float* d2, int* idx,
                                      float* wind, float* qvis,
                                      unsigned char* far, int* visits,
                                      void* stream) {
-  return mesh_query_culled_launch<true>(pts, N, faces, F, cbox, C, ub, far2,
-                                        geom, d2, idx, wind, qvis, far,
-                                        visits, stream);
+  return mesh_query_culled_launch<true>(pts, N, faces, sph, F, cbox, C, ub,
+                                        far2, geom, tile_p, chunk, early, d2,
+                                        idx, wind, qvis, far, visits, stream);
 }

@@ -30,6 +30,7 @@ from ..ops.fused_mlp import (fused_geo_mlp, fused_query_mlp,
 from ..ops.grid_sample import feat_sample_nhwc
 from ..ops.interp_mxu import interp_mxu_viable, interp_sample_nhwc
 from ..ops.knn import knn_gather_1, knn_gather_raw, nearest_vertex_d2
+from ..ops.mesh_query import cull_sizes
 from .blocks import HGFilter, ResBlkEncoder, avg_pool2
 from .fusion import GeoVisFusion, TexVisFusion
 from .ibr import IBRRenderingHead
@@ -37,17 +38,17 @@ from .mlp import MLPUNetFusion
 from .spatial import SpatialEncoder
 
 # Switches of the JAX package that the port does not take: each must be
-# unset or hold the value the port is fixed at (the JAX default; the culled
-# query's tile and chunk are 128 and 128, csrc/mesh_query.cu).  Anything
-# else raises.  VANERF_REMAT_QUERY acts in training only and is checked by
-# the renderer; VANERF_PE_CONCAT, VANERF_MXU_TILE_N and VANERF_MXU_CHUNK
-# change only the TPU's layout and have no effect here (README).
-_FIXED_ENV = {"VANERF_TWO_RES": ("", "0"), "VANERF_PE_DIRECT": ("", "0"),
-              "VANERF_CULL_EARLY": ("", "0"), "VANERF_MESH_TILE_P": ("128",),
-              "VANERF_CULL_CHUNK": ("128",)}
+# unset or hold the value the port is fixed at (the JAX default).  Anything
+# else raises, as do culled-query tile and chunk sizes the CUDA body is not
+# built for (``mesh_query.cull_sizes``).  VANERF_REMAT_QUERY acts in
+# training only and is checked by the renderer; VANERF_PE_CONCAT,
+# VANERF_MXU_TILE_N and VANERF_MXU_CHUNK change only the TPU's layout and
+# have no effect here (README).
+_FIXED_ENV = {"VANERF_TWO_RES": ("", "0"), "VANERF_PE_DIRECT": ("", "0")}
 
 
 def _check_env():
+    cull_sizes()
     for name, allowed in _FIXED_ENV.items():
         val = os.environ.get(name)
         if val is not None and val not in allowed:

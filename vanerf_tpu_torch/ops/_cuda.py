@@ -44,10 +44,10 @@ _SIGNATURES = {
     "vt_raster": [_P, _I, _I, _I, _P, _P, _P],
     "vt_mesh_query": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
     "vt_mesh_query_T": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
-    "vt_mesh_query_culled": [_P, _I, _P, _I, _P, _I, _P, _F, _IP, _P, _P, _P,
-                             _P, _P, _P, _P],
-    "vt_mesh_query_culled_T": [_P, _I, _P, _I, _P, _I, _P, _F, _IP, _P, _P,
-                               _P, _P, _P, _P, _P],
+    "vt_mesh_query_culled": [_P, _I, _P, _P, _I, _P, _I, _P, _F, _IP, _I,
+                             _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "vt_mesh_query_culled_T": [_P, _I, _P, _P, _I, _P, _I, _P, _F, _IP, _I,
+                               _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "vt_mesh_query_brute": [_P, _I, _P, _I, _I, _P, _P, _P, _P],
     "vt_mesh_query_vis_brute": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _P],
     "vt_interp": [_P, _I, _I, _I, _P, _I, _P, _P],

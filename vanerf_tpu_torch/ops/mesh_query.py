@@ -20,9 +20,16 @@ device decides, there is no ``VANERF_MESH_BACKEND`` switch.
   exceed the tile's largest certified bound, and for the winding only when
   its box swept along the ray can reach the chunk's (:func:`cull_masks`);
   each tile shoots the ray along ``+_RAY_D`` or ``-_RAY_D``, whichever keeps
-  fewer chunks.  :func:`point_mesh_query_vis` / :func:`point_mesh_query_vis_T`
-  are the same kernels' sweep over every face, kept for comparisons: no
-  render path calls them.
+  fewer chunks.  Inside a chunk the kernel skips the faces whose bounding
+  sphere certifies they cannot beat a point's best distance
+  (:func:`face_spheres`, :func:`sphere_skip`); the plain version evaluates
+  every kept pair, and :func:`culled_work` counts the pairs the kernel
+  evaluates.  ``VANERF_MESH_TILE_P`` / ``VANERF_CULL_CHUNK`` change
+  the two sizes (:func:`cull_sizes`) and ``VANERF_CULL_EARLY`` the order of
+  the distance walk (:func:`early_walk_lists`).
+  :func:`point_mesh_query_vis` / :func:`point_mesh_query_vis_T` are the
+  same kernels' sweep over every face, the reference the culled kernel is
+  held against on the card: no render path calls them.
 * The exact API, :func:`point_mesh_query`, :func:`winding_number`,
   :func:`point_mesh_sdf`, :func:`cal_vis_sdf` and :func:`cal_vis_sdf_fast`
   (the reference's ``cal_vis_sdf_batch``): :func:`point_mesh_query_brute`
@@ -43,11 +50,14 @@ from . import _cuda
 
 # fixed generic winding-ray direction (mesh_query_pallas.py:57)
 _RAY_D = (0.5773502691896258, 0.7071067811865476, 0.40824829046386296)
-# points per tile (mesh_query_pallas TILE_P; csrc/mesh_query.cu MQ_THREADS)
+# the culled query's default points per tile and faces per chunk
+# (mesh_query_pallas TILE_P / CULL_CHUNK); VANERF_MESH_TILE_P and
+# VANERF_CULL_CHUNK pick others among the sizes the CUDA body is built for
+# (:func:`cull_sizes`), and a tile's two 64-bit visit masks hold MAX_CHUNKS
 TILE_P = 128
-# faces per culling chunk (mesh_query_pallas CULL_CHUNK; MQ_CHUNK) and the
-# most chunks a tile's two 64-bit visit masks hold
 CULL_CHUNK = 128
+TILE_SIZES = (64, 128, 256)
+CHUNK_SIZES = (64, 128)
 MAX_CHUNKS = 64
 # floats per face in the kernel's table (csrc/mesh_query.cu MQ_STRIDE)
 FACE_STRIDE = 22
@@ -63,6 +73,36 @@ vis_brute_launches = 0
 
 # winding methods of kernels 5 and 6 (csrc/mesh_query_brute.cu WIND_*)
 _WIND_MODES = {"none": 0, "ray": 1, "solid_angle": 2}
+
+
+def cull_sizes() -> tuple[int, int]:
+    """(points per tile, faces per chunk) of the culled query A / 7, read at
+    call time from ``VANERF_MESH_TILE_P`` and ``VANERF_CULL_CHUNK`` (the JAX
+    package reads them at import, ``mesh_query_pallas.py:30``, ``:628``).
+    A value the CUDA body is not instantiated for raises."""
+    out = []
+    for name, default, allowed in (
+            ("VANERF_MESH_TILE_P", TILE_P, TILE_SIZES),
+            ("VANERF_CULL_CHUNK", CULL_CHUNK, CHUNK_SIZES)):
+        raw = os.environ.get(name)
+        try:
+            val = default if raw is None else int(raw)
+        except ValueError:
+            val = None
+        if val not in allowed:
+            raise NotImplementedError(
+                f"{name}={raw!r} is not ported to PyTorch (the culled kernel "
+                f"is built for {', '.join(map(str, allowed))})")
+        out.append(val)
+    return out[0], out[1]
+
+
+def cull_early() -> bool:
+    """``VANERF_CULL_EARLY`` (off by default, as in the JAX package's
+    ``_cull_lists``): walk a tile's distance chunks in ascending order of
+    their box lower bound and stop at the first one above the tile's
+    running largest best squared distance."""
+    return os.environ.get("VANERF_CULL_EARLY", "0") not in ("", "0")
 
 
 def _cross(a, b):
@@ -182,7 +222,8 @@ def barycentric_vis(points: torch.Tensor, rows: torch.Tensor):
 
 
 def point_mesh_query_vis_plain(points: torch.Tensor, table: torch.Tensor,
-                               ub: torch.Tensor, far=None, cull=None):
+                               ub: torch.Tensor, far=None, cull=None,
+                               chunk: int = CULL_CHUNK, walk=None):
     """Plain-PyTorch twin of kernels A and 7, over every face or, with
     ``cull``, over the (tile, chunk) pairs the culling keeps.
 
@@ -196,7 +237,14 @@ def point_mesh_query_vis_plain(points: torch.Tensor, table: torch.Tensor,
         enters the minimum (bit 0) or the crossing count (bit 1), and a
         tile with ``use_neg`` counts the crossings of the ray along
         ``-_RAY_D``.  A point whose tile visits no chunk reads d2 = inf,
-        idx = 0, qvis = 0.
+        idx = 0, qvis = 0;
+      chunk: faces per chunk of ``cull``'s masks;
+      walk: optional early-exit walk of the distance chunks
+        (:func:`early_walk_lists`: order, n_d, sorted lb, each (T, C) /
+        (T,)): each tile visits its distance chunks in that order and stops
+        at the first whose lb exceeds the tile's running largest best d2
+        (``lb <= ub_run``, no tolerance); a chunk's faces are taken in
+        ascending order with strict ``<`` as the kernel does.
     Returns:
       d2 (N,), idx (N,) int32, wind (N,), qvis (N,).
     """
@@ -204,15 +252,15 @@ def point_mesh_query_vis_plain(points: torch.Tensor, table: torch.Tensor,
     N = points.shape[0]
     # (chunk, F) temporaries: ~16 MB each on the CPU, ~128 MB on a GPU
     budget = 1 << (22 if points.device.type == "cpu" else 25)
-    chunk = max(1, budget // max(F, 1))
     a, b, c = table[:, 0:3], table[:, 3:6], table[:, 6:9]
     pv, w2, nn_, det = (table[:, 12:15], table[:, 15:18], table[:, 18:21],
                         table[:, 21])
     points = points.float()
     inf = torch.tensor(float("inf"), device=points.device)
     d2s, idxs, winds = [], [], []
-    for p0 in range(0, max(N, 1), chunk):
-        pp = points[p0:p0 + chunk, None, :]
+    step = max(1, budget // max(F, 1))
+    for p0 in range(0, max(N, 1), step):
+        pp = points[p0:p0 + step, None, :]
         dd = point_triangle_sq_dist(pp, a[None], b[None], c[None])
         q = pp - a[None]
         u = _dot(q, pv[None])
@@ -225,19 +273,28 @@ def point_mesh_query_vis_plain(points: torch.Tensor, table: torch.Tensor,
             sign = torch.where(det > 0, -1.0, 1.0)
         else:
             mask, use_neg, tile_of = cull
-            tile = tile_of[p0:p0 + chunk]
-            m = mask[tile].repeat_interleave(CULL_CHUNK, 1)[:, :F]
+            tile = tile_of[p0:p0 + step]
+            m = mask[tile].repeat_interleave(chunk, 1)[:, :F]
             dd = torch.where((m & 1) != 0, dd, inf)
             s = torch.where(use_neg[tile], -1.0, 1.0)[:, None]
             hit = hit & (s * (t * det) > 0) & ((m & 2) != 0)
             sign = torch.where(det > 0, -s, s)
-        m_, i = dd.min(-1)
+        if walk is None:
+            m_, i = dd.min(-1)
+        else:       # each chunk's minimum and its first face
+            C = mask.shape[1]
+            pad = torch.full((dd.shape[0], C * chunk - F), float("inf"),
+                             device=dd.device)
+            m_, i = torch.cat([dd, pad], 1).reshape(-1, C, chunk).min(-1)
+            i = i + chunk * torch.arange(C, device=dd.device)
         d2s.append(m_)
         idxs.append(i)
         winds.append(torch.where(hit, sign, 0.0).sum(-1))
     d2 = torch.cat(d2s)
     idx = torch.cat(idxs)
     wind = torch.cat(winds)
+    if walk is not None:
+        d2, idx = _walk_early(d2, idx, *walk, cull[2])
     qvis = barycentric_vis(points, table[idx])
     if cull is not None:
         qvis = torch.where(d2 < inf, qvis, torch.zeros_like(qvis))
@@ -625,29 +682,40 @@ def _from_blocked2d_ax1(x, H, W, S, bh, bw, sb):
 
 
 def tile_geometry(N: int, n_samples: int | None, rays_hw=None):
-    """How the culled query's tiles of TILE_P points are cut from N
-    ray-major points: (H, W, S, bh, bw, sb), the 2-D pixel blocks x sb
-    depths when ``VANERF_BLOCK_2D`` is set and ``rays_hw`` fits
-    (coordinate-major callers only), else the 1-D blocks of ``bw`` rays x
-    ``sb`` samples written as H = bh = 1, or None: tiles of consecutive
-    points, when the samples or the blocks do not divide
-    (``mesh_query.py:419-428``, ``:481-500``)."""
+    """How the culled query's tiles of points are cut from N ray-major
+    points: (H, W, S, bh, bw, sb), the 2-D pixel blocks x sb depths when
+    ``VANERF_BLOCK_2D`` is set and ``rays_hw`` fits (coordinate-major
+    callers only), else the 1-D blocks of ``bw`` rays x ``sb`` samples
+    written as H = bh = 1, or None: tiles of consecutive points, when the
+    samples or the blocks do not divide (``mesh_query.py:419-428``,
+    ``:481-500``).  A block must hold one tile of ``VANERF_MESH_TILE_P``
+    points, as ``blocked_order``'s docstring asks (``mesh_query.py:274``):
+    other block sizes raise."""
     if n_samples is None or N % n_samples:
         return None
     S = n_samples
+    tile_p = cull_sizes()[0]
+    geom = None
     if rays_hw is not None and rays_hw[0] * rays_hw[1] * S == N:
         b2 = blocked2d_order(rays_hw[0], rays_hw[1], S)
         if b2 is not None:
-            return (rays_hw[0], rays_hw[1], S, *b2)
-    blocks = blocked_order(N // S, S)
-    if blocks is not None:
-        return (1, N // S, S, 1, blocks[0], blocks[1])
-    return None
+            geom = (rays_hw[0], rays_hw[1], S, *b2)
+    if geom is None:
+        blocks = blocked_order(N // S, S)
+        if blocks is None:
+            return None
+        geom = (1, N // S, S, 1, blocks[0], blocks[1])
+    if geom[3] * geom[4] * geom[5] != tile_p:
+        raise ValueError(
+            f"blocks of {geom[3]} x {geom[4]} rays x {geom[5]} samples "
+            f"(VANERF_BLOCK_2D / VANERF_BLOCK_RAYS, VANERF_BLOCK_SAMPLES) "
+            f"do not make one tile of VANERF_MESH_TILE_P={tile_p} points")
+    return geom
 
 
 def tile_order(N: int, tiles, device=None) -> torch.Tensor:
     """(N,) long: the ray-major index of the point at each position of the
-    blocked order.  Tile k holds positions [k TILE_P, (k + 1) TILE_P)."""
+    blocked order.  Tile k holds positions [k tile, (k + 1) tile)."""
     ar = torch.arange(N, device=device)
     if tiles is None:
         return ar
@@ -655,10 +723,11 @@ def tile_order(N: int, tiles, device=None) -> torch.Tensor:
 
 
 def tile_boxes(points: torch.Tensor, ub: torch.Tensor, tiles=None,
-               far2: float | None = None):
+               far2: float | None = None, tile_p: int = TILE_P):
     """Per tile of the blocked order: the box of its points, the largest
     bound and the far flag (every bound above ``far2``; None without
-    ``far2`` or when N is no multiple of TILE_P), plus each point's tile.
+    ``far2`` or when N is no multiple of ``tile_p``), plus each point's
+    tile.
     A ragged last tile is reduced over its real points (the TPU wrapper's
     edge-replicated padding, ``mesh_query_pallas.py:1058-1060``).
 
@@ -667,30 +736,31 @@ def tile_boxes(points: torch.Tensor, ub: torch.Tensor, tiles=None,
     """
     N = points.shape[0]
     dev = points.device
-    T = -(-N // TILE_P)
+    T = -(-N // tile_p)
     perm = tile_order(N, tiles, dev)
-    pos = torch.arange(T * TILE_P, device=dev)
-    src = perm[pos.clamp(max=N - 1)] if T * TILE_P != N else perm
-    p = points[src].reshape(T, TILE_P, 3)
-    u = ub[src].reshape(T, TILE_P)
+    pos = torch.arange(T * tile_p, device=dev)
+    src = perm[pos.clamp(max=N - 1)] if T * tile_p != N else perm
+    p = points[src].reshape(T, tile_p, 3)
+    u = ub[src].reshape(T, tile_p)
     far_t = None
-    if far2 is not None and N % TILE_P == 0:
+    if far2 is not None and N % tile_p == 0:
         far_t = u.amin(1) > far2
     tile_of = torch.empty(N, dtype=torch.long, device=dev)
-    tile_of[perm] = pos[:N] // TILE_P
+    tile_of[perm] = pos[:N] // tile_p
     return p.amin(1), p.amax(1), u.amax(1), far_t, tile_of
 
 
-def face_chunk_boxes(tri: torch.Tensor) -> torch.Tensor:
-    """(C, 6) corner boxes [min | max] of the chunks of CULL_CHUNK faces; a
+def face_chunk_boxes(tri: torch.Tensor,
+                     chunk: int = CULL_CHUNK) -> torch.Tensor:
+    """(C, 6) corner boxes [min | max] of the chunks of ``chunk`` faces; a
     short last chunk's box is that of its real faces (the TPU pads with
     faces at -1e9 instead, ``mesh_query_pallas.py:1017-1020``)."""
     F = tri.shape[0]
-    C = -(-F // CULL_CHUNK)
-    if C * CULL_CHUNK != F:
-        tri = tri[torch.arange(C * CULL_CHUNK,
+    C = -(-F // chunk)
+    if C * chunk != F:
+        tri = tri[torch.arange(C * chunk,
                                device=tri.device).clamp(max=F - 1)]
-    corners = tri.reshape(C, CULL_CHUNK * 3, 3)
+    corners = tri.reshape(C, chunk * 3, 3)
     return torch.cat([corners.amin(1), corners.amax(1)], -1).contiguous()
 
 
@@ -754,6 +824,49 @@ def cull_masks(tmin: torch.Tensor, tmax: torch.Tensor, ub_t: torch.Tensor,
     return mask, use_neg, lb
 
 
+def early_walk_lists(mask: torch.Tensor, lb: torch.Tensor):
+    """The early-exit walk's distance lists (``_cull_lists`` under
+    ``VANERF_CULL_EARLY``, ``mesh_query_pallas.py:970-990``): per tile the
+    chunk ids in ascending order of their lower bound ``lb`` (a stable sort:
+    equal bounds keep ascending ids; chunks without the distance bit
+    follow), the number of distance chunks and the sorted bounds (+inf past
+    that number).  mask, lb (T, C) -> order (T, C) long, n_d (T,), lb (T, C).
+    The kernel ranks the same keys in shared memory."""
+    need_d = (mask & 1) != 0
+    key = torch.where(need_d, lb, torch.full_like(lb, float("inf")))
+    lb_sorted, order = torch.sort(key, dim=1, stable=True)
+    return order, need_d.sum(1), lb_sorted
+
+
+def _walk_early(cmin: torch.Tensor, carg: torch.Tensor, order, n_d,
+                lb_sorted, tile_of):
+    """Each tile's points take the chunks of ``order`` one after another
+    while ``lb <= ub_run``, the tile's largest best d2 so far (+inf before
+    the first chunk); a chunk's minimum replaces a point's best only when
+    strictly smaller.  cmin / carg (N, C): each point's minimum over each
+    chunk and its first face (+inf off the distance mask)."""
+    N = cmin.shape[0]
+    T, C = order.shape
+    dev = cmin.device
+    best = torch.full((N,), float("inf"), device=dev)
+    bidx = torch.zeros(N, dtype=carg.dtype, device=dev)
+    ub_run = torch.full((T,), float("inf"), device=dev)
+    rows = torch.arange(N, device=dev)
+    for k in range(C):
+        go = (k < n_d) & (lb_sorted[:, k] <= ub_run)
+        if not go.any():
+            break
+        c = order[tile_of, k]
+        v = cmin[rows, c]
+        take = go[tile_of] & (v < best)
+        best = torch.where(take, v, best)
+        bidx = torch.where(take, carg[rows, c], bidx)
+        run = torch.full((T,), float("-inf"), device=dev).scatter_reduce(
+            0, tile_of, best, "amax")
+        ub_run = torch.where(go, run, ub_run)
+    return best, bidx
+
+
 def _visits(mask: torch.Tensor) -> torch.Tensor:
     """(T, 2) int32: distance and winding chunks each tile visits."""
     return torch.stack([(mask & 1).sum(1), (mask >> 1).sum(1)], 1).int()
@@ -767,13 +880,17 @@ def point_mesh_query_vis_culled_plain(points: torch.Tensor, mesh: dict,
     :func:`point_mesh_query_vis_culled`): the tiles' boxes, the masks of
     :func:`cull_masks`, then :func:`point_mesh_query_vis_plain` over the
     pairs they keep."""
+    tile_p, chunk = _sizes_for(mesh)
     points = points.float()
     ub = ub.float()
-    tmin, tmax, ub_t, far_t, tile_of = tile_boxes(points, ub, tiles, far2)
-    mask, use_neg, _lb = cull_masks(tmin, tmax, ub_t, mesh["cbox"], far_t)
+    tmin, tmax, ub_t, far_t, tile_of = tile_boxes(points, ub, tiles, far2,
+                                                  tile_p)
+    mask, use_neg, lb = cull_masks(tmin, tmax, ub_t, mesh["cbox"], far_t)
     far = far_t[tile_of] if far_t is not None else None
+    walk = early_walk_lists(mask, lb) if cull_early() else None
     out = point_mesh_query_vis_plain(points, mesh["table"], ub, far,
-                                     (mask, use_neg, tile_of)) + (far,)
+                                     (mask, use_neg, tile_of), chunk,
+                                     walk) + (far,)
     return out + (_visits(mask),) if visits else out
 
 
@@ -787,34 +904,57 @@ def point_mesh_query_vis_culled_T_plain(points_T: torch.Tensor, mesh: dict,
                                              far2, visits)
 
 
+def _sizes_for(mesh: dict) -> tuple[int, int]:
+    """:func:`cull_sizes`, which must agree with the chunk size the mesh
+    was prepared with."""
+    tile_p, chunk = cull_sizes()
+    if mesh["chunk"] != chunk:
+        raise ValueError(f"the mesh was prepared in chunks of "
+                         f"{mesh['chunk']} faces, VANERF_CULL_CHUNK is "
+                         f"{chunk}: prepare it again")
+    return tile_p, chunk
+
+
 def _launch_culled(entry: str, points: torch.Tensor, N: int, mesh: dict,
                    ub: torch.Tensor, tiles, far2, visits: bool):
     """One launch of the culled kernel A (``vt_mesh_query_culled``, points
     (N, 3)) or 7 (``vt_mesh_query_culled_T``, points (3, N)); the caller
     counts it."""
-    table, cbox = mesh["table"], mesh["cbox"]
+    tile_p, chunk = _sizes_for(mesh)
+    table, cbox, sphere = mesh["table"], mesh["cbox"], mesh["sphere"]
     F, C = table.shape[0], cbox.shape[0]
     dev = points.device
     _cuda.require(table, "table", torch.float32, (F, FACE_STRIDE), dev)
     _cuda.require(cbox, "cbox", torch.float32, (C, 6), dev)
+    _cuda.require(sphere, "sphere", torch.float32, (F, 4), dev)
     _cuda.require(ub, "ub", torch.float32, (N,), dev)
-    if C > MAX_CHUNKS:
-        raise ValueError(f"culled mesh query: {F} faces make {C} chunks; a "
-                         f"tile's visit masks hold {MAX_CHUNKS}")
-    with_far = far2 is not None and N % TILE_P == 0
+    if C > MAX_CHUNKS or C != -(-F // chunk):
+        raise ValueError(f"culled mesh query: {F} faces make {C} chunks of "
+                         f"{chunk}; a tile's visit masks hold {MAX_CHUNKS}")
+    # the kernel copies a chunk's rows with 16-byte bulk copies: the table
+    # and the spheres start on a 16-byte boundary, and a last chunk of an
+    # odd number of faces reads the padding row prepare_culled_mesh keeps
+    # behind the table
+    pad_end = (table.storage_offset() + F * FACE_STRIDE + 2) * 4
+    if (table.data_ptr() % 16 or sphere.data_ptr() % 16
+            or (F % chunk % 2 and table.untyped_storage().nbytes() < pad_end)):
+        raise ValueError("culled mesh query: the face table and spheres "
+                         "must come from prepare_culled_mesh")
+    with_far = far2 is not None and N % tile_p == 0
     geom = (ctypes.c_int * 6)(*(tiles if tiles is not None else (0,) * 6))
     d2 = torch.empty(N, dtype=torch.float32, device=dev)
     idx = torch.empty(N, dtype=torch.int32, device=dev)
     wind = torch.empty(N, dtype=torch.float32, device=dev)
     qvis = torch.empty(N, dtype=torch.float32, device=dev)
     far = torch.empty(N, dtype=torch.bool, device=dev) if with_far else None
-    count = (torch.empty(-(-N // TILE_P), 2, dtype=torch.int32, device=dev)
+    count = (torch.empty(-(-N // tile_p), 2, dtype=torch.int32, device=dev)
              if visits else None)
     rc = getattr(_cuda.lib(), entry)(
-        points.data_ptr(), N, table.data_ptr(), F, cbox.data_ptr(), C,
-        ub.data_ptr(), float(far2) if with_far else -1.0, geom,
-        d2.data_ptr(), idx.data_ptr(), wind.data_ptr(), qvis.data_ptr(),
-        far.data_ptr() if with_far else None,
+        points.data_ptr(), N, table.data_ptr(), sphere.data_ptr(), F,
+        cbox.data_ptr(), C, ub.data_ptr(),
+        float(far2) if with_far else -1.0, geom, tile_p, chunk,
+        int(cull_early()), d2.data_ptr(), idx.data_ptr(), wind.data_ptr(),
+        qvis.data_ptr(), far.data_ptr() if with_far else None,
         count.data_ptr() if visits else None, _cuda.stream_ptr(dev))
     _cuda.check(rc, entry)
     out = (d2, idx, wind, qvis, far)
@@ -833,16 +973,20 @@ def point_mesh_query_vis_culled(points: torch.Tensor, mesh: dict,
         :func:`prepare_culled_mesh`; ub: (N,) certified squared-distance
         upper bounds (they drive the culling: a bound below the true
         distance loses faces);
-      tiles: from :func:`tile_geometry`, how tiles of TILE_P points are cut
+      tiles: from :func:`tile_geometry`, how tiles of points are cut
         from the ray-major order (None: consecutive points).  A block of
         the kernel is a tile and finds its points by index arithmetic: no
         relayouted copy of points or outputs is made;
       far2: optional squared far threshold: a tile whose every bound
         exceeds it skips the distance search (d2 := ub, idx := 0,
         qvis := 0) and keeps its exact winding (off when N is no multiple
-        of TILE_P);
+        of the tile);
       visits: also return the (T, 2) int32 numbers of distance and winding
         chunks each tile visited.
+    The tile and chunk sizes are :func:`cull_sizes`'; under
+    ``VANERF_CULL_EARLY`` (:func:`cull_early`) a tile walks its distance
+    chunks in ascending order of their lower bound and stops early: d2 is
+    the default walk's, idx and qvis may differ where faces tie.
     Returns:
       d2 (N,), idx (N,) int32 into the mesh's sorted faces, wind (N,),
       qvis (N,), far (N,) bool or None[, visits].
@@ -898,21 +1042,112 @@ def _morton_order(centroids: torch.Tensor) -> torch.Tensor:
     return torch.argsort(code, stable=True)
 
 
+def face_spheres(tri: torch.Tensor) -> torch.Tensor:
+    """(F, 4) rows [centre | radius'] of the culled kernel's per-face
+    rejection test (:func:`sphere_skip`): the centroid, and the largest
+    corner distance widened by 1e-4 of itself and 1e-5 of the mesh's
+    largest corner norm R, which covers the rounding of the test and of the
+    distance it stands in for (``csrc/mesh_query.cu``, the proof there).  A
+    sliver (twice its area below 1e-2 of its longest edge squared, zero
+    area included) gets an infinite radius and is never skipped: its
+    distance's rounding is not bounded by the margins."""
+    tri = tri.float()
+    a, b, c = tri[:, 0], tri[:, 1], tri[:, 2]
+    cen = (a + b + c) / 3.0
+    rad = torch.stack([_dot(v - cen, v - cen) for v in (a, b, c)], 1) \
+        .amax(1).sqrt()
+    R = tri.reshape(-1, 3).norm(dim=1).amax() if tri.numel() else \
+        torch.zeros((), device=tri.device)
+    ab, ac, bc = b - a, c - a, c - b
+    n = _cross(ab, ac)
+    longest = torch.stack([_dot(e, e) for e in (ab, ac, bc)], 1).amax(1)
+    sliver = ~(_dot(n, n).sqrt() > 1e-2 * longest)
+    rad = rad * (1.0 + 1e-4) + 1e-5 * R
+    rad = torch.where(sliver, torch.full_like(rad, float("inf")), rad)
+    return torch.cat([cen, rad[:, None]], 1).contiguous()
+
+
+def sphere_skip(points: torch.Tensor, sphere: torch.Tensor,
+                best: torch.Tensor) -> torch.Tensor:
+    """The culled kernel's per-face rejection, written as the kernel
+    evaluates it: skip face f for a point whose best squared distance so
+    far is ``best`` when |p - c_f|^2 > (r'_f + sqrt(best) (1 + 1e-4))^2.
+    Broadcasting points (..., 3), sphere (..., 4), best (...) -> bool.  It
+    never skips a face whose computed ``point_triangle_sq_dist`` lies below
+    ``best``, so d2, idx and qvis do not change."""
+    sb = torch.sqrt(best) * 1.0001
+    dx = points[..., 0] - sphere[..., 0]
+    dy = points[..., 1] - sphere[..., 1]
+    dz = points[..., 2] - sphere[..., 2]
+    e = dx * dx + dy * dy + dz * dz
+    t = sphere[..., 3] + sb
+    return e > t * t
+
+
+def culled_work(points: torch.Tensor, mesh: dict, ub: torch.Tensor,
+                tiles=None, far2: float | None = None) -> dict:
+    """What the culled kernel's default walk evaluates, in (thread, face)
+    pairs, a ragged last tile's repeated points included: ``sphere_tests``,
+    every face of a tile's distance chunks; ``evaluated``, the faces whose
+    full distance a warp computes (all 32 lanes, when :func:`sphere_skip`
+    keeps the face for any lane against that lane's best so far);
+    ``crossings``, every face of its winding chunks.  A face a lane skips
+    cannot lower its best, so the best before a face is the running
+    minimum of the computed distances over the distance chunks' faces
+    before it in ascending order."""
+    tile_p, chunk = _sizes_for(mesh)
+    points = points.float()
+    ub = ub.float()
+    tmin, tmax, ub_t, far_t, _ = tile_boxes(points, ub, tiles, far2, tile_p)
+    mask, _use_neg, _lb = cull_masks(tmin, tmax, ub_t, mesh["cbox"], far_t)
+    table, sphere = mesh["table"], mesh["sphere"]
+    F, N = table.shape[0], points.shape[0]
+    T = mask.shape[0]
+    dev = points.device
+    face_d = (mask & 1).bool().repeat_interleave(chunk, 1)[:, :F]   # (T, F)
+    face_w = (mask & 2).bool().repeat_interleave(chunk, 1)[:, :F]
+    perm = tile_order(N, tiles, dev)
+    src = perm[torch.arange(T * tile_p, device=dev).clamp(max=N - 1)]
+    a, b, c = table[:, 0:3], table[:, 3:6], table[:, 6:9]
+    budget = 1 << (22 if dev.type == "cpu" else 25)
+    tiles_step = max(1, budget // max(F * tile_p, 1))
+    evaluated = 0
+    for t0 in range(0, T, tiles_step):
+        m = face_d[t0:t0 + tiles_step].repeat_interleave(tile_p, 0)
+        pp = points[src[t0 * tile_p:(t0 + tiles_step) * tile_p], None, :]
+        dd = torch.where(m, point_triangle_sq_dist(pp, a[None], b[None],
+                                                   c[None]),
+                         torch.tensor(float("inf"), device=dev))
+        best = torch.cat([torch.full_like(dd[:, :1], float("inf")),
+                          dd.cummin(1).values[:, :-1]], 1)
+        keep = m & ~sphere_skip(pp, sphere[None], best)
+        evaluated += int(keep.reshape(-1, 32, F).any(1).sum()) * 32
+    return dict(sphere_tests=int(face_d.sum()) * tile_p, evaluated=evaluated,
+                crossings=int(face_w.sum()) * tile_p)
+
+
 def prepare_culled_mesh(verts: torch.Tensor, faces: torch.Tensor,
                         vert_vis: torch.Tensor) -> dict:
     """Once-per-mesh preparation for :func:`cal_vis_sdf_prepared`: centre
     the mesh (coordinates stay O(hand size)), Morton-sort the faces by
-    centroid so that chunks of CULL_CHUNK faces are compact (the closest
-    face's index is not used downstream), and build the kernel's face table
-    and the chunks' boxes.  verts (V, 3), faces (F, 3), vert_vis (V, 1)."""
+    centroid so that chunks of faces are compact (the closest face's index
+    is not used downstream), and build the kernel's face table (a padding
+    row kept behind it in storage for the kernel's 16-byte bulk copies),
+    the per-face spheres and the chunks' boxes, in chunks of
+    ``VANERF_CULL_CHUNK`` faces (:func:`cull_sizes`).  verts (V, 3), faces
+    (F, 3), vert_vis (V, 1)."""
+    chunk = cull_sizes()[1]
     center = 0.5 * (verts.amin(0) + verts.amax(0))
     f = faces.long()
     tri = verts[f] - center                              # (F, 3, 3)
     order = _morton_order(tri.mean(1))
     tri = tri[order]
     face_vis = vert_vis[..., 0][f[order]]                # (F, 3)
-    return {"table": face_table(tri, face_vis), "center": center,
-            "cbox": face_chunk_boxes(tri.float()), "order": order}
+    table = face_table(tri, face_vis)
+    table = torch.cat([table, torch.zeros_like(table[:1])])[:-1]
+    return {"table": table, "center": center,
+            "cbox": face_chunk_boxes(tri.float(), chunk),
+            "sphere": face_spheres(tri), "order": order, "chunk": chunk}
 
 
 def _finish_prepared(d2, wind, qv, dtype):
