@@ -39,7 +39,17 @@ script exits non-zero (there is no CPU fallback):
      timed in turns with the default walk); A at every tile x chunk size
      it is built for (``VANERF_MESH_TILE_P`` 64 / 128 / 256 x
      ``VANERF_CULL_CHUNK`` 64 / 128), equal to its plain version and the
-     sweep; kernels D and 13 at each main-path shape and at edge cases (D:
+     sweep; kernel C (the tiled rasterizer) on the source view's 256^2
+     raster and on ``raster_cases``' (the frame's vertex visibility at
+     256^2 and 64^2, a 250x250 raster, the train step's target view, a
+     distant mesh in one tile, faces off the raster, slivers and degenerate
+     faces, vertices on pixel centres with ties, large and non-finite
+     coordinates), each face id and depth equal to the sweep over every
+     face (``raster_plain``), timed as called and as the device runs it
+     beside an empty kernel; kernels 11 and 12 (3xTF32 on the tensor
+     cores) also timed from a CUDA graph, with the bound of their products
+     at the TF32 rate and nvcc's register and spill counts; kernels D and
+     13 at each main-path shape and at edge cases (D:
      6 channels on scalar lanes, a slice of a batch, a table or a uv off a
      16- / 8-byte boundary, points beyond [-1, 1]; 13: no point, one
      point, both sides of the one-launch limit, every point on one row, 5
@@ -122,7 +132,12 @@ A, 7, B and 8 carry ``device_ms`` and ``issue_bound_ms``, their operations
 at 33.5 T op/s, the rate of separately rounded f32 operations; A and 7 also
 ``work_issue_bound_ms``, the operations the kernel evaluates at that rate:
 a sphere test for every visited pair, the full distance only for the faces
-a warp keeps, ``ops/mesh_query.py::culled_work``);
+a warp keeps, ``ops/mesh_query.py::culled_work``; C carries ``device_ms``
+and ``work_issue_bound_ms``, its (tile, face) tests and walked (pixel,
+face) pairs, ``ops/rasterize.py::raster_work``, at that rate, its
+``bound_ms`` the walked pairs at the f32 rate; 11 and 12 carry
+``device_ms`` and ``tensor_bound_ms``, three TF32 passes of their
+multiply-adds at 495 TFLOP/s and their CUDA-core work at the f32 rate);
 the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and
 convolutions.
@@ -237,6 +252,20 @@ KNN_VISIT_MARGIN = 1e-5
 SOA_TRAIN_LOSS_RTOL = 1e-5
 KNN_OPS = 9
 RASTER_OPS = 36
+# What kernel C issues (csrc/rasterize.cu), in f32 issue slots: a (pixel,
+# face) pair of the walk is the area and three edge functions (7 each),
+# the `ok` test (2), three IEEE divisions (~9 instructions each: a
+# reciprocal, its refinement and the rounding check) and the comparisons
+# (5); the depth of the pairs inside is left out; a (tile, face) test is
+# the area (7), the `ok` test (2), the box (8) and its comparison with the
+# tile (4); where the box misses the tile the float64 certificate follows,
+# ~118 operations at half the f32 rate.
+RASTER_PAIR_ISSUE = 62
+RASTER_TEST_OPS = 21
+RASTER_CERT_F64_OPS = 118
+# The tensor cores' dense TF32 rate (H100 SXM): kernels 11 / 12 run every
+# layer product three times in TF32 (3xTF32)
+TF32_FLOPS_PER_S = 495e12
 # the fused kernels against their plain versions, and the fused renders
 # against the unfused one (tests/test_renderer_train.py:155)
 FUSED_RTOL, FUSED_ATOL = 2e-4, 2e-5
@@ -322,6 +351,29 @@ def issue_bound_ms(n_ops: float) -> float:
     """The same operations at the issue rate of separately rounded f32
     operations (``ISSUE_OPS_PER_S``)."""
     return n_ops / ISSUE_OPS_PER_S * 1e3
+
+
+def ptxas_report(log: str, pattern: str) -> dict:
+    """What ``nvcc -Xptxas -v`` reported for the functions whose (mangled)
+    names contain ``pattern``: {name: registers (entry functions), stack
+    frame and spill bytes}; empty when this run built nothing."""
+    import re
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return {k: v for k, v in out.items() if pattern in k}
 
 
 def nbytes(*tensors) -> int:
@@ -639,6 +691,117 @@ def culled_size_checks(p_c, batch, vert_vis, d2, far2):
     return out
 
 
+def packed_faces_np(xy, z, faces):
+    """Kernel C's packed (F, 9) rows [ax ay az bx by bz cx cy cz] in
+    numpy (``ops/rasterize.py::_packed_faces``)."""
+    import numpy as np
+    f = np.asarray(faces).astype(np.int64)
+    return np.concatenate([xy[f], z[f][..., None]], -1).reshape(-1, 9) \
+        .astype(np.float32)
+
+
+RASTER_CASES = (
+    "the frame's vertex visibility, 256^2", "vertex visibility at 64^2",
+    "250x250, no multiple of the tile",
+    "the train step's target view (render_vis_map)",
+    "a distant mesh in one tile", "faces off the raster on every side",
+    "slivers and degenerate faces",
+    "vertices on pixel centres, shared edges, equal depths",
+    "large and non-finite coordinates")
+
+
+def raster_cases(b):
+    """Kernel C's cases beside the main path's source-view raster, from a
+    numpy fixture batch (index 0): (tag, packed faces (F, 9) float32, H,
+    W).  The rasters the port makes (the frame's vertex visibility at
+    256^2 and at the CPU tests' 64^2, the train step's target-view
+    ``render_vis_map``) and the places a tile's face culling could go
+    wrong: a distant mesh whose every face falls in one tile, faces off the
+    raster on every side, slivers and degenerate faces, vertices on pixel
+    centres with shared edges and equal depths (ties), a raster that is no
+    multiple of the tile, coordinates too large for the certificate and
+    non-finite ones."""
+    import numpy as np
+    rs = np.random.RandomState(SEED)
+    verts = b["verts"][0].astype(np.float32)
+    faces = np.asarray(b["faces"]).astype(np.int64)
+    krt = b["src_krt"][0]
+    vh = verts @ krt[:3, :3].T + krt[:3, 3]
+    xy = vh[:, :2] / (vh[:, 2:3] + 1e-8)
+    xy01 = xy / np.float32(W - 1.0)
+    z01 = ((vh[:, 2] - b["znear"]) / (b["zfar"] - b["znear"])) \
+        .astype(np.float32)
+    K, Rt = b["tar_k"][0], b["tar_rt"][0]
+    cam = verts @ Rt[:3, :3].T + Rt[:3, 3]
+    uv = np.stack([cam[:, 0] / (cam[:, 2] + 1e-8) * K[0, 0] + K[0, 2],
+                   cam[:, 1] / (cam[:, 2] + 1e-8) * K[1, 1] + K[1, 2]], -1)
+    lo, hi = xy01.min(0), xy01.max(0)
+    unit = (xy01 - lo) / (hi - lo)
+    pack = packed_faces_np
+    cases = [
+        ("the frame's vertex visibility, 256^2", pack(xy01 * 255.0, z01,
+                                                      faces), 256, 256),
+        ("vertex visibility at 64^2", pack(xy01 * 63.0, z01, faces), 64, 64),
+        ("250x250, no multiple of the tile", pack(xy01 * 249.0, z01, faces),
+         250, 250),
+        ("the train step's target view (render_vis_map)",
+         pack(uv.astype(np.float32), cam[:, 2], faces), H, W),
+        ("a distant mesh in one tile", pack(96.5 + unit * 14.0, z01, faces),
+         256, 256)]
+    part = faces[::4]
+    off = np.concatenate([
+        pack(xy + shift, vh[:, 2], part) for shift in (
+            [-180.0, 0.0], [0.0, 200.0], [-700.0, -650.0], [300.0, 0.0],
+            [0.0, -240.0])])
+    cases.append(("faces off the raster on every side", off, 256, 256))
+    # slivers: near-collinear corners, zero area, repeated corners, long
+    # thin faces across many tiles, among ordinary faces
+    n = 600
+    a = rs.rand(n, 2) * 70.0 - 3.0
+    d = rs.randn(n, 2) * 8.0
+    t = rs.rand(n, 1)
+    kind = rs.randint(0, 5, n)[:, None]
+    perp = np.stack([-d[:, 1], d[:, 0]], -1)
+    c = np.where(kind == 0, a + t * d,                     # collinear
+                 np.where(kind == 1, a + t * d + perp * 1e-7,
+                          np.where(kind == 2, a,          # repeated corner
+                                   a + rs.randn(n, 2) * 6.0)))
+    bb = np.where(kind == 3, a + d * 9.0, a + d)          # long slivers
+    c = np.where(kind == 3, a + d * 4.5 + perp * 1e-4, c)
+    tri = np.concatenate([a, rs.rand(n, 1), bb, rs.rand(n, 1), c,
+                          rs.rand(n, 1)], 1)
+    cases.append(("slivers and degenerate faces", tri.astype(np.float32),
+                  64, 64))
+    # a grid of 4x4-pixel quads on pixel centres, each split in two, in
+    # three layers: a copy at the same depth (ties) and one in front on
+    # half the quads
+    gy, gx = np.meshgrid(np.arange(0, 60, 4), np.arange(0, 60, 4),
+                         indexing="ij")
+    q = np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float64)
+    sq = [np.concatenate([q, q + [4, 0], q + [4, 4]], 1),
+          np.concatenate([q, q + [4, 4], q + [0, 4]], 1)]
+    base = np.concatenate(sq)
+    layer = []
+    for zval, keep in ((0.5, slice(None)), (0.5, slice(None)),
+                       (0.25, slice(0, None, 2))):
+        f = base[keep]
+        zz = np.full((f.shape[0], 1), zval)
+        layer.append(np.concatenate([f[:, 0:2], zz, f[:, 2:4], zz, f[:, 4:6],
+                                     zz], 1))
+    cases.append(("vertices on pixel centres, shared edges, equal depths",
+                  np.concatenate(layer).astype(np.float32), 61, 59))
+    big = pack(xy01 * 255.0, z01, faces)[:64].copy()
+    big[0:8, [0, 3, 6]] *= 1e19                 # beyond the certified 2^60
+    big[8:16, [1, 4, 7]] += 2.0 ** 59
+    big[16, 0], big[17, 4], big[18, 7] = np.inf, -np.inf, np.nan
+    big[19, 2], big[20, 5], big[21, 8] = np.inf, -np.inf, np.nan
+    cases.append(("large and non-finite coordinates",
+                  np.concatenate([big, pack(xy01 * 255.0, z01, faces)]),
+                  256, 256))
+    assert tuple(c[0] for c in cases) == RASTER_CASES
+    return cases
+
+
 def offset_view(x, shift: int):
     """A contiguous copy of ``x`` whose data starts ``shift`` elements into
     its storage: a float4 (float2) load of it is misaligned for shift % 4
@@ -853,8 +1016,8 @@ def kernel_cases(cases, run):
 
 def phase_kernels(model, batch, dev):
     import torch
-    from vanerf_tpu_torch.ops import (fused_mlp, interp_mxu, knn, mesh_query,
-                                      onehot_gather, rasterize)
+    from vanerf_tpu_torch.ops import (_cuda, fused_mlp, interp_mxu, knn,
+                                      mesh_query, onehot_gather, rasterize)
     results = {}
     pts, mesh, geo_coarse, uv, grids, vert_vis = main_path_points(model,
                                                                   batch)
@@ -1108,29 +1271,56 @@ def phase_kernels(model, batch, dev):
         r.update(least_time(b_bytes, b_ops))
         results[name] = r
 
-    # --- C: 256^2 raster of the mesh in the source view ---
+    # --- C: 256^2 raster of the mesh in the source view, then the port's
+    # other rasters and the edge cases, each equal to the sweep over every
+    # face (raster_plain) bit for bit ---
     krt = batch["src_krt"][0]
     vh = verts @ krt[:3, :3].T + krt[:3, 3]
     xy_pix = vh[:, :2] / (vh[:, 2:3] + 1e-8)
     tri = rasterize._packed_faces(xy_pix, vh[:, 2], batch["faces"])
+    batch_np = {k: batch[k].cpu().numpy() for k in (
+        "verts", "faces", "src_krt", "znear", "zfar", "tar_k", "tar_rt")}
+    c_cases = [("the source view, 256^2", tri, H, W)] + [
+        (t, torch.from_numpy(x).to(dev), h_, w_)
+        for t, x, h_, w_ in raster_cases(batch_np)]
+    c_detail = {}
+    for tag, tri_c, h_, w_ in c_cases:
+        face, zbuf = rasterize.raster_cuda(tri_c, h_, w_)
+        face_p, zbuf_p = rasterize.raster_plain(tri_c, h_, w_)
+        torch.cuda.synchronize()
+        check(torch.equal(face, face_p) and torch.equal(zbuf, zbuf_p),
+              f"raster ({tag}): differs from the sweep over every face in "
+              f"{int((face != face_p).sum())} face ids, "
+              f"{int((zbuf != zbuf_p).sum())} depths")
+        work = rasterize.raster_work(tri_c.cpu(), h_, w_)
+        c_detail[tag] = dict(
+            shape=f"{h_}x{w_} pixels x {tri_c.shape[0]} faces",
+            hit_share=(face >= 0).float().mean().item(),
+            kept_share=work["kept"] / work["tests"],
+            pair_share=work["pairs"] / (h_ * w_ * tri_c.shape[0]))
     face, zbuf = rasterize.raster_cuda(tri, H, W)
-    face_p, zbuf_p = rasterize.raster_plain(tri, H, W)
-    torch.cuda.synchronize()
-    check(torch.equal(face >= 0, face_p >= 0), "raster coverage differs")
-    hitm = face >= 0
-    check(hitm.float().mean().item() > 0.01, "raster hit nothing")
-    err_c = (zbuf[hitm] - zbuf_p[hitm]).abs().max().item()
-    check(err_c <= 1e-6, f"raster zbuf err {err_c}")
-    fd = face != face_p
-    check(fd.float().mean().item() <= 1e-3, "raster face ids differ")
+    check((face >= 0).float().mean().item() > 0.01, "raster hit nothing")
+    work = rasterize.raster_work(tri.cpu(), H, W)
+
+    def empty():        # on the current stream (a graph captures its own)
+        _cuda.check(_cuda.lib().vt_empty(_cuda.stream_ptr(dev)), "vt_empty")
+
     results["rasterize"] = dict(
         shape=f"{H}x{W} pixels x {tri.shape[0]} faces",
-        max_abs_err=err_c, face_mismatch=int(fd.sum()),
+        max_abs_err=0.0, face_mismatch=0, cases=c_detail, raster_work=work,
         ms=cuda_ms(lambda: rasterize.raster_cuda(tri, H, W), 20),
+        device_ms=graph_ms(lambda: rasterize.raster_cuda(tri, H, W)),
+        empty_ms=cuda_ms(empty, 20), empty_device_ms=graph_ms(empty),
         plain_ms=cuda_ms(lambda: rasterize.raster_plain(tri, H, W), 3),
         library_ms=None,
-        **least_time(nbytes(tri, face, zbuf),
-                     RASTER_OPS * H * W * tri.shape[0]))
+        work_issue_bound_ms=issue_bound_ms(
+            work["tests"] * RASTER_TEST_OPS
+            + work["certified"] * 2 * RASTER_CERT_F64_OPS
+            + work["pairs"] * RASTER_PAIR_ISSUE),
+        all_pairs=least_time(nbytes(tri, face, zbuf),
+                             RASTER_OPS * H * W * tri.shape[0]),
+        ptxas=ptxas_report(_cuda.build_log, "raster_kernel"),
+        **least_time(nbytes(tri, face, zbuf), RASTER_OPS * work["pairs"]))
 
     # --- D: the 32^2 x 64 geo-coarse map, then a 64^2 x 16 map at the
     # patch's points, then the edge cases; every case bit-equal to the
@@ -1196,8 +1386,27 @@ def phase_kernels(model, batch, dev):
               f"{FUSED_RTOL} atol {FUSED_ATOL}")
         flat = [w for g_ in wts.values()
                 for w in (g_ if isinstance(g_, (list, tuple)) else [g_])]
-        macs = mlp_macs([w for w in flat if w.shape[0] > 1])
+        mats = [w for w in flat if w.shape[0] > 1]
+        macs = mlp_macs(mats)
+        # the CUDA cores' share: the encoding, and a bias and an activation
+        # (softplus ~8 operations) on every output channel of every layer
+        core_ops = n_pts * (pe_ops + 8 * sum(m.shape[1] for m in mats))
+        entry = "fused_query_kernel" if packs == 2 else "fused_geo_kernel"
+        ptx = {**ptxas_report(_cuda.build_log, entry),
+               **ptxas_report(_cuda.build_log, "fm_layer")}
         results[name] = dict(
+            device_ms=graph_ms(lambda: cuda_fn(*data, packed, **k)),
+            tensor_bound_ms=(3 * 2 * macs * n_pts / TF32_FLOPS_PER_S
+                             + core_ops / F32_FLOPS_PER_S) * 1e3,
+            ptxas=dict(
+                registers=max((v.get("registers", 0) for v in ptx.values()),
+                              default=None),
+                spill_stores=max((v.get("spill_stores", 0)
+                                  for v in ptx.values()), default=None),
+                spill_loads=max((v.get("spill_loads", 0)
+                                 for v in ptx.values()), default=None),
+                stack=max((v.get("stack", 0) for v in ptx.values()),
+                          default=None), functions=len(ptx)),
             shape=f"{n_pts} points, {n_kpt} keypoints, packs "
                   + " ".join(str(t.shape[1]) for t in data[2:])
                   + f", {macs} multiply-adds a point",
@@ -2140,6 +2349,30 @@ def main() -> int:
                f"sphere test) at the issue rate "
                f"{r['work_issue_bound_ms']:.4f} ms"
                if "work" in r else ""))
+    r = kres["rasterize"]
+    for tag, c in r["cases"].items():
+        say(f"phase 2 rasterize [{tag}]: {c['shape']}: face and zbuf equal "
+            f"to the sweep over every face; {c['hit_share']:.3f} of the "
+            f"pixels hit, {c['kept_share']:.4f} of the (tile, face) tests "
+            f"keep the face, {c['pair_share']:.4f} of the sweep's (pixel, "
+            "face) pairs walked")
+    w_ = r["raster_work"]
+    say(f"phase 2 rasterize: kernel {r['ms']:.4f} ms called, "
+        f"{r['device_ms']:.4f} ms on the device (CUDA graph); an empty "
+        f"kernel {r['empty_ms']:.4f} / {r['empty_device_ms']:.4f} ms; "
+        f"{w_['tests']} (tile, face) tests ({w_['certified']} through the "
+        f"float64 certificate), {w_['pairs']} (pixel, face) pairs walked: "
+        f"at the issue rate {r['work_issue_bound_ms']:.4f} ms; the sweep's "
+        f"pairs at the f32 rate {r['all_pairs']['bound_ms']:.4f} ms; "
+        f"ptxas {r['ptxas'] or 'not compiled in this run'}")
+    for name in ("fused_geo_mlp", "fused_query_mlp"):
+        r = kres[name]
+        say(f"phase 2 {name}: {r['of_bound']:.3g} of rtol {FUSED_RTOL} atol "
+            f"{FUSED_ATOL} at worst; kernel {r['ms']:.3f} ms called, "
+            f"{r['device_ms']:.3f} ms on the device (CUDA graph); bound "
+            f"{r['bound_ms']:.3f} ms in f32, {r['tensor_bound_ms']:.3f} ms "
+            f"with 3xTF32 on the tensor cores; ptxas (the kernel and the "
+            f"layer functions, largest) {r['ptxas']}")
     for name, lib in (("interp_mxu", "F.grid_sample"),
                       ("onehot_scatter", "index_add_ into a zeroed table")):
         for tag, c in kres[name]["cases"].items():
@@ -2384,7 +2617,7 @@ def main() -> int:
         # operations at the issue rate of separately rounded f32 operations;
         # A, 7: the operations the kernel evaluates at that rate
         for k in ("device_ms", "library_device_ms", "issue_bound_ms",
-                  "work_issue_bound_ms"):
+                  "work_issue_bound_ms", "tensor_bound_ms"):
             if k in r:
                 kernels[-1][k] = r[k]
     say(f"total: {time.perf_counter() - t_start:.0f} s, the build included")

@@ -170,6 +170,147 @@ def test_fused_mlp_matches_jax_kernel(kernel, exact):
 
 
 # ---------------------------------------------------------------------------
+# (b2) kernels 11 / 12's 3xTF32 layer products
+# ---------------------------------------------------------------------------
+
+def _full_width_model():
+    """The shipped configuration at full width (kernel 11 takes only it),
+    seeded as chip_smoke.py seeds it."""
+    from vanerf_tpu_torch.config import default_cfg
+    from vanerf_tpu_torch.models import VANeRF, init_like_flax
+    model = VANeRF.from_config(default_cfg(), num_v=642, image_hw=(256, 256))
+    init_like_flax(model, torch.Generator().manual_seed(0))
+    return model.eval()
+
+
+def _schedule(full: bool, K: int, L: int, dims) -> tuple:
+    """csrc/fused_mlp.cu::fm_schedule written out again: the n-tile count
+    of each k-tile, in the order the kernel's warps consume them."""
+    d1, d2, d3, e1, e2, lat = dims
+    items = []
+
+    def push(rows, m):
+        n = -(-m // 8)
+        n = n if n <= 4 else (8 if n <= 8 else (12 if n <= 12 else 16))
+        items.extend([n] * -(-rows // 8))
+
+    def gate_fuse(kin, hg, ng, hf, nout):
+        push(kin, hg), push(hg, ng), push(kin, hf), push(hf, nout)
+
+    if full:
+        gate_fuse(196, 10, 3, 64, 64)
+        gate_fuse(28, 10, 3, 8, 8)
+    P = 1 + 2 * L
+    per = 120 // P
+    for j0 in range(0, K, per):
+        push(min(per, K - j0) * P, d1)
+    for rows, m in ((64, d1), (d1, d2), (d2, d3), (8, d3), (d3, 64),
+                    (128, e1), (e1, e2), (e2, 2), (128, lat)):
+        push(rows, m)
+    if full:
+        gate_fuse(96, 96, 6, 96, 3)
+    return tuple(items)
+
+
+@pytest.mark.parametrize("kernel", ["geo", "query"])
+def test_packed_weights_are_tf32_hi_lo_fragments(kernel):
+    """The stream kernels 11 / 12 read: every value a TF32 number (the low
+    13 mantissa bits clear), each weight recovered from its hi + lo to
+    2^-22 relative, the padding zero, the k-tiles in the order
+    fm_schedule takes them, and the source's widths those of the packer."""
+    import re
+    src = open(f"{h.ROOT}/vanerf_tpu_torch/csrc/fused_mlp.cu").read()
+    for name, value in (("FM_HMAX", tf._MAX_WIDTH),
+                        ("FM_PE_ROWS", tf._PE_ROWS)):
+        assert int(re.search(rf"#define {name} (\d+)", src)[1]) == value
+    with torch.no_grad():
+        model = _full_width_model()
+        if kernel == "geo":
+            w = tf.prepare_geo_mlp_weights(model)
+            layers, _, dims = tf._geo_layers(w, 42, 3)
+            packed = tf.pack_geo_weights(w, 42, 3)
+        else:
+            w = tf.prepare_query_weights(model)
+            layers, _, dims = tf._query_layers(w, 42, 3)
+            packed = tf.pack_query_weights(w, 42, 3)
+    stream, items = tf._pack(layers)
+    assert torch.equal(stream, packed.w)
+    assert items == _schedule(kernel == "query", 42, 3, dims)
+    assert stream.numel() == 128 * sum(items)
+    assert not (stream.view(torch.int32) & 0x1FFF).any()
+    off = 0
+    for parts, M in layers:
+        nt = tf._ntiles(M)
+        for part in parts:
+            kt = -(-part.shape[0] // 8)
+            blk = stream[off:off + kt * nt * 128].reshape(kt, nt, 8, 4, 4)
+            off += kt * nt * 128
+            # [a, b, g, t, (hi j0, hi j1, lo j0, lo j1)] -> rows 8a + 4j + t,
+            # columns 8b + g
+            hi = blk[..., :2].permute(0, 4, 3, 1, 2).reshape(8 * kt, 8 * nt)
+            lo = blk[..., 2:].permute(0, 4, 3, 1, 2).reshape(8 * kt, 8 * nt)
+            want = torch.zeros(8 * kt, 8 * nt)
+            want[:part.shape[0], :M] = part
+            assert torch.equal(hi, tf.tf32_round(want))
+            err = (hi.double() + lo.double() - want.double()).abs()
+            assert bool((err <= 2.0 ** -22 * want.double().abs()).all())
+    assert off == stream.numel()
+
+
+class _TF32x3(torch.overrides.TorchFunctionMode):
+    """Every matrix product in the block as kernels 11 / 12 run it on the
+    tensor cores: lo(x) hi(w) + hi(x) lo(w) + hi(x) hi(w) with TF32 hi / lo
+    parts (``fused_mlp.tf32_split``), f32 sums; ``passes=1`` keeps only
+    hi(x) hi(w), a plain TF32 product."""
+
+    def __init__(self, passes: int = 3):
+        super().__init__()
+        self.passes, self.products = passes, 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if getattr(func, "__name__", "") in ("matmul", "__matmul__"):
+            x, w = args
+            self.products += 1
+            xh, xl = tf.tf32_split(x)
+            wh, wl = tf.tf32_split(w)
+            if self.passes == 1:
+                return xh @ wh
+            return xl @ wh + xh @ wl + xh @ wh
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("kernel", ["geo", "query"])
+def test_tf32x3_products_hold_the_kernel_bound(kernel):
+    """The numerics of kernels 11 / 12 before a card runs them: the plain
+    networks at full width on seeded inputs of the main path's widths
+    (8,192 points), with every layer product in 3xTF32, against the same
+    networks in f32 at rtol 2e-4 / atol 2e-5.  One TF32 pass does not
+    hold that bound."""
+    d = {k: T(v) for k, v in _kernel_inputs(8192, seed=11).items()}
+    with torch.no_grad():
+        model = _full_width_model()
+        if kernel == "geo":
+            w = tf.prepare_geo_mlp_weights(model)
+            run = lambda: tf.fused_geo_mlp_plain(          # noqa: E731
+                d["cxyz"], d["kpt_T"], d["aux"], w, **KW)
+        else:
+            w = tf.prepare_query_weights(model)
+            run = lambda: (tf.fused_query_mlp_plain(       # noqa: E731
+                d["cxyz"], d["kpt_T"], d["feats"], d["g2"], w, **KW),)
+        want = run()
+        worst = {}
+        for passes in (3, 1):
+            with _TF32x3(passes) as mode:
+                got = run()
+            assert mode.products >= (17 if kernel == "geo" else 35)
+            worst[passes] = max(
+                ((a - b).abs() / (ATOL + RTOL * b.abs())).max().item()
+                for a, b in zip(got, want))
+    assert worst[3] <= 1.0, worst
+    assert worst[1] > 1.0, worst
+
+
+# ---------------------------------------------------------------------------
 # (c) the row gather
 # ---------------------------------------------------------------------------
 

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Kernel A/B of two checkouts of the PyTorch port on one GPU: kernels A
 (the culled mesh query, ``mesh_query.point_mesh_query_vis_culled``), B
-(``knn.nearest_vertex_d2``), D (``interp_mxu.interp_cuda``) and 13
+(``knn.nearest_vertex_d2``), C (``rasterize.raster_cuda``), D
+(``interp_mxu.interp_cuda``), 11 (``fused_mlp.fused_query_mlp_cuda``), 12
+(``fused_mlp.fused_geo_mlp_cuda``) and 13
 (``onehot_gather.onehot_scatter_cuda``) at the main path's shapes.
 
     python3 tools_torch/kernel_ab.py --base DIR [--rounds 4] [--kernels A B]
@@ -12,10 +14,14 @@ seeded flax-style initialisation, the 256^2 subdiv=3 two-hand fixture, the
 coarse pass of one mask-centred 64x64 patch): the patch's 262,144 points,
 the frame's mesh and vertex visibility and the points' nearest-vertex
 bounds for A (16-ray x 8-sample tiles, far tier on, as a frame calls it)
-and B, the two maps D samples at the patch's projected points, and the row
-ids of 13's four tables (the cases the kernels line sums).  One worker
-process per checkout (``DIR`` and this one) builds its own kernels,
-prepares the mesh with its own ``prepare_culled_mesh`` and times each case
+and B, the source view's 256^2 raster of the mesh for C, the two maps D
+samples at the patch's projected points, the arguments and weights the
+model's level-2 / level-1 branches hand kernels 11 / 12 for the patch, and
+the row ids of 13's four tables (the cases the kernels line sums).  One
+worker process per checkout (``DIR`` and this one) builds its own kernels,
+prepares the mesh with its own ``prepare_culled_mesh``, packs 11 / 12's
+weights with its own ``pack_query_weights`` / ``pack_geo_weights`` (once,
+as a frame does) and times each case
 with CUDA events, as called (mean of 20 calls after a warm-up, ``eager``)
 and as the device runs it (20 calls captured in a CUDA graph and
 replayed, ``graph``); the gradients of 13 are drawn in the worker from the
@@ -44,15 +50,15 @@ SEED = 0
 
 
 def make_inputs() -> None:
-    """The cases of D and 13 that chip_smoke.py's kernels line sums, as its
-    phase 2 makes them, saved to INPUTS."""
+    """Every case's inputs as chip_smoke.py's phase 2 makes them (of D and
+    13 the cases its kernels line sums), saved to INPUTS."""
     sys.path.insert(0, THIS_REPO)
     import torch
     import chip_smoke as cs
     from vanerf_tpu_torch.config import default_cfg
     from vanerf_tpu_torch.data import make_synthetic_batch, to_torch
     from vanerf_tpu_torch.models import VANeRF, init_like_flax
-    from vanerf_tpu_torch.ops import knn
+    from vanerf_tpu_torch.ops import knn, rasterize
     dev = torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = False
     batch_np, _faces, num_v = make_synthetic_batch(
@@ -63,8 +69,8 @@ def make_inputs() -> None:
     init_like_flax(model, torch.Generator().manual_seed(cs.SEED))
     model = model.to(dev).eval()
     with torch.no_grad():
-        pts, _m, geo_coarse, uv, _g, vert_vis = cs.main_path_points(model,
-                                                                    batch)
+        pts, _m, geo_coarse, uv, grids, vert_vis = cs.main_path_points(
+            model, batch)
         verts = batch["verts"][0].contiguous()
         idx, d2 = knn.nearest_vertex_d2(pts, verts)
         krt = batch["src_krt"][0]
@@ -77,13 +83,35 @@ def make_inputs() -> None:
         s = [(t, r, n, c) for t, main, r, n, c in
              cs.scatter_cases(idx, verts.shape[0], geo_coarse, uv, v_uv, dev)
              if main]
+        tri = rasterize._packed_faces(xy, vh[:, 2], batch["faces"])
+        fin = cs.fused_main_path_inputs(model, batch, grids)
+
+    fused = {}
+    for name, n_data in (("fused_query_mlp", 4), ("fused_geo_mlp", 3)):
+        a, k = fin[name]
+        k = {key: v for key, v in k.items() if key != "packed"}
+        fused[name] = (_to([t.contiguous() for t in a[:n_data]], "cpu"),
+                       _to(a[n_data], "cpu"), k)
     os.makedirs(os.path.dirname(INPUTS), exist_ok=True)
     torch.save({"interp": [(t, f.cpu(), u.cpu()) for t, f, u in d],
                 "scatter": [(t, r.cpu(), n, c) for t, r, n, c in s],
+                "raster": (tri.cpu(), cs.H, cs.W), "fused": fused,
                 "mesh": dict(pts=pts.cpu(), verts=verts.cpu(),
                              faces=batch["faces"].cpu(),
                              vert_vis=vert_vis.cpu(), d2=d2.cpu(),
                              n_samples=cs.S_C, far2=0.02 ** 2)}, INPUTS)
+
+
+def _to(x, dev):
+    """A nest of dicts, lists and tuples of tensors moved to ``dev``."""
+    import torch
+    if torch.is_tensor(x):
+        return x.to(dev)
+    if isinstance(x, dict):
+        return {k: _to(v, dev) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to(v, dev) for v in x)
+    return x
 
 
 def worker(repo: str, kernels) -> None:
@@ -95,8 +123,8 @@ def worker(repo: str, kernels) -> None:
     sys.path.insert(0, repo)
     import torch
     import vanerf_tpu_torch
-    from vanerf_tpu_torch.ops import (_cuda, interp_mxu, knn, mesh_query,
-                                      onehot_gather)
+    from vanerf_tpu_torch.ops import (_cuda, fused_mlp, interp_mxu, knn,
+                                      mesh_query, onehot_gather, rasterize)
     assert os.path.dirname(os.path.dirname(vanerf_tpu_torch.__file__)) == \
         os.path.abspath(repo), "imported the port from the wrong checkout"
     _cuda.build()
@@ -125,9 +153,25 @@ def worker(repo: str, kernels) -> None:
     if "B" in kernels:
         cases.append(("B", lambda: knn.nearest_vertex_d2(m["pts"],
                                                          m["verts"])))
+    if "C" in kernels:
+        tri, Hr, Wr = data["raster"]
+        tri = tri.to(dev)
+        cases.append(("C", lambda: rasterize.raster_cuda(tri, Hr, Wr)))
     if "D" in kernels:
         cases += [(t, lambda f=f, u=u: interp_mxu.interp_cuda(f, u))
                   for t, f, u in d]
+    for tag, name, pack, fn in (
+            ("11", "fused_query_mlp", fused_mlp.pack_query_weights,
+             fused_mlp.fused_query_mlp_cuda),
+            ("12", "fused_geo_mlp", fused_mlp.pack_geo_weights,
+             fused_mlp.fused_geo_mlp_cuda)):
+        if tag in kernels:
+            args, wts, kw = data["fused"][name]
+            args = [t.to(dev) for t in args]
+            wts = _to(wts, dev)
+            packed = pack(wts, args[1].shape[1], kw["sp_level"])
+            cases.append((tag, lambda fn=fn, args=args, packed=packed, kw=kw:
+                          fn(*args, packed, **kw)))
     if "13" in kernels:
         cases += [(t, lambda g=g, r=r, n=n:
                    onehot_gather.onehot_scatter_cuda(g, r, n))
@@ -185,9 +229,10 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also print each case's kernels' device time "
                          "(torch.profiler) in both checkouts")
-    ap.add_argument("--kernels", nargs="+", default=["A", "B", "D", "13"],
-                    choices=["A", "B", "D", "13"],
-                    help="the kernels to time (default: all four)")
+    ap.add_argument("--kernels", nargs="+",
+                    default=["A", "B", "C", "D", "11", "12", "13"],
+                    choices=["A", "B", "C", "D", "11", "12", "13"],
+                    help="the kernels to time (default: all seven)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:

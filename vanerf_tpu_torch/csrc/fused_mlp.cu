@@ -11,69 +11,108 @@
 //
 // Bound on the H100: operations.  Kernel 12 is ~102k multiply-adds a point
 // (~53 GFLOP for 262,144 points) against ~108 MB in and out; kernel 11 adds
-// ~38k a point (~73 GFLOP against ~310 MB): both sit two orders above the
-// memory bound and run on the f32 CUDA cores (no TF32, no tensor cores:
-// the port computes in float32).
+// ~38k a point (~73 GFLOP against ~310 MB).  On the CUDA cores in f32 both
+// are held to 67 TFLOP/s; this design puts the layer products on the
+// tensor cores.
 //
-// Design (not the TPU kernel's 256-row VMEM tiles): a block of 256 threads
-// owns 64 points and keeps every activation of those points in shared
-// memory as rows [channel][point] (row stride 68 floats, so the transposing
-// loads are conflict-free and every row stays 16-byte aligned); the rows
-// are reused phase by phase so that a block needs 108 KB and two blocks
-// share an SM (one block an SM left the kernel 22-29% slower: nothing hid
-// its barriers and its loads).  A layer is a small matrix product: each
-// thread accumulates a 4-point x MT-output tile in registers (MT = 8, 4, 2
-// or 1 by the layer's width), reading the activations as one float4 and
-// the weights as broadcast vectors.  The weights (~101k floats for kernel
-// 12, more than a block's shared memory) are read from L2 in chunks of 16 input rows into an 8 KB staging buffer;
-// the next chunk's loads are in flight in registers while the current one
-// is multiplied.  A "virtual concat" (the positional encoding beside the
-// fused features, the hidden state beside its skip input) is two such
-// products into one accumulator, in the JAX order, with the bias added
-// last.  The positional encoding is made in shared memory, a chunk of
-// keypoints at a time, and consumed there; nothing but the inputs and the
-// 2 + 24 (or 5) outputs touches device memory.
+// Numerics: 3xTF32.  Every layer product X W runs as mma.sync m16n8k8 TF32
+// in three passes, lo(X) hi(W) + hi(X) lo(W) + hi(X) hi(W), where hi(v) is
+// v rounded to TF32 (cvt.rna, 10 explicit mantissa bits) and lo(v) =
+// v - hi(v), itself rounded to TF32.  hi + lo carries v to ~2^-22
+// relative and the dropped lo lo term is ~2^-22 of a product, so each
+// product is good to a few units of f32's rounding.  The three products
+// of a k-tile (8 input channels) sum on the tensor cores from zero, and
+// that sum is added to the layer's on the CUDA cores, rounded to nearest:
+// letting the tensor cores carry the sum over all of a layer's k-tiles
+// multiplied the error several times (their f32 accumulation is not
+// round-to-nearest) and moved over 1% of the fused frames' fine samples.  The outputs stay
+// within rtol 2e-4 / atol 2e-5 of the plain f32 version
+// (tests/test_torch_fused.py holds an emulation of these products through
+// both networks to that bound); a single TF32 pass would be off by ~1e-3
+// relative.  The weights are split once, when ops/fused_mlp.py::_pack
+// lays them out; the activations are split as their fragments are loaded.
+// The positional encoding (accurate sin/cos/exp), the activations, the V=1
+// pooling and the gate scaling stay on the CUDA cores in f32, as before:
+// softplus is torch's Softplus(beta=100, threshold=20) written as
+// max(x, 0) + log(1 + exp(-|100 x|)) / 100 with the fast intrinsics (the
+// argument of the log lies in (1, 2], where they are good to ~4e-7), the
+// sigmoid's exp the accurate one.  A virtual concat (the encoding beside
+// the fused features, the hidden state beside its skip input) is two
+// products into one accumulator in the JAX order, the bias added last.
 //
-// Numerics: float32 in, float32 accumulate.  The products use fmaf
-// explicitly (the library is built with -fmad=false for the kernels that
-// must equal their plain versions bit for bit; this one cannot, because
-// the plain version's matrix products sum in the library's own order) and
-// is held to rtol 2e-4 / atol 2e-5.  sin/cos/exp of the encoding and the
-// sigmoid's exp are the accurate versions.  Softplus is torch's
-// Softplus(beta=100, threshold=20) written as max(x, 0) +
-// log(1 + exp(-|100 x|)) / 100 with the fast intrinsics (see fm_act): the
-// accurate log1pf(expf()) and its division took 30% of kernel 12.
+// Design.  A block owns 128 points and keeps every activation of them in
+// shared memory as rows [channel][point] (row stride 136 floats: 136 = 8
+// mod 32, so the m16n8k8 A fragments, rows t and t + 4 at points g and
+// g + 8, load from 32 distinct banks); the rows are reused phase by phase
+// (the row map below), 189 KB in all.  Eight consumer warps own 16 points
+// each and every output channel of them: a warp reads and writes only its
+// own points' columns, so no layer needs a block barrier, only __syncwarp.
+// Narrow layers (2, 3, 5, 6, 10 outputs) take one or two n8 tiles.  The
+// weights (~140k multiply-adds a point for kernel 11, 1.1 MB with both
+// planes) stream once a block, in the order the layers consume them, as
+// k-tiles of 8 input rows x all output tiles of a layer (512 bytes a tile:
+// 32 lanes x {hi b0, hi b1, lo b0, lo b1}, the m16n8k8 B fragment, so a
+// lane's four values are one conflict-free 16-byte load).  A ninth warp
+// fills a ring of four 8 KB slots, one 1-D bulk copy (TMA) an item of as
+// many consecutive k-tiles as fit in a slot (a narrow layer's k-tiles share
+// one), each on its `full` mbarrier, and refills a slot when the eight
+// consumer warps have arrived on its `empty` mbarrier: 128 points a block
+// read the weights from L2 half as often as the 64 before, and no block
+// barrier stands in the layer loop.  The host computes the items
+// (`fm_schedule`, the consumers' order and grouping) and checks the packed
+// stream against them; a producer and consumers that still disagreed would
+// end the kernel with a trap, not hang.  227 KB of shared memory allow one
+// block an SM (8 + 1 warps).  The inputs come by 4-byte asynchronous copies
+// (cp.async), all of a phase's columns issued before one wait; the biases
+// are copied into shared memory once.  What bounds it on the card
+// (PERF.md section 6): the mma.sync products, then the epilogue's softplus
+// (two MUFU operations an element) and the ring's waits, with two warps a
+// scheduler to hide their latencies; sixteen warps (two a 16-point tile,
+// every other n-tile each) and four warps a 64-point tile (a quarter of
+// the n-tiles each, a quarter of the weight reads from shared memory) were
+// both slower.
 //
-// Weight layout (packed by ops/fused_mlp.py::_pack): each matrix (K, M)
-// row-major with its columns zero-padded to MP = 128 / 64 / 32 / 16 for
-// M > 64 / > 32 / > 16 / else, matrices back to back; biases unpadded.  The
-// first layer's encoding rows come keypoint-major (row j * P + part).
+// Packed stream (ops/fused_mlp.py::_pack): for each layer, each part of
+// its virtual concat (K rows zero-padded to a multiple of 8, M columns to
+// 8 fm_ntiles(M)) as [k-tile][n-tile][lane][4] fragments; the first layer's
+// encoding rows come keypoint-major (row j * P + part), a chunk of
+// FM_PE_ROWS / P keypoints a part.  Biases unpadded, apart.
 
 #include "common.cuh"
+#include "tma.cuh"
 
-#define FM_TP 64     // points per block
-#define FM_TPS 68    // shared row stride in floats
-#define FM_NT 256    // threads per block
-#define FM_KC 16     // weight rows per staged chunk
-#define FM_HMAX 128  // widest hidden layer
-#define FM_F0 64     // fused0 / x_view width
-#define FM_F1 8      // fused1 width
-// Rows of the shared arena XA, reused phase by phase (see the kernels):
-#define FM_XA_ROWS 224
-#define FM_R_F0 0     // fused0, 64 rows (kernel 11: written over its own input)
-#define FM_R_X1 64    // kernel 11: the 28 input rows of the second gate/fuse
-#define FM_R_F1 92    // fused1, 8 rows
-#define FM_R_PE 100   // the positional encoding, a chunk of keypoints at a time
-#define FM_PE_ROWS (FM_XA_ROWS - FM_R_PE)
-#define FM_R_MV 0     // pooled [mean | var], 128 rows (fused0/1 are dead)
-#define FM_R_TX 128   // kernel 12: the latent; kernel 11: the texture input
+#define FM_TP 128        // points per block
+#define FM_TPS 136       // shared row stride in floats (= 8 mod 32)
+#define FM_CW 8          // consumer warps, 16 points each
+#define FM_WP 16         // points per consumer warp
+#define FM_NT ((FM_CW + 1) * 32)  // + the producer warp
+#define FM_HMAX 128      // widest layer (16 n-tiles)
+#define FM_R 4           // ring slots
+#define FM_SLOT (16 * 128)        // floats a slot: one k-tile of 16 n-tiles
+#define FM_MAX_ITEMS 1024         // items a launch
+#define FM_F0 64         // fused0 / x_view width
+#define FM_F1 8          // fused1 width
+// Rows of the arena XA, reused phase by phase:
+#define FM_XA_ROWS 196   // kernel 11's first gate/fuse input
+#define FM_R_F0 0        // fused0, 64 rows (kernel 11: written over its input)
+#define FM_R_X1 64       // kernel 11: the 28 input rows of the second gate/fuse
+#define FM_R_F1 64       // fused1, 8 rows (written over them)
+#define FM_R_PE 72       // the positional encoding, a chunk of keypoints
+#define FM_PE_ROWS 120   // rows a chunk may fill (a multiple of 8)
+#define FM_R_MV 0        // pooled [mean | var], 128 rows (fused0/1 are dead)
+#define FM_R_TX 100      // kernel 11: the texture input, 96 rows; the latent
+                         // lands at its rows 69-92 (above the pooled rows)
+#define FM_ROWS (FM_XA_ROWS + FM_HMAX + 8 + 16)  // XA, H, S, G + O
+#define FM_TRIES (1u << 22)       // polls of a ring barrier before a trap
+#define FM_MAX_BIAS 840  // the geometry biases at the widest (5 x 128 + 64
+                         // + 2 + 96 = 802) and the 31 words past them that
+                         // the last layer's padding columns read
 
 enum { FM_NONE = 0, FM_SOFTPLUS, FM_RELU, FM_SIGMOID, FM_POOL };
 
 struct FmGeo {
   const float* cxyz;   // (N, 3) camera-frame points
   const float* kpt_T;  // (3, K) camera-frame keypoints
-  const float* w;      // packed geometry weights
   const float* b;      // biases b0..b7
   int N, K, L;
   float scale, two_sig2;
@@ -82,276 +121,52 @@ struct FmGeo {
   int lat;             // gcompress width
 };
 
+// The items of the weight stream in the order the consumers take them:
+// runs of consecutive k-tiles of at most FM_SLOT floats, each item's size
+// in 512-byte tiles.
+struct FmSched {
+  int n;
+  unsigned char tiles[FM_MAX_ITEMS];
+};
+
 struct FmParts {
   int n;
   int w[6];
 };
 
-__host__ __device__ __forceinline__ int fm_mp(int M) {
-  return M > 64 ? 128 : (M > 32 ? 64 : (M > 16 ? 32 : 16));
+// n8 tiles of an M-wide layer: ceil(M / 8) rounded up to one of the
+// counts the layer routine is instantiated for
+__host__ __device__ __forceinline__ int fm_ntiles(int M) {
+  const int n = (M + 7) >> 3;
+  return n <= 4 ? n : (n <= 8 ? 8 : (n <= 12 ? 12 : 16));
 }
 
-// acc += X (K rows in shared) x W (K x 16*MT in device memory)
-template <int MT>
-__device__ __forceinline__ void fm_dense_acc(const float* __restrict__ W,
-                                             int K, const float* Xs,
-                                             float* Ws, float (&acc)[4][MT]) {
-  constexpr int MP = 16 * MT;
-  constexpr int C4 = FM_KC * MP / 4;
-  constexpr int NV = (C4 + FM_NT - 1) / FM_NT;
-  const int tid = threadIdx.x;
-  const int pg = tid & 15, mg = tid >> 4;
-  const float4* W4 = reinterpret_cast<const float4*>(W);
-  float4* Ws4 = reinterpret_cast<float4*>(Ws);
-  const int total4 = K * (MP / 4);
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 pre[NV];
-#pragma unroll
-  for (int v = 0; v < NV; ++v) {
-    const int i = tid + v * FM_NT;
-    pre[v] = (i < C4 && i < total4) ? __ldg(W4 + i) : zero4;
-  }
-  for (int k0 = 0; k0 < K; k0 += FM_KC) {
-    __syncthreads();  // the staging buffer is free, the inputs are written
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      const int i = tid + v * FM_NT;
-      if (i < C4) Ws4[i] = pre[v];
-    }
-    __syncthreads();
-    const int nbase = (k0 + FM_KC) * (MP / 4);
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      const int i = tid + v * FM_NT;
-      pre[v] = (i < C4 && nbase + i < total4) ? __ldg(W4 + nbase + i) : zero4;
-    }
-    const int kc = min(FM_KC, K - k0);
-    const float* xp = Xs + k0 * FM_TPS + 4 * pg;
-    const float* wp = Ws + mg * MT;
-#pragma unroll 8
-    for (int kk = 0; kk < kc; ++kk) {
-      const float4 x4 = *reinterpret_cast<const float4*>(xp + kk * FM_TPS);
-      const float x[4] = {x4.x, x4.y, x4.z, x4.w};
-      float w[MT];
-      if constexpr (MT == 8) {
-        const float4 a = *reinterpret_cast<const float4*>(wp + kk * MP);
-        const float4 b = *reinterpret_cast<const float4*>(wp + kk * MP + 4);
-        w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
-        w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
-      } else if constexpr (MT == 4) {
-        const float4 a = *reinterpret_cast<const float4*>(wp + kk * MP);
-        w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
-      } else if constexpr (MT == 2) {
-        const float2 a = *reinterpret_cast<const float2*>(wp + kk * MP);
-        w[0] = a.x; w[1] = a.y;
-      } else {
-        w[0] = wp[kk * MP];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < MT; ++j) acc[i][j] = fmaf(x[i], w[j], acc[i][j]);
-    }
-  }
+__host__ __device__ __forceinline__ int fm_pe_per(int P) {
+  return FM_PE_ROWS / P;  // keypoints a chunk of the encoding
 }
 
-__device__ __forceinline__ float fm_act(float v, int act) {
-  if (act == FM_SOFTPLUS) {
-    // max(x, 0) + log(1 + exp(-|100 x|)) / 100: the argument of the log
-    // lies in (1, 2], where the fast exp/log intrinsics are good to ~4e-7
-    // absolute, 4e-9 after the division by 100
-    const float xb = v * 100.0f;
-    return xb > 20.0f
-               ? v
-               : fmaxf(v, 0.0f) + __logf(1.0f + __expf(-fabsf(xb))) * 0.01f;
-  }
-  if (act == FM_RELU) return fmaxf(v, 0.0f);
-  if (act == FM_SIGMOID) return 1.0f / (1.0f + expf(-v));
-  return v;
+// Shared memory, in floats: the ring, the rows, the biases, the
+// keypoints, then the 2 x FM_R barriers.
+__host__ __device__ __forceinline__ int fm_bias_offset() {
+  return FM_R * FM_SLOT + FM_ROWS * FM_TPS;
 }
 
-// dst rows [0, M) = act(acc + bias); FM_POOL writes the V=1 pooled mean to
-// rows [0, M) and the variance to rows [M, 2M), weighted by wv per point.
-template <int MT>
-__device__ __forceinline__ void fm_store(float (&acc)[4][MT],
-                                         const float* __restrict__ bias,
-                                         int M, int act, float* dst,
-                                         const float* wv) {
-  __syncthreads();  // every thread has read its inputs (dst may alias them)
-  const int tid = threadIdx.x;
-  const int pg = tid & 15, mg = tid >> 4;
-#pragma unroll
-  for (int j = 0; j < MT; ++j) {
-    const int m = mg * MT + j;
-    if (m >= M) continue;
-    const float b = bias ? __ldg(bias + m) : 0.0f;
-    float r[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) r[i] = acc[i][j] + b;
-    float* row = dst + m * FM_TPS + 4 * pg;
-    if (act == FM_POOL) {
-      float var[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float w = wv[4 * pg + i];
-        const float mean = w * r[i];
-        const float d = r[i] - mean;
-        var[i] = w * (d * d);
-        r[i] = mean;
-      }
-      *reinterpret_cast<float4*>(row + M * FM_TPS) =
-          make_float4(var[0], var[1], var[2], var[3]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) r[i] = fm_act(r[i], act);
-    }
-    *reinterpret_cast<float4*>(row) = make_float4(r[0], r[1], r[2], r[3]);
-  }
+__host__ __device__ __forceinline__ int fm_kp_offset() {
+  return fm_bias_offset() + FM_MAX_BIAS;
 }
 
-template <int MT>
-__device__ __noinline__ void fm_layer_t(const float* __restrict__ W, int M,
-                                        int act,
-                                        const float* __restrict__ bias,
-                                        float* dst, float* Ws,
-                                        const float* wv, const float* X0,
-                                        int K0, const float* X1, int K1) {
-  float acc[4][MT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < MT; ++j) acc[i][j] = 0.0f;
-  fm_dense_acc<MT>(W, K0, X0, Ws, acc);
-  if (K1 > 0) fm_dense_acc<MT>(W + K0 * 16 * MT, K1, X1, Ws, acc);
-  fm_store<MT>(acc, bias, M, act, dst, wv);
+__host__ __device__ __forceinline__ int fm_bar_offset(int K) {
+  return fm_kp_offset() + ((3 * K + 3) & ~3);
 }
 
-// One layer over the virtual concat [X0 (K0 rows) | X1 (K1 rows)]; returns
-// the packed size of its weight matrix in floats.
-__device__ __forceinline__ int fm_layer(const float* __restrict__ W, int M,
-                                        int act,
-                                        const float* __restrict__ bias,
-                                        float* dst, float* Ws,
-                                        const float* wv, const float* X0,
-                                        int K0, const float* X1, int K1) {
-  const int mp = fm_mp(M);
-  if (mp == 128) {
-    fm_layer_t<8>(W, M, act, bias, dst, Ws, wv, X0, K0, X1, K1);
-  } else if (mp == 64) {
-    fm_layer_t<4>(W, M, act, bias, dst, Ws, wv, X0, K0, X1, K1);
-  } else if (mp == 32) {
-    fm_layer_t<2>(W, M, act, bias, dst, Ws, wv, X0, K0, X1, K1);
-  } else {
-    fm_layer_t<1>(W, M, act, bias, dst, Ws, wv, X0, K0, X1, K1);
-  }
-  return (K0 + K1) * mp;
+__host__ __device__ __forceinline__ size_t fm_smem_bytes(int K) {
+  return sizeof(float) * fm_bar_offset(K) + 2 * FM_R * 8;
 }
 
-// Columns [col0, col0 + ncols) of a row-major (N, stride) array for the
-// block's points -> shared rows [c][p]; a warp reads 4 points x 8 columns
-// (whole 32-byte sectors) and writes 32 distinct banks.  Each thread keeps
-// FM_LD loads in flight before it stores any: two blocks an SM are too few
-// to hide the latency of device memory by themselves.
-#define FM_LD 8
-__device__ __forceinline__ void fm_load_cols(const float* __restrict__ src,
-                                             int stride, int col0, int ncols,
-                                             int p0, int N, float* dst) {
-  const int total = ((ncols + 7) >> 3) * 8 * FM_TP;
-  for (int e0 = threadIdx.x; e0 < total; e0 += FM_LD * FM_NT) {
-    float v[FM_LD];
-#pragma unroll
-    for (int u = 0; u < FM_LD; ++u) {
-      const int e = e0 + u * FM_NT;
-      const int c = ((e >> 9) << 3) + (e & 7);
-      const int gp = p0 + ((e >> 3) & (FM_TP - 1));
-      v[u] = (e < total && c < ncols && gp < N)
-                 ? __ldg(src + static_cast<long long>(gp) * stride + col0 + c)
-                 : 0.0f;
-    }
-#pragma unroll
-    for (int u = 0; u < FM_LD; ++u) {
-      const int e = e0 + u * FM_NT;
-      const int c = ((e >> 9) << 3) + (e & 7);
-      if (e < total && c < ncols)
-        dst[c * FM_TPS + ((e >> 3) & (FM_TP - 1))] = v[u];
-    }
-  }
-}
-
-// Ask L2 for the block's rows of a row-major (N, stride) array, one
-// request per 128-byte line, so that the later column loads find them there.
-__device__ __forceinline__ void fm_prefetch_rows(const float* __restrict__ src,
-                                                 int stride, int p0, int N) {
-  const int rows = min(FM_TP, N - p0);
-  const char* base = reinterpret_cast<const char*>(
-      src + static_cast<long long>(p0) * stride);
-  const long long bytes = static_cast<long long>(rows) * stride * 4;
-  for (long long o = threadIdx.x * 128LL; o < bytes; o += FM_NT * 128LL)
-    asm volatile("prefetch.global.L2 [%0];" ::"l"(base + o));
-}
-
-// rows [0, nrows) of X *= the per-point row `scale`
-__device__ __forceinline__ void fm_scale_rows(float* X, int nrows,
-                                              const float* scale) {
-  for (int e = threadIdx.x; e < nrows * FM_TP; e += FM_NT) {
-    const int p = e & (FM_TP - 1);
-    X[(e >> 6) * FM_TPS + p] *= scale[p];
-  }
-}
-
-__device__ __forceinline__ void fm_copy_row(float* dst, const float* src) {
-  if (threadIdx.x < FM_TP) dst[threadIdx.x] = src[threadIdx.x];
-}
-
-// Shared rows [c][p] -> row-major (N, ncols) device memory.
-__device__ __forceinline__ void fm_write_out(const float* rows, int ncols,
-                                             int p0, int N,
-                                             float* __restrict__ out) {
-  for (int e = threadIdx.x; e < ncols * FM_TP; e += FM_NT) {
-    const int p = e / ncols, c = e - p * ncols;
-    if (p0 + p < N)
-      out[static_cast<long long>(p0 + p) * ncols + c] = rows[c * FM_TPS + p];
-  }
-}
-
-// rel_z_decay encoding of keypoints [j0, j0 + nj) -> rows [jl * P + part]
-// (keypoint-major, the order ops/fused_mlp.py packs the first layer's rows
-// in): part 0 is dz, then sin/cos(pi dz) and their octaves by the
-// double-angle recurrence, each times the Gaussian keypoint weight.
-__device__ __forceinline__ void fm_pe(const FmGeo& g, const float* S,
-                                      const float* kp, float* dst, int j0,
-                                      int nj) {
-  const int K = g.K;
-  const int P = 1 + 2 * g.L;
-  for (int e = threadIdx.x; e < nj * FM_TP; e += FM_NT) {
-    const int p = e & (FM_TP - 1);
-    const int jl = e >> 6;
-    const int j = j0 + jl;
-    const float dxx = S[p] - kp[j];
-    const float dyy = S[FM_TPS + p] - kp[K + j];
-    const float dzz = S[2 * FM_TPS + p] - kp[2 * K + j];
-    const float dz = g.scale * dzz;
-    const float wgt =
-        expf(-(dxx * dxx + dyy * dyy + dzz * dzz) / g.two_sig2);
-    float s, c;
-    sincosf(3.14159274101257324f * dz, &s, &c);
-    float* col = dst + jl * P * FM_TPS + p;
-    col[0] = dz * wgt;
-    for (int l = 0; l < g.L; ++l) {
-      col[(1 + 2 * l) * FM_TPS] = s * wgt;
-      col[(2 + 2 * l) * FM_TPS] = c * wgt;
-      const float s2 = 2.0f * s * c;
-      c = 1.0f - 2.0f * s * s;
-      s = s2;
-    }
-  }
-}
+extern __shared__ __align__(128) float fm_sm[];
 
 struct FmSmem {
-  float* Ws;  // weight staging, FM_KC x 128
-  float* XA;  // the arena (FM_XA_ROWS rows): inputs, encoding, pooled features
-  float* F0;  // fused0 (64 rows of XA)
-  float* F1;  // fused1 (8 rows of XA)
+  float* XA;  // the arena: inputs, encoding, pooled features
   float* H;   // hidden state (128 rows)
   float* S;   // per-point scalars: cx cy cz w_v q_sdf q_vis vis_th vis_toh
   float* G;   // gates (8 rows)
@@ -359,180 +174,541 @@ struct FmSmem {
   float* kp;  // keypoints (3, K)
 };
 
-// 110,968 bytes at 42 keypoints: two blocks fit the SM's 227 KB.
-__host__ __device__ __forceinline__ int fm_smem_floats(int K) {
-  return FM_KC * 128 + (FM_XA_ROWS + FM_HMAX + 8 + 8 + 8) * FM_TPS + 3 * K;
-}
-
-__device__ __forceinline__ FmSmem fm_carve(float* sm) {
+__device__ __forceinline__ FmSmem fm_carve() {
   FmSmem s;
-  s.Ws = sm;
-  s.XA = s.Ws + FM_KC * 128;
-  s.F0 = s.XA + FM_R_F0 * FM_TPS;
-  s.F1 = s.XA + FM_R_F1 * FM_TPS;
+  s.XA = fm_sm + FM_R * FM_SLOT;
   s.H = s.XA + FM_XA_ROWS * FM_TPS;
   s.S = s.H + FM_HMAX * FM_TPS;
   s.G = s.S + 8 * FM_TPS;
   s.O = s.G + 8 * FM_TPS;
-  s.kp = s.O + 8 * FM_TPS;
+  s.kp = fm_sm + fm_kp_offset();
   return s;
 }
 
-// The first layer: the encoding is made a chunk of keypoints at a time in
-// the arena and multiplied at once (all of it would not leave room for two
-// blocks an SM), then fused0; one accumulator, the bias last.
-template <int MT>
-__device__ __noinline__ void fm_layer0_t(const FmGeo& g, const FmSmem& s,
-                                         const float* __restrict__ W,
-                                         const float* __restrict__ bias) {
-  float acc[4][MT];
+__device__ __forceinline__ unsigned long long* fm_full(int K) {
+  return reinterpret_cast<unsigned long long*>(fm_sm + fm_bar_offset(K));
+}
+
+// the warp's first point column within the block's rows
+__device__ __forceinline__ int fm_wp() { return (threadIdx.x >> 5) * FM_WP; }
+
+// ---------------------------------------------------------------------------
+// the layer core: 3xTF32 mma.sync over the ring
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void fm_split(float x, unsigned& hi,
+                                         unsigned& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  const float r = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
+}
+
+__device__ __forceinline__ void fm_mma(float (&c)[4], const unsigned (&a)[4],
+                                       unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = a b, from a zero sum
+__device__ __forceinline__ void fm_mma0(float (&d)[4], const unsigned (&a)[4],
+                                        unsigned b0, unsigned b1) {
+  const float z = 0.0f;
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(z));
+}
+
+// The next k-tile of the stream, of nt n-tiles, at stream position pos (an
+// item a FM_SLOT floats: item pos / FM_SLOT, pos % FM_SLOT floats of it
+// taken).  A k-tile that does not fit in what is left of the item starts
+// the next one, as fm_schedule groups them; at the start of an item the
+// warp releases the one before, which it has read, and waits for this
+// one's copy.  Returns the lane's fragment of the k-tile's first n-tile and
+// advances pos.
+__device__ __forceinline__ const float4* fm_next(int& pos, int nt, int Kb) {
+  unsigned long long* full = fm_full(Kb);
+  const int need = 128 * nt;
+  int off = pos % FM_SLOT;
+  if (off != 0 && off + need > FM_SLOT) {
+    pos += FM_SLOT - off;
+    off = 0;
+  }
+  const int item = pos / FM_SLOT, s = item % FM_R;
+  if (off == 0) {
+    if (item > 0) {
+      __syncwarp();  // every lane has read the item before
+      if ((threadIdx.x & 31) == 0) bar_arrive(full + FM_R + (item - 1) % FM_R);
+    }
+    if (!bar_wait_bounded(full + s, (item / FM_R) & 1, FM_TRIES)) __trap();
+  }
+  const float4* w =
+      reinterpret_cast<const float4*>(fm_sm + s * FM_SLOT + off) +
+      (threadIdx.x & 31);
+  pos += need;
+  return w;
+}
+
+// acc += X (K rows of shared memory, the warp's 16 points) x the next
+// ceil(K / 8) k-tiles of the stream from position pos; returns the new
+// position.  Rows at or past K read as 0 (the packed rows there are 0).
+template <int NT>
+__device__ __forceinline__ int fm_mma_acc(int pos, int K, const float* X,
+                                          float (&acc)[NT][4], int Kb) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float* xp = X + fm_wp() + g;
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    const int kr = K - k0;
+    // rows past K (inside the arena) are read and replaced by 0
+    const float* x0 = xp + (k0 + t) * FM_TPS;
+    const float a[4] = {t < kr ? x0[0] : 0.0f, t < kr ? x0[8] : 0.0f,
+                        t + 4 < kr ? x0[4 * FM_TPS] : 0.0f,
+                        t + 4 < kr ? x0[4 * FM_TPS + 8] : 0.0f};
+    unsigned ah[4], al[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i) fm_split(a[i], ah[i], al[i]);
+    const float4* wf = fm_next(pos, NT, Kb);
+    float4 w[NT];
 #pragma unroll
-    for (int j = 0; j < MT; ++j) acc[i][j] = 0.0f;
+    for (int n = 0; n < NT; ++n) w[n] = wf[32 * n];
+    // the k-tile's three products, the small ones first, in three passes
+    // over the tiles (the products into one sum stand NT apart) into a
+    // fresh sum, which the CUDA cores then add to the layer's, rounded to
+    // nearest: the tensor cores' own f32 accumulation over a layer's
+    // k-tiles loses bits (PERF.md section 6)
+    float kt[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      fm_mma0(kt[n], al, __float_as_uint(w[n].x), __float_as_uint(w[n].y));
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      fm_mma(kt[n], ah, __float_as_uint(w[n].z), __float_as_uint(w[n].w));
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      fm_mma(kt[n], ah, __float_as_uint(w[n].x), __float_as_uint(w[n].y));
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n][i] += kt[n][i];
+  }
+  return pos;
+}
+
+template <int ACT>
+__device__ __forceinline__ float fm_act(float v) {
+  if (ACT == FM_SOFTPLUS) {
+    const float xb = v * 100.0f;
+    return xb > 20.0f
+               ? v
+               : fmaxf(v, 0.0f) + __logf(1.0f + __expf(-fabsf(xb))) * 0.01f;
+  }
+  if (ACT == FM_RELU) return fmaxf(v, 0.0f);
+  if (ACT == FM_SIGMOID) return 1.0f / (1.0f + expf(-v));
+  return v;
+}
+
+// dst rows [0, M) = act(acc + bias) at the warp's points (bias in shared
+// memory, or none); FM_POOL writes the V=1 pooled mean to rows [0, M) and
+// the variance to rows [M, 2M), weighted by wv per point.  Accumulator
+// element (n, i) is point g + 8 (i >> 1), channel 8 n + 2 t + (i & 1) (the
+// m16n8 C fragment).  The activation is a template parameter: the lane's
+// 4 NT elements then run as independent straight-line chains.
+template <int NT, int ACT>
+__device__ __forceinline__ void fm_store(float (&acc)[NT][4],
+                                         const float* bias, int M,
+                                         float* dst, const float* wv) {
+  __syncwarp();  // the warp has read its inputs (dst may alias them)
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int p = fm_wp() + g;
+  // every element is computed (the padding columns from 0 + the shared
+  // words after the bias) and only M columns stored, and every bias (and
+  // pooling weight) is read before the first store, which the compiler
+  // must otherwise assume may write it: the lane's elements run as
+  // independent chains without branches
+  float bv[NT][2];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      bv[n][j] = bias ? bias[8 * n + 2 * t + j] : 0.0f;
+  const float wv0 = ACT == FM_POOL ? wv[p] : 0.0f;
+  const float wv1 = ACT == FM_POOL ? wv[p + 8] : 0.0f;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int m = 8 * n + 2 * t + j;
+      float r[2] = {acc[n][j] + bv[n][j], acc[n][2 + j] + bv[n][j]};
+      float* row = dst + m * FM_TPS + p;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (ACT == FM_POOL) {
+          const float w = h ? wv1 : wv0;
+          const float mean = w * r[h];
+          const float d = r[h] - mean;
+          if (m < M) row[M * FM_TPS + 8 * h] = w * (d * d);
+          r[h] = mean;
+        } else {
+          r[h] = fm_act<ACT>(r[h]);
+        }
+        if (m < M) row[8 * h] = r[h];
+      }
+    }
+  }
+  __syncwarp();  // the outputs are written before the warp reads them
+}
+
+template <int NT>
+__device__ __forceinline__ void fm_store_act(float (&acc)[NT][4],
+                                             const float* bias, int M,
+                                             int act, float* dst,
+                                             const float* wv) {
+  switch (act) {
+    case FM_SOFTPLUS: fm_store<NT, FM_SOFTPLUS>(acc, bias, M, dst, wv); break;
+    case FM_RELU: fm_store<NT, FM_RELU>(acc, bias, M, dst, wv); break;
+    case FM_SIGMOID: fm_store<NT, FM_SIGMOID>(acc, bias, M, dst, wv); break;
+    case FM_POOL: fm_store<NT, FM_POOL>(acc, bias, M, dst, wv); break;
+    default: fm_store<NT, FM_NONE>(acc, bias, M, dst, wv);
+  }
+}
+
+template <int NT>
+__device__ __noinline__ int fm_layer_t(int pos, int Kb, int M, int act,
+                                       const float* bias, float* dst,
+                                       const float* wv, const float* X0,
+                                       int K0, const float* X1, int K1) {
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.0f;
+  pos = fm_mma_acc<NT>(pos, K0, X0, acc, Kb);
+  if (K1 > 0) pos = fm_mma_acc<NT>(pos, K1, X1, acc, Kb);
+  fm_store_act<NT>(acc, bias, M, act, dst, wv);
+  return pos;
+}
+
+#define FM_NT_CASES(F) F(1) F(2) F(3) F(4) F(8) F(12) F(16)
+
+// One layer over the virtual concat [X0 (K0 rows) | X1 (K1 rows)] at the
+// warp's points; returns the next item of the stream.
+__device__ __forceinline__ int fm_layer(int pos, int Kb, int M, int act,
+                                        const float* bias, float* dst,
+                                        const float* wv, const float* X0,
+                                        int K0, const float* X1 = nullptr,
+                                        int K1 = 0) {
+  switch (fm_ntiles(M)) {
+#define FM_CASE(n) \
+  case n:          \
+    return fm_layer_t<n>(pos, Kb, M, act, bias, dst, wv, X0, K0, X1, K1);
+    FM_NT_CASES(FM_CASE)
+#undef FM_CASE
+  }
+  return pos;
+}
+
+// ---------------------------------------------------------------------------
+// the producer warp
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void fm_produce(const FmSched& sc,
+                                           const float* __restrict__ w,
+                                           int Kb) {
+  if ((threadIdx.x & 31) != 0) return;
+  unsigned long long* full = fm_full(Kb);
+  unsigned long long* empty = full + FM_R;
+  const char* src = reinterpret_cast<const char*>(w);
+  for (int i = 0; i < sc.n; ++i) {
+    const int s = i % FM_R;
+    if (i >= FM_R && !bar_wait_bounded(empty + s, (i / FM_R - 1) & 1,
+                                       FM_TRIES))
+      __trap();
+    const unsigned bytes = 512u * sc.tiles[i];
+    bar_expect(full + s, bytes);
+    bulk_load(fm_sm + s * FM_SLOT, src, bytes, full + s);
+    src += bytes;
+  }
+}
+
+// Barriers, keypoints, biases; then the producer warp leaves for its loop
+// and the consumers go on (no block barrier after this one).
+__device__ __forceinline__ bool fm_start(const FmGeo& g, const FmSched& sc,
+                                         const float* __restrict__ w) {
+  unsigned long long* full = fm_full(g.K);
+  if (threadIdx.x == 0) {
+    for (int r = 0; r < FM_R; ++r) {
+      bar_init(full + r, 1);
+      bar_init(full + FM_R + r, FM_CW);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  float* kp = fm_sm + fm_kp_offset();
+  for (int k = threadIdx.x; k < 3 * g.K; k += FM_NT) kp[k] = __ldg(g.kpt_T + k);
+  float* bias = fm_sm + fm_bias_offset();
+  const int nb = g.d1 + g.d2 + g.d3 + FM_F0 + g.e1 + g.e2 + 2 + g.lat;
+  for (int k = threadIdx.x; k < nb; k += FM_NT) bias[k] = __ldg(g.b + k);
+  __syncthreads();
+  if ((threadIdx.x >> 5) == FM_CW) {
+    fm_produce(sc, w, g.K);
+    return false;
+  }
+  return true;
+}
+
+// ---------------------------------------------------------------------------
+// per-warp data movement (each warp its own 16 points)
+// ---------------------------------------------------------------------------
+
+// Columns [col0, col0 + ncols) of a row-major (N, stride) array for the
+// warp's points -> shared rows [c][p], by 4-byte asynchronous copies
+// (cp.async; points past N read 0); a warp reads 4 points x 8 columns
+// (whole 32-byte sectors).  The copies land by fm_load_wait: a phase
+// issues all its columns first, so that their latencies overlap.
+__device__ __forceinline__ void fm_load_cols(const float* __restrict__ src,
+                                             int stride, int col0, int ncols,
+                                             int N, float* dst) {
+  const int wp = fm_wp();
+  const int gp0 = blockIdx.x * FM_TP + wp;
+  const int total = ((ncols + 7) >> 3) * 8 * FM_WP;
+  for (int e = threadIdx.x & 31; e < total; e += 32) {
+    const int c = ((e >> 7) << 3) + (e & 7);
+    if (c >= ncols) continue;
+    const int p = (e >> 3) & (FM_WP - 1);
+    const int gp = gp0 + p;
+    const float* from =
+        src + static_cast<long long>(min(gp, N - 1)) * stride + col0 + c;
+    asm volatile(
+        "cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+            smem_addr(dst + c * FM_TPS + wp + p)),
+        "l"(from), "r"(gp < N ? 4 : 0)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void fm_load_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncwarp();
+}
+
+// Ask L2 for the warp's rows of a row-major (N, stride) array, one request
+// per 128-byte line, so that the later column loads find them there.
+__device__ __forceinline__ void fm_prefetch_rows(const float* __restrict__ src,
+                                                 int stride, int N) {
+  const int gp0 = blockIdx.x * FM_TP + fm_wp();
+  const int rows = min(FM_WP, N - gp0);
+  if (rows <= 0) return;
+  const char* base = reinterpret_cast<const char*>(
+      src + static_cast<long long>(gp0) * stride);
+  const long long bytes = static_cast<long long>(rows) * stride * 4;
+  for (long long o = (threadIdx.x & 31) * 128LL; o < bytes; o += 32 * 128LL)
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(base + o));
+}
+
+// rows [0, nrows) of X *= the per-point row `scale`, at the warp's points
+__device__ __forceinline__ void fm_scale_rows(float* X, int nrows,
+                                              const float* scale) {
+  const int wp = fm_wp();
+  for (int e = threadIdx.x & 31; e < nrows * FM_WP; e += 32) {
+    const int p = wp + (e & (FM_WP - 1));
+    X[(e / FM_WP) * FM_TPS + p] *= scale[p];
+  }
+  __syncwarp();
+}
+
+__device__ __forceinline__ void fm_copy_row(float* dst, const float* src) {
+  const int lane = threadIdx.x & 31;
+  if (lane < FM_WP) dst[fm_wp() + lane] = src[fm_wp() + lane];
+  __syncwarp();
+}
+
+// Shared rows [c][p] -> row-major (N, ncols) device memory, the warp's
+// points.
+__device__ __forceinline__ void fm_write_out(const float* rows, int ncols,
+                                             int N, float* __restrict__ out) {
+  const int wp = fm_wp();
+  const int gp0 = blockIdx.x * FM_TP + wp;
+  for (int e = threadIdx.x & 31; e < ncols * FM_WP; e += 32) {
+    const int p = e / ncols, c = e - p * ncols;
+    if (gp0 + p < N)
+      out[static_cast<long long>(gp0 + p) * ncols + c] =
+          rows[c * FM_TPS + wp + p];
+  }
+}
+
+// rel_z_decay encoding of keypoints [j0, j0 + nj) -> rows [jl * P + part]
+// (keypoint-major, the order ops/fused_mlp.py packs the first layer's rows
+// in): part 0 is dz, then sin/cos(pi dz) and their octaves by the
+// double-angle recurrence, each times the Gaussian keypoint weight.
+__device__ __forceinline__ void fm_pe(const FmGeo& g, const FmSmem& s,
+                                      float* dst, int j0, int nj) {
+  const int K = g.K;
   const int P = 1 + 2 * g.L;
-  const int per = FM_PE_ROWS / P;  // keypoints a chunk
+  const int wp = fm_wp();
+  for (int e = threadIdx.x & 31; e < nj * FM_WP; e += 32) {
+    const int p = wp + (e & (FM_WP - 1));
+    const int jl = e / FM_WP;
+    const int j = j0 + jl;
+    const float dxx = s.S[p] - s.kp[j];
+    const float dyy = s.S[FM_TPS + p] - s.kp[K + j];
+    const float dzz = s.S[2 * FM_TPS + p] - s.kp[2 * K + j];
+    const float dz = g.scale * dzz;
+    const float wgt =
+        expf(-(dxx * dxx + dyy * dyy + dzz * dzz) / g.two_sig2);
+    float sn, cs;
+    sincosf(3.14159274101257324f * dz, &sn, &cs);
+    float* col = dst + jl * P * FM_TPS + p;
+    col[0] = dz * wgt;
+    for (int l = 0; l < g.L; ++l) {
+      col[(1 + 2 * l) * FM_TPS] = sn * wgt;
+      col[(2 + 2 * l) * FM_TPS] = cs * wgt;
+      const float s2 = 2.0f * sn * cs;
+      cs = 1.0f - 2.0f * sn * sn;
+      sn = s2;
+    }
+  }
+  __syncwarp();
+}
+
+// ---------------------------------------------------------------------------
+// the networks
+// ---------------------------------------------------------------------------
+
+// The first layer: the encoding is made a chunk of keypoints at a time in
+// the arena and multiplied at once, then fused0; one accumulator, the bias
+// last.
+template <int NT>
+__device__ __noinline__ int fm_layer0_t(const FmGeo& g, const FmSmem& s,
+                                        int pos, const float* bias) {
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.0f;
+  const int P = 1 + 2 * g.L;
+  const int per = fm_pe_per(P);
   float* pe = s.XA + FM_R_PE * FM_TPS;
   for (int j0 = 0; j0 < g.K; j0 += per) {
     const int nj = min(per, g.K - j0);
-    __syncthreads();  // the last chunk has been read
-    fm_pe(g, s.S, s.kp, pe, j0, nj);
-    fm_dense_acc<MT>(W + j0 * P * 16 * MT, nj * P, pe, s.Ws, acc);
+    fm_pe(g, s, pe, j0, nj);
+    pos = fm_mma_acc<NT>(pos, nj * P, pe, acc, g.K);
+    __syncwarp();  // the chunk is read before the next one replaces it
   }
-  fm_dense_acc<MT>(W + g.K * P * 16 * MT, FM_F0, s.F0, s.Ws, acc);
-  fm_store<MT>(acc, bias, g.d1, FM_SOFTPLUS, s.H, nullptr);
+  pos = fm_mma_acc<NT>(pos, FM_F0, s.XA + FM_R_F0 * FM_TPS, acc, g.K);
+  fm_store<NT, FM_SOFTPLUS>(acc, bias, g.d1, s.H, nullptr);
+  return pos;
 }
 
 __device__ __forceinline__ int fm_layer0(const FmGeo& g, const FmSmem& s,
-                                         const float* __restrict__ W,
-                                         const float* __restrict__ bias) {
-  const int mp = fm_mp(g.d1);
-  if (mp == 128) {
-    fm_layer0_t<8>(g, s, W, bias);
-  } else if (mp == 64) {
-    fm_layer0_t<4>(g, s, W, bias);
-  } else if (mp == 32) {
-    fm_layer0_t<2>(g, s, W, bias);
-  } else {
-    fm_layer0_t<1>(g, s, W, bias);
+                                         int pos, const float* bias) {
+  switch (fm_ntiles(g.d1)) {
+#define FM_CASE(n) \
+  case n:          \
+    return fm_layer0_t<n>(g, s, pos, bias);
+    FM_NT_CASES(FM_CASE)
+#undef FM_CASE
   }
-  return ((1 + 2 * g.L) * g.K + FM_F0) * mp;
+  return pos;
 }
 
 // PE + MLPUNetFusion (V=1) + gcompress.  Needs S rows 0-3, F0 and F1
 // loaded.  Writes (sdf residual, radiance) to O rows 0-1 and the latent to
-// `lat_dst` rows (shared, outside the pooled rows).  Leaves the pooled
-// [mean | var] in XA rows 0-127.
-__device__ __forceinline__ void fm_geo_body(const FmGeo& g, const FmSmem& s,
-                                            float* lat_dst) {
-  const float* W = g.w;
-  const float* B = g.b;
+// `lat_dst` rows (outside the pooled rows).
+__device__ __forceinline__ int fm_geo_body(const FmGeo& g, const FmSmem& s,
+                                           int pos, float* lat_dst) {
+  const float* B = fm_sm + fm_bias_offset();
   const float* wv = s.S + 3 * FM_TPS;
   float* MV = s.XA + FM_R_MV * FM_TPS;
-  W += fm_layer0(g, s, W, B);
+  const int Kb = g.K;
+  pos = fm_layer0(g, s, pos, B);
   B += g.d1;
-  W += fm_layer(W, g.d2, FM_SOFTPLUS, B, s.H, s.Ws, wv, s.H, g.d1, nullptr,
-                0);
+  pos = fm_layer(pos, Kb, g.d2, FM_SOFTPLUS, B, s.H, wv, s.H, g.d1);
   B += g.d2;
-  W += fm_layer(W, g.d3, FM_SOFTPLUS, B, s.H, s.Ws, wv, s.H, g.d2, s.F1,
-                FM_F1);
+  pos = fm_layer(pos, Kb, g.d3, FM_SOFTPLUS, B, s.H, wv, s.H, g.d2,
+                s.XA + FM_R_F1 * FM_TPS, FM_F1);
   B += g.d3;
-  W += fm_layer(W, FM_F0, FM_POOL, B, MV, s.Ws, wv, s.H, g.d3, nullptr, 0);
+  pos = fm_layer(pos, Kb, FM_F0, FM_POOL, B, MV, wv, s.H, g.d3);
   B += FM_F0;
-  W += fm_layer(W, g.e1, FM_SOFTPLUS, B, s.H, s.Ws, wv, MV, 2 * FM_F0,
-                nullptr, 0);
+  pos = fm_layer(pos, Kb, g.e1, FM_SOFTPLUS, B, s.H, wv, MV, 2 * FM_F0);
   B += g.e1;
-  W += fm_layer(W, g.e2, FM_SOFTPLUS, B, s.H, s.Ws, wv, s.H, g.e1, nullptr,
-                0);
+  pos = fm_layer(pos, Kb, g.e2, FM_SOFTPLUS, B, s.H, wv, s.H, g.e1);
   B += g.e2;
-  W += fm_layer(W, 2, FM_NONE, B, s.O, s.Ws, wv, s.H, g.e2, nullptr, 0);
+  pos = fm_layer(pos, Kb, 2, FM_NONE, B, s.O, wv, s.H, g.e2);
   B += 2;
-  fm_layer(W, g.lat, FM_NONE, B, lat_dst, s.Ws, wv, MV, 2 * FM_F0, nullptr,
-           0);
+  return fm_layer(pos, Kb, g.lat, FM_NONE, B, lat_dst, wv, MV, 2 * FM_F0);
 }
 
 // GateMLP + FuseMLP over the X rows (Kin of them): gate hidden hg -> ng
 // sigmoid gates; the first `parts.n` row groups are re-scaled by their
-// gate; fuse hidden hf -> nout rows at dst.  Returns the packed size of
-// its four matrices.
-__device__ __forceinline__ int fm_gate_fuse(const float* __restrict__ W,
-                                            const FmSmem& s, float* X,
-                                            int Kin, FmParts parts, int hg,
-                                            int ng, int hf, int nout,
+// gate; fuse hidden hf -> nout rows at dst.
+__device__ __forceinline__ int fm_gate_fuse(int pos, int Kb, const FmSmem& s,
+                                            float* X, int Kin, FmParts parts,
+                                            int hg, int ng, int hf, int nout,
                                             float* dst) {
-  int used = fm_layer(W, hg, FM_RELU, nullptr, s.H, s.Ws, nullptr, X, Kin,
-                      nullptr, 0);
-  used += fm_layer(W + used, ng, FM_SIGMOID, nullptr, s.G, s.Ws, nullptr, s.H,
-                   hg, nullptr, 0);
-  __syncthreads();
+  pos = fm_layer(pos, Kb, hg, FM_RELU, nullptr, s.H, nullptr, X, Kin);
+  pos = fm_layer(pos, Kb, ng, FM_SIGMOID, nullptr, s.G, nullptr, s.H, hg);
   int row = 0;
   for (int i = 0; i < parts.n; ++i) {
     fm_scale_rows(X + row * FM_TPS, parts.w[i], s.G + i * FM_TPS);
     row += parts.w[i];
   }
-  used += fm_layer(W + used, hf, FM_RELU, nullptr, s.H, s.Ws, nullptr, X, Kin,
-                   nullptr, 0);
-  used += fm_layer(W + used, nout, FM_NONE, nullptr, dst, s.Ws, nullptr, s.H,
-                   hf, nullptr, 0);
-  return used;
-}
-
-__device__ __forceinline__ void fm_load_common(const FmGeo& g,
-                                               const FmSmem& s, int p0) {
-  for (int k = threadIdx.x; k < 3 * g.K; k += FM_NT)
-    s.kp[k] = __ldg(g.kpt_T + k);
-  fm_load_cols(g.cxyz, 3, 0, 3, p0, g.N, s.S);
+  pos = fm_layer(pos, Kb, hf, FM_RELU, nullptr, s.H, nullptr, X, Kin);
+  return fm_layer(pos, Kb, nout, FM_NONE, nullptr, dst, nullptr, s.H, hf);
 }
 
 // aux (N, 74): [fused0 64 | fused1 8 | out_mask | pix_weight]
-__global__ void __launch_bounds__(FM_NT, 2)
-fused_geo_kernel(FmGeo g, const float* __restrict__ aux,
-                 float* __restrict__ out, float* __restrict__ lat) {
-  extern __shared__ __align__(16) float fm_sm[];
-  const FmSmem s = fm_carve(fm_sm);
-  const int p0 = blockIdx.x * FM_TP;
-  fm_load_common(g, s, p0);
-  fm_load_cols(aux, 74, 0, FM_F0, p0, g.N, s.F0);
-  fm_load_cols(aux, 74, FM_F0, FM_F1, p0, g.N, s.F1);
-  fm_load_cols(aux, 74, 73, 1, p0, g.N, s.S + 3 * FM_TPS);
-  float* lat_rows = s.XA + FM_R_TX * FM_TPS;
-  fm_geo_body(g, s, lat_rows);
-  __syncthreads();
-  fm_write_out(s.O, 2, p0, g.N, out);
-  fm_write_out(lat_rows, g.lat, p0, g.N, lat);
+__global__ void __launch_bounds__(FM_NT, 1)
+fused_geo_kernel(FmGeo g, const __grid_constant__ FmSched sc,
+                 const float* __restrict__ w,
+                 const float* __restrict__ aux, float* __restrict__ out,
+                 float* __restrict__ lat) {
+  if (!fm_start(g, sc, w)) return;
+  const FmSmem s = fm_carve();
+  fm_load_cols(g.cxyz, 3, 0, 3, g.N, s.S);
+  fm_load_cols(aux, 74, 0, FM_F0, g.N, s.XA + FM_R_F0 * FM_TPS);
+  fm_load_cols(aux, 74, FM_F0, FM_F1, g.N, s.XA + FM_R_F1 * FM_TPS);
+  fm_load_cols(aux, 74, 73, 1, g.N, s.S + 3 * FM_TPS);
+  fm_load_wait();
+  fm_geo_body(g, s, 0, s.H);
+  fm_write_out(s.O, 2, g.N, out);
+  fm_write_out(s.H, g.lat, g.N, lat);
 }
 
 // feats (N, 87): [feat_s0 64 | feat_s1 8 | img_xy 3 | ft_xy 8 | q_sdf |
 //   q_vis | out_mask | pix_weight]; g2 (N, 204): the raw KNN rows
 //   [geo64 | geo8 | tex 11 | tex_global 18 | vis] x {this, other hand}.
-__global__ void __launch_bounds__(FM_NT, 2)
-fused_query_kernel(FmGeo g, const float* __restrict__ fw,
+__global__ void __launch_bounds__(FM_NT, 1)
+fused_query_kernel(FmGeo g, const __grid_constant__ FmSched sc,
+                   const float* __restrict__ w,
                    const float* __restrict__ feats,
                    const float* __restrict__ g2, float* __restrict__ out) {
-  extern __shared__ __align__(16) float fm_sm[];
-  const FmSmem s = fm_carve(fm_sm);
-  const int p0 = blockIdx.x * FM_TP;
-  const int N = g.N;
+  if (!fm_start(g, sc, w)) return;
+  const FmSmem s = fm_carve();
+  const int N = g.N, Kb = g.K;
   const int C1 = 102;
   float* XA = s.XA;
   float* q_sdf = s.S + 4 * FM_TPS;
   float* q_vis = s.S + 5 * FM_TPS;
   float* vis_th = s.S + 6 * FM_TPS;
   float* vis_toh = s.S + 7 * FM_TPS;
-  fm_prefetch_rows(g2, 204, p0, N);
-  fm_prefetch_rows(feats, 87, p0, N);
-  fm_load_common(g, s, p0);
-  fm_load_cols(feats, 87, 86, 1, p0, N, s.S + 3 * FM_TPS);
-  fm_load_cols(feats, 87, 83, 2, p0, N, q_sdf);  // q_sdf, q_vis
-  fm_load_cols(g2, 204, 101, 1, p0, N, vis_th);
-  fm_load_cols(g2, 204, C1 + 101, 1, p0, N, vis_toh);
+  fm_prefetch_rows(g2, 204, N);
+  fm_prefetch_rows(feats, 87, N);
+  fm_load_cols(g.cxyz, 3, 0, 3, N, s.S);
+  fm_load_cols(feats, 87, 86, 1, N, s.S + 3 * FM_TPS);
+  fm_load_cols(feats, 87, 83, 2, N, q_sdf);  // q_sdf, q_vis
+  fm_load_cols(g2, 204, 101, 1, N, vis_th);
+  fm_load_cols(g2, 204, C1 + 101, 1, N, vis_toh);
 
   // GeoVisFusion scale 0: [fs0 | th g0 | toh g0 | ctx4] (196 rows of the
   // arena) -> fused0, written over the first input rows once they are read
-  fm_load_cols(feats, 87, 0, 64, p0, N, XA);
-  fm_load_cols(g2, 204, 0, 64, p0, N, XA + 64 * FM_TPS);
-  fm_load_cols(g2, 204, C1, 64, p0, N, XA + 128 * FM_TPS);
-  __syncthreads();
+  fm_load_cols(feats, 87, 0, 64, N, XA);
+  fm_load_cols(g2, 204, 0, 64, N, XA + 64 * FM_TPS);
+  fm_load_cols(g2, 204, C1, 64, N, XA + 128 * FM_TPS);
+  fm_load_wait();
   fm_scale_rows(XA + 64 * FM_TPS, 64, vis_th);
   fm_scale_rows(XA + 128 * FM_TPS, 64, vis_toh);
   fm_copy_row(XA + 192 * FM_TPS, q_sdf);
@@ -542,40 +718,40 @@ fused_query_kernel(FmGeo g, const float* __restrict__ fw,
   FmParts gp;
   gp.n = 3;
   gp.w[0] = gp.w[1] = gp.w[2] = 64;
-  const float* W = fw;
-  W += fm_gate_fuse(W, s, XA, 196, gp, 10, 3, 64, 64, s.F0);
+  int pos = fm_gate_fuse(0, Kb, s, XA, 196, gp, 10, 3, 64, 64,
+                        XA + FM_R_F0 * FM_TPS);
 
   // scale 1: [fs1 | th g1 | toh g1 | ctx4] -> fused1
-  __syncthreads();
   float* X1 = XA + FM_R_X1 * FM_TPS;
-  fm_load_cols(feats, 87, 64, 8, p0, N, X1);
-  fm_load_cols(g2, 204, 64, 8, p0, N, X1 + 8 * FM_TPS);
-  fm_load_cols(g2, 204, C1 + 64, 8, p0, N, X1 + 16 * FM_TPS);
+  fm_load_cols(feats, 87, 64, 8, N, X1);
+  fm_load_cols(g2, 204, 64, 8, N, X1 + 8 * FM_TPS);
+  fm_load_cols(g2, 204, C1 + 64, 8, N, X1 + 16 * FM_TPS);
+  fm_load_wait();
   fm_copy_row(X1 + 24 * FM_TPS, q_sdf);
   fm_copy_row(X1 + 25 * FM_TPS, q_vis);
   fm_copy_row(X1 + 26 * FM_TPS, vis_th);
   fm_copy_row(X1 + 27 * FM_TPS, vis_toh);
-  __syncthreads();
   fm_scale_rows(X1 + 8 * FM_TPS, 8, vis_th);
   fm_scale_rows(X1 + 16 * FM_TPS, 8, vis_toh);
   gp.w[0] = gp.w[1] = gp.w[2] = 8;
-  W += fm_gate_fuse(W, s, X1, 28, gp, 10, 3, 8, 8, s.F1);
+  pos = fm_gate_fuse(pos, Kb, s, X1, 28, gp, 10, 3, 8, 8,
+                    XA + FM_R_F1 * FM_TPS);
 
   // geometry body; its latent lands in the texture gate's input rows
   float* TX = XA + FM_R_TX * FM_TPS;  // 96 rows: [qf 11 | th tf | toh tf |
                                       //  th tg 18 | toh tg 18 | lat 24 | vis3]
-  fm_geo_body(g, s, TX + 69 * FM_TPS);
+  pos = fm_geo_body(g, s, pos, TX + 69 * FM_TPS);
 
   // TexVisFusion gate/fuse -> rgb
-  fm_load_cols(feats, 87, 72, 11, p0, N, TX);
-  fm_load_cols(g2, 204, 72, 11, p0, N, TX + 11 * FM_TPS);
-  fm_load_cols(g2, 204, C1 + 72, 11, p0, N, TX + 22 * FM_TPS);
-  fm_load_cols(g2, 204, 83, 18, p0, N, TX + 33 * FM_TPS);
-  fm_load_cols(g2, 204, C1 + 83, 18, p0, N, TX + 51 * FM_TPS);
+  fm_load_cols(feats, 87, 72, 11, N, TX);
+  fm_load_cols(g2, 204, 72, 11, N, TX + 11 * FM_TPS);
+  fm_load_cols(g2, 204, C1 + 72, 11, N, TX + 22 * FM_TPS);
+  fm_load_cols(g2, 204, 83, 18, N, TX + 33 * FM_TPS);
+  fm_load_cols(g2, 204, C1 + 83, 18, N, TX + 51 * FM_TPS);
+  fm_load_wait();
   fm_copy_row(TX + 93 * FM_TPS, q_vis);
   fm_copy_row(TX + 94 * FM_TPS, vis_th);
   fm_copy_row(TX + 95 * FM_TPS, vis_toh);
-  __syncthreads();
   fm_scale_rows(TX + 11 * FM_TPS, 11, vis_th);
   fm_scale_rows(TX + 22 * FM_TPS, 11, vis_toh);
   fm_scale_rows(TX + 33 * FM_TPS, 18, vis_th);
@@ -585,13 +761,60 @@ fused_query_kernel(FmGeo g, const float* __restrict__ fw,
   tp.w[0] = tp.w[1] = tp.w[2] = 11;
   tp.w[3] = tp.w[4] = 18;
   tp.w[5] = 24;
-  fm_gate_fuse(W, s, TX, 96, tp, 96, 6, 96, 3, s.O + 2 * FM_TPS);
-  __syncthreads();
-  fm_write_out(s.O, 5, p0, N, out);
+  fm_gate_fuse(pos, Kb, s, TX, 96, tp, 96, 6, 96, 3, s.O + 2 * FM_TPS);
+  fm_write_out(s.O, 5, N, out);
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+// The k-tiles of K rows of an M-wide layer, appended as fm_next takes them:
+// into the last item while it has room, else into a new one.
+static bool fm_push(FmSched& sc, int K, int M) {
+  const int nt = fm_ntiles(M);
+  for (int k = 0; k < K; k += 8) {
+    if (sc.n > 0 && 128 * (sc.tiles[sc.n - 1] + nt) <= FM_SLOT) {
+      sc.tiles[sc.n - 1] += nt;
+    } else {
+      if (sc.n >= FM_MAX_ITEMS) return false;
+      sc.tiles[sc.n++] = static_cast<unsigned char>(nt);
+    }
+  }
+  return true;
+}
+
+static bool fm_push_gate_fuse(FmSched& sc, int Kin, int hg, int ng, int hf,
+                              int nout) {
+  return fm_push(sc, Kin, hg) && fm_push(sc, hg, ng) &&
+         fm_push(sc, Kin, hf) && fm_push(sc, hf, nout);
+}
+
+// The items of k-tiles the consumers take, in their order (fm_geo_body,
+// fm_gate_fuse, the kernels above).
+static bool fm_schedule(const FmGeo& g, bool full, FmSched& sc) {
+  sc.n = 0;
+  bool ok = true;
+  if (full) {
+    ok = ok && fm_push_gate_fuse(sc, 196, 10, 3, 64, 64);
+    ok = ok && fm_push_gate_fuse(sc, 28, 10, 3, 8, 8);
+  }
+  const int P = 1 + 2 * g.L, per = fm_pe_per(P);
+  for (int j0 = 0; j0 < g.K; j0 += per)
+    ok = ok && fm_push(sc, (g.K - j0 < per ? g.K - j0 : per) * P, g.d1);
+  ok = ok && fm_push(sc, FM_F0, g.d1) && fm_push(sc, g.d1, g.d2) &&
+       fm_push(sc, g.d2, g.d3) && fm_push(sc, FM_F1, g.d3) &&
+       fm_push(sc, g.d3, FM_F0) && fm_push(sc, 2 * FM_F0, g.e1) &&
+       fm_push(sc, g.e1, g.e2) && fm_push(sc, g.e2, 2) &&
+       fm_push(sc, 2 * FM_F0, g.lat);
+  if (full) ok = ok && fm_push_gate_fuse(sc, 96, 96, 6, 96, 3);
+  return ok;
 }
 
 static int fm_check(const FmGeo& g, int need_lat) {
-  if (g.N <= 0 || g.K <= 0 || g.L < 0 || 1 + 2 * g.L > FM_PE_ROWS) return 1;
+  if (g.N <= 0 || g.K <= 0 || g.K > 256 || g.L < 0 ||
+      1 + 2 * g.L > FM_PE_ROWS)
+    return 1;
   const int widths[] = {g.d1, g.d2, g.d3, g.e1, g.e2};
   for (int w : widths)
     if (w <= 0 || w > FM_HMAX) return 1;
@@ -600,13 +823,12 @@ static int fm_check(const FmGeo& g, int need_lat) {
   return 0;
 }
 
-static FmGeo fm_geo(const float* cxyz, const float* kpt_T, const float* w,
-                    const float* b, int N, int K, int L, float scale,
-                    float sigma, const int* dims) {
+static FmGeo fm_geo(const float* cxyz, const float* kpt_T, const float* b,
+                    int N, int K, int L, float scale, float sigma,
+                    const int* dims) {
   FmGeo g;
   g.cxyz = cxyz;
   g.kpt_T = kpt_T;
-  g.w = w;
   g.b = b;
   g.N = N;
   g.K = K;
@@ -622,40 +844,54 @@ static FmGeo fm_geo(const float* cxyz, const float* kpt_T, const float* w,
   return g;
 }
 
-// dims: six host ints {d1, d2, d3, e1, e2, lat}
+// The checks shared by both entry points: the widths, the schedule and the
+// stream's size (w_floats) against it, the shared-memory limit.
+template <typename Kernel>
+static int fm_prepare(Kernel kernel, const FmGeo& g, bool full,
+                      long long w_floats, FmSched& sc, size_t& smem) {
+  if (fm_check(g, full ? 24 : 0) || !fm_schedule(g, full, sc))
+    return static_cast<int>(cudaErrorInvalidValue);
+  long long tiles = 0;
+  for (int i = 0; i < sc.n; ++i) tiles += sc.tiles[i];
+  if (tiles * 128 != w_floats) return static_cast<int>(cudaErrorInvalidValue);
+  smem = fm_smem_bytes(g.K);
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+}
+
+// dims: six host ints {d1, d2, d3, e1, e2, lat}; w: the packed stream of
+// w_floats floats (16-byte aligned)
 VT_EXPORT int vt_fused_geo_mlp(const float* cxyz, const float* kpt_T,
                                const float* aux, const float* w,
-                               const float* b, int N, int K, int L,
-                               float scale, float sigma, const int* dims,
-                               float* out, float* lat, void* stream) {
+                               long long w_floats, const float* b, int N,
+                               int K, int L, float scale, float sigma,
+                               const int* dims, float* out, float* lat,
+                               void* stream) {
   if (N <= 0) return 0;
-  FmGeo g = fm_geo(cxyz, kpt_T, w, b, N, K, L, scale, sigma, dims);
-  if (fm_check(g, 0)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * fm_smem_floats(K);
-  cudaError_t rc = cudaFuncSetAttribute(
-      fused_geo_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const FmGeo g = fm_geo(cxyz, kpt_T, b, N, K, L, scale, sigma, dims);
+  FmSched sc;
+  size_t smem = 0;
+  const int rc = fm_prepare(fused_geo_kernel, g, false, w_floats, sc, smem);
+  if (rc) return rc;
   fused_geo_kernel<<<vt_blocks(N, FM_TP), FM_NT, smem, vt_stream(stream)>>>(
-      g, aux, out, lat);
+      g, sc, w, aux, out, lat);
   return static_cast<int>(cudaGetLastError());
 }
 
 VT_EXPORT int vt_fused_query_mlp(const float* cxyz, const float* kpt_T,
                                  const float* feats, const float* g2,
-                                 const float* w, const float* b,
-                                 const float* fw, int N, int K, int L,
+                                 const float* w, long long w_floats,
+                                 const float* b, int N, int K, int L,
                                  float scale, float sigma, const int* dims,
                                  float* out, void* stream) {
   if (N <= 0) return 0;
-  FmGeo g = fm_geo(cxyz, kpt_T, w, b, N, K, L, scale, sigma, dims);
-  if (fm_check(g, 24)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * fm_smem_floats(K);
-  cudaError_t rc = cudaFuncSetAttribute(
-      fused_query_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const FmGeo g = fm_geo(cxyz, kpt_T, b, N, K, L, scale, sigma, dims);
+  FmSched sc;
+  size_t smem = 0;
+  const int rc = fm_prepare(fused_query_kernel, g, true, w_floats, sc, smem);
+  if (rc) return rc;
   fused_query_kernel<<<vt_blocks(N, FM_TP), FM_NT, smem, vt_stream(stream)>>>(
-      g, fw, feats, g2, out);
+      g, sc, w, feats, g2, out);
   return static_cast<int>(cudaGetLastError());
 }

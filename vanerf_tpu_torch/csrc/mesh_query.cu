@@ -91,6 +91,7 @@
 //     computed once per point after the sweep.
 
 #include "common.cuh"
+#include "tma.cuh"
 #include "tri_dist.cuh"
 
 #define MQ_THREADS 128
@@ -247,50 +248,6 @@ __device__ __forceinline__ int tile_point(int j, const TileGeom& g) {
   const int wb = j % n_wb;
   const int hb = j / n_wb;
   return ((hb * g.bh + y) * g.W + wb * g.bw + x) * g.S + sk * g.sb + s;
-}
-
-// One-dimensional bulk copies (TMA) into shared memory, completing on an
-// mbarrier that expects their bytes.
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(unsigned long long* b) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(b))
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_expect(unsigned long long* b,
-                                           unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_addr(b)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          unsigned bytes,
-                                          unsigned long long* b) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(b))
-      : "memory");
-}
-
-// Wait until the barrier's phase of parity `parity` has completed.
-__device__ __forceinline__ void bar_wait(unsigned long long* b,
-                                         unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_addr(b)),
-      "r"(parity)
-      : "memory");
 }
 
 // The per-face rejection (ops/mesh_query.py::face_spheres / sphere_skip).

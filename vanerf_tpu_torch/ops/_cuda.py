@@ -42,6 +42,7 @@ _SIGNATURES = {
     "vt_knn_culled": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P],
     "vt_knn_T_culled": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P],
     "vt_raster": [_P, _I, _I, _I, _P, _P, _P],
+    "vt_empty": [_P],
     "vt_mesh_query": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
     "vt_mesh_query_T": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
     "vt_mesh_query_culled": [_P, _I, _P, _P, _I, _P, _I, _P, _F, _IP, _I,
@@ -53,14 +54,17 @@ _SIGNATURES = {
     "vt_interp": [_P, _I, _I, _I, _P, _I, _P, _P],
     "vt_onehot_scatter": [_P, _P, _I, _I, _I, _P, _P, _L, _P, _L, _P],
     "vt_row_gather": [_P, _I, _I, _P, _I, _P, _P],
-    "vt_fused_geo_mlp": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _IP, _P,
-                         _P, _P],
-    "vt_fused_query_mlp": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+    "vt_fused_geo_mlp": [_P, _P, _P, _P, _L, _P, _I, _I, _I, _F, _F, _IP,
+                         _P, _P, _P],
+    "vt_fused_query_mlp": [_P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _F, _F,
                            _IP, _P, _P],
 }
 
 _lib = None
 _lock = threading.Lock()
+# nvcc's output of the last build made in this process (with verbose=True:
+# ptxas' registers, shared memory and spills per function), else ""
+build_log = ""
 
 
 def _sources():
@@ -89,6 +93,7 @@ def library_path() -> pathlib.Path:
 
 def build(verbose: bool = False) -> pathlib.Path:
     """Compile the library if it is not built yet; return its path."""
+    global build_log
     out = library_path()
     if out.exists():
         return out
@@ -121,8 +126,9 @@ def build(verbose: bool = False) -> pathlib.Path:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
                                f"{link.stdout}\n{link.stderr}")
+    build_log = "\n".join(logs)
     if verbose:
-        print("\n".join(logs))
+        print(build_log)
     os.replace(tmp, out)
     return out
 

@@ -28,7 +28,10 @@ function; both agree to the kernels' tolerance.
 kernel-ready weight groups from the port's modules in differentiable torch
 ops, so those gradients reach ``weight_v`` / ``weight_g``.
 :func:`pack_geo_weights` / :func:`pack_query_weights` lay them out as the
-kernels read them; a caller that launches many passes on one set of
+kernels read them: one stream of the layer products' weights in the order
+the kernel runs them, each split into TF32 hi / lo parts (the kernels
+multiply in 3xTF32 on the tensor cores, within the plain versions'
+rtol 2e-4 / atol 2e-5); a caller that launches many passes on one set of
 weights (``models/vanerf.py`` at inference) packs once and hands the
 buffers to every pass.
 """
@@ -64,9 +67,11 @@ _WEIGHT_ORDER = ("gat0_0", "gat0_1", "gfu0_0", "gfu0_1",
                  "tat_0", "tat_1", "tfu_0", "tfu_1")
 _TEX_SPLITS = (11, 11, 11, 18, 18, 24, 3)
 
-# csrc/fused_mlp.cu: FM_HMAX and the latent's rows in the wide buffer
+# csrc/fused_mlp.cu: FM_HMAX, the latent's rows in the wide buffer, and
+# the rows a chunk of the first layer's encoding fills (FM_PE_ROWS)
 _MAX_WIDTH = 128
 _MAX_LAT = 96
+_PE_ROWS = 120
 
 geo_launches = 0
 query_launches = 0
@@ -284,18 +289,55 @@ def fused_query_mlp_plain(cxyz, kpt_T, feats, g2, weights: dict, *,
 # CUDA wrappers
 # ---------------------------------------------------------------------------
 
-def _padded_width(m: int) -> int:
-    """csrc/fused_mlp.cu::fm_mp: the packed column count of an m-wide
-    matrix."""
-    return 128 if m > 64 else (64 if m > 32 else (32 if m > 16 else 16))
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 explicit mantissa bits) to nearest, ties
+    away from zero: the card's ``cvt.rna.tf32.f32``."""
+    bits = x.detach().float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def _pack(mats) -> torch.Tensor:
-    """Row-major matrices, columns zero-padded to the kernel's tile width,
-    back to back in one float32 buffer."""
-    return torch.cat([
-        F.pad(w.float(), (0, _padded_width(w.shape[1]) - w.shape[1]))
-        .reshape(-1) for w in mats])
+def tf32_split(x: torch.Tensor):
+    """(hi, lo): hi = x rounded to TF32, lo = x - hi rounded to TF32, so
+    hi + lo carries x to ~2^-22 relative (the 3xTF32 operands)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+def _ntiles(m: int) -> int:
+    """csrc/fused_mlp.cu::fm_ntiles: the n8 tiles an m-wide layer takes
+    (ceil(m / 8), rounded up to a count the kernel is built for)."""
+    n = -(-m // 8)
+    return n if n <= 4 else (8 if n <= 8 else (12 if n <= 12 else 16))
+
+
+def _fragments(part: torch.Tensor, nt: int) -> torch.Tensor:
+    """One part (K, M) of a layer's weight as the kernel's B fragments:
+    rows zero-padded to 8 ceil(K / 8), columns to 8 nt, split into TF32 hi
+    and lo, laid out (k-tile, n-tile, lane, 4) with lane = 4 g + t holding
+    {hi, hi, lo, lo} of rows t and t + 4 of column g (mma m16n8k8)."""
+    K, M = part.shape
+    kt = -(-K // 8)
+    w = F.pad(part.float(), (0, 8 * nt - M, 0, 8 * kt - K))
+
+    def frag(x):      # x[8 a + 4 j + t, 8 b + g] -> [a, b, g, t, j]
+        return x.reshape(kt, 2, 4, nt, 8).permute(0, 3, 4, 2, 1)
+
+    hi, lo = tf32_split(w)
+    return torch.cat([frag(hi), frag(lo)], -1).reshape(kt, nt, 32, 4)
+
+
+def _pack(layers):
+    """The weight stream in the order the kernel consumes it, and the
+    n-tile count of each k-tile: ``layers`` lists (parts, M) per layer,
+    the parts of its virtual concat in order (each padded on its own)."""
+    blocks, items = [], []
+    for parts, M in layers:
+        nt = _ntiles(M)
+        for p in parts:
+            f = _fragments(p, nt)
+            blocks.append(f.reshape(-1))
+            items += [nt] * f.shape[0]
+    return torch.cat(blocks).contiguous(), tuple(items)
 
 
 def _cat_rows(x) -> torch.Tensor:
@@ -303,23 +345,28 @@ def _cat_rows(x) -> torch.Tensor:
 
 
 class PackedWeights(NamedTuple):
-    """Kernel-ready buffers of one set of weights: the geometry matrices
-    and biases, the six widths the kernel is told, and for kernel 11 the
-    three gate/fuse nets (else None)."""
+    """Kernel-ready buffers of one set of weights: the stream of every
+    layer product the kernel runs, as TF32 hi / lo fragments in its order
+    (kernel 11: the two GeoVisFusion gate/fuse nets, the geometry, the
+    TexVisFusion gate/fuse), the geometry biases and the six widths the
+    kernel is told."""
     w: torch.Tensor
     b: torch.Tensor
     dims: tuple
-    fw: torch.Tensor = None
 
 
-def pack_geo_weights(wts: dict, K: int, sp_level: int) -> PackedWeights:
-    """The buffers kernel 12 reads, from :func:`prepare_geo_mlp_weights`'s
-    dict for K keypoints, checked against what the kernel takes."""
+def _geo_layers(wts: dict, K: int, sp_level: int):
+    """(layers, biases, dims) of the geometry network from
+    :func:`prepare_geo_mlp_weights`'s dict for K keypoints, checked against
+    what the kernel takes."""
     n_parts = 1 + 2 * sp_level
     w0p = _cat_rows(wts["w0_parts"])
     if w0p.shape[0] != n_parts * K:
         raise ValueError(f"fused MLP: {w0p.shape[0]} encoding rows, "
                          f"expected {n_parts} x {K}")
+    if n_parts > _PE_ROWS or K > 256:
+        raise ValueError("fused MLP: the kernel takes at most "
+                         f"{_PE_ROWS} encoding parts and 256 keypoints")
     # the kernel makes the encoding a chunk of keypoints at a time:
     # part-major rows (i * K + j) -> keypoint-major (j * P + i)
     w0p = w0p.reshape(n_parts, K, -1).transpose(0, 1).reshape(n_parts * K, -1)
@@ -340,14 +387,31 @@ def pack_geo_weights(wts: dict, K: int, sp_level: int) -> PackedWeights:
     biases = torch.cat([b.float().reshape(-1) for b in wts["biases"]])
     if biases.numel() != sum(cols):
         raise ValueError("fused MLP: bias widths do not match the layers")
-    return PackedWeights(_pack(mats), biases, (d1, d2, d3, e1, e2, lat))
+    per = (_PE_ROWS // n_parts) * n_parts   # rows of a chunk of keypoints
+    pe = [w0p[r:r + per] for r in range(0, n_parts * K, per)]
+    layers = [(pe + [wts["w0_f"]], d1), ([mats[1]], d2),
+              ([wts["w2_h"], wts["w2_f"]], d3), ([mats[3]], 64),
+              ([mats[4]], e1), ([mats[5]], e2), ([mats[6]], 2),
+              ([mats[7]], lat)]
+    return layers, biases, (d1, d2, d3, e1, e2, lat)
 
 
-def pack_query_weights(weights: dict, K: int, sp_level: int) -> PackedWeights:
-    """The buffers kernel 11 reads, from :func:`prepare_query_weights`'s
-    dict."""
-    geo = pack_geo_weights(_geo_of_query(weights), K, sp_level)
-    if geo.dims[5] != 24:
+def pack_geo_weights(wts: dict, K: int, sp_level: int) -> PackedWeights:
+    """The buffers kernel 12 reads, from :func:`prepare_geo_mlp_weights`'s
+    dict for K keypoints."""
+    return _packed(*_geo_layers(wts, K, sp_level))
+
+
+def _packed(layers, biases, dims) -> PackedWeights:
+    return PackedWeights(_pack(layers)[0], biases, dims)
+
+
+def _query_layers(weights: dict, K: int, sp_level: int):
+    """(layers, biases, dims) of the whole query network from
+    :func:`prepare_query_weights`'s dict, in kernel 11's order: the two
+    GeoVisFusion gate/fuse nets, the geometry, the TexVisFusion one."""
+    layers, biases, dims = _geo_layers(_geo_of_query(weights), K, sp_level)
+    if dims[5] != 24:
         raise ValueError("fused_query_mlp: the latent must be 24 wide")
     fmats = []
     for si in (0, 1):
@@ -361,7 +425,14 @@ def pack_query_weights(weights: dict, K: int, sp_level: int) -> PackedWeights:
         if tuple(m.shape) != s:
             raise ValueError(f"fused_query_mlp: fusion weight {i} is "
                              f"{tuple(m.shape)}, the kernel takes {s}")
-    return geo._replace(fw=_pack(fmats))
+    fusion = [([m], m.shape[1]) for m in fmats]     # one product each
+    return fusion[:8] + layers + fusion[8:], biases, dims
+
+
+def pack_query_weights(weights: dict, K: int, sp_level: int) -> PackedWeights:
+    """The buffers kernel 11 reads, from :func:`prepare_query_weights`'s
+    dict."""
+    return _packed(*_query_layers(weights, K, sp_level))
 
 
 def _check_points(cxyz, kpt_T, packs):
@@ -374,6 +445,15 @@ def _check_points(cxyz, kpt_T, packs):
     return N, kpt_T.shape[1]
 
 
+def _check_packed(packed: PackedWeights, device) -> None:
+    """The stream is read by 16-byte bulk copies; the kernel checks its
+    size against the layers it runs."""
+    _cuda.require(packed.w, "packed.w", torch.float32, device=device)
+    _cuda.require(packed.b, "packed.b", torch.float32, device=device)
+    if packed.w.data_ptr() % 16:
+        raise ValueError("packed.w must start on a 16-byte boundary")
+
+
 def fused_geo_mlp_cuda(cxyz, kpt_T, aux, packed: PackedWeights, *,
                        sp_level: int = 3, scale: float = 1.0,
                        sigma: float = 0.1):
@@ -384,9 +464,11 @@ def fused_geo_mlp_cuda(cxyz, kpt_T, aux, packed: PackedWeights, *,
     out = torch.empty(N, 2, dtype=torch.float32, device=cxyz.device)
     lat = torch.empty(N, packed.dims[5], dtype=torch.float32,
                       device=cxyz.device)
+    _check_packed(packed, cxyz.device)
     rc = _cuda.lib().vt_fused_geo_mlp(
         cxyz.data_ptr(), kpt_T.data_ptr(), aux.data_ptr(),
-        packed.w.data_ptr(), packed.b.data_ptr(), N, K, sp_level,
+        packed.w.data_ptr(), packed.w.numel(), packed.b.data_ptr(), N, K,
+        sp_level,
         float(scale), float(sigma), (ctypes.c_int * 6)(*packed.dims),
         out.data_ptr(), lat.data_ptr(), _cuda.stream_ptr(cxyz.device))
     _cuda.check(rc, "vt_fused_geo_mlp")
@@ -403,9 +485,10 @@ def fused_query_mlp_cuda(cxyz, kpt_T, feats, g2, packed: PackedWeights, *,
     N, K = _check_points(cxyz, kpt_T, [("feats", feats, FEATS_WIDTH),
                                        ("g2", g2, G2_WIDTH)])
     out = torch.empty(N, 5, dtype=torch.float32, device=cxyz.device)
+    _check_packed(packed, cxyz.device)
     rc = _cuda.lib().vt_fused_query_mlp(
         cxyz.data_ptr(), kpt_T.data_ptr(), feats.data_ptr(), g2.data_ptr(),
-        packed.w.data_ptr(), packed.b.data_ptr(), packed.fw.data_ptr(), N, K,
+        packed.w.data_ptr(), packed.w.numel(), packed.b.data_ptr(), N, K,
         sp_level, float(scale), float(sigma),
         (ctypes.c_int * 6)(*packed.dims), out.data_ptr(),
         _cuda.stream_ptr(cxyz.device))
