@@ -21,11 +21,17 @@ script exits non-zero (there is no CPU fallback):
      larger) and, where one PyTorch call computes the same function, that
      call's time; the exact queries (kernels 5 and 6) in both winding
      modes, bit-equal in ray mode and to 1e-5 on the winding in solid-angle
-     mode; the coordinate-major kernels 7 and 8 also bit-equal to A and B
+     mode, each mode also timed from a CUDA graph on its face table beside
+     the issue-rate bound of the work it does (``brute_work``: a sphere
+     test a pair, the distance where a warp keeps the face, the winding
+     term a pair), with nvcc's register and spill counts; the
+     coordinate-major kernels 7 and 8 also bit-equal to A and B
      on the transposed input; kernel 9 (the culled nearest-vertex search)
      bit-equal to B and 8, its visits those of ``knn_cull_lists``, on the
      main path's order (where every chunk is visited) and on the same
-     points and vertices in Morton order (where chunks must be skipped);
+     points and vertices in Morton order (where chunks must be skipped),
+     timed from a CUDA graph, its chunk-box kernel alone beside it (its
+     rows equal to ``vertex_chunk_boxes``), with nvcc's counts;
      kernels
      A and 7 are the culled mesh query, in 16-ray x 8-sample tiles and in
      ``VANERF_BLOCK_2D=4,4,8`` tiles, without and with the far tier:
@@ -88,6 +94,8 @@ script exits non-zero (there is no CPU fallback):
      ``VANERF_SOA_POINTS=1 VANERF_BLOCK_2D=4,4,8``, in turns with the
      default frame: every output equal to the same layout's frame without
      the switch, 32 launches of kernel 9 a frame and none of B (or 8);
+     kernel 9's (tile, chunk) visit share on each pass of one more frame
+     of each layout;
   3f. the serving tiers on the same frame, in turns with the default:
      ``VANERF_FAR_SKIP=1`` held as 3b holds the fused frames,
      ``VANERF_FAR_SKIP=0.5``, ``VANERF_FAR_NET=0.5`` and
@@ -128,11 +136,15 @@ two culled runs of phase 3e, 5 and 6 phase 3d; A and 7 carry the sweep's
 time beside the culled query's as ``brute_ms``; D and 13 sum the cases
 they have summed since their port, D's two maps and 13's four tables, and
 carry their graph-replayed times as ``device_ms`` / ``library_device_ms``;
-A, 7, B and 8 carry ``device_ms`` and ``issue_bound_ms``, their operations
-at 33.5 T op/s, the rate of separately rounded f32 operations; A and 7 also
-``work_issue_bound_ms``, the operations the kernel evaluates at that rate:
-a sphere test for every visited pair, the full distance only for the faces
-a warp keeps, ``ops/mesh_query.py::culled_work``; C carries ``device_ms``
+A, 7, B, 8 and 9 carry ``device_ms`` and ``issue_bound_ms``, their
+operations at 33.5 T op/s, the rate of separately rounded f32 operations
+(9: over the visited pairs, its chunk-box kernel included in the times); A
+and 7 also ``work_issue_bound_ms``, the operations the kernel evaluates at
+that rate: a sphere test for every visited pair, the full distance only for
+the faces a warp keeps, ``ops/mesh_query.py::culled_work``; 5 and 6 carry
+``device_ms`` (the kernel on its table) and ``work_issue_bound_ms``
+(``ops/mesh_query.py::brute_work``), each the sum of the two winding
+modes, as their ``ms``; C carries ``device_ms``
 and ``work_issue_bound_ms``, its (tile, face) tests and walked (pixel,
 face) pairs, ``ops/rasterize.py::raster_work``, at that rate, its
 ``bound_ms`` the walked pairs at the f32 rate; 11 and 12 carry
@@ -355,8 +367,9 @@ def issue_bound_ms(n_ops: float) -> float:
 
 def ptxas_report(log: str, pattern: str) -> dict:
     """What ``nvcc -Xptxas -v`` reported for the functions whose (mangled)
-    names contain ``pattern``: {name: registers (entry functions), stack
-    frame and spill bytes}; empty when this run built nothing."""
+    names contain ``pattern``: {name: registers and static shared memory
+    bytes (entry functions), stack frame and spill bytes}; empty when this
+    run built nothing."""
     import re
     out, cur = {}, None
     for line in log.splitlines():
@@ -373,7 +386,25 @@ def ptxas_report(log: str, pattern: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and cur is not None:
             cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(m.group(1)) if m else 0
     return {k: v for k, v in out.items() if pattern in k}
+
+
+def ptxas_summary(rep: dict) -> dict:
+    """The largest registers, spills and stack frame over the functions of
+    a ``ptxas_report``, and how many there were (None where this run built
+    nothing)."""
+    def most(key):
+        return max((v.get(key, 0) for v in rep.values()), default=None)
+    return dict(registers=most("registers"), smem=most("smem"),
+                spill_stores=most("spill_stores"),
+                spill_loads=most("spill_loads"), stack=most("stack"),
+                functions=len(rep))
+
+
+def ptxas_text(summary: dict):
+    return summary if summary["functions"] else "not compiled in this run"
 
 
 def nbytes(*tensors) -> int:
@@ -1124,6 +1155,11 @@ def phase_kernels(model, batch, dev):
             *[f(knn._edge_tiles(pts, knn.CULL_TILE_P), 1)
               for f in (torch.amin, torch.amax)], verts)
         visited = (need.float() @ sizes).sum().item() * knn.CULL_TILE_P
+        # the chunk-box kernel the entry point launches in front of the
+        # search, alone: its rows, and its time beside the search's
+        boxes = knn.vertex_chunk_boxes_cuda(verts)
+        check(torch.equal(boxes, knn.vertex_chunk_boxes(verts)),
+              f"{name}: the chunk boxes differ from vertex_chunk_boxes")
         results[name] = dict(
             shape=f"{pts.shape[0]} points x {verts.shape[0]} vertices, "
                   f"{share:.3f} of the (tile, chunk) pairs visited",
@@ -1131,6 +1167,13 @@ def phase_kernels(model, batch, dev):
             equals_kernel_b=True, visit_share=share, coherent=coherent,
             visits_differ_from_plain=int((v9 != v9_p).sum()),
             ms=0.5 * (t_c1 + t_c2), brute_ms=0.5 * (t_b1 + t_b2),
+            device_ms=graph_ms(lambda: fn(q, verts)),
+            boxes_ms=cuda_ms(lambda: knn.vertex_chunk_boxes_cuda(verts), 20),
+            boxes_device_ms=graph_ms(
+                lambda: knn.vertex_chunk_boxes_cuda(verts)),
+            issue_bound_ms=issue_bound_ms(KNN_OPS * visited),
+            ptxas=ptxas_summary(ptxas_report(_cuda.build_log,
+                                             "knn_culled_kernel")),
             plain_ms=cuda_ms(lambda: fn_p(q, verts), 3),
             library_ms=cuda_ms(lambda: torch.cdist(pts, verts).min(1), 3),
             all_pairs=least_time(nbytes(pts, verts, i9, d9),
@@ -1213,12 +1256,18 @@ def phase_kernels(model, batch, dev):
           f"kernel A's, the farthest {graze:.3g} (barycentric units) from "
           "an edge")
     n_pairs = pts.shape[0] * tri_w.shape[0]
+    # what the kernels evaluate past the per-face sphere test: the same for
+    # 5 and 6 and for both winding modes
+    work_b = mesh_query.brute_work(pts, mesh_query.brute_face_table(tri_w))
+    ptx_b = ptxas_summary(ptxas_report(_cuda.build_log,
+                                       "mesh_query_brute_kernel"))
     for name, vis in (("mesh_query_brute", False),
                       ("mesh_query_vis_brute", True)):
         r = dict(shape=f"{pts.shape[0]} points x {tri_w.shape[0]} faces, "
                        "ray + solid-angle winding",
-                 max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None,
-                 detail={})
+                 max_abs_err=0.0, ms=0.0, device_ms=0.0,
+                 work_issue_bound_ms=0.0, plain_ms=0.0, library_ms=None,
+                 brute_work=work_b, ptxas=ptx_b, detail={})
         b_bytes = b_ops = 0
         table_b = mesh_query.brute_face_table(tri_w,
                                               face_vis if vis else None)
@@ -1249,14 +1298,24 @@ def phase_kernels(model, batch, dev):
                 d["crossings_differ_from_a"] = crossings_differ
                 d["their_edge_margin"] = graze
             d["ms"] = cuda_ms(run, 5)
+            # the kernel alone on its table (the entry point also builds
+            # the table, a dozen small tensor ops)
+            d["device_ms"] = graph_ms(
+                lambda: mesh_query._brute_cuda(pts, table_b, vis, mode), 5)
             d["plain_ms"] = cuda_ms(run_p, 2)
+            # a sphere test a pair, the distance where a warp keeps the
+            # face, the winding term a pair, at the issue rate
+            d["work_issue_bound_ms"] = issue_bound_ms(
+                work_b["sphere_tests"] * MESH_SPHERE_OPS
+                + work_b["evaluated"] * MESH_DIST_OPS
+                + work_b["windings"] * w_ops)
             d.update(least_time(
                 nbytes(pts, table_b, *[t for t in got if t is not None]),
                 n_pairs * (MESH_DIST_OPS + w_ops)))
             r["detail"][mode] = d
             r["max_abs_err"] = max(r["max_abs_err"], e_w)
-            r["ms"] += d["ms"]
-            r["plain_ms"] += d["plain_ms"]
+            for k in ("ms", "device_ms", "work_issue_bound_ms", "plain_ms"):
+                r[k] += d[k]
             b_bytes += d["bound_bytes"]
             b_ops += d["bound_ops"]
         # with no winding (kernel 5 only): bit-equal, not timed
@@ -1398,15 +1457,7 @@ def phase_kernels(model, batch, dev):
             device_ms=graph_ms(lambda: cuda_fn(*data, packed, **k)),
             tensor_bound_ms=(3 * 2 * macs * n_pts / TF32_FLOPS_PER_S
                              + core_ops / F32_FLOPS_PER_S) * 1e3,
-            ptxas=dict(
-                registers=max((v.get("registers", 0) for v in ptx.values()),
-                              default=None),
-                spill_stores=max((v.get("spill_stores", 0)
-                                  for v in ptx.values()), default=None),
-                spill_loads=max((v.get("spill_loads", 0)
-                                 for v in ptx.values()), default=None),
-                stack=max((v.get("stack", 0) for v in ptx.values()),
-                          default=None), functions=len(ptx)),
+            ptxas=ptxas_summary(ptx),
             shape=f"{n_pts} points, {n_kpt} keypoints, packs "
                   + " ".join(str(t.shape[1]) for t in data[2:])
                   + f", {macs} multiply-adds a point",
@@ -1857,8 +1908,10 @@ def phase_knn_cull_serving(model, b, dev):
     frame: every output equal to the same layout's frame without the
     switch (the 2-D tiles mark other points far than the 1-D tiles, so the
     coordinate-major pair has its own reference); 32 launches of kernel 9
-    (or 9 on (3, N)) a frame and none of B (or 8)."""
+    (or 9 on (3, N)) a frame and none of B (or 8); kernel 9's visit share
+    on each pass of a culled frame of both layouts."""
     import torch
+    from vanerf_tpu_torch.ops import knn
     res = {name: dict(frame_ms=[]) for name in CULL_CONFIGS}
     outs = {}
     with shared_encode(model, b):
@@ -1886,6 +1939,27 @@ def phase_knn_cull_serving(model, b, dev):
         for name in ("default", "cull", "soa2d_cull"):
             res[name]["frame_ms"].append(
                 timed_frame(model, b, CULL_CONFIGS[name])[1])
+    # kernel 9's visit share on each pass of one more culled frame of each
+    # layout (not timed: every pass reads its visits back)
+    for name, fn_name in (("cull", "nearest_vertex_d2_culled"),
+                          ("soa2d_cull", "nearest_vertex_d2_T_culled")):
+        real, shares = getattr(knn, fn_name), []
+
+        def record(q, verts, visits=False, real=real, shares=shares):
+            out = real(q, verts, visits=True)
+            n_chunks = -(-verts.shape[0] // knn.VERT_CHUNK)
+            shares.append(out[2].float().mean().item() / n_chunks)
+            return out if visits else out[:2]
+
+        setattr(knn, fn_name, record)
+        try:
+            timed_frame(model, b, CULL_CONFIGS[name])
+        finally:
+            setattr(knn, fn_name, real)
+        check(len(shares) == 32, f"{name}: {len(shares)} passes recorded")
+        res[name]["visit_share"] = dict(
+            passes=len(shares), mean=sum(shares) / len(shares),
+            min=min(shares), max=max(shares))
     return res
 
 
@@ -2392,6 +2466,27 @@ def main() -> int:
                    if "rel_to_abs_sum" in c else "")
                 + "; bit-equal across two runs")
     for name in ("knn_culled", "knn_T_culled"):
+        r = kres[name]
+        say(f"phase 2 {name}: the chunk-box kernel it launches in front "
+            f"of the search, alone: {r['boxes_ms']:.4f} ms called, "
+            f"{r['boxes_device_ms']:.4f} ms device, equal to "
+            f"vertex_chunk_boxes; ptxas (knn_culled_kernel) "
+            f"{ptxas_text(r['ptxas'])}")
+    for name in ("mesh_query_brute", "mesh_query_vis_brute"):
+        r = kres[name]
+        w_ = r["brute_work"]
+        for mode, d in r["detail"].items():
+            say(f"phase 2 {name} [{mode}]: kernel {d['ms']:.3f} ms called, "
+                f"{d['device_ms']:.3f} ms device (CUDA graph); bound "
+                f"{d['bound_ms']:.3f} ms (every pair's full evaluation at the "
+                f"f32 rate); the work it does at the issue rate "
+                f"{d['work_issue_bound_ms']:.3f} ms ({w_['evaluated']} of "
+                f"{w_['sphere_tests']} (thread, face) pairs evaluated past "
+                f"the sphere test, "
+                f"{w_['evaluated'] / max(w_['sphere_tests'], 1):.3f})")
+        say(f"phase 2 {name}: ptxas (mesh_query_brute_kernel, the six "
+            f"instantiations, largest) {ptxas_text(r['ptxas'])}")
+    for name in ("knn_culled", "knn_T_culled"):
         c = kres[name]["coherent"]
         say(f"phase 2 {name} [points and vertices in Morton order]: equal to "
             f"kernel B bit for bit; {c['visit_share']:.3f} of the (tile, "
@@ -2499,7 +2594,12 @@ def main() -> int:
         f"tiles); launches cull "
         f"{ {k: cull['cull']['launches'][k] for k in ('knn_culled', 'knn')} }"
         f", soa2d_cull "
-        f"{ {k: cull['soa2d_cull']['launches'][k] for k in ('knn_T_culled', 'knn_T')} }")
+        f"{ {k: cull['soa2d_cull']['launches'][k] for k in ('knn_T_culled', 'knn_T')} }"
+        "; kernel 9's (tile, chunk) visit share over a frame's passes, mean "
+        "[min, max]: "
+        + ", ".join(f"{n} {v['mean']:.5f} [{v['min']:.5f}, {v['max']:.5f}]"
+                    for n, v in ((n, cull[n]["visit_share"])
+                                 for n in ("cull", "soa2d_cull"))))
 
     # ---- phase 3f ----
     with torch.no_grad():
@@ -2613,9 +2713,10 @@ def main() -> int:
                         "library_ms": r["library_ms"]})
         if "brute_ms" in r:     # A, 7, 9: the sweep over every pair, in turns
             kernels[-1]["brute_ms"] = r["brute_ms"]
-        # A, 7, B, 8, D, 13: replayed from a CUDA graph; A, 7, B, 8: the
-        # operations at the issue rate of separately rounded f32 operations;
-        # A, 7: the operations the kernel evaluates at that rate
+        # A, 7, B, 8, 9, 5, 6, C, D, 13, 11, 12: replayed from a CUDA graph;
+        # A, 7, B, 8, 9: the operations at the issue rate of separately
+        # rounded f32 operations; A, 7, 5, 6, C: the operations the kernel
+        # evaluates at that rate
         for k in ("device_ms", "library_device_ms", "issue_bound_ms",
                   "work_issue_bound_ms", "tensor_bound_ms"):
             if k in r:

@@ -160,6 +160,40 @@ def test_knn_culled_plain_equals_kernel_b_and_jax(layout, n):
     assert visits.sum() < visits.numel() * 13
 
 
+@pytest.mark.parametrize("n,v", [(1, 1), (63, 127), (257, 129),
+                                 (1000, 1284), (1, 1284), (1000, 1),
+                                 (63, 129), (257, 127)])
+@pytest.mark.parametrize("layout", ["N3", "3N"])
+def test_knn_culled_plain_at_ragged_sizes_matches_jax(layout, n, v):
+    """Kernel 9's plain version where N is no multiple of the 256-point
+    tile (one point, less than a tile, a tile and one) and V no multiple of
+    the 128-vertex chunk (one vertex, a chunk less or more one, the
+    fixture's 1,284): the visits equal ``_knn_cull_lists``, idx JAX's
+    ``_culled_common`` in interpret mode and kernel B's, d2 kernel B's bit
+    for bit and JAX's to rtol 1e-6."""
+    from vanerf_tpu.ops import knn_pallas as kp
+    verts, pts = _clustered()
+    verts, pts = verts[:v], pts[::-1][:n].copy()
+    idx_b, d2_b = t_knn.nearest_vertex_d2_plain(T(pts), T(verts))
+    if layout == "N3":
+        idx_t, d2_t, visits = t_knn.nearest_vertex_d2_culled(
+            T(pts), T(verts), visits=True)
+        idx_j, d2_j = kp.nearest_vertex_d2_pallas_culled(
+            jnp.asarray(pts), jnp.asarray(verts), interpret=True)
+    else:
+        idx_t, d2_t, visits = t_knn.nearest_vertex_d2_T_culled(
+            T(pts.T), T(verts), visits=True)
+        idx_j, d2_j = kp.nearest_vertex_d2_pallas_T_culled(
+            jnp.asarray(pts.T), jnp.asarray(verts), interpret=True)
+    assert torch.equal(idx_t, idx_b) and torch.equal(d2_t, d2_b)
+    np.testing.assert_array_equal(idx_t.numpy(), A(idx_j))
+    np.testing.assert_allclose(d2_t.numpy(), A(d2_j), rtol=1e-6, atol=1e-9)
+    _, counts_j, _ = _jax_knn_lists(pts, verts)
+    np.testing.assert_array_equal(visits.numpy(), counts_j)
+    assert visits.shape == (-(-n // 256),)
+    assert (visits >= 1).all() and (visits <= -(-v // 128)).all()
+
+
 def test_knn_culled_on_a_ray_patch_of_the_fixture():
     """Ray-major tiles (4 rays x 64 samples) cull little but stay exact."""
     verts = h.synthetic_batch()[0]["verts"][0]
@@ -881,9 +915,11 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [4096, 4000, 77])
-def test_knn_culled_kernels_match_plain_and_b(cuda, n):
+@pytest.mark.parametrize("v", [1558, 1, 127, 129, 1284])
+@pytest.mark.parametrize("n", [4096, 4000, 77, 1, 63, 257])
+def test_knn_culled_kernels_match_plain_and_b(cuda, n, v):
     verts, pts = _clustered()
+    verts = verts[:v]
     pts = np.tile(pts, (4, 1))[:n]
     q, v = T(pts).to(cuda), T(verts).to(cuda)
     q_T = q.t().contiguous()
@@ -901,7 +937,11 @@ def test_knn_culled_kernels_match_plain_and_b(cuda, n):
         assert torch.equal(i_, idx_b) and torch.equal(d_, d2_b)
         assert torch.equal(i_, idx_p) and torch.equal(d_, d2_p)
         assert torch.equal(c_, visits_p)
-    assert visits.float().mean() < 13
+    # the clustered case culls (13 chunks); every V stays within its chunks
+    assert visits.float().mean() < (13 if v.shape[0] == 1558 else
+                                    -(-v.shape[0] // 128) + 1)
+    assert torch.equal(t_knn.vertex_chunk_boxes_cuda(v),
+                       t_knn.vertex_chunk_boxes(v))
     with pytest.raises(ValueError):
         t_knn.nearest_vertex_d2_T_culled(q, v)         # (N, 3) is refused
 

@@ -21,6 +21,8 @@ plain versions on the card; run them there with ``--noconftest``.
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax.numpy as jnp
 
@@ -527,6 +529,165 @@ def test_prepared_T_block2d_far_mask_matches_jax_pallas(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# kernels 5 and 6: the per-face skip, played face by face
+# ---------------------------------------------------------------------------
+
+def _brute_skip_walk(points, table):
+    """Kernels 5 / 6's walk played face by face: the points padded to whole
+    blocks of 512 with the last point repeated, 32 consecutive points to a
+    warp's slot; the slot evaluates a face's distance when ``sphere_skip``
+    (the sphere in the table's last four columns) keeps it for any of its
+    lanes against that lane's best so far, and each lane then takes the
+    distance when strictly below its best.  Returns d2, idx, qvis and the
+    (thread, face) evaluations."""
+    N, F = points.shape[0], table.shape[0]
+    n_pad = -(-N // t_mq.BRUTE_BLOCK_POINTS) * t_mq.BRUTE_BLOCK_POINTS
+    p = points[torch.arange(n_pad).clamp(max=N - 1)]
+    best = torch.full((n_pad,), float("inf"))
+    idx = torch.zeros(n_pad, dtype=torch.int32)
+    qvis = torch.zeros(n_pad)
+    count = 0
+    for f in range(F):
+        row = table[f]
+        keep = ~t_mq.sphere_skip(p, row[24:28], best)
+        warp = keep.reshape(-1, 32).any(1).repeat_interleave(32)
+        count += int(warp.sum())
+        d, v, w = t_mq._tri_sq_dist_bary(p, row[0:3], row[3:6], row[6:9])
+        upd = warp & (d < best)
+        best = torch.where(upd, d, best)
+        idx = torch.where(upd, torch.tensor(f, dtype=torch.int32), idx)
+        qv = (1.0 - v - w) * row[9] + v * row[10] + w * row[11]
+        qvis = torch.where(upd, qv, qvis)
+    return best[:N], idx[:N], qvis[:N], count
+
+
+def _skip_case(case):
+    """(points (N, 3), triangles (F, 3, 3), corner visibility (F, 3)) of one
+    seeded case: the hands centred on the origin, translated 1e2 and 1e3
+    from it, with slivers between their faces, and points on their shared
+    edges and vertices; N and F are no multiple of the kernel's block and
+    chunk."""
+    verts, faces, vis, _ = _hands(seed=40)
+    rs = np.random.RandomState(41)
+    verts = verts - 0.5 * (verts.min(0) + verts.max(0))
+    tri = verts[faces]
+    fv = rs.rand(len(faces), 3).astype(np.float32)
+    lo, hi = verts.min(0) - 0.03, verts.max(0) + 0.03
+    pts = (lo + rs.rand(700, 3) * (hi - lo)).astype(np.float32)
+    if case == "slivers":
+        a, b = tri[::7, 0], tri[::7, 1]
+        t = rs.rand(len(a), 1).astype(np.float32)
+        sl = np.stack([
+            np.stack([a, b, a + t * (b - a)], 1),           # collinear
+            np.stack([a, a, a], 1),                         # a point
+            np.stack([a, b, b + np.float32(1e-7)], 1),      # a needle
+        ], 1).reshape(-1, 3, 3)
+        tri = np.concatenate([tri, sl])
+        perm = rs.permutation(len(tri))
+        tri = tri[perm]
+        fv = rs.rand(len(tri), 3).astype(np.float32)
+        pts = np.concatenate([pts, sl[::5, 2] + np.float32(1e-4)])
+    elif case == "shared":
+        e = verts[faces[:, [0, 1]]].mean(1)
+        pts = np.concatenate([verts[::2], e[::3], pts[:100]])
+    elif case.startswith("offset"):
+        off = np.array([1.0, -0.6, 0.4], np.float32) * float(case[6:])
+        tri = tri + off
+        pts = pts + off
+    return (T(pts.astype(np.float32)), T(tri.astype(np.float32)), T(fv))
+
+
+SKIP_CASES = ["centred", "offset1e2", "offset1e3", "slivers", "shared"]
+
+
+@pytest.mark.parametrize("case", SKIP_CASES)
+def test_brute_skip_walk_equals_plain(case):
+    """The kernels' walk with the per-face skip equals the plain version,
+    which evaluates every pair, bit for bit in d2, idx and qvis, on meshes
+    centred and far from the origin, with slivers, and with points on
+    shared edges and vertices (exact ties); the skip is not vacuous."""
+    pts, tri, fv = _skip_case(case)
+    table = t_mq.brute_face_table(tri, fv)
+    assert table.shape == (len(tri), t_mq.BRUTE_STRIDE)
+    d2, idx, qv, count = _brute_skip_walk(pts, table)
+    want = t_mq._brute_plain(pts, table, True, "none")
+    assert torch.equal(d2, want[0])
+    assert torch.equal(idx, want[1])
+    assert torch.equal(qv, want[3])
+    n_pad = -(-len(pts) // t_mq.BRUTE_BLOCK_POINTS) * t_mq.BRUTE_BLOCK_POINTS
+    share = count / (n_pad * len(tri))
+    # (random points: a warp's 32 lanes seldom agree; 1e3 from the origin
+    # the margin 1e-5 R outgrows the faces, and slivers are never skipped)
+    assert 0 < share < (0.7 if case in ("offset1e3", "slivers") else 0.55), \
+        share
+    if case == "slivers":       # a sliver's sphere is infinite: never skipped
+        sph = table[:, 24:28]
+        assert torch.isinf(sph[:, 3]).sum() >= len(tri) - len(pts)
+    if case == "shared":        # the points on edges and vertices tie
+        assert (d2 == 0).sum() > 100
+
+
+@pytest.mark.parametrize("case", ["centred", "offset1e3", "slivers"])
+def test_brute_work_counts_the_warps_evaluations(case):
+    """``brute_work`` (the count behind kernels 5 / 6's work bound) against
+    the walk played face by face: the same evaluations, every pair a
+    sphere test and a winding term, the ragged last block's repeated
+    points included."""
+    pts, tri, fv = _skip_case(case)
+    table = t_mq.brute_face_table(tri, fv)
+    work = t_mq.brute_work(pts, table)
+    assert work["evaluated"] == _brute_skip_walk(pts, table)[3]
+    n_pad = -(-len(pts) // t_mq.BRUTE_BLOCK_POINTS) * t_mq.BRUTE_BLOCK_POINTS
+    assert work["sphere_tests"] == work["windings"] == n_pad * len(tri)
+    assert 0 < work["evaluated"] < work["sphere_tests"]
+    assert t_mq.brute_work(pts[:0], table) == dict(
+        sphere_tests=0, evaluated=0, windings=0)
+
+
+_xyz = st.tuples(*[st.floats(-1.0, 1.0, width=32)] * 3)
+
+
+@settings(max_examples=300, deadline=None, database=None)
+@given(corners=st.tuples(_xyz, _xyz, _xyz), p=_xyz, off=_xyz,
+       kind=st.sampled_from(["random", "collinear", "on_vertex", "on_edge",
+                             "above"]),
+       t=st.floats(0.0, 1.0, width=32),
+       scale=st.sampled_from([1e-3, 1e-2, 1.0, 30.0]),
+       offset=st.sampled_from([0.0, 1e2, 1e3, -1e3]),
+       reach=st.sampled_from([1e-3, 1.0, 10.0]))
+def test_brute_sphere_skip_keeps_faces_far_from_the_origin(
+        corners, p, off, kind, t, scale, offset, reach):
+    """The spheres ``brute_face_table`` stores for kernels 5 / 6, on faces
+    as the public API hands them (uncentred, up to 1e3 from the origin with
+    a size down to 1e-3): for any best above a face's computed squared
+    distance the face is kept (``sphere_skip``), on random faces and on
+    degenerate ones, for points near and far."""
+    a, b, c = (np.array(v, np.float32) for v in corners)
+    if kind == "collinear":
+        c = a + np.float32(t) * (b - a)
+    shift = np.array(off, np.float32) * np.float32(offset)
+    tri = (np.stack([a, b, c]) * np.float32(scale) + shift).astype(
+        np.float32)
+    q = (np.array(p, np.float32) * np.float32(reach * scale)
+         + tri.mean(0)).astype(np.float32)
+    if kind == "on_vertex":
+        q = tri[0].copy()
+    elif kind == "on_edge":
+        q = (tri[0] + np.float32(t) * (tri[1] - tri[0])).astype(np.float32)
+    elif kind == "above":
+        n = np.cross(tri[1] - tri[0], tri[2] - tri[0])
+        q = (tri.mean(0) + np.float32(reach * 1e-3) * n).astype(np.float32)
+    table = t_mq.brute_face_table(T(tri[None]))
+    pt = T(q)
+    tt = T(tri)
+    d = t_mq.point_triangle_sq_dist(pt, tt[0], tt[1], tt[2])
+    assert torch.isfinite(d)
+    above = torch.nextafter(d, torch.tensor(float("inf")))
+    for best in (above, above * 1.5, d * 4.0 + 1e-30):
+        assert not t_mq.sphere_skip(pt, table[0, 24:28], best), (d, best)
+
+
+# ---------------------------------------------------------------------------
 # on the card: kernels 5-8 against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -547,10 +708,24 @@ def _cuda_case(cuda, n=5000):
     return T(verts).to(cuda), tri, fv, pts
 
 
+# a mesh translated from the origin (the public API does not centre it),
+# and ragged point and face counts: the kernels' blocks hold 512 points,
+# their staging chunks 128 faces
+OFFSETS = [0.0, 1e2, 1e3]
+RAGGED = ((0, None), (7, 0), (129, 129), (1, 1), (511, 127), (513, 257),
+          (1000, 640))
+
+
+def _offset(x, offset):
+    return x + torch.tensor([1.0, -0.6, 0.4], device=x.device) * offset
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", OFFSETS)
 @pytest.mark.parametrize("mode", ["none", "ray", "solid_angle"])
-def test_brute_kernel_matches_plain(cuda, mode):
+def test_brute_kernel_matches_plain(cuda, mode, offset):
     _, tri, _, pts = _cuda_case(cuda)
+    tri, pts = _offset(tri, offset), _offset(pts, offset)
     kw = (dict(with_winding=False) if mode == "none" else dict(mode=mode))
     n0 = t_mq.brute_launches
     got = t_mq.point_mesh_query_brute(pts, tri, **kw)
@@ -562,16 +737,20 @@ def test_brute_kernel_matches_plain(cuda, mode):
         assert (got[2] - want[2]).abs().max() <= 1e-5
     else:
         assert torch.equal(got[2], want[2])
-    for n, f in ((0, len(tri)), (7, 0), (129, 129)):
+    for n, f in RAGGED:
         g = t_mq.point_mesh_query_brute(pts[:n], tri[:f], **kw)
         w = t_mq.point_mesh_query_brute_plain(pts[:n], tri[:f], **kw)
         assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+        if mode != "solid_angle":
+            assert torch.equal(g[2], w[2])
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", OFFSETS)
 @pytest.mark.parametrize("mode", ["ray", "solid_angle"])
-def test_vis_brute_kernel_matches_plain(cuda, mode):
+def test_vis_brute_kernel_matches_plain(cuda, mode, offset):
     _, tri, fv, pts = _cuda_case(cuda)
+    tri, pts = _offset(tri, offset), _offset(pts, offset)
     n0 = t_mq.vis_brute_launches
     got = t_mq.point_mesh_query_vis_brute(pts, tri, fv, mode=mode)
     torch.cuda.synchronize()
@@ -583,6 +762,15 @@ def test_vis_brute_kernel_matches_plain(cuda, mode):
         assert (got[2] - want[2]).abs().max() <= 1e-5
     else:
         assert torch.equal(got[2], want[2])
+    for n, f in RAGGED:
+        g = t_mq.point_mesh_query_vis_brute(pts[:n], tri[:f], fv[:f],
+                                            mode=mode)
+        w = t_mq.point_mesh_query_vis_brute_plain(pts[:n], tri[:f], fv[:f],
+                                                  mode=mode)
+        for k in (0, 1, 3):
+            assert torch.equal(g[k], w[k]), (n, f, k)
+        if mode == "ray":
+            assert torch.equal(g[2], w[2])
 
 
 @pytest.mark.cuda

@@ -2,7 +2,11 @@
 """Kernel A/B of two checkouts of the PyTorch port on one GPU: kernels A
 (the culled mesh query, ``mesh_query.point_mesh_query_vis_culled``), B
 (``knn.nearest_vertex_d2``), C (``rasterize.raster_cuda``), D
-(``interp_mxu.interp_cuda``), 11 (``fused_mlp.fused_query_mlp_cuda``), 12
+(``interp_mxu.interp_cuda``), 5 and 6 (``mesh_query._brute_cuda``, the
+exact query over every face, in ray and solid-angle mode), 9
+(``knn.nearest_vertex_d2_culled`` and ``_T_culled``, on the main path's
+ray-major order and with points and vertices in Morton order, beside B on
+the Morton-ordered inputs), 11 (``fused_mlp.fused_query_mlp_cuda``), 12
 (``fused_mlp.fused_geo_mlp_cuda``) and 13
 (``onehot_gather.onehot_scatter_cuda``) at the main path's shapes.
 
@@ -14,10 +18,13 @@ seeded flax-style initialisation, the 256^2 subdiv=3 two-hand fixture, the
 coarse pass of one mask-centred 64x64 patch): the patch's 262,144 points,
 the frame's mesh and vertex visibility and the points' nearest-vertex
 bounds for A (16-ray x 8-sample tiles, far tier on, as a frame calls it)
-and B, the source view's 256^2 raster of the mesh for C, the two maps D
-samples at the patch's projected points, the arguments and weights the
-model's level-2 / level-1 branches hand kernels 11 / 12 for the patch, and
-the row ids of 13's four tables (the cases the kernels line sums).  One
+and B and 9, the frame's uncentred faces and corner visibility for 5 and 6
+(each checkout builds its own face table with its ``brute_face_table``,
+outside the timing), the source view's 256^2 raster of the mesh for C,
+the two maps D samples at the patch's projected points, the arguments and
+weights the model's level-2 / level-1 branches hand kernels 11 / 12 for
+the patch, and the row ids of 13's four tables (the cases the kernels line
+sums).  One
 worker process per checkout (``DIR`` and this one) builds its own kernels,
 prepares the mesh with its own ``prepare_culled_mesh``, packs 11 / 12's
 weights with its own ``pack_query_weights`` / ``pack_geo_weights`` (once,
@@ -153,6 +160,30 @@ def worker(repo: str, kernels) -> None:
     if "B" in kernels:
         cases.append(("B", lambda: knn.nearest_vertex_d2(m["pts"],
                                                          m["verts"])))
+    if "9" in kernels:
+        pts_T = m["pts"].t().contiguous()
+        order_v = mesh_query._morton_order(m["verts"])
+        p_s = m["pts"][mesh_query._morton_order(m["pts"])].contiguous()
+        p_s_T = p_s.t().contiguous()
+        v_s = m["verts"][order_v].contiguous()
+        cases += [
+            ("9 ray-major", lambda: knn.nearest_vertex_d2_culled(
+                m["pts"], m["verts"])),
+            ("9_T ray-major", lambda: knn.nearest_vertex_d2_T_culled(
+                pts_T, m["verts"])),
+            ("9 Morton", lambda: knn.nearest_vertex_d2_culled(p_s, v_s)),
+            ("9_T Morton", lambda: knn.nearest_vertex_d2_T_culled(p_s_T,
+                                                                  v_s)),
+            ("B Morton", lambda: knn.nearest_vertex_d2(p_s, v_s))]
+    for tag, vis in (("5", False), ("6", True)):
+        if tag in kernels:
+            tri = m["verts"][m["faces"].long()].contiguous()
+            fv = m["vert_vis"][..., 0][m["faces"].long()] if vis else None
+            table = mesh_query.brute_face_table(tri, fv)
+            cases += [(f"{tag} {mode}",
+                       lambda mode=mode, vis=vis, table=table:
+                       mesh_query._brute_cuda(m["pts"], table, vis, mode))
+                      for mode in ("ray", "solid_angle")]
     if "C" in kernels:
         tri, Hr, Wr = data["raster"]
         tri = tri.to(dev)
@@ -230,9 +261,11 @@ def main() -> int:
                     help="also print each case's kernels' device time "
                          "(torch.profiler) in both checkouts")
     ap.add_argument("--kernels", nargs="+",
-                    default=["A", "B", "C", "D", "11", "12", "13"],
-                    choices=["A", "B", "C", "D", "11", "12", "13"],
-                    help="the kernels to time (default: all seven)")
+                    default=["A", "B", "C", "D", "5", "6", "9", "11", "12",
+                             "13"],
+                    choices=["A", "B", "C", "D", "5", "6", "9", "11", "12",
+                             "13"],
+                    help="the kernels to time (default: all ten)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:

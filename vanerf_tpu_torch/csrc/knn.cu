@@ -23,7 +23,7 @@
 // vertex it reads serves all of them; four vertices arrive in three
 // 16-byte broadcast loads (every lane of a warp reads the same address),
 // and the index of the running minimum is kept per group of 8 vertices
-// (see the loop).
+// (`load_group8` / `group8_min`, the step kernel 9 shares).
 // The running minimum uses strict `<` in ascending vertex order, so ties
 // go to the lowest index like jnp.argmin / torch.argmin.  The squared
 // distance is dx*dx + dy*dy + dz*dz in that order: it is the exact
@@ -38,6 +38,75 @@
 #define KNN_MAX_VERTS 4096  // 48 KB: the dynamic shared memory a block gets
                             // without cudaFuncSetAttribute
 
+// The search's inner step, shared by B / 8 and 9: vertices 8g .. 8g+7 of a
+// table staged in shared memory in its packed 12-byte layout arrive in six
+// 16-byte broadcast loads (every lane of a warp reads the same address;
+// group g starts 96g bytes in, so the loads are aligned), and a point takes
+// the least of their eight squared distances.  A point keeps the smallest
+// distance and the first group that reached it: per group 7 minima, a
+// compare and two selects for 8 pairs, in place of a compare and two
+// selects a pair.  The minimum of a group replaces the best only when
+// strictly smaller, so the group is the first holding the overall minimum;
+// the index inside it is found at the end from the same expressions (the
+// first of the 8 equal to the minimum), which is what a strict `<` walk in
+// ascending order picks.
+__device__ __forceinline__ void load_group8(const float4* s4, int g,
+                                            float* vx, float* vy, float* vz) {
+  s4 += 6 * g;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float4 a = s4[3 * h], b = s4[3 * h + 1], e = s4[3 * h + 2];
+    vx[4 * h] = a.x; vy[4 * h] = a.y; vz[4 * h] = a.z;
+    vx[4 * h + 1] = a.w; vy[4 * h + 1] = b.x; vz[4 * h + 1] = b.y;
+    vx[4 * h + 2] = b.z; vy[4 * h + 2] = b.w; vz[4 * h + 2] = e.x;
+    vx[4 * h + 3] = e.y; vy[4 * h + 3] = e.z; vz[4 * h + 3] = e.w;
+  }
+}
+
+__device__ __forceinline__ float group8_min(float px, float py, float pz,
+                                            const float* vx, const float* vy,
+                                            const float* vz) {
+  float d[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const float dx = px - vx[u];
+    const float dy = py - vy[u];
+    const float dz = pz - vz[u];
+    d[u] = dx * dx + dy * dy + dz * dz;
+  }
+  return fminf(fminf(fminf(d[0], d[1]), fminf(d[2], d[3])),
+               fminf(fminf(d[4], d[5]), fminf(d[6], d[7])));
+}
+
+// The index of the first vertex of group g whose distance equals `best`.
+__device__ __forceinline__ int group8_first(float px, float py, float pz,
+                                            const float* sv, int g,
+                                            float best) {
+  const float* t = sv + 24 * g;
+  int u = 0;
+  for (; u < 7; ++u) {
+    const float dx = px - t[3 * u];
+    const float dy = py - t[3 * u + 1];
+    const float dz = pz - t[3 * u + 2];
+    if (dx * dx + dy * dy + dz * dz == best) break;
+  }
+  return 8 * g + u;
+}
+
+// Vertex j against a point's running minimum (strict `<`).
+__device__ __forceinline__ void vertex_step(float px, float py, float pz,
+                                            const float* sv, int j,
+                                            float& best, int& bi) {
+  const float dx = px - sv[3 * j];
+  const float dy = py - sv[3 * j + 1];
+  const float dz = pz - sv[3 * j + 2];
+  const float d = dx * dx + dy * dy + dz * dz;
+  if (d < best) {
+    best = d;
+    bi = j;
+  }
+}
+
 template <bool SOA>
 __global__ void __launch_bounds__(KNN_THREADS) knn_kernel(
     const float* __restrict__ pts, int N, const float* __restrict__ verts,
@@ -47,7 +116,7 @@ __global__ void __launch_bounds__(KNN_THREADS) knn_kernel(
   __syncthreads();
   const int i0 = blockIdx.x * (KNN_THREADS * KNN_PPT) + threadIdx.x;
   float px[KNN_PPT], py[KNN_PPT], pz[KNN_PPT], best[KNN_PPT];
-  int bi[KNN_PPT];
+  int bi[KNN_PPT], bg[KNN_PPT];
 #pragma unroll
   for (int q = 0; q < KNN_PPT; ++q) {
     const int i = min(i0 + q * KNN_THREADS, N - 1);
@@ -56,44 +125,17 @@ __global__ void __launch_bounds__(KNN_THREADS) knn_kernel(
     pz[q] = SOA ? pts[2 * (size_t)N + i] : pts[3 * i + 2];
     best[q] = INFINITY;
     bi[q] = 0;
+    bg[q] = -1;
   }
-  // Groups of 8 vertices, 24 floats in six float4 loads (group g starts
-  // 96g bytes into the table, so the loads are aligned).  A point keeps the
-  // smallest distance and the first group that reached it: per group 7
-  // minima, a compare and two selects for 8 pairs, in place of a compare
-  // and two selects a pair.  The minimum of a group replaces the best only
-  // when strictly smaller, so the group is the first holding the overall
-  // minimum; the index inside it is found at the end from the same
-  // expressions (the first of the 8 equal to the minimum), which is what
-  // a strict `<` walk in ascending order picks.
   const float4* s4 = reinterpret_cast<const float4*>(sv);
   const int G = V / 8;
-  int bg[KNN_PPT];
-#pragma unroll
-  for (int q = 0; q < KNN_PPT; ++q) bg[q] = -1;
 #pragma unroll 2
-  for (int g = 0; g < G; ++g, s4 += 6) {
+  for (int g = 0; g < G; ++g) {
     float vx[8], vy[8], vz[8];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float4 a = s4[3 * h], b = s4[3 * h + 1], e = s4[3 * h + 2];
-      vx[4 * h] = a.x; vy[4 * h] = a.y; vz[4 * h] = a.z;
-      vx[4 * h + 1] = a.w; vy[4 * h + 1] = b.x; vz[4 * h + 1] = b.y;
-      vx[4 * h + 2] = b.z; vy[4 * h + 2] = b.w; vz[4 * h + 2] = e.x;
-      vx[4 * h + 3] = e.y; vy[4 * h + 3] = e.z; vz[4 * h + 3] = e.w;
-    }
+    load_group8(s4, g, vx, vy, vz);
 #pragma unroll
     for (int q = 0; q < KNN_PPT; ++q) {
-      float d[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const float dx = px[q] - vx[u];
-        const float dy = py[q] - vy[u];
-        const float dz = pz[q] - vz[u];
-        d[u] = dx * dx + dy * dy + dz * dz;
-      }
-      const float m = fminf(fminf(fminf(d[0], d[1]), fminf(d[2], d[3])),
-                            fminf(fminf(d[4], d[5]), fminf(d[6], d[7])));
+      const float m = group8_min(px[q], py[q], pz[q], vx, vy, vz);
       if (m < best[q]) {
         best[q] = m;
         bg[q] = g;
@@ -101,31 +143,13 @@ __global__ void __launch_bounds__(KNN_THREADS) knn_kernel(
     }
   }
 #pragma unroll
-  for (int q = 0; q < KNN_PPT; ++q) {
-    if (bg[q] < 0) continue;
-    const float* t = sv + 24 * bg[q];
-    int u = 0;
-    for (; u < 7; ++u) {
-      const float dx = px[q] - t[3 * u];
-      const float dy = py[q] - t[3 * u + 1];
-      const float dz = pz[q] - t[3 * u + 2];
-      if (dx * dx + dy * dy + dz * dz == best[q]) break;
-    }
-    bi[q] = 8 * bg[q] + u;
-  }
+  for (int q = 0; q < KNN_PPT; ++q)
+    if (bg[q] >= 0) bi[q] = group8_first(px[q], py[q], pz[q], sv, bg[q],
+                                         best[q]);
   for (int j = 8 * G; j < V; ++j) {
-    const float x = sv[3 * j], y = sv[3 * j + 1], z = sv[3 * j + 2];
 #pragma unroll
-    for (int q = 0; q < KNN_PPT; ++q) {
-      const float dx = px[q] - x;
-      const float dy = py[q] - y;
-      const float dz = pz[q] - z;
-      const float d = dx * dx + dy * dy + dz * dz;
-      if (d < best[q]) {
-        best[q] = d;
-        bi[q] = j;
-      }
-    }
+    for (int q = 0; q < KNN_PPT; ++q)
+      vertex_step(px[q], py[q], pz[q], sv, j, best[q], bi[q]);
   }
 #pragma unroll
   for (int q = 0; q < KNN_PPT; ++q) {
@@ -166,26 +190,51 @@ VT_EXPORT int vt_knn_T(const float* pts, int N, const float* verts, int V,
 // `_kernel_culled`, host lists `_knn_cull_lists`), behind
 // nearest_vertex_d2_pallas_culled and nearest_vertex_d2_pallas_T_culled.  The
 // TPU version builds compacted per-tile chunk lists on the host and ships
-// them through scalar memory; here a block IS a tile and decides for itself.
+// them through scalar memory; here each tile decides for itself.
 //
-// A block of 256 threads owns 256 consecutive points.  It stages the vertex
-// table as B does, reduces the tile's box with warp shuffles (a ragged last
-// tile takes its last real point for the missing ones, which leaves the box
-// unchanged), and the first C lanes of warp 0 (C <= 32 chunks of 128
-// vertices at the 4,096-vertex limit) each test one chunk box, (C, 10) rows
-// [min | max | centre | half diagonal] that a small kernel in front of the
-// search makes once per call:
+// The cull decision is made per tile of KNC_TILE = 256 consecutive points
+// (JAX's TILE_P) over chunks of KNC_CHUNK = 128 vertices (VERT_CHUNK).  The
+// first C lanes of a warp (C <= 32 chunks at the 4,096-vertex limit) each
+// test one chunk box, (C, 10) rows [min | max | centre | half diagonal]
+// that knn_chunk_boxes_kernel makes in front of the search on every call
+// (as the JAX package builds them every call):
 //   ub_t = (min_c |farthest tile-box corner - centre_c| + radius_c)^2 bounds
 //          every tile point's nearest-vertex distance from above,
 //   lb_c = the box-to-box gap bounds the distance to chunk c from below,
-// and chunk c is visited when lb_c <= ub_t * (1 + 1e-5) + 1e-12.  A ballot
-// publishes the visited set as one 32-bit mask in shared memory, and every
-// thread walks its set bits in ascending order with B's arithmetic and
-// strict `<`, so idx and d2 equal B's bit for bit: the tolerance keeps every
-// chunk that can hold the minimum or tie with it.  No list goes through
-// device memory and the host never waits.  The expressions of the test are
-// those of ops/knn.py::knn_cull_lists in their written order (sqrtf rounds
-// to nearest, -fmad=false), so the mask equals the plain version's.
+// and chunk c is visited when lb_c <= ub_t * (1 + 1e-5) + 1e-12; a ballot
+// publishes the visited set as one 32-bit mask in shared memory.  The
+// expressions are those of ops/knn.py::knn_cull_lists in their written
+// order (sqrtf rounds to nearest, -fmad=false), so the mask equals the
+// plain version's.
+//
+// Thread-to-point map: a tile is KNC_TT = 64 threads (two warps), and
+// thread t of tile T owns the KNC_PPT = 4 points 256 T + t + 64 q,
+// q = 0..3; a block holds KNC_TILES = 4 tiles (256 threads, 1,024
+// points; 2 tiles a block, kernel B's 128 threads, measured ~2% slower on
+// the H100).  All of a thread's points lie in its tile, so one
+// chunk mask serves every point it owns and no warp diverges on the walk.
+// A ragged last tile takes its last real point for the missing ones,
+// which leaves its box unchanged; a tile past the end (where N ends before
+// a block's last tile) writes nothing and stops after the barrier.  The
+// tile's box is reduced from registers: each thread over its 4 points,
+// warp shuffles, then one shared-memory step joining the tile's two warps;
+// warp w then tests tile w's chunks.
+//
+// The walk is kernel B's: the set bits of the mask in ascending order,
+// each chunk's 16 groups of 8 vertices read in six 16-byte broadcast loads
+// that serve all 4 points, the group of the running minimum kept, the
+// index found once at the end; the table's last V % 8 vertices (in the
+// last chunk) follow one by one when that chunk is visited.  With strict
+// `<` in ascending vertex order and dx*dx + dy*dy + dz*dz, idx and d2
+// equal B's bit for bit: the tolerance keeps every chunk that can hold the
+// minimum or tie with it.
+//
+// Staging: the whole vertex table (15 KB for the two-hand fixture, 48 KB
+// at the limit), as B stages it, not only the visited chunks: on the main
+// path's ray-major tiles every chunk is visited (visit share 1.000), so a
+// copy of the visited chunks alone would copy the same bytes after the
+// mask is known, one barrier later, where the whole copy overlaps the
+// box reduction.
 //
 // Bound: arithmetic, as B, over the visited pairs only.  How many pairs are
 // skipped depends on the caller's tiles: 256 consecutive ray-major points
@@ -194,50 +243,59 @@ VT_EXPORT int vt_knn_T(const float* pts, int N, const float* verts, int V,
 
 #define KNC_TILE 256
 #define KNC_CHUNK 128
-#define KNC_WARPS (KNC_TILE / 32)
+#define KNC_TT 64
+#define KNC_PPT (KNC_TILE / KNC_TT)
+#define KNC_TILES 4
+#define KNC_THREADS (KNC_TT * KNC_TILES)
 
-// (at most 32 registers a thread: 8 blocks then fit an SM, as with B, and the
-// 1,024 blocks of a 262,144-point pass are resident at once)
 template <bool SOA>
-__global__ void __launch_bounds__(KNC_TILE, 8) knn_culled_kernel(const float* __restrict__ pts, int N,
-                                  const float* __restrict__ verts, int V,
-                                  const float* __restrict__ boxes, int C,
-                                  int* __restrict__ idx,
-                                  float* __restrict__ d2,
-                                  int* __restrict__ visits) {
+__global__ void __launch_bounds__(KNC_THREADS) knn_culled_kernel(
+    const float* __restrict__ pts, int N, const float* __restrict__ verts,
+    int V, const float* __restrict__ boxes, int C, int* __restrict__ idx,
+    float* __restrict__ d2, int* __restrict__ visits) {
   extern __shared__ __align__(16) float svc[];
-  __shared__ float red[KNC_WARPS][6];
-  __shared__ unsigned smask;
-  for (int k = threadIdx.x; k < 3 * V; k += blockDim.x) svc[k] = verts[k];
-  const int i = blockIdx.x * KNC_TILE + threadIdx.x;
-  const int ic = min(i, N - 1);
-  const float px = SOA ? pts[ic] : pts[3 * ic];
-  const float py = SOA ? pts[(size_t)N + ic] : pts[3 * ic + 1];
-  const float pz = SOA ? pts[2 * (size_t)N + ic] : pts[3 * ic + 2];
+  __shared__ float red[KNC_THREADS / 32][6];
+  __shared__ unsigned smask[KNC_TILES];
+  for (int k = threadIdx.x; k < 3 * V; k += KNC_THREADS) svc[k] = verts[k];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float lo_x = px, lo_y = py, lo_z = pz, hi_x = px, hi_y = py, hi_z = pz;
-  for (int o = 16; o > 0; o >>= 1) {
-    lo_x = fminf(lo_x, __shfl_xor_sync(0xffffffffu, lo_x, o));
-    lo_y = fminf(lo_y, __shfl_xor_sync(0xffffffffu, lo_y, o));
-    lo_z = fminf(lo_z, __shfl_xor_sync(0xffffffffu, lo_z, o));
-    hi_x = fmaxf(hi_x, __shfl_xor_sync(0xffffffffu, hi_x, o));
-    hi_y = fmaxf(hi_y, __shfl_xor_sync(0xffffffffu, hi_y, o));
-    hi_z = fmaxf(hi_z, __shfl_xor_sync(0xffffffffu, hi_z, o));
+  const int tl = threadIdx.x / KNC_TT;
+  const int tile = blockIdx.x * KNC_TILES + tl;
+  const int i0 = tile * KNC_TILE + threadIdx.x % KNC_TT;
+  float px[KNC_PPT], py[KNC_PPT], pz[KNC_PPT], best[KNC_PPT];
+  int bi[KNC_PPT], bg[KNC_PPT];
+#pragma unroll
+  for (int q = 0; q < KNC_PPT; ++q) {
+    const int i = min(i0 + q * KNC_TT, N - 1);
+    px[q] = SOA ? pts[i] : pts[3 * i];
+    py[q] = SOA ? pts[(size_t)N + i] : pts[3 * i + 1];
+    pz[q] = SOA ? pts[2 * (size_t)N + i] : pts[3 * i + 2];
+    best[q] = INFINITY;
+    bi[q] = 0;
+    bg[q] = -1;
   }
-  if (lane == 0) {
-    red[warp][0] = lo_x; red[warp][1] = lo_y; red[warp][2] = lo_z;
-    red[warp][3] = hi_x; red[warp][4] = hi_y; red[warp][5] = hi_z;
+  float r[6] = {px[0], py[0], pz[0], px[0], py[0], pz[0]};
+#pragma unroll
+  for (int q = 1; q < KNC_PPT; ++q) {
+    r[0] = fminf(r[0], px[q]); r[1] = fminf(r[1], py[q]);
+    r[2] = fminf(r[2], pz[q]);
+    r[3] = fmaxf(r[3], px[q]); r[4] = fmaxf(r[4], py[q]);
+    r[5] = fmaxf(r[5], pz[q]);
   }
+  for (int o = 16; o > 0; o >>= 1)
+    for (int k = 0; k < 3; ++k) {
+      r[k] = fminf(r[k], __shfl_xor_sync(0xffffffffu, r[k], o));
+      r[3 + k] = fmaxf(r[3 + k], __shfl_xor_sync(0xffffffffu, r[3 + k], o));
+    }
+  if (lane == 0)
+    for (int k = 0; k < 6; ++k) red[warp][k] = r[k];
   __syncthreads();
-  if (warp == 0) {
+  if (warp < KNC_TILES) {
+    // warp w tests the chunks of tile w, whose warps are 2w and 2w + 1
+    const int tw = blockIdx.x * KNC_TILES + warp;
     float tmin[3], tmax[3];
     for (int k = 0; k < 3; ++k) {
-      tmin[k] = red[0][k];
-      tmax[k] = red[0][3 + k];
-      for (int w = 1; w < KNC_WARPS; ++w) {
-        tmin[k] = fminf(tmin[k], red[w][k]);
-        tmax[k] = fmaxf(tmax[k], red[w][3 + k]);
-      }
+      tmin[k] = fminf(red[2 * warp][k], red[2 * warp + 1][k]);
+      tmax[k] = fmaxf(red[2 * warp][3 + k], red[2 * warp + 1][3 + k]);
     }
     float fard = INFINITY, lb = INFINITY;
     if (lane < C) {
@@ -259,57 +317,51 @@ __global__ void __launch_bounds__(KNC_TILE, 8) knn_culled_kernel(const float* __
         lane < C && lb <= ub * static_cast<float>(1.0 + 1e-5) + 1e-12f;
     const unsigned mask = __ballot_sync(0xffffffffu, need);
     if (lane == 0) {
-      smask = mask;
-      if (visits != nullptr) visits[blockIdx.x] = __popc(mask);
+      smask[warp] = mask;
+      if (visits != nullptr && tw * KNC_TILE < N) visits[tw] = __popc(mask);
     }
   }
   __syncthreads();
-  if (i >= N) return;
-  unsigned mask = smask;
-  float best = INFINITY;
-  int bi = 0;
-  while (mask != 0u) {
-    const int c = __ffs(mask) - 1;
-    mask &= mask - 1u;
-    const int j0 = c * KNC_CHUNK;
-    if (V - j0 >= KNC_CHUNK) {
-      // a whole chunk: 128 vertices are 96 float4s, four vertices in three
-      // 16-byte loads (a chunk starts 1,536 bytes into the table, so the
-      // loads are aligned; through a float pointer nvcc cannot tell)
-      const float4* s4 = reinterpret_cast<const float4*>(svc) + 96 * c;
-#pragma unroll 4
-      for (int k = 0; k < KNC_CHUNK / 4; ++k) {
-        const float4 a = s4[3 * k], b = s4[3 * k + 1], e = s4[3 * k + 2];
-        const float vx[4] = {a.x, a.w, b.z, e.y};
-        const float vy[4] = {a.y, b.x, b.w, e.z};
-        const float vz[4] = {a.z, b.y, e.x, e.w};
+  if (tile * KNC_TILE >= N) return;
+  const unsigned mask0 = smask[tl];
+  const float4* s4 = reinterpret_cast<const float4*>(svc);
+  const int G = V / 8;
+  for (unsigned mask = mask0; mask != 0u; mask &= mask - 1u) {
+    const int g0 = (__ffs(mask) - 1) * (KNC_CHUNK / 8);
+    const int g1 = min(g0 + KNC_CHUNK / 8, G);
+#pragma unroll 2
+    for (int g = g0; g < g1; ++g) {
+      float vx[8], vy[8], vz[8];
+      load_group8(s4, g, vx, vy, vz);
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float dx = px - vx[u];
-          const float dy = py - vy[u];
-          const float dz = pz - vz[u];
-          const float d = dx * dx + dy * dy + dz * dz;
-          if (d < best) {
-            best = d;
-            bi = j0 + 4 * k + u;
-          }
-        }
-      }
-    } else {
-      for (int j = j0; j < V; ++j) {
-        const float dx = px - svc[3 * j];
-        const float dy = py - svc[3 * j + 1];
-        const float dz = pz - svc[3 * j + 2];
-        const float d = dx * dx + dy * dy + dz * dz;
-        if (d < best) {
-          best = d;
-          bi = j;
+      for (int q = 0; q < KNC_PPT; ++q) {
+        const float m = group8_min(px[q], py[q], pz[q], vx, vy, vz);
+        if (m < best[q]) {
+          best[q] = m;
+          bg[q] = g;
         }
       }
     }
   }
-  idx[i] = bi;
-  d2[i] = best;
+#pragma unroll
+  for (int q = 0; q < KNC_PPT; ++q)
+    if (bg[q] >= 0) bi[q] = group8_first(px[q], py[q], pz[q], svc, bg[q],
+                                         best[q]);
+  if ((mask0 >> (C - 1)) & 1u) {
+    for (int j = 8 * G; j < V; ++j) {
+#pragma unroll
+      for (int q = 0; q < KNC_PPT; ++q)
+        vertex_step(px[q], py[q], pz[q], svc, j, best[q], bi[q]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < KNC_PPT; ++q) {
+    const int i = i0 + q * KNC_TT;
+    if (i < N) {
+      idx[i] = bi[q];
+      d2[i] = best[q];
+    }
+  }
 }
 
 // Per chunk of 128 vertices the row [min | max | centre | half diagonal] of
@@ -346,15 +398,24 @@ __global__ void knn_chunk_boxes_kernel(const float* __restrict__ verts, int V,
   b[9] = 0.5f * sqrtf(ex * ex + ey * ey + ez * ez);
 }
 
+static int chunk_boxes_launch(const float* verts, int V, float* boxes,
+                              int C, cudaStream_t st) {
+  if (V <= 0 || V > KNN_MAX_VERTS || C != (V + KNC_CHUNK - 1) / KNC_CHUNK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  knn_chunk_boxes_kernel<<<C, KNC_CHUNK, 0, st>>>(verts, V, boxes);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool SOA>
 static int knn_culled_launch(const float* pts, int N, const float* verts,
                              int V, float* boxes, int C, int* idx,
                              float* d2, int* visits, void* stream) {
+  cudaStream_t st = vt_stream(stream);
   if (V <= 0 || V > KNN_MAX_VERTS || C != (V + KNC_CHUNK - 1) / KNC_CHUNK)
     return static_cast<int>(cudaErrorInvalidValue);
   if (N <= 0) return 0;
-  knn_chunk_boxes_kernel<<<C, KNC_CHUNK, 0, vt_stream(stream)>>>(verts, V,
-                                                                 boxes);
+  const int rc = chunk_boxes_launch(verts, V, boxes, C, st);
+  if (rc != 0) return rc;
   const size_t smem = sizeof(float) * 3 * static_cast<size_t>(V);
   // the table's 48 KB at KNN_MAX_VERTS and the kernel's own shared arrays
   // exceed the 48 KB a block gets by default; the limit is the current
@@ -363,9 +424,9 @@ static int knn_culled_launch(const float* pts, int N, const float* verts,
       knn_culled_kernel<SOA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(sizeof(float) * 3 * KNN_MAX_VERTS));
   if (raised != cudaSuccess) return static_cast<int>(raised);
-  knn_culled_kernel<SOA><<<vt_blocks(N, KNC_TILE), KNC_TILE, smem,
-                           vt_stream(stream)>>>(pts, N, verts, V, boxes, C,
-                                                idx, d2, visits);
+  knn_culled_kernel<SOA><<<vt_blocks(N, KNC_TILE * KNC_TILES), KNC_THREADS,
+                           smem, st>>>(pts, N, verts, V, boxes, C, idx, d2,
+                                       visits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -384,4 +445,11 @@ VT_EXPORT int vt_knn_T_culled(const float* pts, int N, const float* verts,
                               float* d2, int* visits, void* stream) {
   return knn_culled_launch<true>(pts, N, verts, V, boxes, C, idx, d2, visits,
                                  stream);
+}
+
+// Kernel 9's chunk boxes alone (the launch vt_knn_culled makes in front of
+// the search), so that its time can be read apart from the search's.
+VT_EXPORT int vt_knn_chunk_boxes(const float* verts, int V, float* boxes,
+                                 int C, void* stream) {
+  return chunk_boxes_launch(verts, V, boxes, C, vt_stream(stream));
 }

@@ -9,12 +9,14 @@
 // them, the other kernels ignore them (the compiler drops the stores).
 #pragma once
 
+// The corners as values (kernels 5 and 6 hold them in registers from
+// 16-byte loads); the form below reads them from a table row (A, 7).
 __device__ __forceinline__ float tri_sq_dist(float px, float py, float pz,
-                                             const float* t, float& va_o,
-                                             float& vb_o, float& vc_o) {
-  const float ax = t[0], ay = t[1], az = t[2];
-  const float bx = t[3], by = t[4], bz = t[5];
-  const float cx = t[6], cy = t[7], cz = t[8];
+                                             float ax, float ay, float az,
+                                             float bx, float by, float bz,
+                                             float cx, float cy, float cz,
+                                             float& va_o, float& vb_o,
+                                             float& vc_o) {
   const float abx = bx - ax, aby = by - ay, abz = bz - az;
   const float acx = cx - ax, acy = cy - ay, acz = cz - az;
   const float apx = px - ax, apy = py - ay, apz = pz - az;
@@ -66,5 +68,6 @@ __device__ __forceinline__ float tri_sq_dist(float px, float py, float pz,
 __device__ __forceinline__ float tri_sq_dist(float px, float py, float pz,
                                              const float* t) {
   float va, vb, vc;
-  return tri_sq_dist(px, py, pz, t, va, vb, vc);
+  return tri_sq_dist(px, py, pz, t[0], t[1], t[2], t[3], t[4], t[5], t[6],
+                     t[7], t[8], va, vb, vc);
 }

@@ -41,6 +41,7 @@ _SIGNATURES = {
     "vt_knn_T": [_P, _I, _P, _I, _P, _P, _P],
     "vt_knn_culled": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P],
     "vt_knn_T_culled": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P],
+    "vt_knn_chunk_boxes": [_P, _I, _P, _I, _P],
     "vt_raster": [_P, _I, _I, _I, _P, _P, _P],
     "vt_empty": [_P],
     "vt_mesh_query": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],

@@ -252,6 +252,25 @@ def _launch_culled(entry: str, query: torch.Tensor, N: int,
     return (idx, d2, count) if visits else (idx, d2)
 
 
+def vertex_chunk_boxes_cuda(verts: torch.Tensor) -> torch.Tensor:
+    """Kernel 9's chunk-box kernel launched alone (``vt_knn_chunk_boxes``):
+    the rows of :func:`vertex_chunk_boxes`, equal bit for bit.  The search's
+    entry points launch it themselves in front of every search; this
+    wrapper, which no path calls, lets its time be read apart."""
+    V = verts.shape[0]
+    _cuda.require(verts, "verts", torch.float32, (V, 3))
+    if not 0 < V <= KNN_MAX_VERTS:
+        raise ValueError(f"chunk boxes: {V} vertices; the kernel takes "
+                         f"1 to {KNN_MAX_VERTS}")
+    boxes = torch.empty(-(-V // VERT_CHUNK), 10, dtype=torch.float32,
+                        device=verts.device)
+    rc = _cuda.lib().vt_knn_chunk_boxes(verts.data_ptr(), V, boxes.data_ptr(),
+                                        boxes.shape[0],
+                                        _cuda.stream_ptr(verts.device))
+    _cuda.check(rc, "vt_knn_chunk_boxes")
+    return boxes
+
+
 def nearest_vertex_d2_culled(query: torch.Tensor, verts: torch.Tensor,
                              visits: bool = False):
     """Kernel 9: :func:`nearest_vertex_d2` with landmark culling.  A tile of

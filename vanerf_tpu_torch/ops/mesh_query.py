@@ -36,6 +36,10 @@ device decides, there is no ``VANERF_MESH_BACKEND`` switch.
   is kernel 5 and :func:`point_mesh_query_vis_brute` kernel 6
   (``csrc/mesh_query_brute.cu``): no bound, no far tier, a closest-face
   output, the winding number by signed ray crossings or by solid angles.
+  They skip a face's distance where its sphere certifies it cannot beat a
+  point's best so far (the test of kernel A, on the faces as given), with
+  results equal to their plain versions, which evaluate every pair;
+  :func:`brute_work` counts the pairs the kernels evaluate.
 """
 
 from __future__ import annotations
@@ -61,6 +65,11 @@ CHUNK_SIZES = (64, 128)
 MAX_CHUNKS = 64
 # floats per face in the kernel's table (csrc/mesh_query.cu MQ_STRIDE)
 FACE_STRIDE = 22
+# kernels 5 and 6 (csrc/mesh_query_brute.cu): floats per face row
+# (MQB_ROW4 float4s), and the points of a block, MQB_THREADS x MQB_PPT, in
+# consecutive runs of 32 a warp's point slot
+BRUTE_STRIDE = 28
+BRUTE_BLOCK_POINTS = 512
 
 # launches of kernels A and 7 (the culled query), of their sweep over every
 # face, and of kernels 5 and 6 (plain counters; callers reset them)
@@ -383,19 +392,28 @@ def point_mesh_query_vis_T(points_T, table, ub, far=None):
 # ---------------------------------------------------------------------------
 
 def brute_face_table(tri: torch.Tensor, face_vis=None) -> torch.Tensor:
-    """Per-face rows (F, 22) of kernels 5 and 6: corners (9), corner
-    visibility (3, zeros when not given) and the UNFOLDED crossing
-    constants pv = d x e2, e1, e2, det = e1 . pv (``_ray_constants``,
-    ``mesh_query_pallas.py:593-602``)."""
+    """Per-face rows (F, 28) of kernels 5 and 6: corners (9), corner
+    visibility (3, zeros when not given), the UNFOLDED crossing constants
+    pv = d x e2, e1, e2, det = e1 . pv (``_ray_constants``,
+    ``mesh_query_pallas.py:593-602``), two zeros, and the face's sphere
+    (:func:`face_spheres` of the faces as given, uncentred): 112 bytes, so
+    that the kernel reads a row in 16-byte loads and stages any number of
+    rows by bulk copies."""
     tri = tri.float()
     F = tri.shape[0]
-    d = torch.tensor(_RAY_D, dtype=torch.float32, device=tri.device)
     e1 = tri[:, 1] - tri[:, 0]
     e2 = tri[:, 2] - tri[:, 0]
-    pv = _cross(d.expand_as(e2), e2)
+    # d x e2 with d's components as Python floats: the products round as
+    # with a float32 tensor of d, and no host-to-device copy (which would
+    # wait for the card on every call) is made
+    dx, dy, dz = _RAY_D
+    pv = torch.stack([dy * e2[:, 2] - dz * e2[:, 1],
+                      dz * e2[:, 0] - dx * e2[:, 2],
+                      dx * e2[:, 1] - dy * e2[:, 0]], -1)
     det = _dot(e1, pv)
     vis = (tri.new_zeros(F, 3) if face_vis is None else face_vis.float())
-    return torch.cat([tri.reshape(F, 9), vis, pv, e1, e2, det[:, None]],
+    return torch.cat([tri.reshape(F, 9), vis, pv, e1, e2, det[:, None],
+                      tri.new_zeros(F, 2), face_spheres(tri)],
                      -1).contiguous()
 
 
@@ -455,7 +473,10 @@ def _brute_cuda(points: torch.Tensor, table: torch.Tensor, vis: bool,
     N, F = points.shape[0], table.shape[0]
     dev = points.device
     _cuda.require(points, "points", torch.float32, (N, 3))
-    _cuda.require(table, "table", torch.float32, (F, FACE_STRIDE), dev)
+    _cuda.require(table, "table", torch.float32, (F, BRUTE_STRIDE), dev)
+    if table.data_ptr() % 16:
+        raise ValueError("table: the kernel's bulk copies need a 16-byte "
+                         "aligned table")
     d2 = torch.empty(N, dtype=torch.float32, device=dev)
     idx = torch.empty(N, dtype=torch.int32, device=dev)
     wind = torch.empty(N, dtype=torch.float32, device=dev)
@@ -473,6 +494,39 @@ def _brute_cuda(points: torch.Tensor, table: torch.Tensor, vis: bool,
     else:
         brute_launches += 1
     return d2, idx, wind, qvis
+
+
+def brute_work(points: torch.Tensor, table: torch.Tensor) -> dict:
+    """What kernels 5 and 6 evaluate, in (thread, face) pairs, the ragged
+    last block's repeated points included: ``sphere_tests``, every pair;
+    ``evaluated``, the faces whose full distance a warp computes (all 32
+    lanes of a point slot, when :func:`sphere_skip` keeps the face for any
+    lane against that lane's best so far); ``windings``, every pair (a
+    crossing test in ray mode, a solid angle in solid-angle mode).  A face
+    a lane skips cannot lower its best, so the best before a face is the
+    running minimum of the computed distances over the faces before it.
+    The same for both kernels and every winding mode."""
+    points = points.float()
+    N, F = points.shape[0], table.shape[0]
+    if N == 0 or F == 0:
+        return dict(sphere_tests=0, evaluated=0, windings=0)
+    dev = points.device
+    n_pad = -(-N // BRUTE_BLOCK_POINTS) * BRUTE_BLOCK_POINTS
+    src = torch.arange(n_pad, device=dev).clamp(max=N - 1)
+    a, b, c = table[:, 0:3], table[:, 3:6], table[:, 6:9]
+    sphere = table[:, 24:28]
+    budget = 1 << (22 if dev.type == "cpu" else 25)
+    step = max(1, budget // (32 * F)) * 32
+    evaluated = 0
+    for p0 in range(0, n_pad, step):
+        pp = points[src[p0:p0 + step], None, :]
+        dd = point_triangle_sq_dist(pp, a[None], b[None], c[None])
+        best = torch.cat([torch.full_like(dd[:, :1], float("inf")),
+                          dd.cummin(1).values[:, :-1]], 1)
+        keep = ~sphere_skip(pp, sphere[None], best)
+        evaluated += int(keep.reshape(-1, 32, F).any(1).sum()) * 32
+    return dict(sphere_tests=n_pad * F, evaluated=evaluated,
+                windings=n_pad * F)
 
 
 def _brute(points, tri, face_vis, vis: bool, mode: str):
@@ -1043,8 +1097,9 @@ def _morton_order(centroids: torch.Tensor) -> torch.Tensor:
 
 
 def face_spheres(tri: torch.Tensor) -> torch.Tensor:
-    """(F, 4) rows [centre | radius'] of the culled kernel's per-face
-    rejection test (:func:`sphere_skip`): the centroid, and the largest
+    """(F, 4) rows [centre | radius'] of the per-face rejection test of
+    the culled kernel and of kernels 5 and 6 (:func:`sphere_skip`; the
+    latter's in :func:`brute_face_table`): the centroid, and the largest
     corner distance widened by 1e-4 of itself and 1e-5 of the mesh's
     largest corner norm R, which covers the rounding of the test and of the
     distance it stands in for (``csrc/mesh_query.cu``, the proof there).  A
@@ -1054,13 +1109,13 @@ def face_spheres(tri: torch.Tensor) -> torch.Tensor:
     tri = tri.float()
     a, b, c = tri[:, 0], tri[:, 1], tri[:, 2]
     cen = (a + b + c) / 3.0
-    rad = torch.stack([_dot(v - cen, v - cen) for v in (a, b, c)], 1) \
-        .amax(1).sqrt()
+    dv = tri - cen[:, None]                   # the three corners at once
+    rad = _dot(dv, dv).amax(1).sqrt()
     R = tri.reshape(-1, 3).norm(dim=1).amax() if tri.numel() else \
         torch.zeros((), device=tri.device)
-    ab, ac, bc = b - a, c - a, c - b
-    n = _cross(ab, ac)
-    longest = torch.stack([_dot(e, e) for e in (ab, ac, bc)], 1).amax(1)
+    edges = torch.stack([b - a, c - a, c - b], 1)        # ab, ac, bc
+    n = _cross(edges[:, 0], edges[:, 1])
+    longest = _dot(edges, edges).amax(1)
     sliver = ~(_dot(n, n).sqrt() > 1e-2 * longest)
     rad = rad * (1.0 + 1e-4) + 1e-5 * R
     rad = torch.where(sliver, torch.full_like(rad, float("inf")), rad)
@@ -1069,9 +1124,10 @@ def face_spheres(tri: torch.Tensor) -> torch.Tensor:
 
 def sphere_skip(points: torch.Tensor, sphere: torch.Tensor,
                 best: torch.Tensor) -> torch.Tensor:
-    """The culled kernel's per-face rejection, written as the kernel
-    evaluates it: skip face f for a point whose best squared distance so
-    far is ``best`` when |p - c_f|^2 > (r'_f + sqrt(best) (1 + 1e-4))^2.
+    """The per-face rejection of the culled kernel and of kernels 5 and 6,
+    written as the kernels evaluate it: skip face f for a point whose best
+    squared distance so far is ``best`` when
+    |p - c_f|^2 > (r'_f + sqrt(best) (1 + 1e-4))^2.
     Broadcasting points (..., 3), sphere (..., 4), best (...) -> bool.  It
     never skips a face whose computed ``point_triangle_sq_dist`` lies below
     ``best``, so d2, idx and qvis do not change."""
