@@ -8,8 +8,9 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU:
 Phases, each printing what it found; any failed check raises and the
 script exits non-zero (there is no CPU fallback):
 
-  1. build (or reuse) the fourteen CUDA kernel entry points from
-     ``vanerf_tpu_torch/csrc``;
+  1. build (or reuse) the eighteen CUDA kernel entry points from
+     ``vanerf_tpu_torch/csrc`` (the fourteen float32 ones and the bfloat16
+     forms of D, 10, 11 and 12);
   2. each kernel against its plain-PyTorch twin on the card, at the shapes
      the main path gives it (a 64x64-ray patch x 64 samples = 262,144
      points, the 256^2 subdiv=3 two-hand fixture: 2,560 faces, 1,284
@@ -65,6 +66,20 @@ script exits non-zero (there is no CPU fallback):
      (calls replayed from a CUDA graph), beside ``F.grid_sample`` /
      ``index_add_`` in the same run, and the float4 or scalar-lane
      instantiation it launched (from torch.profiler's kernel names);
+  2b. the bfloat16 forms of D, 10, 11 and 12 on what the bfloat16 model's
+     own branches hand them for the same patch (``VANeRF.from_config``
+     under ``VANERF_COMPUTE_DTYPE=bfloat16``, the same weights): D (the
+     32^2 x 64 map in bfloat16, and the scalar-lane, unaligned and sliced
+     cases) and 10 (the 1,284 x 204 bfloat16 table) bit-equal to their
+     plain versions; 11 and 12 (one bfloat16 m16n8k16 product a k-tile)
+     within ``FUSED_BF16_SPREAD_X`` times the RMS spread between two
+     summation orders of their plain versions, each output (which the
+     plain versions without their roundings must fail), each element within
+     twice the plain version's bfloat16-vs-float32 spread; times called
+     and from a CUDA graph, bounds (11 / 12: the bfloat16 tensor rate plus
+     the CUDA cores' f32 work), plain and library times (``F.grid_sample``
+     on the bfloat16 map with its grid in bfloat16, ``index_select``),
+     nvcc's registers and spills;
   3. the serving path at full model width (``configs/vanerf.json``, seeded
      flax-style initialisation): ``render_full_image`` for 2 frames (16
      64x64 tiles each, 64+64 samples) and one bench-shaped group of 16
@@ -86,6 +101,18 @@ script exits non-zero (there is no CPU fallback):
      (kernel 12): one full image and the 16-patch
      group each, every output within rtol 2e-4 / atol 2e-5 of the unfused
      one, ms/frame beside the unfused ms/frame;
+  3h. the bfloat16 serving configuration on the same frame: unfused (far
+     tier on), ``VANERF_FUSED_MLP=1`` and ``=2``, each in turns with the
+     float32 frame under the same switches: ms/frame, PSNR of the bfloat16
+     frame against the float32 one, launches of the bfloat16 D and 10 (and
+     12 or 11) > 0 and none of their float32 forms (and no bfloat16 form on
+     a float32 frame); an 8x8-ray patch of each configuration on the card
+     against the CPU port's in bfloat16, both from the CPU's encode and
+     with the CPU bfloat16 patch's fine depths, each
+     element within 2 S + 1e-4 + 1e-3 |x|, S the CPU port's
+     bfloat16-vs-float32 spread on that patch, and the RMS error within
+     S_rms / 2 + 2 E_rms, which the card's float32 patch must fail
+     (``BF16_CPU_RAYS``);
   3c. the coordinate-major serving configuration on the same frame:
      ``VANERF_SOA_POINTS=1`` and ``=2`` in turns with mode 0 (far tier on,
      the default), every output equal to mode 0's (the compared frames
@@ -131,7 +158,8 @@ script exits non-zero (there is no CPU fallback):
 A ``details:`` line holds every measured number; the line before the last
 is a JSON object with one entry per kernel (its launches are those of the
 phase that drives it: A-D and 10 phase 3, 13 phase 5, 11 the level-2 run
-of phase 3b, 12 the level-1 run, 7 and 8 the mode-1 run of phase 3c, 9 the
+of phase 3b, 12 the level-1 run, the bfloat16 D and 10 phase 3h's unfused
+bfloat16 frame, 11 / 12 in bfloat16 its level-2 / level-1 frames, 7 and 8 the mode-1 run of phase 3c, 9 the
 two culled runs of phase 3e, 5 and 6 phase 3d; A and 7 carry the sweep's
 time beside the culled query's as ``brute_ms``; D and 13 sum the cases
 they have summed since their port, D's two maps and 13's four tables, and
@@ -149,7 +177,9 @@ and ``work_issue_bound_ms``, its (tile, face) tests and walked (pixel,
 face) pairs, ``ops/rasterize.py::raster_work``, at that rate, its
 ``bound_ms`` the walked pairs at the f32 rate; 11 and 12 carry
 ``device_ms`` and ``tensor_bound_ms``, three TF32 passes of their
-multiply-adds at 495 TFLOP/s and their CUDA-core work at the f32 rate);
+multiply-adds at 495 TFLOP/s and their CUDA-core work at the f32 rate;
+their bfloat16 forms one pass at 989 TFLOP/s plus the same CUDA-core work,
+which is also their ``bound_ms`` where it exceeds the bytes' time);
 the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and
 convolutions.
@@ -200,6 +230,15 @@ KERNELS = {
                         "vanerf_tpu/ops/fused_mlp.py:365"),
     "fused_geo_mlp": ("vanerf_tpu_torch/csrc/fused_mlp.cu",
                       "vanerf_tpu/ops/fused_mlp.py:431"),
+    # the bfloat16 forms (VANERF_COMPUTE_DTYPE=bfloat16; phases 2b, 3h)
+    "interp_mxu_bf16": ("vanerf_tpu_torch/csrc/interp.cu",
+                        "vanerf_tpu/ops/interp_mxu.py:92"),
+    "row_gather_bf16": ("vanerf_tpu_torch/csrc/row_gather.cu",
+                        "vanerf_tpu/ops/interp_mxu.py:205"),
+    "fused_query_mlp_bf16": ("vanerf_tpu_torch/csrc/fused_mlp.cu",
+                             "vanerf_tpu/ops/fused_mlp.py:365"),
+    "fused_geo_mlp_bf16": ("vanerf_tpu_torch/csrc/fused_mlp.cu",
+                           "vanerf_tpu/ops/fused_mlp.py:431"),
 }
 TRAIN_STEPS = 3
 # The card's published peaks (H100 SXM): device memory rate and the f32
@@ -283,6 +322,35 @@ TF32_FLOPS_PER_S = 495e12
 FUSED_RTOL, FUSED_ATOL = 2e-4, 2e-5
 FUSED_FINE_SHARE, FUSED_FINE_ABS = 0.01, 0.02
 FUSED_TRAIN_LOSS_RTOL = 5e-3
+# The tensor cores' dense bfloat16 rate (H100 SXM): kernels 11 / 12 in
+# bfloat16 run every layer product once on them
+BF16_FLOPS_PER_S = 989e12
+# kernels 11 / 12 in bfloat16 against their plain versions: each output's
+# RMS error at most this multiple of the RMS spread between two summation
+# orders of the plain version (every layer product's 16-row k-tiles summed
+# forward, as one product, and in reverse), the bfloat16 rounding of each
+# layer being what decides both; the plain version without its roundings
+# (float32 between layers) must fail that bound.  The largest error is no
+# such gate: it is one flipped rounding, whose size is the bfloat16 unit of
+# the value it lands on, so its ratio to the largest spread moves by powers
+# of two, and the control sits near 2x there too.  Each element is held
+# instead within twice the plain version's own bfloat16-vs-float32 spread
+# (it rounds where the plain version rounds: the triangle inequality), a
+# guard against a few wrong elements that an RMS would dilute.
+FUSED_BF16_SPREAD_X = 2.0
+# phase 3h: rounds of the bfloat16 frames (each in turns with the float32
+# frame under the same switches), and the card's bfloat16 patch against
+# the CPU port's, all on the CPU's encode and the CPU bfloat16 patch's fine
+# depths: each element within 2 S + phase
+# 4's tolerance, S the largest |bfloat16 - float32| of the CPU port's
+# patch, and the RMS error at most S_rms / 2 + 2 E_rms, S_rms the RMS of
+# that spread and E_rms of the card's float32 patch against the CPU's
+# (nearer the CPU's bfloat16 patch than its float32 one; the card's
+# float32 patch, the control, must fail it where bfloat16 moves the
+# output).  tests/test_torch_bf16.py derives the same bounds against the
+# JAX package.
+BF16_ROUNDS = 3
+BF16_CPU_RAYS = 8
 # phase 6: card vs CPU.  The gradients sum in other orders on the two
 # devices (cuDNN against CPU convolutions, atomics in index_add_ and the
 # scatter backward of the plain gathers): the G loss to rtol 1e-4, and
@@ -401,6 +469,16 @@ def ptxas_summary(rep: dict) -> dict:
                 spill_stores=most("spill_stores"),
                 spill_loads=most("spill_loads"), stack=most("stack"),
                 functions=len(rep))
+
+
+def fused_ptxas(log: str, entry: str, bf16: bool) -> dict:
+    """``ptxas_report`` of a fused kernel's entry function and its layer
+    functions (fm_layer_t, fm_layer0_t), of the float32 or the bfloat16
+    instantiation (template argument BF: ``Lb0E`` / ``Lb1E`` in the
+    mangled names)."""
+    tag = "Lb1E" if bf16 else "Lb0E"
+    rep = {**ptxas_report(log, entry), **ptxas_report(log, "fm_layer")}
+    return {k: v for k, v in rep.items() if tag in k}
 
 
 def ptxas_text(summary: dict):
@@ -871,11 +949,11 @@ def interp_cases(geo_coarse, uv, dev):
              offset_view(wide[:777], 1))]
 
 
-def lanes_launched(fn, kernel: str) -> str:
+def lanes_launched(fn, kernel: str, vector: str = "float4") -> str:
     """Which instantiation of the CUDA kernel ``kernel`` fn() launches, as
-    torch.profiler names it: ``kernel<true>`` is the float4 one, the C
-    entry point's choice.  A short session may end before the device's
-    records arrive: up to 5 are tried."""
+    torch.profiler names it: ``kernel<true>`` is the vector one (``vector``
+    names it), the C entry point's choice.  A short session may end before
+    the device's records arrive: up to 5 are tried."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(5):
@@ -885,7 +963,7 @@ def lanes_launched(fn, kernel: str) -> str:
             torch.cuda.synchronize()
         for e in prof.key_averages():
             if kernel + "<true>" in e.key:
-                return "float4"
+                return vector
             if kernel + "<false>" in e.key:
                 return "scalar"
     return "not seen by the profiler"
@@ -899,6 +977,9 @@ def interp_case(case):
     import torch.nn.functional as F
     from vanerf_tpu_torch.ops import interp_mxu
     _tag, _main, fm, u = case
+    kname, vector = (("interp_bf16_kernel", "8-channel")
+                     if fm.dtype == torch.bfloat16 else
+                     ("interp_kernel", "float4"))
     got = interp_mxu.interp_cuda(fm, u)
     again = interp_mxu.interp_cuda(fm, u)
     want = interp_mxu.interp_plain(fm, u)
@@ -908,7 +989,9 @@ def interp_case(case):
           f"({_tag}): {err}")
     check(torch.equal(got, again), f"sampler not repeatable ({_tag})")
     nchw = fm.permute(2, 0, 1)[None].contiguous()
-    grid = u[None, None]
+    # F.grid_sample takes the grid in the map's dtype: on a bfloat16 map
+    # its coordinates round to bfloat16, the nearest one PyTorch call comes
+    grid = u.to(fm.dtype)[None, None]
     Hm, Wm, C = fm.shape
 
     def library():
@@ -917,8 +1000,8 @@ def interp_case(case):
 
     return dict(
         shape=f"{u.shape[0]} points on {Hm}x{Wm}x{C}",
-        lanes=lanes_launched(lambda: interp_mxu.interp_cuda(fm, u),
-                             "interp_kernel"),
+        lanes=lanes_launched(lambda: interp_mxu.interp_cuda(fm, u), kname,
+                             vector),
         max_abs_err=err, bit_equal_runs=True,
         ms=cuda_ms(lambda: interp_mxu.interp_cuda(fm, u), 20),
         device_ms=graph_ms(lambda: interp_mxu.interp_cuda(fm, u)),
@@ -1451,8 +1534,7 @@ def phase_kernels(model, batch, dev):
         # (softplus ~8 operations) on every output channel of every layer
         core_ops = n_pts * (pe_ops + 8 * sum(m.shape[1] for m in mats))
         entry = "fused_query_kernel" if packs == 2 else "fused_geo_kernel"
-        ptx = {**ptxas_report(_cuda.build_log, entry),
-               **ptxas_report(_cuda.build_log, "fm_layer")}
+        ptx = fused_ptxas(_cuda.build_log, entry, bf16=False)
         results[name] = dict(
             device_ms=graph_ms(lambda: cuda_fn(*data, packed, **k)),
             tensor_bound_ms=(3 * 2 * macs * n_pts / TF32_FLOPS_PER_S
@@ -1469,6 +1551,212 @@ def phase_kernels(model, batch, dev):
             library_ms=None,
             **least_time(nbytes(*data, *flat, *got),
                          n_pts * (2 * macs + pe_ops)))
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: the bfloat16 forms of kernels D, 10, 11 and 12
+# ---------------------------------------------------------------------------
+
+def bf16_model(model, cfg, num_v: int):
+    """The same weights as ``model`` in the bfloat16 serving configuration,
+    made as a user makes it: ``VANeRF.from_config`` under
+    ``VANERF_COMPUTE_DTYPE=bfloat16``."""
+    from vanerf_tpu_torch.models import VANeRF
+    with env(VANERF_COMPUTE_DTYPE="bfloat16"):
+        m16 = VANeRF.from_config(cfg, num_v=num_v, image_hw=(H, W))
+    check(m16.compute_dtype == "bfloat16", "VANERF_COMPUTE_DTYPE not read")
+    m16.load_state_dict(model.state_dict())
+    return m16.to(next(model.parameters()).device).eval()
+
+
+class ktiles_reversed:
+    """For the length of a ``with`` block every matrix product ``x @ w``
+    sums its 16-row k-tiles in reverse order (each tile one product): the
+    second summation order that kernels 11 / 12's bfloat16 bound is taken
+    from."""
+
+    def __init__(self):
+        import torch
+
+        class Mode(torch.overrides.TorchFunctionMode):
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                if getattr(func, "__name__", "") in ("matmul", "__matmul__"):
+                    x, w = args
+                    acc = None
+                    for k0 in reversed(range(0, w.shape[0], 16)):
+                        d = x[..., k0:k0 + 16] @ w[k0:k0 + 16]
+                        acc = d if acc is None else acc + d
+                    return acc
+                return func(*args, **(kwargs or {}))
+
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+
+
+class unrounded:
+    """For the length of a ``with`` block the fused kernels' plain
+    versions keep float32 between their layers (their rounding to
+    bfloat16 the identity): the control that kernels 11 / 12's bfloat16
+    bound must reject."""
+
+    def __enter__(self):
+        from vanerf_tpu_torch.ops import fused_mlp
+        self.real = fused_mlp._rounder
+        fused_mlp._rounder = lambda cdt: (lambda x: x)
+
+    def __exit__(self, *exc):
+        from vanerf_tpu_torch.ops import fused_mlp
+        fused_mlp._rounder = self.real
+
+
+def interp_cases_bf16(geo_coarse, uv, dev):
+    """Kernel D's bfloat16 cases: the main path's 32^2 x 64 geometry
+    coarse map in bfloat16 at the patch's points (the kernels line), then
+    the scalar-lane instantiation (6 channels, a table or a uv off a 16- /
+    8-byte boundary) and a slice of a batch."""
+    import torch
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    coarse = geo_coarse.to(bf).contiguous()
+    batch = torch.randn(2, 32, 32, 64, generator=g, device=dev).to(bf)
+    wide = (uv * 1.3).contiguous()
+    return [("32^2x64 bfloat16", True, coarse, uv),
+            ("16^2x6 bfloat16, scalar lanes", False,
+             torch.randn(16, 16, 6, generator=g, device=dev).to(bf),
+             wide[:5001]),
+            ("32^2x64 bfloat16 slice feat[1] of a batch, uv beyond [-1, 1]",
+             False, batch[1], wide[:5001]),
+            ("32^2x64 bfloat16 table off 16 bytes", False,
+             offset_view(coarse, 1), uv[:4999].contiguous()),
+            ("32^2x64 bfloat16, uv off 8 bytes", False, coarse,
+             offset_view(wide[:777], 1))]
+
+
+def phase_kernels_bf16(model16, batch, dev):
+    """Kernels D, 10, 11 and 12 in bfloat16 at the shapes the bfloat16
+    main path gives them, each against its plain version: D and 10 bit for
+    bit; 11 and 12 within FUSED_BF16_SPREAD_X times the spread between two
+    summation orders of the plain version, on every output."""
+    import torch
+    from vanerf_tpu_torch.ops import _cuda, fused_mlp, interp_mxu
+    bf = torch.bfloat16
+    results = {}
+    pts, _mesh, geo_coarse, uv, grids, _vv = main_path_points(model16, batch)
+    results["interp_mxu_bf16"] = kernel_cases(
+        interp_cases_bf16(geo_coarse, uv, dev), interp_case)
+
+    fin = fused_main_path_inputs(model16, batch, grids)
+    (table, ridx), _ = fin["mxu_row_gather"]
+    table, ridx = table.contiguous(), ridx.to(torch.int32).contiguous()
+    check(table.dtype == bf and table.shape == (batch["verts"].shape[1], 204)
+          and ridx.shape[0] == pts.shape[0],
+          f"bfloat16 row gather: {table.dtype} {table.shape} {ridx.shape}")
+    got = interp_mxu.row_gather_cuda(table, ridx)
+    want = interp_mxu.row_gather_plain(table, ridx)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "bfloat16 row gather differs from "
+          "table[idx]")
+    results["row_gather_bf16"] = dict(
+        shape=f"{ridx.shape[0]} rows of a {table.shape[0]}x{table.shape[1]} "
+              "bfloat16 table",
+        max_abs_err=(got.float() - want.float()).abs().max().item(),
+        ms=cuda_ms(lambda: interp_mxu.row_gather_cuda(table, ridx), 20),
+        device_ms=graph_ms(lambda: interp_mxu.row_gather_cuda(table, ridx)),
+        plain_ms=cuda_ms(lambda: interp_mxu.row_gather_plain(table, ridx),
+                         20),
+        library_ms=cuda_ms(lambda: table.index_select(0, ridx), 20),
+        library_device_ms=graph_ms(lambda: table.index_select(0, ridx)),
+        **least_time(nbytes(table, ridx, got), 0))
+
+    n_pts, n_kpt = pts.shape[0], batch["kpt3d"].shape[1]
+    pe_ops = 35 * n_kpt
+    as_tuple = (lambda x: x if isinstance(x, tuple) else (x,))
+    for name, cuda_fn, plain_fn, packs in (
+            ("fused_geo_mlp_bf16", fused_mlp.fused_geo_mlp_cuda,
+             fused_mlp.fused_geo_mlp_plain, 1),
+            ("fused_query_mlp_bf16", fused_mlp.fused_query_mlp_cuda,
+             fused_mlp.fused_query_mlp_plain, 2)):
+        a, k = fin[name[:-5]]
+        data = [t.contiguous() for t in a[:2 + packs]]
+        wts = a[2 + packs]
+        k = dict(k)
+        packed = k.pop("packed")
+        check(packed is not None and packed.w.dtype == bf
+              and all(t.dtype == bf for t in data[2:]),
+              f"{name}: the model's bfloat16 branch handed "
+              f"{[t.dtype for t in data[2:]]}, packs {packed and packed.w.dtype}")
+        got = as_tuple(cuda_fn(*data, packed, **k))
+        want = as_tuple(plain_fn(*data, wts, **k))
+        with ktiles_reversed():
+            other = as_tuple(plain_fn(*data, wts, **k))
+        with unrounded():
+            control = as_tuple(plain_fn(*data, wts, **k))
+        torch.cuda.synchronize()
+        def diffs(outs, norm):
+            return [norm(g_.float() - w_.float()) for g_, w_ in zip(outs, want)]
+
+        def of(err, spread):
+            return max(e / s if s > 0 else (0.0 if e == 0 else float("inf"))
+                       for e, s in zip(err, spread))
+
+        def amax(x):
+            return x.abs().max().item()
+
+        def rms(x):
+            return x.double().pow(2).mean().sqrt().item()
+
+        spread, spread_rms = diffs(other, amax), diffs(other, rms)
+        err, s16 = diffs(got, amax), diffs(control, amax)
+        of_spread, of_spread_rms = of(err, spread), of(diffs(got, rms),
+                                                        spread_rms)
+        control_of_spread = of(s16, spread)
+        control_of_spread_rms = of(diffs(control, rms), spread_rms)
+        of_s16 = of(err, s16)
+        check(of_spread_rms <= FUSED_BF16_SPREAD_X,
+              f"{name}: RMS error against the plain version "
+              f"{of_spread_rms:.3g} x the RMS spread of two summation "
+              f"orders (bound {FUSED_BF16_SPREAD_X} x)")
+        check(control_of_spread_rms > FUSED_BF16_SPREAD_X,
+              f"{name}: the plain version without its bfloat16 roundings "
+              f"lies within the RMS bound ({control_of_spread_rms:.3g} x)")
+        check(of_s16 <= 2.0, f"{name}: errors {err} against the plain "
+              f"version, {of_s16:.3g} x its bfloat16-vs-float32 spread "
+              f"{s16} (bound 2 x)")
+        flat = [w for g_ in wts.values()
+                for w in (g_ if isinstance(g_, (list, tuple)) else [g_])]
+        mats = [w for w in flat if w.shape[0] > 1]
+        macs = sum(m.shape[0] * m.shape[1] for m in mats)
+        core_ops = n_pts * (pe_ops + 8 * sum(m.shape[1] for m in mats))
+        tensor_ms = (2 * macs * n_pts / BF16_FLOPS_PER_S
+                     + core_ops / F32_FLOPS_PER_S) * 1e3
+        lt = least_time(nbytes(*data, *flat, *got),
+                        n_pts * (2 * macs + pe_ops))
+        bytes_ms = lt["bound_bytes"] / HBM_BYTES_PER_S * 1e3
+        entry = ("fused_query_kernel" if packs == 2 else "fused_geo_kernel")
+        results[name] = dict(
+            shape=f"{n_pts} points, {n_kpt} keypoints, bfloat16 packs "
+                  + " ".join(str(t.shape[1]) for t in data[2:])
+                  + f", {macs} multiply-adds a point",
+            max_abs_err=max(err), errors=err, spread=spread,
+            of_spread=of_spread, of_spread_rms=of_spread_rms, of_s16=of_s16,
+            control_of_spread=control_of_spread,
+            control_of_spread_rms=control_of_spread_rms,
+            macs_per_point=macs,
+            ms=cuda_ms(lambda: cuda_fn(*data, packed, **k), 5),
+            device_ms=graph_ms(lambda: cuda_fn(*data, packed, **k)),
+            plain_ms=cuda_ms(lambda: plain_fn(*data, wts, **k), 5),
+            library_ms=None, tensor_bound_ms=tensor_ms,
+            ptxas=ptxas_summary(fused_ptxas(_cuda.build_log, entry,
+                                            bf16=True)),
+            bound_ms=max(bytes_ms, tensor_ms),
+            bound_by="bytes" if bytes_ms >= tensor_ms else "operations",
+            bound_bytes=lt["bound_bytes"], bound_ops=lt["bound_ops"])
     return results
 
 
@@ -2111,6 +2399,153 @@ def phase_tier_serving(model, b, batch_np, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3h: the bfloat16 serving configuration (VANERF_COMPUTE_DTYPE)
+# ---------------------------------------------------------------------------
+
+# the far tier is on unfused (no switch) and off under the fused switches,
+# as in the JAX package
+BF16_CONFIGS = {"unfused": {}, "level1": dict(VANERF_FUSED_MLP="1"),
+                "level2": dict(VANERF_FUSED_MLP="2")}
+BF16_KERNELS = {"unfused": ("interp_mxu_bf16", "row_gather_bf16"),
+                "level1": ("interp_mxu_bf16", "row_gather_bf16",
+                           "fused_geo_mlp_bf16"),
+                "level2": ("interp_mxu_bf16", "row_gather_bf16",
+                           "fused_query_mlp_bf16")}
+# the float32 forms of the same kernels: none may run on a bfloat16 frame
+# (no float32 fallback), and no bfloat16 form on a float32 frame
+F32_FORMS = ("interp_mxu", "row_gather", "fused_geo_mlp", "fused_query_mlp")
+
+
+def phase_bf16_serving(model, model16, b, batch_np, dev, cfg, num_v):
+    """The 256^2 frame at full width in bfloat16, unfused and at fused
+    levels 1 and 2, each in turns with the float32 frame under the same
+    switches; PSNR of the bfloat16 frame against the float32 one; one
+    8x8-ray patch of each configuration on the card against the CPU
+    port's in bfloat16."""
+    import torch
+    from vanerf_tpu_torch import ops
+    from vanerf_tpu_torch import renderer as tr
+    bf16_names = tuple(n + "_bf16" for n in F32_FORMS)
+    res = {name: dict(frame_ms=[], f32_frame_ms=[]) for name in BF16_CONFIGS}
+    for rnd in range(BF16_ROUNDS):
+        for name, switches in BF16_CONFIGS.items():
+            frames = {}
+            for tag, m in (("f32", model), ("bf16", model16)):
+                with env(**switches):
+                    ops.reset_launches()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    frames[tag] = tr.render_full_image(
+                        m, b, level=3, sample_per_ray_c=S_C,
+                        sample_per_ray_f=S_F)
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) * 1e3
+                    counts = ops.launch_counts()
+                res[name]["frame_ms" if tag == "bf16"
+                          else "f32_frame_ms"].append(ms)
+                if rnd:
+                    continue
+                if tag == "bf16":
+                    res[name]["launches"] = counts
+                    for kern in BF16_KERNELS[name]:
+                        check(counts[kern] > 0, f"kernel {kern} was not "
+                              f"launched by the bfloat16 frame ({name})")
+                    for kern in F32_FORMS:
+                        check(counts[kern] == 0, f"the float32 {kern} ran "
+                              f"on the bfloat16 frame ({name})")
+                else:
+                    for kern in bf16_names:
+                        check(counts[kern] == 0, f"{kern} ran on the "
+                              f"float32 frame ({name})")
+                for k in ("mesh_query", "knn", "rasterize"):
+                    check(counts[k] > 0, f"kernel {k} not launched ({name})")
+            if rnd:
+                continue
+            f16, f32 = frames["bf16"], frames["f32"]
+            for k, v in f16.items():
+                if torch.is_tensor(v) and v.is_floating_point():
+                    check(v.dtype == torch.float32 and
+                          torch.isfinite(v).all().item(),
+                          f"bfloat16 frame ({name}): {k} {v.dtype}")
+            check(f16["alpha_fine"].max().item() > 0.2,
+                  f"bfloat16 frame ({name}): rays missed the hands")
+            res[name]["psnr_vs_f32"] = psnr(f16["tex_fg_fine"],
+                                            f32["tex_fg_fine"])
+            res[name]["max_abs_vs_f32"] = {
+                k: (f16[k] - f32[k]).abs().max().item()
+                for k in ("tex_fg_fine", "alpha_fine")}
+    # the card's bfloat16 patch against the CPU port's (plain twins)
+    model_cpu, b_cpu, cached_cpu = cpu_side(model, batch_np)
+    model16_cpu = bf16_model(model_cpu, cfg, num_v)
+    grids = tr.mask_centered_grid(torch.Generator().manual_seed(SEED + 5),
+                                  b_cpu["tar_mask"][..., 0], BF16_CPU_RAYS,
+                                  BF16_CPU_RAYS)
+    kw = dict(out_h=BF16_CPU_RAYS, out_w=BF16_CPU_RAYS, sample_per_ray_c=S_C,
+              sample_per_ray_f=S_F, compute_vis_map=False)
+    keys = ("tex_fg", "alpha", "tex_fg_fine", "alpha_fine")
+    # the card renders from the CPU's encode: the float32 encoders agree to
+    # float32's tolerance, and the cast to bfloat16 would turn those last
+    # bits into bfloat16 units in a few percent of the maps' values, whose
+    # effect is no rounding of the query's
+    cached_dev = tuple([t.to(dev) for t in c] if isinstance(c, list)
+                       else c.to(dev) for c in cached_cpu)
+
+    def rms(x):
+        return x.double().pow(2).mean().sqrt().item()
+
+    real = tr.importance_sample
+    for name, switches in BF16_CONFIGS.items():
+        # the four patches take the CPU bfloat16 patch's fine depths: the
+        # fine samples follow the coarse weights discontinuously, and a
+        # moved sample is no rounding of the network's
+        kept = []
+        try:
+            with env(**switches):
+                tr.importance_sample = (
+                    lambda *a, **k: kept.append(real(*a, **k)) or kept[-1])
+                cpu16 = tr.render_patch(model16_cpu, b_cpu, grids=grids,
+                                        cached=cached_cpu, **kw)
+                tr.importance_sample = lambda *a, **k: kept[0]
+                cpu32 = tr.render_patch(model_cpu, b_cpu, grids=grids,
+                                        cached=cached_cpu, **kw)
+                tr.importance_sample = lambda *a, **k: kept[0].to(dev)
+                card = tr.render_patch(model16, b, grids=grids.to(dev),
+                                       cached=cached_dev, **kw)
+                card32 = tr.render_patch(model, b, grids=grids.to(dev),
+                                         cached=cached_dev, **kw)
+                torch.cuda.synchronize()
+        finally:
+            tr.importance_sample = real
+        worst, rms_of_s = {}, {}
+        for k in keys:
+            a, a32 = card[k].cpu(), card32[k].cpu()
+            c16, c32 = cpu16[k], cpu32[k]
+            spread = (c16 - c32).abs().max().item()
+            bound = 2.0 * spread + 1e-4 + 1e-3 * c16.abs()
+            worst[k] = ((a - c16).abs() / bound).max().item()
+            check(worst[k] <= 1.0, f"bfloat16 {name}: card vs CPU {k} at "
+                  f"{worst[k]:.3g} x (2 x {spread:.3g} + 1e-4 + 1e-3 |x|)")
+            s_rms, e_rms = rms(c16 - c32), rms(a32 - c32)
+            rbound = s_rms / 2 + 2 * e_rms
+            err, ctrl = rms(a - c16), rms(a32 - c16)
+            rms_of_s[k] = dict(S=s_rms, E=e_rms, err=err, bound=rbound,
+                               control=ctrl)
+            check(err <= rbound, f"bfloat16 {name}: card vs CPU {k}: RMS "
+                  f"error {err:.3g} > S / 2 + 2 E = {rbound:.3g} (S "
+                  f"{s_rms:.3g}, E {e_rms:.3g})")
+            if not k.startswith("alpha"):
+                check(ctrl > rbound, f"bfloat16 {name}: the card's float32 "
+                      f"{k} lies within the RMS bound ({ctrl:.3g} <= "
+                      f"{rbound:.3g})")
+        check(cpu16["alpha_fine"].max().item() > 0.2,
+              f"bfloat16 {name}: the CPU patch missed")
+        res[name]["card_vs_cpu_of_bound"] = worst
+        res[name]["card_vs_cpu_rms"] = rms_of_s
+    return res
+
+
+
+# ---------------------------------------------------------------------------
 # phase 3d: the exact mesh-query API (kernels 5 and 6)
 # ---------------------------------------------------------------------------
 
@@ -2513,6 +2948,46 @@ def main() -> int:
         + ", ".join(f"{k} {v:.3f}"
                     for k, v in kres["mesh_query"]["sizes_ms"].items()))
 
+    # ---- phase 2b: the bfloat16 forms ----
+    model16 = bf16_model(model, cfg, num_v)
+    with torch.no_grad():
+        kres16 = phase_kernels_bf16(model16, batches[0], dev)
+    kres.update(kres16)
+    for tag, c in kres16["interp_mxu_bf16"]["cases"].items():
+        say(f"phase 2b interp_mxu_bf16 [{tag}]: {c['shape']}, {c['lanes']} "
+            f"lanes{', in the kernels line' if c['summed'] else ''}: equal "
+            f"to its plain version and across two runs; kernel "
+            f"{c['ms']:.4f} ms, F.grid_sample on the bfloat16 map (its "
+            f"grid rounded to bfloat16) "
+            f"{c['library_ms']:.4f} ms called (device time from a CUDA graph "
+            f"{c['device_ms']:.4f} / {c['library_device_ms']:.4f} ms), plain "
+            f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms by "
+            f"{c['bound_by']}")
+    r = kres16["row_gather_bf16"]
+    say(f"phase 2b row_gather_bf16: {r['shape']}: equal to table[idx]; "
+        f"kernel {r['ms']:.4f} ms called, {r['device_ms']:.4f} ms device "
+        f"(CUDA graph), index_select {r['library_ms']:.4f} / "
+        f"{r['library_device_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
+    for name in ("fused_geo_mlp_bf16", "fused_query_mlp_bf16"):
+        r = kres16[name]
+        say(f"phase 2b {name}: {r['shape']}: max abs err per output "
+            f"{['%.3g' % e for e in r['errors']]} against the plain version, "
+            f"RMS {r['of_spread_rms']:.3g} x the RMS spread between two "
+            f"summation orders of the plain version (bound "
+            f"{FUSED_BF16_SPREAD_X} x; the plain version without its "
+            f"bfloat16 roundings {r['control_of_spread_rms']:.3g} x); largest "
+            f"{r['of_spread']:.3g} x the largest spread "
+            f"({['%.3g' % e for e in r['spread']]}; that control "
+            f"{r['control_of_spread']:.3g} x), {r['of_s16']:.3g} x the plain "
+            f"version's bfloat16-vs-float32 spread (bound 2 x); kernel "
+            f"{r['ms']:.3f} ms called, "
+            f"{r['device_ms']:.3f} ms on the device (CUDA graph), plain "
+            f"{r['plain_ms']:.3f} ms; bound {r['bound_ms']:.3f} ms by "
+            f"{r['bound_by']} (bf16 tensor cores + the CUDA cores' f32 "
+            f"work); ptxas (the kernel and the layer functions, largest) "
+            f"{ptxas_text(r['ptxas'])}")
+
     # ---- phase 3 ----
     with torch.no_grad():
         main = phase_main_path(model, batches, dev)
@@ -2567,6 +3042,27 @@ def main() -> int:
             f"{max(fused['pinned'][name].values()):.3g} of it with the fine "
             f"depths pinned; launches "
             f"{ {k: r['launches'][k] for k in FUSED_KERNELS[name]} }")
+
+    # ---- phase 3h ----
+    with torch.no_grad():
+        bf16 = phase_bf16_serving(model, model16, batches[0], frames[0], dev,
+                                  cfg, num_v)
+    for name in BF16_CONFIGS:
+        r = bf16[name]
+        say(f"phase 3h bfloat16 {name} {BF16_CONFIGS[name] or ''}: full "
+            f"image {' / '.join(f'{t:.1f}' for t in r['frame_ms'])} ms per "
+            f"frame (float32 in turns: "
+            f"{' / '.join(f'{t:.1f}' for t in r['f32_frame_ms'])}); PSNR "
+            f"against the float32 frame {r['psnr_vs_f32']:.2f} dB (max abs "
+            f"{r['max_abs_vs_f32']}); card vs CPU (8x8 rays) at most "
+            f"{max(r['card_vs_cpu_of_bound'].values()):.3g} of 2 S + 1e-4 + "
+            f"1e-3 |x|; RMS error / S_rms (bound, float32 control) "
+            + ", ".join(f"{k} {v['err'] / v['S']:.3g} ({v['bound'] / v['S']:.3g}"
+                        f", {v['control'] / v['S']:.3g})" if v["S"] > 0
+                        else f"{k} S = 0"
+                        for k, v in r["card_vs_cpu_rms"].items())
+            + "; launches "
+            f"{ {k: r['launches'][k] for k in BF16_KERNELS[name] + F32_FORMS} }")
 
     # ---- phase 3c ----
     with torch.no_grad():
@@ -2698,7 +3194,12 @@ def main() -> int:
         mesh_query_vis_brute=api["launches"]["mesh_query_vis_brute"],
         onehot_scatter=train["launches"]["onehot_scatter"],
         fused_query_mlp=fused["level2"]["launches"]["fused_query_mlp"],
-        fused_geo_mlp=fused["level1"]["launches"]["fused_geo_mlp"])
+        fused_geo_mlp=fused["level1"]["launches"]["fused_geo_mlp"],
+        interp_mxu_bf16=bf16["unfused"]["launches"]["interp_mxu_bf16"],
+        row_gather_bf16=bf16["unfused"]["launches"]["row_gather_bf16"],
+        fused_query_mlp_bf16=bf16["level2"]["launches"]
+        ["fused_query_mlp_bf16"],
+        fused_geo_mlp_bf16=bf16["level1"]["launches"]["fused_geo_mlp_bf16"])
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = kres[name]
@@ -2725,6 +3226,7 @@ def main() -> int:
     say("details: " + json.dumps({"gpu": smi, "build_s": build_s,
                                   "kernels": kres, "main_path": main,
                                   "fused_serving": fused,
+                                  "bf16_serving": bf16,
                                   "encode_repeat": enc,
                                   "mxu_interp_serving": mxu,
                                   "soa_serving": soa,

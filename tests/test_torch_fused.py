@@ -212,6 +212,24 @@ def _schedule(full: bool, K: int, L: int, dims) -> tuple:
     return tuple(items)
 
 
+@pytest.mark.parametrize("where", ["gaussian", "softplus"])
+def test_division_by_a_constant_is_xlas_product(where):
+    """The JAX kernel divides by constants: the encoding's Gaussian by
+    2 sigma^2, softplus by 100.  XLA compiles such a division to a product
+    by the constant's float32 reciprocal, so the kernels and their plain
+    versions multiply by it (``fused_mlp.py::_inv_two_sig2``, ``* 0.01``):
+    equal to the compiled JAX expression to the bit, where a division
+    differs from it."""
+    import jax
+    import jax.numpy as jnp
+    x = np.random.RandomState(0).rand(100000).astype(np.float32) * 0.3
+    c = 2.0 * KW["sigma"] ** 2 if where == "gaussian" else 100.0
+    factor = tf._inv_two_sig2(KW["sigma"]) if where == "gaussian" else 0.01
+    want = np.asarray(jax.jit(lambda v: v / c)(jnp.asarray(x)))
+    np.testing.assert_array_equal((T(x) * factor).numpy(), want)
+    assert (x / np.float32(c) != want).any()
+
+
 @pytest.mark.parametrize("kernel", ["geo", "query"])
 def test_packed_weights_are_tf32_hi_lo_fragments(kernel):
     """The stream kernels 11 / 12 read: every value a TF32 number (the low

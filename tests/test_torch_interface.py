@@ -50,10 +50,10 @@ def _env(**kv):
 @pytest.mark.parametrize("env_dt,cfg_dt", [
     ("float32", None), ("float32", "bfloat16"), (None, "float32"),
     (None, None), ("bfloat16", "float32"), ("bfloat16", None),
-    (None, "bfloat16")])
+    (None, "bfloat16"), ("float16", "bfloat16")])
 def test_compute_dtype_reads_env_first(env_dt, cfg_dt):
-    """The port takes the dtype the JAX package resolves (on the CPU) and
-    accepts it only when it is float32."""
+    """The port resolves the dtype as the JAX package does (on the CPU):
+    float32 and bfloat16 are taken, any other type raises."""
     from vanerf_tpu.models import VANeRF as JVANeRF
     from vanerf_tpu_torch.models import VANeRF
     cfg = h.small_cfg()
@@ -61,10 +61,11 @@ def test_compute_dtype_reads_env_first(env_dt, cfg_dt):
         cfg["models"]["VANeRF"]["compute_dtype"] = cfg_dt
     with _env(VANERF_COMPUTE_DTYPE=env_dt):
         want = JVANeRF.from_config(cfg, num_v=h.NUM_V).compute_dtype
-        if want == "float32":
-            VANeRF.from_config(cfg, num_v=h.NUM_V, image_hw=(h.H, h.W))
+        if want in ("float32", "bfloat16"):
+            got = VANeRF.from_config(cfg, num_v=h.NUM_V, image_hw=(h.H, h.W))
+            assert got.compute_dtype == want
         else:
-            with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+            with pytest.raises(NotImplementedError, match=want):
                 VANeRF.from_config(cfg, num_v=h.NUM_V, image_hw=(h.H, h.W))
     assert want == (env_dt or cfg_dt or "float32")
 

@@ -83,7 +83,11 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
                                    "knn_culled": 0, "knn_T_culled": 0,
                                    "rasterize": 0, "interp_mxu": 0,
                                    "onehot_scatter": 0, "row_gather": 0,
-                                   "fused_query_mlp": 0, "fused_geo_mlp": 0}
+                                   "fused_query_mlp": 0, "fused_geo_mlp": 0,
+                                   "interp_mxu_bf16": 0,
+                                   "row_gather_bf16": 0,
+                                   "fused_query_mlp_bf16": 0,
+                                   "fused_geo_mlp_bf16": 0}
 
 
 def test_kernel_library_is_keyed_on_sources():

@@ -77,7 +77,41 @@
 // 8 fm_ntiles(M)) as [k-tile][n-tile][lane][4] fragments; the first layer's
 // encoding rows come keypoint-major (row j * P + part), a chunk of
 // FM_PE_ROWS / P keypoints a part.  Biases unpadded, apart.
+//
+// The bfloat16 body (vt_fused_geo_mlp_bf16, vt_fused_query_mlp_bf16; the
+// JAX kernels with cdt = bfloat16): the same kernels instantiated with
+// BF = true.  The packs (aux / feats, g2), the weight stream and the
+// latent are bfloat16; the points, keypoints, biases and `out` float32.
+// Every layer product is one mma.sync m16n8k16 with bfloat16 operands and
+// f32 accumulation, a k-tile 16 input rows (the stream's tile: 32 lanes x
+// {b0, b1} of two bfloat16 each, 256 bytes, one 8-byte load a lane); the
+// 3xTF32 split is not needed.  The k-tiles sum on the tensor cores: their
+// f32 accumulation is not round-to-nearest, but each layer's sum is then
+// rounded to bfloat16, whose unit (2^-8 relative) is 2^16 times f32's, so
+// that rounding decides the result (chip_smoke.py holds the kernel to twice
+// the spread between two summation orders of the plain version).  Values
+// are rounded to bfloat16 once a layer, where the JAX kernel rounds
+// (ops/fused_mlp.py::_geo_mlp / _gate_fuse write them out): the encoding
+// (f32 math, rounded), each layer's sum with its bias, the activation's
+// result (softplus and the sigmoid in f32 on the rounded sum; relu is
+// exact), the gate scaling, the pooled mean and variance (f32 on the
+// rounded x_view); `out`'s sdf residual and radiance are f32 sums, not
+// rounded.  Between the roundings the kernel does the plain version's
+// arithmetic on the card (the encoding's 1 / (2 sigma^2) a product and
+// softplus as logaddexp, as the plain version and XLA's compiled JAX kernel
+// compute them), so that only the layer sums' order can move a rounding.
+// The activation rows (arena and hidden state) are bfloat16 in shared
+// memory, [channel][point] as in the f32 body (a row 272 bytes,
+// 68 words = 4 mod 32: an A fragment's eight 2-byte loads hit 32 banks);
+// the per-point scalars, gates and outputs stay f32 rows.  That is 137 KB
+// of shared memory against the f32 body's 225 KB, still one block an SM:
+// two would need at most 113 KB and 113 registers a thread each.  The
+// inputs come by plain 2-byte loads (cp.async copies 4 bytes at the
+// least).
 
+#include <type_traits>
+
+#include "bf16.cuh"
 #include "common.cuh"
 #include "tma.cuh"
 
@@ -108,14 +142,46 @@
                          // + 2 + 96 = 802) and the 31 words past them that
                          // the last layer's padding columns read
 
-enum { FM_NONE = 0, FM_SOFTPLUS, FM_RELU, FM_SIGMOID, FM_POOL };
+// FM_OUT: no activation and, in the bfloat16 body, no rounding (`out`)
+enum { FM_NONE = 0, FM_SOFTPLUS, FM_RELU, FM_SIGMOID, FM_POOL, FM_OUT };
+
+// The activation rows' element: f32, or bfloat16 bits in the BF body.
+template <bool BF>
+using FmAct = typename std::conditional<BF, unsigned short, float>::type;
+
+// bytes of a (k-tile, n-tile) of the stream, and the k rows of a k-tile
+template <bool BF>
+__host__ __device__ __forceinline__ constexpr int fm_tile_bytes() {
+  return BF ? 256 : 512;
+}
+
+template <bool BF>
+__host__ __device__ __forceinline__ constexpr int fm_ktile() {
+  return BF ? 16 : 8;
+}
+
+__device__ __forceinline__ float fm_ld(const float* p) { return *p; }
+__device__ __forceinline__ float fm_ld(const unsigned short* p) {
+  return vt_bf16_float(*p);
+}
+__device__ __forceinline__ void fm_st(float* p, float v) { *p = v; }
+// stores into a bfloat16 row round
+__device__ __forceinline__ void fm_st(unsigned short* p, float v) {
+  *p = vt_bf16_bits(v);
+}
+
+// x rounded to the activation dtype (the identity in the f32 body)
+template <bool BF>
+__device__ __forceinline__ float fm_rnd(float x) {
+  return BF ? vt_bf16_round(x) : x;
+}
 
 struct FmGeo {
   const float* cxyz;   // (N, 3) camera-frame points
   const float* kpt_T;  // (3, K) camera-frame keypoints
   const float* b;      // biases b0..b7
   int N, K, L;
-  float scale, two_sig2;
+  float scale, inv_two_sig2;
   int d1, d2, d3;      // layers1 widths (the last is FM_F0)
   int e1, e2;          // layers2 hidden widths (the last is 2)
   int lat;             // gcompress width
@@ -145,48 +211,61 @@ __host__ __device__ __forceinline__ int fm_pe_per(int P) {
   return FM_PE_ROWS / P;  // keypoints a chunk of the encoding
 }
 
-// Shared memory, in floats: the ring, the rows, the biases, the
-// keypoints, then the 2 x FM_R barriers.
+// Shared memory, in bytes: the ring, the activation rows (XA, H), the f32
+// rows (S, G, O), the biases, the keypoints, then the 2 x FM_R barriers.
+template <bool BF>
 __host__ __device__ __forceinline__ int fm_bias_offset() {
-  return FM_R * FM_SLOT + FM_ROWS * FM_TPS;
+  return 4 * (FM_R * FM_SLOT + 24 * FM_TPS) +
+         static_cast<int>(sizeof(FmAct<BF>)) * (FM_XA_ROWS + FM_HMAX) *
+             FM_TPS;
 }
 
+template <bool BF>
 __host__ __device__ __forceinline__ int fm_kp_offset() {
-  return fm_bias_offset() + FM_MAX_BIAS;
+  return fm_bias_offset<BF>() + 4 * FM_MAX_BIAS;
 }
 
+template <bool BF>
 __host__ __device__ __forceinline__ int fm_bar_offset(int K) {
-  return fm_kp_offset() + ((3 * K + 3) & ~3);
+  return fm_kp_offset<BF>() + 4 * ((3 * K + 3) & ~3);
 }
 
+template <bool BF>
 __host__ __device__ __forceinline__ size_t fm_smem_bytes(int K) {
-  return sizeof(float) * fm_bar_offset(K) + 2 * FM_R * 8;
+  return fm_bar_offset<BF>(K) + 2 * FM_R * 8;
 }
 
 extern __shared__ __align__(128) float fm_sm[];
 
+__device__ __forceinline__ char* fm_at(int bytes) {
+  return reinterpret_cast<char*>(fm_sm) + bytes;
+}
+
+template <bool BF>
 struct FmSmem {
-  float* XA;  // the arena: inputs, encoding, pooled features
-  float* H;   // hidden state (128 rows)
+  FmAct<BF>* XA;  // the arena: inputs, encoding, pooled features
+  FmAct<BF>* H;   // hidden state (128 rows)
   float* S;   // per-point scalars: cx cy cz w_v q_sdf q_vis vis_th vis_toh
   float* G;   // gates (8 rows)
   float* O;   // outputs (8 rows)
   float* kp;  // keypoints (3, K)
 };
 
-__device__ __forceinline__ FmSmem fm_carve() {
-  FmSmem s;
-  s.XA = fm_sm + FM_R * FM_SLOT;
+template <bool BF>
+__device__ __forceinline__ FmSmem<BF> fm_carve() {
+  FmSmem<BF> s;
+  s.XA = reinterpret_cast<FmAct<BF>*>(fm_sm + FM_R * FM_SLOT);
   s.H = s.XA + FM_XA_ROWS * FM_TPS;
-  s.S = s.H + FM_HMAX * FM_TPS;
+  s.S = reinterpret_cast<float*>(s.H + FM_HMAX * FM_TPS);
   s.G = s.S + 8 * FM_TPS;
   s.O = s.G + 8 * FM_TPS;
-  s.kp = fm_sm + fm_kp_offset();
+  s.kp = reinterpret_cast<float*>(fm_at(fm_kp_offset<BF>()));
   return s;
 }
 
+template <bool BF>
 __device__ __forceinline__ unsigned long long* fm_full(int K) {
-  return reinterpret_cast<unsigned long long*>(fm_sm + fm_bar_offset(K));
+  return reinterpret_cast<unsigned long long*>(fm_at(fm_bar_offset<BF>(K)));
 }
 
 // the warp's first point column within the block's rows
@@ -222,22 +301,23 @@ __device__ __forceinline__ void fm_mma0(float (&d)[4], const unsigned (&a)[4],
         "f"(z));
 }
 
-// The next k-tile of the stream, of nt n-tiles, at stream position pos (an
-// item a FM_SLOT floats: item pos / FM_SLOT, pos % FM_SLOT floats of it
-// taken).  A k-tile that does not fit in what is left of the item starts
-// the next one, as fm_schedule groups them; at the start of an item the
-// warp releases the one before, which it has read, and waits for this
-// one's copy.  Returns the lane's fragment of the k-tile's first n-tile and
-// advances pos.
-__device__ __forceinline__ const float4* fm_next(int& pos, int nt, int Kb) {
-  unsigned long long* full = fm_full(Kb);
-  const int need = 128 * nt;
-  int off = pos % FM_SLOT;
-  if (off != 0 && off + need > FM_SLOT) {
-    pos += FM_SLOT - off;
+// The next k-tile of the stream, of nt n-tiles, at stream position pos (in
+// bytes; an item a slot of 4 FM_SLOT bytes: item pos / slot, pos % slot
+// bytes of it taken).  A k-tile that does not fit in what is left of the
+// item starts the next one, as fm_schedule groups them; at the start of an
+// item the warp releases the one before, which it has read, and waits for
+// this one's copy.  Returns the k-tile's first byte and advances pos.
+template <bool BF>
+__device__ __forceinline__ const char* fm_next(int& pos, int nt, int Kb) {
+  constexpr int slot = 4 * FM_SLOT;
+  unsigned long long* full = fm_full<BF>(Kb);
+  const int need = fm_tile_bytes<BF>() * nt;
+  int off = pos % slot;
+  if (off != 0 && off + need > slot) {
+    pos += slot - off;
     off = 0;
   }
-  const int item = pos / FM_SLOT, s = item % FM_R;
+  const int item = pos / slot, s = item % FM_R;
   if (off == 0) {
     if (item > 0) {
       __syncwarp();  // every lane has read the item before
@@ -245,11 +325,8 @@ __device__ __forceinline__ const float4* fm_next(int& pos, int nt, int Kb) {
     }
     if (!bar_wait_bounded(full + s, (item / FM_R) & 1, FM_TRIES)) __trap();
   }
-  const float4* w =
-      reinterpret_cast<const float4*>(fm_sm + s * FM_SLOT + off) +
-      (threadIdx.x & 31);
   pos += need;
-  return w;
+  return fm_at(s * slot + off);
 }
 
 // acc += X (K rows of shared memory, the warp's 16 points) x the next
@@ -271,7 +348,8 @@ __device__ __forceinline__ int fm_mma_acc(int pos, int K, const float* X,
     unsigned ah[4], al[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) fm_split(a[i], ah[i], al[i]);
-    const float4* wf = fm_next(pos, NT, Kb);
+    const float4* wf =
+        reinterpret_cast<const float4*>(fm_next<false>(pos, NT, Kb)) + lane;
     float4 w[NT];
 #pragma unroll
     for (int n = 0; n < NT; ++n) w[n] = wf[32 * n];
@@ -298,10 +376,63 @@ __device__ __forceinline__ int fm_mma_acc(int pos, int K, const float* X,
   return pos;
 }
 
-template <int ACT>
+__device__ __forceinline__ void fm_mma_bf16(float (&c)[4],
+                                            const unsigned (&a)[4],
+                                            unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The bfloat16 form of fm_mma_acc: acc += X (K bfloat16 rows) x the next
+// ceil(K / 16) k-tiles, one m16n8k16 product each, summed on the tensor
+// cores.  The A fragment of lane (g, t): points g and g + 8 at rows 2t,
+// 2t + 1 (one register, the lower row in the low half) and 2t + 8, 2t + 9.
+template <int NT>
+__device__ __forceinline__ int fm_mma_acc(int pos, int K,
+                                          const unsigned short* X,
+                                          float (&acc)[NT][4], int Kb) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const unsigned short* xp = X + fm_wp() + g;
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    const int kr = K - k0 - 2 * t;  // rows 2t + r of the tile exist if r < kr
+    const unsigned short* x0 = xp + (k0 + 2 * t) * FM_TPS;
+    unsigned a[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = (i >> 1) * 8, col = (i & 1) * 8;  // rows 2t + r, + 1
+      const unsigned lo = r < kr ? x0[r * FM_TPS + col] : 0u;
+      const unsigned hi = r + 1 < kr ? x0[(r + 1) * FM_TPS + col] : 0u;
+      a[i] = lo | (hi << 16);
+    }
+    const uint2* wf =
+        reinterpret_cast<const uint2*>(fm_next<true>(pos, NT, Kb)) + lane;
+    uint2 w[NT];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) w[n] = wf[32 * n];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) fm_mma_bf16(acc[n], a, w[n].x, w[n].y);
+  }
+  return pos;
+}
+
+// The bfloat16 body (BF) evaluates softplus as the JAX kernel and the plain
+// version write it, logaddexp(100 x, 0) * 0.01 = (max(100 x, 0) +
+// log1p(exp(-|100 x|))) * 0.01 with the accurate functions (torch's
+// logaddexp on the card), so that a sum that rounds to one bfloat16 gives
+// the plain version's value to the bit and the kernel differs from it by
+// the order of its sums alone; the f32 body keeps the fast intrinsics (good
+// to ~4e-7, inside its f32 tolerance).
+template <int ACT, bool BF = false>
 __device__ __forceinline__ float fm_act(float v) {
   if (ACT == FM_SOFTPLUS) {
     const float xb = v * 100.0f;
+    if (BF)
+      return xb > 20.0f
+                 ? v
+                 : (fmaxf(xb, 0.0f) + log1pf(expf(-fabsf(xb)))) * 0.01f;
     return xb > 20.0f
                ? v
                : fmaxf(v, 0.0f) + __logf(1.0f + __expf(-fabsf(xb))) * 0.01f;
@@ -316,11 +447,14 @@ __device__ __forceinline__ float fm_act(float v) {
 // the variance to rows [M, 2M), weighted by wv per point.  Accumulator
 // element (n, i) is point g + 8 (i >> 1), channel 8 n + 2 t + (i & 1) (the
 // m16n8 C fragment).  The activation is a template parameter: the lane's
-// 4 NT elements then run as independent straight-line chains.
-template <int NT, int ACT>
+// 4 NT elements then run as independent straight-line chains.  In the
+// bfloat16 body (BF) the sum with its bias is rounded before the
+// activation (FM_OUT: not) and the result after it, whatever the row's
+// type (dst D: an activation row or an f32 row).
+template <int NT, int ACT, bool BF, typename D>
 __device__ __forceinline__ void fm_store(float (&acc)[NT][4],
-                                         const float* bias, int M,
-                                         float* dst, const float* wv) {
+                                         const float* bias, int M, D* dst,
+                                         const float* wv) {
   __syncwarp();  // the warp has read its inputs (dst may alias them)
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -344,44 +478,54 @@ __device__ __forceinline__ void fm_store(float (&acc)[NT][4],
     for (int j = 0; j < 2; ++j) {
       const int m = 8 * n + 2 * t + j;
       float r[2] = {acc[n][j] + bv[n][j], acc[n][2 + j] + bv[n][j]};
-      float* row = dst + m * FM_TPS + p;
+      D* row = dst + m * FM_TPS + p;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
+        if (ACT != FM_OUT) r[h] = fm_rnd<BF>(r[h]);
         if (ACT == FM_POOL) {
           const float w = h ? wv1 : wv0;
           const float mean = w * r[h];
           const float d = r[h] - mean;
-          if (m < M) row[M * FM_TPS + 8 * h] = w * (d * d);
+          if (m < M) fm_st(row + M * FM_TPS + 8 * h, fm_rnd<BF>(w * (d * d)));
           r[h] = mean;
         } else {
-          r[h] = fm_act<ACT>(r[h]);
+          r[h] = fm_act<ACT, BF>(r[h]);
         }
-        if (m < M) row[8 * h] = r[h];
+        if (ACT != FM_OUT) r[h] = fm_rnd<BF>(r[h]);
+        if (m < M) fm_st(row + 8 * h, r[h]);
       }
     }
   }
   __syncwarp();  // the outputs are written before the warp reads them
 }
 
-template <int NT>
+template <int NT, bool BF, typename D>
 __device__ __forceinline__ void fm_store_act(float (&acc)[NT][4],
                                              const float* bias, int M,
-                                             int act, float* dst,
+                                             int act, D* dst,
                                              const float* wv) {
   switch (act) {
-    case FM_SOFTPLUS: fm_store<NT, FM_SOFTPLUS>(acc, bias, M, dst, wv); break;
-    case FM_RELU: fm_store<NT, FM_RELU>(acc, bias, M, dst, wv); break;
-    case FM_SIGMOID: fm_store<NT, FM_SIGMOID>(acc, bias, M, dst, wv); break;
-    case FM_POOL: fm_store<NT, FM_POOL>(acc, bias, M, dst, wv); break;
-    default: fm_store<NT, FM_NONE>(acc, bias, M, dst, wv);
+    case FM_SOFTPLUS:
+      fm_store<NT, FM_SOFTPLUS, BF>(acc, bias, M, dst, wv);
+      break;
+    case FM_RELU: fm_store<NT, FM_RELU, BF>(acc, bias, M, dst, wv); break;
+    case FM_SIGMOID:
+      fm_store<NT, FM_SIGMOID, BF>(acc, bias, M, dst, wv);
+      break;
+    case FM_POOL: fm_store<NT, FM_POOL, BF>(acc, bias, M, dst, wv); break;
+    case FM_OUT:  // FM_NONE's instantiation in the f32 body (no rounding)
+      fm_store<NT, (BF ? FM_OUT : FM_NONE), BF>(acc, bias, M, dst, wv);
+      break;
+    default: fm_store<NT, FM_NONE, BF>(acc, bias, M, dst, wv);
   }
 }
 
-template <int NT>
+template <int NT, bool BF, typename D>
 __device__ __noinline__ int fm_layer_t(int pos, int Kb, int M, int act,
-                                       const float* bias, float* dst,
-                                       const float* wv, const float* X0,
-                                       int K0, const float* X1, int K1) {
+                                       const float* bias, D* dst,
+                                       const float* wv, const FmAct<BF>* X0,
+                                       int K0, const FmAct<BF>* X1,
+                                       int K1) {
   float acc[NT][4];
 #pragma unroll
   for (int n = 0; n < NT; ++n)
@@ -389,7 +533,7 @@ __device__ __noinline__ int fm_layer_t(int pos, int Kb, int M, int act,
     for (int i = 0; i < 4; ++i) acc[n][i] = 0.0f;
   pos = fm_mma_acc<NT>(pos, K0, X0, acc, Kb);
   if (K1 > 0) pos = fm_mma_acc<NT>(pos, K1, X1, acc, Kb);
-  fm_store_act<NT>(acc, bias, M, act, dst, wv);
+  fm_store_act<NT, BF>(acc, bias, M, act, dst, wv);
   return pos;
 }
 
@@ -397,15 +541,17 @@ __device__ __noinline__ int fm_layer_t(int pos, int Kb, int M, int act,
 
 // One layer over the virtual concat [X0 (K0 rows) | X1 (K1 rows)] at the
 // warp's points; returns the next item of the stream.
+template <bool BF, typename D>
 __device__ __forceinline__ int fm_layer(int pos, int Kb, int M, int act,
-                                        const float* bias, float* dst,
-                                        const float* wv, const float* X0,
-                                        int K0, const float* X1 = nullptr,
+                                        const float* bias, D* dst,
+                                        const float* wv, const FmAct<BF>* X0,
+                                        int K0,
+                                        const FmAct<BF>* X1 = nullptr,
                                         int K1 = 0) {
   switch (fm_ntiles(M)) {
 #define FM_CASE(n) \
   case n:          \
-    return fm_layer_t<n>(pos, Kb, M, act, bias, dst, wv, X0, K0, X1, K1);
+    return fm_layer_t<n, BF>(pos, Kb, M, act, bias, dst, wv, X0, K0, X1, K1);
     FM_NT_CASES(FM_CASE)
 #undef FM_CASE
   }
@@ -416,19 +562,20 @@ __device__ __forceinline__ int fm_layer(int pos, int Kb, int M, int act,
 // the producer warp
 // ---------------------------------------------------------------------------
 
+template <bool BF>
 __device__ __forceinline__ void fm_produce(const FmSched& sc,
-                                           const float* __restrict__ w,
+                                           const void* __restrict__ w,
                                            int Kb) {
   if ((threadIdx.x & 31) != 0) return;
-  unsigned long long* full = fm_full(Kb);
+  unsigned long long* full = fm_full<BF>(Kb);
   unsigned long long* empty = full + FM_R;
-  const char* src = reinterpret_cast<const char*>(w);
+  const char* src = static_cast<const char*>(w);
   for (int i = 0; i < sc.n; ++i) {
     const int s = i % FM_R;
     if (i >= FM_R && !bar_wait_bounded(empty + s, (i / FM_R - 1) & 1,
                                        FM_TRIES))
       __trap();
-    const unsigned bytes = 512u * sc.tiles[i];
+    const unsigned bytes = fm_tile_bytes<BF>() * sc.tiles[i];
     bar_expect(full + s, bytes);
     bulk_load(fm_sm + s * FM_SLOT, src, bytes, full + s);
     src += bytes;
@@ -437,9 +584,10 @@ __device__ __forceinline__ void fm_produce(const FmSched& sc,
 
 // Barriers, keypoints, biases; then the producer warp leaves for its loop
 // and the consumers go on (no block barrier after this one).
+template <bool BF>
 __device__ __forceinline__ bool fm_start(const FmGeo& g, const FmSched& sc,
-                                         const float* __restrict__ w) {
-  unsigned long long* full = fm_full(g.K);
+                                         const void* __restrict__ w) {
+  unsigned long long* full = fm_full<BF>(g.K);
   if (threadIdx.x == 0) {
     for (int r = 0; r < FM_R; ++r) {
       bar_init(full + r, 1);
@@ -447,14 +595,14 @@ __device__ __forceinline__ bool fm_start(const FmGeo& g, const FmSched& sc,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  float* kp = fm_sm + fm_kp_offset();
+  float* kp = reinterpret_cast<float*>(fm_at(fm_kp_offset<BF>()));
   for (int k = threadIdx.x; k < 3 * g.K; k += FM_NT) kp[k] = __ldg(g.kpt_T + k);
-  float* bias = fm_sm + fm_bias_offset();
+  float* bias = reinterpret_cast<float*>(fm_at(fm_bias_offset<BF>()));
   const int nb = g.d1 + g.d2 + g.d3 + FM_F0 + g.e1 + g.e2 + 2 + g.lat;
   for (int k = threadIdx.x; k < nb; k += FM_NT) bias[k] = __ldg(g.b + k);
   __syncthreads();
   if ((threadIdx.x >> 5) == FM_CW) {
-    fm_produce(sc, w, g.K);
+    fm_produce<BF>(sc, w, g.K);
     return false;
   }
   return true;
@@ -468,10 +616,13 @@ __device__ __forceinline__ bool fm_start(const FmGeo& g, const FmSched& sc,
 // warp's points -> shared rows [c][p], by 4-byte asynchronous copies
 // (cp.async; points past N read 0); a warp reads 4 points x 8 columns
 // (whole 32-byte sectors).  The copies land by fm_load_wait: a phase
-// issues all its columns first, so that their latencies overlap.
-__device__ __forceinline__ void fm_load_cols(const float* __restrict__ src,
+// issues all its columns first, so that their latencies overlap.  A
+// bfloat16 source is read by plain loads, into bfloat16 rows or widened
+// into f32 rows.
+template <typename S, typename D>
+__device__ __forceinline__ void fm_load_cols(const S* __restrict__ src,
                                              int stride, int col0, int ncols,
-                                             int N, float* dst) {
+                                             int N, D* dst) {
   const int wp = fm_wp();
   const int gp0 = blockIdx.x * FM_TP + wp;
   const int total = ((ncols + 7) >> 3) * 8 * FM_WP;
@@ -480,13 +631,22 @@ __device__ __forceinline__ void fm_load_cols(const float* __restrict__ src,
     if (c >= ncols) continue;
     const int p = (e >> 3) & (FM_WP - 1);
     const int gp = gp0 + p;
-    const float* from =
+    const S* from =
         src + static_cast<long long>(min(gp, N - 1)) * stride + col0 + c;
-    asm volatile(
-        "cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-            smem_addr(dst + c * FM_TPS + wp + p)),
-        "l"(from), "r"(gp < N ? 4 : 0)
-        : "memory");
+    if constexpr (std::is_same<S, float>::value) {
+      static_assert(std::is_same<D, float>::value, "f32 into f32 rows");
+      asm volatile(
+          "cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+              smem_addr(dst + c * FM_TPS + wp + p)),
+          "l"(from), "r"(gp < N ? 4 : 0)
+          : "memory");
+    } else {
+      const unsigned short v = gp < N ? __ldg(from) : 0;
+      if constexpr (std::is_same<D, float>::value)
+        dst[c * FM_TPS + wp + p] = vt_bf16_float(v);
+      else
+        dst[c * FM_TPS + wp + p] = v;
+    }
   }
 }
 
@@ -497,39 +657,46 @@ __device__ __forceinline__ void fm_load_wait() {
 
 // Ask L2 for the warp's rows of a row-major (N, stride) array, one request
 // per 128-byte line, so that the later column loads find them there.
-__device__ __forceinline__ void fm_prefetch_rows(const float* __restrict__ src,
+template <typename S>
+__device__ __forceinline__ void fm_prefetch_rows(const S* __restrict__ src,
                                                  int stride, int N) {
   const int gp0 = blockIdx.x * FM_TP + fm_wp();
   const int rows = min(FM_WP, N - gp0);
   if (rows <= 0) return;
   const char* base = reinterpret_cast<const char*>(
       src + static_cast<long long>(gp0) * stride);
-  const long long bytes = static_cast<long long>(rows) * stride * 4;
+  const long long bytes =
+      static_cast<long long>(rows) * stride * static_cast<long long>(sizeof(S));
   for (long long o = (threadIdx.x & 31) * 128LL; o < bytes; o += 32 * 128LL)
     asm volatile("prefetch.global.L2 [%0];" ::"l"(base + o));
 }
 
-// rows [0, nrows) of X *= the per-point row `scale`, at the warp's points
-__device__ __forceinline__ void fm_scale_rows(float* X, int nrows,
+// rows [0, nrows) of X *= the per-point f32 row `scale`, at the warp's
+// points (rounded in a bfloat16 row)
+template <typename T>
+__device__ __forceinline__ void fm_scale_rows(T* X, int nrows,
                                               const float* scale) {
   const int wp = fm_wp();
   for (int e = threadIdx.x & 31; e < nrows * FM_WP; e += 32) {
     const int p = wp + (e & (FM_WP - 1));
-    X[(e / FM_WP) * FM_TPS + p] *= scale[p];
+    T* x = X + (e / FM_WP) * FM_TPS + p;
+    fm_st(x, fm_ld(x) * scale[p]);
   }
   __syncwarp();
 }
 
-__device__ __forceinline__ void fm_copy_row(float* dst, const float* src) {
+template <typename T>
+__device__ __forceinline__ void fm_copy_row(T* dst, const float* src) {
   const int lane = threadIdx.x & 31;
-  if (lane < FM_WP) dst[fm_wp() + lane] = src[fm_wp() + lane];
+  if (lane < FM_WP) fm_st(dst + fm_wp() + lane, src[fm_wp() + lane]);
   __syncwarp();
 }
 
-// Shared rows [c][p] -> row-major (N, ncols) device memory, the warp's
-// points.
-__device__ __forceinline__ void fm_write_out(const float* rows, int ncols,
-                                             int N, float* __restrict__ out) {
+// Shared rows [c][p] -> row-major (N, ncols) device memory of the rows'
+// type, the warp's points.
+template <typename T>
+__device__ __forceinline__ void fm_write_out(const T* rows, int ncols,
+                                             int N, T* __restrict__ out) {
   const int wp = fm_wp();
   const int gp0 = blockIdx.x * FM_TP + wp;
   for (int e = threadIdx.x & 31; e < ncols * FM_WP; e += 32) {
@@ -543,9 +710,11 @@ __device__ __forceinline__ void fm_write_out(const float* rows, int ncols,
 // rel_z_decay encoding of keypoints [j0, j0 + nj) -> rows [jl * P + part]
 // (keypoint-major, the order ops/fused_mlp.py packs the first layer's rows
 // in): part 0 is dz, then sin/cos(pi dz) and their octaves by the
-// double-angle recurrence, each times the Gaussian keypoint weight.
-__device__ __forceinline__ void fm_pe(const FmGeo& g, const FmSmem& s,
-                                      float* dst, int j0, int nj) {
+// double-angle recurrence, each times the Gaussian keypoint weight (in
+// f32; a bfloat16 row rounds it).
+template <bool BF>
+__device__ __forceinline__ void fm_pe(const FmGeo& g, const FmSmem<BF>& s,
+                                      FmAct<BF>* dst, int j0, int nj) {
   const int K = g.K;
   const int P = 1 + 2 * g.L;
   const int wp = fm_wp();
@@ -558,14 +727,14 @@ __device__ __forceinline__ void fm_pe(const FmGeo& g, const FmSmem& s,
     const float dzz = s.S[2 * FM_TPS + p] - s.kp[2 * K + j];
     const float dz = g.scale * dzz;
     const float wgt =
-        expf(-(dxx * dxx + dyy * dyy + dzz * dzz) / g.two_sig2);
+        expf(-(dxx * dxx + dyy * dyy + dzz * dzz) * g.inv_two_sig2);
     float sn, cs;
     sincosf(3.14159274101257324f * dz, &sn, &cs);
-    float* col = dst + jl * P * FM_TPS + p;
-    col[0] = dz * wgt;
+    FmAct<BF>* col = dst + jl * P * FM_TPS + p;
+    fm_st(col, dz * wgt);
     for (int l = 0; l < g.L; ++l) {
-      col[(1 + 2 * l) * FM_TPS] = sn * wgt;
-      col[(2 + 2 * l) * FM_TPS] = cs * wgt;
+      fm_st(col + (1 + 2 * l) * FM_TPS, sn * wgt);
+      fm_st(col + (2 + 2 * l) * FM_TPS, cs * wgt);
       const float s2 = 2.0f * sn * cs;
       cs = 1.0f - 2.0f * sn * sn;
       sn = s2;
@@ -581,8 +750,8 @@ __device__ __forceinline__ void fm_pe(const FmGeo& g, const FmSmem& s,
 // The first layer: the encoding is made a chunk of keypoints at a time in
 // the arena and multiplied at once, then fused0; one accumulator, the bias
 // last.
-template <int NT>
-__device__ __noinline__ int fm_layer0_t(const FmGeo& g, const FmSmem& s,
+template <int NT, bool BF>
+__device__ __noinline__ int fm_layer0_t(const FmGeo& g, const FmSmem<BF>& s,
                                         int pos, const float* bias) {
   float acc[NT][4];
 #pragma unroll
@@ -591,7 +760,7 @@ __device__ __noinline__ int fm_layer0_t(const FmGeo& g, const FmSmem& s,
     for (int i = 0; i < 4; ++i) acc[n][i] = 0.0f;
   const int P = 1 + 2 * g.L;
   const int per = fm_pe_per(P);
-  float* pe = s.XA + FM_R_PE * FM_TPS;
+  FmAct<BF>* pe = s.XA + FM_R_PE * FM_TPS;
   for (int j0 = 0; j0 < g.K; j0 += per) {
     const int nj = min(per, g.K - j0);
     fm_pe(g, s, pe, j0, nj);
@@ -599,16 +768,17 @@ __device__ __noinline__ int fm_layer0_t(const FmGeo& g, const FmSmem& s,
     __syncwarp();  // the chunk is read before the next one replaces it
   }
   pos = fm_mma_acc<NT>(pos, FM_F0, s.XA + FM_R_F0 * FM_TPS, acc, g.K);
-  fm_store<NT, FM_SOFTPLUS>(acc, bias, g.d1, s.H, nullptr);
+  fm_store<NT, FM_SOFTPLUS, BF>(acc, bias, g.d1, s.H, nullptr);
   return pos;
 }
 
-__device__ __forceinline__ int fm_layer0(const FmGeo& g, const FmSmem& s,
+template <bool BF>
+__device__ __forceinline__ int fm_layer0(const FmGeo& g, const FmSmem<BF>& s,
                                          int pos, const float* bias) {
   switch (fm_ntiles(g.d1)) {
 #define FM_CASE(n) \
   case n:          \
-    return fm_layer0_t<n>(g, s, pos, bias);
+    return fm_layer0_t<n, BF>(g, s, pos, bias);
     FM_NT_CASES(FM_CASE)
 #undef FM_CASE
   }
@@ -618,56 +788,63 @@ __device__ __forceinline__ int fm_layer0(const FmGeo& g, const FmSmem& s,
 // PE + MLPUNetFusion (V=1) + gcompress.  Needs S rows 0-3, F0 and F1
 // loaded.  Writes (sdf residual, radiance) to O rows 0-1 and the latent to
 // `lat_dst` rows (outside the pooled rows).
-__device__ __forceinline__ int fm_geo_body(const FmGeo& g, const FmSmem& s,
-                                           int pos, float* lat_dst) {
-  const float* B = fm_sm + fm_bias_offset();
+template <bool BF>
+__device__ __forceinline__ int fm_geo_body(const FmGeo& g, const FmSmem<BF>& s,
+                                           int pos, FmAct<BF>* lat_dst) {
+  const float* B = reinterpret_cast<const float*>(fm_at(fm_bias_offset<BF>()));
   const float* wv = s.S + 3 * FM_TPS;
-  float* MV = s.XA + FM_R_MV * FM_TPS;
+  FmAct<BF>* MV = s.XA + FM_R_MV * FM_TPS;
   const int Kb = g.K;
   pos = fm_layer0(g, s, pos, B);
   B += g.d1;
-  pos = fm_layer(pos, Kb, g.d2, FM_SOFTPLUS, B, s.H, wv, s.H, g.d1);
+  pos = fm_layer<BF>(pos, Kb, g.d2, FM_SOFTPLUS, B, s.H, wv, s.H, g.d1);
   B += g.d2;
-  pos = fm_layer(pos, Kb, g.d3, FM_SOFTPLUS, B, s.H, wv, s.H, g.d2,
-                s.XA + FM_R_F1 * FM_TPS, FM_F1);
+  pos = fm_layer<BF>(pos, Kb, g.d3, FM_SOFTPLUS, B, s.H, wv, s.H, g.d2,
+                     s.XA + FM_R_F1 * FM_TPS, FM_F1);
   B += g.d3;
-  pos = fm_layer(pos, Kb, FM_F0, FM_POOL, B, MV, wv, s.H, g.d3);
+  pos = fm_layer<BF>(pos, Kb, FM_F0, FM_POOL, B, MV, wv, s.H, g.d3);
   B += FM_F0;
-  pos = fm_layer(pos, Kb, g.e1, FM_SOFTPLUS, B, s.H, wv, MV, 2 * FM_F0);
+  pos = fm_layer<BF>(pos, Kb, g.e1, FM_SOFTPLUS, B, s.H, wv, MV, 2 * FM_F0);
   B += g.e1;
-  pos = fm_layer(pos, Kb, g.e2, FM_SOFTPLUS, B, s.H, wv, s.H, g.e1);
+  pos = fm_layer<BF>(pos, Kb, g.e2, FM_SOFTPLUS, B, s.H, wv, s.H, g.e1);
   B += g.e2;
-  pos = fm_layer(pos, Kb, 2, FM_NONE, B, s.O, wv, s.H, g.e2);
+  pos = fm_layer<BF>(pos, Kb, 2, FM_OUT, B, s.O, wv, s.H, g.e2);
   B += 2;
-  return fm_layer(pos, Kb, g.lat, FM_NONE, B, lat_dst, wv, MV, 2 * FM_F0);
+  return fm_layer<BF>(pos, Kb, g.lat, FM_NONE, B, lat_dst, wv, MV,
+                      2 * FM_F0);
 }
 
 // GateMLP + FuseMLP over the X rows (Kin of them): gate hidden hg -> ng
 // sigmoid gates; the first `parts.n` row groups are re-scaled by their
 // gate; fuse hidden hf -> nout rows at dst.
-__device__ __forceinline__ int fm_gate_fuse(int pos, int Kb, const FmSmem& s,
-                                            float* X, int Kin, FmParts parts,
-                                            int hg, int ng, int hf, int nout,
-                                            float* dst) {
-  pos = fm_layer(pos, Kb, hg, FM_RELU, nullptr, s.H, nullptr, X, Kin);
-  pos = fm_layer(pos, Kb, ng, FM_SIGMOID, nullptr, s.G, nullptr, s.H, hg);
+template <bool BF, typename D>
+__device__ __forceinline__ int fm_gate_fuse(int pos, int Kb,
+                                            const FmSmem<BF>& s,
+                                            FmAct<BF>* X, int Kin,
+                                            FmParts parts, int hg, int ng,
+                                            int hf, int nout, D* dst) {
+  pos = fm_layer<BF>(pos, Kb, hg, FM_RELU, nullptr, s.H, nullptr, X, Kin);
+  pos = fm_layer<BF>(pos, Kb, ng, FM_SIGMOID, nullptr, s.G, nullptr, s.H,
+                     hg);
   int row = 0;
   for (int i = 0; i < parts.n; ++i) {
     fm_scale_rows(X + row * FM_TPS, parts.w[i], s.G + i * FM_TPS);
     row += parts.w[i];
   }
-  pos = fm_layer(pos, Kb, hf, FM_RELU, nullptr, s.H, nullptr, X, Kin);
-  return fm_layer(pos, Kb, nout, FM_NONE, nullptr, dst, nullptr, s.H, hf);
+  pos = fm_layer<BF>(pos, Kb, hf, FM_RELU, nullptr, s.H, nullptr, X, Kin);
+  return fm_layer<BF>(pos, Kb, nout, FM_NONE, nullptr, dst, nullptr, s.H,
+                      hf);
 }
 
 // aux (N, 74): [fused0 64 | fused1 8 | out_mask | pix_weight]
+template <bool BF>
 __global__ void __launch_bounds__(FM_NT, 1)
 fused_geo_kernel(FmGeo g, const __grid_constant__ FmSched sc,
-                 const float* __restrict__ w,
-                 const float* __restrict__ aux, float* __restrict__ out,
-                 float* __restrict__ lat) {
-  if (!fm_start(g, sc, w)) return;
-  const FmSmem s = fm_carve();
+                 const void* __restrict__ w,
+                 const FmAct<BF>* __restrict__ aux, float* __restrict__ out,
+                 FmAct<BF>* __restrict__ lat) {
+  if (!fm_start<BF>(g, sc, w)) return;
+  const FmSmem<BF> s = fm_carve<BF>();
   fm_load_cols(g.cxyz, 3, 0, 3, g.N, s.S);
   fm_load_cols(aux, 74, 0, FM_F0, g.N, s.XA + FM_R_F0 * FM_TPS);
   fm_load_cols(aux, 74, FM_F0, FM_F1, g.N, s.XA + FM_R_F1 * FM_TPS);
@@ -681,16 +858,17 @@ fused_geo_kernel(FmGeo g, const __grid_constant__ FmSched sc,
 // feats (N, 87): [feat_s0 64 | feat_s1 8 | img_xy 3 | ft_xy 8 | q_sdf |
 //   q_vis | out_mask | pix_weight]; g2 (N, 204): the raw KNN rows
 //   [geo64 | geo8 | tex 11 | tex_global 18 | vis] x {this, other hand}.
+template <bool BF>
 __global__ void __launch_bounds__(FM_NT, 1)
 fused_query_kernel(FmGeo g, const __grid_constant__ FmSched sc,
-                   const float* __restrict__ w,
-                   const float* __restrict__ feats,
-                   const float* __restrict__ g2, float* __restrict__ out) {
-  if (!fm_start(g, sc, w)) return;
-  const FmSmem s = fm_carve();
+                   const void* __restrict__ w,
+                   const FmAct<BF>* __restrict__ feats,
+                   const FmAct<BF>* __restrict__ g2, float* __restrict__ out) {
+  if (!fm_start<BF>(g, sc, w)) return;
+  const FmSmem<BF> s = fm_carve<BF>();
   const int N = g.N, Kb = g.K;
   const int C1 = 102;
-  float* XA = s.XA;
+  FmAct<BF>* XA = s.XA;
   float* q_sdf = s.S + 4 * FM_TPS;
   float* q_vis = s.S + 5 * FM_TPS;
   float* vis_th = s.S + 6 * FM_TPS;
@@ -722,7 +900,7 @@ fused_query_kernel(FmGeo g, const __grid_constant__ FmSched sc,
                         XA + FM_R_F0 * FM_TPS);
 
   // scale 1: [fs1 | th g1 | toh g1 | ctx4] -> fused1
-  float* X1 = XA + FM_R_X1 * FM_TPS;
+  FmAct<BF>* X1 = XA + FM_R_X1 * FM_TPS;
   fm_load_cols(feats, 87, 64, 8, N, X1);
   fm_load_cols(g2, 204, 64, 8, N, X1 + 8 * FM_TPS);
   fm_load_cols(g2, 204, C1 + 64, 8, N, X1 + 16 * FM_TPS);
@@ -738,8 +916,9 @@ fused_query_kernel(FmGeo g, const __grid_constant__ FmSched sc,
                     XA + FM_R_F1 * FM_TPS);
 
   // geometry body; its latent lands in the texture gate's input rows
-  float* TX = XA + FM_R_TX * FM_TPS;  // 96 rows: [qf 11 | th tf | toh tf |
-                                      //  th tg 18 | toh tg 18 | lat 24 | vis3]
+  FmAct<BF>* TX = XA + FM_R_TX * FM_TPS;  // 96 rows: [qf 11 | th tf |
+                                          //  toh tf | th tg 18 | toh tg 18
+                                          //  | lat 24 | vis3]
   pos = fm_geo_body(g, s, pos, TX + 69 * FM_TPS);
 
   // TexVisFusion gate/fuse -> rgb
@@ -771,10 +950,12 @@ fused_query_kernel(FmGeo g, const __grid_constant__ FmSched sc,
 
 // The k-tiles of K rows of an M-wide layer, appended as fm_next takes them:
 // into the last item while it has room, else into a new one.
+template <bool BF>
 static bool fm_push(FmSched& sc, int K, int M) {
   const int nt = fm_ntiles(M);
-  for (int k = 0; k < K; k += 8) {
-    if (sc.n > 0 && 128 * (sc.tiles[sc.n - 1] + nt) <= FM_SLOT) {
+  for (int k = 0; k < K; k += fm_ktile<BF>()) {
+    if (sc.n > 0 &&
+        fm_tile_bytes<BF>() * (sc.tiles[sc.n - 1] + nt) <= 4 * FM_SLOT) {
       sc.tiles[sc.n - 1] += nt;
     } else {
       if (sc.n >= FM_MAX_ITEMS) return false;
@@ -784,30 +965,32 @@ static bool fm_push(FmSched& sc, int K, int M) {
   return true;
 }
 
+template <bool BF>
 static bool fm_push_gate_fuse(FmSched& sc, int Kin, int hg, int ng, int hf,
                               int nout) {
-  return fm_push(sc, Kin, hg) && fm_push(sc, hg, ng) &&
-         fm_push(sc, Kin, hf) && fm_push(sc, hf, nout);
+  return fm_push<BF>(sc, Kin, hg) && fm_push<BF>(sc, hg, ng) &&
+         fm_push<BF>(sc, Kin, hf) && fm_push<BF>(sc, hf, nout);
 }
 
 // The items of k-tiles the consumers take, in their order (fm_geo_body,
 // fm_gate_fuse, the kernels above).
+template <bool BF>
 static bool fm_schedule(const FmGeo& g, bool full, FmSched& sc) {
   sc.n = 0;
   bool ok = true;
   if (full) {
-    ok = ok && fm_push_gate_fuse(sc, 196, 10, 3, 64, 64);
-    ok = ok && fm_push_gate_fuse(sc, 28, 10, 3, 8, 8);
+    ok = ok && fm_push_gate_fuse<BF>(sc, 196, 10, 3, 64, 64);
+    ok = ok && fm_push_gate_fuse<BF>(sc, 28, 10, 3, 8, 8);
   }
   const int P = 1 + 2 * g.L, per = fm_pe_per(P);
   for (int j0 = 0; j0 < g.K; j0 += per)
-    ok = ok && fm_push(sc, (g.K - j0 < per ? g.K - j0 : per) * P, g.d1);
-  ok = ok && fm_push(sc, FM_F0, g.d1) && fm_push(sc, g.d1, g.d2) &&
-       fm_push(sc, g.d2, g.d3) && fm_push(sc, FM_F1, g.d3) &&
-       fm_push(sc, g.d3, FM_F0) && fm_push(sc, 2 * FM_F0, g.e1) &&
-       fm_push(sc, g.e1, g.e2) && fm_push(sc, g.e2, 2) &&
-       fm_push(sc, 2 * FM_F0, g.lat);
-  if (full) ok = ok && fm_push_gate_fuse(sc, 96, 96, 6, 96, 3);
+    ok = ok && fm_push<BF>(sc, (g.K - j0 < per ? g.K - j0 : per) * P, g.d1);
+  ok = ok && fm_push<BF>(sc, FM_F0, g.d1) && fm_push<BF>(sc, g.d1, g.d2) &&
+       fm_push<BF>(sc, g.d2, g.d3) && fm_push<BF>(sc, FM_F1, g.d3) &&
+       fm_push<BF>(sc, g.d3, FM_F0) && fm_push<BF>(sc, 2 * FM_F0, g.e1) &&
+       fm_push<BF>(sc, g.e1, g.e2) && fm_push<BF>(sc, g.e2, 2) &&
+       fm_push<BF>(sc, 2 * FM_F0, g.lat);
+  if (full) ok = ok && fm_push_gate_fuse<BF>(sc, 96, 96, 6, 96, 3);
   return ok;
 }
 
@@ -824,7 +1007,7 @@ static int fm_check(const FmGeo& g, int need_lat) {
 }
 
 static FmGeo fm_geo(const float* cxyz, const float* kpt_T, const float* b,
-                    int N, int K, int L, float scale, float sigma,
+                    int N, int K, int L, float scale, float inv_two_sig2,
                     const int* dims) {
   FmGeo g;
   g.cxyz = cxyz;
@@ -834,7 +1017,7 @@ static FmGeo fm_geo(const float* cxyz, const float* kpt_T, const float* b,
   g.K = K;
   g.L = L;
   g.scale = scale;
-  g.two_sig2 = 2.0f * sigma * sigma;
+  g.inv_two_sig2 = inv_two_sig2;  // 1 / (2 sigma^2), rounded once
   g.d1 = dims[0];
   g.d2 = dims[1];
   g.d3 = dims[2];
@@ -844,20 +1027,60 @@ static FmGeo fm_geo(const float* cxyz, const float* kpt_T, const float* b,
   return g;
 }
 
-// The checks shared by both entry points: the widths, the schedule and the
-// stream's size (w_floats) against it, the shared-memory limit.
-template <typename Kernel>
+// The checks shared by the entry points: the widths, the schedule and the
+// stream's size (w_elems values, 128 a tile) against it, the shared-memory
+// limit.
+template <bool BF, typename Kernel>
 static int fm_prepare(Kernel kernel, const FmGeo& g, bool full,
-                      long long w_floats, FmSched& sc, size_t& smem) {
-  if (fm_check(g, full ? 24 : 0) || !fm_schedule(g, full, sc))
+                      long long w_elems, FmSched& sc, size_t& smem) {
+  if (fm_check(g, full ? 24 : 0) || !fm_schedule<BF>(g, full, sc))
     return static_cast<int>(cudaErrorInvalidValue);
   long long tiles = 0;
   for (int i = 0; i < sc.n; ++i) tiles += sc.tiles[i];
-  if (tiles * 128 != w_floats) return static_cast<int>(cudaErrorInvalidValue);
-  smem = fm_smem_bytes(g.K);
+  if (tiles * 128 != w_elems) return static_cast<int>(cudaErrorInvalidValue);
+  smem = fm_smem_bytes<BF>(g.K);
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem)));
+}
+
+template <bool BF>
+static int fm_run_geo(const float* cxyz, const float* kpt_T, const void* aux,
+                      const void* w, long long w_elems, const float* b, int N,
+                      int K, int L, float scale, float inv_two_sig2, const int* dims,
+                      float* out, void* lat, void* stream) {
+  if (N <= 0) return 0;
+  const FmGeo g = fm_geo(cxyz, kpt_T, b, N, K, L, scale, inv_two_sig2, dims);
+  FmSched sc;
+  size_t smem = 0;
+  const int rc =
+      fm_prepare<BF>(fused_geo_kernel<BF>, g, false, w_elems, sc, smem);
+  if (rc) return rc;
+  fused_geo_kernel<BF>
+      <<<vt_blocks(N, FM_TP), FM_NT, smem, vt_stream(stream)>>>(
+          g, sc, w, static_cast<const FmAct<BF>*>(aux), out,
+          static_cast<FmAct<BF>*>(lat));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool BF>
+static int fm_run_query(const float* cxyz, const float* kpt_T,
+                        const void* feats, const void* g2, const void* w,
+                        long long w_elems, const float* b, int N, int K,
+                        int L, float scale, float inv_two_sig2, const int* dims,
+                        float* out, void* stream) {
+  if (N <= 0) return 0;
+  const FmGeo g = fm_geo(cxyz, kpt_T, b, N, K, L, scale, inv_two_sig2, dims);
+  FmSched sc;
+  size_t smem = 0;
+  const int rc =
+      fm_prepare<BF>(fused_query_kernel<BF>, g, true, w_elems, sc, smem);
+  if (rc) return rc;
+  fused_query_kernel<BF>
+      <<<vt_blocks(N, FM_TP), FM_NT, smem, vt_stream(stream)>>>(
+          g, sc, w, static_cast<const FmAct<BF>*>(feats),
+          static_cast<const FmAct<BF>*>(g2), out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // dims: six host ints {d1, d2, d3, e1, e2, lat}; w: the packed stream of
@@ -865,33 +1088,42 @@ static int fm_prepare(Kernel kernel, const FmGeo& g, bool full,
 VT_EXPORT int vt_fused_geo_mlp(const float* cxyz, const float* kpt_T,
                                const float* aux, const float* w,
                                long long w_floats, const float* b, int N,
-                               int K, int L, float scale, float sigma,
+                               int K, int L, float scale, float inv_two_sig2,
                                const int* dims, float* out, float* lat,
                                void* stream) {
-  if (N <= 0) return 0;
-  const FmGeo g = fm_geo(cxyz, kpt_T, b, N, K, L, scale, sigma, dims);
-  FmSched sc;
-  size_t smem = 0;
-  const int rc = fm_prepare(fused_geo_kernel, g, false, w_floats, sc, smem);
-  if (rc) return rc;
-  fused_geo_kernel<<<vt_blocks(N, FM_TP), FM_NT, smem, vt_stream(stream)>>>(
-      g, sc, w, aux, out, lat);
-  return static_cast<int>(cudaGetLastError());
+  return fm_run_geo<false>(cxyz, kpt_T, aux, w, w_floats, b, N, K, L, scale,
+                           inv_two_sig2, dims, out, lat, stream);
 }
 
 VT_EXPORT int vt_fused_query_mlp(const float* cxyz, const float* kpt_T,
                                  const float* feats, const float* g2,
                                  const float* w, long long w_floats,
                                  const float* b, int N, int K, int L,
-                                 float scale, float sigma, const int* dims,
+                                 float scale, float inv_two_sig2, const int* dims,
                                  float* out, void* stream) {
-  if (N <= 0) return 0;
-  const FmGeo g = fm_geo(cxyz, kpt_T, b, N, K, L, scale, sigma, dims);
-  FmSched sc;
-  size_t smem = 0;
-  const int rc = fm_prepare(fused_query_kernel, g, true, w_floats, sc, smem);
-  if (rc) return rc;
-  fused_query_kernel<<<vt_blocks(N, FM_TP), FM_NT, smem, vt_stream(stream)>>>(
-      g, sc, w, feats, g2, out);
-  return static_cast<int>(cudaGetLastError());
+  return fm_run_query<false>(cxyz, kpt_T, feats, g2, w, w_floats, b, N, K, L,
+                             scale, inv_two_sig2, dims, out, stream);
+}
+
+// The bfloat16 bodies: aux / feats, g2, the stream (w_elems bfloat16
+// values, 16-byte aligned) and lat bfloat16; the rest as above.
+VT_EXPORT int vt_fused_geo_mlp_bf16(const float* cxyz, const float* kpt_T,
+                                    const void* aux, const void* w,
+                                    long long w_elems, const float* b, int N,
+                                    int K, int L, float scale, float inv_two_sig2,
+                                    const int* dims, float* out, void* lat,
+                                    void* stream) {
+  return fm_run_geo<true>(cxyz, kpt_T, aux, w, w_elems, b, N, K, L, scale,
+                          inv_two_sig2, dims, out, lat, stream);
+}
+
+VT_EXPORT int vt_fused_query_mlp_bf16(const float* cxyz, const float* kpt_T,
+                                      const void* feats, const void* g2,
+                                      const void* w, long long w_elems,
+                                      const float* b, int N, int K, int L,
+                                      float scale, float inv_two_sig2,
+                                      const int* dims, float* out,
+                                      void* stream) {
+  return fm_run_query<true>(cxyz, kpt_T, feats, g2, w, w_elems, b, N, K, L,
+                            scale, inv_two_sig2, dims, out, stream);
 }

@@ -27,7 +27,22 @@
 // product and sum rounds on its own, as in the plain version).  A corner
 // outside the map (only at x == W - 1 or y == H - 1) has hat weight
 // exactly 0 and reads the clamped edge value instead.
+//
+// The bfloat16 body (vt_interp_bf16, the map and the output bfloat16,
+// replacing the same TPU kernel on a bfloat16 table): each hat weight
+// hx hy is made in f32 as above and rounded to bfloat16 before it
+// multiplies its corner (interp_mxu.py:81 rounds the weights to the
+// table's dtype); bfloat16 x bfloat16 is exact in f32, the four products
+// are summed in f32 in the order above, and the sum is rounded to
+// bfloat16 once (the MXU's f32 accumulator, then `.astype`).  So the
+// kernel equals its plain twin bit for bit.  Half the bytes a channel:
+// lanes own 8 channels, one 16-byte load a corner and one 16-byte store
+// (C % 8 == 0, 16-byte aligned map and output, 8-byte aligned uv), else
+// one channel each.  The main path's map is the 32^2 x 64 geometry
+// coarse map: 262,144 x 64 bfloat16 outputs are 34 MB, ~10 us at 3.35
+// TB/s.
 
+#include "bf16.cuh"
 #include "common.cuh"
 
 #include <cstdint>
@@ -113,6 +128,68 @@ interp_kernel(const float* __restrict__ feat, int H, int W, int C,
   }
 }
 
+// the weights as the bfloat16 body multiplies them: rounded to bfloat16
+__device__ __forceinline__ void ip_round_weights(Corners& k) {
+  k.w00 = vt_bf16_round(k.w00);
+  k.w01 = vt_bf16_round(k.w01);
+  k.w10 = vt_bf16_round(k.w10);
+  k.w11 = vt_bf16_round(k.w11);
+}
+
+// two channels (a 32-bit word of two bfloat16 from each corner)
+__device__ __forceinline__ unsigned ip_mix2(const Corners& k, unsigned a,
+                                            unsigned b, unsigned d,
+                                            unsigned e) {
+  return vt_bf16_pack(
+      ip_mix(k, vt_bf16_lo(a), vt_bf16_lo(b), vt_bf16_lo(d), vt_bf16_lo(e)),
+      ip_mix(k, vt_bf16_hi(a), vt_bf16_hi(b), vt_bf16_hi(d), vt_bf16_hi(e)));
+}
+
+template <bool VEC8>
+__global__ void __launch_bounds__(IP_THREADS)
+interp_bf16_kernel(const unsigned short* __restrict__ feat, int H, int W,
+                   int C, const float* __restrict__ uv, int N,
+                   unsigned short* __restrict__ out) {
+  const int n = blockIdx.x * blockDim.y + threadIdx.y;
+  if (n >= N) return;
+  float u, v;
+  if (VEC8) {
+    const float2 p = __ldg(reinterpret_cast<const float2*>(uv) + n);
+    u = p.x;
+    v = p.y;
+  } else {
+    u = __ldg(uv + 2 * n);
+    v = __ldg(uv + 2 * n + 1);
+  }
+  Corners k = ip_corners(u, v, H, W, C);
+  ip_round_weights(k);
+  if (VEC8) {
+    const int nv = C >> 3;
+    const uint4* f00 = reinterpret_cast<const uint4*>(feat + k.o00);
+    const uint4* f01 = reinterpret_cast<const uint4*>(feat + k.o01);
+    const uint4* f10 = reinterpret_cast<const uint4*>(feat + k.o10);
+    const uint4* f11 = reinterpret_cast<const uint4*>(feat + k.o11);
+    uint4* dst = reinterpret_cast<uint4*>(out) + n * nv;
+    for (int c = threadIdx.x; c < nv; c += blockDim.x) {
+      const uint4 a = __ldg(f00 + c), b = __ldg(f01 + c);
+      const uint4 d = __ldg(f10 + c), e = __ldg(f11 + c);
+      uint4 r;
+      r.x = ip_mix2(k, a.x, b.x, d.x, e.x);
+      r.y = ip_mix2(k, a.y, b.y, d.y, e.y);
+      r.z = ip_mix2(k, a.z, b.z, d.z, e.z);
+      r.w = ip_mix2(k, a.w, b.w, d.w, e.w);
+      __stcs(dst + c, r);
+    }
+  } else {
+    unsigned short* dst = out + n * C;
+    for (int c = threadIdx.x; c < C; c += blockDim.x)
+      dst[c] = vt_bf16_bits(ip_mix(k, vt_bf16_float(__ldg(feat + k.o00 + c)),
+                                   vt_bf16_float(__ldg(feat + k.o01 + c)),
+                                   vt_bf16_float(__ldg(feat + k.o10 + c)),
+                                   vt_bf16_float(__ldg(feat + k.o11 + c))));
+  }
+}
+
 // Takes the float4 instantiation where C % 4 == 0, feat and out are 16-byte
 // and uv 8-byte aligned (a slice of a batch may start anywhere), else the
 // scalar-lane one.
@@ -139,5 +216,32 @@ VT_EXPORT int vt_interp(const float* feat, int H, int W, int C,
   else
     interp_kernel<false><<<grid, block, 0, vt_stream(stream)>>>(feat, H, W, C,
                                                                 uv, N, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bfloat16 body: the 8-channel instantiation where C % 8 == 0, feat
+// and out are 16-byte and uv 8-byte aligned, else the scalar-lane one.
+VT_EXPORT int vt_interp_bf16(const unsigned short* feat, int H, int W, int C,
+                             const float* uv, int N, unsigned short* out,
+                             void* stream) {
+  if (H <= 0 || W <= 0 || C <= 0 || N < 0 ||
+      static_cast<long long>(N) * C >= (1LL << 31) ||
+      static_cast<long long>(H) * W * C >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec8 = C % 8 == 0 && reinterpret_cast<uintptr_t>(feat) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(uv) % 8 == 0;
+  if (N == 0) return 0;
+  const int nv = vec8 ? C / 8 : C;
+  int lanes = 1;
+  while (lanes < nv && lanes < IP_MAX_LANES) lanes <<= 1;
+  const dim3 block(lanes, IP_THREADS / lanes);
+  const int grid = vt_blocks(N, static_cast<int>(block.y));
+  if (vec8)
+    interp_bf16_kernel<true><<<grid, block, 0, vt_stream(stream)>>>(
+        feat, H, W, C, uv, N, out);
+  else
+    interp_bf16_kernel<false><<<grid, block, 0, vt_stream(stream)>>>(
+        feat, H, W, C, uv, N, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,11 +9,18 @@
 // Bound on the H100: memory.  The 1,284 x 204 f32 vertex table (1 MB)
 // stays in L2; 262,144 output rows of 816 bytes are 214 MB written once,
 // ~64 us at 3.35 TB/s.  Design: one warp per output row; the row index is
-// read once per warp and the row moves as 16-byte vectors when the row
-// width and both base addresses allow it (C % 4 == 0, 16-byte aligned),
-// else as scalars.  Nothing is computed, so the copy equals table[idx]
-// exactly.  Indices are in range by the caller's contract (nearest-vertex
-// ids); an index outside [0, V) is clamped instead of read out of bounds.
+// read once per warp and the row moves as units of the widest of 16, 8, 4
+// or 2 bytes that divides the row's bytes and both base addresses.  The
+// copy knows no dtype, so one body serves both entry points:
+// vt_row_gather (float32) and vt_row_gather_bf16 (bfloat16, replacing the
+// same TPU kernel on a bfloat16 table, whose one-hot product is exact in
+// any dtype).  Nothing is computed, so the copy equals table[idx] exactly.
+// Indices are in range by the caller's contract (nearest-vertex ids); an
+// index outside [0, V) is clamped instead of read out of bounds.
+//
+// The bf16 main path's 1,284 x 204 table has 408-byte rows, 8-byte aligned
+// but not 16: each lane moves 8-byte units, 51 a row; 262,144 rows out are
+// 107 MB, ~32 us at 3.35 TB/s.
 
 #include "common.cuh"
 
@@ -21,41 +28,59 @@
 
 #define RG_THREADS 256
 
-template <bool VEC4>
-__global__ void row_gather_kernel(const float* __restrict__ table, int V,
-                                  int C, const int* __restrict__ idx, int N,
-                                  float* __restrict__ out) {
+// One warp a row, `units` units of type U a row.
+template <typename U>
+__global__ void row_gather_kernel(const U* __restrict__ table, int V,
+                                  int units, const int* __restrict__ idx,
+                                  int N, U* __restrict__ out) {
   const int lane = threadIdx.x & 31;
   const long long row = (static_cast<long long>(blockIdx.x) * blockDim.x +
                          threadIdx.x) >> 5;
   if (row >= N) return;
   int src = __ldg(idx + row);
   src = min(max(src, 0), V - 1);
-  const float* in = table + static_cast<long long>(src) * C;
-  float* dst = out + row * C;
-  if (VEC4) {
-    const float4* in4 = reinterpret_cast<const float4*>(in);
-    float4* dst4 = reinterpret_cast<float4*>(dst);
-    for (int c = lane; c < (C >> 2); c += 32) dst4[c] = __ldg(in4 + c);
-  } else {
-    for (int c = lane; c < C; c += 32) dst[c] = __ldg(in + c);
-  }
+  const U* in = table + static_cast<long long>(src) * units;
+  U* dst = out + row * units;
+  for (int c = lane; c < units; c += 32) dst[c] = __ldg(in + c);
+}
+
+template <typename U>
+static int row_gather_units(const void* table, int V, int row_bytes,
+                            const int* idx, int N, void* out, void* stream) {
+  const long long threads = static_cast<long long>(N) * 32;
+  row_gather_kernel<U><<<vt_blocks(threads, RG_THREADS), RG_THREADS, 0,
+                         vt_stream(stream)>>>(
+      static_cast<const U*>(table), V, row_bytes / static_cast<int>(sizeof(U)),
+      idx, N, static_cast<U*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Rows of `row_bytes` bytes (a multiple of 2), in the widest unit allowed.
+static int row_gather_bytes(const void* table, int V, int row_bytes,
+                            const int* idx, int N, void* out, void* stream) {
+  if (V <= 0 || row_bytes <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (N <= 0) return 0;
+  const uintptr_t align = reinterpret_cast<uintptr_t>(table) |
+                          reinterpret_cast<uintptr_t>(out) |
+                          static_cast<uintptr_t>(row_bytes);
+  if (align % 16 == 0)
+    return row_gather_units<uint4>(table, V, row_bytes, idx, N, out, stream);
+  if (align % 8 == 0)
+    return row_gather_units<uint2>(table, V, row_bytes, idx, N, out, stream);
+  if (align % 4 == 0)
+    return row_gather_units<unsigned>(table, V, row_bytes, idx, N, out,
+                                      stream);
+  return row_gather_units<unsigned short>(table, V, row_bytes, idx, N, out,
+                                          stream);
 }
 
 VT_EXPORT int vt_row_gather(const float* table, int V, int C, const int* idx,
                             int N, float* out, void* stream) {
-  if (V <= 0 || C <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (N <= 0) return 0;
-  const long long threads = static_cast<long long>(N) * 32;
-  const bool vec4 = (C % 4 == 0) &&
-                    (reinterpret_cast<uintptr_t>(table) % 16 == 0) &&
-                    (reinterpret_cast<uintptr_t>(out) % 16 == 0);
-  if (vec4) {
-    row_gather_kernel<true><<<vt_blocks(threads, RG_THREADS), RG_THREADS, 0,
-                              vt_stream(stream)>>>(table, V, C, idx, N, out);
-  } else {
-    row_gather_kernel<false><<<vt_blocks(threads, RG_THREADS), RG_THREADS, 0,
-                               vt_stream(stream)>>>(table, V, C, idx, N, out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return row_gather_bytes(table, V, 4 * C, idx, N, out, stream);
+}
+
+VT_EXPORT int vt_row_gather_bf16(const void* table, int V, int C,
+                                 const int* idx, int N, void* out,
+                                 void* stream) {
+  return row_gather_bytes(table, V, 2 * C, idx, N, out, stream);
 }

@@ -4,26 +4,37 @@ reference ``GeoVisFusion`` ``src/networks.py:43-106`` and
 
 The reference's 1x1 ``Conv1d`` stacks keep their module names and weight
 shapes (so state-dict keys match); they are applied per point as dense
-layers on (B, N, C) tensors.
+layers on (B, N, C) tensors, in the input's dtype (``models/mlp.py``).
+A gate's or a fuse net's first layer takes its parts concatenated with
+their widths, so that in bfloat16 it rounds each part's product and each
+sum as the JAX package's virtual concat does
+(``vanerf_tpu/models/fusion.py:28-45``).  The global-context branch of the
+texture table runs in the parameters' dtype (float32) and is cast to the
+table's, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from ..ops.grid_sample import feat_sample_nhwc
 from ..ops.knn import knn_gather_1, nearest_vertex_d2
+from .mlp import act, dense
 
 
-def _pointwise(seq: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
-    """Apply a stack of 1x1 Conv1d (+ activations) to (..., C) rows."""
+def _pointwise(seq: nn.Sequential, parts) -> torch.Tensor:
+    """Apply a stack of 1x1 Conv1d (+ activations) to the (..., C) rows of
+    the concatenated ``parts``, in their dtype; the first layer is the JAX
+    package's ``VDense`` over those parts (``models/mlp.py::dense``)."""
+    widths = tuple(p.shape[-1] for p in parts)
+    x = torch.cat(parts, -1)
     for m in seq:
         if isinstance(m, nn.Conv1d):
-            x = F.linear(x, m.weight[..., 0], m.bias)
+            x = dense(x, m.weight[..., 0], m.bias, widths)
+            widths = None
         else:
-            x = m(x)
+            x = act(m, x)
     return x
 
 
@@ -84,11 +95,10 @@ class GeoVisFusion(nn.Module):
                                           self.fconv_ated1)]):
             f_knn, f_knn_toh = per_scale[si]
             ctx = torch.cat([query_sdf, query_vis, vis_th, vis_toh], -1)
-            gate = _pointwise(at, torch.cat(
-                [feat_sampled[si], f_knn, f_knn_toh, ctx], -1))
-            regated = torch.cat([feat_sampled[si] * gate[..., 0:1],
-                                 f_knn * gate[..., 1:2],
-                                 f_knn_toh * gate[..., 2:3], ctx], -1)
+            gate = _pointwise(at, [feat_sampled[si], f_knn, f_knn_toh, ctx])
+            regated = [feat_sampled[si] * gate[..., 0:1],
+                       f_knn * gate[..., 1:2], f_knn_toh * gate[..., 2:3],
+                       ctx]
             outs.append(_pointwise(ated, regated))
         return outs
 
@@ -131,10 +141,11 @@ class TexVisFusion(nn.Module):
         broadcast global-context features: (B, V2, 11 + 18)."""
         vert_feat = feat_sample_nhwc(ft1, vert_xy)
         vert_img = feat_sample_nhwc(img_fmap, vert_xy)
-        gf_tex = self.fconv3(ft1.permute(0, 3, 1, 2)).flatten(2)   # (B,42,9)
-        gf_img = self.fconv4(img_fmap.permute(0, 3, 1, 2)).flatten(2)
+        pdt = self.fconv3[0].weight.dtype       # the parameters' dtype
+        gf_tex = self.fconv3(ft1.permute(0, 3, 1, 2).to(pdt)).flatten(2)
+        gf_img = self.fconv4(img_fmap.permute(0, 3, 1, 2).to(pdt)).flatten(2)
         gf = self.fconv_gt(torch.cat([gf_img, gf_tex], -1))       # (B,V2,18)
-        return torch.cat([vert_img, vert_feat, gf], -1)
+        return torch.cat([vert_img, vert_feat, gf.to(vert_feat.dtype)], -1)
 
     def forward(self, vert_xy, ft1, ft_xy, vert, v, vert_vis, query_vis,
                 img_xy, img_fmap, latent_fused, nn_idx=None, knn=None):
@@ -150,11 +161,11 @@ class TexVisFusion(nn.Module):
         knn_f, knn_toh_f = f_knn[..., :11], f_knn_toh[..., :11]
         query_feat = torch.cat([img_xy, ft_xy], -1)
         vis_ctx = torch.cat([query_vis, vis_th, vis_toh], -1)
-        gate = _pointwise(self.fconv_at, torch.cat(
-            [query_feat, knn_f, knn_toh_f, knn_gf, knn_toh_gf, latent_fused,
-             vis_ctx], -1))
-        y = torch.cat([query_feat * gate[..., 0:1], knn_f * gate[..., 1:2],
-                       knn_toh_f * gate[..., 2:3], knn_gf * gate[..., 3:4],
-                       knn_toh_gf * gate[..., 4:5],
-                       latent_fused * gate[..., 5:6], vis_ctx], -1)
+        gate = _pointwise(self.fconv_at, [query_feat, knn_f, knn_toh_f,
+                                          knn_gf, knn_toh_gf, latent_fused,
+                                          vis_ctx])
+        y = [query_feat * gate[..., 0:1], knn_f * gate[..., 1:2],
+             knn_toh_f * gate[..., 2:3], knn_gf * gate[..., 3:4],
+             knn_toh_gf * gate[..., 4:5], latent_fused * gate[..., 5:6],
+             vis_ctx]
         return _pointwise(self.fconv, y)

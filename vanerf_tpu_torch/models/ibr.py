@@ -1,11 +1,21 @@
 """IBRNet-style colour head (port of ``vanerf_tpu/models/ibr.py``;
-reference ``IBRRenderingHead``, ``src/model.py:1572-1636``)."""
+reference ``IBRRenderingHead``, ``src/model.py:1572-1636``).
+
+Every layer computes in ``rgb_feats``' dtype
+(``vanerf_tpu/models/ibr.py:39-79``); the anisotropy weights and the
+softmax blend run in float32 and are cast back, as in the JAX package.  In
+bfloat16 a layer rounds its product and then its sum with the bias, as
+flax's ``Dense(dtype=bfloat16)`` does (``models/mlp.py::dense``).  At one
+source view the model never runs this head (``VANeRF._query_color``).
+"""
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from .mlp import run_seq, sigmoid
 
 
 class IBRRenderingHead(nn.Module):
@@ -29,24 +39,30 @@ class IBRRenderingHead(nn.Module):
         """rgb_feats (R, S, V, C >= 3, rgb first); ray_diffs (R, S, V, 4);
         proj_mask (R, S, V, 1).  Returns the (R, S, 3) blended colour."""
         V = rgb_feats.shape[2]
-        dir_feat = self.ray_encoder(ray_diffs)
+        dt = rgb_feats.dtype
+        ray_diffs, proj_mask = ray_diffs.to(dt), proj_mask.to(dt)
+        dir_feat = run_seq(self.ray_encoder, ray_diffs)
         ch = dir_feat.shape[-1]
         src_rgb = rgb_feats[..., :3]
         rgb_feats = torch.cat([rgb_feats[..., :ch] + dir_feat,
                                rgb_feats[..., ch:]], -1)
-        exp_dot = torch.exp(self.ani_al.abs() * (ray_diffs[..., 3:4] - 1.0))
-        weight = (exp_dot - exp_dot.amin(2, keepdim=True)) * proj_mask
-        weight = weight / (weight.sum(2, keepdim=True) + 1e-8)
+        exp_dot = torch.exp(self.ani_al.abs()
+                            * (ray_diffs[..., 3:4].float() - 1.0))
+        weight = (exp_dot - exp_dot.amin(2, keepdim=True)) * proj_mask.float()
+        weight = (weight / (weight.sum(2, keepdim=True) + 1e-8)).to(dt)
         mean = (rgb_feats * weight).sum(2, keepdim=True)
         var = (weight * (rgb_feats - mean) ** 2).sum(2, keepdim=True)
         fused = torch.cat([mean, var], -1)
         x = torch.cat([fused.expand(-1, -1, V, -1), rgb_feats], -1)
-        x = self.base_layer(x)
-        pv = self.vis_layer1(x * weight)
+        x = run_seq(self.base_layer, x)
+        pv = run_seq(self.vis_layer1, x * weight)
         res, vis = pv[..., :-1], pv[..., -1:]
         x = x + res
-        vis = self.vis_layer2(x * torch.sigmoid(vis) * proj_mask) * proj_mask
-        o = self.out_layer(torch.cat([x, vis, ray_diffs], -1))
-        o = torch.where(proj_mask == 0, torch.full_like(o, -1e4), o)
-        blend = F.softmax(o, dim=2)
+        vis = run_seq(self.vis_layer2,
+                      x * sigmoid(vis) * proj_mask) * proj_mask
+        o = run_seq(self.out_layer, torch.cat([x, vis, ray_diffs], -1))
+        # the blend in float32: masked -1e4 logits underflow in bfloat16
+        o = torch.where(proj_mask == 0, torch.full_like(o.float(), -1e4),
+                        o.float())
+        blend = F.softmax(o, dim=2).to(dt)
         return (src_rgb * blend).sum(2)

@@ -4,6 +4,12 @@
 Weight-normalised layers keep the reference's ``weight_v`` / ``weight_g``
 parameters (torch ``weight_norm``, one gain per output unit) under
 ``<layer>.linear``, so the state-dict keys are the reference's.
+
+Every layer computes in its input's dtype: the parameters stay float32 and
+the weight norm is taken in float32; the weight and the bias are cast to
+the input's dtype at the product (``vanerf_tpu/models/mlp.py:63-66``).  In
+bfloat16 every op rounds where the JAX package's op rounds (:func:`dense`,
+:func:`softplus100`); in float32 a layer is one product with its bias.
 """
 
 from __future__ import annotations
@@ -15,11 +21,70 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
+def dense(x: torch.Tensor, weight: torch.Tensor,
+          bias: Optional[torch.Tensor] = None,
+          parts: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """``x @ weight.T + bias`` in ``x``'s dtype (the float32 parameters are
+    cast to it).
+
+    In bfloat16 it rounds where the JAX package's layer rounds: each
+    product of one part of a virtual concat (``parts``, the column widths
+    of ``x``; one part by default) and each sum, the bias added first as
+    ``WNLinear`` adds it (``vanerf_tpu/models/mlp.py:66-70``); flax's
+    ``Dense`` and ``VDense`` add it last (``vanerf_tpu/models/fusion.py:
+    36-44``), which rounds alike where they use it (one part, or no
+    bias).  In float32 it is one product with the bias."""
+    w = weight.to(x.dtype)
+    b = None if bias is None else bias.to(x.dtype)
+    if x.dtype != torch.bfloat16:
+        return F.linear(x, w, b)
+    out, o = b, 0
+    for c in parts or (x.shape[-1],):
+        y = F.linear(x[..., o:o + c], w[:, o:o + c])
+        out = y if out is None else out + y
+        o += c
+    return out
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """torch's sigmoid; in bfloat16 XLA's expansion of ``jax.nn.sigmoid``,
+    ``1 / (1 + exp(-x))`` with each op rounded."""
+    if x.dtype != torch.bfloat16:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def act(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """An activation module of a stack, applied as the JAX package's."""
+    return sigmoid(x) if isinstance(m, nn.Sigmoid) else m(x)
+
+
+def run_seq(seq: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+    """A stack of ``nn.Linear`` layers and activations on (..., C) rows,
+    each layer in ``x``'s dtype (:func:`dense`)."""
+    for m in seq:
+        x = dense(x, m.weight, m.bias) if isinstance(m, nn.Linear) \
+            else act(m, x)
+    return x
+
+
+def softplus100(x: torch.Tensor) -> torch.Tensor:
+    """torch Softplus(beta=100, threshold=20), as the reference.  In
+    bfloat16 it is the JAX package's form op by op, each op rounded
+    (``vanerf_tpu/models/mlp.py:22-25``): ``100 x`` is rounded before the
+    test and ``logaddexp(100 x, 0)``, and the division by 100 is XLA's
+    product by 0.01."""
+    if x.dtype != torch.bfloat16:
+        return F.softplus(x, beta=100.0, threshold=20.0)
+    xb = x * 100.0
+    lse = xb.clamp(min=0) + torch.log1p(torch.exp(-xb.abs()))
+    return torch.where(xb > 20.0, x, lse * 0.01)
+
+
 def get_nl(name: Optional[str]):
     """The shipped configs' hidden nonlinearity (or none)."""
     if name == "softplus":
-        # torch Softplus(beta=100, threshold=20), as the reference
-        return lambda x: F.softplus(x, beta=100.0, threshold=20.0)
+        return softplus100
     if name in (None, "none", "None", ""):
         return None
     raise NotImplementedError(f"nl layer {name!r} is not ported")
@@ -36,11 +101,11 @@ class WNLinear(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features))
         nn.init.kaiming_uniform_(self.weight_v, a=5 ** 0.5)
 
-    def forward(self, x):
+    def forward(self, x, parts=None):
         v = self.weight_v
         w = v * (self.weight_g / (torch.linalg.norm(v, dim=1, keepdim=True)
                                   + 1e-12))
-        return F.linear(x, w, self.bias)
+        return dense(x, w, self.bias, parts)
 
 
 class _Layer(nn.Module):
@@ -50,8 +115,12 @@ class _Layer(nn.Module):
         super().__init__()
         self.linear = WNLinear(n_in, n_out) if wn else nn.Linear(n_in, n_out)
 
-    def forward(self, x):
-        return self.linear(x)
+    def forward(self, x, parts=None):
+        """``parts``: the widths of ``x``'s virtual concat (:func:`dense`)."""
+        lin = self.linear
+        if isinstance(lin, WNLinear):
+            return lin(x, parts)
+        return dense(x, lin.weight, lin.bias, parts)
 
 
 class MLP(nn.Module):
@@ -95,9 +164,15 @@ class MLPUNet(nn.Module):
     def forward(self, x, feats):
         n = len(self.layers)
         for i, layer in enumerate(self.layers):
+            parts = None
             if i in self.skip_dict:
-                x = torch.cat([x, feats[self.skip_dict[i]]], -1)
-            x = layer(x)
+                f = feats[self.skip_dict[i]]
+                # the first layer's input is the JAX package's list of
+                # parts (the encoding, then the skip feature); a later
+                # skip input is one concatenated part there too
+                parts = (x.shape[-1], f.shape[-1]) if i == 0 else None
+                x = torch.cat([x, f], -1)
+            x = layer(x, parts)
             if i != n - 1 and self.nl is not None:
                 x = self.nl(x)
         return x

@@ -2,9 +2,17 @@
 ``VANeRF``, ``src/model.py:604-1024``).
 
 Supported: one source view, ``sp_type=rel_z_decay``, ``sp_conv=false``,
-float32 (``VANERF_COMPUTE_DTYPE`` or the config's ``compute_dtype``; any
-other type raises), eval and training (at one view the training query
-equals the eval query: view dropout needs two views).  ``VANERF_FUSED_MLP=1`` runs the
+eval and training (at one view the training query equals the eval query:
+view dropout needs two views).  ``compute_dtype`` (``VANERF_COMPUTE_DTYPE``
+first, then the config's, else float32 as the JAX package's default off a
+TPU) is ``"float32"`` or, for serving, ``"bfloat16"``; any other type
+raises, and so does training in bfloat16 (``training/train_step.py``).  In
+bfloat16 the query follows the JAX package's policy
+(``vanerf_tpu/models/vanerf.py:233-245``): the feature maps, the source
+image and mask, the encoding, the visibility / SDF inputs and every
+per-point activation are bfloat16; the parameters, the projection math and
+the query's output stay float32, and so do the encoders and the mesh
+priors, whose outputs are cast at the query.  ``VANERF_FUSED_MLP=1`` runs the
 positional encoding, ``MLPUNetFusion`` and ``gcompress`` as kernel 12, ``=2``
 the whole per-point network behind the gathers as kernel 11
 (``ops/fused_mlp.py``); the KNN rows come through kernel 10 whenever no
@@ -34,7 +42,7 @@ from ..ops.mesh_query import cull_sizes
 from .blocks import HGFilter, ResBlkEncoder, avg_pool2
 from .fusion import GeoVisFusion, TexVisFusion
 from .ibr import IBRRenderingHead
-from .mlp import MLPUNetFusion
+from .mlp import MLPUNetFusion, dense
 from .spatial import SpatialEncoder
 
 # Switches of the JAX package that the port does not take: each must be
@@ -45,6 +53,23 @@ from .spatial import SpatialEncoder
 # VANERF_MXU_TILE_N and VANERF_MXU_CHUNK change only the TPU's layout and
 # have no effect here (README).
 _FIXED_ENV = {"VANERF_TWO_RES": ("", "0"), "VANERF_PE_DIRECT": ("", "0")}
+
+# the compute dtypes the port takes, by the JAX package's names
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_compute_dtype(cfg_model: dict) -> str:
+    """``VANERF_COMPUTE_DTYPE`` first, then ``models.VANeRF.compute_dtype``,
+    else float32 (``vanerf_tpu/models/vanerf.py:106-117``; float32 is the
+    JAX package's default off a TPU).  Raises on a type the port does not
+    compute in."""
+    cdt = os.environ.get("VANERF_COMPUTE_DTYPE",
+                         cfg_model.get("compute_dtype", "float32"))
+    if cdt not in COMPUTE_DTYPES:
+        raise NotImplementedError(
+            f"compute_dtype {cdt!r}: the port computes in "
+            f"{' or '.join(COMPUTE_DTYPES)}")
+    return cdt
 
 
 def _check_env():
@@ -81,8 +106,12 @@ class VANeRF(nn.Module):
                  gcompress_out: int = 24, ibr_in_channels: int = 37,
                  ds_geo: int = 1, ds_tex: int = 1, num_v: int = 779,
                  image_hw=(256, 256), far_tau: float = 0.02, far_skip: float = 0.0,
-                 far_net: float = 0.0, far_tnet: float = 0.0):
+                 far_net: float = 0.0, far_tnet: float = 0.0,
+                 compute_dtype: str = "float32"):
         super().__init__()
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise NotImplementedError(f"compute_dtype {compute_dtype!r}")
+        self.compute_dtype = compute_dtype
         self.sp_args = dict(sp_args)
         self.gcompress_out = gcompress_out
         self.num_v = num_v
@@ -130,13 +159,7 @@ class VANeRF(nn.Module):
         for unported in ("sp_conv", "disable_fg_mask"):
             if m.get(unported, False):
                 raise NotImplementedError(f"{unported} is not ported")
-        # the environment overrides the config, as in the JAX package
-        cdt = os.environ.get("VANERF_COMPUTE_DTYPE",
-                             m.get("compute_dtype", "float32"))
-        if cdt != "float32":
-            raise NotImplementedError(
-                f"compute_dtype {cdt!r}: the port computes in float32 "
-                "(bfloat16 is ROADMAP.md queue 1 item 3)")
+        cdt = resolve_compute_dtype(m)
         inf = cfg.get("inference", {})
         gc = m["mlp_tex_args"]["gcompress"]
         return cls(
@@ -148,7 +171,12 @@ class VANeRF(nn.Module):
             far_tau=float(inf.get("far_tau", 0.02)),
             far_skip=float(inf.get("far_skip", 0.0)),
             far_net=float(inf.get("far_net", 0.0)),
-            far_tnet=float(inf.get("far_tnet", 0.0)))
+            far_tnet=float(inf.get("far_tnet", 0.0)), compute_dtype=cdt)
+
+    @property
+    def cdt(self) -> torch.dtype:
+        """The torch dtype of :attr:`compute_dtype`."""
+        return COMPUTE_DTYPES[self.compute_dtype]
 
     # ------------------------------------------------------------------
     # encoders (reference attach_geo_feat / attach_tex_feat)
@@ -197,12 +225,21 @@ class VANeRF(nn.Module):
         far_mask (B, N, 1) bool or None; ``training`` keeps kernel D off.
         ``fused_override`` pins the fused level (0, 1, 2) instead of the
         ``VANERF_FUSED_MLP`` read; level 2 ignores ``far_mask``.
-        Returns out (B, N, 5), valid (B, N, 1).
+        Returns out (B, N, 5) float32, valid (B, N, 1).
         """
         if n_views != 1:
             raise NotImplementedError("the port renders one source view")
         _check_env()
         B, N, _ = pts.shape
+        # the activation dtype (models/vanerf.py:233-245): the maps, the
+        # image and the mask now, the encoding and the visibility / SDF
+        # inputs below; coordinates and projection math stay float32
+        cdt = self.cdt
+        feat_geo = [f.to(cdt) for f in feat_geo]
+        feat_tex, src_img, fg_mask = (t.to(cdt) for t in (feat_tex, src_img,
+                                                          fg_mask))
+        vert_vis, query_vis, query_sdf = (
+            t.to(cdt) for t in (vert_vis, query_vis, query_sdf))
         krt = cam["KRT"]
         width, height = cam["width"], cam["height"]
         znear, zfar = cam["znear"], cam["zfar"]
@@ -266,7 +303,7 @@ class VANeRF(nn.Module):
         y = None
         if fused_level == 0:
             y = self.sp_encoder(v=v, extrin=cam["extrin"], kpt3d=kpt3d)
-            y = y.reshape(B, 1, N, -1)
+            y = y.reshape(B, 1, N, -1).to(cdt)
 
         # project mesh vertices into the source view (model.py:845-853)
         vvh = verts @ krt[:, :3, :3].transpose(-1, -2) + krt[:, None, :3, 3]
@@ -307,8 +344,9 @@ class VANeRF(nn.Module):
         if fused_level >= 1:
             cxyz, kptc_T = self._camera_frame(v, kpt3d, cam["extrin"])
             wts, packed = self._fused_weights(False, kptc_T)
-            aux = torch.cat([fused[0][:, 0], fused[1][:, 0], out_mask[:, 0],
-                             pix_weight[:, 0]], -1)             # (B, N, 74)
+            aux = torch.cat([fused[0][:, 0], fused[1][:, 0],
+                             out_mask[:, 0].to(cdt),
+                             pix_weight[:, 0].to(cdt)], -1)     # (B, N, 74)
             sp = self.sp_encoder
             res = [fused_geo_mlp(cxyz[b], kptc_T[b], aux[b], wts,
                                  sp_level=sp.sp_level, scale=sp.scale,
@@ -319,12 +357,15 @@ class VANeRF(nn.Module):
             valid = out_mask.sum(1) > 0                         # (B, N, 1)
         else:
             out, valid, _x_view, latent_fused = self.mlp_geo(
-                y, fused, out_mask, pix_weight)
+                y, fused, out_mask.to(cdt), pix_weight.to(cdt))
         rgb = self._query_color(vert_xy, verts, vert_vis, query_vis, v,
                                 feat_tex, latent_fused, src_img, img_xy,
                                 feat_tex_xy, tex_knn,
                                 latent_compressed=fused_level >= 1)
-        out = torch.cat([out, rgb], -1)
+        # compositing and the losses stay float32 (models/vanerf.py:533),
+        # or float64 where the caller runs the model in it
+        odt = torch.promote_types(out.dtype, torch.float32)
+        out = torch.cat([out.to(odt), rgb.to(odt)], -1)
         return out, valid.to(out.dtype)
 
     @staticmethod
@@ -341,27 +382,30 @@ class VANeRF(nn.Module):
         weights are prepared anew (the gradients reach ``weight_v`` /
         ``weight_g`` through them) and packed at the launch.  Without one
         every pass of a frame shares one preparation, kept until a
-        parameter is written to or replaced."""
+        parameter is written to or replaced; one for each of ``full`` and
+        the compute dtype, in which the weights are prepared."""
         sp_level = self.sp_encoder.sp_level
+        cdt = self.cdt
         mods = (self.mlp_geo, self.ibr_compress_gfeat) + (
             (self.geo_vis_fusion, self.tex_vis_fusion) if full else ())
 
         def prepare():
             if full:
-                return prepare_query_weights(self, n_parts=1 + 2 * sp_level)
-            return prepare_geo_mlp_weights(self)
+                return prepare_query_weights(self, n_parts=1 + 2 * sp_level,
+                                             cdt=cdt)
+            return prepare_geo_mlp_weights(self, cdt=cdt)
 
         if torch.is_grad_enabled():
             return prepare(), None
         K = kpt_T.shape[-1]
         key = (K,) + tuple((p.data_ptr(), p._version)
                            for m in mods for p in m.parameters())
-        hit = self._fused_cache.get(full)
+        hit = self._fused_cache.get((full, cdt))
         if hit is None or hit[0] != key:
             wts = prepare()
             pack = pack_query_weights if full else pack_geo_weights
             packed = pack(wts, K, sp_level) if kpt_T.is_cuda else None
-            hit = self._fused_cache[full] = (key, wts, packed)
+            hit = self._fused_cache[(full, cdt)] = (key, wts, packed)
         return hit[1], hit[2]
 
     def _query_fused_full(self, v, cam, kpt3d, feat_sampled, img_xy,
@@ -374,9 +418,11 @@ class VANeRF(nn.Module):
         cxyz, kptc_T = self._camera_frame(v, kpt3d, cam["extrin"])
         sp = self.sp_encoder
         wts, packed = self._fused_weights(True, kptc_T)
+        cdt = self.cdt
         feats = torch.cat([feat_sampled[0], feat_sampled[1], img_xy,
-                           feat_tex_xy, query_sdf, query_vis, out_mask[:, 0],
-                           pix_weight[:, 0]], -1)               # (B, N, 87)
+                           feat_tex_xy, query_sdf, query_vis,
+                           out_mask[:, 0].to(cdt), pix_weight[:, 0].to(cdt)],
+                          -1)                                   # (B, N, 87)
         out5 = torch.stack([
             fused_query_mlp(cxyz[b], kptc_T[b], feats[b], g2_raw[b], wts,
                             sp_level=sp.sp_level, scale=sp.scale,
@@ -393,8 +439,9 @@ class VANeRF(nn.Module):
         exactly to the fused feature's rgb (the JAX package's default
         VANERF_IBR_V1_SHORTCUT).  ``latent_compressed``: kernel 12 has
         already applied gcompress."""
+        gc = self.ibr_compress_gfeat
         latent = (latent_fused if latent_compressed
-                  else self.ibr_compress_gfeat(latent_fused))
+                  else dense(latent_fused, gc.weight, gc.bias))
         rgb_feat = self.tex_vis_fusion(vert_xy, feat_tex, feat_xy, vert, v,
                                        vert_vis, query_vis, img_xy, img,
                                        latent, knn=tex_knn)

@@ -24,7 +24,14 @@ KERNEL_COUNTERS = {"mesh_query": (mesh_query, "launches"),
                    "onehot_scatter": (onehot_gather, "launches"),
                    "row_gather": (interp_mxu, "row_gather_launches"),
                    "fused_query_mlp": (fused_mlp, "query_launches"),
-                   "fused_geo_mlp": (fused_mlp, "geo_launches")}
+                   "fused_geo_mlp": (fused_mlp, "geo_launches"),
+                   # the bfloat16 forms of D, 10, 11 and 12
+                   "interp_mxu_bf16": (interp_mxu, "launches_bf16"),
+                   "row_gather_bf16": (interp_mxu,
+                                       "row_gather_launches_bf16"),
+                   "fused_query_mlp_bf16": (fused_mlp,
+                                            "query_launches_bf16"),
+                   "fused_geo_mlp_bf16": (fused_mlp, "geo_launches_bf16")}
 
 
 def reset_launches() -> None:

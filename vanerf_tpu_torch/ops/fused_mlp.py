@@ -11,9 +11,21 @@ columns behind, reading the raw KNN gather rows of
 :func:`~.knn.knn_gather_raw`.  On CUDA tensors both launch their kernel;
 CPU tensors take the plain versions :func:`fused_geo_mlp_plain` /
 :func:`fused_query_mlp_plain`, which repeat the kernels' arithmetic (the
-same virtual-concat splits in the same order, the bias added last).  All
-float32: the "rounded once per layer" casts of the JAX kernel are the
-identity here.
+same virtual-concat splits in the same order, the bias added last).
+
+The activation dtype is the packs' (``aux`` / ``feats`` and ``g2``): float32
+or bfloat16, each with a kernel of its own.  In bfloat16 the weights are
+bfloat16 (the biases stay float32), every layer product takes bfloat16
+operands with a float32 sum and rounds once to bfloat16 where the JAX
+kernel does (``vanerf_tpu/ops/fused_mlp.py:88-119``, ``:199-222``): the
+encoding in float32, rounded; softplus' predicate and log in float32 on
+the rounded sum, the linear branch the rounded sum itself; the V=1 pooling
+in float32 on the rounded ``x_view``, then rounded; the gates' sigmoid in
+float32 on the rounded product, then rounded; ``out`` (sdf, radiance)
+float32 and not rounded, the latent and the rgb rounded.  The plain
+versions hold the activations as float32 tensors of bfloat16 values, which
+makes every product exact and every sum float32; in float32 the rounding
+is the identity.
 
 Gradients (``VANERF_FUSED_TRAIN``): the JAX package has no backward kernel;
 its ``custom_vjp`` runs the Pallas primal and differentiates the plain
@@ -31,9 +43,10 @@ ops, so those gradients reach ``weight_v`` / ``weight_g``.
 kernels read them: one stream of the layer products' weights in the order
 the kernel runs them, each split into TF32 hi / lo parts (the kernels
 multiply in 3xTF32 on the tensor cores, within the plain versions'
-rtol 2e-4 / atol 2e-5); a caller that launches many passes on one set of
-weights (``models/vanerf.py`` at inference) packs once and hands the
-buffers to every pass.
+rtol 2e-4 / atol 2e-5), or in bfloat16 as the fragments of ``mma.sync``
+m16n8k16 (one product a layer on the tensor cores); a caller that
+launches many passes on one set of weights (``models/vanerf.py`` at
+inference) packs once and hands the buffers to every pass.
 """
 
 from __future__ import annotations
@@ -75,6 +88,8 @@ _PE_ROWS = 120
 
 geo_launches = 0
 query_launches = 0
+geo_launches_bf16 = 0
+query_launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -98,10 +113,11 @@ def _pointwise_w(conv) -> torch.Tensor:
     return conv.weight[..., 0].t()
 
 
-def prepare_geo_mlp_weights(model) -> dict:
+def prepare_geo_mlp_weights(model, cdt=torch.float32) -> dict:
     """Kernel-ready weights of :func:`fused_geo_mlp` from a
-    :class:`~vanerf_tpu_torch.models.VANeRF`: weight norm applied, every
-    matrix (in, out), the first layers split at their virtual concats."""
+    :class:`~vanerf_tpu_torch.models.VANeRF`: weight norm applied (in
+    float32), every matrix (in, out) in ``cdt``, the biases float32, the
+    first layers split at their virtual concats."""
     l1 = [lay.linear for lay in model.mlp_geo.layers1.layers]
     l2 = [lay.linear for lay in model.mlp_geo.layers2.layers]
     if len(l1) != 4 or len(l2) != 3:
@@ -109,6 +125,8 @@ def prepare_geo_mlp_weights(model) -> dict:
     (w0, b0), (w1, b1), (w2, b2), (w3, b3) = (_wn(x) for x in l1)
     (w4, b4), (w5, b5), (w6, b6) = (_wn(x) for x in l2)
     w7, b7 = _wn(model.ibr_compress_gfeat)
+    w0, w1, w2, w3, w4, w5, w6, w7 = (w.to(cdt) for w in (w0, w1, w2, w3,
+                                                          w4, w5, w6, w7))
     pe_in = w0.shape[0] - 64          # PE width (e.g. 294); fused0 = 64
     return {
         "w0_parts": w0[:pe_in], "w0_f": w0[pe_in:],
@@ -127,20 +145,26 @@ def _row_splits(w: torch.Tensor, splits) -> list:
     return out
 
 
-def prepare_query_weights(model, n_parts: int = 7) -> dict:
+def prepare_query_weights(model, n_parts: int = 7,
+                          cdt=torch.float32) -> dict:
     """Kernel-ready weight groups of :func:`fused_query_mlp`: name -> list
     of tensors, with the row splits of every first layer and the V=1 rgb
-    column slice of the texture fuse layer."""
-    geo = prepare_geo_mlp_weights(model)
+    column slice of the texture fuse layer; matrices in ``cdt``, the
+    biases float32."""
+    geo = prepare_geo_mlp_weights(model, cdt)
     out = {}
     gvf = model.geo_vis_fusion
+
+    def pw(conv):
+        return _pointwise_w(conv).to(cdt)
+
     for si, w, at, ated in ((0, 64, gvf.fconv_at, gvf.fconv_ated),
                             (1, 8, gvf.fconv_at1, gvf.fconv_ated1)):
         splits = (w, w, w, 4)
-        out[f"gat{si}_0"] = _row_splits(_pointwise_w(at[0]), splits)
-        out[f"gat{si}_1"] = [_pointwise_w(at[2])]
-        out[f"gfu{si}_0"] = _row_splits(_pointwise_w(ated[0]), splits)
-        out[f"gfu{si}_1"] = [_pointwise_w(ated[2])]
+        out[f"gat{si}_0"] = _row_splits(pw(at[0]), splits)
+        out[f"gat{si}_1"] = [pw(at[2])]
+        out[f"gfu{si}_0"] = _row_splits(pw(ated[0]), splits)
+        out[f"gfu{si}_1"] = [pw(ated[2])]
     kk = geo["w0_parts"].shape[0] // n_parts   # keypoint count per part
     out["w0"] = _row_splits(geo["w0_parts"], (kk,) * n_parts)
     for name, key in (("w0f", "w0_f"), ("w1", "w1"), ("w2h", "w2_h"),
@@ -150,11 +174,11 @@ def prepare_query_weights(model, n_parts: int = 7) -> dict:
         out[name] = [geo[key]]
     out["b"] = list(geo["biases"])
     tvf = model.tex_vis_fusion
-    out["tat_0"] = _row_splits(_pointwise_w(tvf.fconv_at[0]), _TEX_SPLITS)
-    out["tat_1"] = [_pointwise_w(tvf.fconv_at[2])]
-    out["tfu_0"] = _row_splits(_pointwise_w(tvf.fconv[0]), _TEX_SPLITS)
+    out["tat_0"] = _row_splits(pw(tvf.fconv_at[0]), _TEX_SPLITS)
+    out["tat_1"] = [pw(tvf.fconv_at[2])]
+    out["tfu_0"] = _row_splits(pw(tvf.fconv[0]), _TEX_SPLITS)
     # V=1: only the first 3 output columns (src_rgb) survive the IBR head
-    out["tfu_1"] = [_pointwise_w(tvf.fconv[2])[:, :3]]
+    out["tfu_1"] = [pw(tvf.fconv[2])[:, :3]]
     return out
 
 
@@ -175,17 +199,40 @@ def _geo_of_query(weights: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 def _softplus100(x):
-    return F.softplus(x, beta=100.0, threshold=20.0)
+    """torch Softplus(beta=100, threshold=20) as the JAX kernel writes it
+    (``vanerf_tpu/ops/fused_mlp.py:41-50``): ``x`` above 20 / 100, else
+    ``logaddexp(100 x, 0) / 100`` in float32, the division XLA's product
+    by 0.01 (XLA rewrites a division by a constant so)."""
+    xf = x * 100.0
+    return torch.where(xf > 20.0, x,
+                       torch.logaddexp(xf, torch.zeros_like(xf)) * 0.01)
+
+
+def _rounder(cdt):
+    """x -> x rounded to ``cdt`` and held in float32: the JAX kernel's
+    ``.astype(cdt)`` on a float32 value (the identity in float32)."""
+    if cdt == torch.float32:
+        return lambda x: x
+    return lambda x: x.to(cdt).float()
+
+
+def _inv_two_sig2(sigma: float) -> float:
+    """The encoding's Gaussian factor 1 / (2 sigma^2): computed in double
+    and rounded once to float32 (by ctypes for the kernels, by torch for
+    the plain version's product), one value for both.  The JAX kernel
+    divides by the constant 2 sigma^2, which XLA compiles to this product
+    (``tests/test_torch_fused.py::test_gaussian_factor_is_xlas``)."""
+    return 1.0 / (2.0 * sigma * sigma)
 
 
 def _pe_parts(cxyz, kpt_T, sp_level: int, scale: float, sigma: float):
-    """rel_z_decay encoding parts, each (N, K)."""
+    """rel_z_decay encoding parts, each (N, K), in float32."""
     cx, cy, cz = cxyz[:, 0:1], cxyz[:, 1:2], cxyz[:, 2:3]
     kx, ky, kz = kpt_T[0:1], kpt_T[1:2], kpt_T[2:3]
     dz = scale * (cz - kz)
     dxx, dyy, dzz = cx - kx, cy - ky, cz - kz
     wgt = torch.exp(-(dxx * dxx + dyy * dyy + dzz * dzz)
-                    / (2.0 * sigma * sigma))
+                    * _inv_two_sig2(sigma))
     a = math.pi * dz
     s, c = torch.sin(a), torch.cos(a)
     parts = [dz]
@@ -196,22 +243,30 @@ def _pe_parts(cxyz, kpt_T, sp_level: int, scale: float, sigma: float):
     return [p * wgt for p in parts]
 
 
-def _geo_mlp(parts, w0_list, fused0, fused1, w_v, wts):
-    """MLPUNetFusion (V=1) + gcompress: out2 (N, 2), lat (N, gcompress)."""
+def _geo_mlp(parts, w0_list, fused0, fused1, w_v, wts, q):
+    """MLPUNetFusion (V=1) + gcompress on float32 activations, rounded by
+    ``q`` where the JAX kernel rounds: out2 (N, 2), lat (N, gcompress)."""
     b = wts["biases"]
-    acc = parts[0] @ w0_list[0]
+    W = {k: v.float() for k, v in wts.items()
+         if k not in ("biases", "w0_parts")}
+    acc = parts[0] @ w0_list[0].float()
     for p, w in zip(parts[1:], w0_list[1:]):
-        acc = acc + p @ w
-    h = _softplus100(acc + fused0 @ wts["w0_f"] + b[0])
-    h = _softplus100(h @ wts["w1"] + b[1])
-    h = _softplus100(h @ wts["w2_h"] + fused1 @ wts["w2_f"] + b[2])
-    x_view = h @ wts["w3"] + b[3]
+        acc = acc + p @ w.float()
+
+    def sp(x):
+        return q(_softplus100(q(x)))
+
+    h = sp(acc + fused0 @ W["w0_f"] + b[0])
+    h = sp(h @ W["w1"] + b[1])
+    h = sp(h @ W["w2_h"] + fused1 @ W["w2_f"] + b[2])
+    x_view = q(h @ W["w3"] + b[3])
     mean = w_v * x_view
     var = w_v * (x_view - mean) ** 2
-    h = _softplus100(mean @ wts["w4_m"] + var @ wts["w4_v"] + b[4])
-    h = _softplus100(h @ wts["w5"] + b[5])
-    out2 = h @ wts["w6"] + b[6]
-    lat = mean @ wts["w7_m"] + var @ wts["w7_v"] + b[7]
+    mean, var = q(mean), q(var)
+    h = sp(mean @ W["w4_m"] + var @ W["w4_v"] + b[4])
+    h = sp(h @ W["w5"] + b[5])
+    out2 = h @ W["w6"] + b[6]
+    lat = q(mean @ W["w7_m"] + var @ W["w7_v"] + b[7])
     return out2, lat
 
 
@@ -227,32 +282,40 @@ def _w0_list(w0_parts, n_parts: int, K: int) -> list:
 def fused_geo_mlp_plain(cxyz, kpt_T, aux, weights: dict, *,
                         sp_level: int = 3, scale: float = 1.0,
                         sigma: float = 0.1):
-    """Plain-PyTorch twin of kernel 12; contract of :func:`fused_geo_mlp`."""
-    parts = _pe_parts(cxyz, kpt_T, sp_level, scale, sigma)
+    """Plain-PyTorch twin of kernel 12; contract of :func:`fused_geo_mlp`
+    (in ``aux``'s dtype)."""
+    cdt = aux.dtype
+    q = _rounder(cdt)
+    parts = [q(p) for p in _pe_parts(cxyz, kpt_T, sp_level, scale, sigma)]
     w0 = _w0_list(weights["w0_parts"], len(parts), kpt_T.shape[1])
-    return _geo_mlp(parts, w0, aux[:, 0:64], aux[:, 64:72], aux[:, 73:74],
-                    weights)
+    aux = aux.float()
+    out2, lat = _geo_mlp(parts, w0, aux[:, 0:64], aux[:, 64:72],
+                         aux[:, 73:74], weights, q)
+    return out2, lat.to(cdt)
 
 
-def _gate_fuse(parts, at0, at1, fu0, fu1, n_gated: int):
+def _gate_fuse(parts, at0, at1, fu0, fu1, n_gated: int, q):
     """GateMLP + FuseMLP over a virtual-concat parts list: the first
-    ``n_gated`` parts are re-scaled by their gate channel."""
-    acc = parts[0] @ at0[0]
+    ``n_gated`` parts are re-scaled by their gate channel; rounded by ``q``
+    where the JAX kernel rounds."""
+    acc = parts[0] @ at0[0].float()
     for p, w in zip(parts[1:], at0[1:]):
-        acc = acc + p @ w
-    g = torch.sigmoid(torch.relu(acc) @ at1)
+        acc = acc + p @ w.float()
+    g = q(torch.sigmoid(q(q(torch.relu(acc)) @ at1.float())))
     acc = None
     for i, p in enumerate(parts):
-        d = (p * g[:, i:i + 1] if i < n_gated else p) @ fu0[i]
+        d = (q(p * g[:, i:i + 1]) if i < n_gated else p) @ fu0[i].float()
         acc = d if acc is None else acc + d
-    return torch.relu(acc) @ fu1
+    return q(q(torch.relu(acc)) @ fu1.float())
 
 
 def fused_query_mlp_plain(cxyz, kpt_T, feats, g2, weights: dict, *,
                           sp_level: int = 3, scale: float = 1.0,
                           sigma: float = 0.1):
     """Plain-PyTorch twin of kernel 11; contract of
-    :func:`fused_query_mlp`."""
+    :func:`fused_query_mlp` (in ``feats``' dtype)."""
+    q = _rounder(feats.dtype)
+    feats, g2 = feats.float(), g2.float()
     fs0, fs1 = feats[:, 0:64], feats[:, 64:72]
     img_xy, ft_xy = feats[:, 72:75], feats[:, 75:83]
     q_sdf, q_vis = feats[:, 83:84], feats[:, 84:85]
@@ -262,26 +325,26 @@ def fused_query_mlp_plain(cxyz, kpt_T, feats, g2, weights: dict, *,
 
     def th(k):
         lo, hi = _G2[k]
-        return g2[:, lo:hi] * vis_th
+        return q(g2[:, lo:hi] * vis_th)
 
     def toh(k):
         lo, hi = _G2[k]
-        return g2[:, _C1 + lo:_C1 + hi] * vis_toh
+        return q(g2[:, _C1 + lo:_C1 + hi] * vis_toh)
 
     ctx4 = torch.cat([q_sdf, q_vis, vis_th, vis_toh], 1)
     w = weights
     fused0 = _gate_fuse([fs0, th("g0"), toh("g0"), ctx4], w["gat0_0"],
-                        w["gat0_1"][0], w["gfu0_0"], w["gfu0_1"][0], 3)
+                        w["gat0_1"][0], w["gfu0_0"], w["gfu0_1"][0], 3, q)
     fused1 = _gate_fuse([fs1, th("g1"), toh("g1"), ctx4], w["gat1_0"],
-                        w["gat1_1"][0], w["gfu1_0"], w["gfu1_1"][0], 3)
-    parts = _pe_parts(cxyz, kpt_T, sp_level, scale, sigma)
+                        w["gat1_1"][0], w["gfu1_0"], w["gfu1_1"][0], 3, q)
+    parts = [q(p) for p in _pe_parts(cxyz, kpt_T, sp_level, scale, sigma)]
     out2, lat = _geo_mlp(parts, w["w0"], fused0, fused1, w_v,
-                         _geo_of_query(w))
+                         _geo_of_query(w), q)
     qf = torch.cat([img_xy, ft_xy], 1)
     vis3 = torch.cat([q_vis, vis_th, vis_toh], 1)
     rgb = _gate_fuse([qf, th("tf"), toh("tf"), th("tg"), toh("tg"), lat,
                       vis3], w["tat_0"], w["tat_1"][0], w["tfu_0"],
-                     w["tfu_1"][0], 6)
+                     w["tfu_1"][0], 6, q)
     return torch.cat([out2, rgb], 1)
 
 
@@ -311,11 +374,20 @@ def _ntiles(m: int) -> int:
 
 
 def _fragments(part: torch.Tensor, nt: int) -> torch.Tensor:
-    """One part (K, M) of a layer's weight as the kernel's B fragments:
-    rows zero-padded to 8 ceil(K / 8), columns to 8 nt, split into TF32 hi
-    and lo, laid out (k-tile, n-tile, lane, 4) with lane = 4 g + t holding
-    {hi, hi, lo, lo} of rows t and t + 4 of column g (mma m16n8k8)."""
+    """One part (K, M) of a layer's weight as the kernel's B fragments,
+    laid out (k-tile, n-tile, lane, 4) with lane = 4 g + t.  float32: rows
+    zero-padded to 8 ceil(K / 8), columns to 8 nt, split into TF32 hi and
+    lo, the lane holding {hi, hi, lo, lo} of rows t and t + 4 of column g
+    (mma m16n8k8).  bfloat16: rows padded to 16 ceil(K / 16), the lane
+    holding rows 2t, 2t + 1, 2t + 8, 2t + 9 of column g (mma m16n8k16: two
+    registers of two bfloat16 each, the lower row in the low half)."""
     K, M = part.shape
+    if part.dtype == torch.bfloat16:
+        kt = -(-K // 16)
+        w = F.pad(part.detach(), (0, 8 * nt - M, 0, 16 * kt - K))
+        # x[16 a + 8 h + 2 t + j, 8 b + g] -> [a, b, g, t, h, j]
+        return (w.reshape(kt, 2, 4, 2, nt, 8).permute(0, 4, 5, 2, 1, 3)
+                .reshape(kt, nt, 32, 4))
     kt = -(-K // 8)
     w = F.pad(part.float(), (0, 8 * nt - M, 0, 8 * kt - K))
 
@@ -346,10 +418,11 @@ def _cat_rows(x) -> torch.Tensor:
 
 class PackedWeights(NamedTuple):
     """Kernel-ready buffers of one set of weights: the stream of every
-    layer product the kernel runs, as TF32 hi / lo fragments in its order
-    (kernel 11: the two GeoVisFusion gate/fuse nets, the geometry, the
-    TexVisFusion gate/fuse), the geometry biases and the six widths the
-    kernel is told."""
+    layer product the kernel runs, as fragments in its order (kernel 11:
+    the two GeoVisFusion gate/fuse nets, the geometry, the TexVisFusion
+    gate/fuse), float32 TF32 hi / lo or bfloat16 as the weights were
+    prepared; the float32 geometry biases and the six widths the kernel is
+    told."""
     w: torch.Tensor
     b: torch.Tensor
     dims: tuple
@@ -436,19 +509,24 @@ def pack_query_weights(weights: dict, K: int, sp_level: int) -> PackedWeights:
 
 
 def _check_points(cxyz, kpt_T, packs):
+    """(N, K, the C entry points' suffix): the points and keypoints
+    float32, the packs all in one activation dtype a kernel is built for
+    (float32 or bfloat16); anything else raises."""
     N = cxyz.shape[0]
+    cdt = packs[0][1].dtype
+    sfx = _cuda.dtype_suffix(cdt, "fused MLP activations")
     _cuda.require(cxyz, "cxyz", torch.float32, (N, 3))
     _cuda.require(kpt_T, "kpt_T", torch.float32, (3, kpt_T.shape[1]),
                   cxyz.device)
     for name, t, width in packs:
-        _cuda.require(t, name, torch.float32, (N, width), cxyz.device)
-    return N, kpt_T.shape[1]
+        _cuda.require(t, name, cdt, (N, width), cxyz.device)
+    return N, kpt_T.shape[1], sfx
 
 
-def _check_packed(packed: PackedWeights, device) -> None:
-    """The stream is read by 16-byte bulk copies; the kernel checks its
-    size against the layers it runs."""
-    _cuda.require(packed.w, "packed.w", torch.float32, device=device)
+def _check_packed(packed: PackedWeights, cdt, device) -> None:
+    """The stream is read by 16-byte bulk copies, in the activations'
+    dtype; the kernel checks its size against the layers it runs."""
+    _cuda.require(packed.w, "packed.w", cdt, device=device)
     _cuda.require(packed.b, "packed.b", torch.float32, device=device)
     if packed.w.data_ptr() % 16:
         raise ValueError("packed.w must start on a 16-byte boundary")
@@ -457,43 +535,53 @@ def _check_packed(packed: PackedWeights, device) -> None:
 def fused_geo_mlp_cuda(cxyz, kpt_T, aux, packed: PackedWeights, *,
                        sp_level: int = 3, scale: float = 1.0,
                        sigma: float = 0.1):
-    """Kernel 12; contract of :func:`fused_geo_mlp` on contiguous float32
-    CUDA tensors and the buffers of :func:`pack_geo_weights`."""
-    global geo_launches
-    N, K = _check_points(cxyz, kpt_T, [("aux", aux, AUX_WIDTH)])
+    """Kernel 12; contract of :func:`fused_geo_mlp` on contiguous CUDA
+    tensors (float32 points, float32 or bfloat16 ``aux``: the kernel of
+    that dtype) and the buffers of :func:`pack_geo_weights` in that
+    dtype."""
+    global geo_launches, geo_launches_bf16
+    N, K, sfx = _check_points(cxyz, kpt_T, [("aux", aux, AUX_WIDTH)])
     out = torch.empty(N, 2, dtype=torch.float32, device=cxyz.device)
-    lat = torch.empty(N, packed.dims[5], dtype=torch.float32,
+    lat = torch.empty(N, packed.dims[5], dtype=aux.dtype,
                       device=cxyz.device)
-    _check_packed(packed, cxyz.device)
-    rc = _cuda.lib().vt_fused_geo_mlp(
+    _check_packed(packed, aux.dtype, cxyz.device)
+    rc = getattr(_cuda.lib(), "vt_fused_geo_mlp" + sfx)(
         cxyz.data_ptr(), kpt_T.data_ptr(), aux.data_ptr(),
         packed.w.data_ptr(), packed.w.numel(), packed.b.data_ptr(), N, K,
-        sp_level,
-        float(scale), float(sigma), (ctypes.c_int * 6)(*packed.dims),
+        sp_level, float(scale), _inv_two_sig2(sigma),
+        (ctypes.c_int * 6)(*packed.dims),
         out.data_ptr(), lat.data_ptr(), _cuda.stream_ptr(cxyz.device))
-    _cuda.check(rc, "vt_fused_geo_mlp")
-    geo_launches += 1
+    _cuda.check(rc, "vt_fused_geo_mlp" + sfx)
+    if sfx:
+        geo_launches_bf16 += 1
+    else:
+        geo_launches += 1
     return out, lat
 
 
 def fused_query_mlp_cuda(cxyz, kpt_T, feats, g2, packed: PackedWeights, *,
                          sp_level: int = 3, scale: float = 1.0,
                          sigma: float = 0.1):
-    """Kernel 11; contract of :func:`fused_query_mlp` on contiguous float32
-    CUDA tensors and the buffers of :func:`pack_query_weights`."""
-    global query_launches
-    N, K = _check_points(cxyz, kpt_T, [("feats", feats, FEATS_WIDTH),
-                                       ("g2", g2, G2_WIDTH)])
+    """Kernel 11; contract of :func:`fused_query_mlp` on contiguous CUDA
+    tensors (float32 points, ``feats`` and ``g2`` both float32 or both
+    bfloat16: the kernel of that dtype) and the buffers of
+    :func:`pack_query_weights` in that dtype."""
+    global query_launches, query_launches_bf16
+    N, K, sfx = _check_points(cxyz, kpt_T, [("feats", feats, FEATS_WIDTH),
+                                            ("g2", g2, G2_WIDTH)])
     out = torch.empty(N, 5, dtype=torch.float32, device=cxyz.device)
-    _check_packed(packed, cxyz.device)
-    rc = _cuda.lib().vt_fused_query_mlp(
+    _check_packed(packed, feats.dtype, cxyz.device)
+    rc = getattr(_cuda.lib(), "vt_fused_query_mlp" + sfx)(
         cxyz.data_ptr(), kpt_T.data_ptr(), feats.data_ptr(), g2.data_ptr(),
         packed.w.data_ptr(), packed.w.numel(), packed.b.data_ptr(), N, K,
-        sp_level, float(scale), float(sigma),
+        sp_level, float(scale), _inv_two_sig2(sigma),
         (ctypes.c_int * 6)(*packed.dims), out.data_ptr(),
         _cuda.stream_ptr(cxyz.device))
-    _cuda.check(rc, "vt_fused_query_mlp")
-    query_launches += 1
+    _cuda.check(rc, "vt_fused_query_mlp" + sfx)
+    if sfx:
+        query_launches_bf16 += 1
+    else:
+        query_launches += 1
     return out
 
 
@@ -578,14 +666,15 @@ def fused_geo_mlp(cxyz, kpt_T, aux, weights: dict, *, sp_level: int = 3,
     Args:
       cxyz: (N, 3) f32 camera-frame query points.
       kpt_T: (3, K) f32 camera-frame keypoints.
-      aux: (N, 74) per-point inputs packed as
+      aux: (N, 74) per-point inputs in the activation dtype (float32 or
+        bfloat16) packed as
         [fused0 (64) | fused1 (8) | out_mask (1) | pix_weight (1)].
-      weights: output of :func:`prepare_geo_mlp_weights`.
+      weights: output of :func:`prepare_geo_mlp_weights` in that dtype.
       packed: ``pack_geo_weights(weights, K, sp_level)`` made earlier by
         the caller; else CUDA tensors are packed at this call.
     Returns:
-      out (N, 2) (sdf residual, radiance), lat (N, gcompress) (the
-      compressed pooled latent).
+      out (N, 2) float32 (sdf residual, radiance), lat (N, gcompress) in
+      the activation dtype (the compressed pooled latent).
     """
     kw = dict(sp_level=int(sp_level), scale=float(scale), sigma=float(sigma))
     names, wt = _flatten(weights, _GEO_ORDER + ("biases",))
@@ -601,13 +690,14 @@ def fused_query_mlp(cxyz, kpt_T, feats, g2, weights: dict, *,
       cxyz: (N, 3) f32 camera-frame query points.
       kpt_T: (3, K) f32 camera-frame keypoints.
       feats: (N, 87) pack [feat_s0 64 | feat_s1 8 | img_xy 3 | ft_xy 8 |
-        q_sdf | q_vis | out_mask | pix_weight].
-      g2: (N, 204) raw shared-KNN gather rows (:func:`~.knn.knn_gather_raw`).
-      weights: output of :func:`prepare_query_weights`.
+        q_sdf | q_vis | out_mask | pix_weight], float32 or bfloat16.
+      g2: (N, 204) raw shared-KNN gather rows (:func:`~.knn.knn_gather_raw`)
+        in ``feats``' dtype.
+      weights: output of :func:`prepare_query_weights` in that dtype.
       packed: ``pack_query_weights(weights, K, sp_level)`` made earlier by
         the caller; else CUDA tensors are packed at this call.
     Returns:
-      out (N, 5) = [sdf_ch, rad, rgb3].
+      out (N, 5) float32 = [sdf_ch, rad, rgb3].
     """
     kw = dict(sp_level=int(sp_level), scale=float(scale), sigma=float(sigma))
     names, wt = _flatten(weights, _WEIGHT_ORDER)

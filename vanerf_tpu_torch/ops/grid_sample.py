@@ -6,6 +6,9 @@ channels-last maps, as gather + lerp.  The JAX package runs this op in
 XLA, so the port keeps it plain PyTorch, except that a small map whose
 gradient is wanted is read through :func:`take_rows` on its packed 2x2
 corners (``grid_sample.py:56-69``), whose table gradient is kernel 13.
+The lerp runs in the map's dtype (``grid_sample.py:70-77``): on a bfloat16
+map the weights are rounded to bfloat16 and every product and sum rounds
+in bfloat16.
 """
 
 from __future__ import annotations
@@ -32,8 +35,8 @@ def grid_sample_2d(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     y = ((uv[:, 1] + 1.0) * 0.5 * (H - 1.0)).clamp(0.0, H - 1.0)
     x0 = torch.floor(x).clamp(0, W - 1)
     y0 = torch.floor(y).clamp(0, H - 1)
-    wx = (x - x0)[:, None]
-    wy = (y - y0)[:, None]
+    wx = (x - x0)[:, None].to(feat.dtype)
+    wy = (y - y0)[:, None].to(feat.dtype)
     ix0 = x0.long()
     iy0 = y0.long()
     if take_rows_route(H * W, feat):

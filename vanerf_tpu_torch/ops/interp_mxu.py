@@ -7,6 +7,13 @@ corners with the hat weights max(0, 1 - |x - j|), which after the clip
 are the bilinear weights of ``grid_sample_2d`` (border padding,
 align_corners=True).  The name keeps the JAX package's; there is no
 matrix unit in the CUDA kernel.
+
+A map is float32 or bfloat16, and each dtype has its own instantiation of
+kernels D and 10; any other dtype raises on the card.  On a bfloat16 map
+each hat weight is made in float32 and rounded to bfloat16 before it
+multiplies its corner (``interp_mxu.py:81``), the four products (exact in
+float32) are summed in float32 in a fixed order and the sum is rounded to
+bfloat16 once.
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ MAX_ROWS = 4096
 
 launches = 0
 row_gather_launches = 0
+launches_bf16 = 0
+row_gather_launches_bf16 = 0
 
 
 def interp_mxu_viable(H: int, W: int) -> bool:
@@ -31,8 +40,10 @@ def interp_mxu_viable(H: int, W: int) -> bool:
 
 
 def interp_plain(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
-    """Plain-PyTorch twin of kernel D: (H, W, C) x (N, 2) -> (N, C)."""
+    """Plain-PyTorch twin of kernel D: (H, W, C) x (N, 2) -> (N, C) in the
+    map's dtype."""
     H, W, C = feat.shape
+    cdt = feat.dtype
     x = ((uv[:, 0].float() + 1.0) * 0.5 * (W - 1.0)).clamp(0.0, W - 1.0)
     y = ((uv[:, 1].float() + 1.0) * 0.5 * (H - 1.0)).clamp(0.0, H - 1.0)
     x0 = torch.floor(x)
@@ -45,27 +56,37 @@ def interp_plain(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     iy0 = y0.long()
     ix1 = (ix0 + 1).clamp(max=W - 1)
     iy1 = (iy0 + 1).clamp(max=H - 1)
-    flat = feat.reshape(H * W, C)
+    flat = feat.reshape(H * W, C).float()
     f00 = flat[iy0 * W + ix0]
     f01 = flat[iy0 * W + ix1]
     f10 = flat[iy1 * W + ix0]
     f11 = flat[iy1 * W + ix1]
-    return ((hx0 * hy0) * f00 + (hx1 * hy0) * f01 + (hx0 * hy1) * f10
-            + (hx1 * hy1) * f11)
+
+    def hat(a, b):        # the weight rounded to the map's dtype
+        return (a * b).to(cdt).float()
+
+    return (hat(hx0, hy0) * f00 + hat(hx1, hy0) * f01 + hat(hx0, hy1) * f10
+            + hat(hx1, hy1) * f11).to(cdt)
 
 
 def interp_cuda(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
-    """Kernel D; same contract as :func:`interp_plain`."""
-    global launches
+    """Kernel D, the instantiation of the map's dtype (float32 or
+    bfloat16); same contract as :func:`interp_plain`."""
+    global launches, launches_bf16
     H, W, C = feat.shape
     N = uv.shape[0]
-    _cuda.require(feat, "feat", torch.float32, (H, W, C))
+    sfx = _cuda.dtype_suffix(feat.dtype, "feat")
+    _cuda.require(feat, "feat", feat.dtype, (H, W, C))
     _cuda.require(uv, "uv", torch.float32, (N, 2), feat.device)
-    out = torch.empty(N, C, dtype=torch.float32, device=feat.device)
-    rc = _cuda.lib().vt_interp(feat.data_ptr(), H, W, C, uv.data_ptr(), N,
-                               out.data_ptr(), _cuda.stream_ptr(feat.device))
-    _cuda.check(rc, "vt_interp")
-    launches += 1
+    out = torch.empty(N, C, dtype=feat.dtype, device=feat.device)
+    rc = getattr(_cuda.lib(), "vt_interp" + sfx)(
+        feat.data_ptr(), H, W, C, uv.data_ptr(), N, out.data_ptr(),
+        _cuda.stream_ptr(feat.device))
+    _cuda.check(rc, "vt_interp" + sfx)
+    if sfx:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out
 
 
@@ -95,27 +116,32 @@ def row_gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def row_gather_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Kernel 10; same contract as :func:`row_gather_plain` for a float32
-    table and int32 indices in [0, V)."""
-    global row_gather_launches
+    """Kernel 10, the instantiation of the table's dtype (float32 or
+    bfloat16); same contract as :func:`row_gather_plain` for int32 indices
+    in [0, V)."""
+    global row_gather_launches, row_gather_launches_bf16
     V, C = table.shape
     N = idx.shape[0]
-    _cuda.require(table, "table", torch.float32, (V, C))
+    sfx = _cuda.dtype_suffix(table.dtype, "table")
+    _cuda.require(table, "table", table.dtype, (V, C))
     _cuda.require(idx, "idx", torch.int32, (N,), table.device)
-    out = torch.empty(N, C, dtype=torch.float32, device=table.device)
-    rc = _cuda.lib().vt_row_gather(table.data_ptr(), V, C, idx.data_ptr(), N,
-                                   out.data_ptr(),
-                                   _cuda.stream_ptr(table.device))
-    _cuda.check(rc, "vt_row_gather")
-    row_gather_launches += 1
+    out = torch.empty(N, C, dtype=table.dtype, device=table.device)
+    rc = getattr(_cuda.lib(), "vt_row_gather" + sfx)(
+        table.data_ptr(), V, C, idx.data_ptr(), N, out.data_ptr(),
+        _cuda.stream_ptr(table.device))
+    _cuda.check(rc, "vt_row_gather" + sfx)
+    if sfx:
+        row_gather_launches_bf16 += 1
+    else:
+        row_gather_launches += 1
     return out
 
 
 def mxu_row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``table[idx]`` for a (V, C) float32 table and (N,) row indices in
-    [0, V), bitwise equal to the native gather.  No gradient.  The JAX
-    package's one-hot product holds the table in VMEM and so takes at most
-    4,096 rows; the CUDA kernel copies rows and takes any table."""
+    """``table[idx]`` for a (V, C) float32 or bfloat16 table and (N,) row
+    indices in [0, V), bitwise equal to the native gather.  No gradient.
+    The JAX package's one-hot product holds the table in VMEM and so takes
+    at most 4,096 rows; the CUDA kernel copies rows and takes any table."""
     if table.device.type == "cpu":
         return row_gather_plain(table, idx)
     return row_gather_cuda(table.contiguous(),

@@ -35,6 +35,14 @@ colour), ``VANERF_FAR_TNET=<frac>`` the same global budget with the dropped
 samples inheriting the nearest evaluated sample's outputs along their ray
 (``VANERF_TNET_IMPL=select|scan``, ``VANERF_TNET_STEPS``); TNET takes
 precedence over NET, NET over SKIP.
+
+A model with ``compute_dtype="bfloat16"`` (``models/vanerf.py``) serves
+here unchanged: the query takes the float32 points, visibility, SDF and
+far flags, casts them itself and returns float32, so the tiers'
+compaction and scatter back, the compositing and the fine pass's sampling
+all run on float32 buffers, and the far tier decides on the float32
+nearest-vertex distances of the mesh priors.  Training renders of such a
+model raise (:func:`refuse_bf16_training`).
 """
 
 from __future__ import annotations
@@ -313,6 +321,22 @@ def _network_budget(n_total: int, n_samples: int, frac_skip: float,
     return kc, ks, inherit
 
 
+def refuse_bf16_training(model) -> None:
+    """Raise on a model that computes in bfloat16: only its serving path
+    is ported (no autograd through the bfloat16 query, no bfloat16 form of
+    kernel 13, no ``VANERF_FUSED_TRAIN`` in bfloat16), and training it in
+    float32 instead would hide that from the caller."""
+    cdt = getattr(model, "compute_dtype", "float32")
+    if cdt != "float32":
+        fused = os.environ.get("VANERF_FUSED_TRAIN", "")
+        raise NotImplementedError(
+            f"training in compute_dtype {cdt!r}"
+            + (f" (VANERF_FUSED_TRAIN={fused})" if fused not in ("", "0")
+               else "")
+            + " is not ported to PyTorch (ROADMAP.md queue 1 item 3, the "
+            "bfloat16 training slice); bfloat16 serves at eval only")
+
+
 def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
                  out_h: int, out_w: int, sample_per_ray_c: int = 64,
                  sample_per_ray_f: int = 64, fine: bool = True,
@@ -360,6 +384,8 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
     """
     if n_views != 1:
         raise NotImplementedError("the port renders one source view")
+    if training:
+        refuse_bf16_training(model)
     if training and os.environ.get("VANERF_REMAT_QUERY", "0") not in ("",
                                                                       "0"):
         raise NotImplementedError(

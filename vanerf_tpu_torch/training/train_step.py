@@ -16,6 +16,10 @@ Randomness: the grid, the stratified jitter, the radiance noise and the
 importance uniforms come from a ``torch.Generator``, or from a ``draws``
 dict ({"g": {...}, "d": {...}}, keys of :func:`renderer.render_patch`
 plus "grids") so a test can feed the JAX package's draws.
+
+Training is ported in float32 only: on a model whose ``compute_dtype`` is
+bfloat16, :func:`create_train_state`, :func:`make_train_step` and any
+training render raise (``renderer.refuse_bf16_training``).
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ import torch.nn as nn
 from .. import losses as L
 from ..models.discriminator import (bce_loss, d_logistic_loss, d_r1_loss,
                                     g_nonsaturating_loss)
-from ..renderer import as_float_tensor, mask_centered_grid, render_patch
+from ..renderer import (as_float_tensor, mask_centered_grid,
+                        refuse_bf16_training, render_patch)
 
 MILESTONES = (2, 5, 10, 20, 35)
 
@@ -89,6 +94,7 @@ class TrainState:
 def create_train_state(model: nn.Module, disc: nn.Module, cfg: dict,
                        steps_per_epoch: int = 5423) -> TrainState:
     """Optimizers for an initialised generator and discriminator."""
+    refuse_bf16_training(model)
     lr = cfg["training"].get("lr", 1e-5)
     accum = cfg["training"].get("accumulate_grad_batches", 1)
     return TrainState(
@@ -188,6 +194,7 @@ def discriminator_loss(out: Dict[str, Any], disc):
 def make_train_step(model, disc, cfg: dict, vggloss, n_views: int = 1):
     """Build ``train_step(state, batch, generator=None, draws=None) ->
     logs`` (detached scalar tensors named as the JAX package's)."""
+    refuse_bf16_training(model)
     faithful = faithful_gan(cfg)
 
     def train_step(state: TrainState, batch: Dict[str, Any],
