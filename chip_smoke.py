@@ -8,9 +8,9 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU:
 Phases, each printing what it found; any failed check raises and the
 script exits non-zero (there is no CPU fallback):
 
-  1. build (or reuse) the eighteen CUDA kernel entry points from
+  1. build (or reuse) the nineteen CUDA kernel entry points from
      ``vanerf_tpu_torch/csrc`` (the fourteen float32 ones and the bfloat16
-     forms of D, 10, 11 and 12);
+     forms of D, 10, 11, 12 and 13);
   2. each kernel against its plain-PyTorch twin on the card, at the shapes
      the main path gives it (a 64x64-ray patch x 64 samples = 262,144
      points, the 256^2 subdiv=3 two-hand fixture: 2,560 faces, 1,284
@@ -79,7 +79,12 @@ script exits non-zero (there is no CPU fallback):
      and from a CUDA graph, bounds (11 / 12: the bfloat16 tensor rate plus
      the CUDA cores' f32 work), plain and library times (``F.grid_sample``
      on the bfloat16 map with its grid in bfloat16, ``index_select``),
-     nvcc's registers and spills;
+     nvcc's registers and spills; 13 in bfloat16 at phase 2's four
+     training-path shapes and on scalar lanes: equal to the float32 kernel
+     on the rows widened to float32, rounded once to bfloat16, bit for bit,
+     within one bfloat16 unit of its plain version, two runs equal, timed
+     as called and from a CUDA graph beside the float32 form's device time
+     and ``index_add_`` of the widened rows plus one cast;
   3. the serving path at full model width (``configs/vanerf.json``, seeded
      flax-style initialisation): ``render_full_image`` for 2 frames (16
      64x64 tiles each, 64+64 samples) and one bench-shaped group of 16
@@ -151,18 +156,42 @@ script exits non-zero (there is no CPU fallback):
   5c. one faithful GAN step under ``VANERF_SOA_POINTS=1`` from the same
      weights and draws: kernels 7 and 8 launch in both renders and the G
      loss lies within 1e-5 relative of phase 5's first step's;
+  5d. 3 faithful GAN steps of the bfloat16 model (``VANeRF.from_config``
+     under ``VANERF_COMPUTE_DTYPE=bfloat16``, the same weights) in turns
+     with 3 float32 steps: ms/step and peak memory of each, every loss and
+     parameter finite; A, B, C and the bfloat16 scatter 13 launch, kernel D
+     and every float32 form of D, 10, 11, 12 do not, the float32 13 as
+     found; what torch's native gather's backward does on a bfloat16 table;
+  5e. the bfloat16 model under ``VANERF_FUSED_TRAIN=2`` and ``=1``: the
+     bfloat16 kernel 11 / 12 4 times a step, the renders without a graph
+     through the bfloat16 D and 10, the first G loss within 5e-3 relative
+     of 5d's first bfloat16 step's;
   6. one G-loss gradient on a 16x16-ray training patch with the same
      draws on the card (kernels) and on the CPU (plain twins): the loss
-     and each parameter's gradient norm compared.
+     and each parameter's gradient norm compared; then the same in
+     bfloat16 on both devices from the CPU's encode: every tensor holding
+     at least 1e-3 of the gradients' norm within S / 2 + 2 E (RMS; S the
+     CPU port's bfloat16-vs-float32 spread, E the card's float32 gradient
+     against the CPU's), which the card's float32 gradients must fail;
+  5f. train-step determinism, float32 and bfloat16: two steps from one
+     state and one seed of draws equal to the bit (the step runs under
+     cuDNN's deterministic algorithms, with the port's atomic-free
+     replication pad and adaptive pool); without those three the same
+     comparison, with forward hooks and gradient hooks on every leaf
+     module naming the first output and the first gradient that differ;
+     the ops torch flags as without a deterministic implementation (none
+     may be); the three's cost, 8 steps each in turns.
 
 A ``details:`` line holds every measured number; the line before the last
 is a JSON object with one entry per kernel (its launches are those of the
-phase that drives it: A-D and 10 phase 3, 13 phase 5, 11 the level-2 run
+phase that drives it: A-D and 10 phase 3, 13 phase 5, 13 in bfloat16
+phase 5d's bfloat16 steps, 11 the level-2 run
 of phase 3b, 12 the level-1 run, the bfloat16 D and 10 phase 3h's unfused
 bfloat16 frame, 11 / 12 in bfloat16 its level-2 / level-1 frames, 7 and 8 the mode-1 run of phase 3c, 9 the
 two culled runs of phase 3e, 5 and 6 phase 3d; A and 7 carry the sweep's
 time beside the culled query's as ``brute_ms``; D and 13 sum the cases
-they have summed since their port, D's two maps and 13's four tables, and
+they have summed since their port, D's two maps and 13's four tables (13
+in bfloat16 the same four), and
 carry their graph-replayed times as ``device_ms`` / ``library_device_ms``;
 A, 7, B, 8 and 9 carry ``device_ms`` and ``issue_bound_ms``, their
 operations at 33.5 T op/s, the rate of separately rounded f32 operations
@@ -239,8 +268,14 @@ KERNELS = {
                              "vanerf_tpu/ops/fused_mlp.py:365"),
     "fused_geo_mlp_bf16": ("vanerf_tpu_torch/csrc/fused_mlp.cu",
                            "vanerf_tpu/ops/fused_mlp.py:431"),
+    # (bfloat16 training; phases 2b, 5d)
+    "onehot_scatter_bf16": ("vanerf_tpu_torch/csrc/onehot_scatter.cu",
+                            "vanerf_tpu/ops/onehot_gather.py:86"),
 }
 TRAIN_STEPS = 3
+# phase 5f: steps pinned and unpinned in turns, for the pins' cost (the
+# first of each left out of the median)
+REPEAT_ROUNDS = 8
 # The card's published peaks (H100 SXM): device memory rate and the f32
 # rate outside the tensor cores, which is the type every kernel here uses.
 HBM_BYTES_PER_S = 3.35e12
@@ -362,6 +397,11 @@ BF16_CPU_RAYS = 8
 CARD_CPU_LOSS_RTOL = 1e-4
 CARD_CPU_GRAD_RTOL = 1e-3
 CARD_CPU_GRAD_ATOL = 1e-6
+# phase 6 in bfloat16: the tensors that hold at least this share of the
+# gradients' norm are held to S / 2 + 2 E (tests/test_torch_bf16_train.py
+# takes the same share; below it sit the texture encoder's conv biases in
+# front of instance norms, whose gradients are rounding noise)
+BF16_GRAD_SHARE = 1e-3
 
 
 def say(msg: str) -> None:
@@ -951,9 +991,9 @@ def interp_cases(geo_coarse, uv, dev):
 
 def lanes_launched(fn, kernel: str, vector: str = "float4") -> str:
     """Which instantiation of the CUDA kernel ``kernel`` fn() launches, as
-    torch.profiler names it: ``kernel<true>`` is the vector one (``vector``
-    names it), the C entry point's choice.  A short session may end before
-    the device's records arrive: up to 5 are tried."""
+    torch.profiler names it: ``kernel<true...>`` is the vector one
+    (``vector`` names it), the C entry point's choice.  A short session may
+    end before the device's records arrive: up to 5 are tried."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(5):
@@ -962,9 +1002,9 @@ def lanes_launched(fn, kernel: str, vector: str = "float4") -> str:
                 fn()
             torch.cuda.synchronize()
         for e in prof.key_averages():
-            if kernel + "<true>" in e.key:
+            if kernel + "<true" in e.key:
                 return vector
-            if kernel + "<false>" in e.key:
+            if kernel + "<false" in e.key:
                 return "scalar"
     return "not seen by the profiler"
 
@@ -1126,6 +1166,76 @@ def kernel_cases(cases, run):
         max_abs_err=max(r["max_abs_err"] for _t, _m, r in per),
         **{k: sum(r[k] for r in summed) for k in SUMMED},
         cases={t: dict(r, summed=m) for t, m, r in per}, **tot)
+
+
+def ulp_bf16(x):
+    """One bfloat16 unit in the last place at |x| (8 significant bits)."""
+    import torch
+    e = torch.floor(torch.log2(x.abs().clamp(min=2.0 ** -126)))
+    return torch.pow(2.0, e - 7)
+
+
+def scatter_case_bf16(case):
+    """One case of kernel 13's bfloat16 form, its rows drawn in float32 and
+    rounded to bfloat16: the table equal to the float32 kernel on the rows
+    widened to float32, rounded once to bfloat16, bit for bit (the same
+    sums; that kernel meets its own gate against index_add_); within one
+    bfloat16 unit of its plain version (float32 ``index_add_``, one cast);
+    two runs equal.  ``library_ms``: index_add_ of the bfloat16 values
+    (widened) into a zeroed float32 table plus the cast, which is the plain
+    version itself."""
+    import torch
+    from vanerf_tpu_torch.ops import onehot_gather as og
+    bf = torch.bfloat16
+    tag, _main, rows, T, C = case
+    rows = rows.contiguous()
+    g = torch.randn(rows.shape[0], C, device=rows.device,
+                    generator=torch.Generator(device=rows.device)
+                    .manual_seed(SEED)).to(bf)
+    got = og.onehot_scatter_cuda(g, rows, T)
+    again = og.onehot_scatter_cuda(g, rows, T)
+    f32 = og.onehot_scatter_cuda(g.float(), rows, T)
+    want = og.onehot_scatter_plain(g, rows, T)
+    want32 = og.onehot_scatter_plain(g.float(), rows, T)
+    bound = og.onehot_scatter_plain(g.float().abs(), rows, T)
+    torch.cuda.synchronize()
+    check(got.dtype == bf, f"bfloat16 scatter returned {got.dtype} ({tag})")
+    check(torch.equal(got, again), f"bfloat16 scatter not deterministic "
+          f"({tag})")
+    check(torch.equal(got, f32.to(bf)), f"bfloat16 scatter is not the "
+          f"float32 kernel's sums rounded once ({tag})")
+    e32 = (f32 - want32).abs()
+    check(bool((e32 <= 1e-5 * bound + 1e-30).all()),
+          f"float32 scatter on the widened rows: err {e32.max().item()} "
+          f"({tag})")
+    e = (got.float() - want.float()).abs()
+    units = e / ulp_bf16(torch.maximum(got.float().abs(),
+                                       want.float().abs()))
+    check(bool((units <= 1.0).all()), f"bfloat16 scatter {units.max()} "
+          f"units from its plain version ({tag})")
+    small = rows.shape[0] <= og.SCATTER_SMALL_N
+
+    def kernel():
+        return og.onehot_scatter_cuda(g, rows, T)
+
+    def plain():
+        return og.onehot_scatter_plain(g, rows, T)
+
+    plain_ms = cuda_ms(plain, 20)
+    return dict(
+        shape=f"{rows.shape[0]} bfloat16 rows into {T}x{C}",
+        path="one launch" if small else "counting sort",
+        lanes=lanes_launched(kernel, "os_small" if small else "os_sum",
+                             "4 x bfloat16"),
+        max_abs_err=e.max().item() if e.numel() else 0.0,
+        max_units=units.max().item() if e.numel() else 0.0,
+        share_rounded_apart=(e > 0).float().mean().item()
+        if e.numel() else 0.0,
+        equal_to_f32_kernel_rounded=True, bit_equal_runs=True,
+        ms=cuda_ms(kernel, 20), device_ms=graph_ms(kernel),
+        plain_ms=plain_ms, library_ms=plain_ms,
+        library_device_ms=graph_ms(plain),
+        **least_time(nbytes(g, rows, got), g.numel()))
 
 
 def phase_kernels(model, batch, dev):
@@ -1644,12 +1754,26 @@ def phase_kernels_bf16(model16, batch, dev):
     bit; 11 and 12 within FUSED_BF16_SPREAD_X times the spread between two
     summation orders of the plain version, on every output."""
     import torch
-    from vanerf_tpu_torch.ops import _cuda, fused_mlp, interp_mxu
+    from vanerf_tpu_torch.ops import _cuda, fused_mlp, interp_mxu, knn
     bf = torch.bfloat16
     results = {}
     pts, _mesh, geo_coarse, uv, grids, _vv = main_path_points(model16, batch)
     results["interp_mxu_bf16"] = kernel_cases(
         interp_cases_bf16(geo_coarse, uv, dev), interp_case)
+
+    # --- 13 in bfloat16: phase 2's four training-path shapes, then scalar
+    # lanes (5 channels) ---
+    verts = batch["verts"][0].contiguous()
+    idx, _ = knn.nearest_vertex_d2(pts, verts)
+    krt = batch["src_krt"][0]
+    vh = verts @ krt[:3, :3].T + krt[:3, 3]
+    xy_pix = vh[:, :2] / (vh[:, 2:3] + 1e-8)
+    v_uv = torch.stack([2.0 * xy_pix[:, 0] / (W - 1.0) - 1.0,
+                        2.0 * xy_pix[:, 1] / (H - 1.0) - 1.0], -1)
+    cases = [c for c in scatter_cases(idx, verts.shape[0], geo_coarse, uv,
+                                      v_uv, dev)
+             if c[1] or c[0] == "scalar channels"]
+    results["onehot_scatter_bf16"] = kernel_cases(cases, scatter_case_bf16)
 
     fin = fused_main_path_inputs(model16, batch, grids)
     (table, ridx), _ = fin["mxu_row_gather"]
@@ -2663,6 +2787,93 @@ def train_parts(model, dev):
     return copy.deepcopy(model).to(dev), disc.to(dev), vgg.to(dev)
 
 
+class Trainer:
+    """Faithful GAN steps of a copy of ``model`` from the seeded weights
+    and draws, as a user takes them (``create_train_state`` /
+    ``make_train_step``), one :meth:`step` at a time, so that two trainers
+    can step in turns: each step's time, its launches and the peak device
+    memory, per trainer."""
+
+    def __init__(self, model, batch, cfg, dev, seed: int = SEED + 3):
+        import torch
+        from vanerf_tpu_torch.training import (create_train_state,
+                                               make_train_step)
+        self.gen_model, self.disc, vgg = train_parts(model, dev)
+        self.state = create_train_state(self.gen_model, self.disc, cfg)
+        self.step_fn = make_train_step(self.gen_model, self.disc, cfg, vgg)
+        self.gen = torch.Generator(device=dev).manual_seed(seed)
+        self.batch, self.dev = batch, dev
+        self.step_ms, self.logs, self.launches, self.peak = [], [], {}, 0
+
+    def step(self):
+        import torch
+        from vanerf_tpu_torch import ops
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        self.logs.append(self.step_fn(self.state, self.batch, self.gen))
+        torch.cuda.synchronize()
+        self.step_ms.append((time.perf_counter() - t0) * 1e3)
+        for k, v in ops.launch_counts().items():
+            self.launches[k] = self.launches.get(k, 0) + v
+        self.peak = max(self.peak, torch.cuda.max_memory_allocated(self.dev))
+
+    def result(self) -> dict:
+        """Every loss and parameter finite; the readings."""
+        import torch
+        for i, lg in enumerate(self.logs):
+            for k, v in lg.items():
+                check(bool(torch.isfinite(v).all()), f"step {i}: {k} = {v}")
+        for net in (self.gen_model, self.disc):
+            for name, p in net.named_parameters():
+                check(bool(torch.isfinite(p).all()), f"non-finite {name}")
+        return dict(step_ms=self.step_ms,
+                    ms_per_step=sum(self.step_ms[1:])
+                    / max(len(self.step_ms) - 1, 1),
+                    peak_bytes=self.peak, launches=dict(self.launches),
+                    logs=[{k: v.item() for k, v in lg.items()}
+                          for lg in self.logs])
+
+
+def check_train_launches(launches, steps, fused_level, soa, bf16):
+    """The kernels a training run must (and must not) have launched.  The
+    G render builds a graph; the D render does not.  Under
+    VANERF_FUSED_TRAIN both renders' forwards run without one."""
+    sfx = "_bf16" if bf16 else ""
+    # two renders a step, two passes each: A and B, or 7 and 8 under SoA
+    query = (("mesh_query_T", "knn_T") if soa else ("mesh_query", "knn"))
+    for name in ("mesh_query", "knn", "mesh_query_T", "knn_T"):
+        check(launches[name] == (4 * steps if name in query else 0),
+              f"kernel {name}: {launches[name]} launches in training under "
+              f"VANERF_SOA_POINTS={soa}")
+    for name in ("rasterize", "onehot_scatter" + sfx):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the training path")
+    # kernel D samples only where no graph is built at inference (as in the
+    # JAX package): the fused forwards, never a training query
+    check(fused_level > 0 or launches["interp_mxu" + sfx] == 0,
+          "kernel D ran under training")
+    # the KNN rows with a table gradient go through take_rows; a pass
+    # without a graph takes kernel 10: the D render's two, and under
+    # VANERF_FUSED_TRAIN the G render's two as well
+    want = (4 if fused_level else 2) * steps
+    check(launches["row_gather" + sfx] == want,
+          f"kernel 10: {launches['row_gather' + sfx]} launches in training, "
+          f"not {want}")
+    fused = {0: None, 1: "fused_geo_mlp", 2: "fused_query_mlp"}[fused_level]
+    for name in ("fused_geo_mlp", "fused_query_mlp"):
+        # two renders a step, two passes each
+        check(launches[name + sfx] == (4 * steps if name == fused else 0),
+              f"kernel {name + sfx}: {launches[name + sfx]} launches under "
+              f"VANERF_FUSED_TRAIN={fused_level}")
+    if bf16:    # no float32 form of D, 10, 11 or 12 in a bfloat16 step
+        for name in ("interp_mxu", "row_gather", "fused_geo_mlp",
+                     "fused_query_mlp"):
+            check(launches[name] == 0, f"the float32 {name} ran in a "
+                  "bfloat16 training step")
+
+
 def phase_train(model, batch, cfg, dev, fused_level: int = 0, soa: int = 0,
                 steps: int = TRAIN_STEPS):
     """``steps`` faithful GAN steps from the seeded weights and draws; with
@@ -2670,96 +2881,294 @@ def phase_train(model, batch, cfg, dev, fused_level: int = 0, soa: int = 0,
     VANERF_SOA_POINTS=<mode>."""
     with env(VANERF_FUSED_TRAIN=str(fused_level),
              VANERF_SOA_POINTS=str(soa)):
-        return _phase_train(model, batch, cfg, dev, fused_level, soa, steps)
+        tr = Trainer(model, batch, cfg, dev)
+        for _ in range(steps):
+            tr.step()
+        res = tr.result()
+    check_train_launches(res["launches"], steps, fused_level, soa,
+                         model.compute_dtype == "bfloat16")
+    return res
 
 
-def _phase_train(model, batch, cfg, dev, fused_level, soa, steps):
-    import torch
-    from vanerf_tpu_torch import ops
-    from vanerf_tpu_torch.training import create_train_state, make_train_step
-    gen_model, disc, vgg = train_parts(model, dev)
-    state = create_train_state(gen_model, disc, cfg)
-    step = make_train_step(gen_model, disc, cfg, vgg)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    ops.reset_launches()
-    step_ms, logs = [], []
+def phase_train_bf16_turns(model, model16, batch, cfg, dev,
+                           steps: int = TRAIN_STEPS):
+    """Phase 5d: ``steps`` faithful GAN steps of the bfloat16 model in
+    turns with as many of the float32 model, each from the same seeded
+    weights and draws; the launches of the bfloat16 steps."""
+    runs = {"float32": Trainer(model, batch, cfg, dev),
+            "bfloat16": Trainer(model16, batch, cfg, dev)}
     for _ in range(steps):
-        t0 = time.perf_counter()
-        logs.append(step(state, batch, gen))
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated(dev)
-    for i, lg in enumerate(logs):
-        for k, v in lg.items():
-            check(bool(torch.isfinite(v).all()), f"step {i}: {k} = {v}")
-    for net in (gen_model, disc):
-        for name, p in net.named_parameters():
-            check(bool(torch.isfinite(p).all()), f"non-finite {name}")
-    # two renders a step, two passes each: A and B, or 7 and 8 under SoA
-    query = (("mesh_query_T", "knn_T") if soa else ("mesh_query", "knn"))
-    for name in ("mesh_query", "knn", "mesh_query_T", "knn_T"):
-        check(launches[name] == (4 * steps if name in query else 0),
-              f"kernel {name}: {launches[name]} launches in training under "
-              f"VANERF_SOA_POINTS={soa}")
-    for name in ("rasterize", "onehot_scatter"):
-        check(launches[name] > 0,
-              f"kernel {name} was not launched on the training path")
-    # under VANERF_FUSED_TRAIN the query runs as at eval (as in the JAX
-    # package), so the D render, which builds no graph, samples through D
-    check(fused_level > 0 or launches["interp_mxu"] == 0,
-          "kernel D ran under training")
-    # the G render's KNN rows carry a table gradient (take_rows); the D
-    # render builds no graph and takes kernel 10, once a pass
-    check(launches["row_gather"] == 2 * steps,
-          f"kernel 10: {launches['row_gather']} launches in training")
-    fused = {0: None, 1: "fused_geo_mlp", 2: "fused_query_mlp"}[fused_level]
-    for name in ("fused_geo_mlp", "fused_query_mlp"):
-        # two renders a step (G with a graph, D without), two passes each
-        check(launches[name] == (4 * steps if name == fused else 0),
-              f"kernel {name}: {launches[name]} launches under "
-              f"VANERF_FUSED_TRAIN={fused_level}")
-    return dict(step_ms=step_ms, ms_per_step=sum(step_ms[1:]) /
-                max(len(step_ms) - 1, 1), peak_bytes=peak, launches=launches,
-                logs=[{k: v.item() for k, v in lg.items()} for lg in logs])
+        for tr in runs.values():
+            tr.step()
+    res = {k: tr.result() for k, tr in runs.items()}
+    check_train_launches(res["bfloat16"]["launches"], steps, 0, 0, True)
+    check_train_launches(res["float32"]["launches"], steps, 0, 0, False)
+    return res
+
+
+def native_gather_accumulation(dev) -> str:
+    """What the backward of torch's native gather from a bfloat16 table
+    (the route of a table above 8,192 rows) does on the card: 300 ones into
+    one row sum to 300 in float32 and to 256 in bfloat16 adds."""
+    import torch
+    t = torch.zeros(4, 3, dtype=torch.bfloat16, device=dev,
+                    requires_grad=True)
+    idx = torch.zeros(300, dtype=torch.long, device=dev)
+    (g,) = torch.autograd.grad(t[idx], t, torch.ones(300, 3,
+                                                     dtype=torch.bfloat16,
+                                                     device=dev))
+    v = g[0, 0].item()
+    return (f"{v:g}: " + ("a float32 sum rounded once" if v == 300.0 else
+                         "bfloat16 adds" if v == 256.0 else "neither"))
+
+
+def with_torch_pads(model):
+    """A copy of ``model`` whose replication pads and adaptive pools are
+    torch's own modules again (``nn.ReplicationPad2d``,
+    ``nn.AdaptiveAvgPool2d``), whose CUDA backwards add with atomics."""
+    import torch.nn as nn
+    from vanerf_tpu_torch.models import blocks, fusion
+    model = copy.deepcopy(model)
+    for mod in list(model.modules()):
+        for name, child in mod.named_children():
+            if isinstance(child, blocks.ReplicationPad2d):
+                setattr(mod, name, nn.ReplicationPad2d(child.p))
+            elif isinstance(child, fusion.AdaptiveAvgPool2d):
+                setattr(mod, name, nn.AdaptiveAvgPool2d(child.out))
+    return model
+
+
+class unpinned:
+    """For the length of a ``with`` block the train step runs without its
+    pin to cuDNN's deterministic algorithms
+    (``training/train_step.py::deterministic``)."""
+
+    def __enter__(self):
+        import contextlib
+        from vanerf_tpu_torch.training import train_step
+        self.real = train_step.deterministic
+        train_step.deterministic = contextlib.nullcontext
+
+    def __exit__(self, *exc):
+        from vanerf_tpu_torch.training import train_step
+        train_step.deterministic = self.real
+
+
+def bits_sum(t):
+    """An order-free exact digest of a tensor's bits: the int64 sum of its
+    elements read as integers of their width."""
+    import torch
+    view = {4: torch.int32, 2: torch.int16}[t.element_size()]
+    return t.detach().contiguous().view(view).to(torch.int64).sum()
+
+
+class step_trace:
+    """Forward hooks on every leaf module of ``nets``: the digest of each
+    output tensor in call order, and of the gradient that reaches it, in
+    the order the backward produces them; the digests of the gradients the
+    optimizers of ``tr`` take."""
+
+    def __init__(self, tr):
+        self.tr, self.fwd, self.bwd, self.grads = tr, [], [], {}
+
+    def __enter__(self):
+        def hook(_m, _i, out, name):
+            for k, o in enumerate(out if isinstance(out, (tuple, list))
+                                  else (out,)):
+                if torch_is_float(o):
+                    self.fwd.append((name, bits_sum(o)))
+                    if o.requires_grad:
+                        o.register_hook(lambda g, n=f"{name}[{k}]":
+                                        self.bwd.append((n, bits_sum(g))))
+        self.hooks = [m.register_forward_hook(
+            lambda mm, i, o, n=f"{tag}.{name}": hook(mm, i, o, n))
+            for tag, net in (("G", self.tr.gen_model), ("D", self.tr.disc))
+            for name, m in net.named_modules() if not list(m.children())]
+        self.real = {}
+        for tag, opt in (("G", self.tr.state.opt_g),
+                         ("D", self.tr.state.opt_d)):
+            self.real[tag] = opt.step
+
+            def step(grads, tag=tag, opt=opt):
+                self.grads[tag] = [bits_sum(g) if g is not None else None
+                                   for g in grads]
+                self.real[tag](grads)
+            opt.step = step
+        return self
+
+    def __exit__(self, *exc):
+        for hk in self.hooks:
+            hk.remove()
+        self.tr.state.opt_g.step = self.real["G"]
+        self.tr.state.opt_d.step = self.real["D"]
+
+
+def torch_is_float(o) -> bool:
+    import torch
+    return torch.is_tensor(o) and o.is_floating_point()
+
+
+def repeat_step(m, batch, cfg, dev) -> dict:
+    """One step each of two trainers from one deep-copied state with one
+    seed of draws: the logs and the generator's and discriminator's updated
+    parameters that differ; where they do, the first leaf module whose
+    output differs, the first gradient (in backward order) that reaches a
+    leaf module's output differently, and the parameter gradients the
+    optimizers took differently."""
+    import torch
+    a, b = (Trainer(m, batch, cfg, dev) for _ in range(2))
+    with step_trace(a) as ta:
+        a.step()
+    with step_trace(b) as tb:
+        b.step()
+    logs = [k for k in a.logs[0]
+            if not torch.equal(a.logs[0][k], b.logs[0][k])]
+    names = {tag: [n for n, _ in net.named_parameters()]
+             for tag, net in (("G", a.gen_model), ("D", a.disc))}
+    params = [f"{tag}.{n}" for tag, na, nb in
+              (("G", a.gen_model, b.gen_model), ("D", a.disc, b.disc))
+              for (n, pa), (_, pb) in zip(na.named_parameters(),
+                                          nb.named_parameters())
+              if not torch.equal(pa, pb)]
+
+    def first(x, y):
+        return next((f"{na} (#{i} of {len(x)})"
+                     for i, ((na, u), (nb, v)) in enumerate(zip(x, y))
+                     if na != nb or not torch.equal(u, v)), None)
+
+    grads = {tag: [n for n, u, v in zip(names[tag], ta.grads[tag],
+                                        tb.grads[tag])
+                   if (u is None) != (v is None)
+                   or (u is not None and not torch.equal(u, v))]
+             for tag in ("G", "D")}
+    n = sum(len(v) for v in names.values())
+    return dict(logs_differ=logs, params_differ=params, n_params=n,
+                bit_equal=not logs and not params,
+                first_output_differing=first(ta.fwd, tb.fwd),
+                first_gradient_differing=first(ta.bwd, tb.bwd),
+                leaf_outputs=len(ta.fwd), grads_differ=grads)
+
+
+def phase_train_repeat(models, batch, cfg, dev,
+                       rounds: int = REPEAT_ROUNDS) -> dict:
+    """Phase 5f, for each model of ``models`` (float32, bfloat16): two
+    steps from one state and one seed of draws, compared bit for bit, as
+    the step runs (pinned) and "unpinned": without the cuDNN pin and with
+    torch's replication pads and adaptive pools (``with_torch_pads``);
+    the ops torch flags as without a deterministic implementation in one
+    more step (``torch.use_deterministic_algorithms(True,
+    warn_only=True)``); the cost of the three, ``rounds`` steps pinned and
+    unpinned in turns."""
+    import statistics
+    import warnings
+    import torch
+    out = {}
+    for cdt, m in models.items():
+        r = dict(pinned=repeat_step(m, batch, cfg, dev))
+        free_model = with_torch_pads(m)
+        with unpinned():
+            r["unpinned"] = repeat_step(free_model, batch, cfg, dev)
+        c = Trainer(m, batch, cfg, dev)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                c.step()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        r["flagged_ops"] = sorted({
+            str(w.message).split(" does not have a deterministic")[0]
+            for w in caught if "deterministic" in str(w.message)})
+        pin = Trainer(m, batch, cfg, dev)
+        free = Trainer(free_model, batch, cfg, dev)
+        for _ in range(rounds):
+            pin.step()
+            with unpinned():
+                free.step()
+        r["ms_pinned"], r["ms_unpinned"] = pin.step_ms, free.step_ms
+        r["median_ms_pinned"] = statistics.median(pin.step_ms[1:]
+                                                  or pin.step_ms)
+        r["median_ms_unpinned"] = statistics.median(free.step_ms[1:]
+                                                    or free.step_ms)
+        out[cdt] = r
+    return out
 
 
 # ---------------------------------------------------------------------------
 # phase 6: one G-loss gradient, card (kernels) against CPU (plain twins)
 # ---------------------------------------------------------------------------
 
-def phase_train_card_vs_cpu(model, batch_np, cfg, dev):
+def maps_forward(model, maps) -> None:
+    """Make ``model.encode`` return the values ``maps`` = ([coarse, fine]
+    geometry maps, texture map), their gradients reaching the model's own
+    encoder (as phase 3h renders both devices' patches from one encode)."""
     import torch
+
+    class Values(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, want):
+            return want.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            return g, None
+
+    real = type(model).encode.__get__(model)
+    fg_w, ft_w = maps
+
+    def encode(im):
+        fg, ft = real(im)
+        return ([Values.apply(a, w.to(a.device)) for a, w in zip(fg, fg_w)],
+                Values.apply(ft, ft_w.to(ft.device)))
+    model.encode = encode
+
+
+def train_grad_setup(batch_np, cfg):
+    """Phase 6's 16x16-ray training config and its draws (CPU tensors)."""
+    import torch
+    from vanerf_tpu_torch import renderer as tr
     from vanerf_tpu_torch.data import to_torch
-    from vanerf_tpu_torch.training import generator_loss, generator_outputs
     cfg = copy.deepcopy(cfg)
     m = cfg["models"]["VANeRF"]
     m["train_out_h"] = m["train_out_w"] = 16
     P = 16 * 16
     gen = torch.Generator().manual_seed(SEED + 4)
     b_cpu = to_torch(batch_np, "cpu")
-    from vanerf_tpu_torch import renderer as tr
     draws = {"grids": tr.mask_centered_grid(gen, b_cpu["tar_mask"][..., 0],
                                             16, 16),
              "u_c": torch.rand(1, P, S_C, generator=gen),
              "noise_c": torch.randn(1, P * S_C, 1, generator=gen),
              "u_f": torch.rand(1, P, S_F, generator=gen),
              "noise_f": torch.randn(1, P * S_F, 1, generator=gen)}
-    res = []
-    for where in (dev, torch.device("cpu")):
-        g_model, disc, vgg = train_parts(model, where)
-        out = generator_outputs(g_model, to_torch(batch_np, where), cfg,
-                                draws=draws)
-        loss, _ = generator_loss(out, disc, vgg, cfg)
-        grads = torch.autograd.grad(loss, list(g_model.parameters()),
-                                    allow_unused=True)
-        names = [n for n, _ in g_model.named_parameters()]
-        res.append((loss.item(), {
-            n: (torch.zeros_like(p) if gr is None else gr).cpu()
-            for n, p, gr in zip(names, g_model.parameters(), grads)}))
-    (l_gpu, g_gpu), (l_cpu, g_cpu) = res
+    return cfg, draws
+
+
+def g_loss_grads(model, batch_np, cfg, draws, where, maps=None):
+    """The G loss of one training patch on ``where`` and every generator
+    gradient (on the CPU); ``maps``: the map values to take (maps_forward)."""
+    import torch
+    from vanerf_tpu_torch.data import to_torch
+    from vanerf_tpu_torch.training import generator_loss, generator_outputs
+    g_model, disc, vgg = train_parts(model, where)
+    if maps is not None:
+        maps_forward(g_model, maps)
+    out = generator_outputs(g_model, to_torch(batch_np, where), cfg,
+                            draws=draws)
+    loss, _ = generator_loss(out, disc, vgg, cfg)
+    grads = torch.autograd.grad(loss, list(g_model.parameters()),
+                                allow_unused=True)
+    names = [n for n, _ in g_model.named_parameters()]
+    return loss.item(), {
+        n: (torch.zeros_like(p) if gr is None else gr).detach().float().cpu()
+        for n, p, gr in zip(names, g_model.parameters(), grads)}
+
+
+def phase_train_card_vs_cpu(model, batch_np, cfg, dev):
+    import torch
+    cfg, draws = train_grad_setup(batch_np, cfg)
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = (
+        g_loss_grads(model, batch_np, cfg, draws, where)
+        for where in (dev, torch.device("cpu")))
     total = sum(float(g.double().pow(2).sum()) for g in g_cpu.values()) ** .5
     rows = []
     for n, gc in g_cpu.items():
@@ -2778,7 +3187,62 @@ def phase_train_card_vs_cpu(model, batch_np, cfg, dev):
                 worst_grad_rel_err=rel[1], worst_rel_grad=rel[3],
                 grad_norm=total,
                 top5=[dict(name=r[3], of_bound=r[0], rel_err=r[1],
-                           norm_share=r[2]) for r in rows[:5]])
+                           norm_share=r[2]) for r in rows[:5]]), g_cpu
+
+
+def phase_train_card_vs_cpu_bf16(model, model16, batch_np, cfg, dev,
+                                 g_cpu32):
+    """Phase 6 in bfloat16: the same G-loss gradient of the bfloat16 model
+    on the card and on the CPU, both from the CPU's encode (its map values,
+    the gradients reaching each device's encoder).  Per tensor holding at
+    least 1e-3 of the gradients' norm, the RMS error against the CPU's
+    bfloat16 gradient at most S / 2 + 2 E (S the RMS of the CPU port's
+    bfloat16-vs-float32 spread, E of the card's float32 gradient, from the
+    same maps, against the CPU's: ``BF16_GRAD_SHARE``); the card's float32
+    gradients taken together must fail that bound."""
+    import torch
+    from vanerf_tpu_torch.data import to_torch
+    cfg, draws = train_grad_setup(batch_np, cfg)
+    cpu = torch.device("cpu")
+    with torch.no_grad():
+        fg, ft = copy.deepcopy(model).cpu().encode(
+            to_torch(batch_np, cpu)["src_img"])
+    maps = ([f.clone() for f in fg], ft.clone())
+    l16_cpu, g16_cpu = g_loss_grads(model16, batch_np, cfg, draws, cpu)
+    l16, g16 = g_loss_grads(model16, batch_np, cfg, draws, dev, maps)
+    l32, g32 = g_loss_grads(model, batch_np, cfg, draws, dev, maps)
+
+    def rms(x):
+        return float(x.double().pow(2).mean().sqrt())
+
+    total = sum(float(g.double().pow(2).sum())
+                for g in g_cpu32.values()) ** .5
+    rows, ctrl_parts = [], []
+    for n, c32 in g_cpu32.items():
+        if float(c32.double().norm()) < BF16_GRAD_SHARE * total:
+            continue
+        S, E = rms(g16_cpu[n] - c32), rms(g32[n] - c32)
+        err, bound = rms(g16[n] - g16_cpu[n]), S / 2 + 2 * E
+        rows.append((err / bound if bound > 0 else float("inf"), n,
+                     err / S if S > 0 else float("inf"),
+                     float(c32.double().norm()) / total))
+        ctrl_parts.append((g32[n].reshape(-1), g16_cpu[n].reshape(-1),
+                           c32.reshape(-1)))
+    rows.sort(reverse=True)
+    check(rows and rows[0][0] <= 1.0, f"bfloat16 gradient of {rows[0][1]}: "
+          f"RMS error {rows[0][0]:.3g} x S / 2 + 2 E")
+    c_g32, c_16, c_32 = (torch.cat(p) for p in zip(*ctrl_parts))
+    S, E = rms(c_16 - c_32), rms(c_g32 - c_32)
+    ctrl = rms(c_g32 - c_16) / (S / 2 + 2 * E)
+    check(ctrl > 1.0, f"the card's float32 gradients pass the bfloat16 bound "
+          f"({ctrl:.3g} x)")
+    return dict(loss_card=l16, loss_cpu=l16_cpu,
+                loss_rel_err=abs(l16 - l16_cpu) / abs(l16_cpu),
+                loss_f32_card=l32, tensors=len(rows),
+                worst_of_bound=rows[0][0], worst_grad=rows[0][1],
+                worst_of_S=rows[0][2], control_of_bound=ctrl,
+                top5=[dict(name=r[1], of_bound=r[0], of_S=r[2],
+                           norm_share=r[3]) for r in rows[:5]])
 
 
 def main() -> int:
@@ -2963,6 +3427,22 @@ def main() -> int:
             f"{c['device_ms']:.4f} / {c['library_device_ms']:.4f} ms), plain "
             f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms by "
             f"{c['bound_by']}")
+    for tag, c in kres16["onehot_scatter_bf16"]["cases"].items():
+        c32 = kres["onehot_scatter"]["cases"].get(tag)
+        say(f"phase 2b onehot_scatter_bf16 [{tag}]: {c['shape']} "
+            f"({c['path']}, {c['lanes']} lanes"
+            f"{', in the kernels line' if c['summed'] else ''}): equal to "
+            f"the float32 kernel on the widened rows rounded once, and "
+            f"across two runs; {c['share_rounded_apart']:.2e} of the "
+            f"elements apart from its plain version, by at most "
+            f"{c['max_units']:.2f} bfloat16 unit; kernel {c['ms']:.4f} ms "
+            f"called, {c['device_ms']:.4f} ms device (CUDA graph)"
+            + (f", the float32 form at this shape {c32['device_ms']:.4f} ms "
+               "device" if c32 else "")
+            + f"; plain (index_add_ of the widened rows + one cast, the "
+            f"library call) {c['plain_ms']:.4f} / "
+            f"{c['library_device_ms']:.4f} ms; bound {c['bound_ms']:.4f} ms "
+            f"by {c['bound_by']}")
     r = kres16["row_gather_bf16"]
     say(f"phase 2b row_gather_bf16: {r['shape']}: equal to table[idx]; "
         f"kernel {r['ms']:.4f} ms called, {r['device_ms']:.4f} ms device "
@@ -3175,14 +3655,102 @@ def main() -> int:
         f"ms; launches "
         f"{ {k: strain['launches'][k] for k in ('knn_T', 'mesh_query_T', 'knn', 'mesh_query')} }")
 
+    # ---- phase 5d ----
+    turns = phase_train_bf16_turns(model, model16, batches[0], cfg, dev)
+    t16, t32 = turns["bfloat16"], turns["float32"]
+    say(f"phase 5d bfloat16 training ({TRAIN_STEPS} faithful GAN steps in "
+        f"turns with {TRAIN_STEPS} float32 steps): bfloat16 "
+        f"{t16['ms_per_step']:.1f} ms/step, float32 "
+        f"{t32['ms_per_step']:.1f} ms/step (steps 2-{TRAIN_STEPS}; all: "
+        f"{[round(t, 1) for t in t16['step_ms']]} / "
+        f"{[round(t, 1) for t in t32['step_ms']]}); peak "
+        f"{t16['peak_bytes'] / 2**30:.2f} / {t32['peak_bytes'] / 2**30:.2f} "
+        f"GiB; g_loss {[round(lg['train/g_loss'], 4) for lg in t16['logs']]}"
+        f" / {[round(lg['train/g_loss'], 4) for lg in t32['logs']]}; "
+        f"bfloat16 launches "
+        f"{ {k: v for k, v in t16['launches'].items() if v} } (the float32 "
+        f"onehot_scatter {t16['launches']['onehot_scatter']}: every table "
+        "with a gradient is bfloat16); the native gather's backward from a "
+        f"bfloat16 table, 300 ones into one row: "
+        f"{native_gather_accumulation(dev)}")
+
+    # ---- phase 5e ----
+    ftrain16 = {}
+    g16 = t16["logs"][0]["train/g_loss"]
+    for level in (2, 1):
+        r = ftrain16[level] = phase_train(model16, batches[0], cfg, dev,
+                                          fused_level=level)
+        g = r["logs"][0]["train/g_loss"]
+        r["g_loss_rel_err"] = abs(g - g16) / abs(g16)
+        check(r["g_loss_rel_err"] <= FUSED_TRAIN_LOSS_RTOL,
+              f"bfloat16 VANERF_FUSED_TRAIN={level} G loss {g} against "
+              f"unfused {g16}")
+        kern = ("fused_query_mlp_bf16" if level == 2
+                else "fused_geo_mlp_bf16")
+        check(r["launches"]["interp_mxu_bf16"] > 0,
+              f"bfloat16 VANERF_FUSED_TRAIN={level}: kernel D did not run "
+              "in the renders without a graph")
+        say(f"phase 5e bfloat16 training under VANERF_FUSED_TRAIN={level}: "
+            f"{r['ms_per_step']:.1f} ms/step (steps 2-{TRAIN_STEPS}; all: "
+            f"{[round(t, 1) for t in r['step_ms']]}); peak "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB; first-step g_loss {g:.6g} "
+            f"against unfused bfloat16 {g16:.6g} (rel "
+            f"{r['g_loss_rel_err']:.2e}, bound {FUSED_TRAIN_LOSS_RTOL}); "
+            f"launches {kern} {r['launches'][kern]}, interp_mxu_bf16 "
+            f"{r['launches']['interp_mxu_bf16']}, row_gather_bf16 "
+            f"{r['launches']['row_gather_bf16']}, onehot_scatter_bf16 "
+            f"{r['launches']['onehot_scatter_bf16']}")
+
     # ---- phase 6 ----
-    vs_cpu = phase_train_card_vs_cpu(model, frames[0], cfg, dev)
+    vs_cpu, g_cpu32 = phase_train_card_vs_cpu(model, frames[0], cfg, dev)
     say(f"phase 6 G-loss gradient card vs CPU (16x16 rays, 64+64 samples): "
         f"loss {vs_cpu['loss_card']:.7g} / {vs_cpu['loss_cpu']:.7g} (rel "
         f"{vs_cpu['loss_rel_err']:.2e}); gradients within "
         f"{vs_cpu['worst_of_bound']:.2f} of their bound at worst "
         f"({vs_cpu['worst_grad']}); largest relative norm error "
         f"{vs_cpu['worst_grad_rel_err']:.2e} ({vs_cpu['worst_rel_grad']})")
+    vs_cpu16 = phase_train_card_vs_cpu_bf16(model, model16, frames[0], cfg,
+                                            dev, g_cpu32)
+    say(f"phase 6 bfloat16 G-loss gradient card vs CPU (16x16 rays, both "
+        f"from the CPU's encode): loss {vs_cpu16['loss_card']:.7g} / "
+        f"{vs_cpu16['loss_cpu']:.7g} (rel {vs_cpu16['loss_rel_err']:.2e}); "
+        f"{vs_cpu16['tensors']} tensors, the worst "
+        f"({vs_cpu16['worst_grad']}) at {vs_cpu16['worst_of_bound']:.3f} of "
+        f"S / 2 + 2 E ({vs_cpu16['worst_of_S']:.3f} S); the card's float32 "
+        f"gradients at {vs_cpu16['control_of_bound']:.2f} of that bound")
+
+    # ---- phase 5f: train-step determinism ----
+    rep = phase_train_repeat({"float32": model, "bfloat16": model16},
+                             batches[0], cfg, dev)
+    def bisect(r):
+        return (f"first leaf output differing {r['first_output_differing']}"
+                f", first gradient differing (backward order) "
+                f"{r['first_gradient_differing']}, optimizer gradients "
+                f"differing G {r['grads_differ']['G'][:4]} "
+                f"({len(r['grads_differ']['G'])}), D "
+                f"{r['grads_differ']['D'][:4]} "
+                f"({len(r['grads_differ']['D'])})")
+
+    for cdt, r in rep.items():
+        p, u = r["pinned"], r["unpinned"]
+        say(f"phase 5f {cdt}: two GAN steps from one state and one seed of "
+            f"draws: {'equal to the bit' if p['bit_equal'] else 'DIFFER'} "
+            f"(logs differing {p['logs_differ']}, "
+            f"{len(p['params_differ'])} of {p['n_params']} parameters"
+            + ("" if p["bit_equal"] else f"; {bisect(p)}") + "); "
+            f"without the cuDNN pin and with torch's replication pads and "
+            f"adaptive pools "
+            f"{'equal to the bit' if u['bit_equal'] else 'they differ'} "
+            f"({len(u['params_differ'])} parameters; {bisect(u)}); ops "
+            f"torch flags as without a deterministic implementation: "
+            f"{r['flagged_ops']}; ms/step in turns, median of steps 2-"
+            f"{REPEAT_ROUNDS}: pinned {r['median_ms_pinned']:.1f} "
+            f"{[round(t, 1) for t in r['ms_pinned']]}, unpinned "
+            f"{r['median_ms_unpinned']:.1f} "
+            f"{[round(t, 1) for t in r['ms_unpinned']]}")
+    for cdt, r in rep.items():
+        check(r["pinned"]["bit_equal"] and not r["flagged_ops"],
+              f"{cdt} train step does not repeat to the bit")
 
     launches = dict(
         main["launches"],
@@ -3199,7 +3767,8 @@ def main() -> int:
         row_gather_bf16=bf16["unfused"]["launches"]["row_gather_bf16"],
         fused_query_mlp_bf16=bf16["level2"]["launches"]
         ["fused_query_mlp_bf16"],
-        fused_geo_mlp_bf16=bf16["level1"]["launches"]["fused_geo_mlp_bf16"])
+        fused_geo_mlp_bf16=bf16["level1"]["launches"]["fused_geo_mlp_bf16"],
+        onehot_scatter_bf16=t16["launches"]["onehot_scatter_bf16"])
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = kres[name]
@@ -3235,7 +3804,11 @@ def main() -> int:
                                   "soa_train": strain,
                                   "card_vs_cpu": errs, "train": train,
                                   "fused_train": ftrain,
-                                  "train_card_vs_cpu": vs_cpu}))
+                                  "train_card_vs_cpu": vs_cpu,
+                                  "bf16_train": turns,
+                                  "bf16_fused_train": ftrain16,
+                                  "bf16_train_card_vs_cpu": vs_cpu16,
+                                  "train_repeat": rep}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

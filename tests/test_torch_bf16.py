@@ -54,7 +54,6 @@ installed:
 ``python -m pytest tests/test_torch_bf16.py -m cuda --noconftest``.
 """
 
-import os
 
 import numpy as np
 import pytest
@@ -641,35 +640,7 @@ def test_render_full_image_bf16_is_its_patches(level, env):
 
 
 # ---------------------------------------------------------------------------
-# (e) training stays float32 only
-# ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("fused_train", ["", "2"])
-def test_bf16_training_raises(fused_train, env):
-    """``create_train_state``, ``make_train_step`` and a training render on
-    a bfloat16 model raise and name the ROADMAP item, with and without
-    ``VANERF_FUSED_TRAIN``; nothing trains in float32 instead."""
-    from vanerf_tpu_torch.models import DiscriminatorVis
-    from vanerf_tpu_torch.training import create_train_state, make_train_step
-    env.setenv("VANERF_FUSED_TRAIN", fused_train)
-    model, cfg = _port_model("bfloat16"), h.small_cfg()
-    disc = DiscriminatorVis()
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        create_train_state(model, disc, cfg)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        make_train_step(model, disc, cfg, None)
-    with pytest.raises(NotImplementedError, match=(
-            "VANERF_FUSED_TRAIN" if fused_train else "item 3")):
-        tr.render_patch(model, h.torch_batch(h.synthetic_batch()[0]),
-                        grids=T(h.center_grid()), out_h=h.OUT, out_w=h.OUT,
-                        sample_per_ray_c=4, sample_per_ray_f=4, training=True)
-    # the same model serves, and a float32 model still trains
-    assert os.environ.get("VANERF_COMPUTE_DTYPE") is None
-    make_train_step(_port_model("float32"), disc, cfg, None)
-
-
-# ---------------------------------------------------------------------------
-# (f) on the card: each bfloat16 kernel against its plain version
+# (e) on the card: each bfloat16 kernel against its plain version
 # ---------------------------------------------------------------------------
 
 @pytest.fixture
@@ -736,3 +707,31 @@ def test_fused_bf16_kernels_match_plain(kernel, cuda):
         want, want_f32 = run(plain, BF), run(plain, torch.float32)
     for a, b, c in zip(got, want, want_f32):
         within_spread(a.cpu(), b.cpu(), c.cpu(), 0.0, 1e-6)
+
+
+@pytest.mark.cuda
+def test_onehot_scatter_bf16_kernel_matches_plain(cuda):
+    """Kernel 13 on bfloat16 rows: equal to the float32 kernel on the rows
+    widened to float32, rounded once to bfloat16 (the same sums); within
+    one bfloat16 unit of its plain version; two runs equal; the one-launch
+    and the counting-sort path, 4-channel and scalar lanes."""
+    from vanerf_tpu_torch.ops import onehot_gather as og
+    rs = np.random.RandomState(13)
+    for n, T_, C in ((262144, 1284, 204), (262144, 1024, 256),
+                     (262144, 4096, 32), (1284, 1024, 256), (5000, 37, 5)):
+        g = T(rs.randn(n, C).astype(np.float32)).to(cuda, BF)
+        idx = T(np.minimum(rs.geometric(2.0 / T_, n) - 1, T_ - 1)
+                .astype(np.int32)).to(cuda)
+        n0, f0 = og.launches_bf16, og.launches
+        got = og.onehot_scatter(g, idx, T_)
+        again = og.onehot_scatter(g, idx, T_)
+        f32 = og.onehot_scatter(g.float(), idx, T_)
+        torch.cuda.synchronize()
+        assert got.dtype == BF and got.shape == (T_, C)
+        assert og.launches_bf16 == n0 + 2 and og.launches == f0 + 1
+        assert torch.equal(got, again)
+        assert torch.equal(got, f32.to(BF))
+        want = og.onehot_scatter_plain(g, idx, T_)
+        a, b = got.float().cpu().numpy(), want.float().cpu().numpy()
+        assert (np.abs(a - b) <= ulp_bf16(np.maximum(np.abs(a),
+                                                     np.abs(b)))).all()

@@ -477,8 +477,8 @@ def test_query_fused_levels_match_level0(level, via, monkeypatch):
 
 def test_fused_weights_are_prepared_once_per_set_of_weights(monkeypatch):
     """Without a graph the passes of a frame share one preparation; a
-    parameter written in place or loaded anew invalidates it; under a
-    graph nothing is kept."""
+    parameter written in place or loaded anew invalidates it; where a
+    graph may be built nothing is kept."""
     port = h.port_model()
     batch, head, tail = _query_args(24)
     n = []
@@ -503,9 +503,16 @@ def test_fused_weights_are_prepared_once_per_set_of_weights(monkeypatch):
         d, _ = _query(port, batch, head, tail, feats, fused_override=2)
         assert len(n) == 3
         np.testing.assert_allclose(A(d), A(lvl0), rtol=RTOL, atol=ATOL)
+    # a query that wants a gradient: prepared anew, kept not, and refused
+    # by the kernel entry point, which has no backward (VANERF_FUSED_TRAIN
+    # differentiates level 0 instead)
+    with pytest.raises(RuntimeError, match="no backward"):
+        _query(port, batch, head, tail, feats, fused_override=2)
+    assert len(n) == 4
+    port.requires_grad_(False)          # grad mode on, nothing to train
     _query(port, batch, head, tail, feats, fused_override=2)
     _query(port, batch, head, tail, feats, fused_override=2)
-    assert len(n) == 5
+    assert len(n) == 6
 
 
 def test_query_level2_steps_down_off_shipped_dims(monkeypatch):
@@ -601,7 +608,7 @@ def test_render_patch_fused_matches_unfused_port(level, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# (f) VANERF_FUSED_TRAIN: kernel forward, plain backward
+# (f) VANERF_FUSED_TRAIN: kernel forward, level-0 backward
 # ---------------------------------------------------------------------------
 
 def _g_loss_and_grads(monkeypatch, level: str):
@@ -641,15 +648,17 @@ def _g_loss_and_grads(monkeypatch, level: str):
 
 @pytest.mark.parametrize("level", ["1", "2"])
 def test_fused_train_matches_unfused(level, monkeypatch):
-    """The G loss and every gradient of a training patch whose network
+    """The G loss and every gradient of a training patch whose query
     forward went through the fused entry point (cotangents from the fused
-    outputs, gradients from the plain function) against the unfused
+    outputs, gradients from the level-0 query) against the unfused
     render on the same draws."""
     loss0, err0, g0, calls0 = _g_loss_and_grads(monkeypatch, "0")
     loss1, err1, g1, calls1 = _g_loss_and_grads(monkeypatch, level)
     assert calls0 == []
     fused = "fused_geo_mlp" if level == "1" else "fused_query_mlp"
-    assert calls1 == [fused, fused]          # the coarse and the fine pass
+    # the coarse and the fine pass, each without a graph: the KNN rows
+    # through kernel 10, then the fused kernel
+    assert calls1 == ["mxu_row_gather", fused] * 2
     np.testing.assert_allclose(loss1, loss0, rtol=5e-3, atol=5e-4)
     for k in err0:
         np.testing.assert_allclose(err1[k], err0[k], rtol=5e-3, atol=5e-4,
@@ -673,30 +682,67 @@ def test_fused_train_matches_unfused(level, monkeypatch):
         assert g1[n] is not None and g1[n].abs().sum() > 0, n
 
 
+def route_and_level0_grads(port, level: int, seed: int = 4):
+    """The query's output and its gradients for a fixed cotangent, taken
+    through ``fused_train_query`` at ``level`` and straight through the
+    level-0 query, on the same inputs: the points, the view, the feature
+    maps, the visibility / SDF and every parameter.  Returns ((out, grads)
+    of the route, (out, grads) of level 0, the fused forward without a
+    graph)."""
+    batch, head, tail = _query_args(40)
+    (pts, view, cam), (vv, qv, qs) = head, tail
+    with torch.no_grad():
+        fg, ft = port.encode(batch["src_img"])
+    rs = np.random.RandomState(seed)
+    data = [t.clone().requires_grad_(True)
+            for t in (pts, view, ft, qv, qs, *fg)]
+    params = [p for p in port.parameters() if p.requires_grad]
+
+    def query(lvl, pts, view, ft, qv, qs, *fg):
+        return _query(port, batch, (pts, view, cam), (vv, qv, qs),
+                      (list(fg), ft), fused_override=lvl)
+
+    ct = None
+    res = []
+    for route in (True, False):
+        if route:
+            out, _ = tf.fused_train_query(
+                lambda fused, *d: query(level if fused else 0, *d), data,
+                params)
+        else:
+            out, _ = query(0, *data)
+        if ct is None:
+            ct = T(rs.randn(*out.shape).astype(np.float32))
+        res.append((out.detach(), torch.autograd.grad(
+            out, data + params, ct, allow_unused=True)))
+    with torch.no_grad():
+        fused, _ = query(level, *data)
+    return res[0], res[1], fused
+
+
 def test_fused_mlp_backward_is_the_plain_gradient():
-    """_FusedMLP's backward returns the plain version's gradients for the
-    points, the packs, the rows and the prepared weights."""
+    """The fused kernels' entry points have no backward (they refuse inputs
+    that want a gradient); under ``VANERF_FUSED_TRAIN`` the gradients are
+    those of the plain network, the level-0 query: for a fixed cotangent
+    ``fused_train_query``'s gradients for the points, the view, the maps,
+    the visibility / SDF and the parameters equal ``autograd.grad`` of
+    ``query(fused_override=0)`` bit for bit, its forward the fused
+    level's (float32 here; bfloat16 and level 1 in
+    tests/test_torch_bf16_train.py)."""
     d = {k: T(v) for k, v in _kernel_inputs(37, seed=2).items()}
     model = h.port_model()
-    for key in ("cxyz", "feats", "g2"):
-        d[key].requires_grad_(True)
-    ct = T(np.random.RandomState(3).randn(37, 5).astype(np.float32))
-    res = []
-    for fn in (tf.fused_query_mlp, tf.fused_query_mlp_plain):
-        model.zero_grad()
-        out = fn(d["cxyz"], d["kpt_T"], d["feats"], d["g2"],
-                 tf.prepare_query_weights(model), **KW)
-        ins = [d["cxyz"], d["feats"], d["g2"]] + list(model.parameters())
-        res.append((out, torch.autograd.grad((out * ct).sum(), ins,
-                                             allow_unused=True)))
-    (out_a, g_a), (out_b, g_b) = res
-    np.testing.assert_array_equal(A(out_a), A(out_b))
+    d["feats"].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tf.fused_query_mlp(d["cxyz"], d["kpt_T"], d["feats"], d["g2"],
+                           tf.prepare_query_weights(model), **KW)
+    (out_r, g_r), (out_0, g_0), fused = route_and_level0_grads(model, 2)
+    assert torch.equal(out_r, fused) and not torch.equal(out_r, out_0)
     used = 0
-    for a, b in zip(g_a, g_b):
+    for a, b in zip(g_r, g_0):
         assert (a is None) == (b is None)
         if a is not None:
             used += 1
-            np.testing.assert_allclose(A(a), A(b), rtol=1e-6, atol=1e-8)
+            assert torch.equal(a, b)
     assert used > 20
 
 
@@ -796,21 +842,18 @@ def test_fused_query_kernel_matches_plain(n, cuda):
         want = tf.fused_query_mlp_plain(d["cxyz"], d["kpt_T"], d["feats"],
                                         d["g2"], w, **KW)
     assert torch.allclose(got, want, rtol=RTOL, atol=ATOL)
-    # buffers packed ahead give the same launch
+    # buffers packed ahead give the same launch (float32 weights prepared
+    # are the parameters themselves where no cast is needed: no graph)
     packed = tf.pack_query_weights(w, 42, KW["sp_level"])
-    again = tf.fused_query_mlp(d["cxyz"], d["kpt_T"], d["feats"], d["g2"],
-                               w, packed=packed, **KW)
+    with torch.no_grad():
+        again = tf.fused_query_mlp(d["cxyz"], d["kpt_T"], d["feats"],
+                                   d["g2"], w, packed=packed, **KW)
     assert torch.equal(again, got)
     n0 += 1
-    # under a graph: the kernel forward, the plain version's gradients
+    # under a graph the entry point refuses, before any launch: the
+    # kernels have no backward (VANERF_FUSED_TRAIN differentiates level 0)
     feats = d["feats"].clone().requires_grad_(True)
-    out = tf.fused_query_mlp(d["cxyz"], d["kpt_T"], feats, d["g2"],
-                             tf.prepare_query_weights(model), **KW)
-    assert tf.query_launches == n0 + 2
-    out.sum().backward()
-    ref = d["feats"].clone().requires_grad_(True)
-    tf.fused_query_mlp_plain(d["cxyz"], d["kpt_T"], ref, d["g2"],
-                             tf.prepare_query_weights(model),
-                             **KW).sum().backward()
-    assert torch.allclose(feats.grad, ref.grad, rtol=1e-4, atol=1e-6)
-    assert model.mlp_geo.layers1.layers[0].linear.weight_v.grad is not None
+    with pytest.raises(RuntimeError, match="no backward"):
+        tf.fused_query_mlp(d["cxyz"], d["kpt_T"], feats, d["g2"],
+                           tf.prepare_query_weights(model), **KW)
+    assert tf.query_launches == n0 + 1

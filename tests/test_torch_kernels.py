@@ -87,7 +87,8 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
                                    "interp_mxu_bf16": 0,
                                    "row_gather_bf16": 0,
                                    "fused_query_mlp_bf16": 0,
-                                   "fused_geo_mlp_bf16": 0}
+                                   "fused_geo_mlp_bf16": 0,
+                                   "onehot_scatter_bf16": 0}
 
 
 def test_kernel_library_is_keyed_on_sources():
@@ -295,8 +296,9 @@ def test_onehot_scatter_kernel_matches_plain(cuda, n, t, c, rows, layout):
     assert empty.any() and not got[empty].any()
     vec = c % 4 == 0 and layout == "plain"
     summed = "os_small" if n <= onehot_gather.SCATTER_SMALL_N else "os_sum"
+    # the lane flag, then g's and the table's element types
     assert (_launched(lambda: onehot_gather.onehot_scatter_cuda(g, i, t),
-                      summed) == f"{summed}<{str(vec).lower()}>")
+                      summed) == f"{summed}<{str(vec).lower()}, float, float>")
 
 
 @pytest.mark.cuda

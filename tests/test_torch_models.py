@@ -360,3 +360,47 @@ def test_query_skips_kernel_d_under_training(port, monkeypatch):
     assert len(calls) == 1
     assert out_train.requires_grad and out_graph.requires_grad
     close(out_train, out_eval.numpy())
+
+
+@pytest.mark.parametrize("hw", [(64, 64), (256, 256), (7, 5)])
+def test_adaptive_avg_pool_matches_torch_and_jax(hw):
+    """The global context's 3x3 pool as slice means (a backward without
+    atomics): torch's bins, values as ``nn.AdaptiveAvgPool2d`` and the JAX
+    package's ``adaptive_avg_pool`` to float32 rounding, and the same
+    gradient as torch's."""
+    from vanerf_tpu.models.fusion import adaptive_avg_pool
+    from vanerf_tpu_torch.models.fusion import AdaptiveAvgPool2d
+    rs = np.random.RandomState(sum(hw))
+    x = rs.randn(2, 5, *hw).astype(np.float32)
+    g = rs.randn(2, 5, 3, 3).astype(np.float32)
+    res = []
+    for pool in (AdaptiveAvgPool2d(3), torch.nn.AdaptiveAvgPool2d(3)):
+        xt = T(x).requires_grad_(True)
+        y = pool(xt)
+        (gx,) = torch.autograd.grad(y, xt, T(g))
+        res.append((y, gx))
+    (y, gx), (y_ref, gx_ref) = res
+    close(y, y_ref.detach(), rtol=1e-6, atol=1e-7)
+    close(gx, gx_ref, rtol=1e-6, atol=1e-7)
+    want = adaptive_avg_pool(jnp.asarray(x.transpose(0, 2, 3, 1)), 3)
+    close(y.permute(0, 2, 3, 1), want, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("p", [1, 3])
+def test_replication_pad_matches_torch(p):
+    """The texture encoder's replication padding as expanded edge slices (a
+    backward without atomics): equal to ``nn.ReplicationPad2d`` to the bit,
+    its gradient to float32 rounding (the border sums in another order)."""
+    from vanerf_tpu_torch.models.blocks import ReplicationPad2d
+    rs = np.random.RandomState(p)
+    x = rs.randn(2, 3, 9, 6).astype(np.float32)
+    res = []
+    for pad in (ReplicationPad2d(p), torch.nn.ReplicationPad2d(p)):
+        xt = T(x).requires_grad_(True)
+        y = pad(xt)
+        g = T(rs.randn(*y.shape).astype(np.float32)) if not res else res[0][2]
+        (gx,) = torch.autograd.grad(y, xt, g)
+        res.append((y, gx, g))
+    (y, gx, _), (y_ref, gx_ref, _) = res
+    assert torch.equal(y, y_ref)
+    close(gx, gx_ref, rtol=1e-6, atol=1e-6)

@@ -17,7 +17,9 @@ the twin only for CPU tensors.  The package imports torch, numpy and the
 standard library — never jax, flax, yaml or ``vanerf_tpu``.
 
 Layouts follow ``vanerf_tpu`` at every public function: channels-last
-(B, H, W, C) maps and (B, N, 3) points.  Compute is float32.
+(B, H, W, C) maps and (B, N, 3) points.  Compute is float32, or bfloat16
+in the per-point query under ``compute_dtype="bfloat16"``
+(``models/vanerf.py``), for serving and training alike.
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,9 @@
 // Kernel 13 — the table gradient of a small-table row gather (the VJP of
-// take_rows):  d_table[t, c] = sum_n [idx[n] == t] * g[n, c], f32 in and out.
+// take_rows):  d_table[t, c] = sum_n [idx[n] == t] * g[n, c], in two
+// forms: vt_onehot_scatter (g and the table float32) and
+// vt_onehot_scatter_bf16 (g and the table bfloat16, as the TPU kernel runs
+// on a bfloat16 table: its one-hot in bfloat16, the sum in float32 through
+// preferred_element_type, one rounding at `d_p[:t].astype(dtype)`).
 //
 // Replaces the TPU kernel vanerf_tpu/ops/onehot_gather.py::_take_rows_fn
 // (body `_take_scatter_kernel`), which builds a one-hot (T, 1024) block in
@@ -56,7 +60,17 @@
 //                 in piece order, the same way.
 // Indices outside [0, T) go to a dump row that is never summed (the
 // forward gather has already refused them).
+//
+// The bfloat16 form differs only where g is read and the table written.  A
+// lane loads 4 bfloat16 channels in 8 bytes (or 1 in 2) and widens them to
+// float32 in registers, which is exact; the sort, the summation tree, the
+// float32 partial rows and every sum are the float32 form's, so its sums
+// equal, bit for bit, those of vt_onehot_scatter on g widened to float32.
+// Each table element is rounded to bfloat16 once, in the store (to
+// nearest, ties to even, as torch's cast): the TPU kernel's one rounding.
+// The bytes read halve: N x C x 2.
 
+#include "bf16.cuh"
 #include "common.cuh"
 
 #include <cstdint>
@@ -71,13 +85,57 @@
 #define OS_SEG 128                             // points of one piece
 #define OS_MAX_T 8192                          // rows
 
+// A lane's vector: 4 channels (float4) or 1; g's element type is float or
+// bfloat16 held as its 16 bits (unsigned short), widened at the load; the
+// table's the same two, rounded at the store; the partial rows are float.
 template <bool VEC>
-struct OsVec {
+struct OsVec;
+
+template <>
+struct OsVec<true> {
   typedef float4 T;
+  static __device__ __forceinline__ float4 ld(const float* p, int i) {
+    return __ldg(reinterpret_cast<const float4*>(p) + i);
+  }
+  static __device__ __forceinline__ float4 ld(const unsigned short* p,
+                                              int i) {
+    const uint2 w = __ldg(reinterpret_cast<const uint2*>(p) + i);
+    return make_float4(vt_bf16_lo(w.x), vt_bf16_hi(w.x), vt_bf16_lo(w.y),
+                       vt_bf16_hi(w.y));
+  }
+  // partial rows written by other blocks of the same launch: past L1
+  static __device__ __forceinline__ float4 ldcg(const float* p, int i) {
+    return __ldcg(reinterpret_cast<const float4*>(p) + i);
+  }
+  static __device__ __forceinline__ void st(float* p, int i, float4 v) {
+    reinterpret_cast<float4*>(p)[i] = v;
+  }
+  static __device__ __forceinline__ void st(unsigned short* p, int i,
+                                            float4 v) {
+    reinterpret_cast<uint2*>(p)[i] =
+        make_uint2(vt_bf16_pack(v.x, v.y), vt_bf16_pack(v.z, v.w));
+  }
 };
+
 template <>
 struct OsVec<false> {
   typedef float T;
+  static __device__ __forceinline__ float ld(const float* p, int i) {
+    return __ldg(p + i);
+  }
+  static __device__ __forceinline__ float ld(const unsigned short* p, int i) {
+    return vt_bf16_float(__ldg(p + i));
+  }
+  static __device__ __forceinline__ float ldcg(const float* p, int i) {
+    return __ldcg(p + i);
+  }
+  static __device__ __forceinline__ void st(float* p, int i, float v) {
+    p[i] = v;
+  }
+  static __device__ __forceinline__ void st(unsigned short* p, int i,
+                                            float v) {
+    p[i] = vt_bf16_bits(v);
+  }
 };
 
 __device__ __forceinline__ float4 os_add(float4 a, float4 b) {
@@ -288,17 +346,17 @@ os_place(const int* __restrict__ idx, int N, int T,
   }
 }
 
-// The block's sum of `len` rows of vectors, row q at src + off(q) * nv
-// (off(q) = rows[q], in global or shared memory, or q): point lane p
-// (threadIdx.y) sums rows p, p + PL, ... in order, then a fixed tree over
-// the lanes; thread (x, 0) writes vector v0 + x to dst.
-template <bool VEC, bool PERM>
+// The block's sum of `len` rows of nv vectors, row q at src + off(q) * nv
+// vectors (off(q) = rows[q], in global or shared memory, or q): point lane
+// p (threadIdx.y) sums rows p, p + PL, ... in order, then a fixed tree over
+// the lanes; thread (x, 0) stores vector v0 + x of the row at dst.  PERM
+// reads g (float or bfloat16), else the float partial rows.
+template <bool VEC, bool PERM, typename In, typename Out>
 __device__ __forceinline__ void os_block_sum(
-    const typename OsVec<VEC>::T* __restrict__ src,
-    const int* __restrict__ rows, int len, int nv,
-    typename OsVec<VEC>::T* __restrict__ dst,
-    typename OsVec<VEC>::T* red) {
-  typedef typename OsVec<VEC>::T V;
+    const In* __restrict__ src, const int* __restrict__ rows, int len, int nv,
+    Out* __restrict__ dst, typename OsVec<VEC>::T* red) {
+  typedef OsVec<VEC> L;
+  typedef typename L::T V;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   for (int v0 = 0; v0 < nv; v0 += blockDim.x) {
     const int v = v0 + threadIdx.x;
@@ -307,10 +365,10 @@ __device__ __forceinline__ void os_block_sum(
     if (v < nv) {
 #pragma unroll 4
       for (int q = threadIdx.y; q < len; q += blockDim.y) {
-        if (PERM)
-          acc = os_add(acc, __ldg(src + rows[q] * nv + v));
+        if constexpr (PERM)
+          acc = os_add(acc, L::ld(src, rows[q] * nv + v));
         else
-          acc = os_add(acc, __ldcg(src + q * nv + v));
+          acc = os_add(acc, L::ldcg(src, q * nv + v));
       }
     }
     red[tid] = acc;
@@ -320,17 +378,17 @@ __device__ __forceinline__ void os_block_sum(
         red[tid] = os_add(red[tid], red[tid + h * blockDim.x]);
       __syncthreads();
     }
-    if (threadIdx.y == 0 && v < nv) dst[v] = red[threadIdx.x];
+    if (threadIdx.y == 0 && v < nv) L::st(dst, v, red[threadIdx.x]);
     __syncthreads();
   }
 }
 
-template <bool VEC>
+template <bool VEC, typename In, typename Out>
 __global__ void __launch_bounds__(OS_THREADS)
-os_sum(const float* __restrict__ g, int C, int T, const int* __restrict__ perm,
+os_sum(const In* __restrict__ g, int C, int T, const int* __restrict__ perm,
        const int* __restrict__ seg, const int* __restrict__ sub,
        const int* __restrict__ piece_row, float* __restrict__ partial,
-       unsigned* __restrict__ rowticket, float* __restrict__ out) {
+       unsigned* __restrict__ rowticket, Out* __restrict__ out) {
   typedef typename OsVec<VEC>::T V;
   __shared__ V red[OS_THREADS];
   __shared__ bool last;
@@ -341,11 +399,11 @@ os_sum(const float* __restrict__ g, int C, int T, const int* __restrict__ perm,
   const int j0 = seg[t] + (s - p0) * OS_SEG;
   const int len = min(OS_SEG, seg[t + 1] - j0);
   const int nv = VEC ? C >> 2 : C;
-  V* ov = reinterpret_cast<V*>(out) + t * nv;
-  V* pv = reinterpret_cast<V*>(partial);
-  os_block_sum<VEC, true>(reinterpret_cast<const V*>(g), perm + j0, len, nv,
-                          np == 1 ? ov : pv + s * nv, red);
-  if (np == 1) return;
+  if (np == 1) {                                // the row is this piece
+    os_block_sum<VEC, true>(g, perm + j0, len, nv, out + t * C, red);
+    return;
+  }
+  os_block_sum<VEC, true>(g, perm + j0, len, nv, partial + s * C, red);
   // the last piece of the row to finish sums the row's pieces in order
   __threadfence();
   __syncthreads();
@@ -353,17 +411,18 @@ os_sum(const float* __restrict__ g, int C, int T, const int* __restrict__ perm,
     last = atomicAdd(rowticket + t, 1u) == static_cast<unsigned>(np - 1);
   __syncthreads();
   if (!last) return;
-  os_block_sum<VEC, false>(pv + p0 * nv, nullptr, np, nv, ov, red);
+  os_block_sum<VEC, false>(static_cast<const float*>(partial + p0 * C),
+                           nullptr, np, nv, out + t * C, red);
 }
 
 // ---------------------------------------------------------------------------
 // small N: one launch
 // ---------------------------------------------------------------------------
 
-template <bool VEC>
+template <bool VEC, typename In, typename Out>
 __global__ void __launch_bounds__(OS_THREADS)
-os_small(const float* __restrict__ g, const int* __restrict__ idx, int N,
-         int C, int T, float* __restrict__ out) {
+os_small(const In* __restrict__ g, const int* __restrict__ idx, int N,
+         int C, int T, Out* __restrict__ out) {
   typedef typename OsVec<VEC>::T V;
   extern __shared__ int sm[];                   // row[N] | list[N]
   int* srow = sm;                               // the block's row of a point, or -1
@@ -421,17 +480,15 @@ os_small(const float* __restrict__ g, const int* __restrict__ idx, int N,
   }
   __syncthreads();
   const int nv = VEC ? C >> 2 : C;
-  V* ov = reinterpret_cast<V*>(out);
   for (int r = 0; r < R; ++r) {
-    V* dst = ov + (r0 + r) * nv;
+    Out* dst = out + (r0 + r) * C;
     const int len = start[r + 1] - start[r];
     if (len == 0) {
       V z;
       os_zero(z);
-      for (int v = tid; v < nv; v += OS_THREADS) dst[v] = z;
+      for (int v = tid; v < nv; v += OS_THREADS) OsVec<VEC>::st(dst, v, z);
     } else {
-      os_block_sum<VEC, true>(reinterpret_cast<const V*>(g), list + start[r],
-                              len, nv, dst, red);
+      os_block_sum<VEC, true>(g, list + start[r], len, nv, dst, red);
     }
   }
 }
@@ -441,19 +498,21 @@ os_small(const float* __restrict__ g, const int* __restrict__ idx, int N,
 //          | piece_row[P] | rowticket[T] | ticket[1],
 //          P = ceil(N / OS_SEG) + T;
 //   floats partial[P C].
-// Takes the float4 instantiation where C % 4 == 0 and g, out and (above
-// OS_SMALL_N points) fws are 16-byte aligned, else the scalar-lane one.
-VT_EXPORT int vt_onehot_scatter(const float* g, const int* idx, int N,
-                                int C, int T, float* out, int* iws,
-                                long long n_iws, float* fws,
-                                long long n_fws, void* stream) {
+// Takes the 4-channel instantiation where C % 4 == 0 and g and out start on
+// a 4-channel boundary (16 bytes in float32, 8 in bfloat16) and (above
+// OS_SMALL_N points) fws on 16 bytes, else the scalar-lane one; the two
+// forms choose alike on buffers that torch allocates, so their sums match.
+template <typename In, typename Out>
+static int os_launch(const In* g, const int* idx, int N, int C, int T,
+                     Out* out, int* iws, long long n_iws, float* fws,
+                     long long n_fws, void* stream) {
   if (T <= 0 || T > OS_MAX_T || C <= 0 || N < 0 ||
       static_cast<long long>(N) * C >= (1LL << 31) ||
       static_cast<long long>(T) * C >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool vec4 =
-      C % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+      C % 4 == 0 && reinterpret_cast<uintptr_t>(g) % (4 * sizeof(In)) == 0 &&
+      reinterpret_cast<uintptr_t>(out) % (4 * sizeof(Out)) == 0 &&
       (N <= OS_SMALL_N || reinterpret_cast<uintptr_t>(fws) % 16 == 0);
   cudaStream_t st = vt_stream(stream);
   const int nv = vec4 ? C / 4 : C;
@@ -464,9 +523,9 @@ VT_EXPORT int vt_onehot_scatter(const float* g, const int* idx, int N,
     const int grid = vt_blocks(T, OS_SMALL_ROWS);
     const size_t smem = 2 * sizeof(int) * static_cast<size_t>(N);
     if (vec4)
-      os_small<true><<<grid, block, smem, st>>>(g, idx, N, C, T, out);
+      os_small<true, In, Out><<<grid, block, smem, st>>>(g, idx, N, C, T, out);
     else
-      os_small<false><<<grid, block, smem, st>>>(g, idx, N, C, T, out);
+      os_small<false, In, Out><<<grid, block, smem, st>>>(g, idx, N, C, T, out);
     return static_cast<int>(cudaGetLastError());
   }
   const int T1 = T + 1;
@@ -500,10 +559,27 @@ VT_EXPORT int vt_onehot_scatter(const float* g, const int* idx, int N,
   os_place<<<vt_blocks(N, OS_THREADS), OS_THREADS, 0, st>>>(
       idx, N, T, rank, counts, seg, sub, perm, piece_row, rowticket);
   if (vec4)
-    os_sum<true><<<static_cast<int>(pieces), block, 0, st>>>(
+    os_sum<true, In, Out><<<static_cast<int>(pieces), block, 0, st>>>(
         g, C, T, perm, seg, sub, piece_row, fws, rowticket, out);
   else
-    os_sum<false><<<static_cast<int>(pieces), block, 0, st>>>(
+    os_sum<false, In, Out><<<static_cast<int>(pieces), block, 0, st>>>(
         g, C, T, perm, seg, sub, piece_row, fws, rowticket, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+VT_EXPORT int vt_onehot_scatter(const float* g, const int* idx, int N,
+                                int C, int T, float* out, int* iws,
+                                long long n_iws, float* fws,
+                                long long n_fws, void* stream) {
+  return os_launch(g, idx, N, C, T, out, iws, n_iws, fws, n_fws, stream);
+}
+
+// g and out bfloat16 (their 16 bits); the workspace as vt_onehot_scatter's
+VT_EXPORT int vt_onehot_scatter_bf16(const void* g, const int* idx, int N,
+                                     int C, int T, void* out, int* iws,
+                                     long long n_iws, float* fws,
+                                     long long n_fws, void* stream) {
+  return os_launch(static_cast<const unsigned short*>(g), idx, N, C, T,
+                   static_cast<unsigned short*>(out), iws, n_iws, fws, n_fws,
+                   stream);
 }

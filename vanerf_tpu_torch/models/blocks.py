@@ -192,14 +192,33 @@ class HGFilter(nn.Module):
         return [out.permute(0, 2, 3, 1), x_hd.permute(0, 2, 3, 1)]
 
 
+class ReplicationPad2d(nn.Module):
+    """``nn.ReplicationPad2d(p)`` as edge slices expanded and concatenated:
+    the same values, and a backward without atomics (torch's
+    ``replication_pad2d_backward_cuda`` adds the border gradients with
+    them, so a train step did not repeat to the bit on the card)."""
+
+    def __init__(self, p: int):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        p = self.p
+        x = torch.cat([x[..., :1].expand(*x.shape[:-1], p), x,
+                       x[..., -1:].expand(*x.shape[:-1], p)], -1)
+        rows = (*x.shape[:-2], p, x.shape[-1])
+        return torch.cat([x[..., :1, :].expand(rows), x,
+                          x[..., -1:, :].expand(rows)], -2)
+
+
 class ResBlk(nn.Module):
     """Residual block with replication padding (utils.py:331-346)."""
 
     def __init__(self, ch: int):
         super().__init__()
         self.layers = nn.Sequential(
-            nn.ReplicationPad2d(1), nn.Conv2d(ch, ch, 3), instance_norm(ch),
-            nn.ReLU(), nn.ReplicationPad2d(1), nn.Conv2d(ch, ch, 3),
+            ReplicationPad2d(1), nn.Conv2d(ch, ch, 3), instance_norm(ch),
+            nn.ReLU(), ReplicationPad2d(1), nn.Conv2d(ch, ch, 3),
             instance_norm(ch))
 
     def forward(self, x):
@@ -217,7 +236,7 @@ class ResBlkEncoder(nn.Module):
         super().__init__()
         if norm != "instance":
             raise NotImplementedError(f"ResBlkEncoder norm {norm!r}")
-        layers = [nn.ReplicationPad2d(3), nn.Conv2d(in_ch, ngf, 7),
+        layers = [ReplicationPad2d(3), nn.Conv2d(in_ch, ngf, 7),
                   instance_norm(ngf), nn.ReLU()]
         for i in range(n_downsample):
             m = 2 ** i
@@ -232,7 +251,7 @@ class ResBlkEncoder(nn.Module):
                                           padding=1, output_padding=1),
                        instance_norm(ngf * m // 2), nn.ReLU()]
         if n_upsample > 0:
-            layers += [nn.ReplicationPad2d(3),
+            layers += [ReplicationPad2d(3),
                        nn.Conv2d(ngf * m // 2, out_ch, 7)]
         self.layers = nn.Sequential(*layers)
 

@@ -103,6 +103,30 @@ class GeoVisFusion(nn.Module):
         return outs
 
 
+class AdaptiveAvgPool2d(nn.Module):
+    """torch's ``AdaptiveAvgPool2d`` bins (edges floor(i H / out) and
+    ceil((i + 1) H / out)) as the mean of each bin's slice, as the JAX
+    package computes them (``vanerf_tpu/models/fusion.py:155-166``).  Its
+    backward adds no atomics: torch's ``adaptive_avg_pool2d_backward_cuda``
+    has no deterministic form, and a train step repeats to the bit on the
+    card only without it."""
+
+    def __init__(self, out: int):
+        super().__init__()
+        self.out = out
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        H, W = x.shape[-2:]
+        o = self.out
+
+        def edges(n):
+            return [(i * n // o, -(-(i + 1) * n // o)) for i in range(o)]
+        return torch.stack([
+            torch.stack([x[..., h0:h1, w0:w1].mean((-2, -1))
+                         for w0, w1 in edges(W)], -1)
+            for h0, h1 in edges(H)], -2)
+
+
 def _global_ctx(in_ch: int, hw) -> nn.Sequential:
     """3x3 convs + LayerNorm over (H, W) + adaptive 3x3 average pool
     (networks.py:246-264)."""
@@ -111,7 +135,7 @@ def _global_ctx(in_ch: int, hw) -> nn.Sequential:
         nn.LayerNorm(list(hw), eps=1e-6), nn.ReLU(),
         nn.Conv2d(21, 42, 3, padding=1, bias=False),
         nn.LayerNorm(list(hw), eps=1e-6), nn.ReLU(),
-        nn.AdaptiveAvgPool2d(3))
+        AdaptiveAvgPool2d(3))
 
 
 class TexVisFusion(nn.Module):

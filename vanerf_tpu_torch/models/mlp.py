@@ -19,6 +19,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor,
@@ -46,12 +47,30 @@ def dense(x: torch.Tensor, weight: torch.Tensor,
     return out
 
 
+class _SigmoidBf16(torch.autograd.Function):
+    """XLA's expansion of ``jax.nn.sigmoid`` in bfloat16, ``1 / (1 +
+    exp(-x))`` with each op rounded; its gradient is JAX's rule for
+    ``lax.logistic``, ``g * (s * (1 - s))``, each op rounded."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1.0 - s))
+
+
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
-    """torch's sigmoid; in bfloat16 XLA's expansion of ``jax.nn.sigmoid``,
-    ``1 / (1 + exp(-x))`` with each op rounded."""
+    """torch's sigmoid; in bfloat16 the JAX package's, forward and
+    gradient rounded op by op as XLA rounds them (:class:`_SigmoidBf16`)."""
     if x.dtype != torch.bfloat16:
         return torch.sigmoid(x)
-    return 1.0 / (1.0 + torch.exp(-x))
+    return _SigmoidBf16.apply(x)
 
 
 def act(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -68,17 +87,39 @@ def run_seq(seq: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+class _Softplus100Bf16(torch.autograd.Function):
+    """The JAX package's softplus in bfloat16, each op rounded
+    (``vanerf_tpu/models/mlp.py:22-25``): ``xb = 100 x`` rounded before the
+    test, ``lse = logaddexp(xb, 0) = max(xb, 0) + log1p(exp(-|xb|))``, and
+    the division by 100 as XLA's product by 0.01.  The gradient is the
+    transpose of JAX's JVP, op by op: the select's two branches, the
+    product by 0.01, ``logaddexp``'s rule ``exp(xb - lse)`` and the product
+    by 100."""
+
+    @staticmethod
+    def forward(ctx, x):
+        xb = x * 100.0
+        lse = xb.clamp(min=0) + torch.log1p(torch.exp(-xb.abs()))
+        ctx.save_for_backward(xb, lse)
+        return torch.where(xb > 20.0, x, lse * 0.01)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        xb, lse = ctx.saved_tensors
+        lin = xb > 20.0
+        zero = torch.zeros_like(g)
+        ct_lse = torch.where(lin, zero, g) * 0.01
+        return torch.where(lin, g, zero) + ct_lse * torch.exp(xb - lse) * 100.0
+
+
 def softplus100(x: torch.Tensor) -> torch.Tensor:
     """torch Softplus(beta=100, threshold=20), as the reference.  In
-    bfloat16 it is the JAX package's form op by op, each op rounded
-    (``vanerf_tpu/models/mlp.py:22-25``): ``100 x`` is rounded before the
-    test and ``logaddexp(100 x, 0)``, and the division by 100 is XLA's
-    product by 0.01."""
+    bfloat16 it is the JAX package's form, forward and gradient op by op,
+    each op rounded (:class:`_Softplus100Bf16`)."""
     if x.dtype != torch.bfloat16:
         return F.softplus(x, beta=100.0, threshold=20.0)
-    xb = x * 100.0
-    lse = xb.clamp(min=0) + torch.log1p(torch.exp(-xb.abs()))
-    return torch.where(xb > 20.0, x, lse * 0.01)
+    return _Softplus100Bf16.apply(x)
 
 
 def get_nl(name: Optional[str]):

@@ -5,14 +5,17 @@ Supported: one source view, ``sp_type=rel_z_decay``, ``sp_conv=false``,
 eval and training (at one view the training query equals the eval query:
 view dropout needs two views).  ``compute_dtype`` (``VANERF_COMPUTE_DTYPE``
 first, then the config's, else float32 as the JAX package's default off a
-TPU) is ``"float32"`` or, for serving, ``"bfloat16"``; any other type
-raises, and so does training in bfloat16 (``training/train_step.py``).  In
-bfloat16 the query follows the JAX package's policy
-(``vanerf_tpu/models/vanerf.py:233-245``): the feature maps, the source
-image and mask, the encoding, the visibility / SDF inputs and every
+TPU) is ``"float32"`` or ``"bfloat16"``, for serving and for training;
+any other type raises.  In bfloat16 the query follows the JAX package's
+policy (``vanerf_tpu/models/vanerf.py:233-245``): the feature maps, the
+source image and mask, the encoding, the visibility / SDF inputs and every
 per-point activation are bfloat16; the parameters, the projection math and
 the query's output stay float32, and so do the encoders and the mesh
-priors, whose outputs are cast at the query.  ``VANERF_FUSED_MLP=1`` runs the
+priors, whose outputs are cast at the query.  Under autograd the
+gradients pass back through those casts (and the layers' casts of their
+float32 weights) to float32, as through flax's ``Dense(dtype=bfloat16,
+param_dtype=float32)``, and every op of the bfloat16 backward rounds to
+bfloat16.  ``VANERF_FUSED_MLP=1`` runs the
 positional encoding, ``MLPUNetFusion`` and ``gcompress`` as kernel 12, ``=2``
 the whole per-point network behind the gathers as kernel 11
 (``ops/fused_mlp.py``); the KNN rows come through kernel 10 whenever no

@@ -60,11 +60,13 @@ _SIGNATURES = {
     "vt_fused_query_mlp": [_P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _F, _F,
                            _IP, _P, _P],
 }
-# the bfloat16 instantiations of kernels D, 10, 12 and 11 take the
+# the bfloat16 instantiations of kernels D, 10, 12, 11 and 13 take the
 # arguments of their float32 entry points (bfloat16 data behind the
-# pointers; the weight stream's length in elements)
+# pointers; the weight stream's length in elements; kernel 13's float32
+# workspace)
 _SIGNATURES.update({name + "_bf16": _SIGNATURES[name] for name in (
-    "vt_interp", "vt_row_gather", "vt_fused_geo_mlp", "vt_fused_query_mlp")})
+    "vt_interp", "vt_row_gather", "vt_fused_geo_mlp", "vt_fused_query_mlp",
+    "vt_onehot_scatter")})
 
 _lib = None
 _lock = threading.Lock()
@@ -166,9 +168,9 @@ def stream_ptr(device) -> int:
 
 def dtype_suffix(dtype, name: str) -> str:
     """The entry-point suffix of the instantiation of a kernel built for
-    ``dtype``: "" for float32, "_bf16" for bfloat16 (kernels D, 10, 11 and
-    12 have both); any other dtype has no kernel and raises, so nothing is
-    cast to reach one."""
+    ``dtype``: "" for float32, "_bf16" for bfloat16 (kernels D, 10, 11, 12
+    and 13 have both); any other dtype has no kernel and raises, so nothing
+    is cast to reach one."""
     import torch
     suffix = {torch.float32: "", torch.bfloat16: "_bf16"}.get(dtype)
     if suffix is None:

@@ -27,14 +27,20 @@ versions hold the activations as float32 tensors of bfloat16 values, which
 makes every product exact and every sum float32; in float32 the rounding
 is the identity.
 
-Gradients (``VANERF_FUSED_TRAIN``): the JAX package has no backward kernel;
-its ``custom_vjp`` runs the Pallas primal and differentiates the plain
-composition from the saved inputs.  :class:`_FusedMLP` does the same: the
-forward runs the kernel and saves only its inputs, the backward re-runs the
-plain version under ``torch.enable_grad()`` and returns its gradients for
-the points, the packs, the gather rows and the prepared weights.  So the
-cotangents come from the fused outputs and the gradients from the plain
-function; both agree to the kernels' tolerance.
+Gradients (``VANERF_FUSED_TRAIN``): neither package has a backward kernel.
+The JAX package's ``custom_vjp`` sits around the whole query
+(``vanerf_tpu/renderer.py:514-526``): its forward runs the query at the
+fused level, its backward the VJP of the query at level 0, the unfused
+composition, from the saved inputs.  :func:`fused_train_query` is the same
+boundary: the forward runs the query at the fused level without a graph
+and saves only its inputs; the backward runs it again at level 0 under
+``torch.enable_grad()`` and returns ``torch.autograd.grad`` for the
+points, the view, the feature maps, the visibility / SDF inputs and the
+parameters.  So the cotangents come from the fused outputs and the
+gradients from the level-0 query, in float32 and in bfloat16 alike (in
+bfloat16 every op of that backward rounds as JAX's level-0 backward
+does, which the plain versions' float32 sums would not).  The kernel
+entry points have no backward and refuse inputs that want a gradient.
 
 :func:`prepare_geo_mlp_weights` / :func:`prepare_query_weights` build the
 kernel-ready weight groups from the port's modules in differentiable torch
@@ -70,9 +76,7 @@ AUX_WIDTH = 74
 FEATS_WIDTH = 87
 G2_WIDTH = 2 * _C1
 
-# canonical order of the named weight groups
-_GEO_ORDER = ("w0_parts", "w0_f", "w1", "w2_h", "w2_f", "w3", "w4_m", "w4_v",
-              "w5", "w6", "w7_m", "w7_v")
+# canonical order of kernel 11's named weight groups (the JAX package's)
 _WEIGHT_ORDER = ("gat0_0", "gat0_1", "gfu0_0", "gfu0_1",
                  "gat1_0", "gat1_1", "gfu1_0", "gfu1_1",
                  "w0", "w0f", "w1", "w2h", "w2f", "w3", "w4m", "w4v",
@@ -586,76 +590,77 @@ def fused_query_mlp_cuda(cxyz, kpt_T, feats, g2, packed: PackedWeights, *,
 
 
 # ---------------------------------------------------------------------------
-# entry points: kernel forward, plain backward
+# entry points: the kernel (its plain version on CPU tensors), no backward
 # ---------------------------------------------------------------------------
 
-def _flatten(weights: dict, order):
-    """(names, tensors) of a weight dict in canonical order; a group may be
-    one tensor or a list."""
-    names, tensors = [], []
-    for n in order:
-        group = weights[n]
-        for t in ([group] if torch.is_tensor(group) else group):
-            names.append(n)
-            tensors.append(t)
-    return tuple(names), tensors
+def _no_graph(name: str, data, weights: dict) -> None:
+    """Raise where a gradient is wanted: the kernels have no backward.  A
+    weight group is one tensor or a list of them."""
+    leaves = list(data) + [t for g in weights.values()
+                           for t in ([g] if torch.is_tensor(g) else g)]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+        raise RuntimeError(
+            f"{name} has no backward: differentiate the query at fused "
+            "level 0 (VANERF_FUSED_TRAIN runs its backward there, "
+            "fused_train_query)")
 
 
-def _unflatten(names, tensors, listed: bool) -> dict:
-    out = {}
-    for n, t in zip(names, tensors):
-        out.setdefault(n, []).append(t)
-    if not listed:
-        out = {n: (v if n == "biases" else v[0]) for n, v in out.items()}
-        out["biases"] = tuple(out["biases"])
-    return out
-
-
-def _run_plain(full: bool, data, weights: dict, kw: dict):
-    """(outputs tuple) of the plain geometry (full=False) or whole-query
-    network on ``data`` = (cxyz, kpt_T, packs...)."""
+def _run(full: bool, data, weights: dict, packed, kw: dict):
+    """The kernel on CUDA tensors (weights packed here unless ``packed``),
+    the plain version on CPU tensors."""
+    data = [t.contiguous() for t in data]
+    if data[0].device.type == "cpu":
+        if full:
+            return fused_query_mlp_plain(*data, weights, **kw)
+        return fused_geo_mlp_plain(*data, weights, **kw)
+    if packed is None:
+        pack = pack_query_weights if full else pack_geo_weights
+        packed = pack(weights, data[1].shape[1], kw["sp_level"])
     if full:
-        return (fused_query_mlp_plain(*data, weights, **kw),)
-    return tuple(fused_geo_mlp_plain(*data, weights, **kw))
+        return fused_query_mlp_cuda(*data, packed, **kw)
+    return fused_geo_mlp_cuda(*data, packed, **kw)
 
 
-class _FusedMLP(torch.autograd.Function):
-    """Forward: the kernel (the plain version on CPU tensors) on detached
-    inputs, saving only those inputs.  Backward: the gradients of the plain
-    version at the saved inputs, driven by the cotangents of the fused
-    outputs."""
+class _FusedTrain(torch.autograd.Function):
+    """Forward: ``query(True, *data)``, the query at the fused level,
+    without a graph, saving only its inputs.  Backward: the gradients of
+    ``query(False, *data)``, the level-0 query, at the saved inputs, driven
+    by the cotangent of the fused output."""
 
     @staticmethod
-    def forward(ctx, full, kw, names, n_data, packed, *tensors):
-        ctx.full, ctx.kw, ctx.names, ctx.n_data = full, kw, names, n_data
+    def forward(ctx, query, n_data, *tensors):
+        ctx.query, ctx.n_data = query, n_data
         ctx.save_for_backward(*tensors)
-        data = [t.contiguous() for t in tensors[:n_data]]
-        if data[0].device.type == "cpu":
-            weights = _unflatten(names, tensors[n_data:], listed=full)
-            return _run_plain(full, data, weights, kw)
-        if packed is None:
-            weights = _unflatten(names, tensors[n_data:], listed=full)
-            pack = pack_query_weights if full else pack_geo_weights
-            packed = pack(weights, data[1].shape[1], kw["sp_level"])
-        if full:
-            return (fused_query_mlp_cuda(*data, packed, **kw),)
-        return fused_geo_mlp_cuda(*data, packed, **kw)
+        out, valid = query(True, *tensors[:n_data])
+        ctx.mark_non_differentiable(valid)
+        return out, valid
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, *cts):
-        need = ctx.needs_input_grad[5:]
+    def backward(ctx, ct, _ct_valid):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[2:]
         with torch.enable_grad():
-            ins = [t.detach().requires_grad_(n)
-                   for t, n in zip(ctx.saved_tensors, need)]
-            weights = _unflatten(ctx.names, ins[ctx.n_data:],
-                                 listed=ctx.full)
-            outs = _run_plain(ctx.full, ins[:ctx.n_data], weights, ctx.kw)
-            wanted = [t for t, n in zip(ins, need) if n]
-            grads = iter(torch.autograd.grad(outs, wanted, cts,
+            data = [t.detach().requires_grad_(n)
+                    for t, n in zip(saved[:ctx.n_data], need)]
+            out, _ = ctx.query(False, *data)
+            wanted = [t for t, n in zip(data + list(saved[ctx.n_data:]),
+                                        need) if n]
+            grads = iter(torch.autograd.grad(out, wanted, ct,
                                              allow_unused=True))
-        return (None,) * 5 + tuple(
-            next(grads) if n else None for n in need)
+        return (None, None) + tuple(next(grads) if n else None for n in need)
+
+
+def fused_train_query(query, data, params):
+    """``VANERF_FUSED_TRAIN``'s gradient boundary around one query call.
+
+    ``query(fused, *data)`` returns the query's (out, valid) at the fused
+    level (``fused`` True) or at level 0 (False); ``data`` are its
+    differentiable inputs (points, view, feature maps, visibility, SDF) and
+    ``params`` the parameters it reads.  Returns (out, valid): the fused
+    level's values, with the level-0 query's gradients for ``data`` and
+    ``params`` (``vanerf_tpu/renderer.py:514-526``)."""
+    return _FusedTrain.apply(query, len(data), *data, *params)
 
 
 def fused_geo_mlp(cxyz, kpt_T, aux, weights: dict, *, sp_level: int = 3,
@@ -677,8 +682,8 @@ def fused_geo_mlp(cxyz, kpt_T, aux, weights: dict, *, sp_level: int = 3,
       the activation dtype (the compressed pooled latent).
     """
     kw = dict(sp_level=int(sp_level), scale=float(scale), sigma=float(sigma))
-    names, wt = _flatten(weights, _GEO_ORDER + ("biases",))
-    return _FusedMLP.apply(False, kw, names, 3, packed, cxyz, kpt_T, aux, *wt)
+    _no_graph("fused_geo_mlp", (cxyz, kpt_T, aux), weights)
+    return _run(False, (cxyz, kpt_T, aux), weights, packed, kw)
 
 
 def fused_query_mlp(cxyz, kpt_T, feats, g2, weights: dict, *,
@@ -700,7 +705,5 @@ def fused_query_mlp(cxyz, kpt_T, feats, g2, weights: dict, *,
       out (N, 5) float32 = [sdf_ch, rad, rgb3].
     """
     kw = dict(sp_level=int(sp_level), scale=float(scale), sigma=float(sigma))
-    names, wt = _flatten(weights, _WEIGHT_ORDER)
-    (out,) = _FusedMLP.apply(True, kw, names, 4, packed, cxyz, kpt_T, feats,
-                             g2, *wt)
-    return out
+    _no_graph("fused_query_mlp", (cxyz, kpt_T, feats, g2), weights)
+    return _run(True, (cxyz, kpt_T, feats, g2), weights, packed, kw)

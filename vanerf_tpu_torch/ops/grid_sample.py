@@ -8,7 +8,17 @@ gradient is wanted is read through :func:`take_rows` on its packed 2x2
 corners (``grid_sample.py:56-69``), whose table gradient is kernel 13.
 The lerp runs in the map's dtype (``grid_sample.py:70-77``): on a bfloat16
 map the weights are rounded to bfloat16 and every product and sum rounds
-in bfloat16.
+in bfloat16, and autograd differentiates it as it stands.
+
+A map of more than ``SCATTER_MAX_T`` (8,192) texels keeps the native
+gather, whose backward is torch's ``index_put_(accumulate=True)``: on the
+training path of ``configs/vanerf.json`` the 128^2 x 8 fine geometry map
+(16,384 rows; the 64^2 texture map and the 32^2 coarse map take
+``take_rows``).  On a bfloat16 map that backward rounds every add to
+bfloat16 on the CPU, as XLA's native scatter does on every backend (the
+JAX package takes it there off a TPU), and on the card it sums in float32
+and rounds once (``chip_smoke.py`` phase 5d: 300 ones into one row give
+300, not 256).
 """
 
 from __future__ import annotations

@@ -8,14 +8,24 @@ runs through :func:`onehot_scatter` — the CUDA kernel
 :func:`onehot_scatter_plain` (``index_add_`` with f32 accumulation) on CPU
 tensors.  The gradient goes to the table only.
 
+A table is float32 or bfloat16, each with its own form of the kernel
+(``vt_onehot_scatter`` / ``vt_onehot_scatter_bf16``).  On a bfloat16 table
+the sum runs in float32 over the bfloat16 values and is rounded to
+bfloat16 once, as the JAX kernel's one-hot product in bfloat16 with a
+float32 sum and one cast (``onehot_gather.py:105-114``); the kernel rounds
+in its store, the twin with one cast.
+
 A gather takes this route (:func:`take_rows_route`) whenever its table
-gradient is wanted and the table fits the kernel (float32, at most
-``SCATTER_MAX_T`` rows).  Unlike the JAX package, whose MXU one-hot product
-costs in proportion to the table and is therefore gated by
+gradient is wanted and the table fits the kernel (float32 or bfloat16, at
+most ``SCATTER_MAX_T`` rows).  Unlike the JAX package, whose MXU one-hot
+product costs in proportion to the table and is therefore gated by
 ``VANERF_ONEHOT_SCATTER`` / ``VANERF_ONEHOT_MAX_T`` / ``VANERF_ONEHOT_BN``,
 the CUDA kernel reads ``g`` once whatever the table size and sums in a
 fixed order (no float atomics); the port reads none of those switches.  The device of the tensors picks kernel or
 twin, so the CPU tests run the same code path with the twin.
+
+A larger table keeps the native gather (``ops/grid_sample.py`` notes the
+one on the training path).
 """
 
 from __future__ import annotations
@@ -32,24 +42,31 @@ SCATTER_CHUNK = 2048
 SCATTER_SEG = 128
 SCATTER_MAX_T = 8192
 
+# launches of the float32 and the bfloat16 form
 launches = 0
+launches_bf16 = 0
+
+SCATTER_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def take_rows_route(n_rows: int, src: torch.Tensor) -> bool:
     """Whether a gather from an ``n_rows`` table built from ``src`` goes
     through :func:`take_rows`: a gradient flows to ``src`` and the kernel
-    holds the table (float32, at most ``SCATTER_MAX_T`` rows).  Without a
-    graph :func:`take_rows` would only be the native gather."""
-    return (n_rows <= SCATTER_MAX_T and src.dtype == torch.float32
+    holds the table (float32 or bfloat16, at most ``SCATTER_MAX_T`` rows).
+    Without a graph :func:`take_rows` would only be the native gather."""
+    return (n_rows <= SCATTER_MAX_T and src.dtype in SCATTER_DTYPES
             and src.requires_grad and torch.is_grad_enabled())
 
 
 def onehot_scatter_plain(g: torch.Tensor, idx: torch.Tensor,
                          n_rows: int) -> torch.Tensor:
-    """Plain twin: (N, C) rows summed into a (n_rows, C) f32 table."""
+    """Plain twin: (N, C) rows summed in float32 into a (n_rows, C) table
+    (``index_add_``), returned in ``g``'s dtype: float32, or bfloat16
+    rounded once from the float32 sums."""
     out = torch.zeros(n_rows, g.shape[1], dtype=torch.float32,
                       device=g.device)
-    return out.index_add_(0, idx.long(), g.float())
+    out.index_add_(0, idx.long(), g.float())
+    return out if g.dtype == torch.float32 else out.to(g.dtype)
 
 
 def scatter_workspace(n: int, c: int, n_rows: int) -> tuple:
@@ -72,37 +89,45 @@ def scatter_workspace(n: int, c: int, n_rows: int) -> tuple:
 
 def onehot_scatter_cuda(g: torch.Tensor, idx: torch.Tensor,
                         n_rows: int) -> torch.Tensor:
-    """Kernel 13 on CUDA tensors: g (N, C) f32, idx (N,) int32 in
-    [0, n_rows); deterministic (no float atomics)."""
-    global launches
+    """Kernel 13 on CUDA tensors: g (N, C) float32 or bfloat16, idx (N,)
+    int32 in [0, n_rows); the (n_rows, C) table in ``g``'s dtype (float32
+    sums, a bfloat16 table rounded once); deterministic (no float
+    atomics)."""
+    global launches, launches_bf16
     N, C = g.shape
-    _cuda.require(g, "g", torch.float32, (N, C))
+    entry = "vt_onehot_scatter" + _cuda.dtype_suffix(g.dtype,
+                                                     "onehot_scatter")
+    _cuda.require(g, "g", g.dtype, (N, C))
     _cuda.require(idx, "idx", torch.int32, (N,), g.device)
     if not 0 < n_rows <= SCATTER_MAX_T:
         raise ValueError(f"onehot_scatter: {n_rows} rows; the kernel takes "
                          f"1..{SCATTER_MAX_T}")
     n_int, n_float = scatter_workspace(N, C, n_rows)
-    out = torch.empty(n_rows, C, dtype=torch.float32, device=g.device)
+    out = torch.empty(n_rows, C, dtype=g.dtype, device=g.device)
     iws = fws = None
     if n_int:
         iws = torch.empty(n_int, dtype=torch.int32, device=g.device)
         fws = torch.empty(n_float, dtype=torch.float32, device=g.device)
-    rc = _cuda.lib().vt_onehot_scatter(
+    rc = getattr(_cuda.lib(), entry)(
         g.data_ptr(), idx.data_ptr(), N, C, n_rows, out.data_ptr(),
         0 if iws is None else iws.data_ptr(), n_int,
         0 if fws is None else fws.data_ptr(), n_float,
         _cuda.stream_ptr(g.device))
-    _cuda.check(rc, "vt_onehot_scatter")
-    launches += 1
+    _cuda.check(rc, entry)
+    if g.dtype == torch.bfloat16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out
 
 
 def onehot_scatter(g: torch.Tensor, idx: torch.Tensor,
                    n_rows: int) -> torch.Tensor:
-    """``d_table`` of a row gather: kernel on CUDA tensors, twin on CPU."""
+    """``d_table`` of a row gather in ``g``'s dtype: the kernel of that
+    dtype on CUDA tensors, the twin on CPU tensors."""
     if g.device.type == "cpu":
         return onehot_scatter_plain(g, idx, n_rows)
-    return onehot_scatter_cuda(g.float().contiguous(),
+    return onehot_scatter_cuda(g.contiguous(),
                                idx.to(torch.int32).contiguous(), n_rows)
 
 
@@ -111,14 +136,15 @@ class _TakeRows(torch.autograd.Function):
     def forward(ctx, table, idx):
         ctx.save_for_backward(idx)
         ctx.n_rows = table.shape[0]
-        ctx.dtype = table.dtype
         return table.index_select(0, idx)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
+        # g has the table's dtype, and so has the table gradient: a
+        # bfloat16 table's is rounded once, in the scatter
         (idx,) = ctx.saved_tensors
-        return onehot_scatter(g, idx, ctx.n_rows).to(ctx.dtype), None
+        return onehot_scatter(g, idx, ctx.n_rows), None
 
 
 def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

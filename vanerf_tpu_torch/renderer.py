@@ -14,9 +14,10 @@ builds an autograd graph, and the table gradients of the small-table
 gathers (at most 8,192 rows) go through kernel 13.
 ``VANERF_FUSED_MLP=1/2`` runs the per-point network as kernel 12 / 11 at
 eval (``models/vanerf.py``), and ``VANERF_FUSED_TRAIN=<level>`` runs the
-training render's network forward through the same kernels, with the
-gradients of the plain composition (``ops/fused_mlp.py``); both switch
-the far tier off, which those kernels do not take.
+training render's query forward through the same kernels, with the
+gradients of the level-0 query (``ops/fused_mlp.py::fused_train_query``,
+as ``vanerf_tpu/renderer.py:514-526``); both switch the far tier off,
+which those kernels do not take.
 ``VANERF_SOA_POINTS=1/2`` generates the points coordinate-major, (3, N):
 the nearest-vertex search is then kernel 8 and the mesh query kernel 7,
 neither ever seeing an (N, 3) copy, and ``VANERF_BLOCK_2D`` may tile the far
@@ -37,12 +38,13 @@ samples inheriting the nearest evaluated sample's outputs along their ray
 precedence over NET, NET over SKIP.
 
 A model with ``compute_dtype="bfloat16"`` (``models/vanerf.py``) serves
-here unchanged: the query takes the float32 points, visibility, SDF and
-far flags, casts them itself and returns float32, so the tiers'
-compaction and scatter back, the compositing and the fine pass's sampling
-all run on float32 buffers, and the far tier decides on the float32
-nearest-vertex distances of the mesh priors.  Training renders of such a
-model raise (:func:`refuse_bf16_training`).
+and trains here unchanged: the query takes the float32 points, visibility,
+SDF and far flags, casts them itself and returns float32, so the tiers'
+compaction and scatter back, the compositing, the fine pass's sampling and
+the losses all run on float32 buffers, and the far tier decides on the
+float32 nearest-vertex distances of the mesh priors.  Under training the
+gradients flow back through the query's casts to the float32 encoders and
+parameters.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from .ops.composite import rgba2out
+from .ops.fused_mlp import fused_train_query
 from .ops.knn import nearest_vertex_d2, nearest_vertex_d2_T
 from .ops.mesh_query import (cal_vis_sdf_prepared, cal_vis_sdf_prepared_T,
                              prepare_culled_mesh)
@@ -321,22 +324,6 @@ def _network_budget(n_total: int, n_samples: int, frac_skip: float,
     return kc, ks, inherit
 
 
-def refuse_bf16_training(model) -> None:
-    """Raise on a model that computes in bfloat16: only its serving path
-    is ported (no autograd through the bfloat16 query, no bfloat16 form of
-    kernel 13, no ``VANERF_FUSED_TRAIN`` in bfloat16), and training it in
-    float32 instead would hide that from the caller."""
-    cdt = getattr(model, "compute_dtype", "float32")
-    if cdt != "float32":
-        fused = os.environ.get("VANERF_FUSED_TRAIN", "")
-        raise NotImplementedError(
-            f"training in compute_dtype {cdt!r}"
-            + (f" (VANERF_FUSED_TRAIN={fused})" if fused not in ("", "0")
-               else "")
-            + " is not ported to PyTorch (ROADMAP.md queue 1 item 3, the "
-            "bfloat16 training slice); bfloat16 serves at eval only")
-
-
 def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
                  out_h: int, out_w: int, sample_per_ray_c: int = 64,
                  sample_per_ray_f: int = 64, fine: bool = True,
@@ -384,8 +371,6 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
     """
     if n_views != 1:
         raise NotImplementedError("the port renders one source view")
-    if training:
-        refuse_bf16_training(model)
     if training and os.environ.get("VANERF_REMAT_QUERY", "0") not in ("",
                                                                       "0"):
         raise NotImplementedError(
@@ -419,9 +404,9 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
                                getattr(model, "far_tau", 0.02),
                                training)
         far2 = (far_tau ** 2) if far_tau > 0 else None
-        # VANERF_FUSED_TRAIN=<level> (training, one view): the network
-        # forward through the fused query kernel, the backward through the
-        # plain composition.  At one view query(training=True) equals
+        # VANERF_FUSED_TRAIN=<level> (training, one view): the query's
+        # forward at the fused level, its backward through the level-0
+        # query.  At one view query(training=True) equals
         # query(training=False), which is what lets the fused level in.
         fused_train = (int(os.environ.get("VANERF_FUSED_TRAIN", "0") or 0)
                        if training and n_views == 1 else 0)
@@ -444,13 +429,20 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
 
         def query_rows(pts, view, q_vis, q_sdf, nn_idx, far_mask,
                        n_samples):
-            return model.query(
-                pts, view, cam_in, feat_geo, feat_tex, src_img,
-                batch["src_mask"], verts, vert_vis, q_vis, q_sdf,
-                batch["kpt3d"], n_samples,
-                training=training and not fused_train, nn_idx=nn_idx,
-                far_mask=far_mask,
-                fused_override=fused_train if fused_train else None)
+            def query(level, pts, view, ft, q_vis, q_sdf, *fg):
+                return model.query(
+                    pts, view, cam_in, list(fg), ft, src_img,
+                    batch["src_mask"], verts, vert_vis, q_vis, q_sdf,
+                    batch["kpt3d"], n_samples,
+                    training=training and not fused_train, nn_idx=nn_idx,
+                    far_mask=far_mask, fused_override=level)
+
+            data = (pts, view, feat_tex, q_vis, q_sdf, *feat_geo)
+            if not fused_train:
+                return query(None, *data)
+            return fused_train_query(
+                lambda fused, *d: query(fused_train if fused else 0, *d),
+                data, [p for p in model.parameters() if p.requires_grad])
 
         def query_budget(sel, pts, view, q_vis, q_sdf, nn_idx, far_mask,
                          n_rows):

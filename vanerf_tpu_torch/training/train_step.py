@@ -15,11 +15,19 @@ discriminator on the real patch.
 Randomness: the grid, the stratified jitter, the radiance noise and the
 importance uniforms come from a ``torch.Generator``, or from a ``draws``
 dict ({"g": {...}, "d": {...}}, keys of :func:`renderer.render_patch`
-plus "grids") so a test can feed the JAX package's draws.
+plus "grids") so a test can feed the JAX package's draws.  With the same
+state and draws a step repeats to the bit on the card: it runs under
+cuDNN's deterministic algorithms (:func:`deterministic`), and the ops
+whose CUDA backward adds with atomics are written as slices, expansions
+and means instead: the texture encoder's replication padding
+(``models/blocks.py::ReplicationPad2d``) and the adaptive pool of the
+texture fusion's global context (``models/fusion.py::AdaptiveAvgPool2d``).
 
-Training is ported in float32 only: on a model whose ``compute_dtype`` is
-bfloat16, :func:`create_train_state`, :func:`make_train_step` and any
-training render raise (``renderer.refuse_bf16_training``).
+A model whose ``compute_dtype`` is bfloat16 trains as the JAX package's
+does: the query computes in bfloat16 and returns float32, and the
+parameters, the encoders, the losses, the discriminator, the VGG loss and
+Adam stay float32; the gradients reach the float32 parameters through
+the query's casts.
 """
 
 from __future__ import annotations
@@ -34,8 +42,7 @@ import torch.nn as nn
 from .. import losses as L
 from ..models.discriminator import (bce_loss, d_logistic_loss, d_r1_loss,
                                     g_nonsaturating_loss)
-from ..renderer import (as_float_tensor, mask_centered_grid,
-                        refuse_bf16_training, render_patch)
+from ..renderer import as_float_tensor, mask_centered_grid, render_patch
 
 MILESTONES = (2, 5, 10, 20, 35)
 
@@ -94,7 +101,6 @@ class TrainState:
 def create_train_state(model: nn.Module, disc: nn.Module, cfg: dict,
                        steps_per_epoch: int = 5423) -> TrainState:
     """Optimizers for an initialised generator and discriminator."""
-    refuse_bf16_training(model)
     lr = cfg["training"].get("lr", 1e-5)
     accum = cfg["training"].get("accumulate_grad_batches", 1)
     return TrainState(
@@ -191,17 +197,30 @@ def discriminator_loss(out: Dict[str, Any], disc):
     return d_gan + r1 + real_vis_l + fake_vis_l, logs
 
 
+def deterministic():
+    """cuDNN's deterministic algorithms for the length of a step (the
+    caller's other cuDNN and TF32 settings kept): the backward of the
+    encoders', D's and VGG's convolutions then repeats to the bit on the
+    card, as the encode's forward does (``VANeRF.encode``)."""
+    cd = torch.backends.cudnn
+    return cd.flags(enabled=cd.enabled, benchmark=False, deterministic=True,
+                    allow_tf32=cd.allow_tf32)
+
+
 def make_train_step(model, disc, cfg: dict, vggloss, n_views: int = 1):
     """Build ``train_step(state, batch, generator=None, draws=None) ->
     logs`` (detached scalar tensors named as the JAX package's)."""
-    refuse_bf16_training(model)
     faithful = faithful_gan(cfg)
 
     def train_step(state: TrainState, batch: Dict[str, Any],
                    generator: Optional[torch.Generator] = None,
                    draws: Optional[Dict[str, Dict[str, Any]]] = None):
-        """One GAN step: G update, then D update (see the module note)."""
-        draws = draws or {}
+        """One GAN step: G update, then D update (see the module note),
+        under :func:`deterministic`."""
+        with deterministic():
+            return _step(state, batch, generator, draws or {})
+
+    def _step(state, batch, generator, draws):
         out = generator_outputs(model, batch, cfg, n_views, generator,
                                 draws.get("g"))
         g_loss, err = generator_loss(out, disc, vggloss, cfg)
