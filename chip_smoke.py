@@ -118,6 +118,19 @@ script exits non-zero (there is no CPU fallback):
      bfloat16-vs-float32 spread on that patch, and the RMS error within
      S_rms / 2 + 2 E_rms, which the card's float32 patch must fail
      (``BF16_CPU_RAYS``);
+  3i. the tile group: kernels B, 8, A, 7 (far tier on), D and 10 (float32
+     and bfloat16) each launched once over two different frames x 2 tiles
+     and over one frame's 16-tile group (its coarse pass at level 3), every
+     element equal to the bit to its own launch; at the 16-tile group each
+     batched launch's device time (a CUDA graph) beside its element 0's
+     and the batched launch's bound; then the 256^2 frame at
+     ``tile_group`` 1, 4 and 16 in turns on one shared encode: ms, peak
+     memory, 2 s^2 / G = 32 / 8 / 2 launches of each of B, A, D and 10 a
+     frame, device ops and busy time of one more frame under
+     torch.profiler, and each G > 1 frame held to the G = 1 frame as 3b
+     holds the fused frames (the largest difference printed); then one
+     short run of ``vanerf_tpu_torch.bench`` serving (G = 16) and
+     training, each JSON object printed on a line;
   3c. the coordinate-major serving configuration on the same frame:
      ``VANERF_SOA_POINTS=1`` and ``=2`` in turns with mode 0 (far tier on,
      the default), every output equal to mode 0's (the compared frames
@@ -1592,7 +1605,8 @@ def phase_kernels(model, batch, dev):
     # model's own branches hand them for the same patch ---
     fin = fused_main_path_inputs(model, batch, grids)
     (table, ridx), _ = fin["mxu_row_gather"]
-    table, ridx = table.contiguous(), ridx.to(torch.int32).contiguous()
+    # the query hands kernel 10 the frame's table and the batch's rows
+    table, ridx = table[0].contiguous(), ridx[0].to(torch.int32).contiguous()
     check(table.shape == (verts.shape[0], 204) and ridx.shape[0]
           == pts.shape[0], f"row gather shapes {table.shape} {ridx.shape}")
     got = interp_mxu.row_gather_cuda(table, ridx)
@@ -1777,7 +1791,7 @@ def phase_kernels_bf16(model16, batch, dev):
 
     fin = fused_main_path_inputs(model16, batch, grids)
     (table, ridx), _ = fin["mxu_row_gather"]
-    table, ridx = table.contiguous(), ridx.to(torch.int32).contiguous()
+    table, ridx = table[0].contiguous(), ridx[0].to(torch.int32).contiguous()
     check(table.dtype == bf and table.shape == (batch["verts"].shape[1], 204)
           and ridx.shape[0] == pts.shape[0],
           f"bfloat16 row gather: {table.dtype} {table.shape} {ridx.shape}")
@@ -2670,6 +2684,223 @@ def phase_bf16_serving(model, model16, b, batch_np, dev, cfg, num_v):
 
 
 # ---------------------------------------------------------------------------
+# phase 3i: the tile group (render_full_image(tile_group=G)) and the batched
+# kernels B / 8, A / 7, D and 10
+# ---------------------------------------------------------------------------
+
+TILE_GROUPS = (1, 4, 16)
+TILE_GROUP_ROUNDS = 2
+# the batches the kernels are held at: two different frames x 2 tiles, and
+# one frame's group of 16 tiles (the G = 16 frame's coarse pass)
+BATCH_CASES = {"two_frames": (2, 2), "g16": (1, 16)}
+BENCH_ROUNDS = 2
+
+
+def stack_frames(batches):
+    """Frames as one batch of Bf frames (the faces and the depth range
+    shared)."""
+    import torch
+    return {k: (torch.cat([b[k] for b in batches])
+                if torch.is_tensor(v) and v.dim() > 0 and k != "faces"
+                else v) for k, v in batches[0].items()}
+
+
+def group_inputs(model, fb, G: int):
+    """The coarse pass of the first G-tile group of the 256^2 frames ``fb``
+    (Bf frames) at level 3: element t Bf + b is frame b at the t-th stride
+    offset.  Returns the points (E, N, 3), the frames' vertices, their
+    prepared meshes, their coarse geometry maps and the projected (u, v)
+    each element's points take on its frame's maps."""
+    import torch
+    from vanerf_tpu_torch import renderer as tr
+    from vanerf_tpu_torch.models.vanerf import per_element
+    Bf = fb["tar_k"].shape[0]
+    E = G * Bf
+    s = 4
+    offsets = [(j, i) for i in range(s) for j in range(s)][:G]
+    strides = torch.tensor([[o] * Bf for o in offsets],
+                           dtype=torch.float32).reshape(E, 2)
+    dev = fb["src_img"].device
+    grids = tr.strided_grid(E, H, W, 3, strides, device=dev)
+    eb = dict(fb, **{k: per_element(fb[k], E)
+                     for k in ("tar_k", "tar_rt", "bounds")})
+    cam_pos, cam_rays, z = tr.patch_rays(eb, grids, S_C)
+    pts = (cam_pos[:, :, None] + cam_rays[:, :, None] * z[..., None]) \
+        .reshape(E, -1, 3).contiguous()
+    feat_geo, _ft, vert_vis = tr.encode_frame(model, fb)
+    meshes = tr.prepare_frame_meshes(fb, vert_vis)
+    krt = per_element(fb["src_krt"], E)
+    vh = pts @ krt[:, :3, :3].transpose(-1, -2) + krt[:, None, :3, 3]
+    xy = vh[..., :2] / vh[..., 2:3]
+    uv = torch.stack([2.0 * xy[..., 0] / (W - 1.0) - 1.0,
+                      2.0 * xy[..., 1] / (H - 1.0) - 1.0], -1).contiguous()
+    return (pts, fb["verts"].contiguous(), meshes,
+            feat_geo[0].contiguous(), uv)
+
+
+def batched_kernel_case(model, fb, G: int, timed: bool):
+    """Kernels B, 8, A, 7 (far tier on, 16-ray x 8-sample tiles), D and 10
+    (float32 and bfloat16) launched once over the G x Bf elements of
+    ``group_inputs``, each equal to the bit to the elements' own launches
+    (the mesh query in every output, its visits included).  With
+    ``timed``: each batched launch's device time (a CUDA graph) beside its
+    element 0's alone and the batched launch's bound."""
+    import torch
+    from vanerf_tpu_torch.ops import _cuda, interp_mxu, knn, mesh_query
+    pts, verts, meshes, geo, uv = group_inputs(model, fb, G)
+    E, N = pts.shape[:2]
+    Bf = verts.shape[0]
+    V = verts.shape[1]
+    dev = pts.device
+    frame = _cuda.batch_index(E, Bf, dev)
+    p_c = (pts - meshes["center"][frame][:, None]).contiguous()
+    tiles = mesh_query.tile_geometry(N, S_C)
+    far2 = 0.02 ** 2
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    table = torch.randn(Bf, V, 204, generator=gen, device=dev)
+    idx, d2 = knn.nearest_vertex_d2(pts, verts)
+    inputs = {
+        "knn": (knn.nearest_vertex_d2, (pts, verts)),
+        "knn_T": (knn.nearest_vertex_d2_T,
+                  (pts.transpose(1, 2).contiguous(), verts)),
+        "mesh_query": (
+            lambda *a: mesh_query.point_mesh_query_vis_culled(
+                *a, tiles=tiles, far2=far2, visits=True),
+            (p_c, meshes, d2)),
+        "mesh_query_T": (
+            lambda *a: mesh_query.point_mesh_query_vis_culled_T(
+                *a, tiles=tiles, far2=far2, visits=True),
+            (p_c.transpose(1, 2).contiguous(), meshes, d2)),
+        "interp_mxu": (interp_mxu.interp_cuda, (geo, uv)),
+        "interp_mxu_bf16": (interp_mxu.interp_cuda,
+                            (geo.to(torch.bfloat16), uv)),
+        "row_gather": (interp_mxu.row_gather_cuda, (table, idx)),
+        "row_gather_bf16": (interp_mxu.row_gather_cuda,
+                            (table.to(torch.bfloat16), idx)),
+    }
+    res = {}
+    for name, (fn, args) in inputs.items():
+        def element(e, args=args):
+            """Element e's own inputs: its rows of the batched ones, its
+            frame's of the stacked ones."""
+            out = []
+            for a in args:
+                if isinstance(a, dict):
+                    out.append(mesh_query.mesh_element(a, e % Bf))
+                elif a.shape[0] == E:
+                    out.append(a[e])
+                else:
+                    out.append(a[e % Bf])
+            return tuple(out)
+
+        got = fn(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        for e in range(E):
+            one = fn(*element(e))
+            one = one if isinstance(one, tuple) else (one,)
+            for k, (a, b) in enumerate(zip(got, one)):
+                check((a is None and b is None) or torch.equal(a[e], b),
+                      f"{name}: batched output {k} of element {e} differs "
+                      f"from its own launch ({E} elements of {Bf} frames)")
+        torch.cuda.synchronize()
+        r = res[name] = {}
+        if not timed:
+            continue
+        if name.startswith("knn"):
+            bound = least_time(nbytes(pts, verts, *got), KNN_OPS * E * N * V)
+        elif name.startswith("mesh_query"):
+            vis = got[-1]
+            chunk = meshes["chunk"]
+            tile_p = mesh_query.cull_sizes()[0]
+            check(meshes["table"].shape[1] % chunk == 0, "ragged chunks")
+            pairs = vis.sum((0, 1)).tolist()
+            bound = least_time(
+                nbytes(p_c, meshes["table"], meshes["cbox"],
+                       meshes["sphere"], d2, *[t for t in got[:5]
+                                               if t is not None]),
+                (pairs[0] * MESH_DIST_OPS + pairs[1] * MESH_CROSS_OPS)
+                * chunk * tile_p)
+            r.update(dist_visit_share=vis[..., 0].float().mean().item()
+                     / meshes["cbox"].shape[1])
+        elif name.startswith("interp"):
+            C = geo.shape[-1]
+            bound = least_time(nbytes(args[0], uv, got[0]),
+                               E * N * (20 + 7 * C))
+        else:
+            bound = least_time(nbytes(args[0], idx, got[0]), 0)
+        reps = 3 if name.startswith("row_gather") else 10
+        r.update(elements=E, frames=Bf,
+                 batch_device_ms=graph_ms(lambda: fn(*args), reps),
+                 element_device_ms=graph_ms(lambda: fn(*element(0))),
+                 batch_bound_ms=bound["bound_ms"],
+                 batch_bound_by=bound["bound_by"])
+    return res
+
+
+def phase_tile_group(model, batches, cfg, dev):
+    """Phase 3i: the batched kernels on two frames and on a 16-tile group,
+    each equal to its per-element launches; then the 256^2 frame at each G
+    of TILE_GROUPS in turns on one encode (ms, peak memory, launches and,
+    under torch.profiler, device ops and busy time a frame), each G frame
+    held to the G = 1 frame as phase 3b holds the fused frames; then one
+    short run of the benchmark entry point's serving and training readings
+    (``vanerf_tpu_torch.bench.serve`` / ``train``) on this model and
+    frame, the bench's own shapes."""
+    import torch
+    from vanerf_tpu_torch import bench, ops
+    from vanerf_tpu_torch import renderer as tr
+    res = {"kernels": {}}
+    for case, (n_frames, G) in BATCH_CASES.items():
+        res["kernels"][case] = batched_kernel_case(
+            model, stack_frames(batches[:n_frames]), G, timed=case == "g16")
+    b = batches[0]
+    frames = {G: dict(frame_ms=[]) for G in TILE_GROUPS}
+    outs = {}
+
+    def frame(G):
+        return tr.render_full_image(model, b, level=3, sample_per_ray_c=S_C,
+                                    sample_per_ray_f=S_F, tile_group=G)
+
+    with shared_encode(model, b):
+        for G in TILE_GROUPS:
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            outs[G] = frame(G)
+            torch.cuda.synchronize()
+            frames[G].update(first_ms=(time.perf_counter() - t0) * 1e3,
+                             peak_bytes=torch.cuda.max_memory_allocated(dev),
+                             launches=ops.launch_counts())
+            want = 2 * 16 // G
+            for name in ("knn", "mesh_query", "interp_mxu", "row_gather"):
+                got = frames[G]["launches"][name]
+                check(got == want, f"tile_group={G}: {got} launches of "
+                      f"{name} a frame, not 2 s^2 / G = {want}")
+        for _ in range(TILE_GROUP_ROUNDS):
+            for G in TILE_GROUPS:
+                frames[G]["frame_ms"].append(bench.timed(lambda: frame(G),
+                                                         dev))
+        for G in TILE_GROUPS:
+            frames[G].update(bench.device_profile(lambda: frame(G), dev))
+    for G in TILE_GROUPS[1:]:
+        worst, share, abs_err = hold_to_fused_bounds(
+            f"tile_group={G}", [outs[G]], [outs[1]])
+        frames[G].update(of_bound=worst, share_outside=share,
+                         max_abs_err=abs_err)
+    check(outs[1]["alpha_fine"].max().item() > 0.2,
+          "tile group phase: rays missed the hands")
+    res["frames"] = frames
+    res["bench_serve"] = dict(
+        bench.serve(model, b, bench.Shapes(), tile_group=TILE_GROUPS[-1],
+                    rounds=BENCH_ROUNDS, device=dev), **bench.card())
+    res["bench_train"] = dict(
+        bench.train(model, b, cfg, rounds=BENCH_ROUNDS - 1, device=dev),
+        **bench.card())
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 3d: the exact mesh-query API (kernels 5 and 6)
 # ---------------------------------------------------------------------------
 
@@ -3544,6 +3775,37 @@ def main() -> int:
             + "; launches "
             f"{ {k: r['launches'][k] for k in BF16_KERNELS[name] + F32_FORMS} }")
 
+    # ---- phase 3i ----
+    with torch.no_grad():
+        tg = phase_tile_group(model, batches, cfg, dev)
+    for case, kr in tg["kernels"].items():
+        n_frames, G = BATCH_CASES[case]
+        say(f"phase 3i batched kernels [{case}: {G * n_frames} elements of "
+            f"{n_frames} frame(s)]: {', '.join(kr)} each one launch, equal "
+            "to the bit to the elements' own launches"
+            + "".join(f"; {n} {r['batch_device_ms']:.4f} ms device for the "
+                      f"batch, {r['element_device_ms']:.4f} for element 0 "
+                      f"alone (x {r['elements']} = "
+                      f"{r['element_device_ms'] * r['elements']:.4f}), bound "
+                      f"{r['batch_bound_ms']:.4f} by {r['batch_bound_by']}"
+                      for n, r in kr.items() if r))
+    for G, r in tg["frames"].items():
+        say(f"phase 3i tile_group={G}: full image {r['first_ms']:.1f} ms "
+            f"first, {' / '.join(f'{t:.1f}' for t in r['frame_ms'])} ms in "
+            f"turns; peak {r['peak_bytes'] / 2**30:.2f} GiB; "
+            f"{r['device_ops']} device ops, busy {r['device_busy_ms']:.1f} "
+            "ms (torch.profiler); launches "
+            f"{ {k: r['launches'][k] for k in ('knn', 'mesh_query', 'interp_mxu', 'row_gather')} }"
+            + (f"; against G = 1: coarse outputs at most "
+               f"{max(r['of_bound'][k] for k in COARSE_KEYS):.3g} of rtol "
+               f"{FUSED_RTOL} atol {FUSED_ATOL}, fine outputs outside it on "
+               f"{max(r['share_outside'].values()):.3%} of their elements, "
+               f"largest difference "
+               f"{max(r['max_abs_err'].values()):.3g}"
+               if "of_bound" in r else ""))
+    say("phase 3i bench serve: " + json.dumps(tg["bench_serve"]))
+    say("phase 3i bench train: " + json.dumps(tg["bench_train"]))
+
     # ---- phase 3c ----
     with torch.no_grad():
         soa = phase_soa_serving(model, batches[0], dev)
@@ -3791,6 +4053,12 @@ def main() -> int:
                   "work_issue_bound_ms", "tensor_bound_ms"):
             if k in r:
                 kernels[-1][k] = r[k]
+        # B, 8, A, 7, D and 10: one launch over a 16-tile group (phase 3i)
+        g16 = tg["kernels"]["g16"].get(name)
+        if g16:
+            kernels[-1].update(g16_device_ms=g16["batch_device_ms"],
+                               g1_device_ms=g16["element_device_ms"],
+                               g16_bound_ms=g16["batch_bound_ms"])
     say(f"total: {time.perf_counter() - t_start:.0f} s, the build included")
     say("details: " + json.dumps({"gpu": smi, "build_s": build_s,
                                   "kernels": kres, "main_path": main,
@@ -3801,6 +4069,7 @@ def main() -> int:
                                   "soa_serving": soa,
                                   "knn_cull_serving": cull,
                                   "tier_serving": tiers, "mesh_api": api,
+                                  "tile_group": tg,
                                   "soa_train": strain,
                                   "card_vs_cpu": errs, "train": train,
                                   "fused_train": ftrain,

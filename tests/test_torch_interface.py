@@ -2,8 +2,9 @@
 ``VANERF_COMPUTE_DTYPE`` override, the switches the port refuses or
 honours (``VANERF_MXU_INTERP``), the ``render_patch`` /
 ``render_full_image`` keywords (``compute_vis_map`` on by default,
-``fine``, ``nml_scale``, ``vis_size``, ``sdf_chunk``, the refused
-``tile_group`` / ``mesh``), and kernel 13's workspace sizes.
+``fine``, ``nml_scale``, ``vis_size``, ``sdf_chunk``, a ``tile_group``
+that does not divide stride^2 and the refused ``mesh``), and kernel 13's
+workspace sizes.
 
 The render comparisons use the small shapes of ``tests/torch_port_helpers``
 (8x4 rays, 8 coarse samples, the fine pass off), faces in the port's
@@ -256,11 +257,17 @@ def test_render_patch_vis_size_matches_jax(renders):
 # render_full_image: the JAX keywords, and honest refusals
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kw,item", [(dict(tile_group=2), "item 2"),
-                                     (dict(mesh=object()), "item 9")])
-def test_render_full_image_refuses_unported_keywords(kw, item):
+@pytest.mark.parametrize("kw,err,match", [
+    pytest.param(dict(tile_group=3), ValueError, "must divide",
+                 id="kw0-item 2"),
+    pytest.param(dict(mesh=object()), NotImplementedError, "item 9",
+                 id="kw1-item 9")])
+def test_render_full_image_refuses_unported_keywords(kw, err, match):
+    """``tile_group`` (queue 1 item 2) is ported: one that does not divide
+    stride^2 raises, as the JAX package asserts; a device ``mesh`` (item 9)
+    is not ported and raises."""
     batch = h.torch_batch(h.synthetic_batch()[0])
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(err, match=match):
         tr.render_full_image(None, batch, level=3, rng=None, sdf_chunk=64,
                              **kw)
 

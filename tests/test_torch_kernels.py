@@ -200,8 +200,8 @@ def _offset_view(x: torch.Tensor, shift: int) -> torch.Tensor:
 
 def _launched(fn, kernel: str) -> str:
     """The instantiation of the CUDA kernel ``kernel`` that fn() launches,
-    as torch.profiler names it (e.g. ``interp_kernel<true>``).  A short
-    session may end before the device's records arrive: up to 5 are
+    as torch.profiler names it (e.g. ``interp_kernel<true, false>``).  A
+    short session may end before the device's records arrive: up to 5 are
     tried."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(5):
@@ -246,8 +246,9 @@ def test_interp_kernel_matches_plain(cuda, H, W, C, N, layout):
     assert torch.equal(got, interp_mxu.interp_plain(f, uv))
     assert torch.equal(got, interp_mxu.interp_cuda(f, uv))
     vec = C % 4 == 0 and layout in ("plain", "batch1")
+    # a single map takes the unbatched instantiation (BATCHED = false)
     assert (_launched(lambda: interp_mxu.interp_cuda(f, uv), "interp_kernel")
-            == f"interp_kernel<{str(vec).lower()}>")
+            == f"interp_kernel<{str(vec).lower()}, false>")
 
 
 # (N, T, C, rows, layout): both sides of the one-launch threshold

@@ -235,7 +235,8 @@ def test_soa_render_equals_mode0_exactly(mode, far_tau, monkeypatch):
     real_T, real_knn = tr.cal_vis_sdf_prepared_T, tr.nearest_vertex_d2_T
 
     def spy(mesh, points_T, *a, **kw):
-        assert points_T.shape[0] == 3 and points_T.is_contiguous()
+        # the batch's (B, 3, N) points, one call a pass
+        assert points_T.shape[1] == 3 and points_T.is_contiguous()
         assert kw["rays_hw"] == (8, 4)
         out = real_T(mesh, points_T, *a, **kw)
         seen["far"].append(out[2])

@@ -10,26 +10,10 @@ def summarize(prof, n_units: int, wall_ms: float, unit: str = "step",
     """(summary dict, per-kernel table) of a profile that ran ``n_units``
     steps or patches in ``wall_ms``.
 
-    Device events are the kernels, copies and fills, less the GPU mirrors
-    of host annotations (such as ``Optimizer.step``), which span gaps
-    between kernels; busy time is the union of their intervals."""
-    from torch.autograd import DeviceType
-    events = prof.events()
-    host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
-    kern = [e for e in events if e.device_type == DeviceType.CUDA
-            and e.name not in host_names]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
-    busy_us, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy_us += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy_us += cur_e - cur_s
-    span_us = (spans[-1][1] - spans[0][0]) if spans else 0.0
+    Device events and busy time as the port's benchmark entry point reads
+    them (``vanerf_tpu_torch.bench.device_activity``)."""
+    from vanerf_tpu_torch.bench import device_activity
+    kern, busy_us, span_us = device_activity(prof)
     by_name = {}
     for e in kern:
         d = by_name.setdefault(e.name, [0, 0.0])

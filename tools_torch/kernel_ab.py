@@ -2,7 +2,9 @@
 """Kernel A/B of two checkouts of the PyTorch port on one GPU: kernels A
 (the culled mesh query, ``mesh_query.point_mesh_query_vis_culled``), B
 (``knn.nearest_vertex_d2``), C (``rasterize.raster_cuda``), D
-(``interp_mxu.interp_cuda``), 5 and 6 (``mesh_query._brute_cuda``, the
+(``interp_mxu.interp_cuda``), 10 (``interp_mxu.row_gather_cuda``, the
+patch's nearest-vertex rows of a seeded 1,284 x 204 table, float32 and
+bfloat16), 5 and 6 (``mesh_query._brute_cuda``, the
 exact query over every face, in ray and solid-angle mode), 9
 (``knn.nearest_vertex_d2_culled`` and ``_T_culled``, on the main path's
 ray-major order and with points and vertices in Morton order, beside B on
@@ -203,6 +205,15 @@ def worker(repo: str, kernels) -> None:
             packed = pack(wts, args[1].shape[1], kw["sp_level"])
             cases.append((tag, lambda fn=fn, args=args, packed=packed, kw=kw:
                           fn(*args, packed, **kw)))
+    if "10" in kernels:
+        # the main path's rows (the patch's nearest vertices) of a seeded
+        # 1,284 x 204 table, in both dtypes
+        ridx = knn.nearest_vertex_d2(m["pts"], m["verts"])[0]
+        tbl = torch.randn(m["verts"].shape[0], 204, device=dev,
+                          generator=torch.Generator(device=dev)
+                          .manual_seed(SEED))
+        cases += [(f"10 {n}", lambda t=t: interp_mxu.row_gather_cuda(t, ridx))
+                  for n, t in (("f32", tbl), ("bf16", tbl.to(torch.bfloat16)))]
     if "13" in kernels:
         cases += [(t, lambda g=g, r=r, n=n:
                    onehot_gather.onehot_scatter_cuda(g, r, n))
@@ -261,11 +272,11 @@ def main() -> int:
                     help="also print each case's kernels' device time "
                          "(torch.profiler) in both checkouts")
     ap.add_argument("--kernels", nargs="+",
-                    default=["A", "B", "C", "D", "5", "6", "9", "11", "12",
-                             "13"],
-                    choices=["A", "B", "C", "D", "5", "6", "9", "11", "12",
-                             "13"],
-                    help="the kernels to time (default: all ten)")
+                    default=["A", "B", "C", "D", "5", "6", "9", "10", "11",
+                             "12", "13"],
+                    choices=["A", "B", "C", "D", "5", "6", "9", "10", "11",
+                             "12", "13"],
+                    help="the kernels to time (default: all eleven)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:

@@ -42,6 +42,15 @@
 // coarse map: 262,144 x 64 bfloat16 outputs are 34 MB, ~10 us at 3.35
 // TB/s.
 
+// A launch takes a batch (the JAX package's vmap, as a grid dimension):
+// element e of B (blockIdx.y) samples map e % Bm of a (Bm, H, W, C) stack
+// at its own (N, 2) points into its own (N, C) rows, so the G tiles of one
+// frame in a tile group read the frame's map.  Maps, points and outputs of
+// an element start on the boundaries of the element's own launch (H W C
+// and N C are multiples of the lane width where the vector lanes are
+// taken), and its arithmetic does not depend on the batch: each element
+// equals its launch at B = 1 bit for bit.  The batch offsets are 64-bit.
+
 #include "bf16.cuh"
 #include "common.cuh"
 
@@ -80,15 +89,40 @@ __device__ __forceinline__ Corners ip_corners(float u, float v, int H, int W,
   return k;
 }
 
+// The element offsets of element blockIdx.y, in elements of the map (map
+// e % Bm), the points and the outputs.  Only the BATCHED instantiations
+// take them (element 0 none), so a B = 1 launch runs the unbatched body: a
+// 64-bit remainder a thread cost it ~40% of its time on the H100, the
+// 32-bit one behind a branch ~2%.
+struct ElemOff {
+  size_t feat, uv, out;
+};
+
+__device__ __forceinline__ ElemOff ip_element(int H, int W, int C, int Bm,
+                                              int N) {
+  const unsigned e = blockIdx.y, m = e % static_cast<unsigned>(Bm);
+  ElemOff o;
+  o.feat = static_cast<size_t>(m) * (static_cast<size_t>(H) * W * C);
+  o.uv = static_cast<size_t>(e) * (2 * static_cast<size_t>(N));
+  o.out = static_cast<size_t>(e) * (static_cast<size_t>(N) * C);
+  return o;
+}
+
 __device__ __forceinline__ float ip_mix(const Corners& k, float f00,
                                         float f01, float f10, float f11) {
   return k.w00 * f00 + k.w01 * f01 + k.w10 * f10 + k.w11 * f11;
 }
 
-template <bool VEC4>
+template <bool VEC4, bool BATCHED>
 __global__ void __launch_bounds__(IP_THREADS)
-interp_kernel(const float* __restrict__ feat, int H, int W, int C,
+interp_kernel(const float* __restrict__ feat, int H, int W, int C, int Bm,
               const float* __restrict__ uv, int N, float* __restrict__ out) {
+  if (BATCHED && blockIdx.y != 0) {
+    const ElemOff o = ip_element(H, W, C, Bm, N);
+    feat += o.feat;
+    uv += o.uv;
+    out += o.out;
+  }
   const int n = blockIdx.x * blockDim.y + threadIdx.y;
   if (n >= N) return;
   float u, v;
@@ -145,11 +179,17 @@ __device__ __forceinline__ unsigned ip_mix2(const Corners& k, unsigned a,
       ip_mix(k, vt_bf16_hi(a), vt_bf16_hi(b), vt_bf16_hi(d), vt_bf16_hi(e)));
 }
 
-template <bool VEC8>
+template <bool VEC8, bool BATCHED>
 __global__ void __launch_bounds__(IP_THREADS)
 interp_bf16_kernel(const unsigned short* __restrict__ feat, int H, int W,
-                   int C, const float* __restrict__ uv, int N,
+                   int C, int Bm, const float* __restrict__ uv, int N,
                    unsigned short* __restrict__ out) {
+  if (BATCHED && blockIdx.y != 0) {
+    const ElemOff o = ip_element(H, W, C, Bm, N);
+    feat += o.feat;
+    uv += o.uv;
+    out += o.out;
+  }
   const int n = blockIdx.x * blockDim.y + threadIdx.y;
   if (n >= N) return;
   float u, v;
@@ -192,10 +232,12 @@ interp_bf16_kernel(const unsigned short* __restrict__ feat, int H, int W,
 
 // Takes the float4 instantiation where C % 4 == 0, feat and out are 16-byte
 // and uv 8-byte aligned (a slice of a batch may start anywhere), else the
-// scalar-lane one.
-VT_EXPORT int vt_interp(const float* feat, int H, int W, int C,
-                        const float* uv, int N, float* out, void* stream) {
-  if (H <= 0 || W <= 0 || C <= 0 || N < 0 ||
+// scalar-lane one.  `feat` (Bm, H, W, C), `uv` (B, N, 2), `out` (B, N, C).
+VT_EXPORT int vt_interp(const float* feat, int H, int W, int C, int Bm,
+                        const float* uv, int N, int B, float* out,
+                        void* stream) {
+  if (H <= 0 || W <= 0 || C <= 0 || N < 0 || Bm <= 0 || B <= 0 ||
+      B > 65535 ||
       static_cast<long long>(N) * C >= (1LL << 31) ||
       static_cast<long long>(H) * W * C >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -209,22 +251,24 @@ VT_EXPORT int vt_interp(const float* feat, int H, int W, int C,
   int lanes = 1;
   while (lanes < nv && lanes < IP_MAX_LANES) lanes <<= 1;
   const dim3 block(lanes, IP_THREADS / lanes);
-  const int grid = vt_blocks(N, static_cast<int>(block.y));
-  if (vec4)
-    interp_kernel<true><<<grid, block, 0, vt_stream(stream)>>>(feat, H, W, C,
-                                                               uv, N, out);
-  else
-    interp_kernel<false><<<grid, block, 0, vt_stream(stream)>>>(feat, H, W, C,
-                                                                uv, N, out);
+  const dim3 grid(vt_blocks(N, static_cast<int>(block.y)), B);
+  typedef void (*Kernel)(const float*, int, int, int, int, const float*, int,
+                         float*);
+  const Kernel k = vec4 ? (B > 1 ? interp_kernel<true, true>
+                                 : interp_kernel<true, false>)
+                        : (B > 1 ? interp_kernel<false, true>
+                                 : interp_kernel<false, false>);
+  k<<<grid, block, 0, vt_stream(stream)>>>(feat, H, W, C, Bm, uv, N, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The bfloat16 body: the 8-channel instantiation where C % 8 == 0, feat
 // and out are 16-byte and uv 8-byte aligned, else the scalar-lane one.
 VT_EXPORT int vt_interp_bf16(const unsigned short* feat, int H, int W, int C,
-                             const float* uv, int N, unsigned short* out,
-                             void* stream) {
-  if (H <= 0 || W <= 0 || C <= 0 || N < 0 ||
+                             int Bm, const float* uv, int N, int B,
+                             unsigned short* out, void* stream) {
+  if (H <= 0 || W <= 0 || C <= 0 || N < 0 || Bm <= 0 || B <= 0 ||
+      B > 65535 ||
       static_cast<long long>(N) * C >= (1LL << 31) ||
       static_cast<long long>(H) * W * C >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -236,12 +280,13 @@ VT_EXPORT int vt_interp_bf16(const unsigned short* feat, int H, int W, int C,
   int lanes = 1;
   while (lanes < nv && lanes < IP_MAX_LANES) lanes <<= 1;
   const dim3 block(lanes, IP_THREADS / lanes);
-  const int grid = vt_blocks(N, static_cast<int>(block.y));
-  if (vec8)
-    interp_bf16_kernel<true><<<grid, block, 0, vt_stream(stream)>>>(
-        feat, H, W, C, uv, N, out);
-  else
-    interp_bf16_kernel<false><<<grid, block, 0, vt_stream(stream)>>>(
-        feat, H, W, C, uv, N, out);
+  const dim3 grid(vt_blocks(N, static_cast<int>(block.y)), B);
+  typedef void (*Kernel)(const unsigned short*, int, int, int, int,
+                         const float*, int, unsigned short*);
+  const Kernel k = vec8 ? (B > 1 ? interp_bf16_kernel<true, true>
+                                 : interp_bf16_kernel<true, false>)
+                        : (B > 1 ? interp_bf16_kernel<false, true>
+                                 : interp_bf16_kernel<false, false>);
+  k<<<grid, block, 0, vt_stream(stream)>>>(feat, H, W, C, Bm, uv, N, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,6 +30,12 @@
 // distance to a mesh vertex, hence a certified upper bound on the
 // point-to-mesh distance (kernel A's far rule relies on that), and it
 // equals the plain version's bit for bit.
+// A launch takes a batch: element e of B (blockIdx.y) searches its own
+// (N, 3) or (3, N) points against vertex set e % Bv of a (Bv, V, 3) stack,
+// the JAX package's vmap over the batch written as a grid dimension (the
+// G tiles of one frame in a tile group share the frame's vertices).  An
+// element's arithmetic does not depend on the batch, so each equals its
+// own launch at B = 1 bit for bit; the offsets are 64-bit.
 
 #include "common.cuh"
 
@@ -110,8 +116,17 @@ __device__ __forceinline__ void vertex_step(float px, float py, float pz,
 template <bool SOA>
 __global__ void __launch_bounds__(KNN_THREADS) knn_kernel(
     const float* __restrict__ pts, int N, const float* __restrict__ verts,
-    int V, int* __restrict__ idx, float* __restrict__ d2) {
+    int V, int Bv, int* __restrict__ idx, float* __restrict__ d2) {
   extern __shared__ __align__(16) float sv[];
+  // the batch element and its vertex set (element 0: no offset; a 32-bit
+  // remainder for the others)
+  if (blockIdx.y != 0) {
+    const unsigned e = blockIdx.y, m = e % static_cast<unsigned>(Bv);
+    pts += static_cast<size_t>(e) * 3 * N;
+    verts += static_cast<size_t>(m) * 3 * V;
+    idx += static_cast<size_t>(e) * N;
+    d2 += static_cast<size_t>(e) * N;
+  }
   for (int k = threadIdx.x; k < 3 * V; k += KNN_THREADS) sv[k] = verts[k];
   __syncthreads();
   const int i0 = blockIdx.x * (KNN_THREADS * KNN_PPT) + threadIdx.x;
@@ -162,25 +177,28 @@ __global__ void __launch_bounds__(KNN_THREADS) knn_kernel(
 }
 
 template <bool SOA>
-static int knn_launch(const float* pts, int N, const float* verts, int V,
-                      int* idx, float* d2, void* stream) {
-  if (V <= 0 || V > KNN_MAX_VERTS) return static_cast<int>(cudaErrorInvalidValue);
+static int knn_launch(const float* pts, int N, int B, const float* verts,
+                      int V, int Bv, int* idx, float* d2, void* stream) {
+  if (V <= 0 || V > KNN_MAX_VERTS || B <= 0 || B > 65535 || Bv <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (N <= 0) return 0;
   const size_t smem = sizeof(float) * 3 * static_cast<size_t>(V);
-  knn_kernel<SOA><<<vt_blocks(N, KNN_THREADS * KNN_PPT), KNN_THREADS, smem,
-                    vt_stream(stream)>>>(pts, N, verts, V, idx, d2);
+  const dim3 grid(vt_blocks(N, KNN_THREADS * KNN_PPT), B);
+  knn_kernel<SOA><<<grid, KNN_THREADS, smem, vt_stream(stream)>>>(
+      pts, N, verts, V, Bv, idx, d2);
   return static_cast<int>(cudaGetLastError());
 }
 
-VT_EXPORT int vt_knn(const float* pts, int N, const float* verts, int V,
-                     int* idx, float* d2, void* stream) {
-  return knn_launch<false>(pts, N, verts, V, idx, d2, stream);
+// Kernel B: `pts` (B, N, 3), `verts` (Bv, V, 3), `idx` / `d2` (B, N).
+VT_EXPORT int vt_knn(const float* pts, int N, int B, const float* verts,
+                     int V, int Bv, int* idx, float* d2, void* stream) {
+  return knn_launch<false>(pts, N, B, verts, V, Bv, idx, d2, stream);
 }
 
-// Kernel 8: `pts` is (3, N) contiguous.
-VT_EXPORT int vt_knn_T(const float* pts, int N, const float* verts, int V,
-                       int* idx, float* d2, void* stream) {
-  return knn_launch<true>(pts, N, verts, V, idx, d2, stream);
+// Kernel 8: `pts` is (B, 3, N) contiguous.
+VT_EXPORT int vt_knn_T(const float* pts, int N, int B, const float* verts,
+                       int V, int Bv, int* idx, float* d2, void* stream) {
+  return knn_launch<true>(pts, N, B, verts, V, Bv, idx, d2, stream);
 }
 
 // ---------------------------------------------------------------------------

@@ -73,6 +73,17 @@
 // ops/mesh_query.py::cull_masks in their written order.
 // `mesh_query_kernel`, the sweep over every face with per-point far flags,
 // stays for comparisons; no render path launches it.
+// The culled kernel takes a batch (the JAX package's vmap over the batch,
+// as a grid dimension): element e of B (blockIdx.y) reads its own points,
+// bounds and outputs and mesh e % Bm of a stack of prepared meshes (the
+// G tiles of one frame in a tile group share the frame's mesh): face
+// tables `fstride` floats apart (a multiple of 4, so every mesh's rows
+// start on the 16-byte boundary the bulk copies need, with room for the
+// padding row), spheres F and chunk boxes C apart.  The tile geometry and
+// the far tier are the same for every element (they depend on N, the
+// samples and far2 only), and an element's arithmetic does not depend on
+// the batch, so each equals its own launch at B = 1 bit for bit.  The
+// offsets are 64-bit.
 //
 // Numerics, chosen to match the plain-PyTorch twin in ops/mesh_query.py:
 //   * distance: the difference-form Ericson region method of
@@ -288,12 +299,32 @@ __device__ __forceinline__ int tile_point(int j, const TileGeom& g) {
 template <bool SOA, int TP, int CH, bool EARLY>
 __global__ void __launch_bounds__(TP) mesh_query_culled_kernel(
     const float* __restrict__ pts, int N, const float* __restrict__ faces,
-    const float4* __restrict__ sph, int F, const float* __restrict__ cbox,
-    int C, const float* __restrict__ ub, float far2, TileGeom geom,
-    float* __restrict__ d2o, int* __restrict__ idxo, float* __restrict__ windo,
+    const float4* __restrict__ sph, int F, int Bm, long long fstride,
+    const float* __restrict__ cbox, int C, const float* __restrict__ ub,
+    float far2, TileGeom geom, float* __restrict__ d2o,
+    int* __restrict__ idxo, float* __restrict__ windo,
     float* __restrict__ qviso, unsigned char* __restrict__ faro,
     int* __restrict__ visits) {
   constexpr int WARPS = TP / 32;
+  // the batch element: its points, bounds and outputs, and its mesh (every
+  // element, 0 included: skipping element 0 behind a branch cost this
+  // kernel 13% at B = 1 on the H100, where the remainder costs nothing
+  // beside a tile's search)
+  {
+    const size_t e = blockIdx.y, n = static_cast<size_t>(N);
+    const size_t m = e % static_cast<size_t>(Bm);
+    pts += e * 3 * n;
+    ub += e * n;
+    d2o += e * n;
+    idxo += e * n;
+    windo += e * n;
+    qviso += e * n;
+    if (faro != nullptr) faro += e * n;
+    if (visits != nullptr) visits += e * 2 * gridDim.x;
+    faces += m * static_cast<size_t>(fstride);
+    sph += m * static_cast<size_t>(F);
+    cbox += m * 6 * static_cast<size_t>(C);
+  }
   // two staging buffers of a chunk's rows and spheres, each filled by one
   // pair of bulk copies on its own mbarrier while the other is searched
   __shared__ __align__(128) float sf[2][CH * MQ_STRIDE];
@@ -563,9 +594,12 @@ __global__ void __launch_bounds__(TP) mesh_query_culled_kernel(
 struct CulledArgs {
   const float* pts;
   int N;
+  int B;
   const float* faces;
   const float4* sph;
   int F;
+  int Bm;
+  long long fstride;
   const float* cbox;
   int C;
   const float* ub;
@@ -581,16 +615,17 @@ struct CulledArgs {
 
 template <bool SOA, int TP, int CH, bool EARLY>
 static void culled_launch(const CulledArgs& a, cudaStream_t st) {
-  mesh_query_culled_kernel<SOA, TP, CH, EARLY><<<vt_blocks(a.N, TP), TP, 0,
-                                                  st>>>(
-      a.pts, a.N, a.faces, a.sph, a.F, a.cbox, a.C, a.ub, a.far2, a.g, a.d2,
-      a.idx, a.wind, a.qvis, a.far, a.visits);
+  const dim3 grid(vt_blocks(a.N, TP), a.B);
+  mesh_query_culled_kernel<SOA, TP, CH, EARLY><<<grid, TP, 0, st>>>(
+      a.pts, a.N, a.faces, a.sph, a.F, a.Bm, a.fstride, a.cbox, a.C, a.ub,
+      a.far2, a.g, a.d2, a.idx, a.wind, a.qvis, a.far, a.visits);
 }
 
 template <bool SOA>
-static int mesh_query_culled_launch(const float* pts, int N,
+static int mesh_query_culled_launch(const float* pts, int N, int B,
                                     const float* faces, const float* sph,
-                                    int F, const float* cbox, int C,
+                                    int F, int Bm, long long fstride,
+                                    const float* cbox, int C,
                                     const float* ub, float far2,
                                     const int* geom, int tile_p, int chunk,
                                     int early, float* d2, int* idx,
@@ -609,7 +644,8 @@ static int mesh_query_culled_launch(const float* pts, int N,
   const int ti = tile_p == 64 ? 0 : tile_p == 128 ? 1 : tile_p == 256 ? 2 : -1;
   const int ci = chunk == 64 ? 0 : chunk == 128 ? 1 : -1;
   if (ti < 0 || ci < 0 || C > MQ_MAX_CHUNKS ||
-      C != (F + chunk - 1) / chunk ||
+      C != (F + chunk - 1) / chunk || B <= 0 || B > 65535 || Bm <= 0 ||
+      fstride % 4 != 0 || fstride < static_cast<long long>(F) * MQ_STRIDE ||
       (reinterpret_cast<size_t>(faces) | reinterpret_cast<size_t>(sph)) & 15)
     return static_cast<int>(cudaErrorInvalidValue);
   if (N <= 0) return 0;
@@ -618,47 +654,53 @@ static int mesh_query_culled_launch(const float* pts, int N,
       (g.bh <= 0 || g.bw <= 0 || g.sb < 0 || g.H % g.bh || g.W % g.bw ||
        g.S % g.sb || (long long)g.H * g.W * g.S != N))
     return static_cast<int>(cudaErrorInvalidValue);
-  const CulledArgs a = {pts, N, faces, reinterpret_cast<const float4*>(sph),
-                        F, cbox, C, ub, far2, g, d2, idx, wind, qvis, far,
+  const CulledArgs a = {pts, N, B, faces,
+                        reinterpret_cast<const float4*>(sph), F, Bm, fstride,
+                        cbox, C, ub, far2, g, d2, idx, wind, qvis, far,
                         visits};
   launches[ti][ci][early != 0](a, vt_stream(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
-// Kernel A, culled: `pts` (N, 3) centred and ray-major; `faces` (F, 22)
-// Morton-sorted, 16-byte aligned, with a padding row behind it when the last
-// chunk holds an odd number of faces; `sph` (F, 4) face spheres, 16-byte
-// aligned; `cbox` (C, 6) chunk boxes of `chunk` (64 or 128) faces; `far2` < 0
+// Kernel A, culled: `pts` (B, N, 3) centred and ray-major; `faces` Bm
+// tables of (F, 22) rows, `fstride` floats apart (a multiple of 4),
+// Morton-sorted, 16-byte aligned, each with a padding row behind it when the
+// last chunk holds an odd number of faces; `sph` (Bm, F, 4) face spheres,
+// 16-byte aligned; `cbox` (Bm, C, 6) chunk boxes of `chunk` (64 or 128)
+// faces; element e reads mesh e % Bm; `ub` and the outputs (B, N); `far2` < 0
 // switches the far tier off; `geom` six host ints (H, W, S, bh, bw, sb), sb
 // = 0 for consecutive tiles; `tile_p` points a tile (64, 128 or 256);
 // `early` != 0 walks the distance chunks by ascending lower bound and stops
-// early; `far` (N,) and `visits` (T, 2) may be null.
-VT_EXPORT int vt_mesh_query_culled(const float* pts, int N,
+// early; `far` (B, N) and `visits` (B, T, 2) may be null.
+VT_EXPORT int vt_mesh_query_culled(const float* pts, int N, int B,
                                    const float* faces, const float* sph,
-                                   int F, const float* cbox, int C,
+                                   int F, int Bm, long long fstride,
+                                   const float* cbox, int C,
                                    const float* ub, float far2,
                                    const int* geom, int tile_p, int chunk,
                                    int early, float* d2, int* idx,
                                    float* wind, float* qvis,
                                    unsigned char* far, int* visits,
                                    void* stream) {
-  return mesh_query_culled_launch<false>(pts, N, faces, sph, F, cbox, C, ub,
-                                         far2, geom, tile_p, chunk, early, d2,
-                                         idx, wind, qvis, far, visits,
-                                         stream);
+  return mesh_query_culled_launch<false>(pts, N, B, faces, sph, F, Bm,
+                                         fstride, cbox, C, ub, far2, geom,
+                                         tile_p, chunk, early, d2, idx, wind,
+                                         qvis, far, visits, stream);
 }
 
-// Kernel 7, culled: `pts` is (3, N) contiguous.
-VT_EXPORT int vt_mesh_query_culled_T(const float* pts, int N,
+// Kernel 7, culled: `pts` is (B, 3, N) contiguous.
+VT_EXPORT int vt_mesh_query_culled_T(const float* pts, int N, int B,
                                      const float* faces, const float* sph,
-                                     int F, const float* cbox, int C,
+                                     int F, int Bm, long long fstride,
+                                     const float* cbox, int C,
                                      const float* ub, float far2,
                                      const int* geom, int tile_p, int chunk,
                                      int early, float* d2, int* idx,
                                      float* wind, float* qvis,
                                      unsigned char* far, int* visits,
                                      void* stream) {
-  return mesh_query_culled_launch<true>(pts, N, faces, sph, F, cbox, C, ub,
-                                        far2, geom, tile_p, chunk, early, d2,
-                                        idx, wind, qvis, far, visits, stream);
+  return mesh_query_culled_launch<true>(pts, N, B, faces, sph, F, Bm,
+                                        fstride, cbox, C, ub, far2, geom,
+                                        tile_p, chunk, early, d2, idx, wind,
+                                        qvis, far, visits, stream);
 }

@@ -49,8 +49,9 @@ def _fuse(c_in: int, hidden: int, out: int) -> nn.Sequential:
 
 
 def _nn_idx(v, vert):
-    return torch.stack([nearest_vertex_d2(v[b], vert[b])[0]
-                        for b in range(v.shape[0])])
+    """(B, N) nearest-vertex ids of the (B, N, 3) points, one batched search
+    (element e against vertex set e % Bf)."""
+    return nearest_vertex_d2(v, vert)[0]
 
 
 class GeoVisFusion(nn.Module):

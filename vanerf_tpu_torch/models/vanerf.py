@@ -35,6 +35,7 @@ import os
 import torch
 import torch.nn as nn
 
+from ..ops._cuda import batch_index
 from ..ops.fused_mlp import (fused_geo_mlp, fused_query_mlp,
                              pack_geo_weights, pack_query_weights,
                              prepare_geo_mlp_weights, prepare_query_weights)
@@ -87,6 +88,14 @@ def _check_env():
         raise NotImplementedError(
             "VANERF_IBR_V1_SHORTCUT=0: the port uses the exact one-view "
             "shortcut of the IBR head")
+
+
+def per_element(x: torch.Tensor, B: int) -> torch.Tensor:
+    """A per-frame tensor (Bf, ...) for B = G x Bf batch elements, element
+    e taking frame e % Bf (``x`` itself when B = Bf): a small copy, for the
+    cameras and keypoints only."""
+    Bf = x.shape[0]
+    return x if Bf == B else x[batch_index(B, Bf, x.device)]
 
 
 def _psamp(f, xy, training: bool):
@@ -220,12 +229,17 @@ class VANeRF(nn.Module):
               far_mask=None, fused_override=None):
         """(sdf_channel, radiance, rgb) at world points.
 
-        pts/view (B, N, 3); cam: 'KRT'/'extrin' (B, 4, 4), 'width',
-        'height', 'znear', 'zfar'; feat_geo [(B,h,w,64), (B,H2,W2,8)];
-        feat_tex (B, h2, w2, 8); src_img (B, H, W, 3); fg_mask (B, H, W, 1);
-        verts (B, V2, 3); vert_vis (B, V2, 1); query_vis/query_sdf
-        (B, N, 1); kpt3d (B, K, 3); nn_idx (B, N) nearest-vertex ids;
-        far_mask (B, N, 1) bool or None; ``training`` keeps kernel D off.
+        pts/view (B, N, 3); cam: 'KRT'/'extrin' (Bf, 4, 4), 'width',
+        'height', 'znear', 'zfar'; feat_geo [(Bf,h,w,64), (Bf,H2,W2,8)];
+        feat_tex (Bf, h2, w2, 8); src_img (Bf, H, W, 3); fg_mask
+        (Bf, H, W, 1); verts (Bf, V2, 3); vert_vis (Bf, V2, 1);
+        query_vis/query_sdf (B, N, 1); kpt3d (Bf, K, 3); nn_idx (B, N)
+        nearest-vertex ids; far_mask (B, N, 1) bool or None; ``training``
+        keeps kernel D off.  The points' batch holds B = G x Bf elements,
+        element e of frame e % Bf (the tiles of a ``render_full_image``
+        tile group): the frame's maps, vertex tables and mesh are read in
+        place by the batched kernels and samplers, and only its cameras and
+        keypoints are repeated per element.
         ``fused_override`` pins the fused level (0, 1, 2) instead of the
         ``VANERF_FUSED_MLP`` read; level 2 ignores ``far_mask``.
         Returns out (B, N, 5) float32, valid (B, N, 1).
@@ -234,6 +248,9 @@ class VANeRF(nn.Module):
             raise NotImplementedError("the port renders one source view")
         _check_env()
         B, N, _ = pts.shape
+        # each element's camera and keypoints (the frames' at B = Bf)
+        krt_e, extrin_e, kpt3d_e = (per_element(t, B) for t in (
+            cam["KRT"], cam["extrin"], kpt3d))
         # the activation dtype (models/vanerf.py:233-245): the maps, the
         # image and the mask now, the encoding and the visibility / SDF
         # inputs below; coordinates and projection math stay float32
@@ -248,7 +265,7 @@ class VANeRF(nn.Module):
         znear, zfar = cam["znear"], cam["zfar"]
         v = pts
 
-        vh = v @ krt[:, :3, :3].transpose(-1, -2) + krt[:, None, :3, 3]
+        vh = v @ krt_e[:, :3, :3].transpose(-1, -2) + krt_e[:, None, :3, 3]
         z = vh[..., 2:3]
         xy = vh[..., :2] / z
         xy = torch.stack([2.0 * (xy[..., 0] / (width - 1.0)) - 1.0,
@@ -305,7 +322,7 @@ class VANeRF(nn.Module):
 
         y = None
         if fused_level == 0:
-            y = self.sp_encoder(v=v, extrin=cam["extrin"], kpt3d=kpt3d)
+            y = self.sp_encoder(v=v, extrin=extrin_e, kpt3d=kpt3d_e)
             y = y.reshape(B, 1, N, -1).to(cdt)
 
         # project mesh vertices into the source view (model.py:845-853)
@@ -317,8 +334,7 @@ class VANeRF(nn.Module):
                               -1)
 
         if nn_idx is None:
-            nn_idx = torch.stack([nearest_vertex_d2(v[b], verts[b])[0]
-                                  for b in range(B)])
+            nn_idx = nearest_vertex_d2(v, verts)[0]
         # one shared KNN gather for both fusion branches
         gv = self.geo_vis_fusion.vertex_table(feat_geo, vert_xy)
         tv = self.tex_vis_fusion.vertex_table(feat_tex, src_img, vert_xy)
@@ -329,8 +345,8 @@ class VANeRF(nn.Module):
             g2_raw = knn_gather_raw(v, verts, shared, vert_vis, self.num_v,
                                     nn_idx)
             return self._query_fused_full(
-                v, cam, kpt3d, feat_sampled, img_xy, feat_tex_xy, query_sdf,
-                query_vis, out_mask, pix_weight, g2_raw)
+                v, extrin_e, kpt3d_e, feat_sampled, img_xy, feat_tex_xy,
+                query_sdf, query_vis, out_mask, pix_weight, g2_raw)
         f_s, f_toh_s, vis_th, vis_toh = knn_gather_1(
             v, verts, shared, vert_vis, self.num_v, nn_idx)
         if far_mask is not None:
@@ -345,7 +361,7 @@ class VANeRF(nn.Module):
         fused = [f.reshape(B, 1, N, -1) for f in fused]
 
         if fused_level >= 1:
-            cxyz, kptc_T = self._camera_frame(v, kpt3d, cam["extrin"])
+            cxyz, kptc_T = self._camera_frame(v, kpt3d_e, extrin_e)
             wts, packed = self._fused_weights(False, kptc_T)
             aux = torch.cat([fused[0][:, 0], fused[1][:, 0],
                              out_mask[:, 0].to(cdt),
@@ -411,14 +427,15 @@ class VANeRF(nn.Module):
             hit = self._fused_cache[(full, cdt)] = (key, wts, packed)
         return hit[1], hit[2]
 
-    def _query_fused_full(self, v, cam, kpt3d, feat_sampled, img_xy,
+    def _query_fused_full(self, v, extrin, kpt3d, feat_sampled, img_xy,
                           feat_tex_xy, query_sdf, query_vis, out_mask,
                           pix_weight, g2_raw):
         """``VANERF_FUSED_MLP=2`` tail of :meth:`query`: one kernel pass
         runs the GeoVisFusion gates, the geometry MLP stack, gcompress, the
         TexVisFusion gates and the V=1 rgb head over the raw gather rows
-        (``ops/fused_mlp.py::fused_query_mlp``)."""
-        cxyz, kptc_T = self._camera_frame(v, kpt3d, cam["extrin"])
+        (``ops/fused_mlp.py::fused_query_mlp``); ``extrin`` and ``kpt3d``
+        per batch element."""
+        cxyz, kptc_T = self._camera_frame(v, kpt3d, extrin)
         sp = self.sp_encoder
         wts, packed = self._fused_weights(True, kptc_T)
         cdt = self.cdt

@@ -36,9 +36,12 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
 # C signatures of the entry points (all return cudaGetLastError() as int)
+# (kernels B / 8, A / 7, D and 10 take a batch: element counts B and the
+# stacked vertex sets / meshes / maps / tables Bm that element e reads at
+# e % Bm)
 _SIGNATURES = {
-    "vt_knn": [_P, _I, _P, _I, _P, _P, _P],
-    "vt_knn_T": [_P, _I, _P, _I, _P, _P, _P],
+    "vt_knn": [_P, _I, _I, _P, _I, _I, _P, _P, _P],
+    "vt_knn_T": [_P, _I, _I, _P, _I, _I, _P, _P, _P],
     "vt_knn_culled": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P],
     "vt_knn_T_culled": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P],
     "vt_knn_chunk_boxes": [_P, _I, _P, _I, _P],
@@ -46,15 +49,17 @@ _SIGNATURES = {
     "vt_empty": [_P],
     "vt_mesh_query": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
     "vt_mesh_query_T": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
-    "vt_mesh_query_culled": [_P, _I, _P, _P, _I, _P, _I, _P, _F, _IP, _I,
-                             _I, _I, _P, _P, _P, _P, _P, _P, _P],
-    "vt_mesh_query_culled_T": [_P, _I, _P, _P, _I, _P, _I, _P, _F, _IP, _I,
-                               _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "vt_mesh_query_culled": [_P, _I, _I, _P, _P, _I, _I, _L, _P, _I, _P,
+                             _F, _IP, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                             _P],
+    "vt_mesh_query_culled_T": [_P, _I, _I, _P, _P, _I, _I, _L, _P, _I, _P,
+                               _F, _IP, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                               _P],
     "vt_mesh_query_brute": [_P, _I, _P, _I, _I, _P, _P, _P, _P],
     "vt_mesh_query_vis_brute": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _P],
-    "vt_interp": [_P, _I, _I, _I, _P, _I, _P, _P],
+    "vt_interp": [_P, _I, _I, _I, _I, _P, _I, _I, _P, _P],
     "vt_onehot_scatter": [_P, _P, _I, _I, _I, _P, _P, _L, _P, _L, _P],
-    "vt_row_gather": [_P, _I, _I, _P, _I, _P, _P],
+    "vt_row_gather": [_P, _I, _I, _I, _P, _I, _I, _P, _P],
     "vt_fused_geo_mlp": [_P, _P, _P, _P, _L, _P, _I, _I, _I, _F, _F, _IP,
                          _P, _P, _P],
     "vt_fused_query_mlp": [_P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _F, _F,
@@ -177,6 +182,13 @@ def dtype_suffix(dtype, name: str) -> str:
         raise ValueError(f"{name}: no kernel for {dtype} (float32 or "
                          "bfloat16)")
     return suffix
+
+
+def batch_index(B: int, Bm: int, device=None):
+    """(B,) long: the stacked set (vertex set, mesh, map or table) that each
+    of B batch elements reads, e % Bm, as the batched kernels read it."""
+    import torch
+    return torch.arange(B, device=device) % Bm
 
 
 def require(t, name: str, dtype, shape=None, device=None) -> None:

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from ._cuda import batch_index
 from .onehot_gather import take_rows, take_rows_route
 
 
@@ -40,33 +41,39 @@ def pack_corners(feat: torch.Tensor) -> torch.Tensor:
 
 def grid_sample_2d(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     """(H, W, C) map at (N, 2) coords in [-1, 1] (x, y) -> (N, C)."""
-    H, W, C = feat.shape
-    x = ((uv[:, 0] + 1.0) * 0.5 * (W - 1.0)).clamp(0.0, W - 1.0)
-    y = ((uv[:, 1] + 1.0) * 0.5 * (H - 1.0)).clamp(0.0, H - 1.0)
+    return feat_sample_nhwc(feat[None], uv[None])[0]
+
+
+def feat_sample_nhwc(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """(Bm, H, W, C) maps at (B, N, 2) coords -> (B, N, C), element e on
+    map e % Bm (the G tiles of a frame in a tile group share the frame's
+    map): one gather and lerp for the whole batch, or, where a map's
+    gradient goes through kernel 13 (:func:`take_rows`), one
+    :func:`take_rows` of the packed corners a batch element."""
+    Bm, H, W, C = feat.shape
+    B = uv.shape[0]
+    x = ((uv[..., 0] + 1.0) * 0.5 * (W - 1.0)).clamp(0.0, W - 1.0)
+    y = ((uv[..., 1] + 1.0) * 0.5 * (H - 1.0)).clamp(0.0, H - 1.0)
     x0 = torch.floor(x).clamp(0, W - 1)
     y0 = torch.floor(y).clamp(0, H - 1)
-    wx = (x - x0)[:, None].to(feat.dtype)
-    wy = (y - y0)[:, None].to(feat.dtype)
+    wx = (x - x0)[..., None].to(feat.dtype)
+    wy = (y - y0)[..., None].to(feat.dtype)
     ix0 = x0.long()
     iy0 = y0.long()
     if take_rows_route(H * W, feat):
-        g = take_rows(pack_corners(feat).reshape(H * W, 4 * C),
-                      iy0 * W + ix0)
+        g = torch.stack([
+            take_rows(pack_corners(feat[e % Bm]).reshape(H * W, 4 * C),
+                      iy0[e] * W + ix0[e]) for e in range(B)])
         f00, f01, f10, f11 = torch.split(g, C, -1)
     else:
         ix1 = (ix0 + 1).clamp(max=W - 1)
         iy1 = (iy0 + 1).clamp(max=H - 1)
-        flat = feat.reshape(H * W, C)
-        f00 = flat[iy0 * W + ix0]
-        f01 = flat[iy0 * W + ix1]
-        f10 = flat[iy1 * W + ix0]
-        f11 = flat[iy1 * W + ix1]
+        flat = feat.reshape(Bm * H * W, C)
+        base = (batch_index(B, Bm, uv.device) * (H * W))[:, None]
+        f00 = flat[base + iy0 * W + ix0]
+        f01 = flat[base + iy0 * W + ix1]
+        f10 = flat[base + iy1 * W + ix0]
+        f11 = flat[base + iy1 * W + ix1]
     top = f00 * (1 - wx) + f01 * wx
     bot = f10 * (1 - wx) + f11 * wx
     return top * (1 - wy) + bot * wy
-
-
-def feat_sample_nhwc(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, C) maps at (B, N, 2) coords -> (B, N, C)."""
-    return torch.stack([grid_sample_2d(feat[b], uv[b])
-                        for b in range(feat.shape[0])])

@@ -13,6 +13,13 @@ Under a graph the vertex-table gather goes through
 :func:`~.onehot_gather.take_rows`, whose table gradient is kernel 13;
 without one it goes through kernel 10,
 :func:`~.interp_mxu.mxu_row_gather`.
+
+B / 8 and 10 take a batch in one launch, as the JAX package ``vmap``s
+them: (B, N, 3) or (B, 3, N) points against a (Bv, V, 3) stack of vertex
+sets, element e reading set e % Bv (the G tiles of a frame in a tile group
+share the frame's vertices), and (B, N) rows of a (Bt, V, C) stack of
+tables.  Kernel 9 and kernel 13 (under autograd) keep a loop over the
+batch.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import os
 import torch
 
 from . import _cuda
+from ._cuda import batch_index
 from .interp_mxu import mxu_row_gather
 from .onehot_gather import take_rows, take_rows_route
 
@@ -41,36 +49,57 @@ culled_launches_T = 0
 
 def nearest_vertex_d2_plain(query: torch.Tensor, verts: torch.Tensor):
     """Plain-PyTorch nearest vertex: (N, 3) x (V, 3) -> idx (N,) int32,
-    d2 (N,) f32.  Difference form dx*dx + dy*dy + dz*dz, first index on
-    ties (the kernel's arithmetic and tie-break)."""
-    query = query.float()
-    verts = verts.float()
+    d2 (N,) f32, or batched (B, N, 3) x (Bv, V, 3) -> (B, N), element e
+    against vertex set e % Bv.  Difference form dx*dx + dy*dy + dz*dz,
+    first index on ties (the kernel's arithmetic and tie-break)."""
+    batched = query.dim() == 3
+    q3 = (query if batched else query[None]).float()
+    v3 = (verts if batched else verts[None]).float()
+    v3 = v3[batch_index(q3.shape[0], v3.shape[0], v3.device)]
     idx, d2 = [], []
-    for q in torch.split(query, 4096):
-        d = q[:, None, :] - verts[None]
+    for q in torch.split(q3, max(1, 4096 // q3.shape[0]), dim=1):
+        d = q[:, :, None, :] - v3[:, None]
         dd = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] \
             + d[..., 2] * d[..., 2]
         m, i = dd.min(-1)
         idx.append(i.int())
         d2.append(m)
-    return torch.cat(idx), torch.cat(d2)
+    idx, d2 = torch.cat(idx, 1), torch.cat(d2, 1)
+    return (idx, d2) if batched else (idx[0], d2[0])
 
 
-def _launch(entry: str, query: torch.Tensor, N: int, verts: torch.Tensor):
-    """One launch of kernel B (``vt_knn``, query (N, 3)) or kernel 8
-    (``vt_knn_T``, query (3, N)); the caller counts it."""
-    V = verts.shape[0]
-    _cuda.require(verts, "verts", torch.float32, (V, 3), query.device)
+def _launch(entry: str, query: torch.Tensor, verts: torch.Tensor,
+            soa: bool):
+    """One launch of kernel B (``vt_knn``, query (B, N, 3)) or kernel 8
+    (``vt_knn_T``, query (B, 3, N)) against verts (Bv, V, 3), or of one
+    element ((N, 3) / (3, N) against (V, 3)); the caller counts it."""
+    batched = query.dim() == 3
+    lead = query.shape[:1] if batched else ()
+    N = query.shape[-1] if soa else query.shape[-2]
+    _cuda.require(query, "query_T" if soa else "query", torch.float32,
+                  lead + ((3, N) if soa else (N, 3)))
+    V = verts.shape[-2]
+    vlead = verts.shape[:1] if batched else ()
+    _cuda.require(verts, "verts", torch.float32, vlead + (V, 3), query.device)
     if not 0 < V <= KNN_MAX_VERTS:
         raise ValueError(f"nearest vertex: {V} vertices; the kernel holds "
                          f"at most {KNN_MAX_VERTS} in shared memory")
-    idx = torch.empty(N, dtype=torch.int32, device=query.device)
-    d2 = torch.empty(N, dtype=torch.float32, device=query.device)
+    idx = torch.empty(lead + (N,), dtype=torch.int32, device=query.device)
+    d2 = torch.empty(lead + (N,), dtype=torch.float32, device=query.device)
     rc = getattr(_cuda.lib(), entry)(
-        query.data_ptr(), N, verts.data_ptr(), V, idx.data_ptr(),
-        d2.data_ptr(), _cuda.stream_ptr(query.device))
+        query.data_ptr(), N, lead[0] if batched else 1, verts.data_ptr(), V,
+        vlead[0] if batched else 1, idx.data_ptr(), d2.data_ptr(),
+        _cuda.stream_ptr(query.device))
     _cuda.check(rc, entry)
     return idx, d2
+
+
+def _culled_each(fn, query: torch.Tensor, verts: torch.Tensor):
+    """Kernel 9 over a batch: one search a batch element (its loop is
+    kept; ROADMAP.md queue 1)."""
+    outs = [fn(query[e], verts[e % verts.shape[0]])
+            for e in range(query.shape[0])]
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
 
 
 def nearest_vertex_d2(query: torch.Tensor, verts: torch.Tensor):
@@ -81,26 +110,30 @@ def nearest_vertex_d2(query: torch.Tensor, verts: torch.Tensor):
     any non-empty value takes the culled search, with the same results.
 
     Args:
-      query: (N, 3); verts: (V, 3) float32, same device.
+      query: (N, 3), or (B, N, 3) for a batch in one launch; verts: (V, 3),
+        or (Bv, V, 3) with a batch (element e searches set e % Bv);
+        float32, same device.
     Returns:
-      idx (N,) int32, d2 (N,) float32.
+      idx (N,) int32, d2 (N,) float32; (B, N) with a batch.
     """
+    batched = query.dim() == 3
     if os.environ.get("VANERF_KNN_CULL"):
+        if batched:
+            return _culled_each(nearest_vertex_d2_culled, query, verts)
         return nearest_vertex_d2_culled(query, verts)
     if query.device.type == "cpu":
         return nearest_vertex_d2_plain(query, verts)
     global launches
-    N = query.shape[0]
-    _cuda.require(query, "query", torch.float32, (N, 3))
-    out = _launch("vt_knn", query, N, verts)
+    out = _launch("vt_knn", query, verts, soa=False)
     launches += 1
     return out
 
 
 def nearest_vertex_d2_T_plain(query_T: torch.Tensor, verts: torch.Tensor):
     """Plain-PyTorch version of kernel 8: :func:`nearest_vertex_d2_plain`
-    read through a strided (N, 3) view of the (3, N) queries (no copy)."""
-    return nearest_vertex_d2_plain(query_T.t(), verts)
+    read through a strided (N, 3) view of the (3, N) queries (no copy);
+    batched (B, 3, N) as that function's batch."""
+    return nearest_vertex_d2_plain(query_T.transpose(-1, -2), verts)
 
 
 def nearest_vertex_d2_T(query_T: torch.Tensor, verts: torch.Tensor):
@@ -108,18 +141,20 @@ def nearest_vertex_d2_T(query_T: torch.Tensor, verts: torch.Tensor):
     identical results to kernel B's on the transposed input.
 
     Args:
-      query_T: (3, N) contiguous; verts: (V, 3) float32, same device.
+      query_T: (3, N) contiguous, or (B, 3, N) for a batch in one launch;
+        verts: (V, 3), or (Bv, V, 3) with a batch; float32, same device.
     Returns:
-      idx (N,) int32, d2 (N,) float32.
+      idx (N,) int32, d2 (N,) float32; (B, N) with a batch.
     """
+    batched = query_T.dim() == 3
     if os.environ.get("VANERF_KNN_CULL"):
+        if batched:
+            return _culled_each(nearest_vertex_d2_T_culled, query_T, verts)
         return nearest_vertex_d2_T_culled(query_T, verts)
     if query_T.device.type == "cpu":
         return nearest_vertex_d2_T_plain(query_T, verts)
     global launches_T
-    N = query_T.shape[1]
-    _cuda.require(query_T, "query_T", torch.float32, (3, N))
-    out = _launch("vt_knn_T", query_T, N, verts)
+    out = _launch("vt_knn_T", query_T, verts, soa=True)
     launches_T += 1
     return out
 
@@ -313,17 +348,20 @@ def nearest_vertex_d2_T_culled(query_T: torch.Tensor, verts: torch.Tensor,
 
 def _take_batched(packed_both: torch.Tensor, idx: torch.Tensor
                   ) -> torch.Tensor:
-    """Batched row gather (B, V, C)[B, N] -> (B, N, C), a loop over the
-    batch (``knn.py:117-143``): without a graph through kernel 10, which
-    has no gradient (the JAX package gates it by ``VANERF_MXU_ROWS``, a
-    cost-model switch of the TPU's one-hot product; the CUDA kernel copies
-    the same rows faster than the native gather, so the port reads no
-    switch); through :func:`take_rows` when the table gradient is wanted
-    and fits kernel 13; else the native gather."""
-    B, V, C = packed_both.shape
+    """Batched row gather (Bt, V, C)[B, N] -> (B, N, C) (``knn.py:117-
+    143``), element e reading table e % Bt: without a graph through one
+    launch of kernel 10, which has no gradient (the JAX package gates it by
+    ``VANERF_MXU_ROWS``, a cost-model switch of the TPU's one-hot product;
+    the CUDA kernel copies the same rows faster than the native gather, so
+    the port reads no switch); through :func:`take_rows` when the table
+    gradient is wanted and fits kernel 13, a loop over the batch; else the
+    native gather."""
+    Bt, V, C = packed_both.shape
     if not (packed_both.requires_grad and torch.is_grad_enabled()):
-        return torch.stack([mxu_row_gather(packed_both[b], idx[b])
-                            for b in range(B)])
+        return mxu_row_gather(packed_both, idx)
+    B = idx.shape[0]
+    if B != Bt:
+        packed_both = packed_both[batch_index(B, Bt, packed_both.device)]
     if take_rows_route(V, packed_both):
         return torch.stack([take_rows(packed_both[b], idx[b])
                             for b in range(B)])

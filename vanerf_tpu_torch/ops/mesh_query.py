@@ -30,6 +30,10 @@ device decides, there is no ``VANERF_MESH_BACKEND`` switch.
   :func:`point_mesh_query_vis` / :func:`point_mesh_query_vis_T` are the
   same kernels' sweep over every face, the reference the culled kernel is
   held against on the card: no render path calls them.
+  A and 7 take a batch in one launch, as the JAX package ``vmap``s them:
+  (B, N, 3) or (B, 3, N) points against a stack of prepared meshes
+  (:func:`stack_culled_meshes`), element e reading mesh e % Bm (the G
+  tiles of a frame in a tile group share the frame's mesh).
 * The exact API, :func:`point_mesh_query`, :func:`winding_number`,
   :func:`point_mesh_sdf`, :func:`cal_vis_sdf` and :func:`cal_vis_sdf_fast`
   (the reference's ``cal_vis_sdf_batch``): :func:`point_mesh_query_brute`
@@ -51,6 +55,7 @@ import os
 import torch
 
 from . import _cuda
+from ._cuda import batch_index
 
 # fixed generic winding-ray direction (mesh_query_pallas.py:57)
 _RAY_D = (0.5773502691896258, 0.7071067811865476, 0.40824829046386296)
@@ -969,43 +974,90 @@ def _sizes_for(mesh: dict) -> tuple[int, int]:
     return tile_p, chunk
 
 
-def _launch_culled(entry: str, points: torch.Tensor, N: int, mesh: dict,
-                   ub: torch.Tensor, tiles, far2, visits: bool):
+def stacked(mesh: dict) -> bool:
+    """Whether ``mesh`` is a stack of prepared meshes
+    (:func:`stack_culled_meshes`) rather than one."""
+    return mesh["table"].dim() == 3
+
+
+def stack_culled_meshes(meshes) -> dict:
+    """One stack of the prepared meshes of :func:`prepare_culled_mesh` (of
+    one face list, so F and C are the same for each): table (Bm, F, 22), a
+    view into rows of Fp = F rounded up to even (each mesh's rows then
+    start on a 16-byte boundary, and a mesh of an odd F has its padding
+    row), center (Bm, 3), cbox (Bm, C, 6), sphere (Bm, F, 4), order
+    (Bm, F).  :func:`mesh_element` gives mesh m back, bit for bit."""
+    F = meshes[0]["table"].shape[0]
+    rows = meshes[0]["table"].new_zeros(len(meshes), F + F % 2, FACE_STRIDE)
+    rows[:, :F] = torch.stack([m["table"] for m in meshes])
+    out = {k: torch.stack([m[k] for m in meshes])
+           for k in ("center", "cbox", "sphere", "order")}
+    return dict(out, table=rows[:, :F], chunk=meshes[0]["chunk"])
+
+
+def mesh_element(mesh: dict, m: int) -> dict:
+    """Mesh ``m`` of a stack as one prepared mesh (views, no copies; the
+    table keeps a padding row behind it in storage where its F is odd)."""
+    return {k: (v[m] if torch.is_tensor(v) else v) for k, v in mesh.items()}
+
+
+def _launch_culled(entry: str, points: torch.Tensor, mesh: dict,
+                   ub: torch.Tensor, tiles, far2, visits: bool, soa: bool):
     """One launch of the culled kernel A (``vt_mesh_query_culled``, points
-    (N, 3)) or 7 (``vt_mesh_query_culled_T``, points (3, N)); the caller
-    counts it."""
+    (B, N, 3)) or 7 (``vt_mesh_query_culled_T``, points (B, 3, N)) against
+    a stack of Bm meshes, element e on mesh e % Bm, or of one element
+    ((N, 3) / (3, N) points, one mesh); the caller counts it."""
     tile_p, chunk = _sizes_for(mesh)
     table, cbox, sphere = mesh["table"], mesh["cbox"], mesh["sphere"]
-    F, C = table.shape[0], cbox.shape[0]
+    batched = points.dim() == 3
+    lead = points.shape[:1] if batched else ()
+    mlead = table.shape[:1] if batched else ()
+    B, Bm = (lead[0], mlead[0]) if batched else (1, 1)
+    N = points.shape[-1] if soa else points.shape[-2]
+    F, C = table.shape[-2], cbox.shape[-2]
     dev = points.device
-    _cuda.require(table, "table", torch.float32, (F, FACE_STRIDE), dev)
-    _cuda.require(cbox, "cbox", torch.float32, (C, 6), dev)
-    _cuda.require(sphere, "sphere", torch.float32, (F, 4), dev)
-    _cuda.require(ub, "ub", torch.float32, (N,), dev)
+    _cuda.require(points, "points_T" if soa else "points", torch.float32,
+                  lead + ((3, N) if soa else (N, 3)))
+    if not (table.is_cuda and table.device == dev
+            and table.dtype == torch.float32
+            and table.shape == mlead + (F, FACE_STRIDE)
+            and table.stride()[-2:] == (FACE_STRIDE, 1)):
+        raise ValueError("table: (F, 22) float32 rows, or a stack of them, "
+                         f"on {dev}")
+    # floats between the meshes' tables (one mesh: never read, but what a
+    # stack of it would need)
+    fstride = (table.stride(0) if Bm > 1
+               else -(-(F * FACE_STRIDE + 2) // 4) * 4)
+    _cuda.require(cbox, "cbox", torch.float32, mlead + (C, 6), dev)
+    _cuda.require(sphere, "sphere", torch.float32, mlead + (F, 4), dev)
+    _cuda.require(ub, "ub", torch.float32, lead + (N,), dev)
     if C > MAX_CHUNKS or C != -(-F // chunk):
         raise ValueError(f"culled mesh query: {F} faces make {C} chunks of "
                          f"{chunk}; a tile's visit masks hold {MAX_CHUNKS}")
-    # the kernel copies a chunk's rows with 16-byte bulk copies: the table
-    # and the spheres start on a 16-byte boundary, and a last chunk of an
-    # odd number of faces reads the padding row prepare_culled_mesh keeps
-    # behind the table
-    pad_end = (table.storage_offset() + F * FACE_STRIDE + 2) * 4
-    if (table.data_ptr() % 16 or sphere.data_ptr() % 16
+    # the kernel copies a chunk's rows with 16-byte bulk copies: each
+    # mesh's table and spheres start on a 16-byte boundary, and a last chunk
+    # of an odd number of faces reads the padding row prepare_culled_mesh
+    # (or stack_culled_meshes) keeps behind each table
+    pad_end = (table.storage_offset() + (Bm - 1) * fstride
+               + F * FACE_STRIDE + 2) * 4
+    if (table.data_ptr() % 16 or sphere.data_ptr() % 16 or fstride % 4
+            or fstride < F * FACE_STRIDE + (2 if F % chunk % 2 else 0)
             or (F % chunk % 2 and table.untyped_storage().nbytes() < pad_end)):
         raise ValueError("culled mesh query: the face table and spheres "
                          "must come from prepare_culled_mesh")
     with_far = far2 is not None and N % tile_p == 0
     geom = (ctypes.c_int * 6)(*(tiles if tiles is not None else (0,) * 6))
-    d2 = torch.empty(N, dtype=torch.float32, device=dev)
-    idx = torch.empty(N, dtype=torch.int32, device=dev)
-    wind = torch.empty(N, dtype=torch.float32, device=dev)
-    qvis = torch.empty(N, dtype=torch.float32, device=dev)
-    far = torch.empty(N, dtype=torch.bool, device=dev) if with_far else None
-    count = (torch.empty(-(-N // tile_p), 2, dtype=torch.int32, device=dev)
-             if visits else None)
+    d2 = torch.empty(lead + (N,), dtype=torch.float32, device=dev)
+    idx = torch.empty(lead + (N,), dtype=torch.int32, device=dev)
+    wind = torch.empty(lead + (N,), dtype=torch.float32, device=dev)
+    qvis = torch.empty(lead + (N,), dtype=torch.float32, device=dev)
+    far = (torch.empty(lead + (N,), dtype=torch.bool, device=dev)
+           if with_far else None)
+    count = (torch.empty(lead + (-(-N // tile_p), 2), dtype=torch.int32,
+                         device=dev) if visits else None)
     rc = getattr(_cuda.lib(), entry)(
-        points.data_ptr(), N, table.data_ptr(), sphere.data_ptr(), F,
-        cbox.data_ptr(), C, ub.data_ptr(),
+        points.data_ptr(), N, B, table.data_ptr(), sphere.data_ptr(), F, Bm,
+        fstride, cbox.data_ptr(), C, ub.data_ptr(),
         float(far2) if with_far else -1.0, geom, tile_p, chunk,
         int(cull_early()), d2.data_ptr(), idx.data_ptr(), wind.data_ptr(),
         qvis.data_ptr(), far.data_ptr() if with_far else None,
@@ -1013,6 +1065,27 @@ def _launch_culled(entry: str, points: torch.Tensor, N: int, mesh: dict,
     _cuda.check(rc, entry)
     out = (d2, idx, wind, qvis, far)
     return out + (count,) if visits else out
+
+
+def _culled(entry: str, plain, points, mesh, ub, tiles, far2, visits,
+            soa: bool):
+    """Kernel A / 7 on CUDA points (one launch for a batch), the plain
+    version on CPU points (one call a batch element, element e on mesh
+    e % Bm)."""
+    batched = points.dim() == 3
+    if batched != stacked(mesh):
+        raise ValueError("batched points take a stack of meshes "
+                         "(stack_culled_meshes), single points one mesh")
+    if points.device.type != "cpu":
+        return _launch_culled(entry, points, mesh, ub, tiles, far2, visits,
+                              soa)
+    if not batched:
+        return plain(points, mesh, ub, tiles, far2, visits)
+    Bm = mesh["table"].shape[0]
+    outs = [plain(points[e], mesh_element(mesh, e % Bm), ub[e], tiles, far2,
+                  visits) for e in range(points.shape[0])]
+    return tuple(None if o[0] is None else torch.stack(o)
+                 for o in zip(*outs))
 
 
 def point_mesh_query_vis_culled(points: torch.Tensor, mesh: dict,
@@ -1023,8 +1096,10 @@ def point_mesh_query_vis_culled(points: torch.Tensor, mesh: dict,
     CPU tensors.
 
     Args:
-      points: (N, 3) centred points, ray-major; mesh: from
-        :func:`prepare_culled_mesh`; ub: (N,) certified squared-distance
+      points: (N, 3) centred points, ray-major, or (B, N, 3) for a batch
+        in one launch; mesh: from :func:`prepare_culled_mesh`, or with a
+        batch a stack (:func:`stack_culled_meshes`), element e on mesh
+        e % Bm; ub: (N,) or (B, N) certified squared-distance
         upper bounds (they drive the culling: a bound below the true
         distance loses faces);
       tiles: from :func:`tile_geometry`, how tiles of points are cut
@@ -1040,20 +1115,18 @@ def point_mesh_query_vis_culled(points: torch.Tensor, mesh: dict,
     The tile and chunk sizes are :func:`cull_sizes`'; under
     ``VANERF_CULL_EARLY`` (:func:`cull_early`) a tile walks its distance
     chunks in ascending order of their lower bound and stops early: d2 is
-    the default walk's, idx and qvis may differ where faces tie.
+    the default walk's, idx and qvis may differ where faces tie.  Every
+    element of a batch has the same N, so the same tiles and far tier.
     Returns:
       d2 (N,), idx (N,) int32 into the mesh's sorted faces, wind (N,),
-      qvis (N,), far (N,) bool or None[, visits].
+      qvis (N,), far (N,) bool or None[, visits]; with a batch each with a
+      leading B.
     """
-    if points.device.type == "cpu":
-        return point_mesh_query_vis_culled_plain(points, mesh, ub, tiles,
-                                                 far2, visits)
     global launches
-    N = points.shape[0]
-    _cuda.require(points, "points", torch.float32, (N, 3))
-    out = _launch_culled("vt_mesh_query_culled", points, N, mesh, ub, tiles,
-                         far2, visits)
-    launches += 1
+    out = _culled("vt_mesh_query_culled", point_mesh_query_vis_culled_plain,
+                  points, mesh, ub, tiles, far2, visits, soa=False)
+    if points.is_cuda:
+        launches += 1
     return out
 
 
@@ -1062,16 +1135,13 @@ def point_mesh_query_vis_culled_T(points_T: torch.Tensor, mesh: dict,
                                   far2: float | None = None,
                                   visits: bool = False):
     """Kernel 7: :func:`point_mesh_query_vis_culled` on coordinate-major
-    (3, N) points, with identical results."""
-    if points_T.device.type == "cpu":
-        return point_mesh_query_vis_culled_T_plain(points_T, mesh, ub, tiles,
-                                                   far2, visits)
+    (3, N) points, or (B, 3, N) for a batch, with identical results."""
     global launches_T
-    N = points_T.shape[1]
-    _cuda.require(points_T, "points_T", torch.float32, (3, N))
-    out = _launch_culled("vt_mesh_query_culled_T", points_T, N, mesh, ub,
-                         tiles, far2, visits)
-    launches_T += 1
+    out = _culled("vt_mesh_query_culled_T",
+                  point_mesh_query_vis_culled_T_plain, points_T, mesh, ub,
+                  tiles, far2, visits, soa=True)
+    if points_T.is_cuda:
+        launches_T += 1
     return out
 
 
@@ -1207,7 +1277,13 @@ def prepare_culled_mesh(verts: torch.Tensor, faces: torch.Tensor,
 
 
 def _finish_prepared(d2, wind, qv, dtype):
-    return _signed(d2, wind), (qv >= 1e-1).to(dtype)[:, None]
+    return _signed(d2, wind), (qv >= 1e-1).to(dtype)[..., None]
+
+
+def _centers(mesh: dict, B: int) -> torch.Tensor:
+    """(B, 3): the centre of each batch element's mesh of a stack."""
+    c = mesh["center"]
+    return c[batch_index(B, c.shape[0], c.device)]
 
 
 def cal_vis_sdf_prepared(mesh: dict, points: torch.Tensor,
@@ -1217,9 +1293,12 @@ def cal_vis_sdf_prepared(mesh: dict, points: torch.Tensor,
     the culled query.
 
     Args:
-      mesh: from :func:`prepare_culled_mesh`.
-      points: (N, 3), ray-major (rays x n_samples, sample fastest).
-      ub_d2: (N,) nearest-vertex squared distances (certified bounds).
+      mesh: from :func:`prepare_culled_mesh`, or a stack
+        (:func:`stack_culled_meshes`) for batched points.
+      points: (N, 3), ray-major (rays x n_samples, sample fastest), or
+        (B, N, 3) for a batch in one launch, element e on mesh e % Bm.
+      ub_d2: (N,) / (B, N) nearest-vertex squared distances (certified
+        bounds).
       n_samples: samples per ray: the tiles are then 16 rays x 8 samples
         (``VANERF_BLOCK_RAYS`` / ``VANERF_BLOCK_SAMPLES``), compact in all
         three dimensions, which is what the culling feeds on.
@@ -1227,10 +1306,13 @@ def cal_vis_sdf_prepared(mesh: dict, points: torch.Tensor,
         exceeds it skip the distance search; |sdf| := sqrt(ub + 1e-6),
         query_vis := 0, exact sign.
     Returns:
-      sdf (N,), query_vis (N, 1) float 0/1, far (N,) bool or None.
+      sdf (N,), query_vis (N, 1) float 0/1, far (N,) bool or None; with a
+      batch each with a leading B.
     """
-    tiles = tile_geometry(points.shape[0], n_samples)
-    pts = (points.float() - mesh["center"]).contiguous()
+    tiles = tile_geometry(points.shape[-2], n_samples)
+    center = (_centers(mesh, points.shape[0])[:, None] if points.dim() == 3
+              else mesh["center"])
+    pts = (points.float() - center).contiguous()
     d2, _idx, wind, qv, far = point_mesh_query_vis_culled(
         pts, mesh, ub_d2.float().contiguous(), tiles, far2)
     return (*_finish_prepared(d2, wind, qv, points.dtype), far)
@@ -1246,10 +1328,13 @@ def cal_vis_sdf_prepared_T(mesh: dict, points_T: torch.Tensor,
 
     rays_hw: optional (H, W) shape of the ray grid (rays row-major): with
     ``VANERF_BLOCK_2D`` set, the tiles are the 2-D pixel blocks (which
-    points are far depends on the tiling).
+    points are far depends on the tiling).  Batched: (B, 3, N) points on a
+    stack of meshes, as :func:`cal_vis_sdf_prepared`.
     """
-    tiles = tile_geometry(points_T.shape[1], n_samples, rays_hw)
-    pts_T = (points_T.float() - mesh["center"][:, None]).contiguous()
+    tiles = tile_geometry(points_T.shape[-1], n_samples, rays_hw)
+    center = (_centers(mesh, points_T.shape[0])[:, :, None]
+              if points_T.dim() == 3 else mesh["center"][:, None])
+    pts_T = (points_T.float() - center).contiguous()
     d2, _idx, wind, qv, far = point_mesh_query_vis_culled_T(
         pts_T, mesh, ub_d2.float().contiguous(), tiles, far2)
     return (*_finish_prepared(d2, wind, qv, points_T.dtype), far)

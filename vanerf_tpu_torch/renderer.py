@@ -37,6 +37,14 @@ samples inheriting the nearest evaluated sample's outputs along their ray
 (``VANERF_TNET_IMPL=select|scan``, ``VANERF_TNET_STEPS``); TNET takes
 precedence over NET, NET over SKIP.
 
+``render_full_image(tile_group=G)`` folds G stride offsets into the batch
+of one :func:`render_patch` call, as the JAX package does: the patch then
+renders G x Bf elements of Bf frames, element e of frame e % Bf.  The
+frame's encode, vertex visibility and prepared meshes are made once and read
+in place (nothing per frame is copied G times but its cameras and
+keypoints), and kernels B / 8, A / 7, D and 10 each take the whole batch in
+one launch a pass.
+
 A model with ``compute_dtype="bfloat16"`` (``models/vanerf.py``) serves
 and trains here unchanged: the query takes the float32 points, visibility,
 SDF and far flags, casts them itself and returns float32, so the tiers'
@@ -60,8 +68,10 @@ import torch.nn.functional as F
 from .ops.composite import rgba2out
 from .ops.fused_mlp import fused_train_query
 from .ops.knn import nearest_vertex_d2, nearest_vertex_d2_T
+from .models.vanerf import per_element
+from .ops._cuda import batch_index
 from .ops.mesh_query import (cal_vis_sdf_prepared, cal_vis_sdf_prepared_T,
-                             prepare_culled_mesh)
+                             prepare_culled_mesh, stack_culled_meshes)
 from .ops.rasterize import render_vis_map, vertex_visibility
 from .ops.ray import pixel_grid_rays, ray_bbox_intersection
 from .ops.sampling import importance_sample, stratified_sample
@@ -212,11 +222,13 @@ def strided_grid(B: int, H: int, W: int, level: int, stride,
 
 def gather_pixels(img: torch.Tensor, index: torch.Tensor, out_h: int,
                   out_w: int) -> torch.Tensor:
-    """(B, H, W, C) pixels at flat (B, P) indices -> (B, out_h, out_w, C)."""
-    B, H, W, C = img.shape
-    flat = img.reshape(B, H * W, C)
-    out = torch.gather(flat, 1, index.long()[..., None].expand(-1, -1, C))
-    return out.reshape(B, out_h, out_w, C)
+    """(Bf, H, W, C) pixels at flat (B, P) indices -> (B, out_h, out_w, C),
+    element e reading frame e % Bf."""
+    Bf, H, W, C = img.shape
+    B = index.shape[0]
+    rows = (index.long()
+            + (batch_index(B, Bf, index.device) * (H * W))[:, None])
+    return img.reshape(Bf * H * W, C)[rows].reshape(B, out_h, out_w, C)
 
 
 def _project01(verts, krt, H, W, znear, zfar):
@@ -245,13 +257,15 @@ def encode_frame(model, batch: Dict[str, Any], vis_size: int = 256):
 
 
 def prepare_frame_meshes(batch: Dict[str, Any], vert_vis: torch.Tensor):
-    """Per-frame work of the culled mesh query, one prepared mesh for each
-    batch element (:func:`prepare_culled_mesh`: the Morton sort of the faces,
-    the face table and the chunk boxes).  ``render_full_image`` makes it
-    once beside the encode and hands it to every tile."""
-    return [prepare_culled_mesh(batch["verts"][b], batch["faces"],
-                                vert_vis[b])
-            for b in range(batch["verts"].shape[0])]
+    """Per-frame work of the culled mesh query: one prepared mesh for each
+    frame (:func:`prepare_culled_mesh`: the Morton sort of the faces, the
+    face table and the chunk boxes), stacked (:func:`stack_culled_meshes`)
+    so that kernel A reads the mesh of element e at e % Bf.
+    ``render_full_image`` makes it once beside the encode and hands it to
+    every tile group."""
+    return stack_culled_meshes([
+        prepare_culled_mesh(batch["verts"][b], batch["faces"], vert_vis[b])
+        for b in range(batch["verts"].shape[0])])
 
 
 def patch_rays(batch: Dict[str, Any], grids: torch.Tensor, n_samples: int,
@@ -347,12 +361,13 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
 
     Args:
       model: :class:`vanerf_tpu_torch.models.VANeRF`.
-      batch: channels-last tensors on one device: 'src_img' (B,H,W,3),
-        'src_mask' (B,H,W,1), 'src_krt'/'src_extrin' (B,4,4),
-        'tar_k'/'tar_rt' (B,4,4), 'verts' (B,V2,3), 'faces' (F,3),
-        'kpt3d' (B,K,3), 'bounds' (B,2,3), 'znear'/'zfar' scalars;
+      batch: channels-last tensors of Bf frames on one device: 'src_img'
+        (Bf,H,W,3), 'src_mask' (Bf,H,W,1), 'src_krt'/'src_extrin'
+        (Bf,4,4), 'tar_k'/'tar_rt' (Bf,4,4), 'verts' (Bf,V2,3), 'faces'
+        (F,3), 'kpt3d' (Bf,K,3), 'bounds' (Bf,2,3), 'znear'/'zfar' scalars;
         optional 'tar_img', 'tar_mask', 'input_densepose', 'tar_densepose'.
-      grids: (B, P, 2) pixel grid.
+      grids: (B, P, 2) pixel grid, B a multiple of Bf: element e renders
+        frame e % Bf (a ``render_full_image`` tile group has B = G Bf).
       cached: optional (feat_geo, feat_tex, vert_vis) of
         :func:`encode_frame`, and as an optional fourth element the
         frame's :func:`prepare_frame_meshes`.
@@ -367,7 +382,8 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
       compute_vis_map: also rasterize the GT visibility map in the target
         view ('vis_img_all' (B, 1, H, W), 'vis_img' at the grid).
     Returns:
-      dict of channels-last outputs mirroring the JAX package's.
+      dict of channels-last outputs mirroring the JAX package's, each with
+      a leading B but 'vert_vis' and 'vis_img_all', which are the frames'.
     """
     if n_views != 1:
         raise NotImplementedError("the port renders one source view")
@@ -379,7 +395,11 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
     soa_points = soa_points_mode()
     with contextlib.nullcontext() if training else torch.no_grad():
         src_img = batch["src_img"]
-        B = batch["tar_k"].shape[0]
+        B = grids.shape[0]                 # batch elements, G x Bf frames
+        Bf = batch["tar_k"].shape[0]
+        if B % Bf:
+            raise ValueError(f"{B} grids for {Bf} frames: each frame takes "
+                             "the same number of tiles")
         H, W = src_img.shape[1:3]
         znear, zfar = batch["znear"], batch["zfar"]
         faces, verts = batch["faces"], batch["verts"]
@@ -395,7 +415,10 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
         noise = training and rand_noise_std > 0.0
         u_c = (_draw(draws, "u_c", (B, P, sample_per_ray_c), False, generator,
                      dev) if jitter else None)
-        cam_pos, cam_rays, z = patch_rays(batch, grids, sample_per_ray_c, u_c)
+        cam_pos, cam_rays, z = patch_rays(
+            dict(batch, **{k: per_element(batch[k], B)
+                           for k in ("tar_k", "tar_rt", "bounds")}),
+            grids, sample_per_ray_c, u_c)
         beta = model.sigmoid_beta
         mesh_prep = (frame_meshes[0] if frame_meshes
                      else prepare_frame_meshes(batch, vert_vis))
@@ -476,31 +499,22 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
             else:
                 # the same values: o + d*z rounds alike in either layout
                 pts = pts_T.transpose(1, 2).contiguous()
-            nn_idx, nn_d2, sdf, q_vis, far = [], [], [], [], []
-            for b in range(B):
-                vb = verts[b].contiguous()
-                if soa_points:
-                    pb = pts_T[b].contiguous()
-                    i_b, d2_b = nearest_vertex_d2_T(pb, vb)
-                    s_b, q_b, f_b = cal_vis_sdf_prepared_T(
-                        mesh_prep[b], pb, d2_b, n_samples=n_samples,
-                        rays_hw=(out_h, out_w), far2=far2)
-                else:
-                    pb = pts[b].contiguous()
-                    i_b, d2_b = nearest_vertex_d2(pb, vb)
-                    s_b, q_b, f_b = cal_vis_sdf_prepared(
-                        mesh_prep[b], pb, d2_b, n_samples=n_samples,
-                        far2=far2)
-                nn_idx.append(i_b)
-                nn_d2.append(d2_b)
-                sdf.append(s_b)
-                q_vis.append(q_b)
-                far.append(f_b)
-            nn_idx = torch.stack(nn_idx)
-            q_sdf = torch.stack(sdf)[..., None]                   # (B, N, 1)
-            q_vis = torch.stack(q_vis)
-            far_mask = (torch.stack(far)[..., None]
-                        if far[0] is not None else None)
+            # kernels B / 8 and A / 7: one launch each for the whole batch,
+            # element e against frame e % Bf's vertices and mesh
+            vs = verts.contiguous()
+            if soa_points:
+                pts_T = pts_T.contiguous()
+                nn_idx, nn_d2 = nearest_vertex_d2_T(pts_T, vs)
+                sdf, q_vis, far = cal_vis_sdf_prepared_T(
+                    mesh_prep, pts_T, nn_d2, n_samples=n_samples,
+                    rays_hw=(out_h, out_w), far2=far2)
+            else:
+                pts = pts.contiguous()
+                nn_idx, nn_d2 = nearest_vertex_d2(pts, vs)
+                sdf, q_vis, far = cal_vis_sdf_prepared(
+                    mesh_prep, pts, nn_d2, n_samples=n_samples, far2=far2)
+            q_sdf = sdf[..., None]                                # (B, N, 1)
+            far_mask = far[..., None] if far is not None else None
             view = cam_rays[:, :, None, :].expand(B, P, n_samples, 3) \
                 .reshape(B, -1, 3)
             Ntot = pts.shape[1]
@@ -512,7 +526,7 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
                 # surface, scattered back; dropped rows keep the mesh-prior
                 # density and no colour (jnp.argsort is stable, and equal
                 # bounds do occur)
-                sel = torch.argsort(torch.stack(nn_d2), dim=-1,
+                sel = torch.argsort(nn_d2, dim=-1,
                                     stable=True)[:, :kc]        # (B, kc)
                 buf = query_budget(sel, pts, view, q_vis, q_sdf, nn_idx,
                                    far_mask, kc)
@@ -539,7 +553,7 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
                 # ray preserves each row's value
                 S = n_samples
                 Pn = Ntot // S
-                sel = torch.argsort(torch.stack(nn_d2).reshape(B, Pn, S),
+                sel = torch.argsort(nn_d2.reshape(B, Pn, S),
                                     dim=-1, stable=True)[..., :ks]
                 sel = (sel + (torch.arange(Pn, device=dev) * S)[None, :, None]
                        ).reshape(B, Pn * ks)
@@ -616,8 +630,9 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
         if compute_vis_map:
             vis_map = torch.stack([
                 render_vis_map(verts[b], faces, vert_vis[b], batch["tar_k"][b],
-                               batch["tar_rt"][b], H, W)[1] for b in range(B)])
-            out["vis_img_all"] = vis_map                  # (B, 1, H, W)
+                               batch["tar_rt"][b], H, W)[1]
+                for b in range(Bf)])
+            out["vis_img_all"] = vis_map                  # (Bf, 1, H, W)
             out["vis_img"] = gather_pixels(vis_map.permute(0, 2, 3, 1), index,
                                            out_h, out_w)
         out["input_mask"] = gather_pixels(batch["src_mask"], index, out_h,
@@ -639,16 +654,15 @@ def render_full_image(model, batch: Dict[str, Any], *, level: int,
                       mesh=None):
     """Render the full target image by stride^2 interleaved patch passes
     (``render_pifu_nerf``, ``model.py:1026-1100``) on one device: the
-    encoders and vertex visibility run once per frame, then one
-    :func:`render_patch` per stride offset; tiles are reassembled by an
-    inverse pixel shuffle.  Deterministic: ``rng`` and ``sdf_chunk`` are
-    accepted and unused.  The keywords are the JAX package's
-    (``vanerf_tpu/renderer.py:831-835``); a ``tile_group`` above 1 (stride
-    offsets folded into one batch) and a device ``mesh`` raise."""
-    if tile_group > 1:
-        raise NotImplementedError(
-            "render_full_image(tile_group > 1) is not ported (ROADMAP.md "
-            "queue 1 item 2)")
+    encoders, vertex visibility and prepared meshes run once per frame,
+    then one :func:`render_patch` per group of ``tile_group`` stride
+    offsets; tiles are reassembled by an inverse pixel shuffle.
+    Deterministic: ``rng`` and ``sdf_chunk`` are accepted and unused.  The
+    keywords are the JAX package's (``vanerf_tpu/renderer.py:831-949``):
+    ``tile_group`` G (clamped to stride^2, which it must divide) folds G
+    offsets, in the order (j, i) for i, j in range(s), into a batch of
+    G x B elements, g-major and b-minor, whose element t B + b renders frame
+    b at the group's t-th offset.  A device ``mesh`` raises."""
     if mesh is not None:
         raise NotImplementedError(
             "render_full_image(mesh=...) is not ported (ROADMAP.md queue 1 "
@@ -657,18 +671,29 @@ def render_full_image(model, batch: Dict[str, Any], *, level: int,
     H, W = batch["src_img"].shape[1:3]
     s = 2 ** (level - 1)
     out_h, out_w = H // s, W // s
+    G = max(1, min(tile_group, s * s))
+    if (s * s) % G:
+        raise ValueError(f"tile_group {tile_group} must divide stride^2 = "
+                         f"{s * s}")
     cached = tuple(encode_frame(model, batch))
     cached += (prepare_frame_meshes(batch, cached[2]),)
     dev = batch["src_img"].device
+    offsets = [(j, i) for i in range(s) for j in range(s)]
     tiles = []
-    for i in range(s):
-        for j in range(s):
-            grids = strided_grid(B, H, W, level, [[j, i]] * B, device=dev)
-            tiles.append(render_patch(
-                model, batch, grids=grids, out_h=out_h, out_w=out_w,
-                sample_per_ray_c=sample_per_ray_c,
-                sample_per_ray_f=sample_per_ray_f, n_views=n_views,
-                compute_vis_map=compute_vis_map, cached=cached))
+    for g0 in range(0, s * s, G):
+        strides = torch.tensor([[o] * B for o in offsets[g0:g0 + G]],
+                               dtype=torch.float32).reshape(G * B, 2)
+        grids = strided_grid(G * B, H, W, level, strides, device=dev)
+        out = render_patch(
+            model, batch, grids=grids, out_h=out_h, out_w=out_w,
+            sample_per_ray_c=sample_per_ray_c,
+            sample_per_ray_f=sample_per_ray_f, n_views=n_views,
+            compute_vis_map=compute_vis_map, cached=cached)
+        for t in range(G):
+            tiles.append({k: (v[t * B:(t + 1) * B]
+                              if torch.is_tensor(v) and v.ndim >= 1
+                              and v.shape[0] == G * B else v)
+                          for k, v in out.items()})
     merged = {}
     for k, v in tiles[0].items():
         if k in ("vert_vis", "index", "vis_img_all"):

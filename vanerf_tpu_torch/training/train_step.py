@@ -120,11 +120,10 @@ def generator_outputs(model, batch: Dict[str, Any], cfg: dict,
                       n_views: int = 1,
                       generator: Optional[torch.Generator] = None,
                       draws: Optional[Dict[str, Any]] = None):
-    """Render the training patch (``train_step.py:91-114``)."""
+    """Render the training patch (``train_step.py:91-114``); with
+    ``dr_kwargs.fine=false`` the coarse pass alone, and no 'tex_cal_fine'."""
     m = cfg["models"]["VANeRF"]
     drk = m.get("dr_kwargs", {})
-    if not drk.get("fine", True):
-        raise NotImplementedError("dr_kwargs.fine=false is not ported")
     out_h = m.get("train_out_h", 64)
     out_w = m.get("train_out_w", 64)
     dev = batch["src_img"].device
@@ -137,13 +136,22 @@ def generator_outputs(model, batch: Dict[str, Any], cfg: dict,
         model, batch, grids=grids, out_h=out_h, out_w=out_w,
         sample_per_ray_c=drk.get("sample_per_ray_c", 64),
         sample_per_ray_f=drk.get("sample_per_ray_f", 64), training=True,
-        n_views=n_views, compute_vis_map=True,
+        fine=drk.get("fine", True), n_views=n_views, compute_vis_map=True,
         uniform=drk.get("uniform", False),
         rand_noise_std=drk.get("rand_noise_std", 0.0), generator=generator,
         draws=draws)
     out["tex_cal"] = out["tex_fg"]
-    out["tex_cal_fine"] = out["tex_fg_fine"]
+    if "tex_fg_fine" in out:
+        out["tex_cal_fine"] = out["tex_fg_fine"]
     return out
+
+
+def rendered_image(out: Dict[str, Any]) -> torch.Tensor:
+    """The image the discriminator judges: the fine pass's, or the coarse
+    pass's under ``dr_kwargs.fine=false`` (the JAX step reads
+    'tex_fg_fine' there and stops with a KeyError; the port judges the only
+    image it rendered)."""
+    return out.get("tex_fg_fine", out["tex_fg"]).clamp(0.0, 1.0)
 
 
 def generator_loss(out: Dict[str, Any], disc, vggloss, cfg: dict):
@@ -154,7 +162,7 @@ def generator_loss(out: Dict[str, Any], disc, vggloss, cfg: dict):
     lambdas = cfg["models"]["VANeRF"].get("lambdas", {})
     dis_lambdas = cfg["models"]["Discriminator"]["lambdas"]
     loss, err = L.compute_error(out, lambdas, vggloss)
-    rendered = out["tex_fg_fine"].clamp(0.0, 1.0)
+    rendered = rendered_image(out)
     fake_pred, fake_vis = disc(out["img_in"], out["input_densepose"],
                                out["tar_densepose"], rendered)
     vis_pix = bce_loss(fake_vis, torch.ones_like(fake_vis))
@@ -171,7 +179,7 @@ def discriminator_loss(out: Dict[str, Any], disc):
     loss, R1 = 300 x 0.5 x ||dD(real)/dreal||^2, and the masked visibility
     BCE of real and fake with x5 on invisible GT pixels.  Returns
     (loss, logs)."""
-    rendered = out["tex_fg_fine"].clamp(0.0, 1.0).detach()
+    rendered = rendered_image(out).detach()
     gt = out["tar_img"].detach().requires_grad_(True)
     vis_gt = out["vis_img"]
     msk = out["tar_alpha"]
