@@ -32,7 +32,10 @@ script exits non-zero (there is no CPU fallback):
      main path's order (where every chunk is visited) and on the same
      points and vertices in Morton order (where chunks must be skipped),
      timed from a CUDA graph, its chunk-box kernel alone beside it (its
-     rows equal to ``vertex_chunk_boxes``), with nvcc's counts;
+     rows equal to ``vertex_chunk_boxes``), with nvcc's counts; and on
+     the main path's points against the two synthetic MANO hands posed by
+     ``mano_forward_np`` and sealed (2 x 779 vertices in MANO's order),
+     bit-equal to B, its visit share and times beside B's;
      kernels
      A and 7 are the culled mesh query, in 16-ray x 8-sample tiles and in
      ``VANERF_BLOCK_2D=4,4,8`` tiles, without and with the far tier:
@@ -193,7 +196,19 @@ script exits non-zero (there is no CPU fallback):
      comparison, with forward hooks and gradient hooks on every leaf
      module naming the first output and the first gradient that differ;
      the ops torch flags as without a deterministic implementation (none
-     may be); the three's cost, 8 steps each in turns.
+     may be); the three's cost, 8 steps each in turns;
+  7. the entry point, ``vanerf_tpu_torch.train.main`` in process at full
+     width (``configs/vanerf.json``, a ``synthetic_cfg`` of one 256^2
+     subdiv-3 frame x 8 cameras, validation every half epoch):
+     ``--fast_dev_run`` (one step, config.json and metrics.jsonl); one
+     epoch of ``fit`` (8 steps), the launches of A, B, C, 13 and 10 held to
+     the steps as phase 5 holds them (validation's launches counted apart)
+     and ``val_fn`` run at steps 4 and 8; a second invocation that resumes
+     from the checkpoint, its state equal to the bit to the saved one;
+     ``--run_val --model_ckpt <the ckpts dir>``, 16 frames, a report with
+     finite psnr / ssim / mse and ``lpips_pretrained: false``; prints fit's
+     ms/step (loading and logging included) beside its steps timed alone
+     and phase 5's bare step, and run_test's ms/frame.
 
 A ``details:`` line holds every measured number; the line before the last
 is a JSON object with one entry per kernel (its launches are those of the
@@ -231,6 +246,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -663,6 +679,62 @@ def knn_visit_margin(pts, verts, visits, visits_plain) -> float:
     lb = gap.pow(2).sum(-1)
     thr = ub[:, None] * (1.0 + 1e-5) + 1e-12
     return ((lb - thr).abs() / thr).amin(1).max().item()
+
+
+def mano_hands(dev):
+    """The two synthetic MANO hands, posed and sealed: (1558, 3) on
+    ``dev``."""
+    import numpy as np
+    import torch
+    from vanerf_tpu_torch.mano import mano_forward_np, seal_verts_np
+    from vanerf_tpu_torch.mano.layer import synthetic_mano_model
+    rs = np.random.RandomState(SEED)
+    hands = []
+    for is_rhand, hand, x in ((True, "right", 0.045), (False, "left", -0.045)):
+        model = synthetic_mano_model(is_rhand)
+        verts, _ = mano_forward_np(model, rs.randn(10) * 0.5,
+                                   rs.randn(48) * 0.3, [x, 0.2 * x, 0.0])
+        hands.append(seal_verts_np(verts, model.faces, hand)[0])
+    return torch.as_tensor(np.concatenate(hands), dtype=torch.float32,
+                           device=dev).contiguous()
+
+
+def knn_culled_mano(pts, dev) -> dict:
+    """Kernel 9 in both layouts against B (and 8) on the MANO-ordered
+    hands: bit-equal; its visit share; times in turns, called and from a
+    CUDA graph."""
+    import torch
+    from vanerf_tpu_torch.ops import knn
+    verts = mano_hands(dev)
+    n_chunks = -(-verts.shape[0] // knn.VERT_CHUNK)
+    i_b, d_b = knn.nearest_vertex_d2(pts, verts)
+    out = {"vertices": verts.shape[0], "chunks": n_chunks}
+    pts_T = pts.t().contiguous()
+    for name, fn, fn_p, q, brute in (
+            ("knn_culled", knn.nearest_vertex_d2_culled,
+             knn.nearest_vertex_d2_culled_plain, pts, knn.nearest_vertex_d2),
+            ("knn_T_culled", knn.nearest_vertex_d2_T_culled,
+             knn.nearest_vertex_d2_T_culled_plain, pts_T,
+             knn.nearest_vertex_d2_T)):
+        i9, d9, v9 = fn(q, verts, visits=True)
+        i_q, d_q = brute(q, verts)
+        torch.cuda.synchronize()
+        check(torch.equal(i9, i_b) and torch.equal(d9, d_b)
+              and torch.equal(i_q, i_b) and torch.equal(d_q, d_b),
+              f"{name} on the MANO-ordered hands differs from kernel B")
+        t = [cuda_ms(lambda f=f: f(q, verts), 20)
+             for f in (fn, brute, brute, fn)]
+        out[name] = dict(
+            visit_share=v9.float().mean().item() / n_chunks,
+            tiles_skipping=int((v9 < n_chunks).sum()),
+            ms=0.5 * (t[0] + t[3]), brute_ms=0.5 * (t[1] + t[2]),
+            device_ms=graph_ms(lambda: fn(q, verts)),
+            brute_device_ms=graph_ms(lambda: brute(q, verts)),
+            plain_ms=cuda_ms(lambda: fn_p(q, verts), 3),
+            library_ms=cuda_ms(lambda: torch.cdist(pts, verts).min(1), 3),
+            **least_time(nbytes(pts, verts, i9, d9),
+                         KNN_OPS * pts.shape[0] * verts.shape[0]))
+    return out
 
 
 def culled_query_checks(name, fn, fn_p, q, p_c, mesh, d2, tilings, far2):
@@ -1385,6 +1457,11 @@ def phase_kernels(model, batch, dev):
             all_pairs=least_time(nbytes(pts, verts, i9, d9),
                                  KNN_OPS * n_pairs_knn),
             **least_time(nbytes(pts, verts, i9, d9), KNN_OPS * visited))
+
+    # --- 9 on MANO-ordered hands: the two synthetic MANO hands posed by
+    # mano_forward_np and sealed (2 x 779 vertices in MANO's own order,
+    # ring after ring along each hand), at the fixture's hand positions ---
+    results["knn_culled"]["mano"] = knn_culled_mano(pts, dev)
 
     # --- A and 7: the culled mesh query, in 1-D tiles (16 rays x 8
     # samples) and in VANERF_BLOCK_2D=4,4,8 tiles, without and with the far
@@ -3329,6 +3406,227 @@ def phase_train_repeat(models, batch, cfg, dev,
 # phase 6: one G-loss gradient, card (kernels) against CPU (plain twins)
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 7: the entry point, ``python -m vanerf_tpu_torch.train``, in process
+# ---------------------------------------------------------------------------
+
+def tensors_equal(a, b, path="") -> list:
+    """The paths at which two nested containers of tensors differ."""
+    import torch
+    if torch.is_tensor(a) or torch.is_tensor(b):
+        same = (torch.is_tensor(a) and torch.is_tensor(b)
+                and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.cpu(), b.cpu()))
+        return [] if same else [path]
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return [path + "{keys}"]
+        return [p for k in a for p in tensors_equal(a[k], b[k],
+                                                    f"{path}.{k}")]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return [path + "[len]"]
+        return [p for i, (x, y) in enumerate(zip(a, b))
+                for p in tensors_equal(x, y, f"{path}[{i}]")]
+    return [] if a == b else [path]
+
+
+def phase_entry_point(dev) -> dict:
+    """``vanerf_tpu_torch.train.main`` at full width on the 256^2 subdiv-3
+    fixture of one frame (8 cameras: 8 steps an epoch), validation every
+    half epoch: ``--fast_dev_run``; one epoch of ``fit`` with the training
+    launches counted against its steps (validation's and the training
+    dataset's draws subtracted) and
+    ``val_fn`` run twice; a second invocation that resumes, its state equal
+    to the bit to the saved one; ``--run_val --model_ckpt`` on that
+    checkpoint directory, its report finite."""
+    import shutil
+    import torch
+    from vanerf_tpu_torch import eval_loop, ops, training
+    from vanerf_tpu_torch import train as entry
+    from vanerf_tpu_torch.data import synthetic
+    from vanerf_tpu_torch.config import default_cfg
+    from vanerf_tpu_torch.training.checkpoints import state_blob
+    out_dir = os.path.join(REPO, "build", "entry_point")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cfg = default_cfg()
+    cfg["dataset"]["synthetic_cfg"] = {"H": H, "W": W, "subdiv": SUBDIV,
+                                       "n_frames": 1}
+    cfg["training"]["max_epochs"] = 1
+    cfg["training"]["pl_cfg"] = {"val_check_interval": 0.5}
+    cfg["out_dir"] = out_dir
+    os.makedirs(out_dir)
+    cfg_path = os.path.join(out_dir, "config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    save_dir = os.path.join(out_dir, cfg["expname"])
+    args = ["--config", cfg_path, "--synthetic_data"]
+    res = {}
+
+    # 1. --fast_dev_run
+    t0 = time.perf_counter()
+    state = entry.main(args + ["--fast_dev_run"])
+    res["fast_dev_run_s"] = time.perf_counter() - t0
+    check(int(state.step) == 1, "--fast_dev_run: not one step")
+    for name in ("config.json", "metrics.jsonl"):
+        check(os.path.isfile(os.path.join(save_dir, name)),
+              f"--fast_dev_run wrote no {name}")
+
+    # 2. one epoch of fit: validation's launches and the training dataset's
+    # draws (kernel C, in the main thread: the loader loads inline at
+    # train_num_workers 1) counted apart, so that what is left is the steps'
+    val_calls, val_launch, val_s = [], {}, []
+    data_launch, in_val = {}, [False]
+    real_make_val_fn = eval_loop.make_val_fn
+
+    def counted_make_val_fn(*a, **k):
+        val_fn = real_make_val_fn(*a, **k)
+
+        def wrapped(state, step, logger):
+            torch.cuda.synchronize()
+            before = ops.launch_counts()
+            t = time.perf_counter()
+            in_val[0] = True
+            try:
+                out = val_fn(state, step, logger)
+            finally:
+                in_val[0] = False
+            torch.cuda.synchronize()
+            val_s.append(time.perf_counter() - t)
+            for k_, v in ops.launch_counts().items():
+                val_launch[k_] = val_launch.get(k_, 0) + v - before[k_]
+            val_calls.append((int(step), out))
+            return out
+        return wrapped
+
+    real_render_view = synthetic.render_view
+
+    def counted_render_view(*a, **k):
+        before = ops.launch_counts()
+        out = real_render_view(*a, **k)
+        if not in_val[0]:       # validation's draws are in val_launch
+            for k_, v in ops.launch_counts().items():
+                data_launch[k_] = data_launch.get(k_, 0) + v - before[k_]
+        return out
+
+    # each step inside fit timed on the card's clock between two events,
+    # with no synchronization, so that the host runs ahead as it does
+    # untimed: fit's ms/step less this is what the loop costs
+    real_make_step = training.make_train_step
+    step_events = []
+
+    def timed_make_step(*a, **k):
+        step_fn = real_make_step(*a, **k)
+
+        def timed(*a2, **k2):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = step_fn(*a2, **k2)
+            ev[1].record()
+            step_events.append(ev)
+            return out
+        return timed
+
+    eval_loop.make_val_fn = counted_make_val_fn
+    training.make_train_step = timed_make_step
+    synthetic.render_view = counted_render_view
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        state = entry.main(args)
+        torch.cuda.synchronize()
+        res["fit_invocation_s"] = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    finally:
+        eval_loop.make_val_fn = real_make_val_fn
+        training.make_train_step = real_make_step
+        synthetic.render_view = real_render_view
+    step_ms = [a.elapsed_time(b) for a, b in step_events]
+    steps = int(state.step)
+    check(steps == 8, f"one epoch took {steps} steps, not 8")
+    check([s for s, _ in val_calls] == [4, 8],
+          f"val_fn ran at steps {[s for s, _ in val_calls]}, not [4, 8]")
+    for _, logs in val_calls:
+        check(all(math.isfinite(v) for v in logs.values())
+              and "val_total_loss" in logs, f"val logs {logs}")
+    check(data_launch.get("rasterize", 0) > 0,
+          "the synthetic training dataset did not rasterize on the card")
+    train_launches = {k: v - val_launch.get(k, 0) - data_launch.get(k, 0)
+                      for k, v in launches.items()}
+    check_train_launches(train_launches, steps, 0, 0, False)
+    with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    epoch_s = [r for r in recs if "epoch_time_s" in r][-1]["epoch_time_s"]
+    res.update(steps=steps, val_steps=[s for s, _ in val_calls],
+               launches=launches, val_launches=val_launch,
+               data_launches=data_launch,
+               train_launches=train_launches, epoch_s=epoch_s,
+               val_s=val_s, val_logs=[lg for _, lg in val_calls],
+               fit_ms_per_step=(epoch_s - sum(val_s)) / steps * 1e3,
+               step_ms_in_fit=step_ms,
+               step_ms_in_fit_mean=sum(step_ms) / len(step_ms))
+    saved = state_blob(state)
+
+    # 3. a second invocation resumes: the state equal to the saved one
+    t0 = time.perf_counter()
+    resumed = entry.main(args)
+    res["resume_invocation_s"] = time.perf_counter() - t0
+    differ = tensors_equal(state_blob(resumed), saved)
+    check(not differ, f"the resumed state differs from the saved one at "
+          f"{differ[:5]}")
+    res["resumed_step"] = int(resumed.step)
+
+    # 4. --run_val --model_ckpt <the checkpoint directory>
+    real_render = eval_loop.render_full_image
+    render_s = []
+
+    def timed_render(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_render(*a, **k)
+        torch.cuda.synchronize()
+        render_s.append(time.perf_counter() - t)
+        return out
+
+    eval_loop.render_full_image = timed_render
+    real_run_test = eval_loop.run_test
+    run_test_s = []
+
+    def timed_run_test(*a, **k):
+        t = time.perf_counter()
+        out = real_run_test(*a, **k)
+        run_test_s.append(time.perf_counter() - t)
+        return out
+
+    eval_loop.run_test = timed_run_test
+    try:
+        entry.main(args + ["--run_val", "--model_ckpt",
+                           os.path.join(save_dir, "ckpts")])
+    finally:
+        eval_loop.render_full_image = real_render
+        eval_loop.run_test = real_run_test
+    yml = [n for n in os.listdir(save_dir) if n.endswith(".yml")]
+    check(yml == ["test_test_1_8.yml"], f"reports {yml}")
+    report = {}
+    with open(os.path.join(save_dir, yml[0])) as f:
+        for line in f:
+            k, v = line.rstrip("\n").split(": ", 1)
+            report[k] = v
+    for k in ("psnr", "ssim", "mse"):
+        check(math.isfinite(float(report[k])), f"report {k} = {report[k]}")
+    check(report["lpips_pretrained"] == "false",
+          f"lpips_pretrained: {report['lpips_pretrained']}")
+    frames = len(render_s)
+    check(frames == 16, f"run_test rendered {frames} frames, not 16")
+    res.update(report=report, frames=frames,
+               run_test_ms_per_frame=run_test_s[0] / frames * 1e3,
+               render_ms_per_frame=sum(render_s) / frames * 1e3)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return res
+
+
 def maps_forward(model, maps) -> None:
     """Make ``model.encode`` return the values ``maps`` = ([coarse, fine]
     geometry maps, texture map), their gradients reaching the model's own
@@ -3623,6 +3921,18 @@ def main() -> int:
             f"chunk) pairs visited, {c['tiles_skipping']} tiles skip a chunk; "
             f"culled {c['ms']:.3f} ms, kernel B {c['brute_ms']:.3f} ms in "
             f"turns")
+    r = kres["knn_culled"]["mano"]
+    for name in ("knn_culled", "knn_T_culled"):
+        c = r[name]
+        say(f"phase 2 {name} [the MANO-ordered hands, {r['vertices']} "
+            f"vertices in {r['chunks']} chunks]: equal to kernel B bit for "
+            f"bit; {c['visit_share']:.3f} of the (tile, chunk) pairs visited, "
+            f"{c['tiles_skipping']} tiles skip a chunk; culled {c['ms']:.3f} "
+            f"ms, kernel B {c['brute_ms']:.3f} ms in turns; device (CUDA "
+            f"graph) {c['device_ms']:.4f} / {c['brute_device_ms']:.4f} ms; "
+            f"plain {c['plain_ms']:.3f} ms, torch.cdist + min "
+            f"{c['library_ms']:.3f} ms, bound {c['bound_ms']:.4f} ms by "
+            f"{c['bound_by']}")
     for name in ("mesh_query", "mesh_query_T"):
         for tag, d in kres[name]["detail"].items():
             say(f"phase 2 {name} [{tag}]: culled {d['ms']:.3f} ms, sweep "
@@ -4014,6 +4324,33 @@ def main() -> int:
         check(r["pinned"]["bit_equal"] and not r["flagged_ops"],
               f"{cdt} train step does not repeat to the bit")
 
+    # ---- phase 7: the entry point ----
+    t0 = time.perf_counter()
+    entry = phase_entry_point(dev)
+    entry["phase_s"] = time.perf_counter() - t0
+    say(f"phase 7 entry point (vanerf_tpu_torch.train.main, full width, "
+        f"256^2 subdiv 3, one frame x 8 cameras): --fast_dev_run one step "
+        f"({entry['fast_dev_run_s']:.1f} s the invocation); one epoch of "
+        f"fit, {entry['steps']} steps, val_fn at steps {entry['val_steps']} "
+        f"({' / '.join(f'{t * 1e3:.0f}' for t in entry['val_s'])} ms), the "
+        f"steps' launches {entry['train_launches']} (validation's "
+        f"{ {k: v for k, v in entry['val_launches'].items() if v} }, the "
+        f"training dataset's "
+        f"{ {k: v for k, v in entry['data_launches'].items() if v} }); fit "
+        f"{entry['fit_ms_per_step']:.1f} ms/step with loading and logging "
+        f"(the epoch {entry['epoch_s']:.2f} s less validation), its steps "
+        f"on the card's clock {entry['step_ms_in_fit_mean']:.1f} ms/step "
+        f"({[round(t, 1) for t in entry['step_ms_in_fit']]}; events, no "
+        f"synchronization), the bare "
+        f"step {train['ms_per_step']:.1f} ms/step (phase 5); the second "
+        f"invocation resumed at step {entry['resumed_step']}, its state "
+        f"equal to the bit to the saved one; --run_val on that checkpoint: "
+        f"{entry['frames']} frames, run_test {entry['run_test_ms_per_frame']:.1f}"
+        f" ms/frame ({entry['render_ms_per_frame']:.1f} ms the render), "
+        f"psnr {entry['report']['psnr']}, ssim {entry['report']['ssim']}, "
+        f"lpips_pretrained {entry['report']['lpips_pretrained']}; the phase "
+        f"{entry['phase_s']:.1f} s")
+
     launches = dict(
         main["launches"],
         knn_T=soa["mode1"]["launches"]["knn_T"],
@@ -4077,7 +4414,8 @@ def main() -> int:
                                   "bf16_train": turns,
                                   "bf16_fused_train": ftrain16,
                                   "bf16_train_card_vs_cpu": vs_cpu16,
-                                  "train_repeat": rep}))
+                                  "train_repeat": rep,
+                                  "entry_point": entry}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,6 +42,8 @@ from typing import Optional
 
 import torch
 
+from .device import resolve_device
+
 SEED = 0
 
 
@@ -274,10 +276,7 @@ def run(train_mode: bool = False, tile_group: int = 1, rounds: int = 8,
     """The JSON object the entry point prints: the readings plus the
     device they were taken on."""
     from .config import default_cfg
-    if torch.device(device).type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device (pass --device cpu for the "
-                               "CPU)")
+    if resolve_device(device).type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         where = card()

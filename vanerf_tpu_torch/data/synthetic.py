@@ -13,6 +13,7 @@ import functools
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops import rasterize as raster_ops
 
 
@@ -109,21 +110,10 @@ def _vertex_colors(verts: np.ndarray) -> np.ndarray:
     return np.stack([r, g, b], -1).astype(np.float32) * 0.8 + 0.1
 
 
-def _device(device):
-    """``device``, or the card when the caller names none: there is no quiet
-    step back to the CPU (pass ``device="cpu"`` to ask for it)."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the fixture is rasterized on "
-                           "the card unless device='cpu' is asked for")
-    return torch.device("cuda")
-
-
 def render_view(verts, faces, K, Rt, H, W, device=None):
     """Render (img, mask, densepose) with the port's rasterizer on
     ``device`` (default: the card, which runs kernel C)."""
-    device = _device(device)
+    device = resolve_device(device)
     cam = verts @ Rt[:3, :3].T + Rt[:3, 3]
     z = cam[:, 2]
     xy = np.stack([cam[:, 0] / z * K[0, 0] + K[0, 2],
@@ -162,7 +152,7 @@ class SyntheticDataset:
         self.H, self.W = H, W
         self.subdiv = subdiv
         self.split = split
-        self.device = _device(device)
+        self.device = resolve_device(device)
         _, faces, _ = two_hand_mesh(0, subdiv)
         self.faces = faces
         self.num_v = len(hand_template(subdiv)[0])

@@ -1,8 +1,52 @@
-"""Camera rays and ray/AABB intersection (port of ``vanerf_tpu/ops/ray.py``)."""
+"""Camera rays and ray/AABB intersection (port of ``vanerf_tpu/ops/ray.py``):
+numpy copies for the input pipeline, torch functions for the renderer."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+# ------------------------- numpy (input pipeline) --------------------------
+
+def get_rays_np(H: int, W: int, K: np.ndarray, R: np.ndarray, T: np.ndarray):
+    """Per-pixel world rays, numpy (``vanerf_tpu/ops/ray.py:18``; reference
+    ``dataset.py:609-623``)."""
+    rays_o = -np.dot(R.T, T).ravel()
+    i, j = np.meshgrid(np.arange(W, dtype=np.float32),
+                       np.arange(H, dtype=np.float32), indexing="xy")
+    xy1 = np.stack([i, j, np.ones_like(i)], axis=2)
+    pixel_camera = np.dot(xy1, np.linalg.inv(K).T)
+    pixel_world = np.dot(pixel_camera - T.ravel(), R)
+    rays_d = pixel_world - rays_o[None, None]
+    rays_o = np.broadcast_to(rays_o, rays_d.shape)
+    return rays_o, rays_d
+
+
+def get_near_far_np(bounds: np.ndarray, ray_o: np.ndarray, ray_d: np.ndarray,
+                    boffset=(-0.01, 0.01)):
+    """Ray/AABB near-far by the 6-plane method in float32, near / far as
+    |t| (``vanerf_tpu/ops/ray.py:31``; reference ``dataset.py:625-658``).
+    Returns near (M,), far (M,) of the M rays that hit, and the (N,) hit
+    mask."""
+    dt = np.float32
+    bounds = bounds.astype(dt) + np.asarray(boffset, dt)[:, None]
+    ray_o = ray_o.astype(dt, copy=False)
+    ray_d = ray_d.astype(dt, copy=True)
+    ray_d[np.abs(ray_d) < 1e-5] = 1e-5
+    t_hit = ((bounds[None] - ray_o[:, None]) / ray_d[:, None]) \
+        .reshape(-1, 6)                                       # (N, 6)
+    p = t_hit[..., None] * ray_d[:, None] + ray_o[:, None]    # (N, 6, 3)
+    eps = dt(1e-6)
+    ok = ((p >= (bounds[0] - eps)) & (p <= (bounds[1] + eps))).all(-1)
+    mask_at_box = ok.sum(-1) == 2
+    ta = np.abs(t_hit)
+    near = np.where(ok, ta, np.inf).min(-1)[mask_at_box]
+    far = np.where(ok, ta, -np.inf).max(-1)[mask_at_box]
+    return near, far, mask_at_box
+
+
+# ------------------------------ torch (on device) --------------------------
 
 
 def ray_bbox_intersection(bounds: torch.Tensor, orig: torch.Tensor,

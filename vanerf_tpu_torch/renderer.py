@@ -646,6 +646,17 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
         return out
 
 
+def plan_tile_group(n_tiles: int, tile_group: int, mesh=None):
+    """The (tile_group, mesh) pair of a full-image render on one device
+    (``vanerf_tpu/renderer.py:811``): ``tile_group`` (at least 1) capped at
+    the frame's ``n_tiles`` stride offsets.  A device ``mesh`` raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "plan_tile_group(mesh=...) is not ported (ROADMAP.md queue 1 "
+            "item 9)")
+    return min(max(1, tile_group), n_tiles), None
+
+
 @torch.no_grad()
 def render_full_image(model, batch: Dict[str, Any], *, level: int,
                       sample_per_ray_c: int = 64, sample_per_ray_f: int = 64,
