@@ -208,7 +208,20 @@ script exits non-zero (there is no CPU fallback):
      ``--run_val --model_ckpt <the ckpts dir>``, 16 frames, a report with
      finite psnr / ssim / mse and ``lpips_pretrained: false``; prints fit's
      ms/step (loading and logging included) beside its steps timed alone
-     and phase 5's bare step, and run_test's ms/frame.
+     and phase 5's bare step, and run_test's ms/frame;
+  8. the free-viewpoint video, ``vanerf_tpu_torch.render_dynamic.main`` in
+     process at full width (``configs/vanerf.json``, the 256^2 subdiv-3
+     fixture, 20 orbit frames, its model equal to the seeded model of the
+     other phases): the launches of A, B, C, D and 10 a frame (the
+     dataset's raster counted apart), at least one frame with foreground;
+     the 20 PNGs read back equal to the frames, ``nvs.mp4``'s 20 JPEG
+     samples, ``nvs.gif``'s 20 image blocks; orbit camera 0 rendered again
+     equal to its frame to the bit; its 8x8-ray patch on the card within
+     phase 4's tolerance of the CPU port's, the CPU query taking the card's
+     visibility on the samples where a tie is certified
+     (:func:`certify_ties`); prints ms a frame (the first, the median of
+     the rest), device ops and busy ms of one profiled frame, the peak, and
+     the PNG, JPEG and GIF encoders' host ms a frame.
 
 A ``details:`` line holds every measured number; the line before the last
 is a JSON object with one entry per kernel (its launches are those of the
@@ -3627,6 +3640,338 @@ def phase_entry_point(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the free-viewpoint video, ``python -m
+# vanerf_tpu_torch.render_dynamic``, in process
+# ---------------------------------------------------------------------------
+
+VIDEO_FRAMES = 20
+# orbit camera 0's patch on the card against the CPU port's: 8x8 rays
+# spread over the whole frame (16 + 32 i pixels), phase 4's tolerance
+VIDEO_RAYS = 8
+
+
+def face_distances(p, tri):
+    """float64 distances from the point p (3,) to each triangle (F, 3, 3):
+    the nearest of the corners, the edges' closest points and the plane's
+    projection where it lies inside (``tests/oracles.py``, over all faces
+    at once)."""
+    import numpy as np
+    a, b, c = tri[:, 0], tri[:, 1], tri[:, 2]
+    cands = [a, b, c]
+    for u, v in ((a, b), (b, c), (c, a)):
+        d = v - u
+        t = np.clip(((p - u) * d).sum(1) / np.maximum((d * d).sum(1),
+                                                       1e-30), 0.0, 1.0)
+        cands.append(u + t[:, None] * d)
+    n = np.cross(b - a, c - a)
+    nn = np.maximum((n * n).sum(1), 1e-30)
+    q = p - (((p - a) * n).sum(1) / nn)[:, None] * n
+    v0, v1, v2 = b - a, c - a, q - a
+    d00, d01, d11 = (v0 * v0).sum(1), (v0 * v1).sum(1), (v1 * v1).sum(1)
+    d20, d21 = (v2 * v0).sum(1), (v2 * v1).sum(1)
+    den = d00 * d11 - d01 * d01
+    safe = np.where(np.abs(den) > 1e-30, den, 1.0)
+    w1 = (d11 * d20 - d01 * d21) / safe
+    w2 = (d00 * d21 - d01 * d20) / safe
+    inside = (np.abs(den) > 1e-30) & (w1 >= 0) & (w2 >= 0) & (w1 + w2 <= 1)
+    dist = np.min([np.linalg.norm(p - x, axis=1) for x in cands], 0)
+    return np.where(inside, np.minimum(dist, np.linalg.norm(p - q, axis=1)),
+                    dist)
+
+
+def certify_ties(verts, faces, vert_vis, points):
+    """(n,) bool: each point's nearest faces tie, and their visibilities,
+    interpolated at the point's projection on each face's plane (the
+    query's rule), fall on both sides of the 0.1 threshold: either face is
+    a right answer.  Faces tie when their float64 squared distances lie
+    within 4 float32 units of the squared magnitudes a float32 query rounds
+    at (the point's and the farthest vertex's, uncentred), where no float32
+    query can tell them apart."""
+    import numpy as np
+    V = np.asarray(verts, np.float64)
+    F = np.asarray(faces)
+    vis = np.asarray(vert_vis, np.float64)[:, 0]
+    tri = V[F]
+    r2 = (V * V).sum(1).max()
+    ok = []
+    for p in np.asarray(points, np.float64):
+        d2 = face_distances(p, tri) ** 2
+        tol = 4 * np.finfo(np.float32).eps * (p @ p + r2)
+        tied = np.nonzero(d2 <= d2.min() + tol)[0]
+        a, b, c = (tri[tied, i] for i in range(3))
+        u, v, w = b - a, c - a, p - a
+        n = np.cross(u, v)
+        nn = (n * n).sum(1)
+        b2 = (np.cross(u, w) * n).sum(1) / nn
+        b1 = (np.cross(w, v) * n).sum(1) / nn
+        qv = ((1 - b1 - b2) * vis[F[tied, 0]] + b1 * vis[F[tied, 1]]
+              + b2 * vis[F[tied, 2]])
+        ok.append(len(set((qv >= 0.1).tolist())) == 2)
+    return np.array(ok, bool)
+
+
+def gif_image_blocks(data: bytes) -> int:
+    """The number of image descriptors of a GIF89a, walking its blocks."""
+    check(data[:6] == b"GIF89a", "nvs.gif: not a GIF89a")
+    flags = data[10]
+    pos = 13 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0)
+    images = 0
+
+    def skip_sub_blocks(i):
+        while data[i]:
+            i += data[i] + 1
+        return i + 1
+
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:                         # extension
+            pos = skip_sub_blocks(pos + 2)
+        elif data[pos] == 0x2C:                       # image
+            images += 1
+            flags = data[pos + 9]
+            pos += 10 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0)
+            pos = skip_sub_blocks(pos + 1)            # LZW code size, data
+        else:
+            check(False, f"nvs.gif: block 0x{data[pos]:02x} at {pos}")
+    return images
+
+
+def mp4_samples(data: bytes) -> list:
+    """The samples of a one-track mp4 (``stsz`` sizes at ``stco``
+    offsets), its boxes walked with ``video.parse_boxes``."""
+    import struct
+    from vanerf_tpu_torch.video import parse_boxes
+
+    def child(start, end, kind):
+        got = [(s, e) for t, s, e in parse_boxes(data, start, end)
+               if t == kind]
+        check(len(got) == 1, f"nvs.mp4: {len(got)} {kind} boxes")
+        return got[0]
+
+    span = (0, len(data))
+    for kind in (b"moov", b"trak", b"mdia", b"minf", b"stbl"):
+        span = child(*span, kind)
+    s, _ = child(*span, b"stsz")
+    n, = struct.unpack(">I", data[s + 8:s + 12])
+    sizes = struct.unpack(f">{n}I", data[s + 12:s + 12 + 4 * n])
+    s, _ = child(*span, b"stco")
+    check(struct.unpack(">I", data[s + 4:s + 8])[0] == n,
+          "nvs.mp4: stco and stsz count different samples")
+    offs = struct.unpack(f">{n}I", data[s + 8:s + 8 + 4 * n])
+    return [data[o:o + z] for o, z in zip(offs, sizes)]
+
+
+def video_patch_card_vs_cpu(res, dev) -> dict:
+    """Orbit camera 0's 8x8-ray patch on the card and on the CPU port (its
+    own encode), phase 4's tolerance on tex_fg, alpha and their fine forms.
+    The CPU query takes the card's visibility decision on each sample where
+    the two differ and :func:`certify_ties` certifies a tie (any other
+    difference fails): such a tie falls by rounding, and the texture
+    fusion's global-context pool would spread it over the patch."""
+    import torch
+    from vanerf_tpu_torch import render_dynamic as rd
+    from vanerf_tpu_torch import renderer as tr
+    model_cpu = copy.deepcopy(res["model"]).cpu()
+    b_card = rd.camera_batch(res["batch"], res["cams"][0])
+    b_cpu = {k: v.cpu() if torch.is_tensor(v) else v
+             for k, v in b_card.items()}
+    cached_cpu = tr.encode_frame(model_cpu, b_cpu)
+    r = torch.arange(VIDEO_RAYS, dtype=torch.float32) * (W // VIDEO_RAYS) \
+        + W // (2 * VIDEO_RAYS)
+    gy, gx = torch.meshgrid(r, r, indexing="ij")
+    grids = torch.stack([gx, gy], -1).reshape(1, -1, 2)
+    kw = dict(out_h=VIDEO_RAYS, out_w=VIDEO_RAYS, sample_per_ray_c=S_C,
+              sample_per_ray_f=S_F, compute_vis_map=False)
+    real_query = tr.cal_vis_sdf_prepared
+    card_vis, log = [], {"differ": 0, "uncertified": 0}
+
+    def record(mesh, points, *a, **k):
+        out = real_query(mesh, points, *a, **k)
+        card_vis.append(out[1].cpu())
+        return out
+
+    verts = b_cpu["verts"][0].numpy()
+    faces = b_cpu["faces"].numpy()
+    vis = cached_cpu[2][0].numpy()
+    card_it = iter(card_vis)
+
+    def take_ties(mesh, points, *a, **k):
+        sdf, qvis, far = real_query(mesh, points, *a, **k)
+        want = next(card_it)
+        differ = (want != qvis)[0, :, 0].nonzero().flatten()
+        ok = torch.from_numpy(certify_ties(verts, faces, vis,
+                                           points[0, differ].numpy()))
+        qvis = qvis.clone()
+        qvis[0, differ[ok]] = want[0, differ[ok]]
+        log["differ"] += len(differ)
+        log["uncertified"] += int((~ok).sum())
+        return sdf, qvis, far
+
+    try:
+        tr.cal_vis_sdf_prepared = record
+        got = tr.render_patch(res["model"], b_card, grids=grids.to(dev),
+                              **kw)
+        torch.cuda.synchronize()
+        tr.cal_vis_sdf_prepared = take_ties
+        want = tr.render_patch(model_cpu, b_cpu, grids=grids,
+                               cached=cached_cpu, **kw)
+    finally:
+        tr.cal_vis_sdf_prepared = real_query
+    check(log["uncertified"] == 0, f"orbit patch: {log['uncertified']} "
+          "visibility decisions differ between card and CPU off a tie")
+    check(torch.equal(tr.encode_frame(res["model"], b_card)[2].cpu(),
+                      cached_cpu[2]),
+          "orbit patch: the card's vertex visibility differs from the CPU's")
+    errs = {}
+    for k in ("tex_fg", "alpha", "tex_fg_fine", "alpha_fine"):
+        a, c = got[k].cpu(), want[k]
+        errs[k] = (a - c).abs().max().item()
+        check(torch.allclose(a, c, rtol=TIER_CPU_RTOL, atol=TIER_CPU_ATOL),
+              f"orbit patch: card vs CPU mismatch in {k}: {errs[k]}")
+    check(want["alpha_fine"].max().item() > 0.5, "orbit patch missed")
+    return {"max_abs_err": errs, "ties": log}
+
+
+def phase_video(model, dev) -> dict:
+    """``vanerf_tpu_torch.render_dynamic.main`` at full width
+    (``configs/vanerf.json``, the 256^2 subdiv-3 fixture, 20 orbit frames)
+    into ``build/video`` (removed after), on the seeded model of the other
+    phases: the frames' times, launches and foreground; the PNGs read back,
+    the mp4's samples and the GIF's image blocks; orbit camera 0 rendered
+    again equal to its frame; one profiled frame; the PNG, JPEG and GIF
+    encoders' host time a frame; camera 0's patch on the card against the
+    CPU port's."""
+    import shutil
+    import statistics
+    import torch
+    from vanerf_tpu_torch import bench, ops
+    from vanerf_tpu_torch import render_dynamic as rd
+    from vanerf_tpu_torch.config import default_cfg
+    from vanerf_tpu_torch.data import synthetic
+    from vanerf_tpu_torch.evaluator import read_png, write_png
+    from vanerf_tpu_torch.image_codecs import encode_gif, encode_jpeg
+    out_dir = os.path.join(REPO, "build", "video")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    cfg = default_cfg()
+    cfg["dataset"]["synthetic_cfg"] = {"H": H, "W": W, "subdiv": SUBDIV}
+    cfg["video_cfg"] = {"n_frames": VIDEO_FRAMES}
+    cfg["out_dir"] = out_dir
+    cfg_path = os.path.join(out_dir, "config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+
+    # each frame timed on the host clock between two synchronizations; its
+    # float output kept; the source view's raster (kernel C) counted apart
+    frame_ms, outs, data_launch = [], [], {}
+    real_render, real_view = rd.renderer.render_full_image, \
+        synthetic.render_view
+
+    def timed_render(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_render(*a, **k)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t) * 1e3)
+        outs.append({k_: out[k_] for k_ in ("tex_fg_fine", "alpha_fine")})
+        return out
+
+    def counted_view(*a, **k):
+        before = ops.launch_counts()
+        out = real_view(*a, **k)
+        for k_, v in ops.launch_counts().items():
+            data_launch[k_] = data_launch.get(k_, 0) + v - before[k_]
+        return out
+
+    rd.renderer.render_full_image = timed_render
+    synthetic.render_view = counted_view
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = rd.main(["--config", cfg_path, "--synthetic_data"])
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        rd.renderer.render_full_image = real_render
+        synthetic.render_view = real_view
+    check(len(res["frames"]) == VIDEO_FRAMES == len(frame_ms),
+          f"{len(res['frames'])} frames, not {VIDEO_FRAMES}")
+    differ = tensors_equal(res["model"].state_dict(), model.state_dict())
+    check(not differ, f"render_dynamic's model is not the seeded model of "
+          f"the other phases: {differ[:5]}")
+    frame_launches = {k: (v - data_launch.get(k, 0)) / VIDEO_FRAMES
+                      for k, v in launches.items()}
+    for name in ("mesh_query", "knn", "rasterize", "interp_mxu",
+                 "row_gather"):
+        check(launches[name] - data_launch.get(name, 0) > 0,
+              f"the video path launched no {name}")
+    alpha_max = [o["alpha_fine"].max().item() for o in outs]
+    check(max(alpha_max) > 0.5, f"no orbit frame sees the hands: alpha "
+          f"{alpha_max}")
+    for o in outs:
+        check(torch.isfinite(o["tex_fg_fine"]).all().item(),
+              "non-finite frame")
+
+    # the files: 20 PNGs equal to the frames, the mp4's 20 JPEG samples, the
+    # GIF's 20 image blocks
+    vdir = res["out_dir"]
+    names = sorted(os.listdir(vdir))
+    check(names == [f"{i:06d}.png" for i in range(VIDEO_FRAMES)]
+          + ["nvs.gif", "nvs.mp4"], f"video files {names}")
+    for i, frame in enumerate(res["frames"]):
+        check(bool((read_png(os.path.join(vdir, f"{i:06d}.png"))
+                    == frame).all()), f"{i:06d}.png differs from its frame")
+    with open(os.path.join(vdir, "nvs.mp4"), "rb") as f:
+        samples = mp4_samples(f.read())
+    check(len(samples) == VIDEO_FRAMES
+          and all(x[:2] == b"\xff\xd8" and x[-2:] == b"\xff\xd9"
+                  for x in samples), "nvs.mp4: not 20 JPEG samples")
+    with open(os.path.join(vdir, "nvs.gif"), "rb") as f:
+        gif = f.read()
+    check(gif_image_blocks(gif) == VIDEO_FRAMES, "nvs.gif: not 20 images")
+
+    # orbit camera 0 again, directly: equal to its frame to the bit
+    b0 = rd.camera_batch(res["batch"], res["cams"][0])
+
+    def frame0():
+        return real_render(res["model"], b0, level=res["level"],
+                           tile_group=res["tile_group"])
+
+    again = frame0()
+    check(torch.equal(again["tex_fg_fine"], outs[0]["tex_fg_fine"]),
+          "orbit camera 0 rendered again differs from its frame")
+    check(bool((rd.to_uint8(again["tex_fg_fine"]) == res["frames"][0])
+               .all()), "orbit camera 0's uint8 frame differs")
+    prof = bench.device_profile(frame0, dev)
+
+    # the encoders' host time a frame
+    def host_ms(fn):
+        t = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t) * 1e3 / VIDEO_FRAMES
+
+    png_path = os.path.join(out_dir, "again.png")
+    enc = {"png_ms": host_ms(lambda: [write_png(png_path, f)
+                                      for f in res["frames"]]),
+           "jpeg_ms": host_ms(lambda: [encode_jpeg(f)
+                                       for f in res["frames"]]),
+           "gif_ms": host_ms(lambda: encode_gif(res["frames"]))}
+    patch = video_patch_card_vs_cpu(res, dev)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return dict(frame_ms=frame_ms, first_ms=frame_ms[0],
+                rest_median_ms=statistics.median(frame_ms[1:]),
+                main_s=main_s, peak_bytes=peak, launches=launches,
+                data_launches=data_launch, frame_launches=frame_launches,
+                alpha_max=alpha_max, level=res["level"],
+                tile_group=res["tile_group"], frame0_profile=prof,
+                encoders=enc, mp4_bytes=sum(len(x) for x in samples),
+                gif_bytes=len(gif), patch=patch)
+
+
 def maps_forward(model, maps) -> None:
     """Make ``model.encode`` return the values ``maps`` = ([coarse, fine]
     geometry maps, texture map), their gradients reaching the model's own
@@ -4351,6 +4696,37 @@ def main() -> int:
         f"lpips_pretrained {entry['report']['lpips_pretrained']}; the phase "
         f"{entry['phase_s']:.1f} s")
 
+    # ---- phase 8: the free-viewpoint video ----
+    t0 = time.perf_counter()
+    video = phase_video(model, dev)
+    video["phase_s"] = time.perf_counter() - t0
+    fl, patch = video["frame_launches"], video["patch"]
+    say(f"phase 8 video (vanerf_tpu_torch.render_dynamic.main, full width, "
+        f"256^2 subdiv 3, {VIDEO_FRAMES} orbit frames at level "
+        f"{video['level']}, tile_group {video['tile_group']}): "
+        f"{video['first_ms']:.1f} ms the first frame, "
+        f"{video['rest_median_ms']:.1f} ms the median of the rest "
+        f"({min(video['frame_ms'][1:]):.1f}-"
+        f"{max(video['frame_ms'][1:]):.1f}); one profiled frame "
+        f"{video['frame0_profile']['device_ops']} device ops, busy "
+        f"{video['frame0_profile']['device_busy_ms']:.1f} ms; peak "
+        f"{video['peak_bytes'] / 2 ** 30:.2f} GiB; launches a frame A "
+        f"{fl['mesh_query']:g}, B {fl['knn']:g}, C {fl['rasterize']:g}, D "
+        f"{fl['interp_mxu']:g}, 10 {fl['row_gather']:g} (the dataset's "
+        f"{ {k: v for k, v in video['data_launches'].items() if v} }); "
+        f"alpha_fine max by frame {min(video['alpha_max']):.3f}-"
+        f"{max(video['alpha_max']):.3f}; host ms a frame PNG "
+        f"{video['encoders']['png_ms']:.1f}, JPEG "
+        f"{video['encoders']['jpeg_ms']:.1f}, GIF "
+        f"{video['encoders']['gif_ms']:.1f}; 20 PNGs read back equal, "
+        f"nvs.mp4 20 JPEG samples ({video['mp4_bytes']} bytes), nvs.gif 20 "
+        f"images ({video['gif_bytes']} bytes); camera 0 again equal to the "
+        f"bit; its 8x8-ray patch card vs CPU "
+        f"{ {k: f'{v:.2g}' for k, v in patch['max_abs_err'].items()} }"
+        f" ({patch['ties']['differ']} certified visibility ties "
+        f"taken from the card); main {video['main_s']:.1f} s, the phase "
+        f"{video['phase_s']:.1f} s")
+
     launches = dict(
         main["launches"],
         knn_T=soa["mode1"]["launches"]["knn_T"],
@@ -4415,7 +4791,7 @@ def main() -> int:
                                   "bf16_fused_train": ftrain16,
                                   "bf16_train_card_vs_cpu": vs_cpu16,
                                   "train_repeat": rep,
-                                  "entry_point": entry}))
+                                  "entry_point": entry, "video": video}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -219,38 +219,15 @@ NUM_V_SUBDIV1 = 42
 def cli(tmp_path_factory):
     """The tiny config, a replica ``model.ckpt`` at its shapes and its
     ``tools/convert_reference_ckpt.py`` pickle."""
-    import pickle
-    from convert_reference_ckpt import convert_state_dict
-    from make_synthetic_assets import synthetic_reference_ckpt
     d = tmp_path_factory.mktemp("cli")
     cfg = tiny_cli_cfg(str(d / "out"))
     with open(d / "tiny.json", "w") as f:
         json.dump(cfg, f)
-    ck = synthetic_reference_ckpt(seed=2, cfg=cfg, num_v=NUM_V_SUBDIV1,
-                                  hw3=8, hw4=h.W)
-    torch.save(ck, str(d / "model.ckpt"))
-    sd = {k: v.numpy() for k, v in ck["state_dict"].items()}
-    g, dd = convert_state_dict(sd, geo_cfg=cfg["models"]["VANeRF"]
-                               ["geo_args"])
-    with open(d / "ckpt.pkl", "wb") as f:
-        pickle.dump({"params_g": g, "params_d": dd, "epoch": ck["epoch"],
-                     "global_step": ck["global_step"]}, f)
+    h.replica_checkpoints(d, cfg, NUM_V_SUBDIV1)
     return d
 
 
-# JAX's run_test sees each test frame's faces in that frame's Morton order:
-# the port's mesh query sorts its faces so (as the JAX package does on a
-# TPU), the JAX CPU path keeps the order it is given, and where a sample's
-# closest point is a shared vertex or edge the first face in table order
-# wins (tests/torch_port_helpers.py::morton_sorted).  Unsorted, such ties
-# move ~140 of a 32^2 frame's pixels by up to 0.03; sorted, none by more
-# than 5e-4.  run_test collates one item a frame, so each frame gets its
-# own order; the port, which sorts for itself, renders the same either way.
-def morton_collate(collate_numpy):
-    def collate(items, faces=None):
-        return h.morton_sorted({k: np.asarray(v) for k, v in
-                                collate_numpy(items, faces=faces).items()})
-    return collate
+morton_collate = h.morton_collate
 
 
 def port_cli(args, extra_env=None):

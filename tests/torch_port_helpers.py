@@ -128,3 +128,37 @@ def morton_sorted(batch: dict) -> dict:
         verts, torch.from_numpy(out["faces"].astype(np.int64)), vis)["order"]
     assert torch.equal(again, torch.arange(len(again)))
     return out
+
+
+# JAX's renders see each collated frame's faces in that frame's Morton order:
+# the port's mesh query sorts its faces so (as the JAX package does on a
+# TPU), the JAX CPU path keeps the order it is given, and where a sample's
+# closest point is a shared vertex or edge the first face in table order
+# wins (:func:`morton_sorted`).  Unsorted, such ties move ~140 of a 32^2
+# frame's pixels by up to 0.03; sorted, none by more than 5e-4.  A JAX
+# entry point that collates one item a frame gets each frame's own order;
+# the port, which sorts for itself, renders the same either way.
+def morton_collate(collate_numpy):
+    """``collate_numpy`` with each batch's faces in Morton order."""
+    def collate(items, faces=None):
+        return morton_sorted({k: np.asarray(v) for k, v in
+                              collate_numpy(items, faces=faces).items()})
+    return collate
+
+
+def replica_checkpoints(d, cfg: dict, num_v: int, seed: int = 2) -> None:
+    """Write into directory ``d`` a reference-layout ``model.ckpt`` of the
+    torch reference replica at ``cfg``'s small shapes (32^2 images) and its
+    ``tools/convert_reference_ckpt.py`` pickle ``ckpt.pkl``."""
+    import pickle
+    from convert_reference_ckpt import convert_state_dict
+    from make_synthetic_assets import synthetic_reference_ckpt
+    ck = synthetic_reference_ckpt(seed=seed, cfg=cfg, num_v=num_v, hw3=8,
+                                  hw4=W)
+    torch.save(ck, os.path.join(str(d), "model.ckpt"))
+    sd = {k: v.numpy() for k, v in ck["state_dict"].items()}
+    g, dd = convert_state_dict(sd, geo_cfg=cfg["models"]["VANeRF"]
+                               ["geo_args"])
+    with open(os.path.join(str(d), "ckpt.pkl"), "wb") as f:
+        pickle.dump({"params_g": g, "params_d": dd, "epoch": ck["epoch"],
+                     "global_step": ck["global_step"]}, f)

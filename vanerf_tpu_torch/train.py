@@ -17,6 +17,7 @@ raises: multi-GPU is not ported.
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 
@@ -29,6 +30,7 @@ def main(argv=None):
     from vanerf_tpu_torch.device import resolve_device
     from vanerf_tpu_torch.losses import VGGLoss
     from vanerf_tpu_torch.models import DiscriminatorVis, VANeRF, init_like_flax
+    from vanerf_tpu_torch.profiling import trace
     from vanerf_tpu_torch.training import create_train_state, make_train_step
     from vanerf_tpu_torch.training.checkpoints import restore_any
     from vanerf_tpu_torch.training.loop import collate_numpy, fit
@@ -127,22 +129,12 @@ def main(argv=None):
     val_fn = make_val_fn(model, disc, ds_val, cfg, vgg, n_views=n_views)
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    prof = None
-    if args.profile_dir:
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if dev.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=acts)
-        prof.start()
-    state = fit(step_fn, state, ds_train, collate, cfg=cfg,
-                save_dir=save_dir, generator=gen,
-                val_fn=None if args.fast_dev_run else val_fn,
-                fast_dev_run=args.fast_dev_run, batch_size=global_bs)
-    if prof is not None:
-        prof.stop()
-        os.makedirs(args.profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.profile_dir,
-                                              "fit.trace.json"))
+    with (trace(args.profile_dir, "fit.trace.json") if args.profile_dir
+          else contextlib.nullcontext()):
+        state = fit(step_fn, state, ds_train, collate, cfg=cfg,
+                    save_dir=save_dir, generator=gen,
+                    val_fn=None if args.fast_dev_run else val_fn,
+                    fast_dev_run=args.fast_dev_run, batch_size=global_bs)
     print("Training done at step", int(state.step))
     return state
 
