@@ -196,7 +196,7 @@ script exits non-zero (there is no CPU fallback):
      comparison, with forward hooks and gradient hooks on every leaf
      module naming the first output and the first gradient that differ;
      the ops torch flags as without a deterministic implementation (none
-     may be); the three's cost, 8 steps each in turns;
+     may be); the three's cost, 4 steps each in turns;
   7. the entry point, ``vanerf_tpu_torch.train.main`` in process at full
      width (``configs/vanerf.json``, a ``synthetic_cfg`` of one 256^2
      subdiv-3 frame x 8 cameras, validation every half epoch):
@@ -221,7 +221,26 @@ script exits non-zero (there is no CPU fallback):
      visibility on the samples where a tie is certified
      (:func:`certify_ties`); prints ms a frame (the first, the median of
      the rest), device ops and busy ms of one profiled frame, the peak, and
-     the PNG, JPEG and GIF encoders' host ms a frame.
+     the PNG, JPEG and GIF encoders' host ms a frame;
+  9. two source views (``dataset.num_input_view = 2``, the fixture's first
+     frame with two source views, full width): 9a kernels D and 10 over
+     the element-views (element e view v at e V + v, map (e V + v) mod
+     (Bf V)) of one frame and of a 16-tile group, one launch each, equal to
+     the bit to every element-view's own launch and to the plain version,
+     the 16-tile group's device time beside its bound; kernel 13 on each
+     view's training tables within 1e-5 of the row's sum of |g|; 9b the
+     256^2 frame at ``tile_group`` 1 and 16: the first frame's ms, peak and
+     launches (A, B, D, 10 32 / G, C 1: the points and meshes are the
+     frame's), two rounds in turns with the one-view frame, device ops and
+     busy ms of one profiled frame, G = 16 held to G = 1 as 3i holds it;
+     an 8x8-ray patch on the card within phase 4's tolerance of the CPU
+     port's, ties certified as in phase 8; 9c 3 faithful GAN steps at two
+     views (ms/step, peak, launches as phase 5 holds them, the IBR head's
+     gradient non-zero every step) and two steps from one state equal to
+     the bit, as in 5f; 9d the entry point on a two-view config written
+     under ``build/`` (one epoch of ``fit`` with ``val_fn``, then
+     ``--run_val`` on its checkpoint), every query at two views, the
+     report finite.
 
 A ``details:`` line holds every measured number; the line before the last
 is a JSON object with one entry per kernel (its launches are those of the
@@ -229,7 +248,10 @@ phase that drives it: A-D and 10 phase 3, 13 phase 5, 13 in bfloat16
 phase 5d's bfloat16 steps, 11 the level-2 run
 of phase 3b, 12 the level-1 run, the bfloat16 D and 10 phase 3h's unfused
 bfloat16 frame, 11 / 12 in bfloat16 its level-2 / level-1 frames, 7 and 8 the mode-1 run of phase 3c, 9 the
-two culled runs of phase 3e, 5 and 6 phase 3d; A and 7 carry the sweep's
+two culled runs of phase 3e, 5 and 6 phase 3d; D and 10 also carry
+``views_launches`` (a two-view G = 1 frame) and ``views_g16_device_ms`` /
+``views_g16_bound_ms`` (one launch over 32 element-views), 13
+``views_launches`` a two-view step (phase 9); A and 7 carry the sweep's
 time beside the culled query's as ``brute_ms``; D and 13 sum the cases
 they have summed since their port, D's two maps and 13's four tables (13
 in bfloat16 the same four), and
@@ -317,7 +339,7 @@ KERNELS = {
 TRAIN_STEPS = 3
 # phase 5f: steps pinned and unpinned in turns, for the pins' cost (the
 # first of each left out of the median)
-REPEAT_ROUNDS = 8
+REPEAT_ROUNDS = 4
 # The card's published peaks (H100 SXM): device memory rate and the f32
 # rate outside the tensor cores, which is the type every kernel here uses.
 HBM_BYTES_PER_S = 3.35e12
@@ -356,9 +378,9 @@ API_SDF_RTOL, API_QVIS_AGREE = 1e-4, 0.97
 # kernel 5's crossing counts against kernel A's: at most this share of the
 # points may differ, each within this margin (barycentric units) of an edge
 GRAZE_SHARE, GRAZE_MARGIN = 1e-4, 1e-4
-SOA_ROUNDS = 3
+SOA_ROUNDS = 2
 # phases 3e / 3f: rounds of the culled-search and serving-tier frames
-CULL_ROUNDS = 3
+CULL_ROUNDS = 2
 TIER_ROUNDS = 2
 # phase 3f: a tier's patch on the card against the CPU port's (phase 4's
 # tolerance; 8x8 rays, a quarter of phase 4's patch: the CPU render at full
@@ -2121,7 +2143,7 @@ def phase_encode_repeat(model, b):
 
 MXU_CONFIGS = {"D": dict(VANERF_MXU_INTERP="1"),
                "gather": dict(VANERF_MXU_INTERP="0")}
-MXU_ROUNDS = 3
+MXU_ROUNDS = 2
 # the hat form (D) and the lerp form (grid_sample) of one bilinear sample
 # round differently: the frames agree to phase 4's tolerance
 MXU_RTOL, MXU_ATOL = 1e-3, 1e-4
@@ -2171,7 +2193,7 @@ FUSED_CONFIGS = {
 FUSED_KERNELS = {"unfused": ("row_gather",),
                  "level2": ("row_gather", "fused_query_mlp"),
                  "level1": ("row_gather", "fused_geo_mlp")}
-FUSED_ROUNDS = 4
+FUSED_ROUNDS = 2
 COARSE_KEYS = ("tex_fg", "alpha", "depth")
 
 
@@ -3115,13 +3137,15 @@ class Trainer:
     can step in turns: each step's time, its launches and the peak device
     memory, per trainer."""
 
-    def __init__(self, model, batch, cfg, dev, seed: int = SEED + 3):
+    def __init__(self, model, batch, cfg, dev, seed: int = SEED + 3,
+                 n_views: int = 1):
         import torch
         from vanerf_tpu_torch.training import (create_train_state,
                                                make_train_step)
         self.gen_model, self.disc, vgg = train_parts(model, dev)
         self.state = create_train_state(self.gen_model, self.disc, cfg)
-        self.step_fn = make_train_step(self.gen_model, self.disc, cfg, vgg)
+        self.step_fn = make_train_step(self.gen_model, self.disc, cfg, vgg,
+                                       n_views=n_views)
         self.gen = torch.Generator(device=dev).manual_seed(seed)
         self.batch, self.dev = batch, dev
         self.step_ms, self.logs, self.launches, self.peak = [], [], {}, 0
@@ -3329,7 +3353,7 @@ def torch_is_float(o) -> bool:
     return torch.is_tensor(o) and o.is_floating_point()
 
 
-def repeat_step(m, batch, cfg, dev) -> dict:
+def repeat_step(m, batch, cfg, dev, n_views: int = 1) -> dict:
     """One step each of two trainers from one deep-copied state with one
     seed of draws: the logs and the generator's and discriminator's updated
     parameters that differ; where they do, the first leaf module whose
@@ -3337,7 +3361,7 @@ def repeat_step(m, batch, cfg, dev) -> dict:
     leaf module's output differently, and the parameter gradients the
     optimizers took differently."""
     import torch
-    a, b = (Trainer(m, batch, cfg, dev) for _ in range(2))
+    a, b = (Trainer(m, batch, cfg, dev, n_views=n_views) for _ in range(2))
     with step_trace(a) as ta:
         a.step()
     with step_trace(b) as tb:
@@ -3761,27 +3785,22 @@ def mp4_samples(data: bytes) -> list:
     return [data[o:o + z] for o, z in zip(offs, sizes)]
 
 
-def video_patch_card_vs_cpu(res, dev) -> dict:
-    """Orbit camera 0's 8x8-ray patch on the card and on the CPU port (its
-    own encode), phase 4's tolerance on tex_fg, alpha and their fine forms.
-    The CPU query takes the card's visibility decision on each sample where
-    the two differ and :func:`certify_ties` certifies a tie (any other
-    difference fails): such a tie falls by rounding, and the texture
-    fusion's global-context pool would spread it over the patch."""
+def patch_card_vs_cpu_ties(model, b_card, grids, n_views: int = 1,
+                           tag: str = "patch") -> dict:
+    """An 8x8-ray patch on the card and on the CPU port (its own encode),
+    phase 4's tolerance on tex_fg, alpha and their fine forms.  The CPU
+    query takes the card's visibility decision on each sample where the two
+    differ and :func:`certify_ties` certifies a tie (any other difference
+    fails): such a tie falls by rounding, and the texture fusion's
+    global-context pool would spread it over the patch."""
     import torch
-    from vanerf_tpu_torch import render_dynamic as rd
     from vanerf_tpu_torch import renderer as tr
-    model_cpu = copy.deepcopy(res["model"]).cpu()
-    b_card = rd.camera_batch(res["batch"], res["cams"][0])
+    model_cpu = copy.deepcopy(model).cpu()
     b_cpu = {k: v.cpu() if torch.is_tensor(v) else v
              for k, v in b_card.items()}
-    cached_cpu = tr.encode_frame(model_cpu, b_cpu)
-    r = torch.arange(VIDEO_RAYS, dtype=torch.float32) * (W // VIDEO_RAYS) \
-        + W // (2 * VIDEO_RAYS)
-    gy, gx = torch.meshgrid(r, r, indexing="ij")
-    grids = torch.stack([gx, gy], -1).reshape(1, -1, 2)
+    cached_cpu = tr.encode_frame(model_cpu, b_cpu, n_views=n_views)
     kw = dict(out_h=VIDEO_RAYS, out_w=VIDEO_RAYS, sample_per_ray_c=S_C,
-              sample_per_ray_f=S_F, compute_vis_map=False)
+              sample_per_ray_f=S_F, compute_vis_map=False, n_views=n_views)
     real_query = tr.cal_vis_sdf_prepared
     card_vis, log = [], {"differ": 0, "uncertified": 0}
 
@@ -3809,27 +3828,43 @@ def video_patch_card_vs_cpu(res, dev) -> dict:
 
     try:
         tr.cal_vis_sdf_prepared = record
-        got = tr.render_patch(res["model"], b_card, grids=grids.to(dev),
-                              **kw)
+        got = tr.render_patch(model, b_card, grids=grids.to(b_card["verts"]
+                                                             .device), **kw)
         torch.cuda.synchronize()
         tr.cal_vis_sdf_prepared = take_ties
         want = tr.render_patch(model_cpu, b_cpu, grids=grids,
                                cached=cached_cpu, **kw)
     finally:
         tr.cal_vis_sdf_prepared = real_query
-    check(log["uncertified"] == 0, f"orbit patch: {log['uncertified']} "
+    check(log["uncertified"] == 0, f"{tag}: {log['uncertified']} "
           "visibility decisions differ between card and CPU off a tie")
-    check(torch.equal(tr.encode_frame(res["model"], b_card)[2].cpu(),
+    check(torch.equal(tr.encode_frame(model, b_card,
+                                      n_views=n_views)[2].cpu(),
                       cached_cpu[2]),
-          "orbit patch: the card's vertex visibility differs from the CPU's")
+          f"{tag}: the card's vertex visibility differs from the CPU's")
     errs = {}
     for k in ("tex_fg", "alpha", "tex_fg_fine", "alpha_fine"):
         a, c = got[k].cpu(), want[k]
         errs[k] = (a - c).abs().max().item()
         check(torch.allclose(a, c, rtol=TIER_CPU_RTOL, atol=TIER_CPU_ATOL),
-              f"orbit patch: card vs CPU mismatch in {k}: {errs[k]}")
-    check(want["alpha_fine"].max().item() > 0.5, "orbit patch missed")
+              f"{tag}: card vs CPU mismatch in {k}: {errs[k]}")
+    check(want["alpha_fine"].max().item() > 0.5, f"{tag} missed")
     return {"max_abs_err": errs, "ties": log}
+
+
+def video_patch_card_vs_cpu(res) -> dict:
+    """Orbit camera 0's 8x8-ray patch, its rays spread over the whole frame
+    (16 + 32 i pixels), on the card against the CPU port's
+    (:func:`patch_card_vs_cpu_ties`)."""
+    import torch
+    from vanerf_tpu_torch import render_dynamic as rd
+    b_card = rd.camera_batch(res["batch"], res["cams"][0])
+    r = torch.arange(VIDEO_RAYS, dtype=torch.float32) * (W // VIDEO_RAYS) \
+        + W // (2 * VIDEO_RAYS)
+    gy, gx = torch.meshgrid(r, r, indexing="ij")
+    grids = torch.stack([gx, gy], -1).reshape(1, -1, 2)
+    return patch_card_vs_cpu_ties(res["model"], b_card, grids,
+                                  tag="orbit patch")
 
 
 def phase_video(model, dev) -> dict:
@@ -3960,7 +3995,7 @@ def phase_video(model, dev) -> dict:
            "jpeg_ms": host_ms(lambda: [encode_jpeg(f)
                                        for f in res["frames"]]),
            "gif_ms": host_ms(lambda: encode_gif(res["frames"]))}
-    patch = video_patch_card_vs_cpu(res, dev)
+    patch = video_patch_card_vs_cpu(res)
     shutil.rmtree(out_dir, ignore_errors=True)
     return dict(frame_ms=frame_ms, first_ms=frame_ms[0],
                 rest_median_ms=statistics.median(frame_ms[1:]),
@@ -3970,6 +4005,299 @@ def phase_video(model, dev) -> dict:
                 tile_group=res["tile_group"], frame0_profile=prof,
                 encoders=enc, mp4_bytes=sum(len(x) for x in samples),
                 gif_bytes=len(gif), patch=patch)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: two source views (dataset.num_input_view = 2)
+# ---------------------------------------------------------------------------
+
+VIEWS = 2
+# the two-view frame's tile groups, each frame in turns with the one-view
+# frame at the same G
+VIEW_TILE_GROUPS = (1, 16)
+VIEW_ROUNDS = 2
+VIEW_TRAIN_STEPS = 3
+
+
+def views_frame(dev):
+    """The 256^2 subdiv-3 fixture's first frame with two source views, its
+    images and cameras flattened to (V, ...): (numpy batch, torch batch)."""
+    from vanerf_tpu_torch.data import make_synthetic_batch, to_torch
+    batch_np, _faces, _num_v = make_synthetic_batch(
+        batch_size=1, H=H, W=W, subdiv=SUBDIV, num_input_view=VIEWS,
+        device=dev)
+    return batch_np, to_torch(batch_np, dev)
+
+
+def views_kernel_inputs(model, b2, G: int):
+    """The coarse pass of the first G-tile group of the two-view frame at
+    level 3, repeated per view as the query repeats it (element e view v at
+    e V + v): the coarse geometry maps (V, 32, 32, 64), each element-view's
+    (u, v) on its view's map (G V, N, 2) and the nearest-vertex ids
+    repeated per view (G V, N)."""
+    import torch
+    from vanerf_tpu_torch import renderer as tr
+    from vanerf_tpu_torch.models.vanerf import per_element
+    from vanerf_tpu_torch.ops import knn
+    s = 4
+    offsets = [(j, i) for i in range(s) for j in range(s)][:G]
+    dev = b2["src_img"].device
+    grids = tr.strided_grid(G, H, W, 3, torch.tensor(offsets,
+                                                      dtype=torch.float32),
+                            device=dev)
+    eb = dict(b2, **{k: per_element(b2[k], G)
+                     for k in ("tar_k", "tar_rt", "bounds")})
+    cam_pos, cam_rays, z = tr.patch_rays(eb, grids, S_C)
+    pts = (cam_pos[:, :, None] + cam_rays[:, :, None] * z[..., None]) \
+        .reshape(G, -1, 3).contiguous()
+    idx = knn.nearest_vertex_d2(pts, b2["verts"].contiguous())[0]
+    feat_geo, _ft, _vv = tr.encode_frame(model, b2, n_views=VIEWS)
+    v = pts.repeat_interleave(VIEWS, 0)
+    krt = per_element(b2["src_krt"], G * VIEWS)
+    vh = v @ krt[:, :3, :3].transpose(-1, -2) + krt[:, None, :3, 3]
+    xy = vh[..., :2] / vh[..., 2:3]
+    uv = torch.stack([2.0 * xy[..., 0] / (W - 1.0) - 1.0,
+                      2.0 * xy[..., 1] / (H - 1.0) - 1.0], -1).contiguous()
+    return (feat_geo[0].contiguous(), uv,
+            idx.repeat_interleave(VIEWS, 0).contiguous())
+
+
+def views_kernels(model, b2, dev) -> dict:
+    """Phase 9a: kernels D and 10 over the two-view batch of one frame
+    (G = 1: 2 element-views on 2 maps / tables) and of a 16-tile group (32
+    element-views), one launch each, every element-view equal to the bit to
+    its own launch and the whole to the plain version; at G = 16 the
+    batched launch's device time (a CUDA graph) beside element-view 0's and
+    the batched launch's bound.  Then kernel 13 at the two-view training
+    shapes, each view's 262,144 rows into its KNN table (1,284 x 204), its
+    32^2 coarse map (1,024 x 256) and its 64^2 map (4,096 x 32), against
+    its plain version to 1e-5 of the row's sum of |g|."""
+    import torch
+    from vanerf_tpu_torch.ops import interp_mxu, onehot_gather
+    res = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    n_verts = b2["verts"].shape[1]
+    for G in (1, 16):
+        geo, uv, idx = views_kernel_inputs(model, b2, G)
+        E = uv.shape[0]
+        table = torch.randn(VIEWS, n_verts, 204, generator=gen, device=dev)
+        r = res[f"g{G}"] = {"element_views": E, "maps": VIEWS}
+        for name, fn, plain, args in (
+                ("interp_mxu", interp_mxu.interp_cuda,
+                 interp_mxu.interp_plain, (geo, uv)),
+                ("row_gather", interp_mxu.row_gather_cuda,
+                 interp_mxu.row_gather_plain, (table, idx))):
+            got = fn(*args)
+            check(torch.equal(got, plain(*args)), f"phase 9a {name}: the "
+                  f"{E} element-views differ from the plain version")
+            for e in range(E):
+                check(torch.equal(got[e], fn(args[0][e % VIEWS],
+                                             args[1][e])),
+                      f"phase 9a {name}: element-view {e} of {E} differs "
+                      "from its own launch")
+            if G == 1:
+                continue
+            if name == "interp_mxu":
+                bound = least_time(nbytes(geo, uv, got),
+                                   E * uv.shape[1] * (20 + 7 * geo.shape[-1]))
+            else:
+                bound = least_time(nbytes(table, idx, got), 0)
+            r[name] = dict(
+                batch_device_ms=graph_ms(lambda: fn(*args),
+                                         3 if name == "row_gather" else 10),
+                element_device_ms=graph_ms(lambda: fn(args[0][0],
+                                                      args[1][0])),
+                batch_bound_ms=bound["bound_ms"],
+                batch_bound_by=bound["bound_by"])
+        if G == 1:
+            cases = []
+            for v in range(VIEWS):
+                cases += [(f"view {v} knn table", idx[v], n_verts, 204),
+                          (f"view {v} 32^2 coarse map",
+                           texel(uv[v], geo.shape[1]), geo.shape[1] ** 2,
+                           4 * geo.shape[-1]),
+                          (f"view {v} 64^2 map", texel(uv[v], 64), 64 * 64,
+                           4 * 8)]
+            worst = 0.0
+            for tag, rows, T_, C in cases:
+                g = torch.randn(rows.shape[0], C, generator=gen, device=dev)
+                rows = rows.contiguous()
+                got = onehot_gather.onehot_scatter_cuda(g, rows, T_)
+                want = onehot_gather.onehot_scatter_plain(g, rows, T_)
+                bound = onehot_gather.onehot_scatter_plain(g.abs(), rows, T_)
+                e = (got - want).abs()
+                check(bool((e <= 1e-5 * bound + 1e-30).all()),
+                      f"phase 9a scatter err {e.max().item()} ({tag})")
+                worst = max(worst,
+                            (e / bound.clamp(min=1e-30)).max().item())
+            res["onehot_scatter"] = dict(cases=[c[0] for c in cases],
+                                         rel_to_abs_sum=worst)
+    torch.cuda.synchronize()
+    return res
+
+
+def views_frames(model, b1, b2, dev) -> dict:
+    """Phase 9b: the 256^2 two-view frame at full width at each G of
+    VIEW_TILE_GROUPS: the first frame's ms, peak memory and launches (2 s^2
+    / G = 32 / G of each of B, A, D and 10: the points are the frame's, D
+    and 10 take every view of a pass in one launch; 1 of C, the first
+    view's vertex visibility), then VIEW_ROUNDS rounds in turns with the
+    one-view frame at the same G, device ops and busy time of one more
+    frame under torch.profiler; the G = 16 frame held to the G = 1 frame as
+    phase 3i holds it."""
+    import torch
+    from vanerf_tpu_torch import bench, ops
+    from vanerf_tpu_torch import renderer as tr
+    runs = {G: dict(frame_ms=[], one_view_ms=[]) for G in VIEW_TILE_GROUPS}
+    outs = {}
+
+    def frame(G, n_views):
+        return tr.render_full_image(
+            model, b2 if n_views > 1 else b1, level=3, sample_per_ray_c=S_C,
+            sample_per_ray_f=S_F, n_views=n_views, tile_group=G)
+
+    for G in VIEW_TILE_GROUPS:
+        r = runs[G]
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        outs[G] = frame(G, VIEWS)
+        torch.cuda.synchronize()
+        r.update(first_ms=(time.perf_counter() - t0) * 1e3,
+                 peak_bytes=torch.cuda.max_memory_allocated(dev),
+                 launches=ops.launch_counts())
+        want = {"knn": 32 // G, "mesh_query": 32 // G,
+                "interp_mxu": 32 // G, "row_gather": 32 // G,
+                "rasterize": 1, "onehot_scatter": 0}
+        for name, n in want.items():
+            got = r["launches"][name]
+            check(got == n, f"two views, tile_group={G}: {got} launches of "
+                  f"{name} a frame, not {n}")
+    for _ in range(VIEW_ROUNDS):
+        for G in VIEW_TILE_GROUPS:
+            runs[G]["frame_ms"].append(bench.timed(lambda: frame(G, VIEWS),
+                                                   dev))
+            runs[G]["one_view_ms"].append(bench.timed(lambda: frame(G, 1),
+                                                      dev))
+    for G in VIEW_TILE_GROUPS:
+        runs[G].update(bench.device_profile(lambda: frame(G, VIEWS), dev))
+    for G in VIEW_TILE_GROUPS[1:]:
+        worst, share, abs_err = hold_to_fused_bounds(
+            f"two views, tile_group={G}", [outs[G]], [outs[1]])
+        runs[G].update(of_bound=worst, share_outside=share,
+                       max_abs_err=abs_err)
+    check(outs[1]["alpha_fine"].max().item() > 0.2,
+          "two-view frame: rays missed the hands")
+    grids = tr.mask_centered_grid(torch.Generator().manual_seed(SEED + 4),
+                                  b2["tar_mask"][..., 0].cpu(), VIDEO_RAYS,
+                                  VIDEO_RAYS)
+    return dict(frames=runs, patch=patch_card_vs_cpu_ties(
+        model, b2, grids, n_views=VIEWS, tag="two-view patch"))
+
+
+def views_train(model, b2, cfg, dev) -> dict:
+    """Phase 9c: VIEW_TRAIN_STEPS faithful GAN steps at two views and full
+    width from the seeded weights and draws (the view dropout drawn from
+    the step's generator): ms/step, peak, launches (as phase 5 holds them),
+    every loss and parameter finite, and the IBR head's gradient (``mlp_tex``,
+    skipped at one view) non-zero in every step; then two steps from one
+    state and one seed of draws, equal to the bit (as phase 5f)."""
+    trainer = Trainer(model, b2, cfg, dev, n_views=VIEWS)
+    names = [n for n, _ in trainer.gen_model.named_parameters()]
+    real, ibr = trainer.state.opt_g.step, []
+
+    def step(grads):
+        ibr.append(math.sqrt(sum(
+            float(g.float().pow(2).sum()) for n, g in zip(names, grads)
+            if n.startswith("mlp_tex.") and g is not None)))
+        real(grads)
+
+    trainer.state.opt_g.step = step
+    for _ in range(VIEW_TRAIN_STEPS):
+        trainer.step()
+    res = trainer.result()
+    check_train_launches(res["launches"], VIEW_TRAIN_STEPS, 0, 0, False)
+    check(len(ibr) == VIEW_TRAIN_STEPS and min(ibr) > 0,
+          f"two views: the IBR head's gradient norms {ibr}")
+    rep = repeat_step(model, b2, cfg, dev, n_views=VIEWS)
+    check(rep["bit_equal"], f"two-view train step does not repeat to the "
+          f"bit: logs {rep['logs_differ']}, {len(rep['params_differ'])} "
+          f"parameters, first output {rep['first_output_differing']}")
+    res.update(mlp_tex_grad_norm=ibr, repeat=rep)
+    return res
+
+
+def views_entry_point() -> dict:
+    """Phase 9d: ``vanerf_tpu_torch.train.main`` on the card (no
+    ``--device``) with a two-view config written under ``build/``
+    (``dataset.num_input_view: 2``; the 256^2 subdiv-3 fixture, one frame
+    x 2 cameras: 2 steps an epoch, ``val_fn`` on one frame after the
+    second): one epoch of ``fit``, then ``--run_val --model_ckpt`` on its
+    checkpoint (4 test frames); every query at two views, the launches of
+    A, B, C, D, 10 and 13 over both invocations, the validation loss and
+    the report's psnr / ssim / mse finite."""
+    import shutil
+    from vanerf_tpu_torch import ops
+    from vanerf_tpu_torch import train as entry
+    from vanerf_tpu_torch.config import default_cfg
+    from vanerf_tpu_torch.models import VANeRF
+    out_dir = os.path.join(REPO, "build", "views_entry")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    cfg = default_cfg()
+    cfg["dataset"]["num_input_view"] = VIEWS
+    cfg["dataset"]["synthetic_cfg"] = {"H": H, "W": W, "subdiv": SUBDIV,
+                                       "n_frames": 1, "n_cams": 2}
+    cfg["dataset"].setdefault("val_cfg", {})["max_len"] = 1
+    cfg["training"]["max_epochs"] = 1
+    cfg["training"]["pl_cfg"] = {"val_check_interval": 1.0}
+    cfg["out_dir"] = out_dir
+    cfg_path = os.path.join(out_dir, "two_views.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    save_dir = os.path.join(out_dir, cfg["expname"])
+    args = ["--config", cfg_path, "--synthetic_data"]
+    seen, real = set(), VANeRF.query
+
+    def spy(self, *a, **k):
+        seen.add(a[13] if len(a) > 13 else k.get("n_views", 1))
+        return real(self, *a, **k)
+
+    VANeRF.query = spy
+    try:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        state = entry.main(args)
+        fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        entry.main(args + ["--run_val", "--model_ckpt",
+                           os.path.join(save_dir, "ckpts")])
+        run_val_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    finally:
+        VANeRF.query = real
+    check(int(state.step) == 2, f"two-view fit: {int(state.step)} steps")
+    check(seen == {VIEWS}, f"two-view entry point: queries at {seen} views")
+    with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+        val = [r["val_total_loss"] for r in map(json.loads, f)
+               if "val_total_loss" in r]
+    check(bool(val) and all(math.isfinite(v) for v in val),
+          f"two-view val_total_loss {val}")
+    names = [n for n in os.listdir(save_dir) if n.endswith(".yml")]
+    check(len(names) == 1, f"two-view run_test reports {names}")
+    with open(os.path.join(save_dir, names[0])) as f:
+        report = dict(line.strip().split(": ", 1) for line in f)
+    for k in ("psnr", "ssim", "mse"):
+        check(math.isfinite(float(report[k])), f"two-view report {k} "
+              f"{report[k]}")
+    for name in ("mesh_query", "knn", "rasterize", "interp_mxu",
+                 "row_gather", "onehot_scatter"):
+        check(launches[name] > 0, f"the two-view entry point launched no "
+              f"{name}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return dict(fit_s=fit_s, run_val_s=run_val_s, launches=launches,
+                val_total_loss=val, report=report)
 
 
 def maps_forward(model, maps) -> None:
@@ -4117,6 +4445,81 @@ def phase_train_card_vs_cpu_bf16(model, model16, batch_np, cfg, dev,
                 worst_of_S=rows[0][2], control_of_bound=ctrl,
                 top5=[dict(name=r[1], of_bound=r[0], of_S=r[2],
                            norm_share=r[3]) for r in rows[:5]])
+
+
+def run_phase_views(model, b1, cfg, dev) -> dict:
+    """Phase 9 (two source views): 9a's kernels, 9b's frames and patch, 9c's
+    training, 9d's entry point, each reported on its own lines."""
+    import torch
+    t0 = time.perf_counter()
+    _b2_np, b2 = views_frame(dev)
+    with torch.no_grad():
+        vk = views_kernels(model, b2, dev)
+        vf = views_frames(model, b1, b2, dev)
+    cfg2 = copy.deepcopy(cfg)
+    cfg2["dataset"]["num_input_view"] = VIEWS
+    vt = views_train(model, b2, cfg2, dev)
+    ve = views_entry_point()
+    g16 = vk["g16"]
+    say(f"phase 9a two views, kernels D and 10 over the element-views (one "
+        f"frame: {vk['g1']['element_views']}, a 16-tile group: "
+        f"{g16['element_views']}, on {VIEWS} maps / tables): one launch "
+        f"each, equal to the bit to each element-view's own launch and to "
+        f"the plain version; at the 16-tile group "
+        + "; ".join(f"{n} {r['batch_device_ms']:.4f} ms device for the batch, "
+                    f"{r['element_device_ms']:.4f} for element-view 0 alone "
+                    f"(x {g16['element_views']} = "
+                    f"{r['element_device_ms'] * g16['element_views']:.4f}), "
+                    f"bound {r['batch_bound_ms']:.4f} by {r['batch_bound_by']}"
+                    for n, r in ((n, g16[n])
+                                 for n in ("interp_mxu", "row_gather")))
+        + f"; kernel 13 at the two-view training shapes "
+        f"({len(vk['onehot_scatter']['cases'])} tables) within "
+        f"{vk['onehot_scatter']['rel_to_abs_sum']:.2g} of the row's sum of "
+        f"|g| (bound 1e-5)")
+    for G, r in vf["frames"].items():
+        say(f"phase 9b two views, tile_group={G}: full image "
+            f"{r['first_ms']:.1f} ms first, "
+            f"{' / '.join(f'{t:.1f}' for t in r['frame_ms'])} ms in turns "
+            f"with the one-view frame's "
+            f"{' / '.join(f'{t:.1f}' for t in r['one_view_ms'])}; peak "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB; {r['device_ops']} device "
+            f"ops, busy {r['device_busy_ms']:.1f} ms (torch.profiler); "
+            f"launches A {r['launches']['mesh_query']}, B "
+            f"{r['launches']['knn']}, C {r['launches']['rasterize']}, D "
+            f"{r['launches']['interp_mxu']}, 10 {r['launches']['row_gather']}"
+            f", 13 {r['launches']['onehot_scatter']}"
+            + (f"; against G = 1: coarse outputs at most "
+               f"{max(r['of_bound'][k] for k in COARSE_KEYS):.3g} of rtol "
+               f"{FUSED_RTOL} atol {FUSED_ATOL}, fine outputs outside it on "
+               f"{max(r['share_outside'].values()):.3%} of their elements, "
+               f"largest difference {max(r['max_abs_err'].values()):.3g}"
+               if "of_bound" in r else ""))
+    p = vf["patch"]
+    say(f"phase 9b two-view {VIDEO_RAYS}x{VIDEO_RAYS}-ray patch card vs CPU: "
+        f"{ {k: f'{v:.2g}' for k, v in p['max_abs_err'].items()} } (rtol "
+        f"{TIER_CPU_RTOL} atol {TIER_CPU_ATOL}; {p['ties']['differ']} "
+        f"certified visibility ties taken from the card)")
+    say(f"phase 9c two-view training ({VIEW_TRAIN_STEPS} faithful GAN steps, "
+        f"64x64 rays, 64+64 samples): {vt['ms_per_step']:.1f} ms/step (steps "
+        f"2-{VIEW_TRAIN_STEPS}; all: {[round(t, 1) for t in vt['step_ms']]}); "
+        f"peak {vt['peak_bytes'] / 2**30:.2f} GiB; launches "
+        f"{ {k: v for k, v in vt['launches'].items() if v} }; g_loss "
+        f"{[round(lg['train/g_loss'], 4) for lg in vt['logs']]}; the IBR "
+        f"head's gradient norm by step "
+        f"{['%.3g' % x for x in vt['mlp_tex_grad_norm']]}; two steps from "
+        f"one state equal to the bit ({vt['repeat']['n_params']} "
+        f"parameters)")
+    say(f"phase 9d the entry point on a two-view config (train.main on the "
+        f"card, 256^2 subdiv 3, one frame x 2 cameras): one epoch of fit, 2 "
+        f"steps and val_fn, {ve['fit_s']:.1f} s (val_total_loss "
+        f"{ve['val_total_loss']}); --run_val on its checkpoint, 4 frames, "
+        f"{ve['run_val_s']:.1f} s, psnr {ve['report']['psnr']}, ssim "
+        f"{ve['report']['ssim']}; every query at two views; launches "
+        f"{ {k: v for k, v in ve['launches'].items() if v} }; the phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(kernels=vk, serve=vf, train=vt, entry_point=ve,
+                phase_s=time.perf_counter() - t0)
 
 
 def main() -> int:
@@ -4727,6 +5130,9 @@ def main() -> int:
         f"taken from the card); main {video['main_s']:.1f} s, the phase "
         f"{video['phase_s']:.1f} s")
 
+    # ---- phase 9: two source views ----
+    views = run_phase_views(model, batches[0], cfg, dev)
+
     launches = dict(
         main["launches"],
         knn_T=soa["mode1"]["launches"]["knn_T"],
@@ -4772,6 +5178,18 @@ def main() -> int:
             kernels[-1].update(g16_device_ms=g16["batch_device_ms"],
                                g1_device_ms=g16["element_device_ms"],
                                g16_bound_ms=g16["batch_bound_ms"])
+        # D and 10 at two views: launches a G = 1 frame and one launch over
+        # a 16-tile group's 32 element-views; 13 launches a two-view step
+        # (phase 9)
+        if name in ("interp_mxu", "row_gather"):
+            v16 = views["kernels"]["g16"][name]
+            kernels[-1].update(
+                views_launches=views["serve"]["frames"][1]["launches"][name],
+                views_g16_device_ms=v16["batch_device_ms"],
+                views_g16_bound_ms=v16["batch_bound_ms"])
+        elif name == "onehot_scatter":
+            kernels[-1]["views_launches"] = (
+                views["train"]["launches"][name] / VIEW_TRAIN_STEPS)
     say(f"total: {time.perf_counter() - t_start:.0f} s, the build included")
     say("details: " + json.dumps({"gpu": smi, "build_s": build_s,
                                   "kernels": kres, "main_path": main,
@@ -4791,7 +5209,8 @@ def main() -> int:
                                   "bf16_fused_train": ftrain16,
                                   "bf16_train_card_vs_cpu": vs_cpu16,
                                   "train_repeat": rep,
-                                  "entry_point": entry, "video": video}))
+                                  "entry_point": entry, "video": video,
+                                  "views": views}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

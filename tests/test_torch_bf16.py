@@ -405,10 +405,13 @@ def test_fused_mlp_bf16_twins_match_jax(kernel):
 # (c) VANeRF.query at fused levels 0 / 1 / 2
 # ---------------------------------------------------------------------------
 
-def _query_inputs():
+def _query_inputs(n_views: int = 1):
+    """The query's inputs on the fixture batch with ``n_views`` source views
+    (the last element)."""
     import jax.numpy as jnp
     from vanerf_tpu.ops.knn import nearest_vertex_d2
-    batch, _ = h.synthetic_batch()
+    batch = (h.synthetic_batch()[0] if n_views == 1
+             else h.synthetic_batch_views(n_views))
     rs = np.random.RandomState(9)
     N = 128
     pts = h.two_hand_points(N, seed=10)[None]
@@ -422,7 +425,7 @@ def _query_inputs():
     cam = {"KRT": batch["src_krt"], "extrin": batch["src_extrin"],
            "width": h.W, "height": h.H, "znear": batch["znear"],
            "zfar": batch["zfar"]}
-    return batch, pts, view, vv, qv, qs, nn_idx, cam
+    return batch, pts, view, vv, qv, qs, nn_idx, cam, n_views
 
 
 def _jax_maps(batch):
@@ -437,7 +440,7 @@ def _jax_maps(batch):
 def _jax_query(cdt, level, inputs):
     import jax.numpy as jnp
     g, _ = h.converted_params()
-    batch, pts, view, vv, qv, qs, nn_idx, cam = inputs
+    batch, pts, view, vv, qv, qs, nn_idx, cam, n_views = inputs
     jm = _jax_model(cdt)
     fg, ft = _jax_maps(batch)
     return jm.apply(
@@ -445,14 +448,14 @@ def _jax_query(cdt, level, inputs):
         {k: jnp.asarray(v) for k, v in cam.items()}, fg, ft,
         jnp.asarray(batch["src_img"]), jnp.asarray(batch["src_mask"]),
         jnp.asarray(batch["verts"]), jnp.asarray(vv), jnp.asarray(qv),
-        jnp.asarray(qs), jnp.asarray(batch["kpt3d"]), 8, 1, False,
+        jnp.asarray(qs), jnp.asarray(batch["kpt3d"]), 8, n_views, False,
         nn_idx=jnp.asarray(nn_idx), fused_override=level, method=jm.query)
 
 
 def _port_query(model, level, inputs, maps=None):
     """The port's query; ``maps``: the feature maps to take instead of the
     port's encoder's (as :func:`_jax_maps` gives them)."""
-    batch, pts, view, vv, qv, qs, nn_idx, cam = inputs
+    batch, pts, view, vv, qv, qs, nn_idx, cam, n_views = inputs
     cam_t = {k: (T(v) if isinstance(v, np.ndarray) else v)
              for k, v in cam.items()}
     with torch.no_grad():
@@ -463,19 +466,23 @@ def _port_query(model, level, inputs, maps=None):
         return model.query(
             T(pts), T(view), cam_t, fg, ft, T(batch["src_img"]),
             T(batch["src_mask"]), T(batch["verts"]), T(vv), T(qv), T(qs),
-            T(batch["kpt3d"]), 8, nn_idx=T(nn_idx), fused_override=level)
+            T(batch["kpt3d"]), 8, n_views, nn_idx=T(nn_idx),
+            fused_override=level)
 
 
-@pytest.mark.parametrize("level", [0, 1, 2])
+@pytest.mark.parametrize("level", [0, 1, 2, "v2"])
 def test_query_bf16_matches_jax(level, env):
-    """``VANeRF.query`` in bfloat16 at each fused level against the JAX
-    query in bfloat16 (its Pallas kernels in interpret mode), both on the
-    JAX encoder's maps: float32 out, ``valid`` equal, each channel held by
+    """``VANeRF.query`` in bfloat16 at each fused level, and at two source
+    views ("v2": level 0, the only level there), against the JAX query in
+    bfloat16 (its Pallas kernels in interpret mode), both on the JAX
+    encoder's maps: float32 out, ``valid`` equal, each channel held by
     :func:`near_jax_bf16` with rtol 1e-4 / atol 1e-5, the port's float32
     query the control."""
     import jax.numpy as jnp
     from vanerf_tpu_torch.models import vanerf as tv
-    inputs = _query_inputs()
+    n_views = 2 if level == "v2" else 1
+    level = 0 if level == "v2" else level
+    inputs = _query_inputs(n_views)
     maps = _jax_maps(inputs[0])
     calls = []
     real = tv.interp_sample_nhwc

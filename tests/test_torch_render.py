@@ -176,13 +176,15 @@ def test_mask_centered_grid_centres_on_foreground():
 
 
 def test_unported_render_options_raise():
+    """Two source views render (``tests/test_torch_views.py``); a device
+    mesh, the one render option still not ported, raises."""
     model = h.port_model()
     batch = h.torch_batch(h.synthetic_batch()[0])
-    grids = T(h.center_grid())
-    kw = dict(grids=grids, out_h=4, out_w=4, sample_per_ray_c=4,
-              sample_per_ray_f=4)
     with pytest.raises(NotImplementedError):
-        tr.render_patch(model, batch, **kw, n_views=2)
+        tr.render_full_image(model, batch, level=3, sample_per_ray_c=4,
+                             sample_per_ray_f=4, mesh=object())
+    with pytest.raises(NotImplementedError):
+        tr.plan_tile_group(16, 4, mesh=object())
 
 
 def test_render_patch_training_builds_a_graph():
@@ -300,16 +302,21 @@ def test_soa_unparsable_value_is_mode_1(monkeypatch):
 
 def test_soa_switches_the_serving_tiers_off(monkeypatch):
     """As in the JAX package: under the SoA layout a configured FAR_SKIP /
-    FAR_NET / FAR_TNET tier is off, not an error."""
+    FAR_NET / FAR_TNET tier is off, not an error, at one source view and
+    at two."""
     grids = h.center_grid()
     monkeypatch.setenv("VANERF_SOA_POINTS", "1")
     want = _render_port(grids, 4, 4)
+    batch2 = h.torch_batch(h.synthetic_batch_views(2))
+    kw2 = dict(grids=T(grids), out_h=4, out_w=4, sample_per_ray_c=h.S_C,
+               sample_per_ray_f=h.S_F, n_views=2)
+    model = h.port_model()
+    want2 = tr.render_patch(model, batch2, **kw2)
     for env in ("VANERF_FAR_SKIP", "VANERF_FAR_NET", "VANERF_FAR_TNET"):
         monkeypatch.setenv(env, "0.5")
         _assert_outputs_equal(_render_port(grids, 4, 4), want)
+        _assert_outputs_equal(tr.render_patch(model, batch2, **kw2), want2)
         monkeypatch.delenv(env)
-    with pytest.raises(NotImplementedError):
-        _render_port(grids, 4, 4, n_views=2)
 
 
 @pytest.mark.parametrize("mode", ["1", "2"])

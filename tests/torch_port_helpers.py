@@ -79,6 +79,18 @@ def synthetic_batch():
     return batch, faces
 
 
+@functools.lru_cache(maxsize=2)
+def synthetic_batch_views(n_views: int) -> dict:
+    """The JAX package's fixture batch (numpy) with ``n_views`` source views
+    a frame, their images and cameras flattened to (V, ...) (as
+    ``tests/test_fullchain_parity.py`` makes it)."""
+    from vanerf_tpu.data.synthetic import make_synthetic_batch
+    batch, _, num_v = make_synthetic_batch(batch_size=1, H=H, W=W, subdiv=2,
+                                           num_input_view=n_views)
+    assert num_v == NUM_V and batch["src_img"].shape[0] == n_views
+    return batch
+
+
 def torch_batch(batch: dict) -> dict:
     from vanerf_tpu_torch.data import to_torch
     return to_torch(batch, "cpu")

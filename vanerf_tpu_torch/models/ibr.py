@@ -5,8 +5,10 @@ Every layer computes in ``rgb_feats``' dtype
 (``vanerf_tpu/models/ibr.py:39-79``); the anisotropy weights and the
 softmax blend run in float32 and are cast back, as in the JAX package.  In
 bfloat16 a layer rounds its product and then its sum with the bias, as
-flax's ``Dense(dtype=bfloat16)`` does (``models/mlp.py::dense``).  At one
-source view the model never runs this head (``VANeRF._query_color``).
+flax's ``Dense(dtype=bfloat16)`` does (``models/mlp.py::dense``).  The
+model blends two or more source views with it; at one view the blend is
+the identity on the fused rgb and the model skips the head unless
+``VANERF_IBR_V1_SHORTCUT=0`` (``VANeRF._query_color``).
 """
 
 from __future__ import annotations

@@ -51,15 +51,19 @@ class SpatialEncoder:
         """Output width (spatial.py:45-57)."""
         return (1 + 2 * self.sp_level) * self.n_kpt
 
-    def __call__(self, *, v, extrin, kpt3d):
+    def __call__(self, *, v, extrin, kpt3d, n_view: int = 1):
         """Encode query points.
 
-        v: (B, N, 3) world points; extrin: (B, 4, 4) world->camera;
-        kpt3d: (B, K, 3).  Returns (B, N, (1 + 2L) * K).
+        v: (B V, N, 3) world points, each repeated per source view;
+        extrin: (B V, 4, 4) world->camera of each element's view; kpt3d:
+        (B, K, 3), repeated per view here (``vanerf_tpu/models/
+        spatial.py:119``).  Returns (B V, N, (1 + 2L) * K).
         """
         if kpt3d.shape[1] != self.n_kpt:
             raise ValueError(f"{kpt3d.shape[1]} keypoints, the encoder was "
                              f"built for {self.n_kpt}")
+        if n_view != 1:
+            kpt3d = kpt3d.repeat_interleave(n_view, 0)
         R = extrin[:, :3, :3].transpose(-1, -2)
         t = extrin[:, None, :3, 3]
         cxyz = v @ R + t

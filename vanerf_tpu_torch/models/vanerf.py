@@ -1,9 +1,15 @@
 """VANeRF generator (port of ``vanerf_tpu/models/vanerf.py``; reference
 ``VANeRF``, ``src/model.py:604-1024``).
 
-Supported: one source view, ``sp_type=rel_z_decay``, ``sp_conv=false``,
-eval and training (at one view the training query equals the eval query:
-view dropout needs two views).  ``compute_dtype`` (``VANERF_COMPUTE_DTYPE``
+Supported: ``n_views`` source views (the shipped configs take one, the
+reference one or two), ``sp_type=rel_z_decay``, ``sp_conv=false``,
+``disable_fg_mask``, eval and training.  At one view the training query
+equals the eval query and the IBR colour head reduces to the fused
+feature's rgb, exactly (``VANERF_IBR_V1_SHORTCUT=0`` runs the head anyway);
+at more views the points are repeated per view, the geometry MLP pools
+over the views, the IBR head blends them, and a training query takes the
+view-dropout mask its caller draws (:func:`view_dropout_mask`).
+``compute_dtype`` (``VANERF_COMPUTE_DTYPE``
 first, then the config's, else float32 as the JAX package's default off a
 TPU) is ``"float32"`` or ``"bfloat16"``, for serving and for training;
 any other type raises.  In bfloat16 the query follows the JAX package's
@@ -18,7 +24,8 @@ param_dtype=float32)``, and every op of the bfloat16 backward rounds to
 bfloat16.  ``VANERF_FUSED_MLP=1`` runs the
 positional encoding, ``MLPUNetFusion`` and ``gcompress`` as kernel 12, ``=2``
 the whole per-point network behind the gathers as kernel 11
-(``ops/fused_mlp.py``); the KNN rows come through kernel 10 whenever no
+(``ops/fused_mlp.py``), both at one view only, as in JAX; the KNN rows
+come through kernel 10 whenever no
 graph is built (``ops/knn.py``; the JAX package's ``VANERF_MXU_ROWS`` is
 not read).  The two-resolution variant of the JAX package is
 not ported and raises when its switch is set.  At inference small encoder maps
@@ -84,10 +91,35 @@ def _check_env():
             raise NotImplementedError(
                 f"{name}={val!r} is not ported to PyTorch (the port takes "
                 f"{' or '.join(repr(a) for a in allowed)} or unset)")
-    if os.environ.get("VANERF_IBR_V1_SHORTCUT", "1") == "0":
-        raise NotImplementedError(
-            "VANERF_IBR_V1_SHORTCUT=0: the port uses the exact one-view "
-            "shortcut of the IBR head")
+
+
+def view_dropout_mask(B: int, n_views: int, u_keep=None, u_perm=None,
+                      generator: torch.Generator | None = None
+                      ) -> torch.Tensor:
+    """The reference's training view dropout (``model.py:804-810``; the
+    JAX package's ``view_dropout_mask``, ``vanerf_tpu/models/vanerf.py:
+    32-50``): one view is always kept, each other view is kept where its
+    uniform exceeds 0.5, and a stable argsort of the per-view scores
+    places the guaranteed view.  The mask is per view and per batch
+    element, (B, V, 1, 1) float32 on ``u_keep``'s device, and broadcasts
+    over the points.
+
+    Args:
+      u_keep: (B, V - 1, 1, 1) uniforms in [0, 1); u_perm: (B, V, 1, 1) on
+        the same device.  Either, when not given, is drawn from
+        ``generator`` on its device.
+    """
+    gdev = generator.device if generator is not None else torch.device("cpu")
+    if u_keep is None:
+        u_keep = torch.rand((B, n_views - 1, 1, 1), generator=generator,
+                            device=gdev)
+    if u_perm is None:
+        u_perm = torch.rand((B, n_views, 1, 1), generator=generator,
+                            device=gdev)
+    drop = torch.cat([torch.ones((B, 1, 1, 1), device=u_keep.device),
+                      (u_keep > 0.5).float()], 1)
+    order = torch.argsort(u_perm, dim=1, stable=True)
+    return torch.take_along_dim(drop, order, dim=1)
 
 
 def per_element(x: torch.Tensor, B: int) -> torch.Tensor:
@@ -119,11 +151,13 @@ class VANeRF(nn.Module):
                  ds_geo: int = 1, ds_tex: int = 1, num_v: int = 779,
                  image_hw=(256, 256), far_tau: float = 0.02, far_skip: float = 0.0,
                  far_net: float = 0.0, far_tnet: float = 0.0,
-                 compute_dtype: str = "float32"):
+                 compute_dtype: str = "float32",
+                 disable_fg_mask: bool = False):
         super().__init__()
         if compute_dtype not in COMPUTE_DTYPES:
             raise NotImplementedError(f"compute_dtype {compute_dtype!r}")
         self.compute_dtype = compute_dtype
+        self.disable_fg_mask = disable_fg_mask
         self.sp_args = dict(sp_args)
         self.gcompress_out = gcompress_out
         self.num_v = num_v
@@ -168,9 +202,8 @@ class VANeRF(nn.Module):
     @classmethod
     def from_config(cls, cfg: dict, num_v: int = 779, image_hw=(256, 256)):
         m = cfg["models"]["VANeRF"]
-        for unported in ("sp_conv", "disable_fg_mask"):
-            if m.get(unported, False):
-                raise NotImplementedError(f"{unported} is not ported")
+        if m.get("sp_conv", False):
+            raise NotImplementedError("sp_conv is not ported")
         cdt = resolve_compute_dtype(m)
         inf = cfg.get("inference", {})
         gc = m["mlp_tex_args"]["gcompress"]
@@ -183,7 +216,8 @@ class VANeRF(nn.Module):
             far_tau=float(inf.get("far_tau", 0.02)),
             far_skip=float(inf.get("far_skip", 0.0)),
             far_net=float(inf.get("far_net", 0.0)),
-            far_tnet=float(inf.get("far_tnet", 0.0)), compute_dtype=cdt)
+            far_tnet=float(inf.get("far_tnet", 0.0)), compute_dtype=cdt,
+            disable_fg_mask=bool(m.get("disable_fg_mask", False)))
 
     @property
     def cdt(self) -> torch.dtype:
@@ -226,31 +260,38 @@ class VANeRF(nn.Module):
     def query(self, pts, view, cam, feat_geo, feat_tex, src_img, fg_mask,
               verts, vert_vis, query_vis, query_sdf, kpt3d, n_samples: int,
               n_views: int = 1, training: bool = False, nn_idx=None,
-              far_mask=None, fused_override=None):
+              far_mask=None, fused_override=None, view_mask=None):
         """(sdf_channel, radiance, rgb) at world points.
 
-        pts/view (B, N, 3); cam: 'KRT'/'extrin' (Bf, 4, 4), 'width',
-        'height', 'znear', 'zfar'; feat_geo [(Bf,h,w,64), (Bf,H2,W2,8)];
-        feat_tex (Bf, h2, w2, 8); src_img (Bf, H, W, 3); fg_mask
-        (Bf, H, W, 1); verts (Bf, V2, 3); vert_vis (Bf, V2, 1);
-        query_vis/query_sdf (B, N, 1); kpt3d (Bf, K, 3); nn_idx (B, N)
-        nearest-vertex ids; far_mask (B, N, 1) bool or None; ``training``
-        keeps kernel D off.  The points' batch holds B = G x Bf elements,
-        element e of frame e % Bf (the tiles of a ``render_full_image``
-        tile group): the frame's maps, vertex tables and mesh are read in
-        place by the batched kernels and samplers, and only its cameras and
-        keypoints are repeated per element.
+        pts/view (B, N, 3); cam: 'KRT'/'extrin' (Bf V, 4, 4), the V source
+        views of each frame in a row, 'width', 'height', 'znear', 'zfar';
+        feat_geo [(Bf V,h,w,64), (Bf V,H2,W2,8)]; feat_tex (Bf V, h2, w2,
+        8); src_img (Bf V, H, W, 3); fg_mask (Bf V, H, W, 1); verts
+        (Bf, V2, 3); vert_vis (Bf, V2, 1); query_vis/query_sdf (B, N, 1);
+        kpt3d (Bf, K, 3); nn_idx (B, N) nearest-vertex ids; far_mask
+        (B, N, 1) bool or None; ``training`` keeps kernel D off and, with
+        ``n_views`` > 1, multiplies the projection mask by ``view_mask``
+        (B, V, 1, 1) (:func:`view_dropout_mask`; None keeps every view).
+        The points' batch holds B = G x Bf elements, element e of frame
+        e % Bf (the tiles of a ``render_full_image`` tile group); the
+        points are repeated per view, element e view v at e V + v, which
+        reads map (e V + v) % (Bf V) = f V + v, frame f's view v: the
+        frame's maps and vertex tables are read in place by the batched
+        kernels and samplers, and only its cameras and keypoints are
+        repeated per element.
         ``fused_override`` pins the fused level (0, 1, 2) instead of the
-        ``VANERF_FUSED_MLP`` read; level 2 ignores ``far_mask``.
+        ``VANERF_FUSED_MLP`` read; level 2 ignores ``far_mask``.  Both
+        fused levels take one view: at more the level is 0, as in JAX.
         Returns out (B, N, 5) float32, valid (B, N, 1).
         """
-        if n_views != 1:
-            raise NotImplementedError("the port renders one source view")
         _check_env()
         B, N, _ = pts.shape
-        # each element's camera and keypoints (the frames' at B = Bf)
-        krt_e, extrin_e, kpt3d_e = (per_element(t, B) for t in (
-            cam["KRT"], cam["extrin"], kpt3d))
+        V = n_views
+        BV = B * V
+        # each element-view's camera and each element's keypoints (the
+        # frames' at B = Bf)
+        krt_e, extrin_e = (per_element(cam[k], BV) for k in ("KRT", "extrin"))
+        kpt3d_e = per_element(kpt3d, B)
         # the activation dtype (models/vanerf.py:233-245): the maps, the
         # image and the mask now, the encoding and the visibility / SDF
         # inputs below; coordinates and projection math stay float32
@@ -258,12 +299,18 @@ class VANeRF(nn.Module):
         feat_geo = [f.to(cdt) for f in feat_geo]
         feat_tex, src_img, fg_mask = (t.to(cdt) for t in (feat_tex, src_img,
                                                           fg_mask))
+
+        def per_view(t):
+            """(n, ...) -> (n V, ...), each row repeated per view."""
+            return t if V == 1 or t is None else t.repeat_interleave(V, 0)
+
+        vert_rep = per_view(verts)
         vert_vis, query_vis, query_sdf = (
-            t.to(cdt) for t in (vert_vis, query_vis, query_sdf))
+            per_view(t).to(cdt) for t in (vert_vis, query_vis, query_sdf))
         krt = cam["KRT"]
         width, height = cam["width"], cam["height"]
         znear, zfar = cam["znear"], cam["zfar"]
-        v = pts
+        v = per_view(pts)                                      # (B V, N, 3)
 
         vh = v @ krt_e[:, :3, :3].transpose(-1, -2) + krt_e[:, None, :3, 3]
         z = vh[..., 2:3]
@@ -276,7 +323,7 @@ class VANeRF(nn.Module):
         mask_xy = (xy >= -1.0 - eps) & (xy <= 1.0 + eps)
         out_mask = (mask_xy[..., 0] & mask_xy[..., 1]
                     & (z[..., 0] >= -1.0))[..., None].to(pts.dtype)
-        out_mask = out_mask.reshape(B, 1, N, 1)
+        out_mask = out_mask.reshape(B, V, N, 1)
 
         if fg_mask.shape[1:3] == src_img.shape[1:3]:
             fm = feat_sample_nhwc(torch.cat([fg_mask, src_img], -1), xy)
@@ -284,15 +331,20 @@ class VANeRF(nn.Module):
         else:
             fg_xy = feat_sample_nhwc(fg_mask, xy)
             img_xy = feat_sample_nhwc(src_img, xy)
-        ok = ((fg_xy.reshape(B, 1, N, 1) > 0.1)
-              & (out_mask > 0)).all(1, keepdim=True)
-        out_mask = out_mask * ok
+        # a point counts where every view sees it (in its foreground)
+        ok = out_mask > 0
+        if not self.disable_fg_mask:
+            ok = ok & (fg_xy.reshape(B, V, N, 1) > 0.1)
+        out_mask = out_mask * ok.all(1, keepdim=True)
+        if training and V > 1 and view_mask is not None:
+            out_mask = out_mask * view_mask.to(out_mask.dtype)
 
-        # boundary-smooth pixel weights (model.py:813-821)
+        # boundary-smooth pixel weights (model.py:813-821), normalised over
+        # the views
         xyz01 = 0.5 * torch.cat([xy, z], -1) + 0.5
         dist_b = torch.minimum(xyz01, 1.0 - xyz01)
         pw = torch.sigmoid(5.0 * (dist_b / 0.1 - 1.0))
-        pw = (pw[..., 0] * pw[..., 1] * pw[..., 2]).reshape(B, 1, N, 1)
+        pw = (pw[..., 0] * pw[..., 1] * pw[..., 2]).reshape(B, V, N, 1)
         pw = pw.detach() * out_mask
         pix_weight = pw / (pw.sum(1, keepdim=True) + 1e-6)
 
@@ -312,7 +364,7 @@ class VANeRF(nn.Module):
         #   gate/fuse nets and the V=1 rgb head.
         fused_level = (fused_override if fused_override is not None
                        else int(os.environ.get("VANERF_FUSED_MLP", "0") or 0))
-        if training:
+        if training or V != 1:
             fused_level = 0
         if fused_level >= 2 and not (
                 feat_geo[0].shape[-1] == 64 and feat_geo[1].shape[-1] == 8
@@ -322,19 +374,23 @@ class VANeRF(nn.Module):
 
         y = None
         if fused_level == 0:
-            y = self.sp_encoder(v=v, extrin=extrin_e, kpt3d=kpt3d_e)
-            y = y.reshape(B, 1, N, -1).to(cdt)
+            y = self.sp_encoder(v=v, extrin=extrin_e, kpt3d=kpt3d_e,
+                                n_view=V)
+            y = y.reshape(B, V, N, -1).to(cdt)
 
-        # project mesh vertices into the source view (model.py:845-853)
-        vvh = verts @ krt[:, :3, :3].transpose(-1, -2) + krt[:, None, :3, 3]
+        # project mesh vertices into the source views (model.py:845-853)
+        vvh = vert_rep @ krt[:, :3, :3].transpose(-1, -2) \
+            + krt[:, None, :3, 3]
         vz = vvh[..., 2:3]
         vxy = vvh[..., :2] / (vz + 1e-8)
         vert_xy = torch.stack([2.0 * (vxy[..., 0] / (width - 1.0)) - 1.0,
                                2.0 * (vxy[..., 1] / (height - 1.0)) - 1.0],
-                              -1)
+                              -1)                          # (Bf V, V2, 2)
 
         if nn_idx is None:
-            nn_idx = nearest_vertex_d2(v, verts)[0]
+            nn_idx = nearest_vertex_d2(v, vert_rep)[0]
+        else:
+            nn_idx = per_view(nn_idx)
         # one shared KNN gather for both fusion branches
         gv = self.geo_vis_fusion.vertex_table(feat_geo, vert_xy)
         tv = self.tex_vis_fusion.vertex_table(feat_tex, src_img, vert_xy)
@@ -342,23 +398,23 @@ class VANeRF(nn.Module):
         if fused_level >= 2:
             # raw rows: slicing, visibility weighting and both fusion nets
             # run inside the kernel
-            g2_raw = knn_gather_raw(v, verts, shared, vert_vis, self.num_v,
-                                    nn_idx)
+            g2_raw = knn_gather_raw(v, vert_rep, shared, vert_vis,
+                                    self.num_v, nn_idx)
             return self._query_fused_full(
                 v, extrin_e, kpt3d_e, feat_sampled, img_xy, feat_tex_xy,
                 query_sdf, query_vis, out_mask, pix_weight, g2_raw)
         f_s, f_toh_s, vis_th, vis_toh = knn_gather_1(
-            v, verts, shared, vert_vis, self.num_v, nn_idx)
+            v, vert_rep, shared, vert_vis, self.num_v, nn_idx)
         if far_mask is not None:
             # far-field tier: the nearest vertex's visibility stands in
-            query_vis = torch.where(far_mask, vis_th, query_vis)
+            query_vis = torch.where(per_view(far_mask), vis_th, query_vis)
         cg = gv.shape[-1]
         geo_knn = (f_s[..., :cg], f_toh_s[..., :cg], vis_th, vis_toh)
         tex_knn = (f_s[..., cg:], f_toh_s[..., cg:], vis_th, vis_toh)
-        fused = self.geo_vis_fusion(vert_xy, feat_geo, feat_sampled, verts,
-                                    v, vert_vis, query_vis, query_sdf,
-                                    knn=geo_knn)
-        fused = [f.reshape(B, 1, N, -1) for f in fused]
+        fused = self.geo_vis_fusion(vert_xy, feat_geo, feat_sampled,
+                                    vert_rep, v, vert_vis, query_vis,
+                                    query_sdf, knn=geo_knn)
+        fused = [f.reshape(B, V, N, -1) for f in fused]
 
         if fused_level >= 1:
             cxyz, kptc_T = self._camera_frame(v, kpt3d_e, extrin_e)
@@ -377,9 +433,10 @@ class VANeRF(nn.Module):
         else:
             out, valid, _x_view, latent_fused = self.mlp_geo(
                 y, fused, out_mask.to(cdt), pix_weight.to(cdt))
-        rgb = self._query_color(vert_xy, verts, vert_vis, query_vis, v,
-                                feat_tex, latent_fused, src_img, img_xy,
-                                feat_tex_xy, tex_knn,
+        rgb = self._query_color(vert_xy, vert_rep, vert_vis, query_vis, v,
+                                view, V, krt_e, feat_tex, latent_fused,
+                                src_img, img_xy, feat_tex_xy, tex_knn,
+                                out_mask, n_samples,
                                 latent_compressed=fused_level >= 1)
         # compositing and the losses stay float32 (models/vanerf.py:533),
         # or float64 where the caller runs the model in it
@@ -451,22 +508,60 @@ class VANeRF(nn.Module):
         valid = out_mask.sum(1) > 0                             # (B, N, 1)
         return out5, valid.to(out5.dtype)
 
-    def _query_color(self, vert_xy, vert, vert_vis, query_vis, v, feat_tex,
-                     latent_fused, img, img_xy, feat_xy, tex_knn,
+    def _query_color(self, vert_xy, vert, vert_vis, query_vis, v, view,
+                     n_views, krt, feat_tex, latent_fused, img, img_xy,
+                     feat_xy, tex_knn, out_mask, n_samples,
                      latent_compressed: bool = False):
-        """IBR colour query (model.py:884-957) at one source view: the
-        blend is a softmax over a single view (== 1), so the head reduces
-        exactly to the fused feature's rgb (the JAX package's default
-        VANERF_IBR_V1_SHORTCUT).  ``latent_compressed``: kernel 12 has
-        already applied gcompress."""
+        """IBR colour query (model.py:884-957; JAX
+        ``vanerf_tpu/models/vanerf.py:584-633``): the per-view texture
+        fusion of the latent (repeated per view), then the IBR head's
+        blend over the views.  At one view the blend is a softmax over a
+        single view (== 1), so the head reduces exactly to the fused
+        feature's rgb, which is returned unless ``VANERF_IBR_V1_SHORTCUT``
+        is ``0`` (the JAX package's switch).  v (B V, N, 3) the points
+        repeated per view, view (B, N, 3), krt (B V, 4, 4), out_mask
+        (B, V, N, 1); ``latent_compressed``: kernel 12 has already applied
+        gcompress."""
+        BV, N, _ = v.shape
+        B = BV // n_views
         gc = self.ibr_compress_gfeat
         latent = (latent_fused if latent_compressed
                   else dense(latent_fused, gc.weight, gc.bias))
+        if n_views != 1:
+            latent = latent.repeat_interleave(n_views, 0)
         rgb_feat = self.tex_vis_fusion(vert_xy, feat_tex, feat_xy, vert, v,
                                        vert_vis, query_vis, img_xy, img,
-                                       latent, knn=tex_knn)
-        return rgb_feat[..., :3]
+                                       latent, knn=tex_knn)   # (B V, N, 40)
+        if (n_views == 1
+                and os.environ.get("VANERF_IBR_V1_SHORTCUT", "1") != "0"):
+            return rgb_feat[..., :3]
 
+        # inv_ex: no check of the result on the host, which would wait for
+        # the card
+        cam_pos = torch.linalg.inv_ex(krt)[0][:, :3, 3]         # (B V, 3)
+        cam_rays = v - cam_pos[:, None]
+        cam_rays = cam_rays / (torch.linalg.vector_norm(
+            cam_rays, dim=-1, keepdim=True) + 1e-12)
+        view_rep = (view.repeat_interleave(n_views, 0) if n_views != 1
+                    else view)
+        ray_diff = view_rep - cam_rays
+        rd_norm = torch.linalg.vector_norm(ray_diff, dim=-1, keepdim=True)
+        rd_dot = (cam_rays * view_rep).sum(-1, keepdim=True)
+        ray_diff = torch.cat([ray_diff / rd_norm.clamp(min=1e-6), rd_dot],
+                             -1)                                # (B V, N, 4)
+        pHW = N // n_samples
+
+        def to_ibr(x):
+            """(B V, N, C) -> (B pHW, S, V, C): rays, samples, views."""
+            C = x.shape[-1]
+            return (x.reshape(B, n_views, pHW, n_samples, C)
+                    .permute(0, 2, 3, 1, 4).reshape(B * pHW, n_samples,
+                                                    n_views, C))
+
+        dt = rgb_feat.dtype
+        out = self.mlp_tex(to_ibr(rgb_feat), to_ibr(ray_diff.to(dt)),
+                           to_ibr(out_mask.reshape(BV, N, 1).to(dt)))
+        return out.reshape(B, N, 3)
 
 def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded initialisation following flax's defaults: lecun-normal

@@ -45,6 +45,16 @@ in place (nothing per frame is copied G times but its cameras and
 keypoints), and kernels B / 8, A / 7, D and 10 each take the whole batch in
 one launch a pass.
 
+``n_views`` V source views (``dataset.num_input_view``) come as Bf V
+images, cameras and masks, the views of a frame in a row: the encoders run
+on all of them, the vertex visibility and the GT visibility map are the
+first view's (``renderer.py:298``, ``:735-737`` of the JAX package), and
+the query repeats each element's points per view; a training render draws
+a view-dropout mask a pass (``drop_keep_c`` / ``drop_perm_c``,
+``drop_keep_f`` / ``drop_perm_f``).  As in JAX the fused levels, the
+fused training switch and the FAR_NET / FAR_TNET tiers take one view and
+are off at more; FAR_TAU and FAR_SKIP are per sample and stay on.
+
 A model with ``compute_dtype="bfloat16"`` (``models/vanerf.py``) serves
 and trains here unchanged: the query takes the float32 points, visibility,
 SDF and far flags, casts them itself and returns float32, so the tiers'
@@ -68,7 +78,7 @@ import torch.nn.functional as F
 from .ops.composite import rgba2out
 from .ops.fused_mlp import fused_train_query
 from .ops.knn import nearest_vertex_d2, nearest_vertex_d2_T
-from .models.vanerf import per_element
+from .models.vanerf import per_element, view_dropout_mask
 from .ops._cuda import batch_index
 from .ops.mesh_query import (cal_vis_sdf_prepared, cal_vis_sdf_prepared_T,
                              prepare_culled_mesh, stack_culled_meshes)
@@ -242,13 +252,17 @@ def _project01(verts, krt, H, W, znear, zfar):
     return v_xy01, (v_z - znear) / (zfar - znear)
 
 
-def encode_frame(model, batch: Dict[str, Any], vis_size: int = 256):
-    """Per-frame work shared by every tile: the encoders and the source-
-    view vertex visibility (kernel C).  Returns (feat_geo, feat_tex,
-    vert_vis)."""
+def encode_frame(model, batch: Dict[str, Any], vis_size: int = 256,
+                 n_views: int = 1):
+    """Per-frame work shared by every tile: the encoders on all Bf V source
+    images and the vertex visibility (kernel C) in each frame's first
+    source view (``renderer.py:298`` of the JAX package).  Returns
+    (feat_geo, feat_tex, vert_vis), the maps Bf V, vert_vis Bf."""
     H, W = batch["src_img"].shape[1:3]
     feat_geo, feat_tex = model.encode(batch["src_img"])
-    v_xy01, v_z01 = _project01(batch["verts"], batch["src_krt"], H, W,
+    Bf = batch["verts"].shape[0]
+    krt0 = batch["src_krt"].reshape(Bf, n_views, 4, 4)[:, 0]
+    v_xy01, v_z01 = _project01(batch["verts"], krt0, H, W,
                                batch["znear"], batch["zfar"])
     vert_vis = torch.stack([
         vertex_visibility(v_xy01[b], v_z01[b], batch["faces"], size=vis_size)
@@ -356,14 +370,17 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
     graph and draws, unless ``uniform``: stratified jitter ``u_c``
     (B, P, S_c) and importance uniforms ``u_f`` (B, P, S_f); with
     ``rand_noise_std`` > 0 also radiance noise ``noise_c`` (B, P*S_c, 1)
-    and ``noise_f`` (B, P*S_f, 1).  Each comes from ``draws[name]`` when
-    given, else from ``generator``.
+    and ``noise_f`` (B, P*S_f, 1); with ``n_views`` V > 1 (``uniform`` or
+    not) the view-dropout uniforms of each pass, ``drop_keep_c`` /
+    ``drop_keep_f`` (B, V - 1, 1, 1) and ``drop_perm_c`` / ``drop_perm_f``
+    (B, V, 1, 1) (:func:`~.models.vanerf.view_dropout_mask`).  Each comes
+    from ``draws[name]`` when given, else from ``generator``.
 
     Args:
       model: :class:`vanerf_tpu_torch.models.VANeRF`.
       batch: channels-last tensors of Bf frames on one device: 'src_img'
-        (Bf,H,W,3), 'src_mask' (Bf,H,W,1), 'src_krt'/'src_extrin'
-        (Bf,4,4), 'tar_k'/'tar_rt' (Bf,4,4), 'verts' (Bf,V2,3), 'faces'
+        (Bf V,H,W,3), 'src_mask' (Bf V,H,W,1), 'src_krt'/'src_extrin'
+        (Bf V,4,4) (a frame's V views in a row), 'tar_k'/'tar_rt' (Bf,4,4), 'verts' (Bf,V2,3), 'faces'
         (F,3), 'kpt3d' (Bf,K,3), 'bounds' (Bf,2,3), 'znear'/'zfar' scalars;
         optional 'tar_img', 'tar_mask', 'input_densepose', 'tar_densepose'.
       grids: (B, P, 2) pixel grid, B a multiple of Bf: element e renders
@@ -385,8 +402,6 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
       dict of channels-last outputs mirroring the JAX package's, each with
       a leading B but 'vert_vis' and 'vis_img_all', which are the frames'.
     """
-    if n_views != 1:
-        raise NotImplementedError("the port renders one source view")
     if training and os.environ.get("VANERF_REMAT_QUERY", "0") not in ("",
                                                                       "0"):
         raise NotImplementedError(
@@ -406,7 +421,7 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
         P = grids.shape[1]
 
         feat_geo, feat_tex, vert_vis, *frame_meshes = (
-            encode_frame(model, batch, vis_size) if cached is None
+            encode_frame(model, batch, vis_size, n_views) if cached is None
             else cached)
         cam_in = {"KRT": batch["src_krt"], "extrin": batch["src_extrin"],
                   "width": W, "height": H, "znear": znear, "zfar": zfar}
@@ -439,26 +454,29 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
             # VANERF_FUSED_MLP=0 is the exact baseline of the fused levels)
             far2 = None
         # the serving tiers: eval only, off under the SoA layout and the
-        # fused switches (FAR_NET / FAR_TNET need one view, which is all
-        # this renderer takes; sp_conv is not ported and raises elsewhere)
+        # fused switches; FAR_NET / FAR_TNET also at more than one view,
+        # whose IBR head reads a ray's samples together (renderer.py:413-
+        # 443; sp_conv is not ported and raises elsewhere)
         tiers_on = (not training and not soa_points
                     and not os.environ.get("VANERF_FUSED_MLP"))
         far_skip_frac, far_net_frac, far_tnet_frac = (
             resolve_tier(env, getattr(model, attr, 0.0), training)
-            if tiers_on else 0.0
-            for env, attr in (("VANERF_FAR_SKIP", "far_skip"),
-                              ("VANERF_FAR_NET", "far_net"),
-                              ("VANERF_FAR_TNET", "far_tnet")))
+            if tiers_on and (per_sample or n_views == 1) else 0.0
+            for env, attr, per_sample in (
+                ("VANERF_FAR_SKIP", "far_skip", True),
+                ("VANERF_FAR_NET", "far_net", False),
+                ("VANERF_FAR_TNET", "far_tnet", False)))
 
         def query_rows(pts, view, q_vis, q_sdf, nn_idx, far_mask,
-                       n_samples):
+                       n_samples, view_mask=None):
             def query(level, pts, view, ft, q_vis, q_sdf, *fg):
                 return model.query(
                     pts, view, cam_in, list(fg), ft, src_img,
                     batch["src_mask"], verts, vert_vis, q_vis, q_sdf,
-                    batch["kpt3d"], n_samples,
+                    batch["kpt3d"], n_samples, n_views,
                     training=training and not fused_train, nn_idx=nn_idx,
-                    far_mask=far_mask, fused_override=level)
+                    far_mask=far_mask, fused_override=level,
+                    view_mask=view_mask)
 
             data = (pts, view, feat_tex, q_vis, q_sdf, *feat_geo)
             if not fused_train:
@@ -487,7 +505,7 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
                 sub[..., 8].to(torch.int32), far_k, n_rows)
             return torch.cat([out_k, valid_k], -1)
 
-        def query_at(z_depths, n_samples, noise_key):
+        def query_at(z_depths, n_samples, tag):
             if soa_points:
                 # each coordinate a packed (B, P*S) row: kernels 8 and 7
                 pts_T = (cam_pos.transpose(1, 2)[:, :, :, None]
@@ -564,19 +582,28 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
                     1, sel[..., None].expand(-1, -1, co + 1), buf)
                 out, valid = full[..., :co], full[..., co:]
             else:
+                view_mask = None
+                if training and n_views > 1:
+                    # one view-dropout mask a pass (renderer.py:494-501)
+                    view_mask = view_dropout_mask(
+                        B, n_views, u_keep=_draw(
+                            draws, f"drop_keep_{tag}", (B, n_views - 1, 1, 1),
+                            False, generator, dev),
+                        u_perm=_draw(draws, f"drop_perm_{tag}",
+                                     (B, n_views, 1, 1), False, generator,
+                                     dev))
                 out, valid = query_rows(pts, view, q_vis, q_sdf, nn_idx,
-                                        far_mask, n_samples)
+                                        far_mask, n_samples, view_mask)
             sdf_ch = valid * out[..., 0:1] + (1.0 - valid) * (0.1 / nml_scale)
             rad = out[..., 1:2]
             if noise:
-                rad = rad + _draw(draws, noise_key, rad.shape, True, generator,
-                                  dev) * rand_noise_std
+                rad = rad + _draw(draws, f"noise_{tag}", rad.shape, True,
+                                  generator, dev) * rand_noise_std
             alpha = valid * F.relu(rad)
             return alpha[..., 0], sdf_ch[..., 0], out[..., 2:], q_sdf[..., 0]
 
         # ---- coarse pass ----
-        alpha_c, sdf_c, rgb_c, qsdf_c = query_at(z, sample_per_ray_c,
-                                                 "noise_c")
+        alpha_c, sdf_c, rgb_c, qsdf_c = query_at(z, sample_per_ray_c, "c")
         shp = (B, P, sample_per_ray_c)
         color, depth, acc, contrib, _sdf_out = rgba2out(
             alpha_c.reshape(shp), sdf_c.reshape(shp),
@@ -599,7 +626,7 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
                 # the JAX package does for its kernel's depth-coherent tiles
                 (z_new,) = sort_by_key(z_new)
             alpha_n, sdf_n, rgb_n, qsdf_n = query_at(z_new, sample_per_ray_f,
-                                                     "noise_f")
+                                                     "f")
 
             def cat_cf(cv, nv):
                 return torch.cat([cv.reshape(B, P, sample_per_ray_c),
@@ -635,9 +662,11 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
             out["vis_img_all"] = vis_map                  # (Bf, 1, H, W)
             out["vis_img"] = gather_pixels(vis_map.permute(0, 2, 3, 1), index,
                                            out_h, out_w)
-        out["input_mask"] = gather_pixels(batch["src_mask"], index, out_h,
-                                          out_w)
-        out["img_in"] = gather_pixels(src_img, index, out_h, out_w)
+        # the context patches of each frame's first source view
+        first = (lambda x: x.reshape(Bf, n_views, *x.shape[1:])[:, 0])
+        out["input_mask"] = gather_pixels(first(batch["src_mask"]), index,
+                                          out_h, out_w)
+        out["img_in"] = gather_pixels(first(src_img), index, out_h, out_w)
         for k in ("input_densepose", "tar_densepose"):
             if batch.get(k) is not None:
                 out[k] = gather_pixels(batch[k], index, out_h, out_w)
@@ -686,7 +715,7 @@ def render_full_image(model, batch: Dict[str, Any], *, level: int,
     if (s * s) % G:
         raise ValueError(f"tile_group {tile_group} must divide stride^2 = "
                          f"{s * s}")
-    cached = tuple(encode_frame(model, batch))
+    cached = tuple(encode_frame(model, batch, n_views=n_views))
     cached += (prepare_frame_meshes(batch, cached[2]),)
     dev = batch["src_img"].device
     offsets = [(j, i) for i in range(s) for j in range(s)]

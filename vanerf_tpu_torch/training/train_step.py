@@ -12,8 +12,9 @@ With the flag off the D update consumes the detached G patch (one render
 per step).  R1 is ``torch.autograd.grad(create_graph=True)`` through the
 discriminator on the real patch.
 
-Randomness: the grid, the stratified jitter, the radiance noise and the
-importance uniforms come from a ``torch.Generator``, or from a ``draws``
+Randomness: the grid, the stratified jitter, the radiance noise, the
+importance uniforms and, with two or more source views, each pass's
+view-dropout uniforms come from a ``torch.Generator``, or from a ``draws``
 dict ({"g": {...}, "d": {...}}, keys of :func:`renderer.render_patch`
 plus "grids") so a test can feed the JAX package's draws.  With the same
 state and draws a step repeats to the bit on the card: it runs under
