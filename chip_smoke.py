@@ -74,7 +74,11 @@ script exits non-zero (there is no CPU fallback):
      under ``VANERF_COMPUTE_DTYPE=bfloat16``, the same weights): D (the
      32^2 x 64 map in bfloat16, and the scalar-lane, unaligned and sliced
      cases) and 10 (the 1,284 x 204 bfloat16 table) bit-equal to their
-     plain versions; 11 and 12 (one bfloat16 m16n8k16 product a k-tile)
+     plain versions; the softplus and sigmoid of 11 and 12 on all 65,536
+     bfloat16 inputs equal to the plain version's, bit for bit; 11 and 12
+     (csrc/fused_mlp_bf16.cu: wgmma m64nNk16, one bfloat16 product a
+     16-row k-step; threads, shared bytes and blocks an SM from
+     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` printed)
      within ``FUSED_BF16_SPREAD_X`` times the RMS spread between two
      summation orders of their plain versions, each output (which the
      plain versions without their roundings must fail), each element within
@@ -328,9 +332,9 @@ KERNELS = {
                         "vanerf_tpu/ops/interp_mxu.py:92"),
     "row_gather_bf16": ("vanerf_tpu_torch/csrc/row_gather.cu",
                         "vanerf_tpu/ops/interp_mxu.py:205"),
-    "fused_query_mlp_bf16": ("vanerf_tpu_torch/csrc/fused_mlp.cu",
+    "fused_query_mlp_bf16": ("vanerf_tpu_torch/csrc/fused_mlp_bf16.cu",
                              "vanerf_tpu/ops/fused_mlp.py:365"),
-    "fused_geo_mlp_bf16": ("vanerf_tpu_torch/csrc/fused_mlp.cu",
+    "fused_geo_mlp_bf16": ("vanerf_tpu_torch/csrc/fused_mlp_bf16.cu",
                            "vanerf_tpu/ops/fused_mlp.py:431"),
     # (bfloat16 training; phases 2b, 5d)
     "onehot_scatter_bf16": ("vanerf_tpu_torch/csrc/onehot_scatter.cu",
@@ -576,13 +580,16 @@ def ptxas_summary(rep: dict) -> dict:
 
 
 def fused_ptxas(log: str, entry: str, bf16: bool) -> dict:
-    """``ptxas_report`` of a fused kernel's entry function and its layer
-    functions (fm_layer_t, fm_layer0_t), of the float32 or the bfloat16
-    instantiation (template argument BF: ``Lb0E`` / ``Lb1E`` in the
-    mangled names)."""
-    tag = "Lb1E" if bf16 else "Lb0E"
+    """``ptxas_report`` of a fused kernel's entry function and the
+    functions it calls: the float32 body's layer functions (fm_layer_t,
+    fm_layer0_t; its instantiation BF = false, ``Lb0E`` in the mangled
+    names), or the bfloat16 body's (csrc/fused_mlp_bf16.cu:
+    ``fw_query_kernel`` / ``fw_geo_kernel`` and the activations' plain
+    fallbacks)."""
+    if bf16:
+        return {**ptxas_report(log, entry), **ptxas_report(log, "_acc")}
     rep = {**ptxas_report(log, entry), **ptxas_report(log, "fm_layer")}
-    return {k: v for k, v in rep.items() if tag in k}
+    return {k: v for k, v in rep.items() if "Lb0E" in k}
 
 
 def ptxas_text(summary: dict):
@@ -1879,6 +1886,8 @@ def phase_kernels_bf16(model16, batch, dev):
     main path gives them, each against its plain version: D and 10 bit for
     bit; 11 and 12 within FUSED_BF16_SPREAD_X times the spread between two
     summation orders of the plain version, on every output."""
+    import ctypes
+
     import torch
     from vanerf_tpu_torch.ops import _cuda, fused_mlp, interp_mxu, knn
     bf = torch.bfloat16
@@ -1923,6 +1932,22 @@ def phase_kernels_bf16(model16, batch, dev):
         library_ms=cuda_ms(lambda: table.index_select(0, ridx), 20),
         library_device_ms=graph_ms(lambda: table.index_select(0, ridx)),
         **least_time(nbytes(table, ridx, got), 0))
+
+    # --- 11 / 12's softplus and sigmoid on every bfloat16 input ---
+    acts = {}
+    for act_name, act in (("softplus", fused_mlp.ACT_SOFTPLUS),
+                          ("sigmoid", fused_mlp.ACT_SIGMOID)):
+        got = fused_mlp.act_bf16_all_cuda(act, dev)
+        want = fused_mlp.act_bf16_all_plain(act, dev)
+        torch.cuda.synchronize()
+        nan = torch.isnan(got.float()) & torch.isnan(want.float())
+        differ = int((~((got.view(torch.int16) == want.view(torch.int16))
+                        | nan)).sum())
+        check(differ == 0, f"bfloat16 {act_name}: {differ} of the 65,536 "
+              "inputs differ from the plain version")
+        acts[act_name] = dict(inputs=got.numel(), differ=differ,
+                              nan=int(nan.sum()))
+    results["fused_act_bf16"] = acts
 
     n_pts, n_kpt = pts.shape[0], batch["kpt3d"].shape[1]
     pe_ops = 35 * n_kpt
@@ -1988,8 +2013,13 @@ def phase_kernels_bf16(model16, batch, dev):
         lt = least_time(nbytes(*data, *flat, *got),
                         n_pts * (2 * macs + pe_ops))
         bytes_ms = lt["bound_bytes"] / HBM_BYTES_PER_S * 1e3
-        entry = ("fused_query_kernel" if packs == 2 else "fused_geo_kernel")
+        entry = "fw_query_kernel" if packs == 2 else "fw_geo_kernel"
+        occ = (ctypes.c_int * 3)()
+        _cuda.check(_cuda.lib().vt_fused_mlp_bf16_occupancy(
+            int(packs == 2), n_kpt, occ), "vt_fused_mlp_bf16_occupancy")
+        check(occ[1] >= 1, f"{name}: no block fits an SM")
         results[name] = dict(
+            smem_bytes=occ[0], blocks_per_sm=occ[1], threads=occ[2],
             shape=f"{n_pts} points, {n_kpt} keypoints, bfloat16 packs "
                   + " ".join(str(t.shape[1]) for t in data[2:])
                   + f", {macs} multiply-adds a point",
@@ -4738,8 +4768,16 @@ def main() -> int:
         f"(CUDA graph), index_select {r['library_ms']:.4f} / "
         f"{r['library_device_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
         f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
+    for act_name, a in kres16["fused_act_bf16"].items():
+        say(f"phase 2b fused MLP bfloat16 {act_name}: the kernels' device "
+            f"function on all {a['inputs']} bfloat16 inputs equal to the "
+            f"plain version's rounded result, bit for bit ({a['differ']} "
+            f"differ; {a['nan']} NaN on both sides)")
     for name in ("fused_geo_mlp_bf16", "fused_query_mlp_bf16"):
         r = kres16[name]
+        say(f"phase 2b {name}: {r['threads']} threads a block, "
+            f"{r['smem_bytes']} bytes of shared memory, {r['blocks_per_sm']} "
+            f"block(s) an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
         say(f"phase 2b {name}: {r['shape']}: max abs err per output "
             f"{['%.3g' % e for e in r['errors']]} against the plain version, "
             f"RMS {r['of_spread_rms']:.3g} x the RMS spread between two "
@@ -4754,8 +4792,8 @@ def main() -> int:
             f"{r['device_ms']:.3f} ms on the device (CUDA graph), plain "
             f"{r['plain_ms']:.3f} ms; bound {r['bound_ms']:.3f} ms by "
             f"{r['bound_by']} (bf16 tensor cores + the CUDA cores' f32 "
-            f"work); ptxas (the kernel and the layer functions, largest) "
-            f"{ptxas_text(r['ptxas'])}")
+            f"work); ptxas (the kernel and the activations' fallbacks, "
+            f"largest) {ptxas_text(r['ptxas'])}")
 
     # ---- phase 3 ----
     with torch.no_grad():

@@ -259,13 +259,14 @@ def test_prepared_bf16_weights_match_jax():
 
 
 def _schedule_bf16(full: bool, K: int, L: int, dims) -> tuple:
-    """csrc/fused_mlp.cu::fm_schedule<true> written out again: the n-tile
-    count of each 16-row k-tile, in the consumers' order."""
+    """csrc/fused_mlp_bf16.cu::fm_schedule written out again for the bfloat16
+    body: the n8 tiles (ceil(M / 8)) of each 16-row k-tile, in the
+    consumers' order."""
     d1, d2, d3, e1, e2, lat = dims
     items = []
 
     def push(rows, m):
-        items.extend([tf._ntiles(m)] * -(-rows // 16))
+        items.extend([-(-m // 8)] * -(-rows // 16))
 
     def gate_fuse(kin, hg, ng, hf, nout):
         push(kin, hg), push(hg, ng), push(kin, hf), push(hf, nout)
@@ -285,12 +286,31 @@ def _schedule_bf16(full: bool, K: int, L: int, dims) -> tuple:
     return tuple(items)
 
 
+def _descriptor_offsets() -> tuple:
+    """(leading, stride) byte offsets of the B descriptor, read from
+    csrc/fused_mlp_bf16.cu::fw_desc: ``(LBO >> 4) << 16`` and
+    ``(SBO >> 4) << 32``."""
+    import pathlib
+    import re
+    src = (pathlib.Path(tf.__file__).resolve().parent.parent / "csrc"
+           / "fused_mlp_bf16.cu").read_text()
+    body = src[src.index("fw_desc(const void* p)"):]
+    body = body[:body.index("}")]
+    lbo = re.search(r"\((\d+) >> 4\) << 16", body)
+    sbo = re.search(r"\((\d+) >> 4\) << 32", body)
+    return int(lbo.group(1)), int(sbo.group(1))
+
+
 @pytest.mark.parametrize("kernel", ["geo", "query"])
 def test_packed_bf16_weights_are_m16n8k16_fragments(kernel):
-    """The bfloat16 stream: every weight once at its fragment position
-    (lane 4 g + t holds rows 2t, 2t + 1, 2t + 8, 2t + 9 of column g of a
-    16-row k-tile), the padding zero, the k-tiles in fm_schedule<true>'s
-    order, 128 values a (k-tile, n-tile)."""
+    """The bfloat16 stream as the wgmma descriptor reads it: k-step a of
+    an N-wide layer is N / 8 groups of two K-major core matrices (8
+    columns x 8 rows, a column's rows in 16 contiguous bytes); column 8 j
+    + n, row 16 a + 8 h + k sits at byte SBO j + LBO h + 16 n + 2 k of the
+    k-step, LBO / SBO those of ``fw_desc``.  Each weight once at that
+    address, the padding zero, the k-tiles in fm_schedule's order, 128
+    values a (k-tile, n8 tile).  (The name is the m16n8k16 layout's, which
+    this one replaced.)"""
     from vanerf_tpu_torch.config import default_cfg
     from vanerf_tpu_torch.models import VANeRF, init_like_flax
     model = VANeRF.from_config(default_cfg(), num_v=642, image_hw=(256, 256))
@@ -304,23 +324,34 @@ def test_packed_bf16_weights_are_m16n8k16_fragments(kernel):
             w = tf.prepare_query_weights(model, cdt=BF)
             layers, _, dims = tf._query_layers(w, 42, 3)
             packed = tf.pack_query_weights(w, 42, 3)
+    assert tuple(dims) == tf.BF16_DIMS
     stream, items = tf._pack(layers)
     assert stream.dtype == BF and torch.equal(stream, packed.w)
     assert packed.b.dtype == torch.float32
     assert items == _schedule_bf16(kernel == "query", 42, 3, dims)
     assert stream.numel() == 128 * sum(items)
-    off = 0
+    lbo, sbo = _descriptor_offsets()
+    assert (lbo, sbo) == (128, 256)
+    flat = stream.view(torch.int16).numpy()
+    off = 0                                      # in bfloat16 values
     for parts, M in layers:
-        nt = tf._ntiles(M)
+        nt = -(-M // 8)
         for part in parts:
             kt = -(-part.shape[0] // 16)
-            blk = stream[off:off + kt * nt * 128].reshape(kt, nt, 8, 4, 2, 2)
+            want = np.zeros((16 * kt, 8 * nt), np.int16)
+            want[:part.shape[0], :M] = part.view(torch.int16).numpy()
+            a, h, k, j, n = np.meshgrid(np.arange(kt), np.arange(2),
+                                        np.arange(8), np.arange(nt),
+                                        np.arange(8), indexing="ij")
+            byte = a * 32 * 8 * nt + sbo * j + lbo * h + 16 * n + 2 * k
+            got = np.zeros_like(want)
+            got[16 * a + 8 * h + k, 8 * j + n] = flat[off + byte // 2]
+            np.testing.assert_array_equal(got, want)
+            # every value of the part's k-steps is read exactly once
+            hits = np.bincount(byte.reshape(-1) // 2,
+                               minlength=kt * nt * 128)
+            assert hits.shape[0] == kt * nt * 128 and (hits == 1).all()
             off += kt * nt * 128
-            # [a, b, g, t, h, j] -> row 16 a + 8 h + 2 t + j, column 8 b + g
-            got = blk.permute(0, 4, 3, 5, 1, 2).reshape(16 * kt, 8 * nt)
-            want = torch.zeros(16 * kt, 8 * nt, dtype=BF)
-            want[:part.shape[0], :M] = part
-            assert torch.equal(got, want)
     assert off == stream.numel()
 
 
@@ -714,6 +745,23 @@ def test_fused_bf16_kernels_match_plain(kernel, cuda):
         want, want_f32 = run(plain, BF), run(plain, torch.float32)
     for a, b, c in zip(got, want, want_f32):
         within_spread(a.cpu(), b.cpu(), c.cpu(), 0.0, 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["softplus", "sigmoid"])
+def test_fused_bf16_activations_exact_on_every_input(act, cuda):
+    """Kernels 11 / 12's bfloat16 softplus and sigmoid (their fast forms
+    and the fallback to the plain formula) equal the plain version's
+    rounded result on all 65,536 bfloat16 inputs, bit for bit (NaN where
+    it is NaN)."""
+    a = tf.ACT_SOFTPLUS if act == "softplus" else tf.ACT_SIGMOID
+    got = tf.act_bf16_all_cuda(a, cuda)
+    want = tf.act_bf16_all_plain(a, cuda)
+    torch.cuda.synchronize()
+    nan = torch.isnan(got.float()) & torch.isnan(want.float())
+    same = got.view(torch.int16) == want.view(torch.int16)
+    assert (same | nan).all(), int((~(same | nan)).sum())
+    assert int(nan.sum()) == 2 * 127
 
 
 @pytest.mark.cuda

@@ -9,7 +9,8 @@ exact query over every face, in ray and solid-angle mode), 9
 (``knn.nearest_vertex_d2_culled`` and ``_T_culled``, on the main path's
 ray-major order and with points and vertices in Morton order, beside B on
 the Morton-ordered inputs), 11 (``fused_mlp.fused_query_mlp_cuda``), 12
-(``fused_mlp.fused_geo_mlp_cuda``) and 13
+(``fused_mlp.fused_geo_mlp_cuda``), both also in bfloat16 (``11bf16``,
+``12bf16``) and 13
 (``onehot_gather.onehot_scatter_cuda``) at the main path's shapes.
 
     python3 tools_torch/kernel_ab.py --base DIR [--rounds 4] [--kernels A B]
@@ -25,7 +26,8 @@ and B and 9, the frame's uncentred faces and corner visibility for 5 and 6
 outside the timing), the source view's 256^2 raster of the mesh for C,
 the two maps D samples at the patch's projected points, the arguments and
 weights the model's level-2 / level-1 branches hand kernels 11 / 12 for
-the patch, and the row ids of 13's four tables (the cases the kernels line
+the patch (in bfloat16 those of the same weights' bfloat16 model, made as
+``chip_smoke.py`` phase 2b makes it), and the row ids of 13's four tables (the cases the kernels line
 sums).  One
 worker process per checkout (``DIR`` and this one) builds its own kernels,
 prepares the mesh with its own ``prepare_culled_mesh``, packs 11 / 12's
@@ -38,9 +40,11 @@ same seed.  The workers
 are asked in turns, base, this, this, base per round; only one runs at a
 time.  With ``--profile`` each worker then reports the device time of
 every CUDA kernel each case launches (torch.profiler over 5 calls).
-Prints every reading and, as the last line, a JSON object with the
-readings, profiles, and the median, minimum and maximum per checkout and
-case.
+Each worker also hashes each case's outputs once, and the script says per
+case whether the two checkouts' outputs are equal to the bit.  Prints
+every reading and, as the last line, a JSON object with the readings,
+profiles, that equality, and the median, minimum and maximum per checkout
+and case.
 """
 
 from __future__ import annotations
@@ -94,13 +98,17 @@ def make_inputs() -> None:
              if main]
         tri = rasterize._packed_faces(xy, vh[:, 2], batch["faces"])
         fin = cs.fused_main_path_inputs(model, batch, grids)
+        fin16 = cs.fused_main_path_inputs(
+            cs.bf16_model(model, default_cfg(), num_v), batch, grids)
 
     fused = {}
-    for name, n_data in (("fused_query_mlp", 4), ("fused_geo_mlp", 3)):
-        a, k = fin[name]
-        k = {key: v for key, v in k.items() if key != "packed"}
-        fused[name] = (_to([t.contiguous() for t in a[:n_data]], "cpu"),
-                       _to(a[n_data], "cpu"), k)
+    for sfx, got in (("", fin), ("_bf16", fin16)):
+        for name, n_data in (("fused_query_mlp", 4), ("fused_geo_mlp", 3)):
+            a, k = got[name]
+            k = {key: v for key, v in k.items() if key != "packed"}
+            fused[name + sfx] = (
+                _to([t.contiguous() for t in a[:n_data]], "cpu"),
+                _to(a[n_data], "cpu"), k)
     os.makedirs(os.path.dirname(INPUTS), exist_ok=True)
     torch.save({"interp": [(t, f.cpu(), u.cpu()) for t, f, u in d],
                 "scatter": [(t, r.cpu(), n, c) for t, r, n, c in s],
@@ -197,8 +205,12 @@ def worker(repo: str, kernels) -> None:
             ("11", "fused_query_mlp", fused_mlp.pack_query_weights,
              fused_mlp.fused_query_mlp_cuda),
             ("12", "fused_geo_mlp", fused_mlp.pack_geo_weights,
+             fused_mlp.fused_geo_mlp_cuda),
+            ("11 bf16", "fused_query_mlp_bf16", fused_mlp.pack_query_weights,
+             fused_mlp.fused_query_mlp_cuda),
+            ("12 bf16", "fused_geo_mlp_bf16", fused_mlp.pack_geo_weights,
              fused_mlp.fused_geo_mlp_cuda)):
-        if tag in kernels:
+        if tag.replace(" ", "") in kernels:
             args, wts, kw = data["fused"][name]
             args = [t.to(dev) for t in args]
             wts = _to(wts, dev)
@@ -247,7 +259,10 @@ def worker(repo: str, kernels) -> None:
         return res
 
     one()
-    print("ready", flush=True)
+    # a digest of each case's outputs, to tell whether the checkouts'
+    # results are equal to the bit
+    print("ready " + json.dumps({tag: _digest(fn()) for tag, fn in cases}),
+          flush=True)
     for line in sys.stdin:
         cmd = line.strip()
         if cmd == "go":
@@ -256,6 +271,26 @@ def worker(repo: str, kernels) -> None:
             print(json.dumps(profile()), flush=True)
         else:
             break
+
+
+def _digest(out) -> str:
+    """sha256 of the bytes of every tensor in a nest of outputs."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+
+    def walk(x):
+        if torch.is_tensor(x):
+            h.update(x.detach().contiguous().view(torch.uint8).cpu()
+                     .numpy().tobytes())
+        elif isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k])
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+    walk(out)
+    return h.hexdigest()
 
 
 def summary(xs):
@@ -271,12 +306,10 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also print each case's kernels' device time "
                          "(torch.profiler) in both checkouts")
-    ap.add_argument("--kernels", nargs="+",
-                    default=["A", "B", "C", "D", "5", "6", "9", "10", "11",
-                             "12", "13"],
-                    choices=["A", "B", "C", "D", "5", "6", "9", "10", "11",
-                             "12", "13"],
-                    help="the kernels to time (default: all eleven)")
+    names = ["A", "B", "C", "D", "5", "6", "9", "10", "11", "12", "11bf16",
+             "12bf16", "13"]
+    ap.add_argument("--kernels", nargs="+", default=names, choices=names,
+                    help="the kernels to time (default: all thirteen)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
@@ -284,7 +317,7 @@ def main() -> int:
         return 0
     make_inputs()
     repos = {"base": os.path.abspath(args.base), "this": THIS_REPO}
-    procs = {}
+    procs, digests = {}, {}
     try:
         for tag, repo in repos.items():
             p = subprocess.Popen([sys.executable, os.path.abspath(__file__),
@@ -292,8 +325,14 @@ def main() -> int:
                                   *args.kernels], stdin=subprocess.PIPE,
                                  stdout=subprocess.PIPE, text=True)
             procs[tag] = p
-            if p.stdout.readline().strip() != "ready":
+            line = p.stdout.readline()
+            if not line.startswith("ready "):
                 raise RuntimeError(f"{tag} worker failed to start")
+            digests[tag] = json.loads(line[len("ready "):])
+        bit_equal = {case: digests["base"][case] == digests["this"][case]
+                     for case in digests["this"]}
+        print("outputs equal to the bit: " + ", ".join(
+            f"{case} {eq}" for case, eq in bit_equal.items()), flush=True)
         readings = {tag: [] for tag in repos}
         for r in range(args.rounds):
             for tag in ("base", "this", "this", "base"):
@@ -322,7 +361,8 @@ def main() -> int:
             if p.poll() is None:
                 p.stdin.close()
                 p.wait(timeout=120)
-    out = {"repos": repos, "readings": readings, "profiles": profiles}
+    out = {"repos": repos, "readings": readings, "profiles": profiles,
+           "bit_equal": bit_equal}
     for tag, rs in readings.items():
         out[tag] = {k: summary([x[k] for x in rs]) for k in rs[0]}
     print(json.dumps(out), flush=True)

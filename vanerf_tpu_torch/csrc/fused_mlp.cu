@@ -78,36 +78,11 @@
 // encoding rows come keypoint-major (row j * P + part), a chunk of
 // FM_PE_ROWS / P keypoints a part.  Biases unpadded, apart.
 //
-// The bfloat16 body (vt_fused_geo_mlp_bf16, vt_fused_query_mlp_bf16; the
-// JAX kernels with cdt = bfloat16): the same kernels instantiated with
-// BF = true.  The packs (aux / feats, g2), the weight stream and the
-// latent are bfloat16; the points, keypoints, biases and `out` float32.
-// Every layer product is one mma.sync m16n8k16 with bfloat16 operands and
-// f32 accumulation, a k-tile 16 input rows (the stream's tile: 32 lanes x
-// {b0, b1} of two bfloat16 each, 256 bytes, one 8-byte load a lane); the
-// 3xTF32 split is not needed.  The k-tiles sum on the tensor cores: their
-// f32 accumulation is not round-to-nearest, but each layer's sum is then
-// rounded to bfloat16, whose unit (2^-8 relative) is 2^16 times f32's, so
-// that rounding decides the result (chip_smoke.py holds the kernel to twice
-// the spread between two summation orders of the plain version).  Values
-// are rounded to bfloat16 once a layer, where the JAX kernel rounds
-// (ops/fused_mlp.py::_geo_mlp / _gate_fuse write them out): the encoding
-// (f32 math, rounded), each layer's sum with its bias, the activation's
-// result (softplus and the sigmoid in f32 on the rounded sum; relu is
-// exact), the gate scaling, the pooled mean and variance (f32 on the
-// rounded x_view); `out`'s sdf residual and radiance are f32 sums, not
-// rounded.  Between the roundings the kernel does the plain version's
-// arithmetic on the card (the encoding's 1 / (2 sigma^2) a product and
-// softplus as logaddexp, as the plain version and XLA's compiled JAX kernel
-// compute them), so that only the layer sums' order can move a rounding.
-// The activation rows (arena and hidden state) are bfloat16 in shared
-// memory, [channel][point] as in the f32 body (a row 272 bytes,
-// 68 words = 4 mod 32: an A fragment's eight 2-byte loads hit 32 banks);
-// the per-point scalars, gates and outputs stay f32 rows.  That is 137 KB
-// of shared memory against the f32 body's 225 KB, still one block an SM:
-// two would need at most 113 KB and 113 registers a thread each.  The
-// inputs come by plain 2-byte loads (cp.async copies 4 bytes at the
-// least).
+// The BF = true branches are the earlier bfloat16 body (one mma.sync
+// m16n8k16 a k-tile), no longer exported: kernels 11 / 12 in bfloat16 are
+// csrc/fused_mlp_bf16.cu (a wgmma body).
+// They stay so that the float32 kernels compile from the source they were
+// measured from; taking them out changed the float32 kernels' code.
 
 #include <type_traits>
 
@@ -1103,27 +1078,4 @@ VT_EXPORT int vt_fused_query_mlp(const float* cxyz, const float* kpt_T,
                                  float* out, void* stream) {
   return fm_run_query<false>(cxyz, kpt_T, feats, g2, w, w_floats, b, N, K, L,
                              scale, inv_two_sig2, dims, out, stream);
-}
-
-// The bfloat16 bodies: aux / feats, g2, the stream (w_elems bfloat16
-// values, 16-byte aligned) and lat bfloat16; the rest as above.
-VT_EXPORT int vt_fused_geo_mlp_bf16(const float* cxyz, const float* kpt_T,
-                                    const void* aux, const void* w,
-                                    long long w_elems, const float* b, int N,
-                                    int K, int L, float scale, float inv_two_sig2,
-                                    const int* dims, float* out, void* lat,
-                                    void* stream) {
-  return fm_run_geo<true>(cxyz, kpt_T, aux, w, w_elems, b, N, K, L, scale,
-                          inv_two_sig2, dims, out, lat, stream);
-}
-
-VT_EXPORT int vt_fused_query_mlp_bf16(const float* cxyz, const float* kpt_T,
-                                      const void* feats, const void* g2,
-                                      const void* w, long long w_elems,
-                                      const float* b, int N, int K, int L,
-                                      float scale, float inv_two_sig2,
-                                      const int* dims, float* out,
-                                      void* stream) {
-  return fm_run_query<true>(cxyz, kpt_T, feats, g2, w, w_elems, b, N, K, L,
-                            scale, inv_two_sig2, dims, out, stream);
 }

@@ -1,6 +1,6 @@
 // One-dimensional bulk copies (TMA) into shared memory, completing on
 // mbarriers: the helpers kernels A / 7 (mesh_query.cu) and 11 / 12
-// (fused_mlp.cu) stage their tables with.
+// (fused_mlp.cu, fused_mlp_bf16.cu) stage their tables with.
 #pragma once
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {

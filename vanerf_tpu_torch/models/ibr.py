@@ -3,7 +3,8 @@ reference ``IBRRenderingHead``, ``src/model.py:1572-1636``).
 
 Every layer computes in ``rgb_feats``' dtype
 (``vanerf_tpu/models/ibr.py:39-79``); the anisotropy weights and the
-softmax blend run in float32 and are cast back, as in the JAX package.  In
+softmax blend run in float32 and are cast back, as in the JAX package (in
+float64 where the model runs in it: float32 at the least).  In
 bfloat16 a layer rounds its product and then its sum with the bias, as
 flax's ``Dense(dtype=bfloat16)`` does (``models/mlp.py::dense``).  The
 model blends two or more source views with it; at one view the blend is
@@ -42,6 +43,7 @@ class IBRRenderingHead(nn.Module):
         proj_mask (R, S, V, 1).  Returns the (R, S, 3) blended colour."""
         V = rgb_feats.shape[2]
         dt = rgb_feats.dtype
+        wide = torch.promote_types(dt, torch.float32)
         ray_diffs, proj_mask = ray_diffs.to(dt), proj_mask.to(dt)
         dir_feat = run_seq(self.ray_encoder, ray_diffs)
         ch = dir_feat.shape[-1]
@@ -49,8 +51,8 @@ class IBRRenderingHead(nn.Module):
         rgb_feats = torch.cat([rgb_feats[..., :ch] + dir_feat,
                                rgb_feats[..., ch:]], -1)
         exp_dot = torch.exp(self.ani_al.abs()
-                            * (ray_diffs[..., 3:4].float() - 1.0))
-        weight = (exp_dot - exp_dot.amin(2, keepdim=True)) * proj_mask.float()
+                            * (ray_diffs[..., 3:4].to(wide) - 1.0))
+        weight = (exp_dot - exp_dot.amin(2, keepdim=True)) * proj_mask.to(wide)
         weight = (weight / (weight.sum(2, keepdim=True) + 1e-8)).to(dt)
         mean = (rgb_feats * weight).sum(2, keepdim=True)
         var = (weight * (rgb_feats - mean) ** 2).sum(2, keepdim=True)
@@ -64,7 +66,7 @@ class IBRRenderingHead(nn.Module):
                       x * sigmoid(vis) * proj_mask) * proj_mask
         o = run_seq(self.out_layer, torch.cat([x, vis, ray_diffs], -1))
         # the blend in float32: masked -1e4 logits underflow in bfloat16
-        o = torch.where(proj_mask == 0, torch.full_like(o.float(), -1e4),
-                        o.float())
+        o = torch.where(proj_mask == 0, torch.full_like(o.to(wide), -1e4),
+                        o.to(wide))
         blend = F.softmax(o, dim=2).to(dt)
         return (src_rgb * blend).sum(2)

@@ -72,6 +72,10 @@ _SIGNATURES = {
 _SIGNATURES.update({name + "_bf16": _SIGNATURES[name] for name in (
     "vt_interp", "vt_row_gather", "vt_fused_geo_mlp", "vt_fused_query_mlp",
     "vt_onehot_scatter")})
+# kernels 11 / 12's bfloat16 activations on every input, and their
+# occupancy (shared bytes, blocks an SM, threads) at K keypoints
+_SIGNATURES.update({"vt_fm_act_bf16_all": [_I, _P, _P],
+                    "vt_fused_mlp_bf16_occupancy": [_I, _I, _IP]})
 
 _lib = None
 _lock = threading.Lock()

@@ -49,8 +49,9 @@ ops, so those gradients reach ``weight_v`` / ``weight_g``.
 kernels read them: one stream of the layer products' weights in the order
 the kernel runs them, each split into TF32 hi / lo parts (the kernels
 multiply in 3xTF32 on the tensor cores, within the plain versions'
-rtol 2e-4 / atol 2e-5), or in bfloat16 as the fragments of ``mma.sync``
-m16n8k16 (one product a layer on the tensor cores); a caller that
+rtol 2e-4 / atol 2e-5), or in bfloat16 as the core matrices that
+``wgmma`` reads B from (``csrc/fused_mlp_bf16.cu``: one product a layer
+on the tensor cores); a caller that
 launches many passes on one set of weights (``models/vanerf.py`` at
 inference) packs once and hands the buffers to every pass.
 """
@@ -89,6 +90,12 @@ _TEX_SPLITS = (11, 11, 11, 18, 18, 24, 3)
 _MAX_WIDTH = 128
 _MAX_LAT = 96
 _PE_ROWS = 120
+
+# csrc/fused_mlp_bf16.cu: the widths (d1, d2, d3, e1, e2, latent) its
+# register chains are built for (configs/vanerf.json)
+BF16_DIMS = (128, 128, 120, 64, 64, 24)
+# its activations by number (FW_SOFTPLUS, FW_SIGMOID)
+ACT_SOFTPLUS, ACT_SIGMOID = 1, 3
 
 geo_launches = 0
 query_launches = 0
@@ -370,28 +377,32 @@ def tf32_split(x: torch.Tensor):
     return hi, tf32_round(x.float() - hi)
 
 
-def _ntiles(m: int) -> int:
-    """csrc/fused_mlp.cu::fm_ntiles: the n8 tiles an m-wide layer takes
-    (ceil(m / 8), rounded up to a count the kernel is built for)."""
+def _ntiles(m: int, dtype=torch.float32) -> int:
+    """The n8 tiles an m-wide layer takes in the stream: ceil(m / 8) in
+    bfloat16 (csrc/fused_mlp_bf16.cu::fm_push), in float32 rounded up to a
+    count the float32 body is built for (csrc/fused_mlp.cu::fm_ntiles)."""
     n = -(-m // 8)
+    if dtype == torch.bfloat16:
+        return n
     return n if n <= 4 else (8 if n <= 8 else (12 if n <= 12 else 16))
 
 
 def _fragments(part: torch.Tensor, nt: int) -> torch.Tensor:
-    """One part (K, M) of a layer's weight as the kernel's B fragments,
-    laid out (k-tile, n-tile, lane, 4) with lane = 4 g + t.  float32: rows
-    zero-padded to 8 ceil(K / 8), columns to 8 nt, split into TF32 hi and
-    lo, the lane holding {hi, hi, lo, lo} of rows t and t + 4 of column g
-    (mma m16n8k8).  bfloat16: rows padded to 16 ceil(K / 16), the lane
-    holding rows 2t, 2t + 1, 2t + 8, 2t + 9 of column g (mma m16n8k16: two
-    registers of two bfloat16 each, the lower row in the low half)."""
+    """One part (K, M) of a layer's weight as the kernel reads B, (k-tile,
+    n-tile, 128).  float32: rows zero-padded to 8 ceil(K / 8), columns to
+    8 nt, split into TF32 hi and lo, lane 4 g + t holding {hi, hi, lo, lo}
+    of rows t and t + 4 of column g (mma m16n8k8).  bfloat16: rows padded
+    to 16 ceil(K / 16), columns to 8 nt; a k-tile's n8 group j is two
+    K-major core matrices of 8 columns x 8 rows (128 bytes, the rows of a
+    column contiguous), rows 0-7 then 8-15 (the wgmma descriptor of
+    csrc/fused_mlp_bf16.cu: leading byte offset 128, stride 256)."""
     K, M = part.shape
     if part.dtype == torch.bfloat16:
         kt = -(-K // 16)
         w = F.pad(part.detach(), (0, 8 * nt - M, 0, 16 * kt - K))
-        # x[16 a + 8 h + 2 t + j, 8 b + g] -> [a, b, g, t, h, j]
-        return (w.reshape(kt, 2, 4, 2, nt, 8).permute(0, 4, 5, 2, 1, 3)
-                .reshape(kt, nt, 32, 4))
+        # x[16 a + 8 h + k, 8 j + n] -> [a, j, h, n, k]
+        return (w.reshape(kt, 2, 8, nt, 8).permute(0, 3, 1, 4, 2)
+                .reshape(kt, nt, 128))
     kt = -(-K // 8)
     w = F.pad(part.float(), (0, 8 * nt - M, 0, 8 * kt - K))
 
@@ -408,7 +419,7 @@ def _pack(layers):
     the parts of its virtual concat in order (each padded on its own)."""
     blocks, items = [], []
     for parts, M in layers:
-        nt = _ntiles(M)
+        nt = _ntiles(M, parts[0].dtype)
         for p in parts:
             f = _fragments(p, nt)
             blocks.append(f.reshape(-1))
@@ -529,7 +540,8 @@ def _check_points(cxyz, kpt_T, packs):
 
 def _check_packed(packed: PackedWeights, cdt, device) -> None:
     """The stream is read by 16-byte bulk copies, in the activations'
-    dtype; the kernel checks its size against the layers it runs."""
+    dtype; the kernel checks its size against the layers it runs, and the
+    bfloat16 body refuses widths other than BF16_DIMS."""
     _cuda.require(packed.w, "packed.w", cdt, device=device)
     _cuda.require(packed.b, "packed.b", torch.float32, device=device)
     if packed.w.data_ptr() % 16:
@@ -587,6 +599,31 @@ def fused_query_mlp_cuda(cxyz, kpt_T, feats, g2, packed: PackedWeights, *,
     else:
         query_launches += 1
     return out
+
+
+def act_bf16_all_cuda(act: int, device) -> torch.Tensor:
+    """The bfloat16 kernels' softplus (``ACT_SOFTPLUS``) or sigmoid
+    (``ACT_SIGMOID``) on every bfloat16 input: (65,536,) bfloat16, entry
+    i the result for the input whose bits are i (the device function the
+    kernels' epilogues call, ``vt_fm_act_bf16_all``)."""
+    out = torch.empty(1 << 16, dtype=torch.bfloat16, device=device)
+    rc = _cuda.lib().vt_fm_act_bf16_all(act, out.data_ptr(),
+                                        _cuda.stream_ptr(out.device))
+    _cuda.check(rc, "vt_fm_act_bf16_all")
+    return out
+
+
+def act_bf16_all_plain(act: int, device) -> torch.Tensor:
+    """The plain version's rounded softplus / sigmoid of every bfloat16
+    input, as :func:`act_bf16_all_cuda` orders them."""
+    x = (torch.arange(1 << 16, dtype=torch.int32, device=device)
+         .to(torch.int16).view(torch.bfloat16).float())
+    q = _rounder(torch.bfloat16)
+    if act == ACT_SOFTPLUS:
+        return _softplus100(q(x)).to(torch.bfloat16)
+    if act == ACT_SIGMOID:
+        return torch.sigmoid(q(x)).to(torch.bfloat16)
+    raise ValueError(f"activation {act}: ACT_SOFTPLUS or ACT_SIGMOID")
 
 
 # ---------------------------------------------------------------------------
