@@ -8,9 +8,10 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU:
 Phases, each printing what it found; any failed check raises and the
 script exits non-zero (there is no CPU fallback):
 
-  1. build (or reuse) the nineteen CUDA kernel entry points from
-     ``vanerf_tpu_torch/csrc`` (the fourteen float32 ones and the bfloat16
-     forms of D, 10, 11, 12 and 13);
+  1. build (or reuse) the twenty-one CUDA kernel entry points from
+     ``vanerf_tpu_torch/csrc`` (the fourteen float32 ones, the bfloat16
+     forms of D, 10, 11, 12 and 13, and 11 / 12's bfloat16 body for other
+     widths);
   2. each kernel against its plain-PyTorch twin on the card, at the shapes
      the main path gives it (a 64x64-ray patch x 64 samples = 262,144
      points, the 256^2 subdiv=3 two-hand fixture: 2,560 faces, 1,284
@@ -244,14 +245,37 @@ script exits non-zero (there is no CPU fallback):
      the bit, as in 5f; 9d the entry point on a two-view config written
      under ``build/`` (one epoch of ``fit`` with ``val_fn``, then
      ``--run_val`` on its checkpoint), every query at two views, the
-     report finite.
+     report finite;
+  10. the offline preprocessor and the config variants: 10a
+     ``dataset_process.render_view`` (kernel C at InterHand2.6M's raw
+     512x334, the two synthetic MANO hands, the raw fixture's four
+     cameras) on the card equal to the bit to the CPU port's (mask,
+     densepose, bbox, the crop's intrinsics), one launch of C a view, ms a
+     view and C alone beside its work's bound; 10b each of the nine other
+     ``sp_type``s (``mxyz`` / ``rel_mxyz`` with a fixed rigid
+     ``model_T``) and ``VANERF_PE_DIRECT=1``: an 8x8-ray patch at full
+     width on the card against the CPU port's (phase 4's tolerance, ties
+     certified as in phase 8) and the 256^2 frame at ``tile_group`` 16
+     (ms, busy ms, device ops, peak) beside the default frame's; 10c the
+     five other activations, ``[max, mean, var]`` pooling and the texture
+     encoder's group / none norms: the same patch check; 10d
+     ``VANERF_REMAT_QUERY=1`` and ``=2``: 3 faithful GAN steps each, every
+     loss equal to the bit to phase 5's, ms/step and peak; 10e
+     ``VANERF_TWO_RES=1`` on a texture map coarser than the fine geometry
+     map: the frame against the same model's without the switch, ms in
+     turns, kernel 10's launches (the packed table's gather); 10f the
+     bfloat16 frame of a model at other MLP widths under
+     ``VANERF_FUSED_MLP=1`` / ``=2``: the mma.sync body launches, the
+     wgmma body does not.  Phase 2b holds that body at those widths against
+     the plain version as it holds the wgmma body.
 
 A ``details:`` line holds every measured number; the line before the last
 is a JSON object with one entry per kernel (its launches are those of the
 phase that drives it: A-D and 10 phase 3, 13 phase 5, 13 in bfloat16
 phase 5d's bfloat16 steps, 11 the level-2 run
 of phase 3b, 12 the level-1 run, the bfloat16 D and 10 phase 3h's unfused
-bfloat16 frame, 11 / 12 in bfloat16 its level-2 / level-1 frames, 7 and 8 the mode-1 run of phase 3c, 9 the
+bfloat16 frame, 11 / 12 in bfloat16 its level-2 / level-1 frames, their
+mma.sync body phase 10f's, 7 and 8 the mode-1 run of phase 3c, 9 the
 two culled runs of phase 3e, 5 and 6 phase 3d; D and 10 also carry
 ``views_launches`` (a two-view G = 1 frame) and ``views_g16_device_ms`` /
 ``views_g16_bound_ms`` (one launch over 32 element-views), 13
@@ -336,6 +360,12 @@ KERNELS = {
                              "vanerf_tpu/ops/fused_mlp.py:365"),
     "fused_geo_mlp_bf16": ("vanerf_tpu_torch/csrc/fused_mlp_bf16.cu",
                            "vanerf_tpu/ops/fused_mlp.py:431"),
+    # their body for the widths the wgmma body is not built for (the
+    # mma.sync body of csrc/fused_mlp.cu; phases 2b, 10f)
+    "fused_query_mlp_bf16_mma": ("vanerf_tpu_torch/csrc/fused_mlp.cu",
+                                 "vanerf_tpu/ops/fused_mlp.py:365"),
+    "fused_geo_mlp_bf16_mma": ("vanerf_tpu_torch/csrc/fused_mlp.cu",
+                               "vanerf_tpu/ops/fused_mlp.py:431"),
     # (bfloat16 training; phases 2b, 5d)
     "onehot_scatter_bf16": ("vanerf_tpu_torch/csrc/onehot_scatter.cu",
                             "vanerf_tpu/ops/onehot_gather.py:86"),
@@ -441,6 +471,11 @@ BF16_FLOPS_PER_S = 989e12
 # (it rounds where the plain version rounds: the triangle inequality), a
 # guard against a few wrong elements that an RMS would dilute.
 FUSED_BF16_SPREAD_X = 2.0
+# geometry MLP widths other than configs/vanerf.json's (ops/fused_mlp.py::
+# BF16_DIMS): kernels 11 / 12 in bfloat16 take the mma.sync body there
+# (phases 2b and 10f)
+BF16_OTHER_WIDTHS = {"n_dims1": [9, 96, 96, 80, 64],
+                     "n_dims2": [128, 48, 48, 2]}
 # phase 3h: rounds of the bfloat16 frames (each in turns with the float32
 # frame under the same switches), and the card's bfloat16 patch against
 # the CPU port's, all on the CPU's encode and the CPU bfloat16 patch's fine
@@ -579,17 +614,17 @@ def ptxas_summary(rep: dict) -> dict:
                 functions=len(rep))
 
 
-def fused_ptxas(log: str, entry: str, bf16: bool) -> dict:
+def fused_ptxas(log: str, entry: str, bf16: bool, mma: bool = False) -> dict:
     """``ptxas_report`` of a fused kernel's entry function and the
-    functions it calls: the float32 body's layer functions (fm_layer_t,
-    fm_layer0_t; its instantiation BF = false, ``Lb0E`` in the mangled
-    names), or the bfloat16 body's (csrc/fused_mlp_bf16.cu:
-    ``fw_query_kernel`` / ``fw_geo_kernel`` and the activations' plain
-    fallbacks)."""
-    if bf16:
+    functions it calls: csrc/fused_mlp.cu's layer functions (fm_layer_t,
+    fm_layer0_t) in its float32 instantiation (BF = false, ``Lb0E`` in the
+    mangled names) or, with ``mma``, its bfloat16 one (``Lb1E``), or the
+    wgmma body's (csrc/fused_mlp_bf16.cu: ``fw_query_kernel`` /
+    ``fw_geo_kernel`` and the activations' plain fallbacks)."""
+    if bf16 and not mma:
         return {**ptxas_report(log, entry), **ptxas_report(log, "_acc")}
     rep = {**ptxas_report(log, entry), **ptxas_report(log, "fm_layer")}
-    return {k: v for k, v in rep.items() if "Lb0E" in k}
+    return {k: v for k, v in rep.items() if ("Lb1E" if mma else "Lb0E") in k}
 
 
 def ptxas_text(summary: dict):
@@ -723,21 +758,30 @@ def knn_visit_margin(pts, verts, visits, visits_plain) -> float:
     return ((lb - thr).abs() / thr).amin(1).max().item()
 
 
-def mano_hands(dev):
-    """The two synthetic MANO hands, posed and sealed: (1558, 3) on
-    ``dev``."""
+def mano_hands_mesh():
+    """The two synthetic MANO hands, posed and sealed (right, then left):
+    (1558, 3) vertices and their int32 faces, numpy."""
     import numpy as np
-    import torch
     from vanerf_tpu_torch.mano import mano_forward_np, seal_verts_np
     from vanerf_tpu_torch.mano.layer import synthetic_mano_model
     rs = np.random.RandomState(SEED)
-    hands = []
+    hands, faces, off = [], [], 0
     for is_rhand, hand, x in ((True, "right", 0.045), (False, "left", -0.045)):
         model = synthetic_mano_model(is_rhand)
         verts, _ = mano_forward_np(model, rs.randn(10) * 0.5,
                                    rs.randn(48) * 0.3, [x, 0.2 * x, 0.0])
-        hands.append(seal_verts_np(verts, model.faces, hand)[0])
-    return torch.as_tensor(np.concatenate(hands), dtype=torch.float32,
+        v, f = seal_verts_np(verts, model.faces, hand)
+        hands.append(v)
+        faces.append(f + off)
+        off += len(v)
+    return np.concatenate(hands), np.concatenate(faces).astype(np.int32)
+
+
+def mano_hands(dev):
+    """The two synthetic MANO hands, posed and sealed: (1558, 3) on
+    ``dev``."""
+    import torch
+    return torch.as_tensor(mano_hands_mesh()[0], dtype=torch.float32,
                            device=dev).contiguous()
 
 
@@ -1881,15 +1925,42 @@ def interp_cases_bf16(geo_coarse, uv, dev):
              offset_view(wide[:777], 1))]
 
 
-def phase_kernels_bf16(model16, batch, dev):
+def bf16_other_width_model(model16, cfg):
+    """``model16`` at the geometry MLP widths BF16_OTHER_WIDTHS (bfloat16,
+    its weights where the shapes agree, the reshaped layers seeded), as a
+    user builds it: ``VANeRF.from_config`` under
+    ``VANERF_COMPUTE_DTYPE=bfloat16``."""
+    with env(VANERF_COMPUTE_DTYPE="bfloat16"):
+        m = variant_model(model16, variant_cfg(cfg, **{
+            f"mlp_geo_args.{k}": v for k, v in BF16_OTHER_WIDTHS.items()}),
+            SEED + 7)
+    check(m.compute_dtype == "bfloat16", "VANERF_COMPUTE_DTYPE not read")
+    return m
+
+
+def variant_model(model, cfg, seed: int):
+    """The model of ``cfg`` on ``model``'s device in eval mode: ``model``'s
+    weights under every key whose shape agrees (the encoders and whatever
+    the variant leaves alone), the rest initialised from ``seed`` as
+    ``init_like_flax`` does."""
+    import torch
+    from vanerf_tpu_torch.models import VANeRF, init_like_flax
+    m = VANeRF.from_config(cfg, num_v=model.num_v, image_hw=(H, W))
+    init_like_flax(m, torch.Generator().manual_seed(seed))
+    sd, own = model.state_dict(), m.state_dict()
+    m.load_state_dict({k: (sd[k] if k in sd and sd[k].shape == v.shape
+                           else v) for k, v in own.items()})
+    return m.to(next(model.parameters()).device).eval()
+
+
+def phase_kernels_bf16(model16, batch, cfg, dev):
     """Kernels D, 10, 11 and 12 in bfloat16 at the shapes the bfloat16
     main path gives them, each against its plain version: D and 10 bit for
     bit; 11 and 12 within FUSED_BF16_SPREAD_X times the spread between two
-    summation orders of the plain version, on every output."""
-    import ctypes
-
+    summation orders of the plain version, on every output, in the wgmma
+    body at the shipped widths and in the mma.sync body at another."""
     import torch
-    from vanerf_tpu_torch.ops import _cuda, fused_mlp, interp_mxu, knn
+    from vanerf_tpu_torch.ops import fused_mlp, interp_mxu, knn
     bf = torch.bfloat16
     results = {}
     pts, _mesh, geo_coarse, uv, grids, _vv = main_path_points(model16, batch)
@@ -1949,23 +2020,52 @@ def phase_kernels_bf16(model16, batch, dev):
                               nan=int(nan.sum()))
     results["fused_act_bf16"] = acts
 
-    n_pts, n_kpt = pts.shape[0], batch["kpt3d"].shape[1]
+    results.update(fused_bf16_checks(fin, pts.shape[0],
+                                     batch["kpt3d"].shape[1]))
+    # the mma.sync body (csrc/fused_mlp.cu, BF = true), which the
+    # bfloat16 weights of every other width are packed for, at one such
+    # width (BF16_OTHER_WIDTHS) on the same patch
+    model_w = bf16_other_width_model(model16, cfg)
+    results.update(fused_bf16_checks(
+        fused_main_path_inputs(model_w, batch, grids), pts.shape[0],
+        batch["kpt3d"].shape[1], body=fused_mlp.BODY_BF16_MMA))
+    return results
+
+
+def fused_bf16_checks(fin, n_pts: int, n_kpt: int, body: str = "_bf16"):
+    """Kernels 12 and 11 in bfloat16 on the arguments the model's fused
+    branches handed them (``fin``, :func:`fused_main_path_inputs`), their
+    weights packed for ``body`` (the wgmma body, or the mma.sync body
+    at another width), each against its plain version: the RMS error
+    within FUSED_BF16_SPREAD_X times the RMS spread between two summation
+    orders of the plain version, a bound the plain version without its
+    roundings must fail, and every element within twice the plain
+    version's bfloat16-vs-float32 spread; times, bound and ptxas."""
+    import ctypes
+
+    import torch
+    from vanerf_tpu_torch.ops import _cuda, fused_mlp
+    bf = torch.bfloat16
+    results = {}
     pe_ops = 35 * n_kpt
     as_tuple = (lambda x: x if isinstance(x, tuple) else (x,))
-    for name, cuda_fn, plain_fn, packs in (
-            ("fused_geo_mlp_bf16", fused_mlp.fused_geo_mlp_cuda,
+    for kern, cuda_fn, plain_fn, packs in (
+            ("fused_geo_mlp", fused_mlp.fused_geo_mlp_cuda,
              fused_mlp.fused_geo_mlp_plain, 1),
-            ("fused_query_mlp_bf16", fused_mlp.fused_query_mlp_cuda,
+            ("fused_query_mlp", fused_mlp.fused_query_mlp_cuda,
              fused_mlp.fused_query_mlp_plain, 2)):
-        a, k = fin[name[:-5]]
+        name = kern + body
+        a, k = fin[kern]
         data = [t.contiguous() for t in a[:2 + packs]]
         wts = a[2 + packs]
         k = dict(k)
         packed = k.pop("packed")
         check(packed is not None and packed.w.dtype == bf
+              and packed.body == body
               and all(t.dtype == bf for t in data[2:]),
               f"{name}: the model's bfloat16 branch handed "
-              f"{[t.dtype for t in data[2:]]}, packs {packed and packed.w.dtype}")
+              f"{[t.dtype for t in data[2:]]}, packs "
+              f"{packed and (packed.w.dtype, packed.body)}")
         got = as_tuple(cuda_fn(*data, packed, **k))
         want = as_tuple(plain_fn(*data, wts, **k))
         with ktiles_reversed():
@@ -2013,16 +2113,23 @@ def phase_kernels_bf16(model16, batch, dev):
         lt = least_time(nbytes(*data, *flat, *got),
                         n_pts * (2 * macs + pe_ops))
         bytes_ms = lt["bound_bytes"] / HBM_BYTES_PER_S * 1e3
-        entry = "fw_query_kernel" if packs == 2 else "fw_geo_kernel"
-        occ = (ctypes.c_int * 3)()
-        _cuda.check(_cuda.lib().vt_fused_mlp_bf16_occupancy(
-            int(packs == 2), n_kpt, occ), "vt_fused_mlp_bf16_occupancy")
-        check(occ[1] >= 1, f"{name}: no block fits an SM")
+        mma = body == fused_mlp.BODY_BF16_MMA
+        if mma:
+            entry = "fused_query_kernel" if packs == 2 else "fused_geo_kernel"
+            occ = dict(smem_bytes=None, blocks_per_sm=None, threads=None)
+        else:
+            entry = "fw_query_kernel" if packs == 2 else "fw_geo_kernel"
+            o = (ctypes.c_int * 3)()
+            _cuda.check(_cuda.lib().vt_fused_mlp_bf16_occupancy(
+                int(packs == 2), n_kpt, o), "vt_fused_mlp_bf16_occupancy")
+            check(o[1] >= 1, f"{name}: no block fits an SM")
+            occ = dict(smem_bytes=o[0], blocks_per_sm=o[1], threads=o[2])
         results[name] = dict(
-            smem_bytes=occ[0], blocks_per_sm=occ[1], threads=occ[2],
+            **occ,
             shape=f"{n_pts} points, {n_kpt} keypoints, bfloat16 packs "
                   + " ".join(str(t.shape[1]) for t in data[2:])
-                  + f", {macs} multiply-adds a point",
+                  + f", {macs} multiply-adds a point, widths "
+                  f"{list(packed.dims)}",
             max_abs_err=max(err), errors=err, spread=spread,
             of_spread=of_spread, of_spread_rms=of_spread_rms, of_s16=of_s16,
             control_of_spread=control_of_spread,
@@ -2033,7 +2140,7 @@ def phase_kernels_bf16(model16, batch, dev):
             plain_ms=cuda_ms(lambda: plain_fn(*data, wts, **k), 5),
             library_ms=None, tensor_bound_ms=tensor_ms,
             ptxas=ptxas_summary(fused_ptxas(_cuda.build_log, entry,
-                                            bf16=True)),
+                                            bf16=True, mma=mma)),
             bound_ms=max(bytes_ms, tensor_ms),
             bound_by="bytes" if bytes_ms >= tensor_ms else "operations",
             bound_bytes=lt["bound_bytes"], bound_ops=lt["bound_ops"])
@@ -3816,9 +3923,11 @@ def mp4_samples(data: bytes) -> list:
 
 
 def patch_card_vs_cpu_ties(model, b_card, grids, n_views: int = 1,
-                           tag: str = "patch") -> dict:
-    """An 8x8-ray patch on the card and on the CPU port (its own encode),
-    phase 4's tolerance on tex_fg, alpha and their fine forms.  The CPU
+                           tag: str = "patch", cached_cpu=None) -> dict:
+    """An 8x8-ray patch on the card and on the CPU port (its own encode,
+    or ``cached_cpu``, an encode of the same frame by CPU encoders equal to
+    the model's), phase 4's tolerance on tex_fg, alpha and their fine
+    forms.  The CPU
     query takes the card's visibility decision on each sample where the two
     differ and :func:`certify_ties` certifies a tie (any other difference
     fails): such a tie falls by rounding, and the texture fusion's
@@ -3828,7 +3937,8 @@ def patch_card_vs_cpu_ties(model, b_card, grids, n_views: int = 1,
     model_cpu = copy.deepcopy(model).cpu()
     b_cpu = {k: v.cpu() if torch.is_tensor(v) else v
              for k, v in b_card.items()}
-    cached_cpu = tr.encode_frame(model_cpu, b_cpu, n_views=n_views)
+    if cached_cpu is None:
+        cached_cpu = tr.encode_frame(model_cpu, b_cpu, n_views=n_views)
     kw = dict(out_h=VIDEO_RAYS, out_w=VIDEO_RAYS, sample_per_ray_c=S_C,
               sample_per_ray_f=S_F, compute_vis_map=False, n_views=n_views)
     real_query = tr.cal_vis_sdf_prepared
@@ -4552,6 +4662,360 @@ def run_phase_views(model, b1, cfg, dev) -> dict:
                 phase_s=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the offline preprocessor's device work and the config variants
+# ---------------------------------------------------------------------------
+
+# 10a: InterHand2.6M's raw image size and the raw fixture's four cameras
+# (tests/test_preprocess_pipeline.py: campos (40 i - 60, 10 i, 0) mm, no
+# rotation, the hands 1.1 m in front), at a focal length that frames them
+PREP_H, PREP_W = 512, 334
+PREP_FOCAL = 1200.0
+PREP_CAMS = 4
+PREP_ROUNDS = 5
+# 10b-10c: the variants' 8x8-ray patches card vs CPU (phase 4's tolerance
+# with its certified visibility ties) and their G = 16 frames
+VARIANT_RAYS = 8
+VARIANT_G = 16
+SP_VARIANTS = ("z", "ixyz", "cxyz", "wxyz", "mxyz", "rel_z", "rel_cxyz",
+               "rel_wxyz", "rel_mxyz")
+ACTIVATIONS = ("leakyrelu", "elu", "tanh", "sigmoid", "relu")
+# the model transform of mxyz / rel_mxyz: a rotation about z and a shift
+MODEL_T = [[0.8, -0.6, 0.0, 0.05], [0.6, 0.8, 0.0, -0.02],
+           [0.0, 0.0, 1.0, 0.3], [0.0, 0.0, 0.0, 1.0]]
+REMAT_MODES = (1, 2)
+TWO_RES_ROUNDS = 2
+
+
+def phase_preprocess(dev) -> dict:
+    """Phase 10a: the preprocessor's device work on each of the raw
+    fixture's cameras at InterHand2.6M's raw size, the two synthetic MANO
+    hands of :func:`mano_hands_mesh` 1.1 m in front of them
+    (``dataset_process.render_view``: kernel C, then the colours
+    interpolated on the card): mask, densepose, bbox and the crop's
+    intrinsics equal to the bit to the CPU port's, one launch of kernel C a
+    view; ms a view (median of PREP_ROUNDS, the host's projection and the
+    copies included) and kernel C alone on the view's faces beside the
+    issue-rate bound of its work (``raster_work``)."""
+    import numpy as np
+    import torch
+    from vanerf_tpu_torch import bench, ops
+    from vanerf_tpu_torch import dataset_process as dp
+    from vanerf_tpu_torch.ops import rasterize
+    verts, faces = mano_hands_mesh()
+    verts = (verts + np.array([0.0, 0.0, 1.1], np.float32)).astype(np.float32)
+    img = np.random.RandomState(SEED).randint(
+        30, 230, (PREP_H, PREP_W, 3)).astype(np.uint8)
+    K = np.array([[PREP_FOCAL, 0, PREP_W / 2], [0, PREP_FOCAL, PREP_H / 2],
+                  [0, 0, 1]], np.float32)
+    R = np.eye(3, dtype=np.float32)
+    views = []
+    for i in range(PREP_CAMS):
+        campos = np.array([40.0 * i - 60.0, 10.0 * i, 0.0], np.float32) / 1e3
+        t = -R @ campos
+        ops.reset_launches()
+        card = dp.render_view(img, verts, faces, K, R, t, dev)
+        launches = ops.launch_counts()["rasterize"]
+        cpu = dp.render_view(img, verts, faces, K, R, t, torch.device("cpu"))
+        check(card is not None and cpu is not None, f"camera {i}: no pixel")
+        for k in ("mask", "densepose", "bbox", "K_c"):
+            check(np.array_equal(card[k], cpu[k]),
+                  f"camera {i}: {k} on the card differs from the CPU's")
+        check(launches == 1, f"camera {i}: {launches} launches of kernel C")
+        ms = sorted(bench.timed(lambda: dp.render_view(img, verts, faces, K,
+                                                       R, t, dev), dev)
+                    for _ in range(PREP_ROUNDS))
+        xy, z = dp.project(verts, K, R, t)
+        tri = rasterize._packed_faces(torch.from_numpy(xy).to(dev),
+                                      torch.from_numpy(z).to(dev),
+                                      torch.from_numpy(faces).to(dev))
+        face, zbuf = rasterize.raster_cuda(tri, PREP_H, PREP_W)
+        work = rasterize.raster_work(tri.cpu(), PREP_H, PREP_W)
+        views.append(dict(
+            hit_share=float((card["mask"] > 0).mean()),
+            densepose_nonzero=float((card["densepose"] > 0).any(-1).mean()),
+            bbox=card["bbox"].tolist(), launches=launches,
+            view_ms=ms[len(ms) // 2],
+            kernel_ms=cuda_ms(lambda: rasterize.raster_cuda(tri, PREP_H,
+                                                            PREP_W), 20),
+            kernel_device_ms=graph_ms(lambda: rasterize.raster_cuda(
+                tri, PREP_H, PREP_W)),
+            raster_work=work,
+            work_issue_bound_ms=issue_bound_ms(
+                work["tests"] * RASTER_TEST_OPS
+                + work["certified"] * 2 * RASTER_CERT_F64_OPS
+                + work["pairs"] * RASTER_PAIR_ISSUE),
+            **least_time(nbytes(tri, face, zbuf),
+                         RASTER_OPS * work["pairs"])))
+    return {"shape": f"{PREP_H}x{PREP_W} pixels x {faces.shape[0]} faces",
+            "views": views}
+
+
+def variant_cfg(cfg, **edits):
+    """A copy of ``cfg`` with ``models.VANeRF``'s entries at the dotted
+    paths of ``edits`` (``"sp_args.sp_type"``: "mxyz") replaced."""
+    out = copy.deepcopy(cfg)
+    for path, value in edits.items():
+        d = out["models"]["VANeRF"]
+        *head, last = path.split(".")
+        for k in head:
+            d = d[k]
+        d[last] = value
+    return out
+
+
+def variant_frame(model, b, switches) -> dict:
+    """One 256^2 frame at tile_group VARIANT_G under ``switches``: its ms,
+    peak memory and launches, then one more under torch.profiler (device
+    ops and busy ms)."""
+    import torch
+    from vanerf_tpu_torch import bench, ops
+    from vanerf_tpu_torch import renderer as tr
+
+    def frame():
+        return tr.render_full_image(model, b, level=3, sample_per_ray_c=S_C,
+                                    sample_per_ray_f=S_F,
+                                    tile_group=VARIANT_G)
+
+    dev = b["verts"].device
+    with env(**switches):
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = {}
+        ms = bench.timed(lambda: out.update(frame()), dev)
+        res = dict(ms=ms, peak_bytes=torch.cuda.max_memory_allocated(dev),
+                   launches=ops.launch_counts(),
+                   **bench.device_profile(frame, dev))
+    check(torch.isfinite(out["tex_fg_fine"]).all().item()
+          and out["alpha_fine"].max().item() > 0.2,
+          f"variant frame {switches}: non-finite or empty")
+    return res
+
+
+def variant_patch(model, b, cached_cpu, switches, tag) -> dict:
+    """An 8x8-ray patch of ``model`` on the card against the CPU port's
+    under ``switches`` (:func:`patch_card_vs_cpu_ties`, phase 4's
+    tolerance), the CPU side on ``cached_cpu`` (its encode, shared by the
+    variants whose encoders are the default's; None: its own)."""
+    import torch
+    from vanerf_tpu_torch import renderer as tr
+    gen = torch.Generator().manual_seed(SEED + 5)
+    grids = tr.mask_centered_grid(gen, b["tar_mask"][..., 0].cpu(),
+                                  VARIANT_RAYS, VARIANT_RAYS)
+    with env(**switches):
+        return patch_card_vs_cpu_ties(model, b, grids, tag=tag,
+                                      cached_cpu=cached_cpu)
+
+
+def phase_variants(model, b, batch_np, cfg, dev) -> dict:
+    """Phases 10b and 10c at full width: each of the nine other sp_types
+    (mxyz / rel_mxyz with the batch's MODEL_T), VANERF_PE_DIRECT=1, the five
+    other activations, [max, mean, var] pooling and the texture encoder's
+    group / none norms, each a model built from the config
+    (:func:`variant_model`: the default's weights where the shapes agree):
+    an 8x8-ray patch on the card against the CPU port's; for 10b also the
+    G = 16 frame's ms, busy ms, device ops and peak beside the default
+    frame's in the same run."""
+    import torch
+    from vanerf_tpu_torch import renderer as tr
+    _model_cpu, _b_cpu, cached_cpu = cpu_side(model, batch_np)
+    bT = dict(b, model_T=torch.tensor([MODEL_T], device=dev))
+    res = {"frames": {"default": variant_frame(model, b, {})},
+           "patches": {}}
+    cases = [(f"sp_type {t}", dict(**{"sp_args.sp_type": t}), {})
+             for t in SP_VARIANTS]
+    cases.append(("VANERF_PE_DIRECT=1", {}, {"VANERF_PE_DIRECT": "1"}))
+    cases += [(f"nl_layer {a}", {"mlp_geo_args.nl_layer": a}, {})
+              for a in ACTIVATIONS]
+    cases.append(("pool_types [max, mean, var]",
+                  {"mlp_geo_args.pool_types": ["max", "mean", "var"]}, {}))
+    cases += [(f"tex norm {n}", {"tex_args.norm": n}, {})
+              for n in ("group", "none")]
+    for i, (tag, edits, switches) in enumerate(cases):
+        m = (variant_model(model, variant_cfg(cfg, **edits), SEED + 20 + i)
+             if edits else model)
+        model_space = "mxyz" in tag
+        bb = bT if model_space else b
+        own_encode = tag.startswith("tex norm")
+        with torch.no_grad():
+            r = variant_patch(m, bb, None if own_encode else cached_cpu,
+                              switches, tag)
+            if tag.startswith(("sp_type", "VANERF_PE")):
+                res["frames"][tag] = variant_frame(m, bb, switches)
+        res["patches"][tag] = r
+        if model_space:
+            try:
+                with torch.no_grad():
+                    tr.render_patch(m, b, grids=torch.full(
+                        (1, 4, 2), 128.0, device=dev), out_h=2, out_w=2,
+                        sample_per_ray_c=S_C, sample_per_ray_f=S_F,
+                        compute_vis_map=False)
+                raised = False
+            except ValueError:
+                raised = True
+            check(raised, f"{tag}: no ValueError without model_T")
+        del m
+    return res
+
+
+def phase_remat_train(model, batch, cfg, dev, train) -> dict:
+    """Phase 10d: TRAIN_STEPS faithful GAN steps under each
+    VANERF_REMAT_QUERY mode, from phase 5's seeded weights and draws: every
+    loss equal to the bit to phase 5's, ms/step and peak beside them."""
+    res = {}
+    for mode in REMAT_MODES:
+        with env(VANERF_REMAT_QUERY=str(mode)):
+            r = phase_train(model, batch, cfg, dev)
+        for i, (a, b_) in enumerate(zip(r["logs"], train["logs"])):
+            check(a == b_, f"VANERF_REMAT_QUERY={mode} step {i}: logs "
+                  f"{a} differ from phase 5's {b_}")
+        res[mode] = r
+    return res
+
+
+def phase_two_res(model, b, cfg, dev) -> dict:
+    """Phase 10e: VANERF_TWO_RES=1 on the shipped config (its 64^2 texture
+    map under the 128^2 fine geometry map) and on a coarser-texture config
+    (``tex_args.n_upsample: 1``, a 32^2 map): each model's frame against
+    its frame without the switch on one encode (held as phase 3b holds the
+    fused frames: a coarse sample may differ by ~1 ulp near a coarse cell's
+    edge), ms in turns, and the launches of kernel 10, which also gathers
+    the packed table with the switch (two a pass: the vertex table's and
+    the map's)."""
+    import torch
+    from vanerf_tpu_torch import renderer as tr
+    models = {"shipped": model,
+              "tex n_upsample 1": variant_model(
+                  model, variant_cfg(cfg, **{"tex_args.n_upsample": 1}),
+                  SEED + 40)}
+    res = {}
+    for tag, m in models.items():
+        with torch.no_grad():
+            fg, ft, _ = tr.encode_frame(m, b)
+            check(ft.shape[1] < fg[1].shape[1], f"{tag}: texture map "
+                  f"{ft.shape} not coarser than the fine geometry map "
+                  f"{fg[1].shape}")
+            outs = {}
+            r = {"on": dict(frame_ms=[]), "off": dict(frame_ms=[])}
+            with shared_encode(m, b):
+                for _ in range(TWO_RES_ROUNDS):
+                    for name, val in (("on", "1"), ("off", "0")):
+                        out, ms, launches = timed_frame(
+                            m, b, {"VANERF_TWO_RES": val})
+                        r[name]["frame_ms"].append(ms)
+                        r[name]["launches"] = launches
+                        outs[name] = out
+        check(r["on"]["launches"]["row_gather"] == 64
+              and r["off"]["launches"]["row_gather"] == 32,
+              f"{tag}: kernel 10 launches {r['on']['launches']['row_gather']}"
+              f" / {r['off']['launches']['row_gather']}")
+        worst, share, abs_err = hold_to_fused_bounds(
+            f"VANERF_TWO_RES=1 {tag}", [outs["on"]], [outs["off"]])
+        r.update(tex_map=list(ft.shape[1:3]),
+                 geo_fine_map=list(fg[1].shape[1:3]), of_bound=worst,
+                 share_outside=share, max_abs_err=abs_err,
+                 max_abs_diff=max((outs["on"][k] - outs["off"][k]).abs()
+                                  .max().item() for k in outs["on"]
+                                  if torch.is_tensor(outs["on"][k])
+                                  and outs["on"][k].is_floating_point()))
+        res[tag] = r
+    return res
+
+
+def phase_bf16_other_widths(model16, b, cfg, dev) -> dict:
+    """Phase 10f: the bfloat16 frame of a model at BF16_OTHER_WIDTHS under
+    VANERF_FUSED_MLP=1 and =2: the mma.sync body runs (32 launches a
+    frame), the wgmma body and the float32 kernels do not; outputs finite,
+    within phase 3h's PSNR floor of the same model's unfused frame."""
+    import torch
+    m = bf16_other_width_model(model16, cfg)
+    res = {}
+    with torch.no_grad(), shared_encode(m, b):
+        ref, _, _ = timed_frame(m, b, {})
+        for level, kern in (("1", "fused_geo_mlp"), ("2", "fused_query_mlp")):
+            out, ms, launches = timed_frame(m, b, {"VANERF_FUSED_MLP": level})
+            check(launches[kern + "_bf16_mma"] == 32
+                  and launches[kern + "_bf16"] == 0 and launches[kern] == 0,
+                  f"VANERF_FUSED_MLP={level} at other widths: launches "
+                  f"{launches}")
+            check(torch.isfinite(out["tex_fg_fine"]).all().item(),
+                  f"VANERF_FUSED_MLP={level} at other widths: non-finite")
+            res[level] = dict(ms=ms, launches=launches,
+                              psnr_vs_unfused=psnr(out["tex_fg_fine"],
+                                                   ref["tex_fg_fine"]))
+    return res
+
+
+def run_phase_variants(model, model16, b, batch_np, cfg, dev, train) -> dict:
+    """Phase 10 (10a-10f), each sub-phase's lines printed as it ends."""
+    t0 = time.perf_counter()
+    res = {"preprocess": phase_preprocess(dev)}
+    for i, v in enumerate(res["preprocess"]["views"]):
+        w_ = v["raster_work"]
+        say(f"phase 10a preprocessor, camera {i} ({res['preprocess']['shape']}"
+            f"): mask, densepose, bbox and K_c on the card equal to the "
+            f"CPU port's to the bit; {v['hit_share']:.3f} of the pixels "
+            f"covered; kernel C {v['launches']} launch; the view's device "
+            f"work {v['view_ms']:.2f} ms (median of {PREP_ROUNDS}, the "
+            f"projection and copies included); kernel C alone "
+            f"{v['kernel_ms']:.4f} ms called, {v['kernel_device_ms']:.4f} ms "
+            f"device (CUDA graph), {w_['pairs']} (pixel, face) pairs walked "
+            f"of {w_['tests']} (tile, face) tests: at the issue rate "
+            f"{v['work_issue_bound_ms']:.4f} ms; bound {v['bound_ms']:.4f} "
+            f"ms by {v['bound_by']}")
+    say("phase 10a preprocessor: the raw read, the crop and the JPEG writes "
+        "use PIL, which this machine lacks; they run on the host and are "
+        "held by tests/test_torch_preprocess.py (byte-equal to the JAX "
+        "preprocessor's files)")
+    res["variants"] = phase_variants(model, b, batch_np, cfg, dev)
+    fr = res["variants"]["frames"]
+    for tag, p in res["variants"]["patches"].items():
+        f = fr.get(tag)
+        say(f"phase 10{'b' if f else 'c'} {tag}: 8x8-ray patch card vs CPU "
+            f"max abs err {max(p['max_abs_err'].values()):.2g} "
+            f"({p['ties']['differ']} certified visibility ties)"
+            + (f"; G = {VARIANT_G} frame {f['ms']:.1f} ms, busy "
+               f"{f['device_busy_ms']:.1f} ms, {f['device_ops']} device ops, "
+               f"peak {f['peak_bytes'] / 2**30:.2f} GiB (default frame "
+               f"{fr['default']['ms']:.1f} ms, busy "
+               f"{fr['default']['device_busy_ms']:.1f}, "
+               f"{fr['default']['device_ops']} ops, "
+               f"{fr['default']['peak_bytes'] / 2**30:.2f} GiB)" if f else ""))
+    res["remat"] = phase_remat_train(model, b, cfg, dev, train)
+    for mode, r in res["remat"].items():
+        say(f"phase 10d VANERF_REMAT_QUERY={mode}: {TRAIN_STEPS} faithful "
+            f"GAN steps, every loss equal to the bit to phase 5's; "
+            f"{r['ms_per_step']:.1f} ms/step (steps 2-{TRAIN_STEPS}; all "
+            f"{[round(t, 1) for t in r['step_ms']]}) against phase 5's "
+            f"{train['ms_per_step']:.1f}; peak {r['peak_bytes'] / 2**30:.2f} "
+            f"GiB against {train['peak_bytes'] / 2**30:.2f}")
+    res["two_res"] = phase_two_res(model, b, cfg, dev)
+    for tag, r in res["two_res"].items():
+        say(f"phase 10e VANERF_TWO_RES=1, {tag} (texture map {r['tex_map']} "
+            f"under the fine geometry map {r['geo_fine_map']}): full image "
+            f"in turns {' / '.join(f'{t:.1f}' for t in r['on']['frame_ms'])}"
+            f" ms against "
+            f"{' / '.join(f'{t:.1f}' for t in r['off']['frame_ms'])} "
+            f"without; max abs diff {r['max_abs_diff']:.3g}; coarse outputs "
+            f"at most {max(r['of_bound'][k] for k in COARSE_KEYS):.3g} of "
+            f"rtol {FUSED_RTOL} atol {FUSED_ATOL}, fine outputs outside it "
+            f"on {max(r['share_outside'].values()):.3%}; kernel 10 launches "
+            f"{r['on']['launches']['row_gather']} / "
+            f"{r['off']['launches']['row_gather']}")
+    res["bf16_other_widths"] = r = phase_bf16_other_widths(model16, b, cfg,
+                                                           dev)
+    for level, x in r.items():
+        kern = "fused_geo_mlp" if level == "1" else "fused_query_mlp"
+        say(f"phase 10f bfloat16 at widths {BF16_OTHER_WIDTHS} under "
+            f"VANERF_FUSED_MLP={level}: {x['ms']:.1f} ms a frame, "
+            f"{kern}_bf16_mma {x['launches'][kern + '_bf16_mma']} launches "
+            f"(the wgmma body {x['launches'][kern + '_bf16']}); PSNR against "
+            f"the unfused bfloat16 frame {x['psnr_vs_unfused']:.2f} dB")
+    res["phase_s"] = time.perf_counter() - t0
+    say(f"phase 10: {res['phase_s']:.1f} s")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -4734,7 +5198,7 @@ def main() -> int:
     # ---- phase 2b: the bfloat16 forms ----
     model16 = bf16_model(model, cfg, num_v)
     with torch.no_grad():
-        kres16 = phase_kernels_bf16(model16, batches[0], dev)
+        kres16 = phase_kernels_bf16(model16, batches[0], cfg, dev)
     kres.update(kres16)
     for tag, c in kres16["interp_mxu_bf16"]["cases"].items():
         say(f"phase 2b interp_mxu_bf16 [{tag}]: {c['shape']}, {c['lanes']} "
@@ -4773,11 +5237,14 @@ def main() -> int:
             f"function on all {a['inputs']} bfloat16 inputs equal to the "
             f"plain version's rounded result, bit for bit ({a['differ']} "
             f"differ; {a['nan']} NaN on both sides)")
-    for name in ("fused_geo_mlp_bf16", "fused_query_mlp_bf16"):
+    for name in ("fused_geo_mlp_bf16", "fused_query_mlp_bf16",
+                 "fused_geo_mlp_bf16_mma", "fused_query_mlp_bf16_mma"):
         r = kres16[name]
-        say(f"phase 2b {name}: {r['threads']} threads a block, "
-            f"{r['smem_bytes']} bytes of shared memory, {r['blocks_per_sm']} "
-            f"block(s) an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+        if r["threads"] is not None:
+            say(f"phase 2b {name}: {r['threads']} threads a block, "
+                f"{r['smem_bytes']} bytes of shared memory, "
+                f"{r['blocks_per_sm']} block(s) an SM "
+                "(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
         say(f"phase 2b {name}: {r['shape']}: max abs err per output "
             f"{['%.3g' % e for e in r['errors']]} against the plain version, "
             f"RMS {r['of_spread_rms']:.3g} x the RMS spread between two "
@@ -5171,6 +5638,10 @@ def main() -> int:
     # ---- phase 9: two source views ----
     views = run_phase_views(model, batches[0], cfg, dev)
 
+    # ---- phase 10: the preprocessor's device work, the config variants ----
+    variants = run_phase_variants(model, model16, batches[0], frames[0], cfg,
+                                  dev, train)
+
     launches = dict(
         main["launches"],
         knn_T=soa["mode1"]["launches"]["knn_T"],
@@ -5187,7 +5658,11 @@ def main() -> int:
         fused_query_mlp_bf16=bf16["level2"]["launches"]
         ["fused_query_mlp_bf16"],
         fused_geo_mlp_bf16=bf16["level1"]["launches"]["fused_geo_mlp_bf16"],
-        onehot_scatter_bf16=t16["launches"]["onehot_scatter_bf16"])
+        onehot_scatter_bf16=t16["launches"]["onehot_scatter_bf16"],
+        fused_query_mlp_bf16_mma=variants["bf16_other_widths"]["2"]
+        ["launches"]["fused_query_mlp_bf16_mma"],
+        fused_geo_mlp_bf16_mma=variants["bf16_other_widths"]["1"]
+        ["launches"]["fused_geo_mlp_bf16_mma"])
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = kres[name]
@@ -5248,7 +5723,7 @@ def main() -> int:
                                   "bf16_train_card_vs_cpu": vs_cpu16,
                                   "train_repeat": rep,
                                   "entry_point": entry, "video": video,
-                                  "views": views}))
+                                  "views": views, "variants": variants}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -534,9 +534,16 @@ def test_query_level2_steps_down_off_shipped_dims(monkeypatch):
 
 
 def test_two_res_still_raises(monkeypatch):
+    """VANERF_TWO_RES=1 is ported (tests/test_torch_variants.py) and no
+    longer refused by the environment check; its sampler still raises on a
+    coarse map finer than the fine one, which the query never hands it."""
+    from vanerf_tpu_torch.ops.grid_sample import feat_sample_two_res_nhwc
     monkeypatch.setenv("VANERF_TWO_RES", "1")
-    with pytest.raises(NotImplementedError):
-        tv._check_env()
+    tv._check_env()
+    with pytest.raises(ValueError, match="two-resolution"):
+        feat_sample_two_res_nhwc(torch.zeros(1, 8, 8, 2),
+                                 torch.zeros(1, 16, 16, 2),
+                                 torch.zeros(1, 5, 2))
 
 
 # ---------------------------------------------------------------------------

@@ -76,7 +76,7 @@ def test_compute_dtype_reads_env_first(env_dt, cfg_dt):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name,value", [
-    ("VANERF_TWO_RES", "1"), ("VANERF_PE_DIRECT", "1"),
+    ("VANERF_MESH_TILE_P", "32"), ("VANERF_CULL_CHUNK", "32"),
     ("VANERF_MESH_TILE_P", "96"), ("VANERF_MESH_TILE_P", "512"),
     ("VANERF_CULL_CHUNK", "256")])
 def test_unported_switch_raises(name, value):
@@ -87,6 +87,7 @@ def test_unported_switch_raises(name, value):
 
 @pytest.mark.parametrize("name,value", [
     ("VANERF_TWO_RES", "0"), ("VANERF_PE_DIRECT", ""),
+    ("VANERF_TWO_RES", "1"), ("VANERF_PE_DIRECT", "1"),
     ("VANERF_CULL_EARLY", "0"), ("VANERF_MESH_TILE_P", "128"),
     ("VANERF_CULL_CHUNK", "128"), ("VANERF_CULL_EARLY", "1"),
     ("VANERF_MESH_TILE_P", "256"), ("VANERF_CULL_CHUNK", "64")])
@@ -96,11 +97,15 @@ def test_unported_switch_at_its_default_is_accepted(name, value):
 
 
 def test_remat_query_refused_in_training():
+    """VANERF_REMAT_QUERY=1/2 runs (tests/test_torch_variants.py); a value
+    that is not an integer is refused in a training render, where JAX's
+    int() of it raises too, and ignored outside one, as JAX ignores it."""
     batch = h.torch_batch(h.synthetic_batch()[0])
-    with _env(VANERF_REMAT_QUERY="1"):
-        with pytest.raises(NotImplementedError, match="VANERF_REMAT_QUERY"):
+    with _env(VANERF_REMAT_QUERY="yes"):
+        with pytest.raises(ValueError, match="VANERF_REMAT_QUERY"):
             tr.render_patch(None, batch, grids=T(h.center_grid()),
                             out_h=h.OUT, out_w=h.OUT, training=True)
+        assert tr.remat_query_mode(training=False) == 0
 
 
 # ---------------------------------------------------------------------------

@@ -91,6 +91,8 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
                                    "row_gather_bf16": 0,
                                    "fused_query_mlp_bf16": 0,
                                    "fused_geo_mlp_bf16": 0,
+                                   "fused_query_mlp_bf16_mma": 0,
+                                   "fused_geo_mlp_bf16_mma": 0,
                                    "onehot_scatter_bf16": 0}
 
 

@@ -188,9 +188,11 @@ def test_spatial_encoder_rel_z_decay_matches_jax():
     y_t = enc(v=T(v), extrin=T(extrin), kpt3d=T(kpt))
     assert y_t.shape == (1, 40, enc.get_dim()) == (1, 40, 294)
     close(y_t, y_j, rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        tm.SpatialEncoder(sp_type="rel_cxyz")(v=T(v), extrin=T(extrin),
-                                              kpt3d=T(kpt))
+    # the nine other types are held by tests/test_torch_variants.py; an
+    # unknown one raises at the call, as in JAX
+    with pytest.raises(ValueError, match="unknown sp_type"):
+        tm.SpatialEncoder(sp_type="rel_bogus")(v=T(v), extrin=T(extrin),
+                                               kpt3d=T(kpt))
 
 
 def _fusion_inputs(seed, N=17, V2=2 * h.NUM_V):
@@ -314,21 +316,22 @@ def test_query_matches_flax(port):
 
 
 def test_unported_options_raise(monkeypatch):
+    """What the port still refuses: ``sp_conv`` (the dense voxel branch).
+    The other sp_types, VANERF_TWO_RES / VANERF_PE_DIRECT and the MLP /
+    norm options this test once refused run now, against JAX in
+    tests/test_torch_variants.py; VANERF_REMAT_QUERY is read in training
+    only (as JAX reads it), so it changes nothing here."""
     cfg = h.small_cfg()
     cfg["models"]["VANeRF"]["sp_conv"] = True
     with pytest.raises(NotImplementedError):
         tm.VANeRF.from_config(cfg, num_v=h.NUM_V, image_hw=(h.H, h.W))
-    cfg = h.small_cfg()
-    cfg["models"]["VANeRF"]["sp_args"]["sp_type"] = "cxyz"
-    with pytest.raises(NotImplementedError):
-        tm.VANeRF.from_config(cfg, num_v=h.NUM_V, image_hw=(h.H, h.W))
     from vanerf_tpu_torch.models.vanerf import _check_env
-    for env in ("VANERF_TWO_RES",):
+    from vanerf_tpu_torch.renderer import remat_query_mode
+    for env in ("VANERF_TWO_RES", "VANERF_PE_DIRECT", "VANERF_REMAT_QUERY"):
         monkeypatch.setenv(env, "1")
-        with pytest.raises(NotImplementedError):
-            _check_env()
-        monkeypatch.delenv(env)
-    _check_env()
+        _check_env()
+    assert remat_query_mode(training=False) == 0
+    assert remat_query_mode(training=True) == 1
 
 
 def test_query_skips_kernel_d_under_training(port, monkeypatch):

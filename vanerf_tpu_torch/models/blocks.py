@@ -27,6 +27,20 @@ def instance_norm(ch: int) -> nn.InstanceNorm2d:
     return nn.InstanceNorm2d(ch, eps=1e-5)
 
 
+def get_norm(norm: str, ch: int) -> nn.Module:
+    """The JAX package's ``get_norm`` (``vanerf_tpu/models/blocks.py:
+    36-43``): ``group`` (min(32, ch) groups, eps 1e-5, a scale and a bias
+    a channel), ``instance`` or ``none`` (the identity, holding the norm's
+    place in the module tree)."""
+    if norm == "group":
+        return group_norm(ch)
+    if norm == "instance":
+        return instance_norm(ch)
+    if norm in (None, "none"):
+        return nn.Identity()
+    raise NotImplementedError(f"norm {norm}")
+
+
 def avg_pool2(x: torch.Tensor) -> torch.Tensor:
     """2x2 average pool of an NHWC tensor."""
     return F.avg_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
@@ -214,12 +228,12 @@ class ReplicationPad2d(nn.Module):
 class ResBlk(nn.Module):
     """Residual block with replication padding (utils.py:331-346)."""
 
-    def __init__(self, ch: int):
+    def __init__(self, ch: int, norm: str = "instance"):
         super().__init__()
         self.layers = nn.Sequential(
-            ReplicationPad2d(1), nn.Conv2d(ch, ch, 3), instance_norm(ch),
+            ReplicationPad2d(1), nn.Conv2d(ch, ch, 3), get_norm(norm, ch),
             nn.ReLU(), ReplicationPad2d(1), nn.Conv2d(ch, ch, 3),
-            instance_norm(ch))
+            get_norm(norm, ch))
 
     def forward(self, x):
         return x + self.layers(x)
@@ -228,28 +242,28 @@ class ResBlk(nn.Module):
 class ResBlkEncoder(nn.Module):
     """Texture encoder: conv down -> res blocks -> deconv up
     (utils.py:348-377).  forward: (B, H, W, 3) -> (B, H', W', out_ch),
-    channels-last; the shipped config maps H to H/2."""
+    channels-last; the shipped config maps H to H/2.  ``norm`` is
+    :func:`get_norm`'s: with ``group`` the norms' scales and biases are
+    parameters under the reference checkpoint's keys (``layers.<i>``)."""
 
     def __init__(self, in_ch: int = 3, out_ch: int = 8, ngf: int = 16,
                  n_downsample: int = 3, n_blocks: int = 4,
                  n_upsample: int = 3, norm: str = "instance"):
         super().__init__()
-        if norm != "instance":
-            raise NotImplementedError(f"ResBlkEncoder norm {norm!r}")
         layers = [ReplicationPad2d(3), nn.Conv2d(in_ch, ngf, 7),
-                  instance_norm(ngf), nn.ReLU()]
+                  get_norm(norm, ngf), nn.ReLU()]
         for i in range(n_downsample):
             m = 2 ** i
             layers += [nn.Conv2d(ngf * m, ngf * m * 2, 3, stride=2,
                                  padding=1),
-                       instance_norm(ngf * m * 2), nn.ReLU()]
+                       get_norm(norm, ngf * m * 2), nn.ReLU()]
         m = 2 ** n_downsample
-        layers += [ResBlk(ngf * m) for _ in range(n_blocks)]
+        layers += [ResBlk(ngf * m, norm) for _ in range(n_blocks)]
         for i in range(n_upsample):
             m = 2 ** (n_downsample - i)
             layers += [nn.ConvTranspose2d(ngf * m, ngf * m // 2, 3, stride=2,
                                           padding=1, output_padding=1),
-                       instance_norm(ngf * m // 2), nn.ReLU()]
+                       get_norm(norm, ngf * m // 2), nn.ReLU()]
         if n_upsample > 0:
             layers += [ReplicationPad2d(3),
                        nn.Conv2d(ngf * m // 2, out_ch, 7)]

@@ -123,12 +123,25 @@ def softplus100(x: torch.Tensor) -> torch.Tensor:
 
 
 def get_nl(name: Optional[str]):
-    """The shipped configs' hidden nonlinearity (or none)."""
+    """A hidden nonlinearity by the JAX package's names
+    (``vanerf_tpu/models/mlp.py:18-35``), or None: softplus (the shipped
+    configs'; :func:`softplus100`), leakyrelu (slope 0.2), elu, tanh,
+    sigmoid (:func:`sigmoid`) or relu."""
     if name == "softplus":
         return softplus100
+    if name == "leakyrelu":
+        return lambda x: F.leaky_relu(x, 0.2)
+    if name == "elu":
+        return F.elu
+    if name == "tanh":
+        return torch.tanh
+    if name == "sigmoid":
+        return sigmoid
+    if name == "relu":
+        return F.relu
     if name in (None, "none", "None", ""):
         return None
-    raise NotImplementedError(f"nl layer {name!r} is not ported")
+    raise NotImplementedError(f"unsupported nl layer {name}")
 
 
 class WNLinear(nn.Module):
@@ -224,12 +237,16 @@ def pool_views(x: torch.Tensor, a: torch.Tensor, w: torch.Tensor,
     """Weighted pooling over the view axis (utils.py:854-880).
 
     x: (B, V, N, C); a: (B, V, N, 1) validity; w: (B, V, N, 1) weights.
-    Returns pooled (B, N, len(pool_types)*C), valid (B, N, 1) bool.
+    Returns pooled (B, N, len(pool_types)*C), valid (B, N, 1) bool: the
+    parts in the order max, mean, var, as the JAX package concatenates
+    them, whatever the order of ``pool_types``.
     """
-    if not set(pool_types) <= {"mean", "var"}:
+    if not set(pool_types) <= {"max", "mean", "var"}:
         raise NotImplementedError(f"pool types {pool_types}")
     a_sum = a.sum(1)
     ret = []
+    if "max" in pool_types:
+        ret.append(x.amax(1))
     mean = (w * x).sum(1)
     if "mean" in pool_types:
         ret.append(mean)
@@ -249,6 +266,9 @@ class MLPUNetFusion(nn.Module):
         self.pool_types = tuple(pool_types)
         self.layers1 = MLPUNet(n_dims1, skip_dims, skip_layers, nl_layer,
                                norm)
+        # the head's input is the pooled width, as the JAX package's Dense
+        # infers it from its input
+        n_dims2 = [len(self.pool_types) * n_dims1[-1]] + list(n_dims2[1:])
         self.layers2 = MLP(n_dims2, nl_layer, norm)
 
     def forward(self, x, feats, a, w):

@@ -2,8 +2,11 @@
 ``VANeRF``, ``src/model.py:604-1024``).
 
 Supported: ``n_views`` source views (the shipped configs take one, the
-reference one or two), ``sp_type=rel_z_decay``, ``sp_conv=false``,
-``disable_fg_mask``, eval and training.  At one view the training query
+reference one or two), the ten ``sp_type``s (``models/spatial.py``;
+``mxyz`` / ``rel_mxyz`` read the query's ``model_T``), ``sp_conv=false``,
+``disable_fg_mask``, the geometry MLP's activations and ``max`` pooling
+(``models/mlp.py``), the texture encoder's norms (``models/blocks.py``),
+eval and training.  At one view the training query
 equals the eval query and the IBR colour head reduces to the fused
 feature's rgb, exactly (``VANERF_IBR_V1_SHORTCUT=0`` runs the head anyway);
 at more views the points are repeated per view, the geometry MLP pools
@@ -24,11 +27,17 @@ param_dtype=float32)``, and every op of the bfloat16 backward rounds to
 bfloat16.  ``VANERF_FUSED_MLP=1`` runs the
 positional encoding, ``MLPUNetFusion`` and ``gcompress`` as kernel 12, ``=2``
 the whole per-point network behind the gathers as kernel 11
-(``ops/fused_mlp.py``), both at one view only, as in JAX; the KNN rows
+(``ops/fused_mlp.py``), both at one view, at inference and for
+``sp_type=rel_z_decay`` only, as in JAX; the port also keeps them off
+unless the geometry MLP runs softplus with [mean, var] pooling, the only
+network the kernels compute (JAX's kernel computes it whatever the config
+says); the KNN rows
 come through kernel 10 whenever no
 graph is built (``ops/knn.py``; the JAX package's ``VANERF_MXU_ROWS`` is
-not read).  The two-resolution variant of the JAX package is
-not ported and raises when its switch is set.  At inference small encoder maps
+not read).  ``VANERF_TWO_RES=1`` samples the texture map on the fine
+geometry map's row gather (``ops/grid_sample.py::
+feat_sample_two_res_nhwc``) at inference where the texture map is no
+larger than that map, as in JAX.  At inference small encoder maps
 (``interp_mxu_viable``) are sampled through kernel D, as the JAX package
 does on a TPU (``VANERF_MXU_INTERP=0`` turns it off); kernel D has no
 gradient, so under training or an autograd graph they take the gather
@@ -46,7 +55,7 @@ from ..ops._cuda import batch_index
 from ..ops.fused_mlp import (fused_geo_mlp, fused_query_mlp,
                              pack_geo_weights, pack_query_weights,
                              prepare_geo_mlp_weights, prepare_query_weights)
-from ..ops.grid_sample import feat_sample_nhwc
+from ..ops.grid_sample import feat_sample_nhwc, feat_sample_two_res_nhwc
 from ..ops.interp_mxu import interp_mxu_viable, interp_sample_nhwc
 from ..ops.knn import knn_gather_1, knn_gather_raw, nearest_vertex_d2
 from ..ops.mesh_query import cull_sizes
@@ -55,15 +64,6 @@ from .fusion import GeoVisFusion, TexVisFusion
 from .ibr import IBRRenderingHead
 from .mlp import MLPUNetFusion, dense
 from .spatial import SpatialEncoder
-
-# Switches of the JAX package that the port does not take: each must be
-# unset or hold the value the port is fixed at (the JAX default).  Anything
-# else raises, as do culled-query tile and chunk sizes the CUDA body is not
-# built for (``mesh_query.cull_sizes``).  VANERF_REMAT_QUERY acts in
-# training only and is checked by the renderer; VANERF_PE_CONCAT,
-# VANERF_MXU_TILE_N and VANERF_MXU_CHUNK change only the TPU's layout and
-# have no effect here (README).
-_FIXED_ENV = {"VANERF_TWO_RES": ("", "0"), "VANERF_PE_DIRECT": ("", "0")}
 
 # the compute dtypes the port takes, by the JAX package's names
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -84,13 +84,20 @@ def resolve_compute_dtype(cfg_model: dict) -> str:
 
 
 def _check_env():
+    """Raise on culled-query tile and chunk sizes the CUDA body is not
+    built for (``mesh_query.cull_sizes``).  VANERF_PE_CONCAT,
+    VANERF_MXU_TILE_N and VANERF_MXU_CHUNK change only the TPU's layout
+    and have no effect here (README)."""
     cull_sizes()
-    for name, allowed in _FIXED_ENV.items():
-        val = os.environ.get(name)
-        if val is not None and val not in allowed:
-            raise NotImplementedError(
-                f"{name}={val!r} is not ported to PyTorch (the port takes "
-                f"{' or '.join(repr(a) for a in allowed)} or unset)")
+
+
+def fused_network(mlp_geo_args: dict) -> bool:
+    """Whether the fused kernels compute the geometry MLP of this config:
+    softplus with [mean, var] pooling is the only network they hold
+    (``ops/fused_mlp.py``)."""
+    return (mlp_geo_args.get("nl_layer", "softplus") == "softplus"
+            and tuple(mlp_geo_args.get("pool_types", ("mean",)))
+            == ("mean", "var"))
 
 
 def view_dropout_mask(B: int, n_views: int, u_keep=None, u_perm=None,
@@ -159,6 +166,8 @@ class VANeRF(nn.Module):
         self.compute_dtype = compute_dtype
         self.disable_fg_mask = disable_fg_mask
         self.sp_args = dict(sp_args)
+        self.fused_ok = (sp_args["sp_type"] == "rel_z_decay"
+                         and fused_network(mlp_geo_args))
         self.gcompress_out = gcompress_out
         self.num_v = num_v
         self.ds_geo, self.ds_tex = ds_geo, ds_tex
@@ -207,10 +216,14 @@ class VANeRF(nn.Module):
         cdt = resolve_compute_dtype(m)
         inf = cfg.get("inference", {})
         gc = m["mlp_tex_args"]["gcompress"]
+        mg = m["mlp_geo_args"]
         return cls(
             sp_args=m["sp_args"], geo_args=m["geo_args"],
-            mlp_geo_args=m["mlp_geo_args"], tex_args=m["tex_args"],
-            gcompress_in=gc.get("in_ch", 128), gcompress_out=gc["out_ch"],
+            mlp_geo_args=mg, tex_args=m["tex_args"],
+            # gcompress reads the pooled latent, whose width the JAX
+            # package's Dense infers (the config's in_ch at [mean, var])
+            gcompress_in=len(mg.get("pool_types", ("mean",)))
+            * mg["n_dims1"][-1], gcompress_out=gc["out_ch"],
             ds_geo=m.get("ds_geo", 0), ds_tex=m.get("ds_tex", 0),
             num_v=num_v, image_hw=tuple(image_hw),
             far_tau=float(inf.get("far_tau", 0.02)),
@@ -260,7 +273,8 @@ class VANeRF(nn.Module):
     def query(self, pts, view, cam, feat_geo, feat_tex, src_img, fg_mask,
               verts, vert_vis, query_vis, query_sdf, kpt3d, n_samples: int,
               n_views: int = 1, training: bool = False, nn_idx=None,
-              far_mask=None, fused_override=None, view_mask=None):
+              far_mask=None, fused_override=None, view_mask=None,
+              model_T=None):
         """(sdf_channel, radiance, rgb) at world points.
 
         pts/view (B, N, 3); cam: 'KRT'/'extrin' (Bf V, 4, 4), the V source
@@ -281,7 +295,11 @@ class VANeRF(nn.Module):
         repeated per element.
         ``fused_override`` pins the fused level (0, 1, 2) instead of the
         ``VANERF_FUSED_MLP`` read; level 2 ignores ``far_mask``.  Both
-        fused levels take one view: at more the level is 0, as in JAX.
+        fused levels take one view at inference and ``rel_z_decay``
+        (JAX's gate), and the network they hold (:func:`fused_network`):
+        else the level is 0.  ``model_T`` (Bf, 4, 4) is the model
+        transform of the ``mxyz`` / ``rel_mxyz`` encodings, a frame's
+        for its elements.
         Returns out (B, N, 5) float32, valid (B, N, 1).
         """
         _check_env()
@@ -292,6 +310,7 @@ class VANeRF(nn.Module):
         # frames' at B = Bf)
         krt_e, extrin_e = (per_element(cam[k], BV) for k in ("KRT", "extrin"))
         kpt3d_e = per_element(kpt3d, B)
+        model_T_e = None if model_T is None else per_element(model_T, B)
         # the activation dtype (models/vanerf.py:233-245): the maps, the
         # image and the mask now, the encoding and the visibility / SDF
         # inputs below; coordinates and projection math stay float32
@@ -355,6 +374,15 @@ class VANeRF(nn.Module):
             feat_sampled = [_psamp(feat_geo[0], xy, training),
                             half[..., :ch1]]
             feat_tex_xy = half[..., ch1:]
+        elif (os.environ.get("VANERF_TWO_RES", "0") != "0" and not training
+              and feat_tex.shape[1] <= feat_geo[1].shape[1]
+              and feat_tex.shape[2] <= feat_geo[1].shape[2]):
+            # VANERF_TWO_RES=1 (inference): the coarser texture map rides
+            # the fine geometry map's row gather (vanerf_tpu/models/
+            # vanerf.py:333-363)
+            g1_xy, feat_tex_xy = feat_sample_two_res_nhwc(feat_geo[1],
+                                                          feat_tex, xy)
+            feat_sampled = [_psamp(feat_geo[0], xy, training), g1_xy]
         else:
             feat_sampled = [_psamp(f, xy, training) for f in feat_geo]
             feat_tex_xy = feat_sample_nhwc(feat_tex, xy)
@@ -364,7 +392,7 @@ class VANeRF(nn.Module):
         #   gate/fuse nets and the V=1 rgb head.
         fused_level = (fused_override if fused_override is not None
                        else int(os.environ.get("VANERF_FUSED_MLP", "0") or 0))
-        if training or V != 1:
+        if training or V != 1 or not self.fused_ok:
             fused_level = 0
         if fused_level >= 2 and not (
                 feat_geo[0].shape[-1] == 64 and feat_geo[1].shape[-1] == 8
@@ -374,8 +402,8 @@ class VANeRF(nn.Module):
 
         y = None
         if fused_level == 0:
-            y = self.sp_encoder(v=v, extrin=extrin_e, kpt3d=kpt3d_e,
-                                n_view=V)
+            y = self.sp_encoder(v=v, pts=pts, z=z, xy=xy, extrin=extrin_e,
+                                kpt3d=kpt3d_e, n_view=V, model_T=model_T_e)
             y = y.reshape(B, V, N, -1).to(cdt)
 
         # project mesh vertices into the source views (model.py:845-853)

@@ -32,6 +32,11 @@ KERNEL_COUNTERS = {"mesh_query": (mesh_query, "launches"),
                    "fused_query_mlp_bf16": (fused_mlp,
                                             "query_launches_bf16"),
                    "fused_geo_mlp_bf16": (fused_mlp, "geo_launches_bf16"),
+                   # their bfloat16 body for widths other than BF16_DIMS
+                   "fused_query_mlp_bf16_mma": (fused_mlp,
+                                                "query_launches_bf16_mma"),
+                   "fused_geo_mlp_bf16_mma": (fused_mlp,
+                                              "geo_launches_bf16_mma"),
                    "onehot_scatter_bf16": (onehot_gather, "launches_bf16")}
 
 

@@ -72,6 +72,10 @@ _SIGNATURES = {
 _SIGNATURES.update({name + "_bf16": _SIGNATURES[name] for name in (
     "vt_interp", "vt_row_gather", "vt_fused_geo_mlp", "vt_fused_query_mlp",
     "vt_onehot_scatter")})
+# kernels 12 / 11's bfloat16 body for any width (csrc/fused_mlp.cu, BF =
+# true): the arguments of the float32 entry points
+_SIGNATURES.update({name + "_bf16_mma": _SIGNATURES[name] for name in (
+    "vt_fused_geo_mlp", "vt_fused_query_mlp")})
 # kernels 11 / 12's bfloat16 activations on every input, and their
 # occupancy (shared bytes, blocks an SM, threads) at K keypoints
 _SIGNATURES.update({"vt_fm_act_bf16_all": [_I, _P, _P],

@@ -54,6 +54,15 @@ rtol 2e-4 / atol 2e-5), or in bfloat16 as the core matrices that
 on the tensor cores); a caller that
 launches many passes on one set of weights (``models/vanerf.py`` at
 inference) packs once and hands the buffers to every pass.
+
+The bfloat16 kernels have two bodies.  ``csrc/fused_mlp_bf16.cu`` (wgmma,
+the layer chains in registers) is built for ``configs/vanerf.json``'s
+widths (:data:`BF16_DIMS`) only; every other width up to 128 takes the
+earlier body, ``csrc/fused_mlp.cu`` instantiated in bfloat16 (one
+``mma.sync`` m16n8k16 a k-tile), as the JAX kernel takes any width.  The
+choice is made by the widths when the weights are packed
+(:func:`bf16_body`), before any launch, and the stream is laid out for the
+body chosen (``PackedWeights.body``).
 """
 
 from __future__ import annotations
@@ -96,11 +105,17 @@ _PE_ROWS = 120
 BF16_DIMS = (128, 128, 120, 64, 64, 24)
 # its activations by number (FW_SOFTPLUS, FW_SIGMOID)
 ACT_SOFTPLUS, ACT_SIGMOID = 1, 3
+# the bodies, by the suffix of their C entry points: float32 (3xTF32,
+# csrc/fused_mlp.cu), bfloat16 wgmma (csrc/fused_mlp_bf16.cu) and bfloat16
+# mma.sync m16n8k16 (csrc/fused_mlp.cu, any width)
+BODY_F32, BODY_BF16, BODY_BF16_MMA = "", "_bf16", "_bf16_mma"
 
 geo_launches = 0
 query_launches = 0
 geo_launches_bf16 = 0
 query_launches_bf16 = 0
+geo_launches_bf16_mma = 0
+query_launches_bf16_mma = 0
 
 
 # ---------------------------------------------------------------------------
@@ -377,29 +392,45 @@ def tf32_split(x: torch.Tensor):
     return hi, tf32_round(x.float() - hi)
 
 
-def _ntiles(m: int, dtype=torch.float32) -> int:
+def bf16_body(dims) -> str:
+    """The bfloat16 body for the widths ``dims`` (d1, d2, d3, e1, e2,
+    latent): the wgmma body (:data:`BODY_BF16`) at :data:`BF16_DIMS`, the
+    one it is built for, else the mma.sync body (:data:`BODY_BF16_MMA`)."""
+    return BODY_BF16 if tuple(dims) == BF16_DIMS else BODY_BF16_MMA
+
+
+def _ntiles(m: int, body: str = BODY_F32) -> int:
     """The n8 tiles an m-wide layer takes in the stream: ceil(m / 8) in
-    bfloat16 (csrc/fused_mlp_bf16.cu::fm_push), in float32 rounded up to a
-    count the float32 body is built for (csrc/fused_mlp.cu::fm_ntiles)."""
+    the wgmma body (csrc/fused_mlp_bf16.cu::fm_push), else rounded up to a
+    count csrc/fused_mlp.cu is built for (fm_ntiles)."""
     n = -(-m // 8)
-    if dtype == torch.bfloat16:
+    if body == BODY_BF16:
         return n
     return n if n <= 4 else (8 if n <= 8 else (12 if n <= 12 else 16))
 
 
-def _fragments(part: torch.Tensor, nt: int) -> torch.Tensor:
+def _fragments(part: torch.Tensor, nt: int,
+               body: str = BODY_F32) -> torch.Tensor:
     """One part (K, M) of a layer's weight as the kernel reads B, (k-tile,
     n-tile, 128).  float32: rows zero-padded to 8 ceil(K / 8), columns to
     8 nt, split into TF32 hi and lo, lane 4 g + t holding {hi, hi, lo, lo}
-    of rows t and t + 4 of column g (mma m16n8k8).  bfloat16: rows padded
-    to 16 ceil(K / 16), columns to 8 nt; a k-tile's n8 group j is two
-    K-major core matrices of 8 columns x 8 rows (128 bytes, the rows of a
-    column contiguous), rows 0-7 then 8-15 (the wgmma descriptor of
-    csrc/fused_mlp_bf16.cu: leading byte offset 128, stride 256)."""
+    of rows t and t + 4 of column g (mma m16n8k8).  bfloat16, both bodies:
+    rows padded to 16 ceil(K / 16), columns to 8 nt.  The wgmma body: a
+    k-tile's n8 group j is two K-major core matrices of 8 columns x 8 rows
+    (128 bytes, the rows of a column contiguous), rows 0-7 then 8-15 (the
+    wgmma descriptor of csrc/fused_mlp_bf16.cu: leading byte offset 128,
+    stride 256).  The mma.sync body: (k-tile, n-tile, lane, 4), lane
+    4 g + t holding rows 2t, 2t + 1, 2t + 8, 2t + 9 of column g (mma
+    m16n8k16: two registers of two bfloat16 each, the lower row in the low
+    half)."""
     K, M = part.shape
     if part.dtype == torch.bfloat16:
         kt = -(-K // 16)
         w = F.pad(part.detach(), (0, 8 * nt - M, 0, 16 * kt - K))
+        if body == BODY_BF16_MMA:
+            # x[16 a + 8 h + 2 t + j, 8 b + g] -> [a, b, g, t, h, j]
+            return (w.reshape(kt, 2, 4, 2, nt, 8).permute(0, 4, 5, 2, 1, 3)
+                    .reshape(kt, nt, 32, 4))
         # x[16 a + 8 h + k, 8 j + n] -> [a, j, h, n, k]
         return (w.reshape(kt, 2, 8, nt, 8).permute(0, 3, 1, 4, 2)
                 .reshape(kt, nt, 128))
@@ -413,15 +444,20 @@ def _fragments(part: torch.Tensor, nt: int) -> torch.Tensor:
     return torch.cat([frag(hi), frag(lo)], -1).reshape(kt, nt, 32, 4)
 
 
-def _pack(layers):
+def _pack(layers, body: str | None = None):
     """The weight stream in the order the kernel consumes it, and the
     n-tile count of each k-tile: ``layers`` lists (parts, M) per layer,
-    the parts of its virtual concat in order (each padded on its own)."""
+    the parts of its virtual concat in order (each padded on its own),
+    laid out for ``body`` (by default the wgmma body in bfloat16, else
+    the float32 one)."""
+    if body is None:
+        body = (BODY_BF16 if layers[0][0][0].dtype == torch.bfloat16
+                else BODY_F32)
     blocks, items = [], []
     for parts, M in layers:
-        nt = _ntiles(M, parts[0].dtype)
+        nt = _ntiles(M, body)
         for p in parts:
-            f = _fragments(p, nt)
+            f = _fragments(p, nt, body)
             blocks.append(f.reshape(-1))
             items += [nt] * f.shape[0]
     return torch.cat(blocks).contiguous(), tuple(items)
@@ -436,11 +472,14 @@ class PackedWeights(NamedTuple):
     layer product the kernel runs, as fragments in its order (kernel 11:
     the two GeoVisFusion gate/fuse nets, the geometry, the TexVisFusion
     gate/fuse), float32 TF32 hi / lo or bfloat16 as the weights were
-    prepared; the float32 geometry biases and the six widths the kernel is
-    told."""
+    prepared; the float32 geometry biases, the six widths the kernel is
+    told, and the body the stream is laid out for (the suffix of its C
+    entry points: :data:`BODY_F32`, :data:`BODY_BF16` or
+    :data:`BODY_BF16_MMA`)."""
     w: torch.Tensor
     b: torch.Tensor
     dims: tuple
+    body: str = BODY_F32
 
 
 def _geo_layers(wts: dict, K: int, sp_level: int):
@@ -491,7 +530,11 @@ def pack_geo_weights(wts: dict, K: int, sp_level: int) -> PackedWeights:
 
 
 def _packed(layers, biases, dims) -> PackedWeights:
-    return PackedWeights(_pack(layers)[0], biases, dims)
+    """The buffers of one set of weights, for the body their dtype and
+    widths take (:func:`bf16_body` in bfloat16)."""
+    body = (bf16_body(dims) if layers[0][0][0].dtype == torch.bfloat16
+            else BODY_F32)
+    return PackedWeights(_pack(layers, body)[0], biases, dims, body)
 
 
 def _query_layers(weights: dict, K: int, sp_level: int):
@@ -538,14 +581,19 @@ def _check_points(cxyz, kpt_T, packs):
     return N, kpt_T.shape[1], sfx
 
 
-def _check_packed(packed: PackedWeights, cdt, device) -> None:
+def _check_packed(packed: PackedWeights, cdt, device) -> str:
     """The stream is read by 16-byte bulk copies, in the activations'
-    dtype; the kernel checks its size against the layers it runs, and the
-    bfloat16 body refuses widths other than BF16_DIMS."""
+    dtype, laid out for a body of that dtype; the kernel checks its size
+    against the layers it runs, and the wgmma body refuses widths other
+    than BF16_DIMS.  Returns the body's suffix."""
+    if (packed.body == BODY_F32) != (cdt == torch.float32):
+        raise ValueError(f"packed.w is laid out for the body {packed.body!r}"
+                         f", the activations are {cdt}")
     _cuda.require(packed.w, "packed.w", cdt, device=device)
     _cuda.require(packed.b, "packed.b", torch.float32, device=device)
     if packed.w.data_ptr() % 16:
         raise ValueError("packed.w must start on a 16-byte boundary")
+    return packed.body
 
 
 def fused_geo_mlp_cuda(cxyz, kpt_T, aux, packed: PackedWeights, *,
@@ -555,12 +603,12 @@ def fused_geo_mlp_cuda(cxyz, kpt_T, aux, packed: PackedWeights, *,
     tensors (float32 points, float32 or bfloat16 ``aux``: the kernel of
     that dtype) and the buffers of :func:`pack_geo_weights` in that
     dtype."""
-    global geo_launches, geo_launches_bf16
-    N, K, sfx = _check_points(cxyz, kpt_T, [("aux", aux, AUX_WIDTH)])
+    global geo_launches, geo_launches_bf16, geo_launches_bf16_mma
+    N, K, _ = _check_points(cxyz, kpt_T, [("aux", aux, AUX_WIDTH)])
     out = torch.empty(N, 2, dtype=torch.float32, device=cxyz.device)
     lat = torch.empty(N, packed.dims[5], dtype=aux.dtype,
                       device=cxyz.device)
-    _check_packed(packed, aux.dtype, cxyz.device)
+    sfx = _check_packed(packed, aux.dtype, cxyz.device)
     rc = getattr(_cuda.lib(), "vt_fused_geo_mlp" + sfx)(
         cxyz.data_ptr(), kpt_T.data_ptr(), aux.data_ptr(),
         packed.w.data_ptr(), packed.w.numel(), packed.b.data_ptr(), N, K,
@@ -568,8 +616,10 @@ def fused_geo_mlp_cuda(cxyz, kpt_T, aux, packed: PackedWeights, *,
         (ctypes.c_int * 6)(*packed.dims),
         out.data_ptr(), lat.data_ptr(), _cuda.stream_ptr(cxyz.device))
     _cuda.check(rc, "vt_fused_geo_mlp" + sfx)
-    if sfx:
+    if sfx == BODY_BF16:
         geo_launches_bf16 += 1
+    elif sfx == BODY_BF16_MMA:
+        geo_launches_bf16_mma += 1
     else:
         geo_launches += 1
     return out, lat
@@ -582,11 +632,11 @@ def fused_query_mlp_cuda(cxyz, kpt_T, feats, g2, packed: PackedWeights, *,
     tensors (float32 points, ``feats`` and ``g2`` both float32 or both
     bfloat16: the kernel of that dtype) and the buffers of
     :func:`pack_query_weights` in that dtype."""
-    global query_launches, query_launches_bf16
-    N, K, sfx = _check_points(cxyz, kpt_T, [("feats", feats, FEATS_WIDTH),
-                                            ("g2", g2, G2_WIDTH)])
+    global query_launches, query_launches_bf16, query_launches_bf16_mma
+    N, K, _ = _check_points(cxyz, kpt_T, [("feats", feats, FEATS_WIDTH),
+                                          ("g2", g2, G2_WIDTH)])
     out = torch.empty(N, 5, dtype=torch.float32, device=cxyz.device)
-    _check_packed(packed, feats.dtype, cxyz.device)
+    sfx = _check_packed(packed, feats.dtype, cxyz.device)
     rc = getattr(_cuda.lib(), "vt_fused_query_mlp" + sfx)(
         cxyz.data_ptr(), kpt_T.data_ptr(), feats.data_ptr(), g2.data_ptr(),
         packed.w.data_ptr(), packed.w.numel(), packed.b.data_ptr(), N, K,
@@ -594,8 +644,10 @@ def fused_query_mlp_cuda(cxyz, kpt_T, feats, g2, packed: PackedWeights, *,
         (ctypes.c_int * 6)(*packed.dims), out.data_ptr(),
         _cuda.stream_ptr(cxyz.device))
     _cuda.check(rc, "vt_fused_query_mlp" + sfx)
-    if sfx:
+    if sfx == BODY_BF16:
         query_launches_bf16 += 1
+    elif sfx == BODY_BF16_MMA:
+        query_launches_bf16_mma += 1
     else:
         query_launches += 1
     return out

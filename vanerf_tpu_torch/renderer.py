@@ -55,6 +55,18 @@ a view-dropout mask a pass (``drop_keep_c`` / ``drop_perm_c``,
 fused training switch and the FAR_NET / FAR_TNET tiers take one view and
 are off at more; FAR_TAU and FAR_SKIP are per sample and stay on.
 
+``VANERF_REMAT_QUERY=1/2`` (a training render, as ``vanerf_tpu/renderer.py:
+332-339``, ``:629-633``) recomputes the per-point network in the backward
+instead of keeping its activations: 1 keeps nothing of it
+(``torch.utils.checkpoint``), 2 keeps the outputs of its matrix products
+(a selective checkpoint policy, JAX's ``dots_with_no_batch_dims_saveable``).
+Every draw of the render is made outside the recomputed call, so the
+recompute draws nothing again, and losses and gradients equal the render's
+without the switch.  The ``kc`` / far-skip tiers are off under it, as in
+JAX (they are eval-only here anyway), and so is ``VANERF_FUSED_TRAIN``'s
+boundary, which recomputes the query itself.  A ``batch["model_T"]``
+(Bf, 4, 4) reaches every query (the ``mxyz`` / ``rel_mxyz`` encodings).
+
 A model with ``compute_dtype="bfloat16"`` (``models/vanerf.py``) serves
 and trains here unchanged: the query takes the float32 points, visibility,
 SDF and far flags, casts them itself and returns float32, so the tiers'
@@ -333,6 +345,39 @@ def soa_points_mode() -> int:
         return 1
 
 
+def remat_query_mode(training: bool) -> int:
+    """``VANERF_REMAT_QUERY`` of a training render (0 outside one, as
+    ``vanerf_tpu/renderer.py:338-339`` reads it): 0 off, 1 recompute the
+    per-point network, 2 keep its matrix products' outputs (any other
+    non-zero integer acts as 1, as JAX's policy does).  A value that is not
+    an integer raises ``ValueError``."""
+    if not training:
+        return 0
+    val = os.environ.get("VANERF_REMAT_QUERY", "0") or "0"
+    try:
+        return int(val)
+    except ValueError:
+        raise ValueError(f"VANERF_REMAT_QUERY={val!r}: 0, 1 or 2") from None
+
+
+def _remat_context(mode: int):
+    """The checkpoint's ``context_fn``: under ``VANERF_REMAT_QUERY=2`` the
+    outputs of ``mm`` / ``addmm`` / ``bmm`` are saved and the rest is
+    recomputed; under 1 nothing is saved (torch's default)."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    aten = torch.ops.aten
+    saved = (aten.mm.default, aten.addmm.default, aten.bmm.default)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    if mode == 2:
+        return lambda: create_selective_checkpoint_contexts(policy)
+    return lambda: (contextlib.nullcontext(), contextlib.nullcontext())
+
+
 def _network_budget(n_total: int, n_samples: int, frac_skip: float,
                     frac_net: float, frac_tnet: float):
     """(kc, ks, inherit) of the serving tiers (``renderer.py:530-543``):
@@ -402,11 +447,7 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
       dict of channels-last outputs mirroring the JAX package's, each with
       a leading B but 'vert_vis' and 'vis_img_all', which are the frames'.
     """
-    if training and os.environ.get("VANERF_REMAT_QUERY", "0") not in ("",
-                                                                      "0"):
-        raise NotImplementedError(
-            "VANERF_REMAT_QUERY is not ported to PyTorch (ROADMAP.md queue 1 "
-            "item 8)")
+    remat_mode = remat_query_mode(training)
     soa_points = soa_points_mode()
     with contextlib.nullcontext() if training else torch.no_grad():
         src_img = batch["src_img"]
@@ -457,7 +498,7 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
         # fused switches; FAR_NET / FAR_TNET also at more than one view,
         # whose IBR head reads a ray's samples together (renderer.py:413-
         # 443; sp_conv is not ported and raises elsewhere)
-        tiers_on = (not training and not soa_points
+        tiers_on = (not training and not soa_points and not remat_mode
                     and not os.environ.get("VANERF_FUSED_MLP"))
         far_skip_frac, far_net_frac, far_tnet_frac = (
             resolve_tier(env, getattr(model, attr, 0.0), training)
@@ -466,6 +507,10 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
                 ("VANERF_FAR_SKIP", "far_skip", True),
                 ("VANERF_FAR_NET", "far_net", False),
                 ("VANERF_FAR_TNET", "far_tnet", False)))
+
+        model_T = batch.get("model_T")
+        if model_T is not None:
+            model_T = as_float_tensor(model_T).to(dev)
 
         def query_rows(pts, view, q_vis, q_sdf, nn_idx, far_mask,
                        n_samples, view_mask=None):
@@ -476,9 +521,16 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
                     batch["kpt3d"], n_samples, n_views,
                     training=training and not fused_train, nn_idx=nn_idx,
                     far_mask=far_mask, fused_override=level,
-                    view_mask=view_mask)
+                    view_mask=view_mask, model_T=model_T)
 
             data = (pts, view, feat_tex, q_vis, q_sdf, *feat_geo)
+            if remat_mode and not fused_train:
+                # the per-point network recomputed in the backward (JAX
+                # wraps _net in jax.checkpoint at the same place)
+                from torch.utils.checkpoint import checkpoint
+                return checkpoint(lambda *d: query(None, *d), *data,
+                                  use_reentrant=False,
+                                  context_fn=_remat_context(remat_mode))
             if not fused_train:
                 return query(None, *data)
             return fused_train_query(

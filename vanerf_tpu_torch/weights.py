@@ -97,21 +97,36 @@ def _hgfilter(w, p, pre):
 
 
 def _resblk_encoder(w, p, pre):
+    """The texture encoder; with ``norm: group`` also its GroupNorms'
+    scales and biases (flax ``GroupNorm_<i>`` in call order: the first,
+    the downsamplings, the upsamplings; two in each ResBlk), each under
+    its norm's index in ``layers``, the slot after its convolution."""
     n_res = sum(1 for k in p if k.startswith("ResBlk_"))
     n_up = sum(1 for k in p if k.startswith("up"))
     n_conv = sum(1 for k in p if k.startswith("Conv_"))
     n_down = n_conv - 1 - (1 if n_up > 0 else 0)
+
+    def norm(q, name, key):
+        if name in q:
+            w.norm(q[name], key)
+
     w.conv(p["Conv_0"], f"{pre}.layers.1")
+    norm(p, "GroupNorm_0", f"{pre}.layers.2")
     idx = 4
     for i in range(n_down):
         w.conv(p[f"Conv_{i + 1}"], f"{pre}.layers.{idx}")
+        norm(p, f"GroupNorm_{i + 1}", f"{pre}.layers.{idx + 1}")
         idx += 3
     for b in range(n_res):
-        w.conv(p[f"ResBlk_{b}"]["Conv_0"], f"{pre}.layers.{idx}.layers.1")
-        w.conv(p[f"ResBlk_{b}"]["Conv_1"], f"{pre}.layers.{idx}.layers.5")
+        q = p[f"ResBlk_{b}"]
+        w.conv(q["Conv_0"], f"{pre}.layers.{idx}.layers.1")
+        norm(q, "GroupNorm_0", f"{pre}.layers.{idx}.layers.2")
+        w.conv(q["Conv_1"], f"{pre}.layers.{idx}.layers.5")
+        norm(q, "GroupNorm_1", f"{pre}.layers.{idx}.layers.6")
         idx += 1
     for u in range(n_up):
         w.conv(p[f"up{u}"], f"{pre}.layers.{idx}")
+        norm(p, f"GroupNorm_{n_down + 1 + u}", f"{pre}.layers.{idx + 1}")
         idx += 3
     if n_up > 0:
         w.conv(p[f"Conv_{n_down + 1}"], f"{pre}.layers.{idx + 1}")
