@@ -141,8 +141,10 @@ def test_tile_group_refusals(model, two_frames):
     kw = dict(level=LEVEL, sample_per_ray_c=h.S_C, sample_per_ray_f=h.S_F)
     with pytest.raises(ValueError, match="divide"):
         tr.render_full_image(model, batch, tile_group=3, **kw)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tr.render_full_image(model, batch, tile_group=2, mesh=object(), **kw)
+    from types import SimpleNamespace
+    with pytest.raises(ValueError, match="split"):   # 2 tiles over 4 ranks
+        tr.render_full_image(model, batch, tile_group=2,
+                             mesh=SimpleNamespace(size=4, rank=0), **kw)
     with pytest.raises(ValueError, match="frames"):
         tr.render_patch(model, h.torch_batch(two_frames),
                         grids=torch.zeros(3, 4, 2), out_h=2, out_w=2,

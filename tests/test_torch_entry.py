@@ -59,18 +59,44 @@ def test_config_helpers(tmp_path):
         saved = json.load(f)
     assert "git_head" in saved and saved["models"] == cfg["models"]
     (tmp_path / "c.yml").write_text("a: 1\n")
-    with pytest.raises(ValueError):       # YAML configs are refused
-        ct.load_cfg(str(tmp_path / "c.yml"))
+    assert ct.load_cfg(str(tmp_path / "c.yml")) == {"a": 1}
+    (tmp_path / "c.txt").write_text("a: 1\n")
+    with pytest.raises(ValueError):       # neither JSON nor YAML
+        ct.load_cfg(str(tmp_path / "c.txt"))
+
+
+def test_yaml_config_matches_jax_and_needs_yaml(tmp_path, monkeypatch):
+    """A YAML config loads as the JAX package loads it (``yaml.safe_load``);
+    where the ``yaml`` package is missing, as on the card's machine,
+    loading one raises ImportError naming JSON as the way out, and a JSON
+    config still loads."""
+    import sys
+    import yaml
+    from vanerf_tpu import config as cj
+    from vanerf_tpu_torch import config as ct
+    cfg = ct.default_cfg()
+    path = tmp_path / "c.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    assert ct.load_cfg(str(path)) == cj.load_cfg(str(path)) == cfg
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    with pytest.raises(ImportError, match="JSON"):
+        ct.load_cfg(str(path))
+    assert ct.load_cfg(str(ct.pathlib.Path(ct.__file__).resolve().parent
+                           .parent / "configs" / "vanerf.json")) == cfg
 
 
 def test_plan_tile_group_equals_jax_on_one_device():
     from vanerf_tpu.renderer import plan_tile_group as pj
     from vanerf_tpu_torch.renderer import plan_tile_group as pt
+    from types import SimpleNamespace
+    from vanerf_tpu.parallel import make_mesh
+    one_t, one_j = SimpleNamespace(size=1, rank=0), make_mesh(1)
     for n_tiles in (1, 4, 16):
         for tg in (0, 1, 2, 4, 16, 64):
             assert pt(n_tiles, tg) == pj(n_tiles, tg)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        pt(16, 4, mesh=object())
+            # a one-device mesh is kept and changes nothing
+            assert pt(n_tiles, tg, one_t) == (pj(n_tiles, tg, one_j)[0],
+                                              one_t)
 
 
 def test_flat_yaml_reads_back_with_yaml():
@@ -346,16 +372,18 @@ def test_cli_fast_dev_run_train_resume(cli, tmp_path, capsys):
 
 
 def test_cli_refusals(cli, tmp_path):
-    """--num_gpus != 1, a YAML config, and the card where there is none
-    (here) each stop the run; nothing falls back to the CPU."""
+    """A config that is neither JSON nor YAML, and the card where there is
+    none (here), on one device and before any of --num_gpus 2's workers
+    starts, each stop the run; nothing falls back to the CPU (--num_gpus
+    and YAML configs run: tests/test_torch_parallel.py)."""
     from vanerf_tpu_torch import train
     base = ["--config", str(cli / "tiny.json"), "--synthetic_data",
             "--out_dir", str(tmp_path), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        train.main(base + ["--num_gpus", "2"])
-    (tmp_path / "c.yaml").write_text("a: 1\n")
+    (tmp_path / "c.conf").write_text("a: 1\n")
     with pytest.raises(ValueError, match="JSON"):
-        train.main(["--config", str(tmp_path / "c.yaml"), "--device", "cpu"])
+        train.main(["--config", str(tmp_path / "c.conf"), "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             train.main(base[:-2])
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            train.main(base[:-2] + ["--num_gpus", "2"])

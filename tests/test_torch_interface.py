@@ -14,6 +14,7 @@ Morton order, and the tolerances of ``tests/test_torch_render.py``.
 import contextlib
 import os
 import re
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -265,12 +266,13 @@ def test_render_patch_vis_size_matches_jax(renders):
 @pytest.mark.parametrize("kw,err,match", [
     pytest.param(dict(tile_group=3), ValueError, "must divide",
                  id="kw0-item 2"),
-    pytest.param(dict(mesh=object()), NotImplementedError, "item 9",
-                 id="kw1-item 9")])
+    pytest.param(dict(tile_group=2, mesh=SimpleNamespace(size=4, rank=0)),
+                 ValueError, "split", id="kw1-item 9")])
 def test_render_full_image_refuses_unported_keywords(kw, err, match):
     """``tile_group`` (queue 1 item 2) is ported: one that does not divide
-    stride^2 raises, as the JAX package asserts; a device ``mesh`` (item 9)
-    is not ported and raises."""
+    stride^2 raises, as the JAX package asserts; so is a device ``mesh``
+    (item 9), over whose ranks a group that does not split raises
+    (``plan_tile_group`` rounds it)."""
     batch = h.torch_batch(h.synthetic_batch()[0])
     with pytest.raises(err, match=match):
         tr.render_full_image(None, batch, level=3, rng=None, sdf_chunk=64,

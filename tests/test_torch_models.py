@@ -316,15 +316,19 @@ def test_query_matches_flax(port):
 
 
 def test_unported_options_raise(monkeypatch):
-    """What the port still refuses: ``sp_conv`` (the dense voxel branch).
-    The other sp_types, VANERF_TWO_RES / VANERF_PE_DIRECT and the MLP /
-    norm options this test once refused run now, against JAX in
-    tests/test_torch_variants.py; VANERF_REMAT_QUERY is read in training
-    only (as JAX reads it), so it changes nothing here."""
+    """The options this test once refused build and run now: ``sp_conv``
+    (the dense voxel branch, against JAX in tests/test_torch_voxel.py),
+    the other sp_types, VANERF_TWO_RES / VANERF_PE_DIRECT and the MLP /
+    norm options (tests/test_torch_variants.py); VANERF_REMAT_QUERY is
+    read in training only (as JAX reads it), so it changes nothing here."""
+    from vanerf_tpu_torch.models.voxel_fusion import (GeoVisFusionSP,
+                                                      TexVisFusionSP)
     cfg = h.small_cfg()
     cfg["models"]["VANeRF"]["sp_conv"] = True
-    with pytest.raises(NotImplementedError):
-        tm.VANeRF.from_config(cfg, num_v=h.NUM_V, image_hw=(h.H, h.W))
+    m = tm.VANeRF.from_config(cfg, num_v=h.NUM_V, image_hw=(h.H, h.W))
+    assert m.sp_conv and m.voxel_grid == (64, 64, 64) and not m.fused_ok
+    assert isinstance(m.geo_vis_fusion, GeoVisFusionSP)
+    assert isinstance(m.tex_vis_fusion, TexVisFusionSP)
     from vanerf_tpu_torch.models.vanerf import _check_env
     from vanerf_tpu_torch.renderer import remat_query_mode
     for env in ("VANERF_TWO_RES", "VANERF_PE_DIRECT", "VANERF_REMAT_QUERY"):

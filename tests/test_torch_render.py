@@ -176,15 +176,18 @@ def test_mask_centered_grid_centres_on_foreground():
 
 
 def test_unported_render_options_raise():
-    """Two source views render (``tests/test_torch_views.py``); a device
-    mesh, the one render option still not ported, raises."""
+    """Two source views render (``tests/test_torch_views.py``) and so does a
+    device mesh (``tests/test_torch_parallel.py``): a tile group that does
+    not split over the mesh's ranks raises, and ``plan_tile_group``
+    rounds one that would not."""
+    from types import SimpleNamespace
     model = h.port_model()
     batch = h.torch_batch(h.synthetic_batch()[0])
-    with pytest.raises(NotImplementedError):
+    mesh = SimpleNamespace(size=4, rank=0)
+    with pytest.raises(ValueError, match="split"):
         tr.render_full_image(model, batch, level=3, sample_per_ray_c=4,
-                             sample_per_ray_f=4, mesh=object())
-    with pytest.raises(NotImplementedError):
-        tr.plan_tile_group(16, 4, mesh=object())
+                             sample_per_ray_f=4, tile_group=2, mesh=mesh)
+    assert tr.plan_tile_group(16, 2, mesh=mesh) == (4, mesh)
 
 
 def test_render_patch_training_builds_a_graph():

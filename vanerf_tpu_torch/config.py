@@ -3,8 +3,10 @@
 The port reads the same ``configs/*.json`` schema and takes the same CLI
 flags (``--config --data_root --out_dir --run_val --in_the_wild
 --fast_dev_run --model_ckpt --num_gpus --synthetic_data --profile_dir``),
-plus ``--device``.  YAML configs are not supported (the port does not
-depend on ``yaml``).
+plus ``--device``.  YAML configs (``.yml`` / ``.yaml``) are read as the
+JAX package reads them, through the ``yaml`` package imported where a
+YAML file is loaded; where it is not installed (the card's machine has
+none) loading one raises ``ImportError`` with the way out.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ def create_parser() -> argparse.ArgumentParser:
     parser.add_argument("--fast_dev_run", action="store_true")
     parser.add_argument("--model_ckpt", type=str, default=None)
     parser.add_argument("--num_gpus", default=1, type=int,
-                        help="Number of devices (only 1 is ported).")
+                        help="Number of devices (data-parallel ranks).")
     parser.add_argument("--synthetic_data", action="store_true",
                         help="Run on the built-in synthetic fixture dataset.")
     parser.add_argument("--profile_dir", type=str, default=None,
@@ -55,11 +57,23 @@ def resolve_flags(args) -> None:
 
 
 def load_cfg(path: str) -> dict:
-    """Load a JSON config (reference ``src/config.py:54-68``)."""
-    if not str(path).endswith(".json"):
-        raise ValueError(f"the port reads JSON configs only, got {path!r}")
-    with open(path, "r") as file:
-        return json.load(file)
+    """Load a JSON or YAML config (reference ``src/config.py:54-68``;
+    ``vanerf_tpu/config.py:62-70``)."""
+    path = str(path)
+    if path.endswith(".json"):
+        with open(path, "r") as file:
+            return json.load(file)
+    if path.endswith((".yml", ".yaml")):
+        try:
+            import yaml
+        except ImportError as e:
+            raise ImportError(
+                f"{path}: YAML configs need the 'yaml' package (PyYAML), "
+                "which is not installed; pass the config as JSON") from e
+        with open(path, "r") as file:
+            return yaml.safe_load(file)
+    raise ValueError(f"Invalid config file {path!r}: JSON (.json) or YAML "
+                     "(.yml, .yaml)")
 
 
 def save_config(dst_directory: str, config: dict) -> None:

@@ -105,10 +105,14 @@ def run_test(model, state, dataset, cfg: dict, save_dir: str,
              epoch: Optional[int] = None):
     """Score ``dataset`` (or its first ``max_items``) and write the
     report; returns the report's mapping.  The metrics run on the
-    model's device."""
+    model's device.  With a data-parallel ``mesh`` every rank renders its
+    share of each frame's tiles (:func:`plan_tile_group`) and rank 0
+    scores the frames and writes the images and the report (the other
+    ranks return None)."""
     test_dst_name = tag or cfg.get("test_dst_name", "test")
     result_dir = os.path.join(save_dir, f"images_{test_dst_name}")
-    evaluator = Evaluator(result_dir, device=_device_of(model))
+    evaluator = (Evaluator(result_dir, device=_device_of(model))
+                 if mesh is None or mesh.lead else None)
     faces = dataset.faces
 
     n = len(dataset) if max_items is None else min(max_items, len(dataset))
@@ -139,6 +143,8 @@ def _run_test_inner(loader, model, state, cfg, save_dir, evaluator,
             n_tiles, cfg["training"].get("eval_tile_group", 1), mesh)
         out = render_full_image(model, batch, level=level, n_views=n_views,
                                 tile_group=tg, mesh=use_mesh)
+        if evaluator is None:
+            continue
         pred = np.clip(out["tex_fg_fine"][0].float().cpu().numpy(), 0.0, 1.0)
         gt = batch_np["tar_img"][0]
         # SSIM crop region: ray-AABB mask when the dataset provides it
@@ -155,6 +161,8 @@ def _run_test_inner(loader, model, state, cfg, save_dir, evaluator,
             view_index=str(item.get("cam_ind", 0)))
         scores.append(s)
         print(f"[{i+1}/{n}]", {k: round(v, 4) for k, v in s.items()})
+    if evaluator is None:
+        return None
 
     results = {k: float(np.nanmean([s[k] for s in scores]))
                for k in scores[0]}

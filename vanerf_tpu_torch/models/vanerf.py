@@ -3,7 +3,10 @@
 
 Supported: ``n_views`` source views (the shipped configs take one, the
 reference one or two), the ten ``sp_type``s (``models/spatial.py``;
-``mxyz`` / ``rel_mxyz`` read the query's ``model_T``), ``sp_conv=false``,
+``mxyz`` / ``rel_mxyz`` read the query's ``model_T``), ``sp_conv`` false
+or true (the dense voxel fusion branch of ``models/voxel_fusion.py`` on a
+``voxel_grid`` of 64^3 unless the config or the attribute says otherwise;
+the query then takes the frames' ``bounds``),
 ``disable_fg_mask``, the geometry MLP's activations and ``max`` pooling
 (``models/mlp.py``), the texture encoder's norms (``models/blocks.py``),
 eval and training.  At one view the training query
@@ -64,6 +67,7 @@ from .fusion import GeoVisFusion, TexVisFusion
 from .ibr import IBRRenderingHead
 from .mlp import MLPUNetFusion, dense
 from .spatial import SpatialEncoder
+from .voxel_fusion import GeoVisFusionSP, TexVisFusionSP
 
 # the compute dtypes the port takes, by the JAX package's names
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -159,15 +163,19 @@ class VANeRF(nn.Module):
                  image_hw=(256, 256), far_tau: float = 0.02, far_skip: float = 0.0,
                  far_net: float = 0.0, far_tnet: float = 0.0,
                  compute_dtype: str = "float32",
-                 disable_fg_mask: bool = False):
+                 disable_fg_mask: bool = False, sp_conv: bool = False,
+                 voxel_grid=(64, 64, 64)):
         super().__init__()
         if compute_dtype not in COMPUTE_DTYPES:
             raise NotImplementedError(f"compute_dtype {compute_dtype!r}")
         self.compute_dtype = compute_dtype
         self.disable_fg_mask = disable_fg_mask
         self.sp_args = dict(sp_args)
+        self.sp_conv = bool(sp_conv)
+        # the dense grid (D, H, W) of the sp_conv branch, read at each query
+        self.voxel_grid = tuple(int(s) for s in voxel_grid)
         self.fused_ok = (sp_args["sp_type"] == "rel_z_decay"
-                         and fused_network(mlp_geo_args))
+                         and fused_network(mlp_geo_args) and not sp_conv)
         self.gcompress_out = gcompress_out
         self.num_v = num_v
         self.ds_geo, self.ds_tex = ds_geo, ds_tex
@@ -200,9 +208,16 @@ class VANeRF(nn.Module):
         th, tw = H >> ds_tex, W >> ds_tex
         n_dn, n_up = t.get("n_downsample", 3), t.get("n_upsample", 3)
         tex_hw = ((th >> n_dn) << n_up, (tw >> n_dn) << n_up)
-        self.geo_vis_fusion = GeoVisFusion(num_v=num_v)
-        self.tex_vis_fusion = TexVisFusion(
-            num_v=num_v, if_ch3=t.get("out_ch", 8), hw3=tex_hw, hw4=(H, W))
+        if sp_conv:
+            self.geo_vis_fusion = GeoVisFusionSP(num_v=num_v)
+            self.tex_vis_fusion = TexVisFusionSP(
+                num_v=num_v, if_ch3=t.get("out_ch", 8), hw3=tex_hw,
+                hw4=(H, W), latent=gcompress_out)
+        else:
+            self.geo_vis_fusion = GeoVisFusion(num_v=num_v)
+            self.tex_vis_fusion = TexVisFusion(
+                num_v=num_v, if_ch3=t.get("out_ch", 8), hw3=tex_hw,
+                hw4=(H, W))
         self.ibr_compress_gfeat = nn.Linear(gcompress_in, gcompress_out)
         self.mlp_tex = IBRRenderingHead(in_channels=ibr_in_channels)
         self.sigmoid_beta = nn.Parameter(torch.full((1,), 0.1))
@@ -211,8 +226,6 @@ class VANeRF(nn.Module):
     @classmethod
     def from_config(cls, cfg: dict, num_v: int = 779, image_hw=(256, 256)):
         m = cfg["models"]["VANeRF"]
-        if m.get("sp_conv", False):
-            raise NotImplementedError("sp_conv is not ported")
         cdt = resolve_compute_dtype(m)
         inf = cfg.get("inference", {})
         gc = m["mlp_tex_args"]["gcompress"]
@@ -230,7 +243,9 @@ class VANeRF(nn.Module):
             far_skip=float(inf.get("far_skip", 0.0)),
             far_net=float(inf.get("far_net", 0.0)),
             far_tnet=float(inf.get("far_tnet", 0.0)), compute_dtype=cdt,
-            disable_fg_mask=bool(m.get("disable_fg_mask", False)))
+            disable_fg_mask=bool(m.get("disable_fg_mask", False)),
+            sp_conv=bool(m.get("sp_conv", False)),
+            voxel_grid=tuple(m.get("voxel_grid", (64, 64, 64))))
 
     @property
     def cdt(self) -> torch.dtype:
@@ -274,7 +289,7 @@ class VANeRF(nn.Module):
               verts, vert_vis, query_vis, query_sdf, kpt3d, n_samples: int,
               n_views: int = 1, training: bool = False, nn_idx=None,
               far_mask=None, fused_override=None, view_mask=None,
-              model_T=None):
+              model_T=None, bounds=None):
         """(sdf_channel, radiance, rgb) at world points.
 
         pts/view (B, N, 3); cam: 'KRT'/'extrin' (Bf V, 4, 4), the V source
@@ -299,7 +314,9 @@ class VANeRF(nn.Module):
         (JAX's gate), and the network they hold (:func:`fused_network`):
         else the level is 0.  ``model_T`` (Bf, 4, 4) is the model
         transform of the ``mxyz`` / ``rel_mxyz`` encodings, a frame's
-        for its elements.
+        for its elements.  ``bounds`` (Bf, 2, 3), the frames' boxes, place
+        the voxel grid of ``sp_conv`` (which ignores ``far_mask``, as the
+        JAX package's branch does).
         Returns out (B, N, 5) float32, valid (B, N, 1).
         """
         _check_env()
@@ -419,6 +436,12 @@ class VANeRF(nn.Module):
             nn_idx = nearest_vertex_d2(v, vert_rep)[0]
         else:
             nn_idx = per_view(nn_idx)
+        if self.sp_conv:
+            return self._query_sp(v, view, V, krt_e, vert_xy, vert_rep,
+                                  vert_vis, query_vis, query_sdf, feat_geo,
+                                  feat_sampled, feat_tex, feat_tex_xy,
+                                  src_img, img_xy, y, out_mask, pix_weight,
+                                  per_view(bounds), nn_idx, n_samples)
         # one shared KNN gather for both fusion branches
         gv = self.geo_vis_fusion.vertex_table(feat_geo, vert_xy)
         tv = self.tex_vis_fusion.vertex_table(feat_tex, src_img, vert_xy)
@@ -468,6 +491,34 @@ class VANeRF(nn.Module):
                                 latent_compressed=fused_level >= 1)
         # compositing and the losses stay float32 (models/vanerf.py:533),
         # or float64 where the caller runs the model in it
+        odt = torch.promote_types(out.dtype, torch.float32)
+        out = torch.cat([out.to(odt), rgb.to(odt)], -1)
+        return out, valid.to(out.dtype)
+
+    def _query_sp(self, v, view, V, krt_e, vert_xy, vert_rep, vert_vis,
+                  query_vis, query_sdf, feat_geo, feat_sampled, feat_tex,
+                  feat_tex_xy, src_img, img_xy, y, out_mask, pix_weight,
+                  bounds, nn_idx, n_samples):
+        """The ``sp_conv`` tail of :meth:`query` (``vanerf_tpu/models/
+        vanerf.py:443-453``, ``:591-594``): the voxel geometry fusion fed
+        the activated prior density sigmoid(-sdf / beta) / beta (beta at
+        least 2e-3), the geometry MLP, then the voxel texture fusion.
+        ``bounds`` (Bf V, 2, 3), a frame-view's box each."""
+        BV, N, _ = v.shape
+        B = BV // V
+        cdt = self.cdt
+        beta = self.sigmoid_beta.clamp(min=2e-3)
+        q_sdf_act = torch.sigmoid(-query_sdf.float() / beta) / beta
+        fused = self.geo_vis_fusion(
+            vert_xy, feat_geo, feat_sampled, vert_rep, v, vert_vis,
+            query_vis, q_sdf_act, bounds, nn_idx, self.voxel_grid)
+        fused = [f.to(cdt).reshape(B, V, N, -1) for f in fused]
+        out, valid, _x_view, latent_fused = self.mlp_geo(
+            y, fused, out_mask.to(cdt), pix_weight.to(cdt))
+        rgb = self._query_color(vert_xy, vert_rep, vert_vis, query_vis, v,
+                                view, V, krt_e, feat_tex, latent_fused,
+                                src_img, img_xy, feat_tex_xy, None,
+                                out_mask, n_samples, sp=(bounds, nn_idx))
         odt = torch.promote_types(out.dtype, torch.float32)
         out = torch.cat([out.to(odt), rgb.to(odt)], -1)
         return out, valid.to(out.dtype)
@@ -539,7 +590,7 @@ class VANeRF(nn.Module):
     def _query_color(self, vert_xy, vert, vert_vis, query_vis, v, view,
                      n_views, krt, feat_tex, latent_fused, img, img_xy,
                      feat_xy, tex_knn, out_mask, n_samples,
-                     latent_compressed: bool = False):
+                     latent_compressed: bool = False, sp=None):
         """IBR colour query (model.py:884-957; JAX
         ``vanerf_tpu/models/vanerf.py:584-633``): the per-view texture
         fusion of the latent (repeated per view), then the IBR head's
@@ -549,7 +600,8 @@ class VANeRF(nn.Module):
         is ``0`` (the JAX package's switch).  v (B V, N, 3) the points
         repeated per view, view (B, N, 3), krt (B V, 4, 4), out_mask
         (B, V, N, 1); ``latent_compressed``: kernel 12 has already applied
-        gcompress."""
+        gcompress; ``sp``: (bounds, nn_idx) of the ``sp_conv`` texture
+        fusion."""
         BV, N, _ = v.shape
         B = BV // n_views
         gc = self.ibr_compress_gfeat
@@ -557,9 +609,14 @@ class VANeRF(nn.Module):
                   else dense(latent_fused, gc.weight, gc.bias))
         if n_views != 1:
             latent = latent.repeat_interleave(n_views, 0)
-        rgb_feat = self.tex_vis_fusion(vert_xy, feat_tex, feat_xy, vert, v,
-                                       vert_vis, query_vis, img_xy, img,
-                                       latent, knn=tex_knn)   # (B V, N, 40)
+        if sp is not None:
+            rgb_feat = self.tex_vis_fusion(
+                vert_xy, feat_tex, feat_xy, vert, v, vert_vis, query_vis,
+                img_xy, img, latent, *sp, self.voxel_grid).to(latent.dtype)
+        else:
+            rgb_feat = self.tex_vis_fusion(
+                vert_xy, feat_tex, feat_xy, vert, v, vert_vis, query_vis,
+                img_xy, img, latent, knn=tex_knn)             # (B V, N, 40)
         if (n_views == 1
                 and os.environ.get("VANERF_IBR_V1_SHORTCUT", "1") != "0"):
             return rgb_feat[..., :3]

@@ -1,5 +1,4 @@
-"""Free-viewpoint orbit video on one GPU: the counterpart of
-``render_dynamic.py``.
+"""Free-viewpoint orbit video: the counterpart of ``render_dynamic.py``.
 
 Usage (the reference's flags, plus ``--device``):
   python -m vanerf_tpu_torch.render_dynamic --config ./configs/vanerf.json \\
@@ -14,14 +13,18 @@ hands with ``get_360cameras`` (the reference's wobble schedule), one
 the port's own encoders (no imaging library).  Runs on the card unless
 ``--device cpu`` is given; there is no fallback.  ``--model_ckpt`` takes
 what ``vanerf_tpu_torch.train`` takes; without it the seeded initial
-weights render.  ``--num_gpus`` other than 1 raises: multi-GPU is not
-ported.  The GIF's frames last 10 cs each, as the reference meant (the JAX
+weights render.  ``--num_gpus N`` splits each frame's tile group over N
+ranks, one process a device (``parallel/``; the command starts them
+itself, or runs under torchrun), as the JAX package shards it over its
+mesh (``render_dynamic.py:87-100``, the same ``plan_tile_group``); rank 0
+writes the files and returns the result.  The GIF's frames last 10 cs each, as the reference meant (the JAX
 package's ``imageio.mimsave(duration=0.1)`` writes no delay).
 """
 
 from __future__ import annotations
 
 import os
+import sys
 
 import numpy as np
 import torch
@@ -83,7 +86,31 @@ def to_uint8(tex: torch.Tensor) -> np.ndarray:
 def main(argv=None):
     """Run the CLI; returns a dict with the model, the source batch, the
     orbit cameras, the (level, tile_group) of the renders, the uint8
-    frames and the output directory."""
+    frames and the output directory (on rank 0; None elsewhere and where
+    it launched the ranks)."""
+    from vanerf_tpu_torch import config as vconfig
+    from vanerf_tpu_torch.device import resolve_device
+    from vanerf_tpu_torch.parallel import launch, make_mesh
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = vconfig.create_parser().parse_args(argv)
+    mesh = None
+    if args.num_gpus != 1:
+        resolve_device(args.device)      # no card: raise before spawning
+        if launch("vanerf_tpu_torch.render_dynamic:main", argv,
+                  args.num_gpus):
+            return None
+        mesh = make_mesh(args.num_gpus, device=args.device)
+    try:
+        return _main(args, mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _main(args, mesh):
+    """:func:`main` in one process (``mesh``: its rank, or None)."""
     from vanerf_tpu_torch import config as vconfig
     from vanerf_tpu_torch.data import SyntheticDataset, to_torch
     from vanerf_tpu_torch.device import resolve_device
@@ -92,13 +119,8 @@ def main(argv=None):
     from vanerf_tpu_torch.training.checkpoints import restore_any
     from vanerf_tpu_torch.training.loop import collate_numpy
 
-    parser = vconfig.create_parser()
-    args = parser.parse_args(argv)
-    if args.num_gpus != 1:
-        raise NotImplementedError(
-            f"--num_gpus {args.num_gpus}: multi-GPU rendering is not ported "
-            "(ROADMAP.md queue 1 item 9)")
-    dev = resolve_device(args.device)
+    lead = mesh is None or mesh.lead
+    dev = resolve_device(args.device) if mesh is None else mesh.device
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -126,7 +148,7 @@ def main(argv=None):
     if args.model_ckpt:
         state = create_train_state(model, disc, cfg, steps_per_epoch=10)
         restored, step = restore_any(args.model_ckpt, state)  # in place
-        if restored is not None:
+        if restored is not None and lead:
             print("Loaded checkpoint at step", step)
     model.eval()
     batch = to_torch(batch_np, dev)
@@ -135,19 +157,25 @@ def main(argv=None):
     cams = orbit_cameras(batch, n_frames)
     im_h = int(batch["src_img"].shape[1])
     level = frame_level(im_h)
-    tg, _ = renderer.plan_tile_group(
-        4 ** (level - 1), cfg.get("training", {}).get("eval_tile_group", 1))
+    tg, mesh = renderer.plan_tile_group(
+        4 ** (level - 1), cfg.get("training", {}).get("eval_tile_group", 1),
+        mesh)
 
     out_dir = os.path.join(save_dir, "video_interhand")
-    os.makedirs(out_dir, exist_ok=True)
     frames = []
     for fi, cam in enumerate(cams):
         out = renderer.render_full_image(model, camera_batch(batch, cam),
-                                         level=level, tile_group=tg)
+                                         level=level, tile_group=tg,
+                                         mesh=mesh)
+        if not lead:
+            continue
+        os.makedirs(out_dir, exist_ok=True)
         frame = to_uint8(out["tex_fg_fine"])
         write_png(os.path.join(out_dir, f"{fi:06d}.png"), frame)
         frames.append(frame)
         print(f"frame {fi + 1}/{n_frames}")
+    if not lead:
+        return None
     gif = write_gif(os.path.join(out_dir, "nvs.gif"), frames, GIF_DELAY_CS)
     print("Saved:", gif)
     mp4 = write_mjpeg_mp4(os.path.join(out_dir, "nvs.mp4"), frames,

@@ -67,6 +67,11 @@ JAX (they are eval-only here anyway), and so is ``VANERF_FUSED_TRAIN``'s
 boundary, which recomputes the query itself.  A ``batch["model_T"]``
 (Bf, 4, 4) reaches every query (the ``mxyz`` / ``rel_mxyz`` encodings).
 
+Under ``sp_conv`` (the dense voxel branch, ``models/voxel_fusion.py``)
+the query takes the frames' ``bounds``, the far tier and the serving tiers
+are off, and the composite takes the network's output as the density
+(no mesh prior), as in JAX (``vanerf_tpu/renderer.py:374-443``, ``:650``).
+
 A model with ``compute_dtype="bfloat16"`` (``models/vanerf.py``) serves
 and trains here unchanged: the query takes the float32 points, visibility,
 SDF and far flags, casts them itself and returns float32, so the tiers'
@@ -489,16 +494,19 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
         # query(training=False), which is what lets the fused level in.
         fused_train = (int(os.environ.get("VANERF_FUSED_TRAIN", "0") or 0)
                        if training and n_views == 1 else 0)
-        if fused_train or os.environ.get("VANERF_FUSED_MLP"):
-            # the fused kernels hold the consumers of query_vis and do not
-            # take the far substitution (set at all, as in the JAX package:
-            # VANERF_FUSED_MLP=0 is the exact baseline of the fused levels)
+        sp_conv = getattr(model, "sp_conv", False)
+        if fused_train or sp_conv or os.environ.get("VANERF_FUSED_MLP"):
+            # the fused kernels and the sp_conv branch hold the consumers of
+            # query_vis and do not take the far substitution (set at all,
+            # as in the JAX package: VANERF_FUSED_MLP=0 is the exact
+            # baseline of the fused levels; renderer.py:374-379)
             far2 = None
-        # the serving tiers: eval only, off under the SoA layout and the
-        # fused switches; FAR_NET / FAR_TNET also at more than one view,
-        # whose IBR head reads a ray's samples together (renderer.py:413-
-        # 443; sp_conv is not ported and raises elsewhere)
+        # the serving tiers: eval only, off under the SoA layout, the fused
+        # switches and sp_conv; FAR_NET / FAR_TNET also at more than one
+        # view, whose IBR head reads a ray's samples together
+        # (renderer.py:396-443)
         tiers_on = (not training and not soa_points and not remat_mode
+                    and not sp_conv
                     and not os.environ.get("VANERF_FUSED_MLP"))
         far_skip_frac, far_net_frac, far_tnet_frac = (
             resolve_tier(env, getattr(model, attr, 0.0), training)
@@ -508,6 +516,7 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
                 ("VANERF_FAR_NET", "far_net", False),
                 ("VANERF_FAR_TNET", "far_tnet", False)))
 
+        bounds = as_float_tensor(batch["bounds"]).to(dev)
         model_T = batch.get("model_T")
         if model_T is not None:
             model_T = as_float_tensor(model_T).to(dev)
@@ -521,7 +530,7 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
                     batch["kpt3d"], n_samples, n_views,
                     training=training and not fused_train, nn_idx=nn_idx,
                     far_mask=far_mask, fused_override=level,
-                    view_mask=view_mask, model_T=model_T)
+                    view_mask=view_mask, model_T=model_T, bounds=bounds)
 
             data = (pts, view, feat_tex, q_vis, q_sdf, *feat_geo)
             if remat_mode and not fused_train:
@@ -657,10 +666,12 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
         # ---- coarse pass ----
         alpha_c, sdf_c, rgb_c, qsdf_c = query_at(z, sample_per_ray_c, "c")
         shp = (B, P, sample_per_ray_c)
+        # under sp_conv the network's output is the density itself
+        # (renderer.py:650)
         color, depth, acc, contrib, _sdf_out = rgba2out(
             alpha_c.reshape(shp), sdf_c.reshape(shp),
             rgb_c.reshape(shp + (3,)),
-            z, qsdf_c.reshape(shp), beta)
+            z, qsdf_c.reshape(shp), beta, use_sdf_prior=not sp_conv)
         out = {"tex_fg": color.reshape(B, out_h, out_w, 3),
                "depth": depth.reshape(B, out_h, out_w),
                "alpha": acc.reshape(B, out_h, out_w)}
@@ -692,7 +703,8 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
                 rgb_cat[..., 1], rgb_cat[..., 2])
             rgb_f = torch.stack([r_f, g_f, b_f], -1)
             color_f, depth_f, acc_f, _, sdf_out_f = rgba2out(
-                alpha_f, sdf_f, rgb_f, z_fine, qsdf_f, beta)
+                alpha_f, sdf_f, rgb_f, z_fine, qsdf_f, beta,
+                use_sdf_prior=not sp_conv)
             out.update({"tex_fg_fine": color_f.reshape(B, out_h, out_w, 3),
                         "depth_fine": depth_f.reshape(B, out_h, out_w),
                         "alpha_fine": acc_f.reshape(B, out_h, out_w),
@@ -728,14 +740,19 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
 
 
 def plan_tile_group(n_tiles: int, tile_group: int, mesh=None):
-    """The (tile_group, mesh) pair of a full-image render on one device
-    (``vanerf_tpu/renderer.py:811``): ``tile_group`` (at least 1) capped at
-    the frame's ``n_tiles`` stride offsets.  A device ``mesh`` raises."""
+    """The (tile_group, mesh) pair of a full-image render
+    (``vanerf_tpu/renderer.py:811-828``): ``tile_group`` (at least 1)
+    capped at the frame's ``n_tiles`` stride offsets.  With a data-parallel
+    ``mesh`` (``parallel.Mesh``) the group is the unit split over its
+    ranks: rounded to a multiple of the world size (up from below it,
+    down from above), and the mesh dropped (one device renders) where the
+    frame's tiles do not split."""
+    tg = max(1, tile_group)
     if mesh is not None:
-        raise NotImplementedError(
-            "plan_tile_group(mesh=...) is not ported (ROADMAP.md queue 1 "
-            "item 9)")
-    return min(max(1, tile_group), n_tiles), None
+        tg = max(tg, mesh.size) // mesh.size * mesh.size
+        if min(tg, n_tiles) % mesh.size != 0:
+            mesh = None
+    return min(tg, n_tiles), mesh
 
 
 @torch.no_grad()
@@ -745,20 +762,23 @@ def render_full_image(model, batch: Dict[str, Any], *, level: int,
                       compute_vis_map: bool = False, tile_group: int = 1,
                       mesh=None):
     """Render the full target image by stride^2 interleaved patch passes
-    (``render_pifu_nerf``, ``model.py:1026-1100``) on one device: the
-    encoders, vertex visibility and prepared meshes run once per frame,
-    then one :func:`render_patch` per group of ``tile_group`` stride
-    offsets; tiles are reassembled by an inverse pixel shuffle.
-    Deterministic: ``rng`` and ``sdf_chunk`` are accepted and unused.  The
-    keywords are the JAX package's (``vanerf_tpu/renderer.py:831-949``):
-    ``tile_group`` G (clamped to stride^2, which it must divide) folds G
-    offsets, in the order (j, i) for i, j in range(s), into a batch of
-    G x B elements, g-major and b-minor, whose element t B + b renders frame
-    b at the group's t-th offset.  A device ``mesh`` raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "render_full_image(mesh=...) is not ported (ROADMAP.md queue 1 "
-            "item 9)")
+    (``render_pifu_nerf``, ``model.py:1026-1100``): the encoders, vertex
+    visibility and prepared meshes run once per frame, then one
+    :func:`render_patch` per group of ``tile_group`` stride offsets; tiles
+    are reassembled by an inverse pixel shuffle.  Deterministic: ``rng``
+    and ``sdf_chunk`` are accepted and unused.  The keywords are the JAX
+    package's (``vanerf_tpu/renderer.py:831-949``): ``tile_group`` G
+    (clamped to stride^2, which it must divide) folds G offsets, in the
+    order (j, i) for i, j in range(s), into a batch of G x B elements,
+    g-major and b-minor, whose element t B + b renders frame b at the
+    group's t-th offset.
+
+    With a data-parallel ``mesh`` (``parallel.Mesh``; G a multiple of its
+    size, as :func:`plan_tile_group` makes it) every rank encodes the
+    frames, renders its G / N offsets of each group (``_lazy_sharded_tile``,
+    ``renderer.py:755-809``) into a zeroed frame, and one sum over the
+    ranks joins the frames, exactly: each pixel has one writer.  Every
+    rank returns the whole frame."""
     B = batch["tar_k"].shape[0]
     H, W = batch["src_img"].shape[1:3]
     s = 2 ** (level - 1)
@@ -767,28 +787,39 @@ def render_full_image(model, batch: Dict[str, Any], *, level: int,
     if (s * s) % G:
         raise ValueError(f"tile_group {tile_group} must divide stride^2 = "
                          f"{s * s}")
+    n_ranks = 1 if mesh is None else mesh.size
+    if G % n_ranks:
+        raise ValueError(f"tile_group {G} does not split over {n_ranks} "
+                         "ranks (plan_tile_group rounds it)")
+    G_r = G // n_ranks
+    r0 = 0 if mesh is None else mesh.rank * G_r
     cached = tuple(encode_frame(model, batch, n_views=n_views))
     cached += (prepare_frame_meshes(batch, cached[2]),)
     dev = batch["src_img"].device
     offsets = [(j, i) for i in range(s) for j in range(s)]
     tiles = []
     for g0 in range(0, s * s, G):
-        strides = torch.tensor([[o] * B for o in offsets[g0:g0 + G]],
-                               dtype=torch.float32).reshape(G * B, 2)
-        grids = strided_grid(G * B, H, W, level, strides, device=dev)
+        # this rank's offsets of the group (all of them on one device)
+        own = offsets[g0 + r0:g0 + r0 + G_r]
+        strides = torch.tensor([[o] * B for o in own],
+                               dtype=torch.float32).reshape(G_r * B, 2)
+        grids = strided_grid(G_r * B, H, W, level, strides, device=dev)
         out = render_patch(
             model, batch, grids=grids, out_h=out_h, out_w=out_w,
             sample_per_ray_c=sample_per_ray_c,
             sample_per_ray_f=sample_per_ray_f, n_views=n_views,
             compute_vis_map=compute_vis_map, cached=cached)
         for t in range(G):
-            tiles.append({k: (v[t * B:(t + 1) * B]
+            mine = r0 <= t < r0 + G_r
+            tiles.append({k: ((v[(t - r0) * B:(t - r0 + 1) * B] if mine
+                               else torch.zeros_like(v[:B]))
                               if torch.is_tensor(v) and v.ndim >= 1
-                              and v.shape[0] == G * B else v)
+                              and v.shape[0] == G_r * B
+                              and k not in _FRAME_KEYS else v)
                           for k, v in out.items()})
     merged = {}
     for k, v in tiles[0].items():
-        if k in ("vert_vis", "index", "vis_img_all"):
+        if k in _FRAME_KEYS or k == "index":
             merged[k] = v
         elif v.ndim == 4:
             merged[k] = _unshuffle([t[k] for t in tiles], s)
@@ -797,7 +828,14 @@ def render_full_image(model, batch: Dict[str, Any], *, level: int,
                                    s)[..., 0]
         else:
             merged[k] = v
+        if n_ranks > 1 and k not in _FRAME_KEYS and torch.is_tensor(v):
+            # zeros where another rank wrote: the sum is that rank's value
+            mesh.all_reduce_sum_(merged[k])
     return merged
+
+
+# the outputs that are a frame's, not a tile's (every rank has them whole)
+_FRAME_KEYS = ("vert_vis", "vis_img_all")
 
 
 def _unshuffle(tiles, s: int) -> torch.Tensor:

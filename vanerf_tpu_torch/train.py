@@ -1,4 +1,4 @@
-"""Train / evaluate VANeRF on one GPU: the counterpart of ``train.py``.
+"""Train / evaluate VANeRF: the counterpart of ``train.py``.
 
 Usage (the reference's flags, plus ``--device``):
   python -m vanerf_tpu_torch.train --config ./configs/vanerf.json  # train
@@ -6,23 +6,60 @@ Usage (the reference's flags, plus ``--device``):
       --run_val --model_ckpt EXPERIMENTS/vanerf/ckpts                # eval
   python -m vanerf_tpu_torch.train --config ... --synthetic_data \\
       --device cpu                                       # on the CPU
+  python -m vanerf_tpu_torch.train --config ... --num_gpus 4  # 4 cards
+  torchrun --nproc_per_node 4 -m vanerf_tpu_torch.train --config ... \\
+      --num_gpus 4                                       # the same
 
 Runs on the card unless ``--device cpu`` is given; there is no fallback.
 ``--synthetic_data`` runs on the built-in fixture, so the whole pipeline
 runs without InterHand2.6M.  ``--model_ckpt`` takes a port checkpoint
 directory, a reference-layout Lightning ``model.ckpt`` or a
-``tools/convert_reference_ckpt.py`` pickle.  ``--num_gpus`` other than 1
-raises: multi-GPU is not ported.
+``tools/convert_reference_ckpt.py`` pickle.
+
+``--num_gpus N`` trains data-parallel over N ranks, one process a device
+(``parallel/``): a global batch of N x ``train_batch_size``, each rank its
+slice, the gradients and logs averaged over the ranks (NCCL on the cards,
+gloo with ``--device cpu``).  Run so, the command starts its N workers
+itself; under torchrun it is one of them.  Only rank 0 writes the config,
+the logs, the checkpoints and the reports; each worker's return value
+stays in its process (the launching call returns None).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import sys
 
 
 def main(argv=None):
-    """Run the CLI; returns the final train state."""
+    """Run the CLI; returns the final train state (None where it launched
+    the ranks)."""
+    from vanerf_tpu_torch import config as vconfig
+    from vanerf_tpu_torch.device import resolve_device
+    from vanerf_tpu_torch.parallel import launch, make_mesh
+
+    parser = vconfig.create_parser()
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parser.parse_args(argv)
+    vconfig.resolve_flags(args)
+    mesh = None
+    if args.num_gpus != 1:
+        resolve_device(args.device)      # no card: raise before spawning
+        if launch("vanerf_tpu_torch.train:main", argv, args.num_gpus):
+            return None
+        mesh = make_mesh(args.num_gpus, device=args.device)
+    try:
+        return _main(args, mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _main(args, mesh):
+    """:func:`main` in one process (``mesh``: its data-parallel rank, or
+    None on one device)."""
     import torch
 
     from vanerf_tpu_torch import config as vconfig
@@ -30,19 +67,14 @@ def main(argv=None):
     from vanerf_tpu_torch.device import resolve_device
     from vanerf_tpu_torch.losses import VGGLoss
     from vanerf_tpu_torch.models import DiscriminatorVis, VANeRF, init_like_flax
+    from vanerf_tpu_torch.parallel import make_parallel_train_step
     from vanerf_tpu_torch.profiling import trace
     from vanerf_tpu_torch.training import create_train_state, make_train_step
     from vanerf_tpu_torch.training.checkpoints import restore_any
     from vanerf_tpu_torch.training.loop import collate_numpy, fit
 
-    parser = vconfig.create_parser()
-    args = parser.parse_args(argv)
-    vconfig.resolve_flags(args)
-    if args.num_gpus != 1:
-        raise NotImplementedError(
-            f"--num_gpus {args.num_gpus}: multi-GPU training is not ported "
-            "(ROADMAP.md queue 1 item 9)")
-    dev = resolve_device(args.device)
+    lead = mesh is None or mesh.lead
+    dev = resolve_device(args.device) if mesh is None else mesh.device
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -57,7 +89,8 @@ def main(argv=None):
         cfg["out_dir"] = args.out_dir
     cfg["expname"] = cfg.get("expname", "default")
     save_dir = os.path.join(cfg["out_dir"], cfg["expname"])
-    vconfig.save_config(save_dir, cfg)
+    if lead:
+        vconfig.save_config(save_dir, cfg)
 
     # ---- dataset ----
     if args.synthetic_data:
@@ -100,7 +133,8 @@ def main(argv=None):
     restored, step = restore_any(args.model_ckpt or ckpt_dir, state)
     if restored is not None:
         state = restored
-        print(f"Resumed from step {step}")
+        if lead:
+            print(f"Resumed from step {step}")
 
     vgg = VGGLoss()
     if not vgg.pretrained:
@@ -111,13 +145,17 @@ def main(argv=None):
             "VGGLoss: vgg_random_init=true (no VANERF_VGG19_NPZ)")
         init_like_flax(vgg.vgg_net, torch.Generator().manual_seed(19))
     vgg = vgg.to(dev)
-    step_fn = make_train_step(model, disc, cfg, vgg, n_views=n_views)
+    if mesh is None:
+        step_fn = make_train_step(model, disc, cfg, vgg, n_views=n_views)
+    else:
+        step_fn = make_parallel_train_step(model, disc, cfg, vgg, mesh,
+                                           n_views=n_views)
 
     if args.run_val:
         from vanerf_tpu_torch.eval_loop import run_test
         spe = max(1, len(ds_train) // global_bs)
         run_test(model, state, ds_test, cfg, save_dir, n_views=n_views,
-                 epoch=int(state.step) // spe)
+                 mesh=mesh, epoch=int(state.step) // spe)
         return state
 
     if args.synthetic_data:
@@ -134,8 +172,10 @@ def main(argv=None):
         state = fit(step_fn, state, ds_train, collate, cfg=cfg,
                     save_dir=save_dir, generator=gen,
                     val_fn=None if args.fast_dev_run else val_fn,
-                    fast_dev_run=args.fast_dev_run, batch_size=global_bs)
-    print("Training done at step", int(state.step))
+                    fast_dev_run=args.fast_dev_run, batch_size=global_bs,
+                    mesh=mesh)
+    if lead:
+        print("Training done at step", int(state.step))
     return state
 
 

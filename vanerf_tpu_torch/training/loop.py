@@ -8,6 +8,12 @@ checkpoint per epoch (all kept + last), auto-resume, scalar logging with
 the same `train/*` / `val_total_loss` names.  The epoch order, the batch
 slices, the cadence of logs, validations and saves are the JAX package's;
 the random stream is one ``torch.Generator`` handed to every step.
+
+Over N data-parallel ranks (``mesh``, ``parallel/``) the batch is the
+global one, N x ``train_batch_size``: every rank walks the same epoch
+order, pads a short batch cyclically as the JAX package does
+(``vanerf_tpu/training/loop.py:189-193``) and takes its slice of it; only
+rank 0 validates, logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -97,7 +103,7 @@ def fit(train_step: Callable, state, dataset, collate: Callable, *,
         cfg: dict, save_dir: str, generator: Optional[torch.Generator] = None,
         max_epochs: Optional[int] = None, val_fn: Optional[Callable] = None,
         fast_dev_run: bool = False, log_every: int = 10,
-        batch_size: Optional[int] = None):
+        batch_size: Optional[int] = None, mesh=None):
     """Run the training loop (``vanerf_tpu/training/loop.py:177``).
 
     Args:
@@ -109,6 +115,9 @@ def fit(train_step: Callable, state, dataset, collate: Callable, *,
       val_fn: optional (state, step, logger) -> dict with 'val_total_loss'.
       batch_size: global batch size override; short batches (None-dropped
         samples, tail) are padded cyclically.
+      mesh: the data-parallel :class:`~vanerf_tpu_torch.parallel.Mesh`;
+        each rank collates its slice of every global batch (which divides
+        over the ranks).
     Returns the final state.
     """
     tcfg = cfg["training"]
@@ -116,9 +125,16 @@ def fit(train_step: Callable, state, dataset, collate: Callable, *,
     batch_size = batch_size or tcfg.get("train_batch_size", 1)
     val_interval = tcfg.get("pl_cfg", {}).get("val_check_interval", 0.1)
 
-    logger = MetricLogger(save_dir)
-    ckpt = CheckpointManager(os.path.join(save_dir, "ckpts"),
-                             max_to_keep=tcfg.get("keep_ckpts"))
+    lead = mesh is None or mesh.lead
+    n_ranks = 1 if mesh is None else mesh.size
+    if batch_size % n_ranks:
+        raise ValueError(f"a global batch of {batch_size} does not split "
+                         f"over {n_ranks} ranks")
+    per_rank = batch_size // n_ranks
+    logger = MetricLogger(save_dir) if lead else None
+    ckpt = (CheckpointManager(os.path.join(save_dir, "ckpts"),
+                              max_to_keep=tcfg.get("keep_ckpts"))
+            if lead else None)
 
     n = len(dataset)
     steps_per_epoch = max(n // batch_size, 1)
@@ -143,19 +159,24 @@ def fit(train_step: Callable, state, dataset, collate: Callable, *,
                 if len(items) < batch_size:
                     items = [items[i % len(items)]
                              for i in range(batch_size)]
+                if n_ranks > 1:
+                    items = items[mesh.rank * per_rank:
+                                  (mesh.rank + 1) * per_rank]
                 batch = collate(items)
                 logs = train_step(state, batch, generator)
                 step_i += 1
 
-                if step_i % log_every == 0:
+                if step_i % log_every == 0 and lead:
                     logger.log_scalars(step_i, logs)
-                if val_fn is not None and step_i % val_every == 0:
+                if val_fn is not None and step_i % val_every == 0 and lead:
                     val_logs = val_fn(state, step_i, logger)
                     if val_logs:
                         logger.log_scalars(step_i, val_logs)
                 if fast_dev_run:
                     return state
             dt = time.time() - t_epoch
+            if not lead:
+                continue
             logger.log_scalars(step_i, {"epoch": epoch, "epoch_time_s": dt})
             # per-epoch save (reference parity); training.ckpt_every_epochs
             # thins it, the last epoch always saves
@@ -164,8 +185,9 @@ def fit(train_step: Callable, state, dataset, collate: Callable, *,
                 ckpt.save(step_i, state, wait=False)
         return state
     finally:
-        ckpt.wait()          # flush any in-flight save
-        logger.close()
+        if lead:
+            ckpt.wait()          # flush any in-flight save
+            logger.close()
 
 
 def collate_numpy(items: Iterable[dict], faces=None, flatten_views=True):

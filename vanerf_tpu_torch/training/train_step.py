@@ -216,9 +216,15 @@ def deterministic():
                     allow_tf32=cd.allow_tf32)
 
 
-def make_train_step(model, disc, cfg: dict, vggloss, n_views: int = 1):
+def make_train_step(model, disc, cfg: dict, vggloss, n_views: int = 1,
+                    reduce=None):
     """Build ``train_step(state, batch, generator=None, draws=None) ->
-    logs`` (detached scalar tensors named as the JAX package's)."""
+    logs`` (detached scalar tensors named as the JAX package's).
+
+    ``reduce`` (``parallel/train.py``) averages over the data-parallel
+    ranks where the JAX step ``pmean``s (``train_step.py:195-196, 210-211,
+    219-220``): ``reduce.grads(grads, params)`` the gradients of G and of
+    D before each optimizer update, ``reduce.logs(logs)`` the logs."""
     faithful = faithful_gan(cfg)
 
     def train_step(state: TrainState, batch: Dict[str, Any],
@@ -235,6 +241,8 @@ def make_train_step(model, disc, cfg: dict, vggloss, n_views: int = 1):
         g_loss, err = generator_loss(out, disc, vggloss, cfg)
         grads_g = torch.autograd.grad(g_loss, state.opt_g.params,
                                       allow_unused=True)
+        if reduce is not None:
+            grads_g = reduce.grads(grads_g, state.opt_g.params)
         state.opt_g.step(grads_g)
 
         if faithful:
@@ -247,6 +255,8 @@ def make_train_step(model, disc, cfg: dict, vggloss, n_views: int = 1):
         d_loss, d_logs = discriminator_loss(out_d, disc)
         grads_d = torch.autograd.grad(d_loss, state.opt_d.params,
                                       allow_unused=True)
+        if reduce is not None:
+            grads_d = reduce.grads(grads_d, state.opt_d.params)
         state.opt_d.step(grads_d)
         state.step += 1
 
@@ -254,7 +264,8 @@ def make_train_step(model, disc, cfg: dict, vggloss, n_views: int = 1):
         logs.update({f"train/{k}": v for k, v in d_logs.items()})
         logs["train/g_loss"] = g_loss
         logs["train/d_loss"] = d_loss
-        return {k: (v.detach() if torch.is_tensor(v) else torch.tensor(v))
+        logs = {k: (v.detach() if torch.is_tensor(v) else torch.tensor(v))
                 for k, v in logs.items()}
+        return logs if reduce is None else reduce.logs(logs)
 
     return train_step

@@ -8,6 +8,14 @@ dense kernels (in, out) -> (out, in), 1x1 Conv1d stacks stored as dense
 layers -> (out, in, 1), weight-norm ``v``/``g`` -> ``weight_v``/``weight_g``
 (``models/mlp.py:54-60``), norm ``scale`` -> ``weight``.  The result loads
 into :class:`vanerf_tpu_torch.models.VANeRF` with ``strict=True``.
+
+The ``sp_conv`` fusion modules (``models/voxel_fusion.py``) have no key in
+the reference checkpoint (the JAX package replaced its spconv U-net by a
+dense one), so their keys are the flax paths themselves, e.g.
+``geo_vis_fusion.xyzc0.conv0.Conv_0.weight``: 3-D conv kernels (kd, kh,
+kw, in, out) -> (out, in, kd, kh, kw), dense kernels (in, out) -> (out,
+in), GroupNorm / LayerNorm ``scale`` -> ``weight``.  The texture branch's
+global context keeps the dense branch's keys.
 """
 
 from __future__ import annotations
@@ -147,11 +155,35 @@ def _geo_vis_fusion(w, p, pre):
         w.pointwise(p[f"ated{si}"]["Dense_1"], f"{pre}.{ated}.2")
 
 
+def _flax_tree(w, p, pre):
+    """A flax subtree under its own path: kernels of rank 5 (3-D convs)
+    and 2 (dense) transposed to torch's layout, ``scale`` -> ``weight``."""
+    for name, q in p.items():
+        key = f"{pre}.{name}"
+        if isinstance(q, dict):
+            _flax_tree(w, q, key)
+        elif name == "kernel":
+            k = np.asarray(q)
+            perm = {5: (4, 3, 0, 1, 2), 2: (1, 0)}[k.ndim]
+            w.put(f"{pre}.weight", np.transpose(k, perm))
+        else:
+            w.put(f"{pre}.weight" if name == "scale" else key, q)
+
+
+def _geo_vis_fusion_sp(w, p, pre):
+    for name, q in p.items():
+        _flax_tree(w, q, f"{pre}.{name}")
+
+
 def _tex_vis_fusion(w, p, pre):
-    w.pointwise(p["at"]["Dense_0"], f"{pre}.fconv_at.0")
-    w.pointwise(p["at"]["Dense_1"], f"{pre}.fconv_at.2")
-    w.pointwise(p["fuse"]["Dense_0"], f"{pre}.fconv.0")
-    w.pointwise(p["fuse"]["Dense_1"], f"{pre}.fconv.2")
+    if "xyzc" in p:                       # sp_conv: TexVisFusionSP
+        for name in ("xyzc", "at", "vis_at", "fuse"):
+            _flax_tree(w, p[name], f"{pre}.{name}")
+    else:
+        w.pointwise(p["at"]["Dense_0"], f"{pre}.fconv_at.0")
+        w.pointwise(p["at"]["Dense_1"], f"{pre}.fconv_at.2")
+        w.pointwise(p["fuse"]["Dense_0"], f"{pre}.fconv.0")
+        w.pointwise(p["fuse"]["Dense_1"], f"{pre}.fconv.2")
     for src, conv, ln in (("gt0", 0, 1), ("gt1", 3, 4)):
         w.conv1d(p[src]["Conv_0"], f"{pre}.fconv_gt.{conv}")
         w.norm(p[src]["LayerNorm_0"], f"{pre}.fconv_gt.{ln}")
@@ -185,7 +217,9 @@ def from_jax_params(params_np: dict) -> dict:
     _hgfilter(w, p["geo_encoder"], "geo_encoder")
     _resblk_encoder(w, p["tex_encoder"], "tex_encoder")
     _mlp_unet_fusion(w, p["mlp_geo"], "mlp_geo")
-    _geo_vis_fusion(w, p["geo_vis_fusion"], "geo_vis_fusion")
+    geo = p["geo_vis_fusion"]
+    (_geo_vis_fusion_sp if "xyzc0" in geo else _geo_vis_fusion)(
+        w, geo, "geo_vis_fusion")
     _tex_vis_fusion(w, p["tex_vis_fusion"], "tex_vis_fusion")
     w.dense(p["ibr_compress_gfeat"], "ibr_compress_gfeat")
     _ibr(w, p["mlp_tex"], "mlp_tex")
