@@ -17,6 +17,7 @@ count, parsed by JAX's ``parse_boxes``.
 """
 
 import io
+import json
 import os
 import struct
 import subprocess
@@ -192,15 +193,20 @@ def test_nan_guard_raises_on_the_same_dicts():
 
 
 def test_profiling_trace_and_timed(tmp_path):
-    from vanerf_tpu_torch.profiling import timed, trace
+    """``trace`` writes the Chrome trace, with the block's span, and its
+    counters beside it: the program's work counters and the kernels'
+    launch counters (``timed``, which nothing read, is gone)."""
+    from vanerf_tpu_torch.profiling import count, span, trace
     with trace(str(tmp_path / "prof"), "t.json"):
-        torch.ones(8).sum()
+        with span("vanerf.test"):
+            torch.ones(8).sum()
+        count("samples", 2)
     with open(tmp_path / "prof" / "t.json") as f:
-        assert '"traceEvents"' in f.read()
-    calls = []
-    sec, out = timed(lambda x: calls.append(x) or x + 1, 1, warmup=2,
-                     iters=3)
-    assert out == 2 and len(calls) == 5 and sec >= 0.0
+        text = f.read()
+    assert '"traceEvents"' in text and '"vanerf.test"' in text
+    with open(tmp_path / "prof" / "t.counters.json") as f:
+        counts = json.load(f)
+    assert counts["samples"] == 2 and counts["mesh_query"] == 0
 
 
 # ---------------------------------------------------------------------------

@@ -62,6 +62,7 @@ from ..ops.grid_sample import feat_sample_nhwc, feat_sample_two_res_nhwc
 from ..ops.interp_mxu import interp_mxu_viable, interp_sample_nhwc
 from ..ops.knn import knn_gather_1, knn_gather_raw, nearest_vertex_d2
 from ..ops.mesh_query import cull_sizes
+from ..profiling import span, spanned
 from .blocks import HGFilter, ResBlkEncoder, avg_pool2
 from .fusion import GeoVisFusion, TexVisFusion
 from .ibr import IBRRenderingHead
@@ -285,6 +286,7 @@ class VANeRF(nn.Module):
     # per-point query (reference VANeRF.query, model.py:748-877)
     # ------------------------------------------------------------------
 
+    @spanned("vanerf.query")
     def query(self, pts, view, cam, feat_geo, feat_tex, src_img, fg_mask,
               verts, vert_vis, query_vis, query_sdf, kpt3d, n_samples: int,
               n_views: int = 1, training: bool = False, nn_idx=None,
@@ -346,63 +348,67 @@ class VANeRF(nn.Module):
         krt = cam["KRT"]
         width, height = cam["width"], cam["height"]
         znear, zfar = cam["znear"], cam["zfar"]
-        v = per_view(pts)                                      # (B V, N, 3)
+        with span("vanerf.query.sample"):
+            v = per_view(pts)                                  # (B V, N, 3)
 
-        vh = v @ krt_e[:, :3, :3].transpose(-1, -2) + krt_e[:, None, :3, 3]
-        z = vh[..., 2:3]
-        xy = vh[..., :2] / z
-        xy = torch.stack([2.0 * (xy[..., 0] / (width - 1.0)) - 1.0,
-                          2.0 * (xy[..., 1] / (height - 1.0)) - 1.0], -1)
-        z = 2.0 * (z - znear) / (zfar - znear) - 1.0
+            vh = (v @ krt_e[:, :3, :3].transpose(-1, -2)
+                  + krt_e[:, None, :3, 3])
+            z = vh[..., 2:3]
+            xy = vh[..., :2] / z
+            xy = torch.stack([2.0 * (xy[..., 0] / (width - 1.0)) - 1.0,
+                              2.0 * (xy[..., 1] / (height - 1.0)) - 1.0],
+                             -1)
+            z = 2.0 * (z - znear) / (zfar - znear) - 1.0
 
-        eps = 1e-2
-        mask_xy = (xy >= -1.0 - eps) & (xy <= 1.0 + eps)
-        out_mask = (mask_xy[..., 0] & mask_xy[..., 1]
-                    & (z[..., 0] >= -1.0))[..., None].to(pts.dtype)
-        out_mask = out_mask.reshape(B, V, N, 1)
+            eps = 1e-2
+            mask_xy = (xy >= -1.0 - eps) & (xy <= 1.0 + eps)
+            out_mask = (mask_xy[..., 0] & mask_xy[..., 1]
+                        & (z[..., 0] >= -1.0))[..., None].to(pts.dtype)
+            out_mask = out_mask.reshape(B, V, N, 1)
 
-        if fg_mask.shape[1:3] == src_img.shape[1:3]:
-            fm = feat_sample_nhwc(torch.cat([fg_mask, src_img], -1), xy)
-            fg_xy, img_xy = fm[..., :1], fm[..., 1:]
-        else:
-            fg_xy = feat_sample_nhwc(fg_mask, xy)
-            img_xy = feat_sample_nhwc(src_img, xy)
-        # a point counts where every view sees it (in its foreground)
-        ok = out_mask > 0
-        if not self.disable_fg_mask:
-            ok = ok & (fg_xy.reshape(B, V, N, 1) > 0.1)
-        out_mask = out_mask * ok.all(1, keepdim=True)
-        if training and V > 1 and view_mask is not None:
-            out_mask = out_mask * view_mask.to(out_mask.dtype)
+            if fg_mask.shape[1:3] == src_img.shape[1:3]:
+                fm = feat_sample_nhwc(torch.cat([fg_mask, src_img], -1), xy)
+                fg_xy, img_xy = fm[..., :1], fm[..., 1:]
+            else:
+                fg_xy = feat_sample_nhwc(fg_mask, xy)
+                img_xy = feat_sample_nhwc(src_img, xy)
+            # a point counts where every view sees it (in its foreground)
+            ok = out_mask > 0
+            if not self.disable_fg_mask:
+                ok = ok & (fg_xy.reshape(B, V, N, 1) > 0.1)
+            out_mask = out_mask * ok.all(1, keepdim=True)
+            if training and V > 1 and view_mask is not None:
+                out_mask = out_mask * view_mask.to(out_mask.dtype)
 
-        # boundary-smooth pixel weights (model.py:813-821), normalised over
-        # the views
-        xyz01 = 0.5 * torch.cat([xy, z], -1) + 0.5
-        dist_b = torch.minimum(xyz01, 1.0 - xyz01)
-        pw = torch.sigmoid(5.0 * (dist_b / 0.1 - 1.0))
-        pw = (pw[..., 0] * pw[..., 1] * pw[..., 2]).reshape(B, V, N, 1)
-        pw = pw.detach() * out_mask
-        pix_weight = pw / (pw.sum(1, keepdim=True) + 1e-6)
+            # boundary-smooth pixel weights (model.py:813-821), normalised
+            # over the views
+            xyz01 = 0.5 * torch.cat([xy, z], -1) + 0.5
+            dist_b = torch.minimum(xyz01, 1.0 - xyz01)
+            pw = torch.sigmoid(5.0 * (dist_b / 0.1 - 1.0))
+            pw = (pw[..., 0] * pw[..., 1] * pw[..., 2]).reshape(B, V, N, 1)
+            pw = pw.detach() * out_mask
+            pix_weight = pw / (pw.sum(1, keepdim=True) + 1e-6)
 
-        if feat_geo[1].shape[1:3] == feat_tex.shape[1:3]:
-            half = _psamp(torch.cat([feat_geo[1], feat_tex], -1), xy,
-                          training)
-            ch1 = feat_geo[1].shape[-1]
-            feat_sampled = [_psamp(feat_geo[0], xy, training),
-                            half[..., :ch1]]
-            feat_tex_xy = half[..., ch1:]
-        elif (os.environ.get("VANERF_TWO_RES", "0") != "0" and not training
-              and feat_tex.shape[1] <= feat_geo[1].shape[1]
-              and feat_tex.shape[2] <= feat_geo[1].shape[2]):
-            # VANERF_TWO_RES=1 (inference): the coarser texture map rides
-            # the fine geometry map's row gather (vanerf_tpu/models/
-            # vanerf.py:333-363)
-            g1_xy, feat_tex_xy = feat_sample_two_res_nhwc(feat_geo[1],
-                                                          feat_tex, xy)
-            feat_sampled = [_psamp(feat_geo[0], xy, training), g1_xy]
-        else:
-            feat_sampled = [_psamp(f, xy, training) for f in feat_geo]
-            feat_tex_xy = feat_sample_nhwc(feat_tex, xy)
+            if feat_geo[1].shape[1:3] == feat_tex.shape[1:3]:
+                half = _psamp(torch.cat([feat_geo[1], feat_tex], -1), xy,
+                              training)
+                ch1 = feat_geo[1].shape[-1]
+                feat_sampled = [_psamp(feat_geo[0], xy, training),
+                                half[..., :ch1]]
+                feat_tex_xy = half[..., ch1:]
+            elif (os.environ.get("VANERF_TWO_RES", "0") != "0"
+                  and not training
+                  and feat_tex.shape[1] <= feat_geo[1].shape[1]
+                  and feat_tex.shape[2] <= feat_geo[1].shape[2]):
+                # VANERF_TWO_RES=1 (inference): the coarser texture map rides
+                # the fine geometry map's row gather (vanerf_tpu/models/
+                # vanerf.py:333-363)
+                g1_xy, feat_tex_xy = feat_sample_two_res_nhwc(feat_geo[1],
+                                                              feat_tex, xy)
+                feat_sampled = [_psamp(feat_geo[0], xy, training), g1_xy]
+            else:
+                feat_sampled = [_psamp(f, xy, training) for f in feat_geo]
+                feat_tex_xy = feat_sample_nhwc(feat_tex, xy)
 
         # fused query kernels (ops/fused_mlp.py), one source view only:
         #   1: PE + MLPUNetFusion + gcompress; 2: additionally both
@@ -419,76 +425,89 @@ class VANeRF(nn.Module):
 
         y = None
         if fused_level == 0:
-            y = self.sp_encoder(v=v, pts=pts, z=z, xy=xy, extrin=extrin_e,
-                                kpt3d=kpt3d_e, n_view=V, model_T=model_T_e)
-            y = y.reshape(B, V, N, -1).to(cdt)
+            with span("vanerf.query.net"):
+                y = self.sp_encoder(v=v, pts=pts, z=z, xy=xy, extrin=extrin_e,
+                                    kpt3d=kpt3d_e, n_view=V,
+                                    model_T=model_T_e)
+                y = y.reshape(B, V, N, -1).to(cdt)
 
-        # project mesh vertices into the source views (model.py:845-853)
-        vvh = vert_rep @ krt[:, :3, :3].transpose(-1, -2) \
-            + krt[:, None, :3, 3]
-        vz = vvh[..., 2:3]
-        vxy = vvh[..., :2] / (vz + 1e-8)
-        vert_xy = torch.stack([2.0 * (vxy[..., 0] / (width - 1.0)) - 1.0,
-                               2.0 * (vxy[..., 1] / (height - 1.0)) - 1.0],
-                              -1)                          # (Bf V, V2, 2)
+        with span("vanerf.query.gather"):
+            # project mesh vertices into the source views
+            # (model.py:845-853)
+            vvh = vert_rep @ krt[:, :3, :3].transpose(-1, -2) \
+                + krt[:, None, :3, 3]
+            vz = vvh[..., 2:3]
+            vxy = vvh[..., :2] / (vz + 1e-8)
+            vert_xy = torch.stack(
+                [2.0 * (vxy[..., 0] / (width - 1.0)) - 1.0,
+                 2.0 * (vxy[..., 1] / (height - 1.0)) - 1.0],
+                -1)                                        # (Bf V, V2, 2)
 
-        if nn_idx is None:
-            nn_idx = nearest_vertex_d2(v, vert_rep)[0]
-        else:
-            nn_idx = per_view(nn_idx)
+            if nn_idx is None:
+                nn_idx = nearest_vertex_d2(v, vert_rep)[0]
+            else:
+                nn_idx = per_view(nn_idx)
         if self.sp_conv:
             return self._query_sp(v, view, V, krt_e, vert_xy, vert_rep,
                                   vert_vis, query_vis, query_sdf, feat_geo,
                                   feat_sampled, feat_tex, feat_tex_xy,
                                   src_img, img_xy, y, out_mask, pix_weight,
                                   per_view(bounds), nn_idx, n_samples)
-        # one shared KNN gather for both fusion branches
-        gv = self.geo_vis_fusion.vertex_table(feat_geo, vert_xy)
-        tv = self.tex_vis_fusion.vertex_table(feat_tex, src_img, vert_xy)
-        shared = torch.cat([gv, tv], -1)
+        with span("vanerf.query.gather"):
+            # one shared KNN gather for both fusion branches
+            gv = self.geo_vis_fusion.vertex_table(feat_geo, vert_xy)
+            tv = self.tex_vis_fusion.vertex_table(feat_tex, src_img, vert_xy)
+            shared = torch.cat([gv, tv], -1)
+            if fused_level >= 2:
+                # raw rows: slicing, visibility weighting and both fusion
+                # nets run inside the kernel
+                g2_raw = knn_gather_raw(v, vert_rep, shared, vert_vis,
+                                        self.num_v, nn_idx)
+            else:
+                f_s, f_toh_s, vis_th, vis_toh = knn_gather_1(
+                    v, vert_rep, shared, vert_vis, self.num_v, nn_idx)
+                if far_mask is not None:
+                    # far-field tier: the nearest vertex's visibility stands
+                    # in
+                    query_vis = torch.where(per_view(far_mask), vis_th,
+                                            query_vis)
+                cg = gv.shape[-1]
+                geo_knn = (f_s[..., :cg], f_toh_s[..., :cg], vis_th, vis_toh)
+                tex_knn = (f_s[..., cg:], f_toh_s[..., cg:], vis_th, vis_toh)
         if fused_level >= 2:
-            # raw rows: slicing, visibility weighting and both fusion nets
-            # run inside the kernel
-            g2_raw = knn_gather_raw(v, vert_rep, shared, vert_vis,
-                                    self.num_v, nn_idx)
-            return self._query_fused_full(
-                v, extrin_e, kpt3d_e, feat_sampled, img_xy, feat_tex_xy,
-                query_sdf, query_vis, out_mask, pix_weight, g2_raw)
-        f_s, f_toh_s, vis_th, vis_toh = knn_gather_1(
-            v, vert_rep, shared, vert_vis, self.num_v, nn_idx)
-        if far_mask is not None:
-            # far-field tier: the nearest vertex's visibility stands in
-            query_vis = torch.where(per_view(far_mask), vis_th, query_vis)
-        cg = gv.shape[-1]
-        geo_knn = (f_s[..., :cg], f_toh_s[..., :cg], vis_th, vis_toh)
-        tex_knn = (f_s[..., cg:], f_toh_s[..., cg:], vis_th, vis_toh)
-        fused = self.geo_vis_fusion(vert_xy, feat_geo, feat_sampled,
-                                    vert_rep, v, vert_vis, query_vis,
-                                    query_sdf, knn=geo_knn)
-        fused = [f.reshape(B, V, N, -1) for f in fused]
+            with span("vanerf.query.net"):
+                return self._query_fused_full(
+                    v, extrin_e, kpt3d_e, feat_sampled, img_xy, feat_tex_xy,
+                    query_sdf, query_vis, out_mask, pix_weight, g2_raw)
+        with span("vanerf.query.net"):
+            fused = self.geo_vis_fusion(vert_xy, feat_geo, feat_sampled,
+                                        vert_rep, v, vert_vis, query_vis,
+                                        query_sdf, knn=geo_knn)
+            fused = [f.reshape(B, V, N, -1) for f in fused]
 
-        if fused_level >= 1:
-            cxyz, kptc_T = self._camera_frame(v, kpt3d_e, extrin_e)
-            wts, packed = self._fused_weights(False, kptc_T)
-            aux = torch.cat([fused[0][:, 0], fused[1][:, 0],
-                             out_mask[:, 0].to(cdt),
-                             pix_weight[:, 0].to(cdt)], -1)     # (B, N, 74)
-            sp = self.sp_encoder
-            res = [fused_geo_mlp(cxyz[b], kptc_T[b], aux[b], wts,
-                                 sp_level=sp.sp_level, scale=sp.scale,
-                                 sigma=sp.sigma, packed=packed)
-                   for b in range(B)]
-            out = torch.stack([r[0] for r in res])
-            latent_fused = torch.stack([r[1] for r in res])
-            valid = out_mask.sum(1) > 0                         # (B, N, 1)
-        else:
-            out, valid, _x_view, latent_fused = self.mlp_geo(
-                y, fused, out_mask.to(cdt), pix_weight.to(cdt))
-        rgb = self._query_color(vert_xy, vert_rep, vert_vis, query_vis, v,
-                                view, V, krt_e, feat_tex, latent_fused,
-                                src_img, img_xy, feat_tex_xy, tex_knn,
-                                out_mask, n_samples,
-                                latent_compressed=fused_level >= 1)
+            if fused_level >= 1:
+                cxyz, kptc_T = self._camera_frame(v, kpt3d_e, extrin_e)
+                wts, packed = self._fused_weights(False, kptc_T)
+                aux = torch.cat([fused[0][:, 0], fused[1][:, 0],
+                                 out_mask[:, 0].to(cdt),
+                                 pix_weight[:, 0].to(cdt)], -1)  # (B, N, 74)
+                sp = self.sp_encoder
+                res = [fused_geo_mlp(cxyz[b], kptc_T[b], aux[b], wts,
+                                     sp_level=sp.sp_level, scale=sp.scale,
+                                     sigma=sp.sigma, packed=packed)
+                       for b in range(B)]
+                out = torch.stack([r[0] for r in res])
+                latent_fused = torch.stack([r[1] for r in res])
+                valid = out_mask.sum(1) > 0                     # (B, N, 1)
+            else:
+                out, valid, _x_view, latent_fused = self.mlp_geo(
+                    y, fused, out_mask.to(cdt), pix_weight.to(cdt))
+            rgb = self._query_color(vert_xy, vert_rep, vert_vis, query_vis,
+                                    v, view, V, krt_e, feat_tex,
+                                    latent_fused, src_img, img_xy,
+                                    feat_tex_xy, tex_knn, out_mask,
+                                    n_samples,
+                                    latent_compressed=fused_level >= 1)
         # compositing and the losses stay float32 (models/vanerf.py:533),
         # or float64 where the caller runs the model in it
         odt = torch.promote_types(out.dtype, torch.float32)
@@ -503,22 +522,26 @@ class VANeRF(nn.Module):
         vanerf.py:443-453``, ``:591-594``): the voxel geometry fusion fed
         the activated prior density sigmoid(-sdf / beta) / beta (beta at
         least 2e-3), the geometry MLP, then the voxel texture fusion.
-        ``bounds`` (Bf V, 2, 3), a frame-view's box each."""
+        ``bounds`` (Bf V, 2, 3), a frame-view's box each.  The voxel
+        branch's vertex tables and KNN rows are ``vanerf.query.gather``
+        ranges inside this ``vanerf.query.net`` range."""
         BV, N, _ = v.shape
         B = BV // V
         cdt = self.cdt
-        beta = self.sigmoid_beta.clamp(min=2e-3)
-        q_sdf_act = torch.sigmoid(-query_sdf.float() / beta) / beta
-        fused = self.geo_vis_fusion(
-            vert_xy, feat_geo, feat_sampled, vert_rep, v, vert_vis,
-            query_vis, q_sdf_act, bounds, nn_idx, self.voxel_grid)
-        fused = [f.to(cdt).reshape(B, V, N, -1) for f in fused]
-        out, valid, _x_view, latent_fused = self.mlp_geo(
-            y, fused, out_mask.to(cdt), pix_weight.to(cdt))
-        rgb = self._query_color(vert_xy, vert_rep, vert_vis, query_vis, v,
-                                view, V, krt_e, feat_tex, latent_fused,
-                                src_img, img_xy, feat_tex_xy, None,
-                                out_mask, n_samples, sp=(bounds, nn_idx))
+        with span("vanerf.query.net"):
+            beta = self.sigmoid_beta.clamp(min=2e-3)
+            q_sdf_act = torch.sigmoid(-query_sdf.float() / beta) / beta
+            fused = self.geo_vis_fusion(
+                vert_xy, feat_geo, feat_sampled, vert_rep, v, vert_vis,
+                query_vis, q_sdf_act, bounds, nn_idx, self.voxel_grid)
+            fused = [f.to(cdt).reshape(B, V, N, -1) for f in fused]
+            out, valid, _x_view, latent_fused = self.mlp_geo(
+                y, fused, out_mask.to(cdt), pix_weight.to(cdt))
+            rgb = self._query_color(vert_xy, vert_rep, vert_vis, query_vis,
+                                    v, view, V, krt_e, feat_tex,
+                                    latent_fused, src_img, img_xy,
+                                    feat_tex_xy, None, out_mask, n_samples,
+                                    sp=(bounds, nn_idx))
         odt = torch.promote_types(out.dtype, torch.float32)
         out = torch.cat([out.to(odt), rgb.to(odt)], -1)
         return out, valid.to(out.dtype)

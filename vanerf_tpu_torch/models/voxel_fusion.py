@@ -45,6 +45,7 @@ from ..ops.grid_sample import feat_sample_nhwc
 from ..ops.knn import knn_gather_1
 from ..ops.voxel import (grid_sample_3d, scatter_to_grid, vertex_voxels,
                          world_to_grid_coords)
+from ..profiling import span
 from .fusion import _global_ctx
 
 
@@ -185,14 +186,16 @@ class GeoVisFusionSP(nn.Module):
         query_vis, query_sdf = query_vis.to(pdt), query_sdf.to(pdt)
         outs = []
         for si, (compress, *_rest) in enumerate(self.SPECS):
-            vert_feat = feat_sample_nhwc(fg[si], vert_xy).to(pdt)
+            with span("vanerf.query.gather"):
+                vert_feat = feat_sample_nhwc(fg[si], vert_xy).to(pdt)
             if compress:
                 vert_feat = getattr(self, f"compress{si}")(vert_feat)
             vol = scatter_to_grid(vert_feat, vcoords, grid_shape)
             xyzc = getattr(self, f"xyzc{si}")(vol, grid_coords)
-            f_knn, f_knn_toh, vis_th, vis_toh = knn_gather_1(
-                v, vert, vert_feat, vert_vis.to(pdt), self.num_v, nn_idx,
-                weight_by_vis=False)
+            with span("vanerf.query.gather"):
+                f_knn, f_knn_toh, vis_th, vis_toh = knn_gather_1(
+                    v, vert, vert_feat, vert_vis.to(pdt), self.num_v, nn_idx,
+                    weight_by_vis=False)
             fs = feat_sampled[si].to(pdt)
             fused = torch.cat([fs, f_knn, f_knn_toh, xyzc, query_sdf], -1)
             vis_ctx = torch.cat([query_vis, vis_th, vis_toh], -1)
@@ -239,20 +242,23 @@ class TexVisFusionSP(nn.Module):
         v, query_vis, img_xy, latent_fused (B, N, 24) and nn_idx.  Returns
         the (B, N, 40) per-view IBR feature in the parameters' dtype."""
         pdt = self.at.Dense_0.weight.dtype       # the parameters' dtype
-        vert_feat = feat_sample_nhwc(ft1, vert_xy).to(pdt)
-        vert_img = feat_sample_nhwc(img_fmap, vert_xy).to(pdt)
-        gf_tex = self.fconv3(ft1.permute(0, 3, 1, 2).to(pdt)).flatten(2)
-        gf_img = self.fconv4(img_fmap.permute(0, 3, 1, 2).to(pdt)).flatten(2)
-        gf = self.fconv_gt(torch.cat([gf_img, gf_tex], -1))       # (Bm,V2,18)
-        vert_feat = torch.cat([vert_img, vert_feat, gf], -1)      # 29
+        with span("vanerf.query.gather"):
+            vert_feat = feat_sample_nhwc(ft1, vert_xy).to(pdt)
+            vert_img = feat_sample_nhwc(img_fmap, vert_xy).to(pdt)
+            gf_tex = self.fconv3(ft1.permute(0, 3, 1, 2).to(pdt)).flatten(2)
+            gf_img = self.fconv4(img_fmap.permute(0, 3, 1, 2).to(pdt)
+                                 ).flatten(2)
+            gf = self.fconv_gt(torch.cat([gf_img, gf_tex], -1))   # (Bm,V2,18)
+            vert_feat = torch.cat([vert_img, vert_feat, gf], -1)  # 29
 
         grid_coords, vcoords = _grid_inputs(v, vert, bounds, grid_shape)
         vol = scatter_to_grid(vert_feat, vcoords, grid_shape)
         xyzc = self.xyzc(vol, grid_coords)                        # 122
 
-        f_knn, f_knn_toh, vis_th, vis_toh = knn_gather_1(
-            v, vert, vert_feat, vert_vis.to(pdt), self.num_v, nn_idx,
-            weight_by_vis=False)
+        with span("vanerf.query.gather"):
+            f_knn, f_knn_toh, vis_th, vis_toh = knn_gather_1(
+                v, vert, vert_feat, vert_vis.to(pdt), self.num_v, nn_idx,
+                weight_by_vis=False)
         c = vert_img.shape[-1] + ft1.shape[-1]                    # 11
         knn_gf, knn_toh_gf = f_knn[..., c:], f_knn_toh[..., c:]
         knn_f, knn_toh_f = f_knn[..., :c], f_knn_toh[..., :c]

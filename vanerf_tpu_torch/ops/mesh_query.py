@@ -54,6 +54,7 @@ import os
 
 import torch
 
+from .. import profiling
 from . import _cuda
 from ._cuda import batch_index
 
@@ -1280,6 +1281,26 @@ def _finish_prepared(d2, wind, qv, dtype):
     return _signed(d2, wind), (qv >= 1e-1).to(dtype)[..., None]
 
 
+def _count_visits(visits: torch.Tensor, mesh: dict) -> None:
+    """The counters ``a_pairs_visited`` (distance chunks the tiles visited)
+    and ``a_pairs`` (tiles x chunks) of one culled query's (..., T, 2)
+    visits."""
+    d = visits[..., 0]
+    profiling.count("a_pairs", d.numel() * mesh["cbox"].shape[-2])
+    profiling.count_device("a_pairs_visited", d.sum())
+
+
+def _culled_query(fn, pts, mesh, ub, tiles, far2):
+    """Kernel A / 7 (``fn``) for the prepared callers: the tiles' visits
+    are asked for, and counted, only while a profiler records (the
+    kernel's visits pointer stays null otherwise)."""
+    if not profiling.recording():
+        return fn(pts, mesh, ub, tiles, far2)
+    *out, visits = fn(pts, mesh, ub, tiles, far2, visits=True)
+    _count_visits(visits, mesh)
+    return tuple(out)
+
+
 def _centers(mesh: dict, B: int) -> torch.Tensor:
     """(B, 3): the centre of each batch element's mesh of a stack."""
     c = mesh["center"]
@@ -1313,8 +1334,9 @@ def cal_vis_sdf_prepared(mesh: dict, points: torch.Tensor,
     center = (_centers(mesh, points.shape[0])[:, None] if points.dim() == 3
               else mesh["center"])
     pts = (points.float() - center).contiguous()
-    d2, _idx, wind, qv, far = point_mesh_query_vis_culled(
-        pts, mesh, ub_d2.float().contiguous(), tiles, far2)
+    d2, _idx, wind, qv, far = _culled_query(
+        point_mesh_query_vis_culled, pts, mesh, ub_d2.float().contiguous(),
+        tiles, far2)
     return (*_finish_prepared(d2, wind, qv, points.dtype), far)
 
 
@@ -1335,8 +1357,9 @@ def cal_vis_sdf_prepared_T(mesh: dict, points_T: torch.Tensor,
     center = (_centers(mesh, points_T.shape[0])[:, :, None]
               if points_T.dim() == 3 else mesh["center"][:, None])
     pts_T = (points_T.float() - center).contiguous()
-    d2, _idx, wind, qv, far = point_mesh_query_vis_culled_T(
-        pts_T, mesh, ub_d2.float().contiguous(), tiles, far2)
+    d2, _idx, wind, qv, far = _culled_query(
+        point_mesh_query_vis_culled_T, pts_T, mesh,
+        ub_d2.float().contiguous(), tiles, far2)
     return (*_finish_prepared(d2, wind, qv, points_T.dtype), far)
 
 

@@ -80,6 +80,17 @@ the losses all run on float32 buffers, and the far tier decides on the
 float32 nearest-vertex distances of the mesh priors.  Under training the
 gradients flow back through the query's casts to the float32 encoders and
 parameters.
+
+While a ``torch.profiler`` records, the render opens the program's spans
+(``profiling.span``): ``vanerf.frame`` (``render_full_image``) holds
+``vanerf.encode``, ``vanerf.prepare``, ``vanerf.patch`` and
+``vanerf.assemble``; a patch holds ``vanerf.pass.coarse`` /
+``vanerf.pass.fine``, each with ``vanerf.mesh_prior`` (kernels B / 8 and
+A / 7), ``vanerf.query`` (``models/vanerf.py``) and ``vanerf.composite``.
+Each pass counts its ``samples``, the rows handed to the network
+(``net_points``) and its far samples (``far_samples``); kernel A / 7 counts
+its visited chunk pairs (``ops/mesh_query.py``).  With no profiler each
+is one flag read.
 """
 
 from __future__ import annotations
@@ -103,6 +114,7 @@ from .ops.rasterize import render_vis_map, vertex_visibility
 from .ops.ray import pixel_grid_rays, ray_bbox_intersection
 from .ops.sampling import importance_sample, stratified_sample
 from .ops.sorting import sort_by_key
+from .profiling import count, count_device, span, spanned
 
 
 def resolve_tier(env_name: str, config_val: float, training: bool) -> float:
@@ -269,6 +281,7 @@ def _project01(verts, krt, H, W, znear, zfar):
     return v_xy01, (v_z - znear) / (zfar - znear)
 
 
+@spanned("vanerf.encode")
 def encode_frame(model, batch: Dict[str, Any], vis_size: int = 256,
                  n_views: int = 1):
     """Per-frame work shared by every tile: the encoders on all Bf V source
@@ -287,6 +300,7 @@ def encode_frame(model, batch: Dict[str, Any], vis_size: int = 256,
     return feat_geo, feat_tex, vert_vis
 
 
+@spanned("vanerf.prepare")
 def prepare_frame_meshes(batch: Dict[str, Any], vert_vis: torch.Tensor):
     """Per-frame work of the culled mesh query: one prepared mesh for each
     frame (:func:`prepare_culled_mesh`: the Morton sort of the faces, the
@@ -454,7 +468,8 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
     """
     remat_mode = remat_query_mode(training)
     soa_points = soa_points_mode()
-    with contextlib.nullcontext() if training else torch.no_grad():
+    with (span("vanerf.patch"),
+          contextlib.nullcontext() if training else torch.no_grad()):
         src_img = batch["src_img"]
         B = grids.shape[0]                 # batch elements, G x Bf frames
         Bf = batch["tar_k"].shape[0]
@@ -580,18 +595,25 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
                 pts = pts_T.transpose(1, 2).contiguous()
             # kernels B / 8 and A / 7: one launch each for the whole batch,
             # element e against frame e % Bf's vertices and mesh
-            vs = verts.contiguous()
-            if soa_points:
-                pts_T = pts_T.contiguous()
-                nn_idx, nn_d2 = nearest_vertex_d2_T(pts_T, vs)
-                sdf, q_vis, far = cal_vis_sdf_prepared_T(
-                    mesh_prep, pts_T, nn_d2, n_samples=n_samples,
-                    rays_hw=(out_h, out_w), far2=far2)
+            with span("vanerf.mesh_prior"):
+                vs = verts.contiguous()
+                if soa_points:
+                    pts_T = pts_T.contiguous()
+                    nn_idx, nn_d2 = nearest_vertex_d2_T(pts_T, vs)
+                    sdf, q_vis, far = cal_vis_sdf_prepared_T(
+                        mesh_prep, pts_T, nn_d2, n_samples=n_samples,
+                        rays_hw=(out_h, out_w), far2=far2)
+                else:
+                    pts = pts.contiguous()
+                    nn_idx, nn_d2 = nearest_vertex_d2(pts, vs)
+                    sdf, q_vis, far = cal_vis_sdf_prepared(
+                        mesh_prep, pts, nn_d2, n_samples=n_samples,
+                        far2=far2)
+            count("samples", B * P * n_samples)
+            if far is None:
+                count("far_samples", 0)
             else:
-                pts = pts.contiguous()
-                nn_idx, nn_d2 = nearest_vertex_d2(pts, vs)
-                sdf, q_vis, far = cal_vis_sdf_prepared(
-                    mesh_prep, pts, nn_d2, n_samples=n_samples, far2=far2)
+                count_device("far_samples", far.sum())
             q_sdf = sdf[..., None]                                # (B, N, 1)
             far_mask = far[..., None] if far is not None else None
             view = cam_rays[:, :, None, :].expand(B, P, n_samples, 3) \
@@ -600,6 +622,9 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
             kc, ks, inherit = (
                 _network_budget(Ntot, n_samples, far_skip_frac, far_net_frac,
                                 far_tnet_frac) if tiers_on else (0, 0, False))
+            # the rows handed to the network: kc, ks a ray, or every sample
+            count("net_points", B * (kc or (Ntot // n_samples * ks if ks
+                                            else Ntot)))
             if kc:
                 # global budget: the network on the kc rows nearest the
                 # surface, scattered back; dropped rows keep the mesh-prior
@@ -664,78 +689,90 @@ def render_patch(model, batch: Dict[str, Any], *, grids: torch.Tensor,
             return alpha[..., 0], sdf_ch[..., 0], out[..., 2:], q_sdf[..., 0]
 
         # ---- coarse pass ----
-        alpha_c, sdf_c, rgb_c, qsdf_c = query_at(z, sample_per_ray_c, "c")
-        shp = (B, P, sample_per_ray_c)
-        # under sp_conv the network's output is the density itself
-        # (renderer.py:650)
-        color, depth, acc, contrib, _sdf_out = rgba2out(
-            alpha_c.reshape(shp), sdf_c.reshape(shp),
-            rgb_c.reshape(shp + (3,)),
-            z, qsdf_c.reshape(shp), beta, use_sdf_prior=not sp_conv)
-        out = {"tex_fg": color.reshape(B, out_h, out_w, 3),
-               "depth": depth.reshape(B, out_h, out_w),
-               "alpha": acc.reshape(B, out_h, out_w)}
+        with span("vanerf.pass.coarse"):
+            alpha_c, sdf_c, rgb_c, qsdf_c = query_at(z, sample_per_ray_c,
+                                                     "c")
+            shp = (B, P, sample_per_ray_c)
+            # under sp_conv the network's output is the density itself
+            # (renderer.py:650)
+            with span("vanerf.composite"):
+                color, depth, acc, contrib, _sdf_out = rgba2out(
+                    alpha_c.reshape(shp), sdf_c.reshape(shp),
+                    rgb_c.reshape(shp + (3,)),
+                    z, qsdf_c.reshape(shp), beta, use_sdf_prior=not sp_conv)
+                out = {"tex_fg": color.reshape(B, out_h, out_w, 3),
+                       "depth": depth.reshape(B, out_h, out_w),
+                       "alpha": acc.reshape(B, out_h, out_w)}
 
         # ---- fine pass: evaluate only the new importance samples, then merge
         # both passes by a stable depth sort ----
         if fine:
-            z_mid = 0.5 * (z[..., 1:] + z[..., :-1])
-            u_f = (_draw(draws, "u_f", (B, P, sample_per_ray_f), False,
-                         generator, dev) if jitter else None)
-            z_new = importance_sample(contrib[..., 1:-1].detach(), z_mid,
-                                      sample_per_ray_f, u_f)
-            if jitter:
-                # random-u samples come back unordered; sort them per ray, as
-                # the JAX package does for its kernel's depth-coherent tiles
-                (z_new,) = sort_by_key(z_new)
-            alpha_n, sdf_n, rgb_n, qsdf_n = query_at(z_new, sample_per_ray_f,
-                                                     "f")
+            with span("vanerf.pass.fine"):
+                with span("vanerf.composite"):
+                    z_mid = 0.5 * (z[..., 1:] + z[..., :-1])
+                    u_f = (_draw(draws, "u_f", (B, P, sample_per_ray_f),
+                                 False, generator, dev) if jitter else None)
+                    z_new = importance_sample(contrib[..., 1:-1].detach(),
+                                              z_mid, sample_per_ray_f, u_f)
+                    if jitter:
+                        # random-u samples come back unordered; sort them
+                        # per ray, as the JAX package does for its kernel's
+                        # depth-coherent tiles
+                        (z_new,) = sort_by_key(z_new)
+                alpha_n, sdf_n, rgb_n, qsdf_n = query_at(
+                    z_new, sample_per_ray_f, "f")
 
-            def cat_cf(cv, nv):
-                return torch.cat([cv.reshape(B, P, sample_per_ray_c),
-                                  nv.reshape(B, P, sample_per_ray_f)], 2)
+                def cat_cf(cv, nv):
+                    return torch.cat([cv.reshape(B, P, sample_per_ray_c),
+                                      nv.reshape(B, P, sample_per_ray_f)], 2)
 
-            rgb_cat = torch.cat([rgb_c.reshape(B, P, sample_per_ray_c, 3),
-                                 rgb_n.reshape(B, P, sample_per_ray_f, 3)], 2)
-            (z_fine, alpha_f, sdf_f, qsdf_f, r_f, g_f, b_f) = sort_by_key(
-                torch.cat([z, z_new], -1), cat_cf(alpha_c, alpha_n),
-                cat_cf(sdf_c, sdf_n), cat_cf(qsdf_c, qsdf_n), rgb_cat[..., 0],
-                rgb_cat[..., 1], rgb_cat[..., 2])
-            rgb_f = torch.stack([r_f, g_f, b_f], -1)
-            color_f, depth_f, acc_f, _, sdf_out_f = rgba2out(
-                alpha_f, sdf_f, rgb_f, z_fine, qsdf_f, beta,
-                use_sdf_prior=not sp_conv)
-            out.update({"tex_fg_fine": color_f.reshape(B, out_h, out_w, 3),
+                with span("vanerf.composite"):
+                    rgb_cat = torch.cat(
+                        [rgb_c.reshape(B, P, sample_per_ray_c, 3),
+                         rgb_n.reshape(B, P, sample_per_ray_f, 3)], 2)
+                    (z_fine, alpha_f, sdf_f, qsdf_f, r_f, g_f,
+                     b_f) = sort_by_key(
+                        torch.cat([z, z_new], -1), cat_cf(alpha_c, alpha_n),
+                        cat_cf(sdf_c, sdf_n), cat_cf(qsdf_c, qsdf_n),
+                        rgb_cat[..., 0], rgb_cat[..., 1], rgb_cat[..., 2])
+                    rgb_f = torch.stack([r_f, g_f, b_f], -1)
+                    color_f, depth_f, acc_f, _, sdf_out_f = rgba2out(
+                        alpha_f, sdf_f, rgb_f, z_fine, qsdf_f, beta,
+                        use_sdf_prior=not sp_conv)
+                    out.update({
+                        "tex_fg_fine": color_f.reshape(B, out_h, out_w, 3),
                         "depth_fine": depth_f.reshape(B, out_h, out_w),
                         "alpha_fine": acc_f.reshape(B, out_h, out_w),
                         "sdf": sdf_out_f.reshape(B, out_h, out_w)})
 
         # ---- GT / context patches at the grid (model.py:1361-1418) ----
-        index = (grids[..., 0] + grids[..., 1] * W).to(torch.int32)
-        if batch.get("tar_img") is not None:
-            out["tar_img"] = gather_pixels(batch["tar_img"], index, out_h,
-                                           out_w)
-        if batch.get("tar_mask") is not None:
-            out["tar_alpha"] = gather_pixels(batch["tar_mask"], index, out_h,
-                                             out_w)
-        if compute_vis_map:
-            vis_map = torch.stack([
-                render_vis_map(verts[b], faces, vert_vis[b], batch["tar_k"][b],
-                               batch["tar_rt"][b], H, W)[1]
-                for b in range(Bf)])
-            out["vis_img_all"] = vis_map                  # (Bf, 1, H, W)
-            out["vis_img"] = gather_pixels(vis_map.permute(0, 2, 3, 1), index,
-                                           out_h, out_w)
-        # the context patches of each frame's first source view
-        first = (lambda x: x.reshape(Bf, n_views, *x.shape[1:])[:, 0])
-        out["input_mask"] = gather_pixels(first(batch["src_mask"]), index,
-                                          out_h, out_w)
-        out["img_in"] = gather_pixels(first(src_img), index, out_h, out_w)
-        for k in ("input_densepose", "tar_densepose"):
-            if batch.get(k) is not None:
-                out[k] = gather_pixels(batch[k], index, out_h, out_w)
-        out["vert_vis"] = vert_vis
-        out["index"] = index
+        with span("vanerf.assemble"):
+            index = (grids[..., 0] + grids[..., 1] * W).to(torch.int32)
+            if batch.get("tar_img") is not None:
+                out["tar_img"] = gather_pixels(batch["tar_img"], index, out_h,
+                                               out_w)
+            if batch.get("tar_mask") is not None:
+                out["tar_alpha"] = gather_pixels(batch["tar_mask"], index,
+                                                 out_h, out_w)
+            if compute_vis_map:
+                vis_map = torch.stack([
+                    render_vis_map(verts[b], faces, vert_vis[b],
+                                   batch["tar_k"][b], batch["tar_rt"][b], H,
+                                   W)[1]
+                    for b in range(Bf)])
+                out["vis_img_all"] = vis_map              # (Bf, 1, H, W)
+                out["vis_img"] = gather_pixels(vis_map.permute(0, 2, 3, 1),
+                                               index, out_h, out_w)
+            # the context patches of each frame's first source view
+            first = (lambda x: x.reshape(Bf, n_views, *x.shape[1:])[:, 0])
+            out["input_mask"] = gather_pixels(first(batch["src_mask"]), index,
+                                              out_h, out_w)
+            out["img_in"] = gather_pixels(first(src_img), index, out_h, out_w)
+            for k in ("input_densepose", "tar_densepose"):
+                if batch.get(k) is not None:
+                    out[k] = gather_pixels(batch[k], index, out_h, out_w)
+            out["vert_vis"] = vert_vis
+            out["index"] = index
         return out
 
 
@@ -756,6 +793,7 @@ def plan_tile_group(n_tiles: int, tile_group: int, mesh=None):
 
 
 @torch.no_grad()
+@spanned("vanerf.frame")
 def render_full_image(model, batch: Dict[str, Any], *, level: int,
                       sample_per_ray_c: int = 64, sample_per_ray_f: int = 64,
                       n_views: int = 1, rng=None, sdf_chunk: int = 2048,
@@ -809,28 +847,31 @@ def render_full_image(model, batch: Dict[str, Any], *, level: int,
             sample_per_ray_c=sample_per_ray_c,
             sample_per_ray_f=sample_per_ray_f, n_views=n_views,
             compute_vis_map=compute_vis_map, cached=cached)
-        for t in range(G):
-            mine = r0 <= t < r0 + G_r
-            tiles.append({k: ((v[(t - r0) * B:(t - r0 + 1) * B] if mine
-                               else torch.zeros_like(v[:B]))
-                              if torch.is_tensor(v) and v.ndim >= 1
-                              and v.shape[0] == G_r * B
-                              and k not in _FRAME_KEYS else v)
-                          for k, v in out.items()})
+        with span("vanerf.assemble"):
+            for t in range(G):
+                mine = r0 <= t < r0 + G_r
+                tiles.append({k: ((v[(t - r0) * B:(t - r0 + 1) * B] if mine
+                                   else torch.zeros_like(v[:B]))
+                                  if torch.is_tensor(v) and v.ndim >= 1
+                                  and v.shape[0] == G_r * B
+                                  and k not in _FRAME_KEYS else v)
+                              for k, v in out.items()})
     merged = {}
-    for k, v in tiles[0].items():
-        if k in _FRAME_KEYS or k == "index":
-            merged[k] = v
-        elif v.ndim == 4:
-            merged[k] = _unshuffle([t[k] for t in tiles], s)
-        elif v.ndim == 3:
-            merged[k] = _unshuffle([t[k][..., None] for t in tiles],
-                                   s)[..., 0]
-        else:
-            merged[k] = v
-        if n_ranks > 1 and k not in _FRAME_KEYS and torch.is_tensor(v):
-            # zeros where another rank wrote: the sum is that rank's value
-            mesh.all_reduce_sum_(merged[k])
+    with span("vanerf.assemble"):
+        for k, v in tiles[0].items():
+            if k in _FRAME_KEYS or k == "index":
+                merged[k] = v
+            elif v.ndim == 4:
+                merged[k] = _unshuffle([t[k] for t in tiles], s)
+            elif v.ndim == 3:
+                merged[k] = _unshuffle([t[k][..., None] for t in tiles],
+                                       s)[..., 0]
+            else:
+                merged[k] = v
+            if n_ranks > 1 and k not in _FRAME_KEYS and torch.is_tensor(v):
+                # zeros where another rank wrote: the sum is that rank's
+                # value
+                mesh.all_reduce_sum_(merged[k])
     return merged
 
 

@@ -29,6 +29,10 @@ does: the query computes in bfloat16 and returns float32, and the
 parameters, the encoders, the losses, the discriminator, the VGG loss and
 Adam stay float32; the gradients reach the float32 parameters through
 the query's casts.
+
+While a ``torch.profiler`` records, a step is the span ``vanerf.step``
+and its eight phases ``vanerf.{g,d}.{render,loss,backward,optimizer}``
+(``profiling.span``); the renders' spans nest under the render phases.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ import torch.nn as nn
 from .. import losses as L
 from ..models.discriminator import (bce_loss, d_logistic_loss, d_r1_loss,
                                     g_nonsaturating_loss)
+from ..profiling import span, spanned
 from ..renderer import as_float_tensor, mask_centered_grid, render_patch
 
 MILESTONES = (2, 5, 10, 20, 35)
@@ -235,29 +240,38 @@ def make_train_step(model, disc, cfg: dict, vggloss, n_views: int = 1,
         with deterministic():
             return _step(state, batch, generator, draws or {})
 
+    @spanned("vanerf.step")
     def _step(state, batch, generator, draws):
-        out = generator_outputs(model, batch, cfg, n_views, generator,
-                                draws.get("g"))
-        g_loss, err = generator_loss(out, disc, vggloss, cfg)
-        grads_g = torch.autograd.grad(g_loss, state.opt_g.params,
-                                      allow_unused=True)
-        if reduce is not None:
-            grads_g = reduce.grads(grads_g, state.opt_g.params)
-        state.opt_g.step(grads_g)
+        with span("vanerf.g.render"):
+            out = generator_outputs(model, batch, cfg, n_views, generator,
+                                    draws.get("g"))
+        with span("vanerf.g.loss"):
+            g_loss, err = generator_loss(out, disc, vggloss, cfg)
+        with span("vanerf.g.backward"):
+            grads_g = torch.autograd.grad(g_loss, state.opt_g.params,
+                                          allow_unused=True)
+            if reduce is not None:
+                grads_g = reduce.grads(grads_g, state.opt_g.params)
+        with span("vanerf.g.optimizer"):
+            state.opt_g.step(grads_g)
 
-        if faithful:
-            with torch.no_grad():
-                out_d = generator_outputs(model, batch, cfg, n_views,
-                                          generator, draws.get("d"))
-        else:
-            out_d = {k: (v.detach() if torch.is_tensor(v) else v)
-                     for k, v in out.items()}
-        d_loss, d_logs = discriminator_loss(out_d, disc)
-        grads_d = torch.autograd.grad(d_loss, state.opt_d.params,
-                                      allow_unused=True)
-        if reduce is not None:
-            grads_d = reduce.grads(grads_d, state.opt_d.params)
-        state.opt_d.step(grads_d)
+        with span("vanerf.d.render"):
+            if faithful:
+                with torch.no_grad():
+                    out_d = generator_outputs(model, batch, cfg, n_views,
+                                              generator, draws.get("d"))
+            else:
+                out_d = {k: (v.detach() if torch.is_tensor(v) else v)
+                         for k, v in out.items()}
+        with span("vanerf.d.loss"):
+            d_loss, d_logs = discriminator_loss(out_d, disc)
+        with span("vanerf.d.backward"):
+            grads_d = torch.autograd.grad(d_loss, state.opt_d.params,
+                                          allow_unused=True)
+            if reduce is not None:
+                grads_d = reduce.grads(grads_d, state.opt_d.params)
+        with span("vanerf.d.optimizer"):
+            state.opt_d.step(grads_d)
         state.step += 1
 
         logs = {f"train/{k}": v for k, v in err.items()}
