@@ -8,10 +8,10 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU:
 Phases, each printing what it found; any failed check raises and the
 script exits non-zero (there is no CPU fallback):
 
-  1. build (or reuse) the twenty-one CUDA kernel entry points from
-     ``vanerf_tpu_torch/csrc`` (the fourteen float32 ones, the bfloat16
-     forms of D, 10, 11, 12 and 13, and 11 / 12's bfloat16 body for other
-     widths);
+  1. build (or reuse) the twenty-three CUDA kernel entry points from
+     ``vanerf_tpu_torch/csrc`` (the fifteen float32 ones, the bfloat16
+     forms of D, 10, 11, 12, 13 and 14, and 11 / 12's bfloat16 body for
+     other widths);
   2. each kernel against its plain-PyTorch twin on the card, at the shapes
      the main path gives it (a 64x64-ray patch x 64 samples = 262,144
      points, the 256^2 subdiv=3 two-hand fixture: 2,560 faces, 1,284
@@ -70,6 +70,14 @@ script exits non-zero (there is no CPU fallback):
      (calls replayed from a CUDA graph), beside ``F.grid_sample`` /
      ``index_add_`` in the same run, and the float4 or scalar-lane
      instantiation it launched (from torch.profiler's kernel names);
+     kernel 14 (``feat_sample_nhwc``'s sampler, which replaces no TPU
+     kernel) on the three maps the main path samples through it (the
+     256^2 x 4 mask + image, the 128^2 x 8 fine geometry and 64^2 x 8
+     texture maps) at the patch's points, at a 16-tile group's and a
+     two-view group's launch, on a 64^2 x 16 map, in bfloat16 and on
+     scalar lanes and unaligned bases: bit-equal to
+     ``feat_sample_nhwc_plain`` and across two runs, timed as D is beside
+     the plain version and ``F.grid_sample``;
   2b. the bfloat16 forms of D, 10, 11 and 12 on what the bfloat16 model's
      own branches hand them for the same patch (``VANeRF.from_config``
      under ``VANERF_COMPUTE_DTYPE=bfloat16``, the same weights): D (the
@@ -1242,6 +1250,111 @@ def interp_case(case):
         **least_time(nbytes(fm, u, got), u.shape[0] * (20 + 7 * C)))
 
 
+def bilinear_cases(model, batch, uv, dev):
+    """Kernel 14's cases: (tag, summed in the kernels line?, maps, points).
+    The main path samples three maps through ``feat_sample_nhwc`` at the
+    patch's projected points, one launch each a pass: the 256^2 x 4 mask +
+    image, the 128^2 x 8 fine geometry map (above kernel D's 4,096 rows)
+    and the 64^2 x 8 texture map (its shape differs from the fine map's);
+    the kernels line sums them at one tile's 262,144 points.  Then the
+    serving launches (the 16 tiles of a group on one map; two source views:
+    32 element-views on two maps), a 64^2 x 16 map, the bfloat16 maps and
+    the scalar-lane cases (3 channels, a map or points off their
+    alignment, a count that fills no whole block)."""
+    import torch
+    from vanerf_tpu_torch import renderer as tr
+    feat_geo, feat_tex, _vis = tr.encode_frame(model, batch)
+    maps = {"256^2x4 mask + image": torch.cat(
+                [batch["src_mask"], batch["src_img"]], -1)[:1],
+            "128^2x8 fine geometry": feat_geo[1][:1],
+            "64^2x8 texture": feat_tex[:1]}
+    maps = {k: v.float().contiguous() for k, v in maps.items()}
+    u1 = uv[None].contiguous()
+    u16 = uv[None].expand(16, -1, -1).contiguous()
+    u32 = uv[None].expand(32, -1, -1).contiguous()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cases = [(k, True, m, u1) for k, m in maps.items()]
+    cases += [(k + ", a 16-tile group", False, m, u16)
+              for k, m in maps.items()]
+    cases += [(k + ", two views x 16 tiles", False,
+               torch.cat([m, m.flip(1)]).contiguous(), u32)
+              for k, m in maps.items()]
+    cases.append(("64^2x16", False,
+                  torch.randn(1, 64, 64, 16, generator=g, device=dev), u1))
+    cases += [(k + ", bfloat16, a 16-tile group", False,
+               m.to(torch.bfloat16), u16) for k, m in maps.items()]
+    wide = (u1 * 1.3).contiguous()
+    m3 = torch.randn(2, 64, 64, 3, generator=g, device=dev)
+    fine = maps["128^2x8 fine geometry"]
+    cases += [("64^2x3, scalar lanes, Bm 2, uv beyond [-1, 1]", False, m3,
+               torch.cat([wide, wide])[:, :5001].contiguous()),
+              ("128^2x8 map off 16 bytes", False, offset_view(fine, 1),
+               u1[:, :4999].contiguous()),
+              ("128^2x8, uv off 8 bytes", False, fine,
+               offset_view(wide[:, :777].contiguous(), 1))]
+    return cases
+
+
+def units_launched(fn, kernel: str) -> str:
+    """The template arguments of the instantiation of ``kernel`` that fn()
+    launches, as torch.profiler names it (up to 5 sessions are tried)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            at = e.key.find(kernel + "<")
+            if at >= 0:
+                return e.key[at + len(kernel):e.key.find(">", at) + 1]
+    return "not seen by the profiler"
+
+
+def bilinear_case(case):
+    """One case of kernel 14 against feat_sample_nhwc_plain and
+    F.grid_sample (the yardstick: the port never calls it): ``ms`` /
+    ``library_ms`` as called (CUDA events over 20 calls), ``device_ms`` /
+    ``library_device_ms`` replayed from a CUDA graph."""
+    import torch
+    import torch.nn.functional as F
+    from vanerf_tpu_torch.ops import grid_sample as gs
+    from vanerf_tpu_torch.ops._cuda import batch_index
+    _tag, _main, fm, u = case
+    got = gs.bilinear_cuda(fm, u)
+    again = gs.bilinear_cuda(fm, u)
+    want = gs.feat_sample_nhwc_plain(fm, u)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    check(torch.equal(got, want), f"kernel 14 differs from the plain "
+          f"version ({_tag}): {err}")
+    check(torch.equal(got, again), f"kernel 14 not repeatable ({_tag})")
+    Bm, Hm, Wm, C = fm.shape
+    B, N = u.shape[:2]
+    nchw = fm.permute(0, 3, 1, 2)[batch_index(B, Bm, fm.device)].contiguous()
+    grid = u.to(fm.dtype)[:, None]
+
+    def library():
+        return F.grid_sample(nchw, grid, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+
+    return dict(
+        shape=f"{B} x {N} points on {Bm} x {Hm}x{Wm}x{C} {fm.dtype}"
+              .replace("torch.", ""),
+        lanes=units_launched(lambda: gs.bilinear_cuda(fm, u),
+                             "bilinear_kernel"),
+        max_abs_err=err, bit_equal_runs=True,
+        ms=cuda_ms(lambda: gs.bilinear_cuda(fm, u), 20),
+        device_ms=graph_ms(lambda: gs.bilinear_cuda(fm, u)),
+        plain_ms=cuda_ms(lambda: gs.feat_sample_nhwc_plain(fm, u), 5),
+        library_ms=cuda_ms(library, 20),
+        library_device_ms=graph_ms(library),
+        # per point ~20 for the coordinates and weights, per output 6
+        # products and 3 sums
+        **least_time(nbytes(fm, u, got), B * N * (20 + 9 * C)))
+
+
 def texel(uv_, hw: int):
     """The flat texel index of each point on an hw x hw map."""
     import torch
@@ -1775,6 +1888,12 @@ def phase_kernels(model, batch, dev):
     results["interp_mxu"] = kernel_cases(interp_cases(geo_coarse, uv, dev),
                                          interp_case)
 
+    # --- 14: feat_sample_nhwc's three maps at the patch's points, the
+    # serving launches, then the edge cases; every case bit-equal to the
+    # plain version and across two runs ---
+    results["bilinear"] = kernel_cases(
+        bilinear_cases(model, batch, uv, dev), bilinear_case)
+
     # --- 13: the take_rows table gradient at the training path's four
     # shapes, then the edge cases ---
     v_uv = torch.stack([2.0 * xy_pix[:, 0] / (W - 1.0) - 1.0,
@@ -2212,7 +2331,7 @@ def phase_main_path(model, batches, dev):
     check(max(o["alpha_fine"].max().item() for o in group) > 0.2,
           "patch group: rays missed the hands")
     for name in ("mesh_query", "knn", "rasterize", "interp_mxu",
-                 "row_gather"):
+                 "row_gather", "bilinear"):
         check(launches[name] > 0,
               f"kernel {name} was not launched on the serving path")
     samples = PATCH * PATCH * (S_C + S_C + S_F) * 16
@@ -5805,13 +5924,17 @@ def main() -> int:
             f"with 3xTF32 on the tensor cores; ptxas (the kernel and the "
             f"layer functions, largest) {r['ptxas']}")
     for name, lib in (("interp_mxu", "F.grid_sample"),
+                      ("bilinear", "F.grid_sample"),
                       ("onehot_scatter", "index_add_ into a zeroed table")):
         for tag, c in kres[name]["cases"].items():
             say(f"phase 2 {name} [{tag}]: {c['shape']}"
                 + (f", {c['path']}" if "path" in c else "")
                 + f", {c['lanes']} lanes"
                 f"{', in the kernels line' if c['summed'] else ''}: kernel "
-                f"{c['ms']:.4f} ms, {lib} {c['library_ms']:.4f} ms called in "
+                f"{c['ms']:.4f} ms, "
+                + (f"plain {c['plain_ms']:.4f} ms, " if name == "bilinear"
+                   else "")
+                + f"{lib} {c['library_ms']:.4f} ms called in "
                 f"the same run (device time from a CUDA graph "
                 f"{c['device_ms']:.4f} / {c['library_device_ms']:.4f} ms), "
                 f"bound "

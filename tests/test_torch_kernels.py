@@ -93,7 +93,8 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
                                    "fused_geo_mlp_bf16": 0,
                                    "fused_query_mlp_bf16_mma": 0,
                                    "fused_geo_mlp_bf16_mma": 0,
-                                   "onehot_scatter_bf16": 0}
+                                   "onehot_scatter_bf16": 0,
+                                   "bilinear": 0, "bilinear_bf16": 0}
 
 
 def test_kernel_library_is_keyed_on_sources():

@@ -262,6 +262,19 @@ def test_step_counters_equal_independent_counts(step):
         assert counts[k] == v, k
 
 
+@pytest.mark.parametrize("kind", ["frame", "step"])
+def test_sampler_route_counters(kind, request):
+    """On the CPU every point ``feat_sample_nhwc`` samples takes the plain
+    version: counted as gathered while the profiler records, and not at
+    all without it."""
+    run = request.getfixturevalue(kind)
+    assert run["counts"]["sample_gather_points"] > 0
+    assert run["counts"].get("sample_kernel_points", 0) == 0
+    assert run["counts"]["bilinear"] == 0
+    for k in ("sample_gather_points", "sample_kernel_points"):
+        assert run["off_counts"].get(k, 0) == 0, k
+
+
 def test_trace_writes_the_counters_beside_the_trace(frame, tmp_path):
     assert set(WORK) <= set(frame["counts"])
     assert frame["counts"]["mesh_query"] == 0     # plain versions: no launch

@@ -4,8 +4,8 @@ Each kernel's wrapper adds one to a module-level counter where it launches
 the kernel; :func:`reset_launches` and :func:`launch_counts` read them all.
 """
 
-from . import (fused_mlp, interp_mxu, knn, mesh_query, onehot_gather,
-               rasterize)
+from . import (fused_mlp, grid_sample, interp_mxu, knn, mesh_query,
+               onehot_gather, rasterize)
 from .mesh_query import (  # noqa: F401
     barycentric_of_projection, cal_vis_sdf, point_mesh_sdf, winding_number)
 
@@ -37,7 +37,10 @@ KERNEL_COUNTERS = {"mesh_query": (mesh_query, "launches"),
                                                 "query_launches_bf16_mma"),
                    "fused_geo_mlp_bf16_mma": (fused_mlp,
                                               "geo_launches_bf16_mma"),
-                   "onehot_scatter_bf16": (onehot_gather, "launches_bf16")}
+                   "onehot_scatter_bf16": (onehot_gather, "launches_bf16"),
+                   # kernel 14, feat_sample_nhwc's sampler (both dtypes)
+                   "bilinear": (grid_sample, "launches"),
+                   "bilinear_bf16": (grid_sample, "launches_bf16")}
 
 
 def reset_launches() -> None:

@@ -24,9 +24,10 @@ import threading
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2] / "build"
              / "vanerf_tpu_torch")
-# -fmad=false: kernels A-D and 5-8 equal their plain versions bit for bit only
-# if every product and sum rounds on its own; the fused MLP kernels, which
-# cannot be bit-equal, call fmaf explicitly instead of taking other flags.
+# -fmad=false: kernels A-D, 5-8 and 14 equal their plain versions bit for bit
+# only if every product and sum rounds on its own; the fused MLP kernels,
+# which cannot be bit-equal, call fmaf explicitly instead of taking other
+# flags.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-fmad=false"]
 
@@ -58,6 +59,7 @@ _SIGNATURES = {
     "vt_mesh_query_brute": [_P, _I, _P, _I, _I, _P, _P, _P, _P],
     "vt_mesh_query_vis_brute": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _P],
     "vt_interp": [_P, _I, _I, _I, _I, _P, _I, _I, _P, _P],
+    "vt_bilinear": [_P, _I, _I, _I, _I, _P, _I, _I, _P, _P],
     "vt_onehot_scatter": [_P, _P, _I, _I, _I, _P, _P, _L, _P, _L, _P],
     "vt_row_gather": [_P, _I, _I, _I, _P, _I, _I, _P, _P],
     "vt_fused_geo_mlp": [_P, _P, _P, _P, _L, _P, _I, _I, _I, _F, _F, _IP,
@@ -65,13 +67,13 @@ _SIGNATURES = {
     "vt_fused_query_mlp": [_P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _F, _F,
                            _IP, _P, _P],
 }
-# the bfloat16 instantiations of kernels D, 10, 12, 11 and 13 take the
+# the bfloat16 instantiations of kernels D, 10, 12, 11, 13 and 14 take the
 # arguments of their float32 entry points (bfloat16 data behind the
 # pointers; the weight stream's length in elements; kernel 13's float32
 # workspace)
 _SIGNATURES.update({name + "_bf16": _SIGNATURES[name] for name in (
     "vt_interp", "vt_row_gather", "vt_fused_geo_mlp", "vt_fused_query_mlp",
-    "vt_onehot_scatter")})
+    "vt_onehot_scatter", "vt_bilinear")})
 # kernels 12 / 11's bfloat16 body for any width (csrc/fused_mlp.cu, BF =
 # true): the arguments of the float32 entry points
 _SIGNATURES.update({name + "_bf16_mma": _SIGNATURES[name] for name in (
@@ -181,8 +183,8 @@ def stream_ptr(device) -> int:
 
 def dtype_suffix(dtype, name: str) -> str:
     """The entry-point suffix of the instantiation of a kernel built for
-    ``dtype``: "" for float32, "_bf16" for bfloat16 (kernels D, 10, 11, 12
-    and 13 have both); any other dtype has no kernel and raises, so nothing
+    ``dtype``: "" for float32, "_bf16" for bfloat16 (kernels D, 10, 11, 12,
+    13 and 14 have both); any other dtype has no kernel and raises, so nothing
     is cast to reach one."""
     import torch
     suffix = {torch.float32: "", torch.bfloat16: "_bf16"}.get(dtype)

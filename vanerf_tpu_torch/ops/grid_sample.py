@@ -2,13 +2,26 @@
 
 Semantics of the reference ``feat_sample`` (``src/utils.py:136-151``,
 ``F.grid_sample`` bilinear, border padding, align_corners=True) on
-channels-last maps, as gather + lerp.  The JAX package runs this op in
-XLA, so the port keeps it plain PyTorch, except that a small map whose
-gradient is wanted is read through :func:`take_rows` on its packed 2x2
-corners (``grid_sample.py:56-69``), whose table gradient is kernel 13.
-The lerp runs in the map's dtype (``grid_sample.py:70-77``): on a bfloat16
-map the weights are rounded to bfloat16 and every product and sum rounds
-in bfloat16, and autograd differentiates it as it stands.
+channels-last maps, as gather + lerp (:func:`feat_sample_nhwc_plain`).  The
+JAX package runs this op in XLA.  The lerp runs in the map's dtype
+(``grid_sample.py:70-77``): on a bfloat16 map the weights are rounded to
+bfloat16 and every product and sum rounds in bfloat16, and autograd
+differentiates it as it stands.
+
+:func:`feat_sample_nhwc` picks by what its inputs show, with no switch:
+
+- kernel 14 (``csrc/bilinear.cu``, :func:`bilinear_cuda`), one launch for
+  the batch, on CUDA maps in float32 or bfloat16 with float32 points, when
+  no autograd graph is built through the map or the points (the rule of
+  kernels D and 10): the plain version's arithmetic in its order and
+  rounding, so its rows equal the plain version's to the bit;
+- else the plain version: CPU tensors, other dtypes (float64 in the
+  tests), and every sample whose gradient is wanted.  There a small map is
+  read through :func:`take_rows` on its packed 2x2 corners
+  (``grid_sample.py:56-69``), whose table gradient is kernel 13.
+
+While a profiler records, ``sample_kernel_points`` and
+``sample_gather_points`` count the points (batch x N) each route sampled.
 
 A map of more than ``SCATTER_MAX_T`` (8,192) texels keeps the native
 gather, whose backward is torch's ``index_put_(accumulate=True)``: on the
@@ -39,9 +52,15 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiling
+from . import _cuda
 from ._cuda import batch_index
 from .knn import _take_batched
 from .onehot_gather import take_rows, take_rows_route
+
+# kernel 14's launches, a counter an instantiation (ops.launch_counts)
+launches = 0
+launches_bf16 = 0
 
 
 def pack_corners(feat: torch.Tensor) -> torch.Tensor:
@@ -59,12 +78,72 @@ def grid_sample_2d(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     return feat_sample_nhwc(feat[None], uv[None])[0]
 
 
+def bilinear_viable(feat: torch.Tensor, uv: torch.Tensor) -> bool:
+    """Whether kernel 14 takes the sample: CUDA tensors on one card that
+    :func:`bilinear_takes`."""
+    return (feat.is_cuda and uv.device == feat.device
+            and bilinear_takes(feat, uv))
+
+
+def bilinear_takes(feat: torch.Tensor, uv: torch.Tensor) -> bool:
+    """The device-independent half of the route: (Bm, H, W, C) maps in
+    float32 or bfloat16 at (B, N, 2) float32 points, no autograd graph
+    built through either (the rule of kernels D and 10), and shapes inside
+    the kernel's 32-bit index math and grid."""
+    if not (feat.dtype in (torch.float32, torch.bfloat16)
+            and uv.dtype == torch.float32 and feat.dim() == 4
+            and uv.dim() == 3 and uv.shape[-1] == 2):
+        return False
+    if torch.is_grad_enabled() and (feat.requires_grad or uv.requires_grad):
+        return False
+    _Bm, H, W, C = feat.shape
+    B, N = uv.shape[:2]
+    return (0 < B <= 65535 and N * C < 2 ** 31 and H * W * C < 2 ** 31
+            and feat.numel() > 0)
+
+
+def bilinear_cuda(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Kernel 14, the instantiation of the map's dtype: (Bm, H, W, C) maps
+    at (B, N, 2) float32 points -> (B, N, C), element e on map e % Bm, in
+    one launch; equal to :func:`feat_sample_nhwc_plain` to the bit.  No
+    gradient."""
+    global launches, launches_bf16
+    Bm, H, W, C = feat.shape
+    B, N = uv.shape[:2]
+    sfx = _cuda.dtype_suffix(feat.dtype, "feat")
+    _cuda.require(feat, "feat", feat.dtype, (Bm, H, W, C))
+    _cuda.require(uv, "uv", torch.float32, (B, N, 2), feat.device)
+    out = torch.empty((B, N, C), dtype=feat.dtype, device=feat.device)
+    rc = getattr(_cuda.lib(), "vt_bilinear" + sfx)(
+        feat.data_ptr(), H, W, C, Bm, uv.data_ptr(), N, B, out.data_ptr(),
+        _cuda.stream_ptr(feat.device))
+    _cuda.check(rc, "vt_bilinear" + sfx)
+    if sfx:
+        launches_bf16 += 1
+    else:
+        launches += 1
+    return out
+
+
 def feat_sample_nhwc(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     """(Bm, H, W, C) maps at (B, N, 2) coords -> (B, N, C), element e on
     map e % Bm (the G tiles of a frame in a tile group share the frame's
-    map): one gather and lerp for the whole batch, or, where a map's
-    gradient goes through kernel 13 (:func:`take_rows`), one
-    :func:`take_rows` of the packed corners a batch element."""
+    map): kernel 14 where :func:`bilinear_viable`, else
+    :func:`feat_sample_nhwc_plain`; the same rows either way."""
+    n_pts = uv.numel() // 2
+    if bilinear_viable(feat, uv):
+        profiling.count("sample_kernel_points", n_pts)
+        return bilinear_cuda(feat.contiguous(), uv.contiguous())
+    profiling.count("sample_gather_points", n_pts)
+    return feat_sample_nhwc_plain(feat, uv)
+
+
+def feat_sample_nhwc_plain(feat: torch.Tensor, uv: torch.Tensor
+                           ) -> torch.Tensor:
+    """:func:`feat_sample_nhwc` as gather and lerp: one gather and lerp for
+    the whole batch, or, where a map's gradient goes through kernel 13
+    (:func:`take_rows`), one :func:`take_rows` of the packed corners a
+    batch element.  Differentiable."""
     Bm, H, W, C = feat.shape
     B = uv.shape[0]
     x = ((uv[..., 0] + 1.0) * 0.5 * (W - 1.0)).clamp(0.0, W - 1.0)
