@@ -4,7 +4,8 @@
 
 For each seed, on the cell's own frames or steps (its configuration,
 traffic and tile group, as the window runs them): the program against the
-plain reference (the lower reading of each number), and the control, the
+plain reference of the configuration's family (the lower reading of each
+number), and the control, the
 reference computed with TF32 on (the nearest precision below the
 configuration's float32 with TF32 off), against the same reference (the
 upper reading).  A training cell's readings are over the steps the
@@ -24,8 +25,6 @@ import torch
 
 from . import serve
 from .manifest import Manifest
-from .reference.nets import Generator
-from .reference.render import render_frame
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -35,14 +34,15 @@ def tf32(on: bool) -> None:
     torch.backends.cudnn.allow_tf32 = on
 
 
-def readings(cfg: dict, traffic: dict, seed: int, device, n: int) -> dict:
+def readings(fam, cfg: dict, traffic: dict, seed: int, device,
+             n: int) -> dict:
     """The program's and the control's gaps to the reference on the first
     ``n`` requests of the seed's pool (the largest over them)."""
     H = W = traffic["image_size"]
     sh = serve.shape(cfg, traffic)
     m = cfg["models"]["VANeRF"]
     tf32(False)
-    state = serve.seeded_weights(cfg, (H, W), seed, device)
+    state = serve.seeded_weights(fam, cfg, (H, W), seed, device)
     pool = serve.host_pool(seed, dict(traffic, pool=n), sh["n_views"],
                            device)
     model = serve.program(cfg, state, (H, W), device)
@@ -55,7 +55,7 @@ def readings(cfg: dict, traffic: dict, seed: int, device, n: int) -> dict:
     t_port = time.perf_counter() - t0
     del model
     torch.cuda.empty_cache()
-    G = Generator(m, serve.inputs.N_VERTS + 1, (H, W)).to(device).eval()
+    G = fam.Generator(m, serve.inputs.N_VERTS + 1, (H, W)).to(device).eval()
     G.load_state_dict(state)
     kw = dict(level=sh["level"], n_c=sh["n_c"], n_f=sh["n_f"],
               n_views=sh["n_views"], far_tau=float(cfg["inference"]["far_tau"]))
@@ -64,10 +64,10 @@ def readings(cfg: dict, traffic: dict, seed: int, device, n: int) -> dict:
     for k, req in enumerate(pool):
         req_d = serve.to_device(req, device)
         tf32(False)
-        ref = render_frame(G, req_d, **kw)
+        ref = fam.render_frame(G, req_d, **kw)
         t_ref = time.perf_counter() - t0
         tf32(True)
-        low = render_frame(G, req_d, **kw)
+        low = fam.render_frame(G, req_d, **kw)
         tf32(False)
         ctl = {"rgb": low["tex_fg_fine"].cpu(), "depth": low["depth_fine"].cpu()}
         for side, got in (("program", port[k]), ("control", ctl)):
@@ -78,7 +78,8 @@ def readings(cfg: dict, traffic: dict, seed: int, device, n: int) -> dict:
     return res
 
 
-def train_readings(cfg: dict, traffic: dict, seed: int, device) -> dict:
+def train_readings(fam, cfg: dict, traffic: dict, seed: int,
+                   device) -> dict:
     """The program's and the control's gaps to the reference over the
     steps the reference follows."""
     from . import train
@@ -86,7 +87,7 @@ def train_readings(cfg: dict, traffic: dict, seed: int, device) -> dict:
     V = int(cfg["dataset"].get("num_input_view", 1))
     H = W = traffic["image_size"]
     tf32(False)
-    sd = train.states(cfg, (H, W), seed, device)
+    sd = train.states(fam, cfg, (H, W), seed, device)
     pool = serve.host_pool(seed, dict(traffic, pool=train.FOLLOWED), V,
                            device, targets=True)
     ts, step = train.program(cfg, sd, (H, W), device, V)
@@ -97,12 +98,12 @@ def train_readings(cfg: dict, traffic: dict, seed: int, device) -> dict:
     del ts, step
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ref = train.follow(cfg, sd, (H, W), pool, seed, device, V)
+    ref = train.follow(fam, cfg, sd, (H, W), pool, seed, device, V)
     t_ref = time.perf_counter() - t0
     tf32(True)
-    ctl = train.follow(cfg, sd, (H, W), pool, seed, device, V)
+    ctl = train.follow(fam, cfg, sd, (H, W), pool, seed, device, V)
     tf32(False)
-    half = train.follow(cfg, sd, (H, W), pool, seed, device, V,
+    half = train.follow(fam, cfg, sd, (H, W), pool, seed, device, V,
                         fault=train.half_batch)
     return {"seed": seed, "program": train.compare(port, ref),
             "control": train.compare(ctl, ref),
@@ -127,11 +128,12 @@ def main(argv=None) -> int:
         return 2
     mf = Manifest(ROOT / "BENCHMARK.json")
     cfg, traffic = mf.config(args.workload), mf.traffic(args.workload)
+    fam = mf.family(args.workload)
     for seed in args.seeds:
-        r = (readings(cfg, traffic, seed, "cuda",
+        r = (readings(fam, cfg, traffic, seed, "cuda",
                       args.frames or traffic["checked"])
              if traffic["kind"] == "serve"
-             else train_readings(cfg, traffic, seed, "cuda"))
+             else train_readings(fam, cfg, traffic, seed, "cuda"))
         print(json.dumps(r), flush=True)
     return 0
 

@@ -1,12 +1,14 @@
 """``BENCHMARK.json`` and the files it names, found by name and checked.
 
 A cell names a configuration (``benchmark/configs/<name>.json``) and a
-traffic mix (``benchmark/traffic/<name>.json``); a per-layer metric is a
+traffic mix (``benchmark/traffic/<name>.json``); a configuration names its
+model family (``benchmark/families/<name>.py``: its reference, weight
+skeleton, FLOP counts and network modules); a per-layer metric is a
 reader ``benchmark/metrics/<name>.py`` that declares its layer, unit,
 ``better``, ``source`` and the end-to-end metric it ``moves``.  A cell may
 have limits for its output check (``benchmark/limits/<cell>.json``).  A
-later change adds a cell, a configuration, a mix or a metric by adding
-files and entries: nothing here names one.
+later change adds a cell, a configuration, a family, a mix or a metric by
+adding files and entries: nothing here names one.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import importlib.util
 import json
 import pathlib
 import re
+
+from .families import DEFAULT, load_family
 
 ROOT = pathlib.Path(__file__).resolve().parent
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -72,6 +76,7 @@ class Manifest:
                       f"{group}: {e['name']} twice")
                 names.add((key, e["name"]))
         self.configs = {c["name"]: c for c in s["configs"]}
+        self.families = {}
         for c in s["configs"]:
             _need(set(c) == {"name", "source", "file", "reduced", "why"},
                   f"config {c['name']}: keys")
@@ -79,6 +84,11 @@ class Manifest:
             _line(c["why"], f"config {c['name']} why")
             _need((self.root.parent / c["file"]).is_file(),
                   f"config {c['name']}: no file {c['file']}")
+            fam = json.loads((self.root.parent / c["file"]).read_text()).get(
+                "family", DEFAULT)
+            _need(isinstance(fam, str) and NAME.match(fam) is not None,
+                  f"config {c['name']}: bad family {fam!r}")
+            self.families[c["name"]] = load_family(fam, self.root)
             for k in c["reduced"]:
                 _need(NAME.match(k) is not None, f"reduced key {k!r}")
         e2e = {m["name"]: m for m in s["end_to_end"]}
@@ -153,6 +163,10 @@ class Manifest:
     def config(self, cell: str) -> dict:
         return json.loads((self.root.parent / self.configs[
             self.cells[cell]["config"]]["file"]).read_text())
+
+    def family(self, cell: str):
+        """The family module of ``cell``'s configuration."""
+        return self.families[self.cells[cell]["config"]]
 
     def traffic(self, cell: str) -> dict:
         return json.loads((self.root / "traffic" / (

@@ -6,8 +6,9 @@
 Reads ``BENCHMARK.json`` at the root of the checkout, builds the cell's
 configuration, traffic, weights and inputs from ``--seed`` on the card,
 warms up, measures for ``--seconds``, checks the outputs against the
-plain reference and prints one JSON line last: the cell's end-to-end
-metrics (``--trace 0``) or its per-layer metrics (``--trace 1``).  Without
+plain reference of the configuration's family and prints one JSON line
+last: the cell's end-to-end metrics (``--trace 0``) or its per-layer
+metrics (``--trace 1``).  Without
 a CUDA card, or with fewer than the cell asks for, it exits with code 2
 and prints no result.  The program's kernels build into
 ``build/vanerf_tpu_torch/`` inside the checkout.
@@ -68,8 +69,8 @@ def execute(manifest, cell: str, seed: int, seconds: float, trace: bool,
         from . import serve as driver
     else:
         from . import train as driver
-    res = driver.run(cfg, traffic, seed, seconds, trace, device, t_start,
-                     alter=alter)
+    res = driver.run(manifest.family(cell), cfg, traffic, seed, seconds,
+                     trace, device, t_start, alter=alter)
     cuda = torch.device(device).type == "cuda"
     dev_name = torch.cuda.get_device_name(0) if cuda else "cpu"
     correct, rows = check_lines(res["readings"], manifest.limits(cell))

@@ -5,8 +5,9 @@ Its frame is ``renderer.render_full_image`` at the mix's level and tile
 group, timed on the host clock from the request's host-to-device copy to
 the RGB frame back on the host.  The pool of requests is made in set-up
 and cycled through in the window; a sample of it, drawn from the seed, is
-rendered again by the plain reference once the window has closed and the
-program's state is freed, and compared frame by frame.
+rendered again by the plain reference of the configuration's family
+(``benchmark/families/``) once the window has closed and the program's
+state is freed, and compared frame by frame.
 """
 
 from __future__ import annotations
@@ -16,12 +17,9 @@ import time
 import numpy as np
 import torch
 
-from . import devtrace, flops, inputs, weights
-from .reference.nets import Generator
-from .reference.render import render_frame
+from . import devtrace, inputs, weights
 
-# modules whose forward is the network layer (network_ms.serve reads them)
-NETWORK_MODULES = ("geo_vis_fusion", "mlp_geo", "tex_vis_fusion", "mlp_tex")
+# the range around the family's NETWORK_MODULES (network_ms.serve reads it)
 NETWORK_RANGE = "bench.network"
 
 
@@ -59,10 +57,11 @@ def program(cfg: dict, state: dict, hw, device):
     return model.eval()
 
 
-def seeded_weights(cfg: dict, hw, seed: int, device) -> dict:
-    """The generator's weights for the program and the reference alike."""
+def seeded_weights(fam, cfg: dict, hw, seed: int, device) -> dict:
+    """The generator's weights for the program and the reference alike,
+    drawn over the family's reference generator."""
     with torch.device("meta"):
-        skel = Generator(cfg["models"]["VANeRF"], inputs.N_VERTS + 1, hw)
+        skel = fam.Generator(cfg["models"]["VANeRF"], inputs.N_VERTS + 1, hw)
     return weights.seeded_state(skel, seed, device)
 
 
@@ -92,16 +91,17 @@ def compare(port: dict, ref: dict) -> dict:
                                .abs().mean())}
 
 
-def run(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool,
-        device, t_start: float, alter=None) -> dict:
-    """One serving run.  ``alter(frame)`` (tests only) changes each served
-    frame where it is produced."""
+def run(fam, cfg: dict, traffic: dict, seed: int, seconds: float,
+        trace: bool, device, t_start: float, alter=None) -> dict:
+    """One serving run of the configuration ``cfg`` of family ``fam``.
+    ``alter(frame)`` (tests only) changes each served frame where it is
+    produced."""
     m = cfg["models"]["VANeRF"]
     sh = shape(cfg, traffic)
     n_views = sh["n_views"]
     H = W = traffic["image_size"]
     far_tau = float(cfg["inference"]["far_tau"])
-    state = seeded_weights(cfg, (H, W), seed, device)
+    state = seeded_weights(fam, cfg, (H, W), seed, device)
     pool = host_pool(seed, traffic, n_views, device)
     model = program(cfg, state, (H, W), device)
     cuda = torch.device(device).type == "cuda"
@@ -138,7 +138,7 @@ def run(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool,
     traced = None
     if trace:
         ranges = devtrace.Ranges()
-        for name in NETWORK_MODULES:
+        for name in fam.NETWORK_MODULES:
             ranges.attach(getattr(model, name), NETWORK_RANGE)
         with devtrace.traced() as traced:
             t0 = time.perf_counter()
@@ -153,7 +153,7 @@ def run(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool,
     del model
     if cuda:
         torch.cuda.empty_cache()
-    G = Generator(m, inputs.N_VERTS + 1, (H, W)).to(device)
+    G = fam.Generator(m, inputs.N_VERTS + 1, (H, W)).to(device)
     G.load_state_dict(state)
     G.eval()
     # a sample, drawn from the seed, of the requests served in the window
@@ -162,14 +162,16 @@ def run(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool,
                         replace=False).tolist()
     readings = {}
     for i in sample:
-        ref = render_frame(G, to_device(pool[i], device), level=sh["level"],
-                           n_c=sh["n_c"], n_f=sh["n_f"], n_views=n_views,
-                           far_tau=far_tau)
+        ref = fam.render_frame(G, to_device(pool[i], device),
+                               level=sh["level"], n_c=sh["n_c"],
+                               n_f=sh["n_f"], n_views=n_views,
+                               far_tau=far_tau)
         for k, v in compare(kept[i], ref).items():
             readings[k] = max(readings.get(k, 0.0), v)
 
     lat_ms = [x * 1e3 for x in lat]
-    flop = flops.frame(m, H, W, sh["level"], sh["n_c"], sh["n_f"], n_views)
+    flop = fam.frame_flops(m, H, W, sh["level"], sh["n_c"], sh["n_f"],
+                           n_views)
     return {
         "attempted": n, "failed": 0, "setup_s": setup_s,
         "e2e": {"frames_per_s": n / window_s,

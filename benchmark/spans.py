@@ -238,8 +238,8 @@ def main(argv=None) -> int:
         from . import serve as driver
     else:
         from . import train as driver
-    res = driver.run(cfg, traffic, args.seed, args.seconds, True, "cuda",
-                     t_start)
+    res = driver.run(manifest.family(args.workload), cfg, traffic,
+                     args.seed, args.seconds, True, "cuda", t_start)
     tr = res["ctx"]["trace"]
     out = {"workload": args.workload, "seed": args.seed,
            "device": torch.cuda.get_device_name(0), **table(tr),

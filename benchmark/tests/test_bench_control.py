@@ -29,10 +29,11 @@ def test_the_check_passes_the_program_and_fails_the_control(cell):
         pytest.skip(f"{cell} is not a cell of this benchmark")
     cfg, traffic, limits = mf.config(cell), mf.traffic(cell), mf.limits(cell)
     seed = 2 ** 32 + 17
+    fam = mf.family(cell)
     if traffic["kind"] == "serve":
-        r = calibrate.readings(cfg, traffic, seed, "cuda", 1)
+        r = calibrate.readings(fam, cfg, traffic, seed, "cuda", 1)
     else:
-        r = calibrate.train_readings(cfg, traffic, seed, "cuda")
+        r = calibrate.train_readings(fam, cfg, traffic, seed, "cuda")
     assert check_lines(r["program"], limits)[0], r
     assert not check_lines(r["control"], limits)[0], r
     if "half_batch" in r:

@@ -1,6 +1,7 @@
-"""The harness finds a configuration, a traffic mix, a per-layer metric and
-a cell by the names ``BENCHMARK.json`` gives them, with no code edited,
-and refuses entries that break the manifest's rules."""
+"""The harness finds a configuration, its model family, a traffic mix, a
+per-layer metric and a cell by the names ``BENCHMARK.json`` and the
+configuration give them, with no code edited, and refuses entries that
+break the manifest's rules."""
 
 import json
 
@@ -21,6 +22,12 @@ def read(ctx):
     return 1.5 if ctx.get("kind") == "serve" else None
 '''
 
+# a family that lacks one export (step_flops)
+HALF_FAMILY = '''
+from benchmark.families.vanerf import (NETWORK_MODULES, Generator,
+                                       frame_flops, render_frame, train)
+'''
+
 
 def add_everything(tmp_path):
     path = tiny_copy(tmp_path)
@@ -32,6 +39,11 @@ def add_everything(tmp_path):
         {"kind": "serve", "image_size": 64, "level": 2, "pool": 4,
          "warmup": 1, "traced": 1, "checked": 1}))
     (bench / "metrics" / "new_ms.serve.py").write_text(READER)
+    (bench / "families" / "half.py").write_text(HALF_FAMILY)
+    for name, fam in (("no-family", "no_such_family"), ("half-family", "half"),
+                      ("bad-family", "../vanerf")):
+        (bench / "configs" / f"{name}.json").write_text(
+            json.dumps(dict(cfg, family=fam)))
     spec["configs"].append({"name": "new-model", "source": "a paper",
                             "file": "benchmark/configs/new-model.json",
                             "reduced": [], "why": "a new model"})
@@ -58,6 +70,8 @@ def test_new_files_and_entries_are_found(tmp_path):
     assert "new_ms.serve" not in mf.per_layer("serve-1view-g16")
     assert mf.readers["new_ms.serve"].read({"kind": "serve"}) == 1.5
     assert mf.end_to_end("new-cell") == ["frames_per_s", "setup_s"]
+    assert mf.family("new-cell").NETWORK_MODULES == mf.family(
+        "serve-1view-g16").NETWORK_MODULES
 
 
 @pytest.mark.parametrize("breakage", [
@@ -70,6 +84,9 @@ def test_new_files_and_entries_are_found(tmp_path):
     ("workloads", -1, "chips", 2),
     ("end_to_end", 0, "bound", 0.3),
     ("configs", -1, "file", "benchmark/configs/missing.json"),
+    ("configs", -1, "file", "benchmark/configs/no-family.json"),
+    ("configs", -1, "file", "benchmark/configs/half-family.json"),
+    ("configs", -1, "file", "benchmark/configs/bad-family.json"),
 ])
 def test_broken_entries_are_refused(tmp_path, breakage):
     path, spec = add_everything(tmp_path)
@@ -87,3 +104,4 @@ def test_the_repository_manifest_checks():
                               "serve-2view-g16"]
     for cell in mf.cells:
         assert mf.per_layer(cell)
+        assert mf.family(cell).__file__.endswith("families/vanerf.py")

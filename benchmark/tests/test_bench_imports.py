@@ -2,7 +2,8 @@
 training run, no module whose top-level name is ``jax``, ``jaxlib``,
 ``flax`` or ``vanerf_tpu`` is loaded (compared by the whole part before
 the first dot: the program's ``vanerf_tpu_torch`` begins with the JAX
-package's name), and the reference imports nothing of the program."""
+package's name), and the reference and the model families (the reference
+side of each configuration) import nothing of the program."""
 
 import ast
 import pathlib
@@ -46,7 +47,8 @@ def _imports(path):
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    for path in (ROOT / "reference").glob("*.py"):
+    for path in [*(ROOT / "reference").glob("*.py"),
+                 *(ROOT / "families").glob("*.py")]:
         assert not _imports(path) & {"vanerf_tpu_torch", "vanerf_tpu", "jax",
                                      "jaxlib", "flax"}, path
 

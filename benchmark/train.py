@@ -8,8 +8,9 @@ sample of a pool made in set-up (its host-to-device copy first, as a data
 loader's batch) and draws made by the benchmark from the seed: the patch
 grid, the stratified jitter, the importance uniforms and the radiance
 noise, for the generator's render and for the discriminator's.  The
-reference follows the first three steps from the same weights, samples
-and draws once the window has closed and the program's state is freed.
+reference of the configuration's family (``benchmark/families/``) follows
+the first three steps from the same weights, samples and draws once the
+window has closed and the program's state is freed.
 """
 
 from __future__ import annotations
@@ -19,24 +20,24 @@ import time
 import numpy as np
 import torch
 
-from . import devtrace, flops, inputs, serve, weights
-from .reference import train as ref_train
-from .reference.nets import Generator
+from . import devtrace, inputs, serve, weights
 
 FOLLOWED = 3          # steps the reference follows
 
 
-def skeletons(cfg: dict, hw):
+def skeletons(fam, cfg: dict, hw):
+    """The family's reference generator, discriminator and VGG19 on
+    ``meta``."""
     m = cfg["models"]["VANeRF"]
     with torch.device("meta"):
-        return (Generator(m, inputs.N_VERTS + 1, hw),
-                ref_train.Discriminator(), ref_train.Vgg19())
+        return (fam.Generator(m, inputs.N_VERTS + 1, hw),
+                fam.train.Discriminator(), fam.train.Vgg19())
 
 
-def states(cfg: dict, hw, seed: int, device) -> tuple:
+def states(fam, cfg: dict, hw, seed: int, device) -> tuple:
     """Seeded weights of the generator, the discriminator and VGG19."""
     return tuple(weights.seeded_state(s, seed + i, device)
-                 for i, s in enumerate(skeletons(cfg, hw)))
+                 for i, s in enumerate(skeletons(fam, cfg, hw)))
 
 
 def draws(seed: int, k: int, req: dict, m: dict, device) -> dict:
@@ -148,13 +149,14 @@ def half_batch(dr: dict) -> dict:
     return out
 
 
-def follow(cfg: dict, sd: tuple, hw, pool: list, seed: int, device,
+def follow(fam, cfg: dict, sd: tuple, hw, pool: list, seed: int, device,
            n_views: int, fault=None) -> dict:
-    """The reference's readings over the first steps: losses, first
+    """The family's reference readings over the first steps: losses, first
     gradient norms, change norms.  ``fault(draws)`` changes each step's
     draws (the faults the check has to catch)."""
     m = cfg["models"]["VANeRF"]
-    G, D, vgg = (s.to_empty(device=device) for s in skeletons(cfg, hw))
+    ref_train = fam.train
+    G, D, vgg = (s.to_empty(device=device) for s in skeletons(fam, cfg, hw))
     for mod, s in zip((G, D, vgg), sd):
         mod.load_state_dict(s)
     vgg.requires_grad_(False)
@@ -227,14 +229,15 @@ def first_steps(ts, one, sd: tuple) -> dict:
     return port
 
 
-def run(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool,
-        device, t_start: float, alter=None) -> dict:
-    """One training run.  ``alter(ts, batch, draws)`` (tests only) breaks
-    the step where it runs: it returns the arguments the step takes."""
+def run(fam, cfg: dict, traffic: dict, seed: int, seconds: float,
+        trace: bool, device, t_start: float, alter=None) -> dict:
+    """One training run of the configuration ``cfg`` of family ``fam``.
+    ``alter(ts, batch, draws)`` (tests only) breaks the step where it runs:
+    it returns the arguments the step takes."""
     m = cfg["models"]["VANeRF"]
     n_views = int(cfg["dataset"].get("num_input_view", 1))
     H = W = traffic["image_size"]
-    sd = states(cfg, (H, W), seed, device)
+    sd = states(fam, cfg, (H, W), seed, device)
     pool = serve.host_pool(seed, traffic, n_views, device, targets=True)
     ts, step = program(cfg, sd, (H, W), device, n_views)
     cuda = torch.device(device).type == "cuda"
@@ -268,12 +271,12 @@ def run(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool,
     del ts, step, one
     if cuda:
         torch.cuda.empty_cache()
-    ref = follow(cfg, sd, (H, W), pool, seed, device, n_views)
+    ref = follow(fam, cfg, sd, (H, W), pool, seed, device, n_views)
     return {
         "attempted": n, "failed": 0, "setup_s": setup_s,
         "e2e": {"train_step_ms": 1e3 * window_s / n},
         "ctx": {"kind": "train", "items_done": n, "window_s": window_s,
-                "flops_per_item": flops.train_step(m, H, W, n_views),
+                "flops_per_item": fam.step_flops(m, H, W, n_views),
                 "trace": traced,
                 "compute_dtype": m.get("compute_dtype", "float32")},
         "peak": peak, "readings": compare(port, ref)}
